@@ -1,0 +1,651 @@
+"""SpectralPlan IR — the SAR focusing chain lifted into data.
+
+A :class:`SpectralPlan` is a tuple of declarative :class:`Stage` records
+(axis, fwd/inv, named filter refs, precision), and a small compiler turns
+it into a :class:`Pipeline` of launches of the fused spectral op
+(``kernels.ops.spectral_op``). RDA is only plans (core/sar/rda.py).
+
+* **Fusion** — stages flatten to atoms (``fft`` / ``mul`` / ``ifft`` /
+  ``transpose`` / custom) and regroup greedily under the kernel grammar
+  ``fft? mul* ifft?`` on one transform axis; transposes and custom atoms
+  are barriers. Fused ``mul`` atoms compose into one kernel filter:
+  shared×shared → shared, shared×full → full, outer×outer → rank-(K₁+K₂)
+  outer, shared×outer → shared_outer, full×outer → full.
+  ``plan_dispatch_count`` also groups under ``FUSE_MEGA`` (fusion across
+  axis changes); compiling such a group waits for the megakernel port.
+* **Filter caching** — host filter math is cached per
+  ``(SceneConfig, params, filter_name)`` and composed payloads per
+  ``(SceneConfig, plan, fuse, backend)``.
+* **Backends** — ``"kernel"``: the fused op (the hand-written CUDA kernel
+  on a CUDA device, its plain version on the CPU); ``"torch"``: one
+  ``torch.fft`` op per group, the unfused oracle.
+
+Plans serialize to/from JSON (``plan_to_json`` / ``plan_from_json``) in
+the JAX package's format, so one plan definition drives both packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.fft4step import (
+    FILTER_FULL,
+    FILTER_NONE,
+    FILTER_OUTER,
+    FILTER_SHARED,
+    FILTER_SHARED_OUTER,
+    resolve_precision,
+)
+
+BACKEND_KERNEL = "kernel"   # fused launches of the spectral op
+BACKEND_TORCH = "torch"     # one torch.fft op per group (the unfused oracle)
+
+# Fusion levels accepted by plan_dispatch_count's ``fuse``:
+#   False      one dispatch per atom
+#   True       per-axis fusion: fft? mul* ifft? on ONE transform axis
+#   FUSE_MEGA  cross-axis fusion (the megakernel grammar)
+FUSE_MEGA = "mega"
+
+_TODO_MEGA = "the fused1 megakernel (ROADMAP.md Queue 1, item 5)"
+_TODO_TRANSPOSE = "the tiled transpose (ROADMAP.md Queue 2, item 5)"
+
+
+def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return (x.real.to(torch.float32).contiguous(),
+            x.imag.to(torch.float32).contiguous())
+
+
+def unsplit(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    return torch.complex(xr.to(torch.float32), xi.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# The IR
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """One declarative pipeline stage.
+
+    kind "spectral": ``[FFT if fwd] · filters · [IFFT if inv]`` along
+    ``axis`` in scene coordinates (1 = range/rows, 0 = azimuth/columns).
+    ``filters`` are registry names applied in order. ``precision``
+    overrides the matmul-operand policy for this stage.
+    kind "transpose": a global corner turn (fusion barrier). Other kinds
+    dispatch to :func:`register_stage_impl` implementations with ``opts``
+    (a tuple of (key, value) pairs, so the Stage stays hashable).
+    """
+
+    name: str
+    kind: str = "spectral"
+    axis: int = 1
+    fwd: bool = False
+    inv: bool = False
+    filters: tuple[str, ...] = ()
+    precision: Optional[str] = None
+    opts: tuple[tuple[str, Any], ...] = ()
+
+    def opt_dict(self) -> dict:
+        return dict(self.opts)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectralPlan:
+    """A named, hashable sequence of :class:`Stage` records plus static
+    plan parameters that filter builders may read via ``params``."""
+
+    name: str
+    stages: tuple[Stage, ...]
+    params: tuple[tuple[str, Any], ...] = ()
+
+    def param_dict(self) -> dict:
+        return dict(self.params)
+
+
+# ---------------------------------------------------------------------------
+# Serialization (the JAX package's format)
+# ---------------------------------------------------------------------------
+
+def plan_to_dict(plan: SpectralPlan) -> dict:
+    return {
+        "name": plan.name,
+        "params": [list(p) for p in plan.params],
+        "stages": [
+            {
+                "name": s.name, "kind": s.kind, "axis": s.axis,
+                "fwd": s.fwd, "inv": s.inv, "filters": list(s.filters),
+                "precision": s.precision, "opts": [list(o) for o in s.opts],
+            }
+            for s in plan.stages
+        ],
+    }
+
+
+def plan_from_dict(d: dict) -> SpectralPlan:
+    stages = tuple(
+        Stage(
+            name=s["name"], kind=s.get("kind", "spectral"),
+            axis=s.get("axis", 1), fwd=s.get("fwd", False),
+            inv=s.get("inv", False), filters=tuple(s.get("filters", ())),
+            precision=s.get("precision"),
+            opts=tuple((k, v) for k, v in s.get("opts", ())),
+        )
+        for s in d["stages"]
+    )
+    params = tuple((k, v) for k, v in d.get("params", ()))
+    return SpectralPlan(name=d["name"], stages=stages, params=params)
+
+
+def plan_to_json(plan: SpectralPlan, **kw) -> str:
+    return json.dumps(plan_to_dict(plan), **kw)
+
+
+def plan_from_json(s: str) -> SpectralPlan:
+    return plan_from_dict(json.loads(s))
+
+
+# ---------------------------------------------------------------------------
+# Filter registry — named, lazily built host-side filters
+# ---------------------------------------------------------------------------
+#
+# Builders run host-side (numpy) and return, per mode and in scene
+# coordinates (n = transformed-axis length, lines = the other axis):
+#   shared: complex vector (n,)
+#   full:   complex matrix (na, nr)
+#   outer:  (u (lines, K) float32, v (n, K) float32) — phase exp(i Σ u v)
+
+@dataclasses.dataclass(frozen=True)
+class FilterDef:
+    name: str
+    mode: str                      # FILTER_SHARED | FILTER_FULL | FILTER_OUTER
+    build: Callable                # (cfg, params: dict) -> arrays
+
+
+_FILTERS: dict[str, FilterDef] = {}
+
+
+def register_filter(name: str, mode: str, build: Callable) -> None:
+    if mode not in (FILTER_SHARED, FILTER_FULL, FILTER_OUTER):
+        raise ValueError(f"unsupported filter mode {mode!r}")
+    _FILTERS[name] = FilterDef(name, mode, build)
+
+
+def filter_names() -> tuple[str, ...]:
+    return tuple(sorted(_FILTERS))
+
+
+# host-side filter-math cache: (cfg, params, name) -> built arrays, a
+# bounded FIFO (full 2-D filters are scene-sized)
+_BUILD_CACHE: dict = {}
+_BUILD_CACHE_MAX = 64
+_BUILD_STATS = {"hits": 0, "misses": 0}
+
+
+def _fifo_put(cache: dict, key, value, limit: int) -> None:
+    while len(cache) >= limit:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+
+
+def _built(name: str, cfg, params: tuple) -> tuple[str, Any]:
+    fd = _FILTERS.get(name)
+    if fd is None:
+        raise KeyError(f"unknown filter {name!r}; registered: {filter_names()}")
+    key = (cfg, params, name)
+    if key in _BUILD_CACHE:
+        _BUILD_STATS["hits"] += 1
+    else:
+        _BUILD_STATS["misses"] += 1
+        _fifo_put(_BUILD_CACHE, key, fd.build(cfg, dict(params)),
+                  _BUILD_CACHE_MAX)
+    return fd.mode, _BUILD_CACHE[key]
+
+
+def filter_cache_stats() -> dict:
+    return dict(_BUILD_STATS)
+
+
+def clear_filter_caches() -> None:
+    _BUILD_CACHE.clear()
+    _PAYLOAD_CACHE.clear()
+    _BUILD_STATS.update(hits=0, misses=0)
+
+
+# ---------------------------------------------------------------------------
+# Custom stage implementations (non-spectral kinds)
+# ---------------------------------------------------------------------------
+#
+# impl(x, cfg, opts) -> x: complex in/out, batch-polymorphic.
+
+_STAGE_IMPLS: dict[str, Callable] = {}
+
+
+def register_stage_impl(kind: str, impl: Callable) -> None:
+    _STAGE_IMPLS[kind] = impl
+
+
+# ---------------------------------------------------------------------------
+# Stage flattening + fusion grouping
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Atom:
+    kind: str                 # "fft" | "ifft" | "mul" | "transpose" | custom
+    axis: int                 # scene-coordinate transform/orientation axis
+    filter: Optional[str]     # for "mul"
+    stage: Stage
+
+
+def _flatten(plan: SpectralPlan) -> list[_Atom]:
+    atoms: list[_Atom] = []
+    for s in plan.stages:
+        if s.kind == "spectral":
+            if s.fwd:
+                atoms.append(_Atom("fft", s.axis, None, s))
+            for f in s.filters:
+                atoms.append(_Atom("mul", s.axis, f, s))
+            if s.inv:
+                atoms.append(_Atom("ifft", s.axis, None, s))
+            if not (s.fwd or s.inv or s.filters):
+                raise ValueError(f"empty spectral stage {s.name!r}")
+        else:
+            atoms.append(_Atom(s.kind, s.axis, None, s))
+    return atoms
+
+
+def _fusable(group: list[_Atom], atom: _Atom, mega: bool = False) -> bool:
+    """May `atom` join `group` under the kernel grammar?
+
+    Per-axis (mega=False): fft? mul* ifft? on ONE transform axis — an
+    ifft closes the group, a forward fft only opens one, transposes and
+    custom kinds never fuse. Cross-axis (mega=True): an axis change
+    starts a fresh in-kernel segment; within the trailing same-axis
+    segment the per-axis rules hold."""
+    if atom.kind not in ("fft", "ifft", "mul"):
+        return False
+    if not group:
+        return True
+    if group[0].kind not in ("fft", "ifft", "mul"):
+        return False
+    if atom.axis != group[-1].axis:
+        return mega                        # a turn: only the megakernel fuses
+    seg = []
+    for a in reversed(group):              # the trailing same-axis segment
+        if a.axis != atom.axis:
+            break
+        seg.append(a)
+    if any(a.kind == "ifft" for a in seg):
+        return False                       # the inverse transform closes a segment
+    if atom.kind == "fft":
+        return False                       # a forward FFT only opens a segment
+    return True
+
+
+def _group_atoms(atoms: list[_Atom], fuse) -> list[list[_Atom]]:
+    if not fuse:
+        return [[a] for a in atoms]
+    mega = fuse == FUSE_MEGA
+    groups: list[list[_Atom]] = []
+    cur: list[_Atom] = []
+    for a in atoms:
+        if cur and _fusable(cur, a, mega):
+            cur.append(a)
+        else:
+            if cur:
+                groups.append(cur)
+            cur = [a]
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def _split_segments(group: list[_Atom]) -> list[list[_Atom]]:
+    """A fused group as its per-axis segments (consecutive same-axis runs)."""
+    segs: list[list[_Atom]] = []
+    for a in group:
+        if segs and segs[-1][0].axis == a.axis:
+            segs[-1].append(a)
+        else:
+            segs.append([a])
+    return segs
+
+
+def plan_dispatch_count(plan: SpectralPlan, fuse=True) -> int:
+    """Dispatches the compiler emits for ``plan`` (False / True /
+    :data:`FUSE_MEGA`)."""
+    return len(_group_atoms(_flatten(plan), fuse))
+
+
+# ---------------------------------------------------------------------------
+# Filter composition (host side, scene coordinates)
+# ---------------------------------------------------------------------------
+
+def _compose_group_filters(group: list[_Atom], cfg, params: tuple,
+                           axis: int) -> tuple[str, tuple]:
+    """Compose the group's mul atoms into ONE kernel filter payload.
+
+    Returns (filter_mode, arrays) in scene coordinates:
+      shared       -> (h complex (n,),)
+      full         -> (h complex (na, nr),)
+      outer        -> (u (lines, K) f32, v (n, K) f32)
+      shared_outer -> (h (n,), u, v)
+    """
+    muls = [a for a in group if a.kind == "mul"]
+    if not muls:
+        return FILTER_NONE, ()
+    shared = None
+    full = None
+    us, vs = [], []
+    for a in muls:
+        mode, arrs = _built(a.filter, cfg, params)
+        if mode == FILTER_SHARED:
+            h = np.asarray(arrs)
+            shared = h if shared is None else shared * h
+        elif mode == FILTER_FULL:
+            h = np.asarray(arrs)
+            full = h if full is None else full * h
+        else:  # outer
+            u, v = arrs
+            us.append(np.asarray(u, np.float32).reshape(u.shape[0], -1))
+            vs.append(np.asarray(v, np.float32).reshape(v.shape[0], -1))
+    if full is not None:
+        if shared is not None:
+            full = full * (shared[None, :] if axis == 1 else shared[:, None])
+        if us:
+            u = np.concatenate(us, axis=1)
+            v = np.concatenate(vs, axis=1)
+            # fold the rank-K phase into the explicit filter (float32
+            # phase, matching the kernel's on-chip synthesis)
+            phase = (u @ v.T).astype(np.float32) if axis == 1 \
+                else (v @ u.T).astype(np.float32)
+            full = full * np.exp(1j * phase.astype(np.float64)).astype(
+                full.dtype)
+        return FILTER_FULL, (full,)
+    if us:
+        u = np.concatenate(us, axis=1)
+        v = np.concatenate(vs, axis=1)
+        if shared is not None:
+            return FILTER_SHARED_OUTER, (shared, u, v)
+        return FILTER_OUTER, (u, v)
+    return FILTER_SHARED, (shared,)
+
+
+# composed per-dispatch payload cache: (cfg, plan, fuse, backend) -> payloads
+_PAYLOAD_CACHE: dict = {}
+_PAYLOAD_CACHE_MAX = 64
+
+# payload marker for a cross-axis (megakernel) group: the arrays slot
+# holds one (axis, mode, arrays) record per in-kernel segment
+MEGA = "mega"
+
+
+def _group_payloads(plan: SpectralPlan, cfg, fuse, backend: str) -> tuple:
+    key = (cfg, plan, fuse, backend)
+    if key not in _PAYLOAD_CACHE:
+        groups = _group_atoms(_flatten(plan), fuse)
+        payloads = []
+        for g in groups:
+            if g[0].kind not in ("fft", "ifft", "mul"):
+                payloads.append((FILTER_NONE, ()))
+                continue
+            segs = _split_segments(g)
+            if len(segs) == 1:
+                payloads.append(
+                    _compose_group_filters(g, cfg, plan.params, g[0].axis))
+            else:
+                payloads.append((MEGA, tuple(
+                    (s[0].axis,
+                     *_compose_group_filters(s, cfg, plan.params, s[0].axis))
+                    for s in segs)))
+        _fifo_put(_PAYLOAD_CACHE, key, (groups, payloads),
+                  _PAYLOAD_CACHE_MAX)
+    return _PAYLOAD_CACHE[key]
+
+
+# ---------------------------------------------------------------------------
+# Compiled pipeline
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Step:
+    """One compiled launch (or one oracle op in the torch backend).
+
+    Besides ``fn``, a spectral step keeps the record of the launch it
+    performs — ``phys_axis``, ``filter_mode``, ``filter_kw`` (device
+    filter tensors) and ``kernel_kw`` (``ops.spectral_op`` keywords) — so
+    it can be replayed through another implementation of the op, e.g.
+    ``ops.spectral_op_plain`` on the card.
+    """
+
+    name: str
+    fn: Callable[[torch.Tensor], torch.Tensor]
+    dispatches: int
+    hbm_roundtrips: int
+    fused: bool
+    kind: str = "spectral"                # "spectral" | custom
+    phys_axis: Optional[int] = None       # physical transform axis
+    filter_mode: str = FILTER_NONE        # composed kernel filter mode
+    filter_kw: Optional[dict] = None      # device filter payloads
+    kernel_kw: Optional[dict] = None      # ops.spectral_op keywords
+
+
+@dataclasses.dataclass
+class Pipeline:
+    """A compiled plan: a named sequence of launch steps on one device,
+    holding the device filter payloads for one ``(SceneConfig, plan)``."""
+
+    name: str
+    cfg: Any
+    steps: list[Step]
+    device: torch.device
+    plan: Optional[SpectralPlan] = None
+
+    @property
+    def dispatches(self) -> int:
+        return sum(s.dispatches for s in self.steps)
+
+    @property
+    def hbm_roundtrips(self) -> int:
+        return sum(s.hbm_roundtrips for s in self.steps)
+
+    def run(self, raw) -> torch.Tensor:
+        """Execute the steps on one scene ``(na, nr)`` or a batch
+        ``(B, na, nr)`` sharing the SceneConfig, complex64 in and out.
+        ``raw`` (a tensor or numpy array) is moved to the pipeline's
+        device. A batch runs each step as ONE launch over all scenes."""
+        x = torch.as_tensor(raw).to(self.device, torch.complex64)
+        for s in self.steps:
+            x = s.fn(x)
+        return x
+
+
+# ---------------------------------------------------------------------------
+# The compiler
+# ---------------------------------------------------------------------------
+
+def _payload_to_device(mode: str, arrays: tuple, device) -> dict:
+    """Scene-coordinate payload -> ``ops.spectral_op`` filter kwargs."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    if mode == FILTER_NONE:
+        return {}
+    if mode in (FILTER_SHARED, FILTER_FULL):
+        h = arrays[0]
+        return {"hr": t(h.real.astype(np.float32)),
+                "hi": t(h.imag.astype(np.float32))}
+    if mode == FILTER_OUTER:
+        u, v = arrays
+        return {"u": t(u), "v": t(v)}
+    h, u, v = arrays
+    return {"hr": t(h.real.astype(np.float32)),
+            "hi": t(h.imag.astype(np.float32)),
+            "u": t(u), "v": t(v)}
+
+
+def _torch_apply(x, fwd, inv, mode, fk, phys_axis):
+    """The unfused oracle: the same math as one launch, in torch.fft ops."""
+    ax = -1 if phys_axis == 1 else -2
+    if fwd:
+        x = torch.fft.fft(x, dim=ax)
+    if mode in (FILTER_SHARED, FILTER_FULL, FILTER_SHARED_OUTER):
+        h = unsplit(fk["hr"], fk["hi"])
+        if h.ndim == 1:
+            h = h[None, :] if phys_axis == 1 else h[:, None]
+        x = x * h
+    if mode in (FILTER_OUTER, FILTER_SHARED_OUTER):
+        u = fk["u"].reshape(fk["u"].shape[0], -1)
+        v = fk["v"].reshape(fk["v"].shape[0], -1)
+        phase = torch.einsum("lk,sk->ls", u, v)
+        if phys_axis == 0:
+            phase = phase.T
+        x = x * torch.polar(torch.ones_like(phase), phase)
+    if inv:
+        x = torch.fft.ifft(x, dim=ax)
+    return x
+
+
+def _make_spectral_step(group, mode, arrays, *, backend, opts) -> Step:
+    axis = group[0].axis                       # no transposes: phys == scene
+    fwd = any(a.kind == "fft" for a in group)
+    inv = any(a.kind == "ifft" for a in group)
+    name = group[0].stage.name
+    block = (opts["block"] or 8) if axis == 1 else (opts["col_block"] or 128)
+    stage_prec = next((a.stage.precision for a in group
+                       if a.stage.precision is not None), None)
+    precision = resolve_precision(opts["precision"] or stage_prec).name
+    kernel_kw = dict(axis=axis, fwd=fwd, inv=inv, filter_mode=mode,
+                     block=block, fft_impl=opts["fft_impl"],
+                     precision=precision)
+    filter_kw = _payload_to_device(mode, arrays, opts["device"])
+
+    if backend == BACKEND_KERNEL:
+        def fn(x, _fk=filter_kw):
+            xr, xi = split(x)
+            yr, yi = ops.spectral_op(xr, xi, **_fk, **kernel_kw)
+            return unsplit(yr, yi)
+    else:
+        def fn(x, _fk=filter_kw):
+            return _torch_apply(x, fwd, inv, mode, _fk, axis)
+
+    fused = backend == BACKEND_KERNEL and len(group) > 1
+    return Step(name, fn, 1, 1, fused, kind="spectral", phys_axis=axis,
+                filter_mode=mode, filter_kw=filter_kw, kernel_kw=kernel_kw)
+
+
+def _make_custom_step(stage: Stage, cfg) -> Step:
+    if stage.kind not in _STAGE_IMPLS:
+        raise KeyError(f"no implementation registered for stage kind "
+                       f"{stage.kind!r}")
+    impl = _STAGE_IMPLS[stage.kind]
+    opts = stage.opt_dict()
+
+    def fn(x):
+        return impl(x, cfg, opts)
+
+    return Step(stage.name, fn, 1, 1, False, kind=stage.kind)
+
+
+def compile_plan(
+    plan: SpectralPlan,
+    cfg,
+    *,
+    backend: str = BACKEND_KERNEL,
+    fuse=True,
+    device=None,
+    block: Optional[int] = None,
+    col_block: Optional[int] = None,
+    fft_impl: str = "matmul",
+    precision: Optional[str] = None,
+) -> Pipeline:
+    """Compile a plan against a concrete scene into a :class:`Pipeline`.
+
+    cfg is a :class:`~repro_torch.core.sar.SceneConfig`; the pipeline
+    takes one ``(cfg.na, cfg.nr)`` complex64 scene or any batch
+    ``(B, na, nr)`` sharing it.
+
+    backend: 'kernel' (fused launches) or 'torch' (torch.fft oracle ops).
+    fuse: merge adjacent compatible atoms into single launches (True);
+      FUSE_MEGA groups raise NotImplementedError until the megakernel is
+      ported.
+    device: where the pipeline runs; None is the CUDA card (raises
+      without one), "cpu" runs the plain version.
+    block/col_block: line padding granule of rows/columns launches.
+    precision: matmul-operand policy for every spectral stage (over each
+      ``Stage.precision``); the CUDA kernel takes f32 only.
+    """
+    if backend not in (BACKEND_KERNEL, BACKEND_TORCH):
+        raise ValueError(f"unknown backend {backend!r}")
+    dev = resolve_device(device)
+    groups, payloads = _group_payloads(plan, cfg, fuse, backend)
+    opts = dict(block=block, col_block=col_block, fft_impl=fft_impl,
+                precision=precision, device=dev)
+    steps: list[Step] = []
+    for group, (mode, arrays) in zip(groups, payloads):
+        kind = group[0].kind
+        if mode == MEGA:
+            raise NotImplementedError(
+                f"cross-axis group {group[0].stage.name!r} needs {_TODO_MEGA}")
+        if kind in ("fft", "ifft", "mul"):
+            steps.append(_make_spectral_step(
+                group, mode, arrays, backend=backend, opts=opts))
+        elif kind == "transpose":
+            raise NotImplementedError(
+                f"transpose stage {group[0].stage.name!r} needs "
+                f"{_TODO_TRANSPOSE}")
+        else:
+            steps.append(_make_custom_step(group[0].stage, cfg))
+    return Pipeline(plan.name, cfg, steps, dev, plan)
+
+
+# ---------------------------------------------------------------------------
+# Variant registry — named plans + their compile defaults
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Variant:
+    """A registered pipeline variant: a plan factory, how to compile it,
+    and its documented dispatch count (the fusion-legality invariant)."""
+
+    name: str
+    plan_fn: Callable[..., SpectralPlan]
+    compile_defaults: tuple[tuple[str, Any], ...] = ()
+    plan_kw: tuple[str, ...] = ()       # build kwargs routed to plan_fn
+    dispatches: int = 0                 # documented compiled dispatch count
+
+
+_VARIANTS: dict[str, Variant] = {}
+
+
+def register_variant(name: str, plan_fn, *, compile_defaults=(),
+                     plan_kw=(), dispatches=0) -> None:
+    _VARIANTS[name] = Variant(name, plan_fn, tuple(compile_defaults),
+                              tuple(plan_kw), dispatches)
+
+
+def get_variant(name: str) -> Variant:
+    if name not in _VARIANTS:
+        raise KeyError(f"unknown pipeline variant {name!r}; "
+                       f"registered: {sorted(_VARIANTS)}")
+    return _VARIANTS[name]
+
+
+def variant_names() -> tuple[str, ...]:
+    return tuple(sorted(_VARIANTS))
+
+
+def build_variant(cfg, name: str, **kw) -> Pipeline:
+    """Build + compile a registered variant. Plan-level kwargs (the
+    variant's plan_kw) go to the plan factory; the rest override the
+    variant's compile defaults and go to compile_plan."""
+    var = get_variant(name)
+    plan_args = {k: kw.pop(k) for k in list(kw) if k in var.plan_kw}
+    compile_args = dict(var.compile_defaults)
+    compile_args.update(kw)
+    return compile_plan(var.plan_fn(**plan_args), cfg, **compile_args)

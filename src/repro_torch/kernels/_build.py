@@ -1,0 +1,105 @@
+"""Build the hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Every ``csrc/*.cu`` source compiles, at first use, into its own shared
+library with a plain C interface under ``kernels/_build/`` (listed in
+.gitignore); nothing prebuilt ships with the repository. All sources
+build at once, one ``nvcc`` process each. A library is rebuilt when its
+source is newer than it.
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/lib<name>.so csrc/<name>.cu
+
+No ``--use_fast_math``: the spectral kernel's float32 path must keep
+precise ``sincosf`` and IEEE division.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(HERE, "csrc")
+BUILD_DIR = os.path.join(HERE, "_build")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> dict[str, str]:
+    """Kernel name -> path of its CUDA source."""
+    return {f[:-3]: os.path.join(CSRC, f)
+            for f in sorted(os.listdir(CSRC)) if f.endswith(".cu")}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home:
+        cand = os.path.join(cuda_home, "bin", "nvcc")
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str, src: str) -> bool:
+    out = lib_path(name)
+    return (not os.path.exists(out)
+            or os.path.getmtime(out) < os.path.getmtime(src))
+
+
+def build_all(verbose: bool = False) -> dict[str, str]:
+    """Compile every stale source, all ``nvcc`` processes at once.
+    Returns name -> compiler output (``-Xptxas -v`` register and shared
+    memory report when ``verbose``). Raises on any failed build."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name, src in sources().items():
+        if not _stale(name, src):
+            continue
+        tmp = lib_path(name) + f".tmp{os.getpid()}"
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, src]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = {}
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, lib_path(name))
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            src = sources()[name]
+            if _stale(name, src):
+                build_all()
+            lib = ctypes.CDLL(lib_path(name))
+            _LIBS[name] = lib
+        return lib

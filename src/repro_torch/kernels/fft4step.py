@@ -1,0 +1,479 @@
+"""The fused spectral op's host-side pieces and its plain PyTorch version.
+
+One fused op computes, along one axis of a batch of lines,
+
+    [FFT]  ->  pointwise filter  ->  [IFFT]
+
+as a four-step mixed-radix transform: N = n1 * n2 [* n3], each stage a
+dense DFT-matrix contraction, a twiddle multiply between stages, and the
+inverse as conj-FFT-conj with the 1/N scale folded into the final store.
+
+This module holds what every implementation of that op shares:
+
+* the filter modes (``FILTER_*``) and the matmul-operand precision policy;
+* ``default_factorization`` / ``SpectralSpec`` / ``dft_constants`` — the
+  constants are float64 math rounded to float32, element for element
+  the same as the JAX package's, so the hand-written kernel and the plain
+  version contract against identical matrices;
+* the bs16 block-exponent codec (``line_exponents`` ... ``remove_exponents``);
+* ``spectral_plain`` — the plain PyTorch version of the fused op: the same
+  recursion as the CUDA kernel's reference design, written with
+  ``torch.einsum``. It is what ``ops.spectral_op`` runs on CPU tensors and
+  what ``chip_smoke.py`` holds the CUDA kernel against on the card.
+
+Layouts: rows (``axis=1``) transform the last axis of ``(B, lines, n)``;
+cols (``axis=0``) transform the middle axis of ``(B, n, lines)``. Filters
+are batch-shared and arrive in the per-axis layouts ``ops.spectral_op``
+prepares (see ``_apply_filters``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+# Filter (pointwise multiply) modes of the fused op.
+FILTER_NONE = "none"      # no multiply (pure FFT / pure IFFT launch)
+FILTER_SHARED = "shared"  # one N-vector shared by every line (range matched filter)
+FILTER_FULL = "full"      # full 2-D filter, same shape as one scene
+FILTER_OUTER = "outer"    # rank-K phase exp(i * sum_k u[line,k] * v[sample,k])
+FILTER_SHARED_OUTER = "shared_outer"  # H[sample] * exp(i sum_k u v)
+
+FILTER_MODES = (FILTER_NONE, FILTER_SHARED, FILTER_FULL, FILTER_OUTER,
+                FILTER_SHARED_OUTER)
+
+MAX_FACTOR = 128  # every DFT-matrix factor is a power of two <= 128
+
+
+# ---------------------------------------------------------------------------
+# Precision policy
+# ---------------------------------------------------------------------------
+#
+# Matmul-operand precision of the DFT stages. Accumulation is always
+# float32; only the contraction operands are narrowed.
+#
+#   f32   float32 operands (default; the only precision the CUDA kernel takes)
+#   bf16  bfloat16 operands
+#   f16   float16 operands (overflows past |x| ~ 6.5e4; prefer bs16)
+#   bs16  block-scaled float16: one power-of-two exponent per line is
+#         scaled out before the transform and folded back at the store
+
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    """One matmul-operand precision policy for the fused op."""
+
+    name: str
+    dtype: str            # operand dtype the DFT contractions are cast to
+    block_scaled: bool    # per-line exponent extraction in prologue/epilogue
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
+PRECISIONS: dict[str, Precision] = {
+    "f32": Precision("f32", "float32", False),
+    "bf16": Precision("bf16", "bfloat16", False),
+    "f16": Precision("f16", "float16", False),
+    "bs16": Precision("bs16", "float16", True),
+}
+
+
+def resolve_precision(p) -> Precision:
+    """Accepts a Precision, a policy name, or None (-> f32)."""
+    if p is None:
+        return PRECISIONS["f32"]
+    if isinstance(p, Precision):
+        return p
+    try:
+        return PRECISIONS[p]
+    except KeyError:
+        raise ValueError(
+            f"unknown precision {p!r}; one of {sorted(PRECISIONS)}") from None
+
+
+def default_factorization(n: int) -> tuple[int, ...]:
+    """Mixed-radix split of n into 2 or 3 power-of-two factors, each <= 128.
+
+    n <= 128*128:  the ~sqrt two-factor split with n1 >= n2
+                   (4096 = 64*64, 8192 = 128*64, 512 = 32*16).
+    n <= 128^3:    three factors f1 >= f2 >= f3 (32768 = 32*32*32).
+    """
+    if n & (n - 1):
+        raise ValueError(f"FFT length must be a power of two, got {n}")
+    p = n.bit_length() - 1
+    if n <= MAX_FACTOR * MAX_FACTOR:
+        n1 = 1 << ((p + 1) // 2)
+        return n1, n // n1
+    if n > MAX_FACTOR ** 3:
+        raise ValueError(
+            f"n={n} exceeds the three-factor limit {MAX_FACTOR ** 3}")
+    p1 = (p + 2) // 3
+    p2 = (p - p1 + 1) // 2
+    return 1 << p1, 1 << p2, 1 << (p - p1 - p2)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectralSpec:
+    """Static configuration of one fused spectral op."""
+
+    n: int                      # FFT length (the transformed axis)
+    fwd: bool                   # forward FFT first?
+    filter_mode: str            # FILTER_*
+    inv: bool                   # inverse FFT last?
+    axis: int = 1               # 1 = rows (last axis), 0 = columns
+    n1: Optional[int] = None    # mixed-radix factorization override
+    n2: Optional[int] = None
+    n3: Optional[int] = None
+    fft_impl: str = "matmul"    # 'matmul' | 'stockham'
+    karatsuba: bool = False     # 3-product complex contraction instead of 4
+    precision: str = "f32"      # PRECISIONS key (operands; f32 accumulate)
+    outer_rank: int = 1         # K of the rank-K FILTER_OUTER phase
+
+    def factors(self) -> tuple[int, ...]:
+        """n = n1 * n2 [* n3], every factor a power of two <= 128."""
+        if self.n1 is not None:
+            fs = [self.n1]
+            if self.n2 is not None:
+                fs.append(self.n2)
+            if self.n3 is not None:
+                fs.append(self.n3)
+            if len(fs) == 1:
+                fs.append(self.n // self.n1)
+            fs = tuple(fs)
+        else:
+            fs = default_factorization(self.n)
+        if int(np.prod(fs)) != self.n:
+            raise ValueError(f"factors {fs} do not multiply to n={self.n}")
+        for f in fs:
+            if f < 1 or f & (f - 1):
+                raise ValueError(f"factor {f} is not a power of two: {fs}")
+            if f > MAX_FACTOR:
+                raise ValueError(
+                    f"factor {f} exceeds the factor limit {MAX_FACTOR}: {fs}")
+        return fs
+
+
+# ---------------------------------------------------------------------------
+# DFT constants (host-side numpy)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def dft_constants(*factors: int) -> tuple[np.ndarray, ...]:
+    """DFT matrices and inter-stage twiddles for a mixed-radix factor list.
+
+    Returns, split re/im and in order: one (f_i, f_i) DFT matrix per
+    factor, then one (f_i, prod(f_{i+1:})) twiddle per non-final stage,
+    exp(-2j pi k_i j / prod(f_{i:})). float64 math rounded to float32;
+    memoized per factor tuple and read-only.
+    """
+    def dft(n):
+        k = np.arange(n)
+        m = np.exp(-2j * np.pi * np.outer(k, k) / n)
+        return m.real.astype(np.float32), m.imag.astype(np.float32)
+
+    out: list[np.ndarray] = []
+    for f in factors:
+        out.extend(dft(f))
+    for i in range(len(factors) - 1):
+        rest = int(np.prod(factors[i + 1:]))
+        k = np.arange(factors[i])[:, None]
+        j = np.arange(rest)[None, :]
+        tw = np.exp(-2j * np.pi * k * j / (factors[i] * rest))
+        out.append(tw.real.astype(np.float32))
+        out.append(tw.imag.astype(np.float32))
+    for a in out:
+        a.setflags(write=False)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def device_constants(factors: tuple[int, ...],
+                     device: str) -> tuple[torch.Tensor, ...]:
+    """``dft_constants`` as float32 tensors on ``device`` (cached)."""
+    return tuple(torch.from_numpy(np.array(c)).to(device)
+                 for c in dft_constants(*factors))
+
+
+def _split_consts(consts, factors):
+    """(per-stage DFT matrix pairs, per-boundary twiddle pairs)."""
+    k = len(factors)
+    mats = [(consts[2 * i], consts[2 * i + 1]) for i in range(k)]
+    tws = [(consts[2 * k + 2 * i], consts[2 * k + 2 * i + 1])
+           for i in range(k - 1)]
+    return mats, tws
+
+
+# ---------------------------------------------------------------------------
+# Complex contractions (split re/im)
+# ---------------------------------------------------------------------------
+
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _cast(x, precision: str):
+    """Round the operand to the policy's dtype and back: the products of
+    two narrowed operands are exact in float32, so an f32 contraction of
+    the rounded values is the f32-accumulated narrow-operand product."""
+    prec = PRECISIONS[precision]
+    if prec.dtype == "float32":
+        return x
+    return x.to(prec.torch_dtype).to(torch.float32)
+
+
+def _cdot(eq: str, ar, ai, br, bi, *, karatsuba: bool, precision: str):
+    """Complex einsum (ar + i ai) . (br + i bi): 4 real contractions, or
+    3 with Karatsuba (P3 = (Ar+Ai)(Br+Bi)). float32 accumulate."""
+    ar_, ai_ = _cast(ar, precision), _cast(ai, precision)
+    br_, bi_ = _cast(br, precision), _cast(bi, precision)
+    if karatsuba:
+        p1 = torch.einsum(eq, ar_, br_)
+        p2 = torch.einsum(eq, ai_, bi_)
+        p3 = torch.einsum(eq, _cast(ar + ai, precision),
+                          _cast(br + bi, precision))
+        return p1 - p2, p3 - p1 - p2
+    yr = torch.einsum(eq, ar_, br_) - torch.einsum(eq, ai_, bi_)
+    yi = torch.einsum(eq, ar_, bi_) + torch.einsum(eq, ai_, br_)
+    return yr, yi
+
+
+# ---------------------------------------------------------------------------
+# Four-step matmul FFT (plain version)
+# ---------------------------------------------------------------------------
+
+def _fft_rows_matmul(xr, xi, consts, spec: SpectralSpec):
+    """Mixed-radix four-step FFT along the last axis of (M, N): at stage
+    i the length-m block is reshaped to (f_i, m/f_i), contracted with the
+    f_i-point DFT matrix, twiddled, and the remainder transformed
+    recursively; out[l, k_rest * f + k_i] = z[k_i, l, k_rest]."""
+    factors = spec.factors()
+    mats, tws = _split_consts(consts, factors)
+    kw = dict(karatsuba=spec.karatsuba, precision=spec.precision)
+
+    def rec(xr, xi, i):
+        M, m = xr.shape
+        f = factors[i]
+        fr, fi = mats[i]
+        if i == len(factors) - 1:
+            # base: one dense DFT contraction (DFT matrices are symmetric)
+            return _cdot("mj,jk->mk", xr, xi, fr, fi, **kw)
+        rest = m // f
+        x3r = xr.reshape(M, f, rest)
+        x3i = xi.reshape(M, f, rest)
+        # stage A: contract f with F_i -> (f, M, rest), index k_i first
+        ar, ai = _cdot("kj,mjr->kmr", fr, fi, x3r, x3i, **kw)
+        twr, twi = tws[i]
+        br, bi = _cmul(ar, ai, twr[:, None, :], twi[:, None, :])
+        zr, zi = rec(br.reshape(f * M, rest), bi.reshape(f * M, rest), i + 1)
+        zr = zr.reshape(f, M, rest)
+        zi = zi.reshape(f, M, rest)
+        return (zr.permute(1, 2, 0).reshape(M, m),
+                zi.permute(1, 2, 0).reshape(M, m))
+
+    return rec(xr, xi, 0)
+
+
+def _fft_cols_matmul(xr, xi, consts, spec: SpectralSpec):
+    """The same recursion along axis 0 of an (N, C) column slab."""
+    factors = spec.factors()
+    mats, tws = _split_consts(consts, factors)
+    kw = dict(karatsuba=spec.karatsuba, precision=spec.precision)
+
+    def rec(xr, xi, i):
+        m, C = xr.shape
+        f = factors[i]
+        fr, fi = mats[i]
+        if i == len(factors) - 1:
+            return _cdot("kj,jc->kc", fr, fi, xr, xi, **kw)
+        rest = m // f
+        x3r = xr.reshape(f, rest, C)
+        x3i = xi.reshape(f, rest, C)
+        ar, ai = _cdot("kj,jrc->krc", fr, fi, x3r, x3i, **kw)
+        twr, twi = tws[i]
+        br, bi = _cmul(ar, ai, twr[:, :, None], twi[:, :, None])
+        cr = br.permute(1, 0, 2).reshape(rest, f * C)
+        ci = bi.permute(1, 0, 2).reshape(rest, f * C)
+        zr, zi = rec(cr, ci, i + 1)
+        # out[k_rest * f + k_i, c] = z[k_rest, k_i, c] — a plain reshape
+        return zr.reshape(m, C), zi.reshape(m, C)
+
+    return rec(xr, xi, 0)
+
+
+def _fft_stockham(xr, xi, axis: int):
+    """Self-sorting radix-4/radix-2 Stockham FFT along `axis` of a 2-D
+    block, elementwise ops only (the paper's scalar baseline)."""
+    if axis == 0:
+        yr, yi = _fft_stockham(xr.T, xi.T, 1)
+        return yr.T, yi.T
+    L, N = xr.shape
+    yr = xr.reshape(L, N, 1)
+    yi = xi.reshape(L, N, 1)
+    n, s = N, 1
+    dev = xr.device
+    while n > 1:
+        radix = 4 if n % 4 == 0 else 2
+        m = n // radix
+        k = torch.arange(m, dtype=torch.float32, device=dev)[:, None]
+        th = (-2.0 * math.pi / n) * k
+        w1r, w1i = torch.cos(th), torch.sin(th)
+        sl = lambda z, q: z[:, q * m:(q + 1) * m, :]  # noqa: E731
+        if radix == 4:
+            w2r, w2i = _cmul(w1r, w1i, w1r, w1i)
+            w3r, w3i = _cmul(w2r, w2i, w1r, w1i)
+            a_r, a_i = sl(yr, 0), sl(yi, 0)
+            b_r, b_i = sl(yr, 1), sl(yi, 1)
+            c_r, c_i = sl(yr, 2), sl(yi, 2)
+            d_r, d_i = sl(yr, 3), sl(yi, 3)
+            apc_r, apc_i = a_r + c_r, a_i + c_i
+            amc_r, amc_i = a_r - c_r, a_i - c_i
+            bpd_r, bpd_i = b_r + d_r, b_i + d_i
+            bmd_r, bmd_i = b_r - d_r, b_i - d_i
+            t0r, t0i = apc_r + bpd_r, apc_i + bpd_i
+            t1r, t1i = _cmul(amc_r + bmd_i, amc_i - bmd_r, w1r, w1i)
+            t2r, t2i = _cmul(apc_r - bpd_r, apc_i - bpd_i, w2r, w2i)
+            t3r, t3i = _cmul(amc_r - bmd_i, amc_i + bmd_r, w3r, w3i)
+            outs_r, outs_i = [t0r, t1r, t2r, t3r], [t0i, t1i, t2i, t3i]
+        else:
+            a_r, a_i = sl(yr, 0), sl(yi, 0)
+            b_r, b_i = sl(yr, 1), sl(yi, 1)
+            t1r, t1i = _cmul(a_r - b_r, a_i - b_i, w1r, w1i)
+            outs_r, outs_i = [a_r + b_r, t1r], [a_i + b_i, t1i]
+        yr = torch.stack(outs_r, dim=2).reshape(L, m, radix * s)
+        yi = torch.stack(outs_i, dim=2).reshape(L, m, radix * s)
+        n, s = m, radix * s
+    return yr.reshape(L, N), yi.reshape(L, N)
+
+
+def _run_fft(xr, xi, consts, spec: SpectralSpec, inverse: bool):
+    """Forward or inverse (conj-FFT-conj, x 1/N) transform along
+    spec.axis of a (B, L, n) / (B, n, L) batch: the batch folds into
+    the line dim (scenes are independent lines)."""
+    b = xr.shape[0]
+    if spec.axis == 1:
+        xr2 = xr.reshape(b * xr.shape[1], xr.shape[2])
+        xi2 = xi.reshape(b * xi.shape[1], xi.shape[2])
+    else:
+        xr2 = xr.movedim(0, 1).reshape(xr.shape[1], b * xr.shape[2])
+        xi2 = xi.movedim(0, 1).reshape(xi.shape[1], b * xi.shape[2])
+    if inverse:
+        xi2 = -xi2
+    if spec.fft_impl == "matmul":
+        fft = _fft_rows_matmul if spec.axis == 1 else _fft_cols_matmul
+        yr, yi = fft(xr2, xi2, consts, spec)
+    elif spec.fft_impl == "stockham":
+        yr, yi = _fft_stockham(xr2, xi2, spec.axis)
+    else:
+        raise ValueError(f"unknown fft_impl {spec.fft_impl}")
+    if inverse:
+        scale = 1.0 / spec.n
+        yr, yi = yr * scale, yi * (-scale)
+    if spec.axis == 1:
+        return yr.reshape(xr.shape), yi.reshape(xi.shape)
+    yr = yr.reshape(xr.shape[1], b, xr.shape[2]).movedim(1, 0)
+    yi = yi.reshape(xi.shape[1], b, xi.shape[2]).movedim(1, 0)
+    return yr, yi
+
+
+def _apply_filters(xr, xi, axis: int, filter_mode: str, filt):
+    """Apply one composed filter to a (B, L, n) / (B, n, L) batch.
+
+    ``filt`` holds the mode's tensors in the per-axis layouts:
+      shared:       hr, hi  (1, n) rows / (n, 1) cols
+      full:         hr, hi  (L, n) rows / (n, L) cols
+      outer:        u, v    (L, K), (K, n) rows / (K, L), (n, K) cols
+      shared_outer: hr, hi, u, v — the shared vector first, then the phase
+    2-D payloads broadcast over the leading batch dim."""
+
+    def _apply_outer(xr, xi, u, v):
+        phase = u @ v if axis == 1 else v @ u
+        return _cmul(xr, xi, torch.cos(phase), torch.sin(phase))
+
+    if filter_mode in (FILTER_SHARED, FILTER_FULL):
+        xr, xi = _cmul(xr, xi, filt[0], filt[1])
+    elif filter_mode == FILTER_OUTER:
+        xr, xi = _apply_outer(xr, xi, filt[0], filt[1])
+    elif filter_mode == FILTER_SHARED_OUTER:
+        xr, xi = _cmul(xr, xi, filt[0], filt[1])
+        xr, xi = _apply_outer(xr, xi, filt[2], filt[3])
+    return xr, xi
+
+
+# ---------------------------------------------------------------------------
+# bs16 block-exponent codec
+# ---------------------------------------------------------------------------
+
+def line_exponents(xr, xi, axis: int):
+    """One power-of-two exponent per line, reduced over the transform axis
+    (the last dim when axis=1, the second-to-last when axis=0). The 1e-37
+    floor keeps all-zero lines finite; the clamp to [-126, 126] keeps
+    ``_pow2`` exact for both exp and -exp."""
+    red = xr.ndim - 1 if axis == 1 else xr.ndim - 2
+    amax = torch.maximum(xr.abs().amax(dim=red, keepdim=True),
+                         xi.abs().amax(dim=red, keepdim=True))
+    floor = torch.tensor(1e-37, dtype=torch.float32, device=xr.device)
+    exp = torch.ceil(torch.log2(torch.maximum(amax, floor)))
+    return torch.clamp(exp, -126.0, 126.0)
+
+
+def _pow2(exp):
+    """Exactly 2^exp for integer-valued float32 exp in [-126, 126], built
+    by placing exp into the float32 exponent bits (never exp2, which is
+    not exact on every backend)."""
+    bits = (exp.to(torch.int32) + 127) << 23
+    return bits.view(torch.float32)
+
+
+def apply_exponents(xr, xi, exp):
+    """Fold per-line exponents back in (exact)."""
+    scale = _pow2(exp)
+    return xr * scale, xi * scale
+
+
+def remove_exponents(xr, xi, exp):
+    """Scale per-line exponents out (exact): x -> x * 2^-exp."""
+    inv = _pow2(-exp)
+    return xr * inv, xi * inv
+
+
+# ---------------------------------------------------------------------------
+# The plain version of the fused op
+# ---------------------------------------------------------------------------
+
+def spectral_plain(spec: SpectralSpec, xr, xi, *filt):
+    """[FFT] -> filter -> [IFFT] on (B, lines, n) / (B, n, lines) float32
+    tensors, with ``filt`` in the per-axis layouts of ``_apply_filters``.
+    Runs on whatever device the tensors are on."""
+    consts = None
+    if spec.fft_impl == "matmul" and (spec.fwd or spec.inv):
+        consts = device_constants(spec.factors(), str(xr.device))
+    exp = None
+    if PRECISIONS[spec.precision].block_scaled:
+        exp = line_exponents(xr, xi, spec.axis)
+        xr, xi = remove_exponents(xr, xi, exp)
+    if spec.fwd:
+        xr, xi = _run_fft(xr, xi, consts, spec, inverse=False)
+    xr, xi = _apply_filters(xr, xi, spec.axis, spec.filter_mode, filt)
+    if spec.inv:
+        xr, xi = _run_fft(xr, xi, consts, spec, inverse=True)
+    if exp is not None:
+        xr, xi = apply_exponents(xr, xi, exp)
+    return xr.contiguous(), xi.contiguous()
+
+
+def flops_nominal(spec: SpectralSpec, lines: int, batch: int = 1) -> float:
+    """Nominal 5 N log2 N per transform + 6N per complex multiply."""
+    n = spec.n
+    f = 0.0
+    if spec.fwd:
+        f += 5.0 * n * math.log2(max(n, 2))
+    if spec.inv:
+        f += 5.0 * n * math.log2(max(n, 2))
+    if spec.filter_mode != FILTER_NONE:
+        f += 6.0 * n
+    return f * lines * batch

@@ -1,0 +1,286 @@
+"""repro_torch kernels vs the JAX reference: DFT constants, the plain
+version of the fused spectral op against ``repro.kernels.ops.spectral_op``
+(Pallas interpret mode) and the ``torch.fft`` oracle, and the bs16 codec.
+The hand-written CUDA kernel is held against the plain version on the
+card by tests/test_torch_cuda.py and chip_smoke.py.
+
+Inputs come from ``np.random.default_rng(seed)`` and go to both packages
+as numpy arrays. Tolerances are the reference's own
+(tests/test_kernels.py): 2e-4 x max|want| at f32, 5e-2 at bf16.
+"""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from repro.kernels import fft4step as jfft
+from repro.kernels import ops as jops
+from repro_torch.kernels import fft4step as tfft
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+F32_TOL = 2e-4
+BF16_TOL = 5e-2
+
+MODES = ["none", "shared", "full", "outer", "shared_outer"]
+# fwd/inv per mode as the RDA launches use them: the azimuth FFT (none),
+# range compression (shared), azimuth compression (full / outer: inverse
+# only) and the fused range + RCMC launch (shared_outer)
+MODE_DIRS = {"none": (True, False), "shared": (True, True),
+             "full": (False, True), "outer": (False, True),
+             "shared_outer": (True, True)}
+
+
+def assert_close(got, want, tol=F32_TOL):
+    gr, gi = (np.asarray(g) for g in got)
+    wr, wi = (np.asarray(w) for w in want)
+    scale = max(float(np.abs(wr).max()), float(np.abs(wi).max()), 1e-30)
+    np.testing.assert_allclose(gr, wr, atol=tol * scale, rtol=0)
+    np.testing.assert_allclose(gi, wi, atol=tol * scale, rtol=0)
+
+
+def make_case(seed, mode, axis, n, batch, lines, rank=2):
+    """x (numpy, split re/im) plus the mode's filter kwargs."""
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    scene = (lines, n) if axis == 1 else (n, lines)
+    shape = scene if batch is None else (batch, *scene)
+    x = (rand(*shape), rand(*shape))
+    filt = {}
+    if mode in ("shared", "shared_outer"):
+        filt.update(hr=rand(n), hi=rand(n))
+    if mode == "full":
+        filt.update(hr=rand(*scene), hi=rand(*scene))
+    if mode in ("outer", "shared_outer"):
+        filt.update(u=rand(lines, rank), v=rand(n, rank))
+    return x, filt
+
+
+def run_ref(x, filt, **kw):
+    return jops.spectral_op(jnp.asarray(x[0]), jnp.asarray(x[1]),
+                            **{k: jnp.asarray(v) for k, v in filt.items()},
+                            **kw)
+
+
+def run_port(x, filt, device="cpu", plain=False, **kw):
+    fn = tops.spectral_op_plain if plain else tops.spectral_op
+    t = {k: torch.from_numpy(v).to(device) for k, v in filt.items()}
+    return fn(torch.from_numpy(x[0]).to(device),
+              torch.from_numpy(x[1]).to(device), **t, **kw)
+
+
+def to_np(pair):
+    return tuple(p.cpu().numpy() for p in pair)
+
+
+# ---------------------------------------------------------------------------
+# Host-side constants
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1 << p for p in range(4, 13)])
+def test_dft_constants_match_reference(n):
+    fs = tfft.default_factorization(n)
+    assert fs == jfft.default_factorization(n)
+    mine, theirs = tfft.dft_constants(*fs), jfft.dft_constants(*fs)
+    assert len(mine) == len(theirs)
+    for a, b in zip(mine, theirs):
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+
+
+def test_three_factor_split_matches_reference():
+    for n in (32768, 1 << 18):
+        assert tfft.default_factorization(n) == jfft.default_factorization(n)
+        assert (tfft.SpectralSpec(n=n, fwd=True, filter_mode="none",
+                                  inv=False).factors()
+                == jfft.SpectralSpec(n=n, fwd=True, filter_mode="none",
+                                     inv=False).factors())
+
+
+def test_precision_policy_matches_reference():
+    assert sorted(tfft.PRECISIONS) == sorted(jfft.PRECISIONS)
+    for name, p in tfft.PRECISIONS.items():
+        q = jfft.PRECISIONS[name]
+        assert (p.dtype, p.block_scaled) == (q.dtype, q.block_scaled)
+    assert tfft.resolve_precision(None).name == "f32"
+    with pytest.raises(ValueError):
+        tfft.resolve_precision("f8")
+
+
+# ---------------------------------------------------------------------------
+# The plain version vs the Pallas kernel (interpret mode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("n", [16, 64, 256, 1024])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("mode", MODES)
+def test_spectral_plain_matches_reference(mode, axis, n, batch):
+    fwd, inv = MODE_DIRS[mode]
+    x, filt = make_case(n + batch, mode, axis, n, batch, lines=6)
+    kw = dict(axis=axis, fwd=fwd, inv=inv, filter_mode=mode, block=4)
+    want = run_ref(x, filt, **kw)
+    got = to_np(run_port(x, filt, **kw))
+    assert got[0].shape == x[0].shape
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("fwd,inv", [(True, False), (False, True),
+                                     (True, True), (False, False)])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_spectral_directions_match_reference(fwd, inv, axis):
+    x, filt = make_case(3, "shared_outer", axis, 128, None, lines=5)
+    kw = dict(axis=axis, fwd=fwd, inv=inv, filter_mode="shared_outer",
+              block=4)
+    assert_close(to_np(run_port(x, filt, **kw)), run_ref(x, filt, **kw))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_spectral_plain_matches_torch_fft_oracle(mode):
+    n, lines = 256, 7
+    fwd, inv = MODE_DIRS[mode]
+    x, filt = make_case(11, mode, 1, n, None, lines)
+    got = to_np(run_port(x, filt, axis=1, fwd=fwd, inv=inv,
+                         filter_mode=mode, block=8))
+    kw = {}
+    if "hr" in filt:
+        kw.update(hr=filt["hr"], hi=filt["hi"])
+    if "u" in filt:
+        kw.update(u=filt["u"], v=filt["v"])
+    want = to_np(tref.spectral_ref(*x, axis=1, fwd=fwd, inv=inv, **kw))
+    assert_close(got, want)
+
+
+def test_ragged_lines_and_padding():
+    # 13 lines with block 8 pads to 16 and crops back, both layouts
+    for axis in (0, 1):
+        x, filt = make_case(5, "full", axis, 64, 2, lines=13)
+        kw = dict(axis=axis, fwd=True, inv=True, filter_mode="full", block=8)
+        got = to_np(run_port(x, filt, **kw))
+        assert got[0].shape == x[0].shape
+        assert_close(got, run_ref(x, filt, **kw))
+
+
+@pytest.mark.parametrize("precision,tol", [("bf16", BF16_TOL),
+                                           ("f16", BF16_TOL),
+                                           ("bs16", BF16_TOL)])
+def test_reduced_precisions_match_reference(precision, tol):
+    x, filt = make_case(17, "shared", 1, 512, None, lines=4)
+    kw = dict(axis=1, fwd=True, inv=True, filter_mode="shared", block=4,
+              precision=precision)
+    assert_close(to_np(run_port(x, filt, **kw)), run_ref(x, filt, **kw),
+                 tol=tol)
+
+
+@pytest.mark.parametrize("opt", [dict(karatsuba=True),
+                                 dict(fft_impl="stockham"),
+                                 dict(n1=16, n2=4), dict(n1=128, n2=8)])
+def test_options_match_torch_fft(opt):
+    n = opt.get("n1", 32) * opt.get("n2", 16)
+    x, _ = make_case(19, "none", 0, n, None, lines=4)
+    got = to_np(tops.fft_cols(torch.from_numpy(x[0]),
+                              torch.from_numpy(x[1]), block=4, **opt))
+    assert_close(got, to_np(tref.fft_ref(*x, axis=0)))
+
+
+def test_three_factor_fft_matches_torch_fft():
+    x, _ = make_case(23, "none", 1, 32768, None, lines=2)
+    got = to_np(tops.fft_rows(torch.from_numpy(x[0]),
+                              torch.from_numpy(x[1]), block=2))
+    assert_close(got, to_np(tref.fft_ref(*x, axis=1)))
+
+
+def test_convenience_entry_points_match_reference():
+    rng = np.random.default_rng(29)
+    na, nr = 64, 32
+    xr, xi = (rng.standard_normal((na, nr)).astype(np.float32)
+              for _ in range(2))
+    h = rng.standard_normal((2, nr)).astype(np.float32)
+    u, v = (rng.standard_normal(na).astype(np.float32),
+            rng.standard_normal(nr).astype(np.float32))
+    t = torch.from_numpy
+    j = jnp.asarray
+    pairs = [
+        (tops.fused_fft_mult_ifft_rows(t(xr), t(xi), t(h[0]), t(h[1])),
+         jops.fused_fft_mult_ifft_rows(j(xr), j(xi), j(h[0]), j(h[1]))),
+        (tops.fused_rcmc_rows(t(xr), t(xi), t(u), t(v)),
+         jops.fused_rcmc_rows(j(xr), j(xi), j(u), j(v))),
+        (tops.fused_rc_rcmc_rows(t(xr), t(xi), t(h[0]), t(h[1]), t(u), t(v)),
+         jops.fused_rc_rcmc_rows(j(xr), j(xi), j(h[0]), j(h[1]), j(u),
+                                 j(v))),
+        (tops.ifft_rows(t(xr), t(xi)), jops.ifft_rows(j(xr), j(xi))),
+        (tops.fft_cols(t(xr), t(xi)), jops.fft_cols(j(xr), j(xi))),
+        (tops.ifft_cols(t(xr), t(xi)), jops.ifft_cols(j(xr), j(xi))),
+        (tops.fused_mult_ifft_cols(t(xr), t(xi), t(xr), t(xi)),
+         jops.fused_mult_ifft_cols(j(xr), j(xi), j(xr), j(xi))),
+        (tops.fused_mult_ifft_cols_outer(t(xr), t(xi), t(v), t(u)),
+         jops.fused_mult_ifft_cols_outer(j(xr), j(xi), j(v), j(u))),
+    ]
+    for got, want in pairs:
+        assert_close(to_np(got), want)
+
+
+# ---------------------------------------------------------------------------
+# The bs16 codec
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mag", [-60, -3, 0, 17, 60])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_bs16_codec_matches_reference(mag, axis):
+    r = np.random.default_rng(mag + 100)
+    scale = np.float32(2.0) ** np.float32(mag)
+    xr = (r.standard_normal((2, 4, 32)) * scale).astype(np.float32)
+    xi = (r.standard_normal((2, 4, 32)) * scale).astype(np.float32)
+    xi[0, 1] = 0.0
+    xr[0, 1] = 0.0                          # an all-zero line
+    jexp = jfft.line_exponents(jnp.asarray(xr), jnp.asarray(xi), axis)
+    texp = tfft.line_exponents(torch.from_numpy(xr), torch.from_numpy(xi),
+                               axis)
+    np.testing.assert_array_equal(texp.numpy(), np.asarray(jexp))
+    sr, si = tfft.remove_exponents(torch.from_numpy(xr),
+                                   torch.from_numpy(xi), texp)
+    jsr, jsi = jfft.remove_exponents(jnp.asarray(xr), jnp.asarray(xi), jexp)
+    np.testing.assert_array_equal(sr.numpy(), np.asarray(jsr))
+    np.testing.assert_array_equal(si.numpy(), np.asarray(jsi))
+    rr, ri = tfft.apply_exponents(sr, si, texp)
+    np.testing.assert_array_equal(rr.numpy(), xr)
+    np.testing.assert_array_equal(ri.numpy(), xi)
+    e = torch.arange(-126, 127, dtype=torch.float32)
+    assert torch.equal(tfft._pow2(e), torch.ldexp(torch.ones_like(e), e))
+
+
+# ---------------------------------------------------------------------------
+# What the CUDA kernel takes (checked in Python, before any launch)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(precision="bf16"),
+                                dict(precision="bs16"),
+                                dict(karatsuba=True),
+                                dict(fft_impl="stockham"),
+                                dict(n=8192), dict(n=32768)])
+def test_kernel_refuses_what_it_does_not_take(kw):
+    spec = dict(n=4096, fwd=True, filter_mode="none", inv=False)
+    spec.update(kw)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tops.check_kernel_spec(tfft.SpectralSpec(**spec))
+
+
+@pytest.mark.parametrize("n,axis", [(16, 1), (4096, 1), (4096, 0), (2048, 0)])
+def test_kernel_tile_fits_the_block(n, axis):
+    tile, threads = tops.kernel_tile(n, axis)
+    assert tile * n == threads * 16            # 16 staged outputs a thread
+    assert threads <= 1024 and threads % 32 == 0
+    assert tile * n * 8 <= 227 * 1024          # shared memory of one block
+    assert tops.check_kernel_spec(tfft.SpectralSpec(
+        n=n, fwd=True, filter_mode="none", inv=False)) \
+        == tfft.default_factorization(n)
+
+
+def test_cpu_tensors_never_launch():
+    before = tops.SPECTRAL_LAUNCHES
+    x, filt = make_case(1, "shared", 1, 64, None, lines=4)
+    run_port(x, filt, axis=1, filter_mode="shared")
+    assert tops.SPECTRAL_LAUNCHES == before
