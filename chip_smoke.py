@@ -29,6 +29,26 @@ each printing one JSON line (any failed check raises and exits non-zero):
              vs nominal 5 N log2 N FLOP over 67 TFLOP/s, H100 SXM spec
              sheet), the plain version and ``library_ms`` (torch.fft ->
              multiply -> torch.fft, timed only as a yardstick).
+6. mega_kernel — each CUDA megakernel (``csrc/mega.cu``) against
+             ``fft4step.mega_plain`` on the card, 2e-4 x max|want|: fused1's
+             3-segment chain with every filter mode on both axes, one- and
+             two-segment chains and a same-axis boundary, on 64x128,
+             128x64, 128^2 (both kernels, held ``torch.equal`` to each
+             other), 256^2 and 4096^2 (staged), B in {1, 2}. The shared-
+             memory opt-in the residency cut assumes is read from the card.
+7. main fused1 — ``build_pipeline(cfg, "fused1").run(raw)`` at 4096^2
+             (staged by the cut): exactly one ``mega_staged`` launch and no
+             spectral launch, all five targets within 8 px, ``torch.equal``
+             to the card's fused3 image, the plan replayed through
+             ``mega_spectral_op_plain`` on the card (same peaks, |dSNR| <=
+             0.1 dB); then 128^2 (resident by the cut): one
+             ``mega_resident`` launch, ``torch.equal`` to fused3 and to
+             ``residency="staged"``, within 2e-4 of the CPU plain version.
+8. time fused1 — fused3 and fused1 runs in turns (fused3, fused1, fused1,
+             fused3); the staged kernel alone at 4096^2 and the resident
+             kernel alone on 132 scenes of 128^2 (one per SM, beside fused3
+             and fused1 runs of that batch), each beside its bound, its
+             plain version and ``library_ms``.
 
 The line before the last lists each kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -82,6 +102,243 @@ def cuda_median_ms(fn, warm=2, reps=7):
     return statistics.median(times)
 
 
+MEGA_MODES = ("none", "shared", "full", "outer", "shared_outer")
+MEGA_SHAPES = ((64, 128), (128, 64), (128, 128), (256, 256), (4096, 4096))
+MEGA_BATCH = 132               # resident timing: one 128^2 scene per SM
+
+
+def mega_chains():
+    """fused1's 3-segment shape with each filter mode on both axes, one-
+    and two-segment chains, and a same-axis boundary."""
+    chains = [((0, True, False, "none"), (1, True, True, m),
+               (0, False, True, m)) for m in MEGA_MODES]
+    chains.append(((0, True, True, "shared_outer"),))
+    chains.append(((1, True, True, "shared"), (0, False, True, "full")))
+    chains.append(((1, True, False, "shared"), (1, False, True, "outer"),
+                   (0, True, True, "none")))
+    return chains
+
+
+def mega_phases(torch, dev, smi_line, cfg, raw, fused3_img, score, small,
+                small_raw, fused3_pipe):
+    """Phases 6-8 (the megakernels); returns their ``kernels`` records."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline, metrics, paper_targets
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fft4step import (MegaSpec, SegmentSpec,
+                                              _mega_flops)
+
+    def reset_counts():
+        ops.SPECTRAL_LAUNCHES = 0
+        ops.MEGA_LAUNCHES.update(mega_resident=0, mega_staged=0)
+
+    def counts():
+        return dict(ops.MEGA_LAUNCHES), ops.SPECTRAL_LAUNCHES
+
+    def split_err(a, b):
+        return rel_err((a.real, a.imag), (b.real, b.imag))
+
+    # ---- 6. each megakernel vs its plain version on the card --------------
+    lib = ops._bind_mega()
+    optin = lib.mega_smem_optin(dev.index or 0)
+    check(optin == ops.SMEM_OPTIN_BYTES,
+          f"shared-memory opt-in {optin} B, the cut assumes "
+          f"{ops.SMEM_OPTIN_BYTES} B")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    worst = {"mega_resident": 0.0, "mega_staged": 0.0}
+    cases = {"mega_resident": 0, "mega_staged": 0}
+    equal_pairs = 0
+    for na, nr in MEGA_SHAPES:
+        for batch in (1, 2):
+            x = (rand(batch, na, nr), rand(batch, na, nr))
+            for segments in mega_chains():
+                args = []
+                for axis, _fwd, _inv, mode in segments:
+                    n, lines = (nr, na) if axis == 1 else (na, nr)
+                    if mode in ("shared", "shared_outer"):
+                        args += [rand(n), rand(n)]
+                    if mode == "full":
+                        args += [rand(na, nr), rand(na, nr)]
+                    if mode in ("outer", "shared_outer"):
+                        args += [rand(lines, 2), rand(n, 2)]
+                want = ops.mega_spectral_op_plain(*x, *args,
+                                                  segments=segments)
+                outs = []
+                for residency, kernel in (("vmem", "mega_resident"),
+                                          ("staged", "mega_staged")):
+                    if residency == "vmem" and \
+                            ops.mega_residency(na, nr) != "vmem":
+                        continue
+                    got = ops.mega_spectral_op(*x, *args, segments=segments,
+                                               residency=residency)
+                    torch.cuda.synchronize()
+                    _, rel = rel_err(got, want)
+                    check(rel <= TOL, f"{kernel} vs plain {segments} "
+                          f"{na}x{nr} B={batch}: rel err {rel:.3e}")
+                    worst[kernel] = max(worst[kernel], rel)
+                    cases[kernel] += 1
+                    outs.append(got)
+                if len(outs) == 2:
+                    check(all(torch.equal(a, b) for a, b in zip(*outs)),
+                          f"resident != staged {segments} {na}x{nr}")
+                    equal_pairs += 1
+            del x, args, want, outs
+    emit("mega_kernel", cases=cases, max_rel_err=worst, tol=TOL,
+         resident_equals_staged_cases=equal_pairs, smem_optin_bytes=optin,
+         staged_blocks_per_sm=lib.mega_staged_blocks_per_sm(
+             ops.RESIDENT_MAX_POINTS * 8),
+         sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+
+    # ---- 7. the main path through fused1 -----------------------------------
+    pipe = build_pipeline(cfg, "fused1")
+    check([s.kind for s in pipe.steps] == ["mega"] and pipe.dispatches == 1,
+          "fused1 compiles to one mega step")
+    step = pipe.steps[0]
+    check(step.kernel_kw["residency"] == "staged", "4096^2 is staged")
+    reset_counts()
+    img = pipe.run(raw)
+    torch.cuda.synchronize()
+    got_counts = counts()
+    check(got_counts == ({"mega_resident": 0, "mega_staged": 1}, 0),
+          f"fused1 4096^2 launches {got_counts}")
+    check(bool(torch.isfinite(img).all()), "fused1: non-finite image")
+    rep_k = score(img)
+    for r in rep_k:
+        off = r["wide_peak_offset"]
+        check(max(abs(off[0]), abs(off[1])) <= 8,
+              f"fused1: target peak {off} px from expected")
+        check(r["snr_db"] > 30.0, f"fused1: SNR {r['snr_db']}")
+    check(torch.equal(img, fused3_img), "fused1 != fused3 at 4096^2")
+    seg_args = [t for a in step.seg_filter_args for t in a]
+    xr, xi = planlib.split(raw)
+    img_p = planlib.unsplit(*ops.mega_spectral_op_plain(
+        xr, xi, *seg_args, **step.kernel_kw))
+    torch.cuda.synchronize()
+    rep_p = score(img_p)
+    dsnr = [abs(a["snr_db"] - b["snr_db"]) for a, b in zip(rep_k, rep_p)]
+    check([r["peak"] for r in rep_k] == [r["peak"] for r in rep_p],
+          "fused1: kernel and plain peaks differ")
+    check(max(dsnr) <= GATE_DB, f"fused1: dSNR {dsnr}")
+    staged_err, staged_rel = split_err(img, img_p)
+    check(staged_rel <= TOL, f"fused1 vs plain: rel err {staged_rel:.3e}")
+    emit("main", variant="fused1", scene=[cfg.na, cfg.nr],
+         residency="staged", launches=got_counts[0],
+         spectral_launches=got_counts[1], targets=rep_k,
+         equal_to_fused3=True, snr_delta_db_vs_plain=dsnr,
+         max_abs_err_vs_plain=staged_err, rel_err_vs_plain=staged_rel)
+    del img, img_p, fused3_img
+
+    small_f3 = build_pipeline(small, "fused3").run(small_raw)
+    pipe_s = build_pipeline(small, "fused1")
+    step_s = pipe_s.steps[0]
+    check(step_s.kernel_kw["residency"] == "vmem", "128^2 is resident")
+    reset_counts()
+    img_s = pipe_s.run(small_raw)
+    torch.cuda.synchronize()
+    small_counts = counts()
+    check(small_counts == ({"mega_resident": 1, "mega_staged": 0}, 0),
+          f"fused1 128^2 launches {small_counts}")
+    check(torch.equal(img_s, small_f3), "fused1 != fused3 at 128^2")
+    staged_s = build_pipeline(small, "fused1", residency="staged").run(
+        small_raw)
+    check(torch.equal(img_s, staged_s), "resident != staged at 128^2")
+    on_cpu = build_pipeline(small, "fused1", device="cpu").run(
+        small_raw.cpu())
+    _, cpu_rel = split_err(img_s.cpu(), on_cpu)
+    check(cpu_rel <= TOL, f"128^2 fused1 card vs CPU: {cpu_rel:.3e}")
+    sr, si = planlib.split(small_raw)
+    seg_args_s = [t for a in step_s.seg_filter_args for t in a]
+    img_sp = planlib.unsplit(*ops.mega_spectral_op_plain(
+        sr, si, *seg_args_s, **step_s.kernel_kw))
+    resident_err, _ = split_err(img_s, img_sp)
+    peaks = [(r.row, r.col) for r in metrics.analyze_scene(
+        img_s.cpu().numpy(), small, paper_targets(small))]
+    emit("main", variant="fused1", scene=[small.na, small.nr],
+         residency="vmem", launches=small_counts[0],
+         spectral_launches=small_counts[1], equal_to_fused3=True,
+         equal_to_staged=True, rel_err_vs_cpu=cpu_rel,
+         max_abs_err_vs_plain=resident_err, peaks=peaks)
+
+    # ---- 8. times -----------------------------------------------------------
+    runs = {"fused3": [], "fused1": []}
+    for variant in ("fused3", "fused1", "fused1", "fused3"):
+        p = fused3_pipe if variant == "fused3" else pipe
+        runs[variant].append(cuda_median_ms(lambda: p.run(raw)))
+    emit("time_run", variant="fused1_vs_fused3", scene=[cfg.na, cfg.nr],
+         order=["fused3", "fused1", "fused1", "fused3"],
+         fused3_ms=runs["fused3"], fused1_ms=runs["fused1"],
+         nvidia_smi=smi_line)
+
+    def time_kernel(name, step, x, segments_cfg):
+        """The kernel alone on the main path's split input, beside its
+        bound, its plain version and the torch.fft chain."""
+        xr, xi = planlib.split(x)
+        args = [t for a in step.seg_filter_args for t in a]
+        kk = step.kernel_kw
+        batch, na, nr = xr.shape if xr.ndim == 3 else (1, *xr.shape)
+        spec = MegaSpec(na, nr, tuple(SegmentSpec(*s)
+                                      for s in kk["segments"]))
+        nbytes = 16 * xr.numel() + sum(4 * t.numel() for t in args)
+        flops = _mega_flops(spec) * batch
+        t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        oracle = build_pipeline(segments_cfg, "fused1", backend="torch")
+        rec = dict(
+            kernel=name, scene=[na, nr], batch=batch,
+            ms=cuda_median_ms(lambda: ops.mega_spectral_op(
+                xr, xi, *args, **kk)),
+            plain_ms=cuda_median_ms(lambda: ops.mega_spectral_op_plain(
+                xr, xi, *args, **kk)),
+            library_ms=cuda_median_ms(lambda: oracle.run(x)),
+            bytes=nbytes, flops_nominal=flops,
+            bound_ms=max(t_mem, t_ops),
+            bound_by="bytes" if t_mem >= t_ops else "operations",
+            per_phase_floor_ms=len(kk["segments"]) * 16 * xr.numel()
+            / HBM_BYTES_PER_S * 1e3)
+        emit("time_kernel", nvidia_smi=smi_line, **rec)
+        return rec
+
+    t_staged = time_kernel("mega_staged", step, raw, cfg)
+    batch_raw = small_raw.expand(MEGA_BATCH, *small_raw.shape).contiguous()
+    reset_counts()
+    got = pipe_s.run(batch_raw)
+    want = planlib.unsplit(*ops.mega_spectral_op_plain(
+        *planlib.split(batch_raw), *seg_args_s, **step_s.kernel_kw))
+    torch.cuda.synchronize()
+    check(counts()[0]["mega_resident"] == 1, "batch: one resident launch")
+    _, batch_rel = split_err(got, want)
+    check(batch_rel <= TOL, f"resident batch vs plain: {batch_rel:.3e}")
+    t_resident = time_kernel("mega_resident", step_s, batch_raw, small)
+    small3 = build_pipeline(small, "fused3")
+    batch_runs = {"fused3": [], "fused1": []}
+    for variant in ("fused3", "fused1", "fused1", "fused3"):
+        p = small3 if variant == "fused3" else pipe_s
+        batch_runs[variant].append(cuda_median_ms(lambda: p.run(batch_raw)))
+    emit("time_run", variant="fused1_vs_fused3", scene=[small.na, small.nr],
+         batch=MEGA_BATCH, order=["fused3", "fused1", "fused1", "fused3"],
+         fused3_ms=batch_runs["fused3"], fused1_ms=batch_runs["fused1"],
+         rel_err_vs_plain=batch_rel, nvidia_smi=smi_line)
+
+    def record(name, line, launches, err, t):
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mega.cu",
+                "replaces": f"src/repro/kernels/fft4step.py:{line}",
+                "launches": launches, "max_abs_err": err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    return [record("mega_resident", 931,
+                   small_counts[0]["mega_resident"], resident_err,
+                   t_resident),
+            record("mega_staged", 1002, got_counts[0]["mega_staged"],
+                   staged_err, t_staged)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -119,8 +376,10 @@ def main() -> int:
     logs = _build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln]
              for name, log in logs.items()}
+    check(set(logs) >= {"spectral", "mega"}, f"built {sorted(logs)}")
     emit("build", seconds=build_s, sources=sorted(_build.sources()),
          ptxas=ptxas)
 
@@ -197,15 +456,19 @@ def main() -> int:
 
     main_inputs = {}
     results = {}
+    images = {}
     for variant, want_launches in (("fused3", 3), ("fused_tfree", 4)):
         pipe = build_pipeline(cfg, variant)
         check(pipe.dispatches == want_launches, f"{variant} dispatches")
         ops.SPECTRAL_LAUNCHES = 0
+        ops.MEGA_LAUNCHES.update(mega_resident=0, mega_staged=0)
         img = pipe.run(raw)
         torch.cuda.synchronize()
         launches = ops.SPECTRAL_LAUNCHES
         check(launches == want_launches,
               f"{variant}: {launches} kernel launches, want {want_launches}")
+        check(not any(ops.MEGA_LAUNCHES.values()),
+              f"{variant}: megakernel launches {ops.MEGA_LAUNCHES}")
         check(bool(torch.isfinite(img).all()), f"{variant}: non-finite image")
         rep_k = score(img)
         for r in rep_k:
@@ -225,6 +488,7 @@ def main() -> int:
         results[variant] = dict(launches=launches, targets=rep_k,
                                 snr_delta_db_vs_plain=dsnr,
                                 l2_rel_vs_plain=l2)
+        images[variant] = img
         emit("main", variant=variant, scene=[cfg.na, cfg.nr], **results[
             variant])
         if variant == "fused3":
@@ -237,7 +501,7 @@ def main() -> int:
                                          **s.kernel_kw)
                 x = planlib.unsplit(yr, yi)
             fused3_pipe = pipe
-    del img, img_p
+    del img, img_p, images["fused_tfree"]
 
     main_err = 0.0
     for name, (s, xr, xi, _x) in main_inputs.items():
@@ -301,7 +565,7 @@ def main() -> int:
     total = {k: sum(r[k] for r in launches_t)
              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     t_mem = sum(r["bytes"] for r in launches_t) / HBM_BYTES_PER_S * 1e3
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "spectral",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spectral.cu",
@@ -314,7 +578,10 @@ def main() -> int:
         "bound_by": "bytes" if t_mem >= total["bound_ms"] - 1e-12
         else "operations",
         "library_ms": total["library_ms"],
-    }]}), flush=True)
+    }]
+    kernels += mega_phases(torch, dev, smi_line, cfg, raw, images["fused3"],
+                           score, small, small_raw, fused3_pipe)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

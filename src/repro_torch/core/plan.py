@@ -11,14 +11,16 @@ it into a :class:`Pipeline` of launches of the fused spectral op
   are barriers. Fused ``mul`` atoms compose into one kernel filter:
   shared×shared → shared, shared×full → full, outer×outer → rank-(K₁+K₂)
   outer, shared×outer → shared_outer, full×outer → full.
-  ``plan_dispatch_count`` also groups under ``FUSE_MEGA`` (fusion across
-  axis changes); compiling such a group waits for the megakernel port.
+  Under ``FUSE_MEGA`` (the megakernel grammar) an axis change opens a
+  new in-kernel segment instead of a new launch: a cross-axis group
+  compiles to ONE ``ops.mega_spectral_op`` launch.
 * **Filter caching** — host filter math is cached per
   ``(SceneConfig, params, filter_name)`` and composed payloads per
   ``(SceneConfig, plan, fuse, backend)``.
-* **Backends** — ``"kernel"``: the fused op (the hand-written CUDA kernel
-  on a CUDA device, its plain version on the CPU); ``"torch"``: one
-  ``torch.fft`` op per group, the unfused oracle.
+* **Backends** — ``"kernel"``: the fused op or the megakernel (the
+  hand-written CUDA kernels on a CUDA device, their plain versions on the
+  CPU); ``"torch"``: ``torch.fft`` ops per group (per segment of a
+  cross-axis group), the unfused oracle.
 
 Plans serialize to/from JSON (``plan_to_json`` / ``plan_from_json``) in
 the JAX package's format, so one plan definition drives both packages.
@@ -52,7 +54,6 @@ BACKEND_TORCH = "torch"     # one torch.fft op per group (the unfused oracle)
 #   FUSE_MEGA  cross-axis fusion (the megakernel grammar)
 FUSE_MEGA = "mega"
 
-_TODO_MEGA = "the fused1 megakernel (ROADMAP.md Queue 1, item 5)"
 _TODO_TRANSPOSE = "the tiled transpose (ROADMAP.md Queue 2, item 5)"
 
 
@@ -420,7 +421,10 @@ class Step:
     performs — ``phys_axis``, ``filter_mode``, ``filter_kw`` (device
     filter tensors) and ``kernel_kw`` (``ops.spectral_op`` keywords) — so
     it can be replayed through another implementation of the op, e.g.
-    ``ops.spectral_op_plain`` on the card.
+    ``ops.spectral_op_plain`` on the card. A mega step (``kind="mega"``)
+    keeps ``kernel_kw`` (``ops.mega_spectral_op`` keywords) and
+    ``seg_filter_args``, one tuple of device filter tensors per segment,
+    whose concatenation is the launch's ``filter_args``.
     """
 
     name: str
@@ -432,7 +436,8 @@ class Step:
     phys_axis: Optional[int] = None       # physical transform axis
     filter_mode: str = FILTER_NONE        # composed kernel filter mode
     filter_kw: Optional[dict] = None      # device filter payloads
-    kernel_kw: Optional[dict] = None      # ops.spectral_op keywords
+    kernel_kw: Optional[dict] = None      # ops.(mega_)spectral_op keywords
+    seg_filter_args: Optional[tuple] = None   # mega: per-segment payloads
 
 
 @dataclasses.dataclass
@@ -458,7 +463,8 @@ class Pipeline:
         """Execute the steps on one scene ``(na, nr)`` or a batch
         ``(B, na, nr)`` sharing the SceneConfig, complex64 in and out.
         ``raw`` (a tensor or numpy array) is moved to the pipeline's
-        device. A batch runs each step as ONE launch over all scenes."""
+        device. A batch runs each step as ONE launch over all scenes; each
+        kernel step splits re/im before its launch and unsplits after."""
         x = torch.as_tensor(raw).to(self.device, torch.complex64)
         for s in self.steps:
             x = s.fn(x)
@@ -539,6 +545,56 @@ def _make_spectral_step(group, mode, arrays, *, backend, opts) -> Step:
                 filter_mode=mode, filter_kw=filter_kw, kernel_kw=kernel_kw)
 
 
+def _make_mega_step(group, seg_payloads, *, cfg, backend, opts) -> Step:
+    """One cross-axis fused group -> ONE megakernel launch (or the
+    per-segment torch.fft oracle chain in the torch backend).
+
+    Residency: the explicit compile option, else the shared-memory cut
+    ``ops.mega_residency`` (128^2 resident, larger scenes staged)."""
+    segs = _split_segments(group)
+    name = "+".join(dict.fromkeys(a.stage.name for a in group))
+    segments = []
+    seg_fk = []           # per-segment filter kwargs (the torch oracle's)
+    seg_args = []         # the same tensors in ops.mega_spectral_op order
+    for atoms, (axis, mode, arrays) in zip(segs, seg_payloads):
+        fwd = any(a.kind == "fft" for a in atoms)
+        inv = any(a.kind == "ifft" for a in atoms)
+        segments.append((axis, fwd, inv, mode))
+        fk = _payload_to_device(mode, arrays, opts["device"])
+        seg_fk.append((axis, fwd, inv, mode, fk))
+        seg_args.append(tuple(fk[k] for k in ("hr", "hi", "u", "v")
+                              if k in fk))
+    segments = tuple(segments)
+    filter_args = [t for args in seg_args for t in args]
+
+    stage_prec = next((a.stage.precision for a in group
+                       if a.stage.precision is not None), None)
+    precision = resolve_precision(opts["precision"] or stage_prec).name
+    batch_block = opts["batch_block"]
+    residency = opts["residency"] or ops.mega_residency(
+        cfg.na, cfg.nr, batch_block or 1, precision)
+    kernel_kw = dict(
+        segments=segments, residency=residency, batch_block=batch_block,
+        phase_block=opts["phase_block"] or 8,
+        buffer_depth=opts["buffer_depth"] or 2,
+        fft_impl=opts["fft_impl"], precision=precision)
+
+    if backend == BACKEND_KERNEL:
+        def fn(x, _fa=tuple(filter_args)):
+            xr, xi = split(x)
+            yr, yi = ops.mega_spectral_op(xr, xi, *_fa, **kernel_kw)
+            return unsplit(yr, yi)
+    else:
+        def fn(x):
+            for axis, fwd, inv, mode, fk in seg_fk:
+                x = _torch_apply(x, fwd, inv, mode, fk, axis)
+            return x
+
+    return Step(name, fn, 1, 1, backend == BACKEND_KERNEL, kind="mega",
+                filter_mode=MEGA, kernel_kw=kernel_kw,
+                seg_filter_args=tuple(seg_args))
+
+
 def _make_custom_step(stage: Stage, cfg) -> Step:
     if stage.kind not in _STAGE_IMPLS:
         raise KeyError(f"no implementation registered for stage kind "
@@ -563,6 +619,10 @@ def compile_plan(
     col_block: Optional[int] = None,
     fft_impl: str = "matmul",
     precision: Optional[str] = None,
+    residency: Optional[str] = None,
+    phase_block: Optional[int] = None,
+    buffer_depth: Optional[int] = None,
+    batch_block: Optional[int] = None,
 ) -> Pipeline:
     """Compile a plan against a concrete scene into a :class:`Pipeline`.
 
@@ -571,28 +631,36 @@ def compile_plan(
     ``(B, na, nr)`` sharing it.
 
     backend: 'kernel' (fused launches) or 'torch' (torch.fft oracle ops).
-    fuse: merge adjacent compatible atoms into single launches (True);
-      FUSE_MEGA groups raise NotImplementedError until the megakernel is
-      ported.
+    fuse: merge adjacent compatible atoms into single launches. ``True``
+      fuses per transform axis; :data:`FUSE_MEGA` also fuses ACROSS axis
+      changes into single-launch megakernel steps (the fused1 family).
     device: where the pipeline runs; None is the CUDA card (raises
       without one), "cpu" runs the plain version.
     block/col_block: line padding granule of rows/columns launches.
     precision: matmul-operand policy for every spectral stage (over each
-      ``Stage.precision``); the CUDA kernel takes f32 only.
+      ``Stage.precision``); the CUDA kernels take f32 only.
+    residency: megakernel mode of mega steps — 'vmem' (on Hopper: the
+      whole scene in one block's shared memory) or 'staged' (phases
+      through device memory); None picks by ``ops.mega_residency``.
+    phase_block / buffer_depth / batch_block: the megakernel's staged line
+      granule (default 8), prefetch depth (default 2) and resident scenes
+      per slab (default 1), as the reference takes them.
     """
     if backend not in (BACKEND_KERNEL, BACKEND_TORCH):
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
     groups, payloads = _group_payloads(plan, cfg, fuse, backend)
     opts = dict(block=block, col_block=col_block, fft_impl=fft_impl,
-                precision=precision, device=dev)
+                precision=precision, device=dev, residency=residency,
+                phase_block=phase_block, buffer_depth=buffer_depth,
+                batch_block=batch_block)
     steps: list[Step] = []
     for group, (mode, arrays) in zip(groups, payloads):
         kind = group[0].kind
         if mode == MEGA:
-            raise NotImplementedError(
-                f"cross-axis group {group[0].stage.name!r} needs {_TODO_MEGA}")
-        if kind in ("fft", "ifft", "mul"):
+            steps.append(_make_mega_step(
+                group, arrays, cfg=cfg, backend=backend, opts=opts))
+        elif kind in ("fft", "ifft", "mul"):
             steps.append(_make_spectral_step(
                 group, mode, arrays, backend=backend, opts=opts))
         elif kind == "transpose":

@@ -17,9 +17,13 @@ Variants
 ``fused3``       Range compression commutes with the azimuth FFT, so the
                  plan reorders to azimuth FFT -> [range FFT * H_r *
                  RCMC-shift * IFFT] -> [H_a * azimuth IFFT]. 3 launches.
+``fused1``       The same stage list as ``fused3``, fused across the axis
+                 changes (``fuse="mega"``): ONE megakernel launch with the
+                 corner turns inside — shared-memory resident for scenes
+                 that fit one block (128^2), grid-staged through device
+                 memory beyond (the paper's 4096^2). 1 launch.
 
-``fused`` (global transposes) and ``fused1`` (the megakernel) are not
-ported yet (ROADMAP.md Queue 1).
+``fused`` (global transposes) is not ported yet (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -143,6 +147,20 @@ def plan_fused3(synth_phase: bool = True) -> SpectralPlan:
     ))
 
 
+def plan_fused1(synth_phase: bool = True) -> SpectralPlan:
+    """The single-launch RDA: the SAME stage list as ``fused3``, compiled
+    under the cross-axis grammar (``fuse="mega"``) — the azimuth FFT, the
+    fused range stage and the azimuth compression become segments of ONE
+    megakernel launch with the corner turns inside the kernel."""
+    az = "azimuth_mf_outer" if synth_phase else "azimuth_mf"
+    return SpectralPlan("fused1", (
+        Stage("azimuth_fft", axis=0, fwd=True),
+        Stage("range_comp_rcmc", axis=1, fwd=True, inv=True,
+              filters=("range_mf", "rcmc_shift")),
+        Stage("azimuth_compression", axis=0, inv=True, filters=(az,)),
+    ))
+
+
 planlib.register_variant(
     "unfused", plan_unfused,
     compile_defaults=(("backend", planlib.BACKEND_TORCH), ("fuse", False)),
@@ -151,6 +169,10 @@ planlib.register_variant(
     "fused_tfree", plan_fused_tfree, plan_kw=("synth_phase",), dispatches=4)
 planlib.register_variant(
     "fused3", plan_fused3, plan_kw=("synth_phase",), dispatches=3)
+planlib.register_variant(
+    "fused1", plan_fused1,
+    compile_defaults=(("fuse", planlib.FUSE_MEGA),),
+    plan_kw=("synth_phase",), dispatches=1)
 
 
 # ---------------------------------------------------------------------------
@@ -162,8 +184,9 @@ def build_pipeline(cfg: SceneConfig, variant: str, **kw) -> Pipeline:
 
     kw: plan kwargs (rcmc_mode / synth_phase, per variant) plus any
     compile_plan option (device, block, col_block, fft_impl, precision,
-    backend, fuse). ``device=None`` (the default) runs on the CUDA card
-    and raises without one; pass ``device="cpu"`` for the plain version."""
+    backend, fuse, residency, phase_block, buffer_depth, batch_block).
+    ``device=None`` (the default) runs on the CUDA card and raises without
+    one; pass ``device="cpu"`` for the plain version."""
     return planlib.build_variant(cfg, variant, **kw)
 
 
@@ -190,5 +213,5 @@ def _build(variant: str, cfg: SceneConfig, **kw) -> Pipeline:
 
 BUILDERS: dict[str, Callable[..., Pipeline]] = {
     v: functools.partial(_build, v)
-    for v in ("unfused", "fused_tfree", "fused3")
+    for v in ("unfused", "fused_tfree", "fused3", "fused1")
 }

@@ -1,13 +1,17 @@
-"""The fused spectral op: host-side pieces, its plain PyTorch version and
-the hand-written CUDA kernel.
+"""The fused spectral op and the megakernel: host-side pieces, their plain
+PyTorch versions and the hand-written CUDA kernels.
 
 fft4step.py     — filter modes, precision policy, factorization, DFT
-                  constants, bs16 codec, the plain four-step version.
-ops.py          — public wrappers (padding, filter plumbing, batch sugar):
-                  the CUDA kernel on CUDA tensors, the plain version on CPU.
+                  constants, bs16 codec, the plain four-step version; the
+                  megakernel's MegaSpec and its plain version mega_plain.
+ops.py          — public wrappers (padding, filter plumbing, batch sugar,
+                  the residency cut): the CUDA kernels on CUDA tensors,
+                  the plain versions on CPU.
 ref.py          — torch.fft oracles.
 _build.py       — nvcc build of csrc/*.cu, loaded with ctypes.
-csrc/spectral.cu— the kernel (sm_90a).
+csrc/spectral.cu        — the per-axis kernel (sm_90a).
+csrc/mega.cu            — mega_resident and mega_staged (sm_90a).
+csrc/spectral_common.cuh— the device code both share.
 """
 from repro_torch.kernels.fft4step import (  # noqa: F401
     FILTER_FULL,

@@ -4,13 +4,16 @@ Every ``csrc/*.cu`` source compiles, at first use, into its own shared
 library with a plain C interface under ``kernels/_build/`` (listed in
 .gitignore); nothing prebuilt ships with the repository. All sources
 build at once, one ``nvcc`` process each. A library is rebuilt when its
-source is newer than it.
+source, or any ``csrc/*.cuh`` header, is newer than it.
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/lib<name>.so csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -fmad=false -shared -Xcompiler -fPIC \
+         -o _build/lib<name>.so csrc/<name>.cu
 
-No ``--use_fast_math``: the spectral kernel's float32 path must keep
-precise ``sincosf`` and IEEE division.
+No ``--use_fast_math``: the float32 path must keep precise ``sincosf``
+and IEEE division. ``-fmad=false``: no multiply-add is contracted behind
+the source's back, so the kernels that share ``spectral_common.cuh``
+round every point the same way (fused1 equals fused3 bit for bit).
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler",
+              "-fPIC")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -56,9 +60,15 @@ def lib_path(name: str) -> str:
 
 
 def _stale(name: str, src: str) -> bool:
+    """No library yet, or one older than its source or any shared header
+    (every ``csrc/*.cuh``, which a source may include)."""
     out = lib_path(name)
-    return (not os.path.exists(out)
-            or os.path.getmtime(out) < os.path.getmtime(src))
+    if not os.path.exists(out):
+        return True
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+               if f.endswith(".cuh")]
+    built = os.path.getmtime(out)
+    return any(built < os.path.getmtime(p) for p in [src, *headers])
 
 
 def build_all(verbose: bool = False) -> dict[str, str]:

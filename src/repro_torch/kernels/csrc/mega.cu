@@ -1,0 +1,317 @@
+// The single-launch 2-D megakernel for Hopper (sm_90a): a chain of per-axis
+// segments `fft? mul* ifft?` over a (B, na, nr) scene batch, with the
+// corner turns between segments inside ONE launch. Two kernels, one C entry
+// point each.
+//
+// mega_resident replaces the Pallas TPU kernel
+//   src/repro/kernels/fft4step.py:931 `_mega_kernel_resident`
+//   (pallas_call at fft4step.py:1246, residency="vmem").
+// mega_staged replaces
+//   src/repro/kernels/fft4step.py:1002 `_mega_kernel_staged`
+//   (pallas_call at fft4step.py:1288, residency="staged"),
+// both wrapped by src/repro/kernels/ops.py:161 `mega_spectral_op`; at
+// float32 with karatsuba=False, fft_impl="matmul", N <= 4096 on each
+// transformed axis as a two-factor split, all five filter modes on either
+// axis (rank-K outer), fwd-only / inv-only / fwd+inv / filter-only
+// segments, at most kMaxSegments segments.
+//
+// mega_resident — one CTA holds one scene's whole split slab in shared
+// memory: na * nr * 8 bytes, at most the 232,448 B a Hopper block may opt
+// in to and the 16 points a thread of a 1024-thread block stages, i.e. up
+// to 128 x 128 (128 KiB). Grid = batch. Each segment runs in place on the
+// slab through the strided stages of spectral_common.cuh: a row segment
+// contracts along the slab's rows, a column segment along its columns, so
+// the corner turn is purely logical, as on the TPU. A segment starts and
+// ends in natural order (an inverse-only segment first permutes into the
+// transposed order, a forward-only one back out of it, both staged through
+// registers between two barriers), so the next segment's per-line filter
+// index is the natural one. DFT constants, u, v, shared vectors and FULL
+// filters are read from global memory (L1/L2) in place. Nothing of the
+// scene goes to device memory between segments.
+//   What bounds it: per scene it moves 16 B a point once (0.010 ms for
+// 132 scenes of 128^2 at 3.35 TB/s); its FFMA stages (8 N (n1 + n2) real
+// flops per transform) and their shared-memory loads are what it spends
+// its time on, so one CTA per SM must hide them without a second CTA.
+//
+// mega_staged — a persistent cooperative kernel for scenes that do not
+// fit one block. Launched with cudaLaunchCooperativeKernel on at most the
+// co-resident block count (occupancy x SMs, queried after the dynamic
+// shared-memory attribute is set). One phase per segment: each block walks
+// the (scene, tile) pairs of the phase, a tile being whole lines that fill
+// the 1024-thread block's 16 points a thread (4 rows or 4 columns at
+// N = 4096, 128 KiB), and runs the per-axis op of spectral.cu on it
+// (tile_op: load, stages, filter, stages, store). Phases are separated by
+// a grid-wide barrier (cooperative_groups::this_grid().sync()). The
+// corner-turned intermediate lives in device memory, and the OUTPUT buffer
+// serves as that scratch: each block reads its whole tile into shared
+// memory before it writes the tile back, and the tiles of one phase are
+// disjoint, so phase p may read and write the same buffer. The buffer is
+// read through __ldcg (L2), never a read-only path: other blocks wrote it
+// before the barrier. No cp.async/TMA prefetch yet (buffer_depth is
+// validated only).
+//   What bounds it at 4096^2: the whole fused1 call must read the raw scene
+// and write the image once, 268 MB, 0.080 ms at 3.35 TB/s; staged through
+// device memory it moves the scene once per phase, 3 x 268 MB, 0.24 ms.
+// Its FFMA stages (~1.0 ms at 67 TFLOP/s for fused1's four transforms) and
+// their load issue are what it spends its time on, as in spectral.cu.
+//
+// Both kernels run, for each point, exactly the float operations of
+// spectral.cu's launches (spectral_common.cuh, -fmad=false), so at f32
+// they equal the three-launch fused3 chain and each other bit for bit.
+//
+// Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
+// -shared -Xcompiler -fPIC; bound through ctypes by
+// src/repro_torch/kernels/_build.py and src/repro_torch/kernels/ops.py.
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
+#include "spectral_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace spectral;
+
+constexpr int kMaxSegments = 8;
+constexpr int kSegFields = 25;   // int64 fields per segment in the table
+
+struct Segment {
+  Dft d;
+  Filter f;
+  int axis, fwd, inv;
+  int tile;           // mega_staged: lines per tile
+};
+
+struct MegaArgs {
+  const float* xr;
+  const float* xi;
+  float* yr;
+  float* yi;
+  int batch, na, nr, nseg;
+  Segment seg[kMaxSegments];
+};
+
+// One segment in place on the resident slab (lines in natural order on
+// entry and on exit).
+template <bool kLineFast>
+__device__ __forceinline__ void resident_segment(const Lines& L,
+                                                 const Segment& g) {
+  const Dft& d = g.d;
+  const bool fwd = g.fwd, inv = g.inv;
+  if (!fwd && inv) {
+    reorder<kLineFast>(L, kToTransposed, d.n1, d.n2, 1.0f, 1.0f);
+  }
+  if (fwd) {
+    stage<true, kLineFast>(L, d.n1, d.n2, d.f1r, d.f1i, d.twr, d.twi, false);
+    stage<false, kLineFast>(L, d.n1, d.n2, d.f2r, d.f2i, nullptr, nullptr,
+                            false);
+  }
+  if (g.f.mode != kNone) {
+    filter_pass<kLineFast>(L, g.f, 0, L.lines, fwd || inv, d.n1, d.n2);
+  }
+  if (inv) {
+    stage<false, kLineFast>(L, d.n1, d.n2, d.f2r, d.f2i, d.twr, d.twi, true);
+    stage<true, kLineFast>(L, d.n1, d.n2, d.f1r, d.f1i, nullptr, nullptr,
+                           false);
+    const float scale = inverse_scale(true, d.n);
+    reorder<kLineFast>(L, kKeep, d.n1, d.n2, scale, -scale);
+  } else if (fwd) {
+    reorder<kLineFast>(L, kToNatural, d.n1, d.n2, 1.0f, 1.0f);
+  }
+}
+
+// grid = batch; one scene per CTA, its (na, nr) slab at s[a * nr + r].
+__global__ void __launch_bounds__(kMaxThreads)
+mega_resident(const __grid_constant__ MegaArgs a) {
+  extern __shared__ float2 s[];
+  const int na = a.na, nr = a.nr;
+  const int total = na * nr;
+  const long long scene = (long long)blockIdx.x * total;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    s[i] = make_float2(a.xr[scene + i], a.xi[scene + i]);
+  }
+  __syncthreads();
+  for (int k = 0; k < a.nseg; ++k) {
+    const Segment& g = a.seg[k];
+    if (g.axis == 1) {
+      resident_segment<false>(Lines{s, na, nr, nr, 1}, g);   // rows
+    } else {
+      resident_segment<true>(Lines{s, nr, na, 1, nr}, g);    // columns
+    }
+  }
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    a.yr[scene + i] = s[i].x;
+    a.yi[scene + i] = s[i].y;
+  }
+}
+
+// Persistent: each block walks the (scene, tile) pairs of every phase.
+// grid.sync() compiles to a call, and with the thread bound alone ptxas
+// then holds the whole kernel to 32 registers (3.9 KB of spills); naming
+// the one block per SM it runs at gives it the 64 that bound allows.
+__global__ void __launch_bounds__(kMaxThreads, 1)
+mega_staged(const __grid_constant__ MegaArgs a) {
+  extern __shared__ float2 s[];
+  cg::grid_group grid = cg::this_grid();
+  const long long scene_points = (long long)a.na * a.nr;
+  for (int k = 0; k < a.nseg; ++k) {
+    const Segment& g = a.seg[k];
+    const int lines = g.axis == 1 ? a.na : a.nr;
+    const int C = g.tile;
+    const int tiles = (lines + C - 1) / C;
+    // phase 0 reads the input; later phases the intermediate in the output
+    const float* xr = k == 0 ? a.xr : a.yr;
+    const float* xi = k == 0 ? a.xi : a.yi;
+    for (int t = blockIdx.x; t < a.batch * tiles; t += gridDim.x) {
+      const int b = t / tiles;
+      tile_op(s, xr, xi, a.yr, a.yi, b * scene_points, lines,
+              (t - b * tiles) * C, C, g.axis, g.fwd, g.inv, g.d, g.f);
+      __syncthreads();   // the next tile's load overwrites s
+    }
+    if (k + 1 < a.nseg) grid.sync();
+  }
+}
+
+template <typename T>
+const T* as_ptr(long long v) {
+  return reinterpret_cast<const T*>(static_cast<uintptr_t>(v));
+}
+
+// Fill MegaArgs from the host's segment table (kSegFields int64 a segment:
+// axis, fwd, inv, mode, rank, n, n1, n2, tile, f1r, f1i, f2r, f2i, twr,
+// twi, hr, hi, h_line, h_k, u, v, u_line, u_k, v_n, v_k).
+cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
+                   float* yi, int batch, int na, int nr, int nseg,
+                   const long long* table) {
+  if (nseg < 1 || nseg > kMaxSegments || batch < 1 || na < 1 || nr < 1) {
+    return cudaErrorInvalidValue;
+  }
+  a.xr = xr; a.xi = xi; a.yr = yr; a.yi = yi;
+  a.batch = batch; a.na = na; a.nr = nr; a.nseg = nseg;
+  for (int k = 0; k < nseg; ++k) {
+    const long long* r = table + (long long)k * kSegFields;
+    Segment& g = a.seg[k];
+    g.axis = (int)r[0]; g.fwd = (int)r[1]; g.inv = (int)r[2];
+    g.f.mode = (int)r[3]; g.f.rank = (int)r[4];
+    g.d.n = (int)r[5]; g.d.n1 = (int)r[6]; g.d.n2 = (int)r[7];
+    g.tile = (int)r[8];
+    g.d.f1r = as_ptr<float>(r[9]);  g.d.f1i = as_ptr<float>(r[10]);
+    g.d.f2r = as_ptr<float>(r[11]); g.d.f2i = as_ptr<float>(r[12]);
+    g.d.twr = as_ptr<float>(r[13]); g.d.twi = as_ptr<float>(r[14]);
+    g.f.hr = as_ptr<float>(r[15]);  g.f.hi = as_ptr<float>(r[16]);
+    g.f.h_line = r[17]; g.f.h_k = r[18];
+    g.f.u = as_ptr<float>(r[19]);   g.f.v = as_ptr<float>(r[20]);
+    g.f.u_line = r[21]; g.f.u_k = r[22]; g.f.v_n = r[23]; g.f.v_k = r[24];
+    if (g.axis != 0 && g.axis != 1) return cudaErrorInvalidValue;
+    if (g.d.n != (g.axis == 1 ? nr : na)) return cudaErrorInvalidValue;
+    if ((g.fwd || g.inv) && g.d.n1 * g.d.n2 != g.d.n) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both entry points launch on `stream` and return the launch's error code
+// (cudaGetLastError() after it; 0 on success). The caller has checked
+// shapes, types, devices and contiguity.
+
+int mega_resident_launch(const float* xr, const float* xi, float* yr,
+                         float* yi, int batch, int na, int nr, int nseg,
+                         const long long* table, void* stream) {
+  MegaArgs a;
+  cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg, table);
+  if (err != cudaSuccess) return (int)err;
+  const int total = na * nr;
+  const int threads = ((total + kPerThread - 1) / kPerThread + 31) / 32 * 32;
+  if (threads > kMaxThreads) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = (size_t)total * sizeof(float2);
+  err = cudaFuncSetAttribute(mega_resident,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  mega_resident<<<batch, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int mega_staged_launch(const float* xr, const float* xi, float* yr,
+                       float* yi, int batch, int na, int nr, int nseg,
+                       int buffer_depth, const long long* table,
+                       void* stream) {
+  if (buffer_depth < 1) return (int)cudaErrorInvalidValue;
+  MegaArgs a;
+  cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg, table);
+  if (err != cudaSuccess) return (int)err;
+  size_t smem = 0;
+  long long work = 0;
+  for (int k = 0; k < nseg; ++k) {
+    const Segment& g = a.seg[k];
+    const int lines = g.axis == 1 ? na : nr;
+    if (g.tile < 1 || g.tile * g.d.n > kMaxThreads * kPerThread) {
+      return (int)cudaErrorInvalidConfiguration;
+    }
+    smem = std::max(smem, (size_t)g.tile * g.d.n * sizeof(float2));
+    work = std::max(work,
+                    (long long)batch * ((lines + g.tile - 1) / g.tile));
+  }
+  err = cudaFuncSetAttribute(mega_staged,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_staged,
+                                                      kMaxThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int grid = (int)std::min((long long)per_sm * sms, work);
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)mega_staged, dim3(grid),
+                                    dim3(kMaxThreads), params, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Blocks of mega_staged one SM holds with `smem` bytes of dynamic shared
+// memory (-1 on error): its persistent grid is this times the SM count.
+int mega_staged_blocks_per_sm(long long smem) {
+  if (cudaFuncSetAttribute(mega_staged,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess) {
+    return -1;
+  }
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mega_staged, kMaxThreads, (size_t)smem) != cudaSuccess) {
+    return -1;
+  }
+  return per_sm;
+}
+
+// cudaDevAttrMaxSharedMemoryPerBlockOptin of device `dev` (-1 on error).
+int mega_smem_optin(int dev) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess) {
+    return -1;
+  }
+  return v;
+}
+
+const char* mega_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -19,7 +19,11 @@ This module holds what every implementation of that op shares:
 * ``spectral_plain`` — the plain PyTorch version of the fused op: the same
   recursion as the CUDA kernel's reference design, written with
   ``torch.einsum``. It is what ``ops.spectral_op`` runs on CPU tensors and
-  what ``chip_smoke.py`` holds the CUDA kernel against on the card.
+  what ``chip_smoke.py`` holds the CUDA kernel against on the card;
+* the megakernel's host side — ``SegmentSpec`` / ``MegaSpec``, the
+  constants plan, the staged phase schedule — and ``mega_plain``, the
+  plain version of both megakernels (a chain of per-axis segments over a
+  whole ``(B, na, nr)`` slab, corner turns purely logical).
 
 Layouts: rows (``axis=1``) transform the last axis of ``(B, lines, n)``;
 cols (``axis=0``) transform the middle axis of ``(B, n, lines)``. Filters
@@ -477,3 +481,242 @@ def flops_nominal(spec: SpectralSpec, lines: int, batch: int = 1) -> float:
     if spec.filter_mode != FILTER_NONE:
         f += 6.0 * n
     return f * lines * batch
+
+
+# ---------------------------------------------------------------------------
+# The single-dispatch 2-D megakernel: fft? mul* ifft? (turn fft? mul* ifft?)*
+# ---------------------------------------------------------------------------
+#
+# One launch runs a sequence of per-axis segments over a (B, na, nr)
+# scene, with the corner turns between them inside the kernel, in one of
+# two residency modes (the reference's strings, so that one set of
+# compile options drives both packages):
+#
+# RESIDENT_VMEM   the whole scene slab stays on chip for the whole call —
+#                 on Hopper, in one CTA's shared memory (csrc/mega.cu
+#                 ``mega_resident``); a turn is purely logical.
+# RESIDENT_STAGED one phase per segment; each phase strips its free axis
+#                 into tiles of whole lines, and the corner-turned
+#                 intermediate lives in device memory (csrc/mega.cu
+#                 ``mega_staged``, a persistent cooperative kernel with a
+#                 grid-wide barrier between phases).
+#
+# Both run the same per-segment math as the per-axis op, and every segment
+# treats its lines independently, so f32 results are the same in both
+# modes and in the equivalent chain of per-axis launches. bs16 re-blocks
+# its per-line exponents at every segment boundary (``mega_plain``).
+
+RESIDENT_VMEM = "vmem"      # whole slab on chip (Hopper: shared memory)
+RESIDENT_STAGED = "staged"  # phase-split, device-memory intermediate
+
+
+def _filter_ref_count(filter_mode: str) -> int:
+    """Operand count of one kernel filter payload, by mode."""
+    return {FILTER_NONE: 0, FILTER_SHARED: 2, FILTER_FULL: 2,
+            FILTER_OUTER: 2, FILTER_SHARED_OUTER: 4}[filter_mode]
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentSpec:
+    """One per-axis ``fft? mul* ifft?`` run inside a megakernel launch.
+    ``n1/n2/n3`` and ``karatsuba`` pin this segment's factorization and
+    complex-product algorithm; ``None`` defers to the MegaSpec."""
+
+    axis: int                      # 1 = range/rows, 0 = azimuth/cols
+    fwd: bool = False
+    inv: bool = False
+    filter_mode: str = FILTER_NONE
+    outer_rank: int = 1
+    n1: Optional[int] = None
+    n2: Optional[int] = None
+    n3: Optional[int] = None
+    karatsuba: Optional[bool] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MegaSpec:
+    """Static configuration of one single-launch 2-D megakernel."""
+
+    na: int                        # azimuth lines (axis-0 FFT length)
+    nr: int                        # range samples (axis-1 FFT length)
+    segments: tuple[SegmentSpec, ...]
+    residency: str = RESIDENT_VMEM
+    batch_block: Optional[int] = None  # scenes per resident slab (None = 1)
+    phase_block: int = 8           # staged: the phase's line granule
+    buffer_depth: int = 2          # staged: prefetch slots (1 = none)
+    n1: Optional[int] = None       # range-axis factorization override
+    n2: Optional[int] = None       #   (azimuth uses default_factorization)
+    n3: Optional[int] = None
+    fft_impl: str = "matmul"
+    karatsuba: bool = False
+    precision: str = "f32"
+
+    def __post_init__(self):
+        if not self.segments:
+            raise ValueError("MegaSpec needs at least one segment")
+        if self.residency not in (RESIDENT_VMEM, RESIDENT_STAGED):
+            raise ValueError(f"unknown residency {self.residency!r}")
+        if self.buffer_depth < 1:
+            raise ValueError(
+                f"buffer_depth must be >= 1, got {self.buffer_depth}")
+        for s in self.segments:
+            if s.axis not in (0, 1):
+                raise ValueError(f"segment axis must be 0 or 1, got {s.axis}")
+            if not (s.fwd or s.inv or s.filter_mode != FILTER_NONE):
+                raise ValueError("empty megakernel segment")
+        resolve_precision(self.precision)
+
+    def seg_spec(self, seg: SegmentSpec) -> SpectralSpec:
+        """The per-axis SpectralSpec view of one segment. Factorization:
+        the segment's own override > the MegaSpec range-axis knobs (axis 1
+        only) > library default; karatsuba: segment > MegaSpec."""
+        kw = {}
+        if seg.axis == 1:
+            kw = dict(n1=self.n1, n2=self.n2, n3=self.n3)
+        if seg.n1 is not None:
+            kw = dict(n1=seg.n1, n2=seg.n2, n3=seg.n3)
+        kara = self.karatsuba if seg.karatsuba is None else seg.karatsuba
+        return SpectralSpec(
+            n=self.nr if seg.axis == 1 else self.na,
+            fwd=seg.fwd, inv=seg.inv, filter_mode=seg.filter_mode,
+            axis=seg.axis, fft_impl=self.fft_impl, karatsuba=kara,
+            precision=self.precision, outer_rank=seg.outer_rank, **kw)
+
+    @property
+    def turns(self) -> int:
+        """In-kernel corner turns (axis changes between segments)."""
+        return sum(1 for a, b in zip(self.segments, self.segments[1:])
+                   if a.axis != b.axis)
+
+
+def _seg_const_key(spec: MegaSpec, seg: SegmentSpec) -> tuple:
+    """(axis, factorization): segments share one constants set only while
+    they agree on both."""
+    return (seg.axis, spec.seg_spec(seg).factors())
+
+
+def _mega_const_plan(spec: MegaSpec) -> list[tuple[tuple, tuple]]:
+    """((axis, factors), dft_constants) per distinct transformed
+    (axis, factorization), in first-use order."""
+    out: list[tuple[tuple, tuple]] = []
+    if spec.fft_impl != "matmul":
+        return out
+    seen = set()
+    for seg in spec.segments:
+        key = _seg_const_key(spec, seg)
+        if (seg.fwd or seg.inv) and key not in seen:
+            seen.add(key)
+            out.append((key, dft_constants(*key[1])))
+    return out
+
+
+def _seg_filter_shapes(spec: MegaSpec, seg: SegmentSpec) -> list[tuple]:
+    """Kernel-layout shapes of one segment's filter operands (whole-scene;
+    filters are never line-blocked)."""
+    na, nr, K = spec.na, spec.nr, seg.outer_rank
+    if seg.axis == 1:
+        shared, full = (1, nr), (na, nr)
+        u, v = (na, K), (K, nr)
+    else:
+        shared, full = (na, 1), (na, nr)
+        u, v = (K, nr), (na, K)
+    return {
+        FILTER_NONE: [],
+        FILTER_SHARED: [shared, shared],
+        FILTER_FULL: [full, full],
+        FILTER_OUTER: [u, v],
+        FILTER_SHARED_OUTER: [shared, shared, u, v],
+    }[seg.filter_mode]
+
+
+def _staged_phases(spec: MegaSpec) -> tuple[list[dict], int]:
+    """The staged schedule: one phase per segment, its free axis stripped
+    in ``phase_block``-line blocks. Returns (phases, total blocks). Phase
+    p reads the input (p = 0) or the intermediate and writes the
+    intermediate or the output (last p). Raises ValueError when
+    ``phase_block`` does not divide a free axis."""
+    phases: list[dict] = []
+    off = 0
+    last = len(spec.segments) - 1
+    for i, seg in enumerate(spec.segments):
+        lines = spec.na if seg.axis == 1 else spec.nr
+        pb = min(spec.phase_block, lines)
+        if lines % pb:
+            raise ValueError(
+                f"phase_block={pb} does not divide the free axis "
+                f"({lines} lines) of segment {i}")
+        phases.append(dict(
+            seg=seg, idx=i, axis=seg.axis, pb=pb, nblocks=lines // pb,
+            offset=off, src="x" if i == 0 else "scratch",
+            dst="out" if i == last else "scratch"))
+        off += lines // pb
+    return phases, off
+
+
+def _mega_flops(spec: MegaSpec) -> float:
+    """Nominal FLOP of one scene through every segment (5 N log2 N per
+    transform + 6 N per multiply, per line)."""
+    total = 0.0
+    for seg in spec.segments:
+        lines = spec.na if seg.axis == 1 else spec.nr
+        total += flops_nominal(spec.seg_spec(seg), lines)
+    return total
+
+
+def check_mega(spec: MegaSpec, batch: int) -> None:
+    """The residency's own shape rules, on every route: a resident
+    ``batch_block`` divides the batch; a staged ``phase_block`` divides
+    every free axis."""
+    if spec.residency == RESIDENT_VMEM:
+        bb = spec.batch_block or 1
+        if batch % bb:
+            raise ValueError(
+                f"batch={batch} not divisible by batch_block={bb}")
+    else:
+        _staged_phases(spec)
+
+
+def _run_segment(xr, xi, consts, sspec: SpectralSpec, seg: SegmentSpec,
+                 filt):
+    """One segment on a (B, na, nr) slab — the rows layout (B, L, n) and
+    the cols layout (B, n, L) are both the scene layout, so the corner
+    turn between segments is purely logical."""
+    if seg.fwd:
+        xr, xi = _run_fft(xr, xi, consts, sspec, inverse=False)
+    xr, xi = _apply_filters(xr, xi, seg.axis, seg.filter_mode, filt)
+    if seg.inv:
+        xr, xi = _run_fft(xr, xi, consts, sspec, inverse=True)
+    return xr, xi
+
+
+def mega_plain(spec: MegaSpec, xr, xi, *filter_args):
+    """The plain version of both megakernels: the segment chain over the
+    whole (B, na, nr) float32 slab, with ``filter_args`` per segment in
+    the kernel layouts of ``_seg_filter_shapes``. Every precision,
+    ``karatsuba`` and ``fft_impl``; runs on the tensors' device.
+
+    bs16 extracts per-line exponents along the first segment's free axis,
+    and at every later segment boundary applies the carried exponents
+    (exact) and re-extracts along the new segment's free axis; the
+    exponents land once, at the end."""
+    check_mega(spec, xr.shape[0])
+    dev = str(xr.device)
+    consts = {key: device_constants(key[1], dev)
+              for key, _ in _mega_const_plan(spec)}
+    it = iter(filter_args)
+    seg_filts = [tuple(next(it)
+                       for _ in range(_filter_ref_count(s.filter_mode)))
+                 for s in spec.segments]
+    block_scaled = PRECISIONS[spec.precision].block_scaled
+    exp = None
+    for i, (seg, filt) in enumerate(zip(spec.segments, seg_filts)):
+        if block_scaled:
+            if i:
+                xr, xi = apply_exponents(xr, xi, exp)
+            exp = line_exponents(xr, xi, seg.axis)
+            xr, xi = remove_exponents(xr, xi, exp)
+        xr, xi = _run_segment(xr, xi, consts.get(_seg_const_key(spec, seg)),
+                              spec.seg_spec(seg), seg, filt)
+    if exp is not None:
+        xr, xi = apply_exponents(xr, xi, exp)
+    return xr.contiguous(), xi.contiguous()

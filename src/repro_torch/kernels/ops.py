@@ -1,4 +1,4 @@
-"""Public wrappers around the fused spectral op.
+"""Public wrappers around the fused spectral op and the megakernel.
 
 All functions take and return split re/im float32 tensors. Each wrapper
 accepts one scene — (lines, N) rows layout / (N, lines) cols layout — or
@@ -16,6 +16,13 @@ Where it runs is decided by the tensors alone:
 
 ``spectral_op_plain`` runs the plain version on any device; it is the
 yardstick the kernel is held against on the card.
+
+``mega_spectral_op`` runs a whole multi-axis chain of segments in ONE
+launch of ``csrc/mega.cu`` (``mega_resident`` or ``mega_staged`` by
+``residency``, counted per kernel in ``MEGA_LAUNCHES``) on a CUDA tensor, and
+``fft4step.mega_plain`` on a CPU tensor; ``mega_spectral_op_plain`` runs
+the plain version on any device. ``mega_residency`` is the cut between
+the two kernels.
 """
 from __future__ import annotations
 
@@ -33,8 +40,18 @@ from repro_torch.kernels.fft4step import (
     FILTER_OUTER,
     FILTER_SHARED,
     FILTER_SHARED_OUTER,
+    RESIDENT_STAGED,
+    RESIDENT_VMEM,
+    MegaSpec,
+    SegmentSpec,
     SpectralSpec,
+    _filter_ref_count,
+    apply_exponents,
+    check_mega,
     device_constants,
+    line_exponents,
+    mega_plain,
+    remove_exponents,
     resolve_precision,
     spectral_plain,
 )
@@ -42,6 +59,8 @@ from repro_torch.kernels.fft4step import (
 # Launches of the CUDA spectral kernel in this process (one per call on a
 # CUDA tensor, counted where the launch succeeds and nowhere else).
 SPECTRAL_LAUNCHES = 0
+# Launches of each CUDA megakernel, counted the same way.
+MEGA_LAUNCHES = {"mega_resident": 0, "mega_staged": 0}
 
 KERNEL_NAME = "spectral"
 KERNEL_MAX_N = 4096
@@ -124,7 +143,7 @@ def _bind():
     fn = lib.spectral_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([p] * 4 + [i] * 9 + [p] * 10 + [i] + [ll] * 4
+        fn.argtypes = ([p] * 4 + [i] * 9 + [p] * 10 + [i] + [ll] * 6
                        + [i, i, p])
         fn.restype = ctypes.c_int
         lib.spectral_error_string.argtypes = [ctypes.c_int]
@@ -167,6 +186,43 @@ def check_kernel_spec(spec: SpectralSpec) -> tuple[int, int]:
     return factors
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _filter_launch_args(mode: str, axis: int, filter_args):
+    """(tensors, args): the launch arguments (hr, hi, u, v, rank, h_line,
+    h_k, u_line, u_k, v_n, v_k) of one filter payload in the kernel
+    layouts — element (line, k) of the explicit filter at
+    h[line * h_line + k * h_k] (shared vectors have h_line = 0), the
+    phase's u (line, q) at u[line * u_line + q * u_k] and v (k, q) at
+    v[k * v_n + q * v_k]; pointers are ints or None — and the tensors
+    they point into, which the caller keeps alive until the launch."""
+    hr = hi = u = v = None
+    rank = 1
+    h_line = h_k = u_line = u_k = v_n = v_k = 0
+    if mode in (FILTER_SHARED, FILTER_FULL, FILTER_SHARED_OUTER):
+        hr = filter_args[0].contiguous()
+        hi = filter_args[1].contiguous()
+        if mode == FILTER_FULL:   # (lines, n) rows / (n, lines) cols
+            h_line, h_k = ((hr.stride(0), hr.stride(1)) if axis == 1
+                           else (hr.stride(1), hr.stride(0)))
+        else:
+            h_k = 1
+    if mode in (FILTER_OUTER, FILTER_SHARED_OUTER):
+        u, v = filter_args[-2], filter_args[-1]
+        if axis == 1:   # u (L, K), v (K, N)
+            rank = u.shape[1]
+            u_line, u_k = u.stride(0), u.stride(1)
+            v_n, v_k = v.stride(1), v.stride(0)
+        else:           # u (K, L), v (N, K)
+            rank = u.shape[0]
+            u_line, u_k = u.stride(1), u.stride(0)
+            v_n, v_k = v.stride(0), v.stride(1)
+    return [hr, hi, u, v], (_ptr(hr), _ptr(hi), _ptr(u), _ptr(v), rank,
+                            h_line, h_k, u_line, u_k, v_n, v_k)
+
+
 def _launch_cuda(spec: SpectralSpec, xr, xi, filter_args):
     global SPECTRAL_LAUNCHES
     n1, n2 = check_kernel_spec(spec)
@@ -188,35 +244,18 @@ def _launch_cuda(spec: SpectralSpec, xr, xi, filter_args):
     if yr.numel() == 0:
         return yr, yi
     consts = device_constants((n1, n2), str(dev))
-    hr = hi = u = v = None
-    u_line = u_k = v_n = v_k = 0
-    rank = spec.outer_rank
-    mode = spec.filter_mode
-    if mode in (FILTER_SHARED, FILTER_FULL, FILTER_SHARED_OUTER):
-        hr = filter_args[0].contiguous()
-        hi = filter_args[1].contiguous()
-    if mode in (FILTER_OUTER, FILTER_SHARED_OUTER):
-        u, v = filter_args[-2], filter_args[-1]
-        if spec.axis == 1:   # u (L, K), v (K, N)
-            u_line, u_k = u.stride(0), u.stride(1)
-            v_n, v_k = v.stride(1), v.stride(0)
-        else:                # u (K, L), v (N, K)
-            u_line, u_k = u.stride(1), u.stride(0)
-            v_n, v_k = v.stride(0), v.stride(1)
+    keep, filt = _filter_launch_args(spec.filter_mode, spec.axis,
+                                     filter_args)
     tile, threads = kernel_tile(n, spec.axis)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     lib = _bind()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spectral_launch(
-            ptr(xr), ptr(xi), ptr(yr), ptr(yi),
+            _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi),
             b, lines, n, n1, n2, spec.axis, int(spec.fwd), int(spec.inv),
-            _MODE_CODES[mode], *(ptr(c) for c in consts),
-            ptr(hr), ptr(hi), ptr(u), ptr(v), rank,
-            u_line, u_k, v_n, v_k, tile, threads, stream)
+            _MODE_CODES[spec.filter_mode], *(_ptr(c) for c in consts),
+            *filt, tile, threads, stream)
+    del keep
     if err != 0:
         msg = lib.spectral_error_string(err).decode()
         raise RuntimeError(f"spectral kernel launch failed ({err}): {msg}")
@@ -325,3 +364,285 @@ def fused_rc_rcmc_rows(xr, xi, hr, hi, u, v, **kw):
     freqs[col]) -> IFFT."""
     return spectral_op(xr, xi, hr=hr, hi=hi, u=u, v=v, fwd=True, inv=True,
                        axis=1, filter_mode=FILTER_SHARED_OUTER, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The megakernel: a multi-axis segment chain in one launch
+# ---------------------------------------------------------------------------
+
+MEGA_KERNEL_NAME = "mega"
+# Shared memory one block may opt in to on sm_90 (cudaDevAttr-
+# MaxSharedMemoryPerBlockOptin; chip_smoke.py checks it on the card).
+SMEM_OPTIN_BYTES = 232_448
+# Points one 1024-thread block stages in registers per in-place pass
+# (16 a thread): the resident kernel's other capacity limit.
+RESIDENT_MAX_POINTS = 1024 * 16
+MEGA_MAX_SEGMENTS = 8
+_SEG_FIELDS = 25            # int64 fields per segment in the launch table
+
+
+def mega_residency(na: int, nr: int, batch_block: int = 1,
+                   precision: Optional[str] = None,
+                   filter_bytes: int = 0) -> str:
+    """The residency the compiler picks when none is pinned: ``"vmem"``
+    iff a ``batch_block``-scene split f32 slab (8 B a point) fits one
+    block's opt-in shared memory and its register staging, else
+    ``"staged"`` (128^2 -> vmem; 256^2 and 4096^2 -> staged).
+
+    The Hopper counterpart of the reference's VMEM cut. The slab is f32 at
+    every precision (only DFT operands narrow), and the DFT constants and
+    filters are read from global memory in place, so ``precision`` is only
+    validated and ``filter_bytes`` takes no shared memory."""
+    resolve_precision(precision)
+    del filter_bytes
+    points = (batch_block or 1) * na * nr
+    fits = points * 8 <= SMEM_OPTIN_BYTES and points <= RESIDENT_MAX_POINTS
+    return RESIDENT_VMEM if fits else RESIDENT_STAGED
+
+
+def _mega_prepare(na, nr, filter_args, *, segments, residency, batch_block,
+                  phase_block, buffer_depth, fft_impl, karatsuba, precision,
+                  n1, n2, n3):
+    """Parse segment records and lay the scene-coordinate filter payloads
+    out in kernel layout: (spec, prepared filter args)."""
+    segs = []
+    args = list(filter_args)
+    prepared = []
+    ai = 0
+    for rec in segments:
+        if len(rec) == 4:
+            (axis, fwd, inv, fmode), seg_kw = rec, {}
+        elif len(rec) == 8:
+            axis, fwd, inv, fmode = rec[:4]
+            seg_kw = dict(zip(("n1", "n2", "n3", "karatsuba"), rec[4:]))
+        else:
+            raise ValueError(
+                f"segment record must have 4 fields (axis, fwd, inv, "
+                f"filter_mode) or 8 (+ n1, n2, n3, karatsuba), got "
+                f"{len(rec)}")
+        if fmode not in FILTER_MODES:
+            raise ValueError(f"unknown filter_mode {fmode!r}")
+        n = nr if axis == 1 else na
+        rank = 1
+        if fmode in (FILTER_SHARED, FILTER_FULL, FILTER_SHARED_OUTER):
+            hr, hi = args[ai], args[ai + 1]
+            ai += 2
+            if fmode == FILTER_FULL:
+                prepared += [hr, hi]
+            else:
+                shape = (1, n) if axis == 1 else (n, 1)
+                prepared += [hr.reshape(shape), hi.reshape(shape)]
+        if fmode in (FILTER_OUTER, FILTER_SHARED_OUTER):
+            u, v = args[ai], args[ai + 1]
+            ai += 2
+            u = u.reshape(u.shape[0], -1)
+            v = v.reshape(v.shape[0], -1)
+            rank = u.shape[1]
+            prepared += ([u, v.T] if axis == 1 else [u.T, v])
+        segs.append(SegmentSpec(axis=axis, fwd=fwd, inv=inv,
+                                filter_mode=fmode, outer_rank=rank, **seg_kw))
+    if ai != len(args):
+        raise ValueError(
+            f"got {len(args)} filter arrays but segments consume {ai}")
+    spec = MegaSpec(
+        na=na, nr=nr, segments=tuple(segs), residency=residency,
+        batch_block=batch_block, phase_block=phase_block,
+        buffer_depth=buffer_depth, n1=n1, n2=n2, n3=n3, fft_impl=fft_impl,
+        karatsuba=karatsuba, precision=precision)
+    return spec, prepared
+
+
+def _bind_mega():
+    lib = _build.load(MEGA_KERNEL_NAME)
+    if lib.mega_resident_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mega_resident_launch.argtypes = [p] * 4 + [i] * 4 + [p, p]
+        lib.mega_staged_launch.argtypes = [p] * 4 + [i] * 5 + [p, p]
+        for fn in (lib.mega_resident_launch, lib.mega_staged_launch):
+            fn.restype = ctypes.c_int
+        lib.mega_staged_blocks_per_sm.argtypes = [ctypes.c_longlong]
+        lib.mega_staged_blocks_per_sm.restype = ctypes.c_int
+        lib.mega_smem_optin.argtypes = [i]
+        lib.mega_smem_optin.restype = ctypes.c_int
+        lib.mega_error_string.argtypes = [i]
+        lib.mega_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def staged_tile(n: int, lines: int) -> int:
+    """Lines per tile of one ``mega_staged`` phase: whole lines filling
+    the 1024-thread block's 16 points a thread (4 rows or columns at
+    N = 4096), never more than the scene has."""
+    return min(RESIDENT_MAX_POINTS // n, lines)
+
+
+def check_mega_kernel(spec: MegaSpec) -> None:
+    """Raise ValueError for what the CUDA megakernels do not take yet."""
+    if spec.precision != "f32":
+        raise ValueError(
+            f"precision {spec.precision!r} is not taken by the CUDA "
+            f"megakernels yet (bf16/f16/bs16: {_ROADMAP}b)")
+    if len(spec.segments) > MEGA_MAX_SEGMENTS:
+        raise ValueError(f"the CUDA megakernels take at most "
+                         f"{MEGA_MAX_SEGMENTS} segments, got "
+                         f"{len(spec.segments)}")
+    for seg in spec.segments:
+        sspec = spec.seg_spec(seg)
+        if sspec.n > KERNEL_MAX_N:
+            raise ValueError(
+                f"n={sspec.n} > {KERNEL_MAX_N} is not taken by the CUDA "
+                f"megakernels yet ({_ROADMAP}d)")
+        if seg.fwd or seg.inv:
+            check_kernel_spec(sspec)
+    if spec.residency == RESIDENT_VMEM:
+        if (spec.batch_block or 1) != 1:
+            raise ValueError("the CUDA mega_resident kernel holds one scene "
+                             f"per block; batch_block={spec.batch_block}")
+        if mega_residency(spec.na, spec.nr) != RESIDENT_VMEM:
+            raise ValueError(
+                f"residency='vmem': a {spec.na}x{spec.nr} scene does not fit "
+                f"one block's shared memory ({SMEM_OPTIN_BYTES} B, "
+                f"{RESIDENT_MAX_POINTS} points); use residency='staged'")
+
+
+def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
+    b = xr.shape[0]
+    check_mega_kernel(spec)
+    dev = xr.device
+    for t in (xr, xi, *filter_args):
+        if t.device != dev:
+            raise ValueError(f"all tensors must be on {dev}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"the CUDA megakernels take float32, "
+                             f"got {t.dtype}")
+    xr = xr.contiguous()
+    xi = xi.contiguous()
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    if yr.numel() == 0:
+        return yr, yi
+    it = iter(filter_args)
+    table = []
+    keep = []            # tensors whose pointers the table holds
+    for seg in spec.segments:
+        sspec = spec.seg_spec(seg)
+        lines = spec.na if seg.axis == 1 else spec.nr
+        fargs = [next(it)
+                 for _ in range(_filter_ref_count(seg.filter_mode))]
+        tensors, (hr, hi, u, v, rank, h_line, h_k, u_line, u_k, v_n,
+                  v_k) = _filter_launch_args(seg.filter_mode, seg.axis, fargs)
+        keep += tensors
+        n1 = n2 = 1
+        consts = (None,) * 6
+        if seg.fwd or seg.inv:
+            n1, n2 = sspec.factors()
+            consts = device_constants((n1, n2), str(dev))
+        table.append([
+            seg.axis, int(seg.fwd), int(seg.inv),
+            _MODE_CODES[seg.filter_mode], rank, sspec.n, n1, n2,
+            staged_tile(sspec.n, lines),
+            *(_ptr(c) or 0 for c in consts),
+            hr or 0, hi or 0, h_line, h_k, u or 0, v or 0,
+            u_line, u_k, v_n, v_k])
+    flat = [int(f) for rec in table for f in rec]
+    assert len(flat) == _SEG_FIELDS * len(table)
+    ctable = (ctypes.c_longlong * len(flat))(*flat)
+    lib = _bind_mega()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        head = (_ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), b, spec.na, spec.nr,
+                len(table))
+        if spec.residency == RESIDENT_VMEM:
+            kernel = "mega_resident"
+            err = lib.mega_resident_launch(*head, ctable, stream)
+        else:
+            kernel = "mega_staged"
+            err = lib.mega_staged_launch(*head, spec.buffer_depth, ctable,
+                                         stream)
+    del keep
+    if err != 0:
+        msg = lib.mega_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed ({err}): {msg}")
+    MEGA_LAUNCHES[kernel] += 1
+    return yr, yi
+
+
+def _mega(xr, xi, filter_args, plain: bool, *, segments,
+          residency: str = RESIDENT_VMEM, batch_block: Optional[int] = None,
+          phase_block: int = 8, buffer_depth: int = 2,
+          fft_impl: str = "matmul", karatsuba: bool = False,
+          precision: Optional[str] = None, n1: Optional[int] = None,
+          n2: Optional[int] = None, n3: Optional[int] = None, exp_in=None,
+          return_exp: bool = False):
+    prec = resolve_precision(precision)
+    if (exp_in is not None or return_exp) and not prec.block_scaled:
+        raise ValueError(
+            "exp_in/return_exp carry block exponents and require a "
+            f"block-scaled precision, got {prec.name!r}")
+    batched = xr.ndim == 3
+    if not batched:
+        xr = xr[None]
+        xi = xi[None]
+    if exp_in is not None:
+        xr, xi = apply_exponents(xr, xi, exp_in)
+    spec, prepared = _mega_prepare(
+        xr.shape[1], xr.shape[2], filter_args, segments=segments,
+        residency=residency, batch_block=batch_block, phase_block=phase_block,
+        buffer_depth=buffer_depth, fft_impl=fft_impl, karatsuba=karatsuba,
+        precision=prec.name, n1=n1, n2=n2, n3=n3)
+    if plain or xr.device.type == "cpu":
+        yr, yi = mega_plain(spec, xr, xi, *prepared)
+    elif xr.device.type == "cuda":
+        check_mega(spec, xr.shape[0])
+        yr, yi = _launch_mega(spec, xr, xi, prepared)
+    else:
+        raise ValueError(f"no megakernel for device {xr.device}")
+    if return_exp:
+        exp = line_exponents(yr, yi, spec.segments[-1].axis)
+        yr, yi = remove_exponents(yr, yi, exp)
+        if not batched:
+            return yr[0], yi[0], exp[0]
+        return yr, yi, exp
+    if not batched:
+        return yr[0], yi[0]
+    return yr, yi
+
+
+def mega_spectral_op(xr, xi, *filter_args, **kw):
+    """A whole multi-axis spectral chain — ``fft? mul* ifft?`` segments
+    with the corner turns between them — as ONE launch.
+
+    x: one scene (na, nr) or a batch (B, na, nr), split re/im float32 in
+    scene layout (azimuth rows x range samples). ``segments`` is a tuple
+    of ``(axis, fwd, inv, filter_mode)`` records in execution order (axis
+    1 transforms range, 0 azimuth), or 8-field records that add this
+    segment's ``(n1, n2, n3, karatsuba)``. ``filter_args`` follow in
+    segment order, each segment's payload in SCENE coordinates
+    (n = transformed-axis length, lines = the other axis):
+
+      shared:       hr (n,), hi (n,)
+      full:         hr (na, nr), hi (na, nr)
+      outer:        u (lines,) or (lines, K); v (n,) or (n, K)
+      shared_outer: hr, hi, u, v
+
+    Keywords as the reference's: ``residency`` ('vmem': on Hopper the
+    whole scene stays in one block's shared memory; 'staged': phases
+    through device memory), ``batch_block``, ``phase_block`` and
+    ``buffer_depth`` (validated; the staged kernel picks its own tiles and
+    does not prefetch yet), ``fft_impl``, ``karatsuba``, ``precision``,
+    ``n1/n2/n3`` (range-axis factorization), ``exp_in`` / ``return_exp``
+    (bs16: carry the per-line exponents across calls — the result comes
+    back scaled with the exponents along the last segment's free axis).
+
+    On a CUDA tensor this launches ``mega_resident`` or ``mega_staged``
+    (f32, karatsuba=False, matmul, N <= 4096 two-factor splits, at most 8
+    segments) and raises ValueError for anything else — including a
+    forced 'vmem' on a scene that does not fit; on a CPU tensor it runs
+    ``fft4step.mega_plain``, which takes all of them.
+    """
+    return _mega(xr, xi, filter_args, False, **kw)
+
+
+def mega_spectral_op_plain(xr, xi, *filter_args, **kw):
+    """``mega_spectral_op`` through the plain version on any device."""
+    return _mega(xr, xi, filter_args, True, **kw)

@@ -1,11 +1,12 @@
-"""The hand-written CUDA spectral kernel against its plain PyTorch version,
-on the card. Imports neither JAX nor the JAX package, so it runs where
-only PyTorch is installed:
+"""The hand-written CUDA kernels (the spectral kernel and the two
+megakernels) against their plain PyTorch versions, on the card. Imports
+neither JAX nor the JAX package, so it runs where only PyTorch is
+installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Every test here needs a CUDA card (marker ``gpu``) and skips without one:
-the CUDA kernel has no CPU mode. Tolerance 2e-4 x max|want|, the
+the CUDA kernels have no CPU mode. Tolerance 2e-4 x max|want|, the
 reference's own (tests/test_kernels.py).
 """
 import pytest
@@ -91,3 +92,99 @@ def test_cuda_kernel_refuses_and_never_falls_back(cuda_device):
     with pytest.raises(ValueError, match="ROADMAP"):
         ops.fft_rows(*big)
     assert ops.SPECTRAL_LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The megakernels (csrc/mega.cu)
+# ---------------------------------------------------------------------------
+
+MEGA_CHAINS = {
+    "fused1": ((0, True, False, "none"), (1, True, True, "shared_outer"),
+               (0, False, True, "outer")),
+    "full_shared": ((0, True, False, "none"), (1, True, True, "full"),
+                    (0, False, True, "shared")),
+    "same_axis": ((1, True, False, "shared"), (1, False, True, "full"),
+                  (0, True, True, "outer")),
+    "one_segment": ((0, True, True, "shared_outer"),),
+}
+
+
+def make_mega_case(device, seed, segments, batch, na, nr, rank=2):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x = (rand(batch, na, nr), rand(batch, na, nr))
+    args = []
+    for axis, _fwd, _inv, mode in segments:
+        n, lines = (nr, na) if axis == 1 else (na, nr)
+        if mode in ("shared", "shared_outer"):
+            args += [rand(n), rand(n)]
+        if mode == "full":
+            args += [rand(na, nr), rand(na, nr)]
+        if mode in ("outer", "shared_outer"):
+            args += [0.1 * rand(lines, rank), rand(n, rank)]
+    return x, args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("shape", [(64, 128), (128, 64), (128, 128),
+                                   (256, 512)])
+@pytest.mark.parametrize("chain", sorted(MEGA_CHAINS))
+def test_cuda_megakernels_match_plain(cuda_device, chain, shape, batch):
+    segments = MEGA_CHAINS[chain]
+    x, args = make_mega_case(cuda_device, 1, segments, batch, *shape)
+    want = ops.mega_spectral_op_plain(*x, *args, segments=segments)
+    outs = []
+    for residency in ("vmem", "staged"):
+        if residency == "vmem" and ops.mega_residency(*shape) != "vmem":
+            continue
+        kernel = "mega_resident" if residency == "vmem" else "mega_staged"
+        before = ops.MEGA_LAUNCHES[kernel]
+        got = ops.mega_spectral_op(*x, *args, segments=segments,
+                                   residency=residency)
+        torch.cuda.synchronize()
+        assert ops.MEGA_LAUNCHES[kernel] == before + 1
+        assert_close(got, want)
+        outs.append(got)
+    if len(outs) == 2:
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [128, 256])
+def test_cuda_fused1_equals_fused3(cuda_device, n):
+    from repro_torch.core.sar import build_pipeline, paper_targets, simulate
+    from repro_torch.core.sar.geometry import test_scene
+    cfg = test_scene(n)
+    raw = simulate(cfg, paper_targets(cfg))
+    f3 = build_pipeline(cfg, "fused3").run(raw)
+    kernel = "mega_resident" if n == 128 else "mega_staged"
+    before = dict(ops.MEGA_LAUNCHES), ops.SPECTRAL_LAUNCHES
+    f1 = build_pipeline(cfg, "fused1").run(raw)
+    torch.cuda.synchronize()
+    before[0][kernel] += 1
+    assert (ops.MEGA_LAUNCHES, ops.SPECTRAL_LAUNCHES) == before
+    assert torch.equal(f1, f3)
+    staged = build_pipeline(cfg, "fused1", residency="staged").run(raw)
+    assert torch.equal(staged, f3)
+
+
+@pytest.mark.gpu
+def test_cuda_megakernels_refuse_and_never_fall_back(cuda_device):
+    segments = MEGA_CHAINS["fused1"]
+    x, args = make_mega_case(cuda_device, 2, segments, 1, 64, 64)
+    big, big_args = make_mega_case(cuda_device, 2, segments, 1, 256, 256)
+    before = dict(ops.MEGA_LAUNCHES)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        ops.mega_spectral_op(*x, *args, segments=segments, precision="bs16")
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.mega_spectral_op(*big, *big_args, segments=segments,
+                             residency="vmem")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        ops.mega_spectral_op(*x, *args, segments=segments,
+                             fft_impl="stockham")
+    assert ops.MEGA_LAUNCHES == before

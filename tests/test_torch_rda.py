@@ -1,6 +1,7 @@
 """repro_torch SAR slice vs the JAX reference on the CPU: geometry,
 filters, simulator, the plan compiler, and the RDA ``fused3`` /
-``fused_tfree`` / ``unfused`` pipelines on the 128^2 point-target scene.
+``fused_tfree`` / ``unfused`` pipelines on the 128^2 point-target scene
+(``fused1``: tests/test_torch_fused1.py).
 
 Both packages focus the SAME numpy raw scene (the reference's
 ``simulate_cached``), so simulator noise never hides focusing drift.
@@ -211,7 +212,7 @@ def test_dispatches_equal_documented(variant, count):
 
 @pytest.mark.parametrize("fuse", [False, True, tplan.FUSE_MEGA])
 @pytest.mark.parametrize("plan_name", ["plan_unfused", "plan_fused_tfree",
-                                       "plan_fused3"])
+                                       "plan_fused3", "plan_fused1"])
 def test_dispatch_count_matches_reference(plan_name, fuse):
     mine = getattr(trda, plan_name)()
     theirs = getattr(jrda, plan_name)()
@@ -242,9 +243,11 @@ def test_reference_plan_json_compiles_to_same_image():
 
 
 def test_megakernel_and_transpose_groups_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplan.compile_plan(trda.plan_fused3(), tcfg(), device="cpu",
-                           fuse=tplan.FUSE_MEGA)
+    """A mega group now compiles to one step; transposes still raise."""
+    pipe = tplan.compile_plan(trda.plan_fused3(), tcfg(), device="cpu",
+                              fuse=tplan.FUSE_MEGA)
+    assert [s.kind for s in pipe.steps] == ["mega"]
+    assert pipe.dispatches == 1
     turn = tplan.SpectralPlan("t", (tplan.Stage("turn", kind="transpose"),))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tplan.compile_plan(turn, tcfg(), device="cpu")
@@ -255,8 +258,8 @@ def test_unknown_filter_and_variant_raise():
         "s", axis=1, fwd=True, inv=True, filters=("no_such_filter",)),))
     with pytest.raises(KeyError, match="no_such_filter"):
         tplan.compile_plan(bad, tcfg(), device="cpu")
-    with pytest.raises(KeyError, match="fused1"):
-        P.build_pipeline(tcfg(), "fused1", device="cpu")
+    with pytest.raises(KeyError, match="'fused'"):
+        P.build_pipeline(tcfg(), "fused", device="cpu")
 
 
 # ---------------------------------------------------------------------------
