@@ -10,15 +10,17 @@ each printing one JSON line (any failed check raises and exits non-zero):
 1. device  — the card's name and power limit (the raw nvidia-smi line is
              printed on a line of its own), torch / CUDA versions; TF32 is
              switched off for matmul and cuDNN.
-2. build   — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``.
+2. build   — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``,
+             forced, so a second run in the same checkout reports the
+             compiler's register and spill lines too.
 3. kernel  — the CUDA spectral kernel against its plain PyTorch version on
              the card: every filter mode x axis x fwd/inv combination at
              N in {128, 4096}, B in {1, 2}, 37 lines (ragged against every
              tile), tolerance 2e-4 x max|want|.
 4. main    — the main path at the paper's size: ``simulate`` a 4096^2
              scene, ``build_pipeline(cfg, "fused3").run(raw)`` with the
-             launch count reset just before and read just after (exactly
-             3), all five targets within 8 px of ``metrics.expected_pixel``
+             launch counts reset just before and read just after (exactly
+             3 spectral launches and no other), all five targets within 8 px of ``metrics.expected_pixel``
              (argmax over a +-64 px window), the same compiled plan replayed
              through the plain version on the card (same peaks, |dSNR| <=
              0.1 dB), each launch's inputs through kernel and plain version;
@@ -49,6 +51,37 @@ each printing one JSON line (any failed check raises and exits non-zero):
              kernel alone on 132 scenes of 128^2 (one per SM, beside fused3
              and fused1 runs of that batch), each beside its bound, its
              plain version and ``library_ms``.
+9. transpose_kernel — the CUDA tiled transpose (``csrc/transpose.cu``)
+             against ``transpose_plain`` with ``torch.equal``: float32 and
+             complex64, 2-D and B = 2, square, non-square and ragged shapes
+             up to 4096^2.
+10. stockham_kernel — phase 3's grid with ``fft_impl="stockham"`` (the
+             Stockham route of the spectral kernel), then phase 6's chains
+             through both megakernels on the Stockham route, against the
+             plain versions (2e-4 x max|want|; resident ``torch.equal`` to
+             staged).
+11. main fused — ``build_pipeline(cfg, "fused").run(raw)`` at 4096^2 with
+             the counts reset just before and read just after (exactly 3
+             spectral, 4 transpose, 0 mega launches), all five targets
+             within 8 px, the same peaks and |dSNR| <= 0.1 dB against the
+             card's ``unfused`` image and against the steps replayed
+             through the plain versions; each turn's input through the
+             kernel and ``transpose_plain``.
+12. main stockham — ``fused3`` with ``fft_impl="stockham"`` at 4096^2
+             (exactly 3 spectral launches, five targets within 8 px, the
+             same peaks and |dSNR| <= 0.1 dB against the matmul fused3
+             image and the plain replay); ``fused1`` on the Stockham route
+             at 4096^2 (one ``mega_staged`` launch) and 128^2 (one
+             ``mega_resident`` launch, and ``residency="staged"``), each
+             ``torch.equal`` to the Stockham fused3 image of its size.
+13. time baselines — each transpose launch of the fused run at 4096^2
+             complex64 beside its bound, ``transpose_plain`` and
+             ``library_ms`` (``x.transpose(-1, -2).contiguous()``); the
+             fused run with its spectral launches and its sinc RCMC step
+             timed alone; each Stockham fused3 launch beside the matmul
+             launch of the same segment; both megakernels on the Stockham
+             route; fused3 runs on the two routes in turns (matmul,
+             stockham, stockham, matmul).
 
 The line before the last lists each kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -102,6 +135,7 @@ def cuda_median_ms(fn, warm=2, reps=7):
     return statistics.median(times)
 
 
+TRANSPOSE_SHAPES = ((64, 64), (128, 256), (96, 32), (37, 4096), (4096, 4096))
 MEGA_MODES = ("none", "shared", "full", "outer", "shared_outer")
 MEGA_SHAPES = ((64, 128), (128, 64), (128, 128), (256, 256), (4096, 4096))
 MEGA_BATCH = 132               # resident timing: one 128^2 scene per SM
@@ -119,277 +153,37 @@ def mega_chains():
     return chains
 
 
-def mega_phases(torch, dev, smi_line, cfg, raw, fused3_img, score, small,
-                small_raw, fused3_pipe):
-    """Phases 6-8 (the megakernels); returns their ``kernels`` records."""
-    from repro_torch.core import plan as planlib
-    from repro_torch.core.sar import build_pipeline, metrics, paper_targets
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.fft4step import (MegaSpec, SegmentSpec,
-                                              _mega_flops)
+def reset_launch_counts():
+    """Every kernel's launch count to 0 (just before a main-path run)."""
+    from repro_torch.kernels import ops, transpose
+    ops.SPECTRAL_LAUNCHES = 0
+    ops.MEGA_LAUNCHES.update(mega_resident=0, mega_staged=0)
+    transpose.TRANSPOSE_LAUNCHES = 0
 
-    def reset_counts():
-        ops.SPECTRAL_LAUNCHES = 0
-        ops.MEGA_LAUNCHES.update(mega_resident=0, mega_staged=0)
 
-    def counts():
-        return dict(ops.MEGA_LAUNCHES), ops.SPECTRAL_LAUNCHES
+def launch_counts(**want):
+    """The launch counts since the last reset: every kernel, 0 unless
+    named in ``want`` (the expected counts, for ``==``)."""
+    from repro_torch.kernels import ops, transpose
+    got = {"spectral": ops.SPECTRAL_LAUNCHES,
+           "transpose": transpose.TRANSPOSE_LAUNCHES, **ops.MEGA_LAUNCHES}
+    return got, {**{k: 0 for k in got}, **want}
 
-    def split_err(a, b):
-        return rel_err((a.real, a.imag), (b.real, b.imag))
 
-    # ---- 6. each megakernel vs its plain version on the card --------------
-    lib = ops._bind_mega()
-    optin = lib.mega_smem_optin(dev.index or 0)
-    check(optin == ops.SMEM_OPTIN_BYTES,
-          f"shared-memory opt-in {optin} B, the cut assumes "
-          f"{ops.SMEM_OPTIN_BYTES} B")
+def seeded_randn(torch, dev, seed):
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
+    gen.manual_seed(seed)
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev)
-
-    worst = {"mega_resident": 0.0, "mega_staged": 0.0}
-    cases = {"mega_resident": 0, "mega_staged": 0}
-    equal_pairs = 0
-    for na, nr in MEGA_SHAPES:
-        for batch in (1, 2):
-            x = (rand(batch, na, nr), rand(batch, na, nr))
-            for segments in mega_chains():
-                args = []
-                for axis, _fwd, _inv, mode in segments:
-                    n, lines = (nr, na) if axis == 1 else (na, nr)
-                    if mode in ("shared", "shared_outer"):
-                        args += [rand(n), rand(n)]
-                    if mode == "full":
-                        args += [rand(na, nr), rand(na, nr)]
-                    if mode in ("outer", "shared_outer"):
-                        args += [rand(lines, 2), rand(n, 2)]
-                want = ops.mega_spectral_op_plain(*x, *args,
-                                                  segments=segments)
-                outs = []
-                for residency, kernel in (("vmem", "mega_resident"),
-                                          ("staged", "mega_staged")):
-                    if residency == "vmem" and \
-                            ops.mega_residency(na, nr) != "vmem":
-                        continue
-                    got = ops.mega_spectral_op(*x, *args, segments=segments,
-                                               residency=residency)
-                    torch.cuda.synchronize()
-                    _, rel = rel_err(got, want)
-                    check(rel <= TOL, f"{kernel} vs plain {segments} "
-                          f"{na}x{nr} B={batch}: rel err {rel:.3e}")
-                    worst[kernel] = max(worst[kernel], rel)
-                    cases[kernel] += 1
-                    outs.append(got)
-                if len(outs) == 2:
-                    check(all(torch.equal(a, b) for a, b in zip(*outs)),
-                          f"resident != staged {segments} {na}x{nr}")
-                    equal_pairs += 1
-            del x, args, want, outs
-    emit("mega_kernel", cases=cases, max_rel_err=worst, tol=TOL,
-         resident_equals_staged_cases=equal_pairs, smem_optin_bytes=optin,
-         staged_blocks_per_sm=lib.mega_staged_blocks_per_sm(
-             ops.RESIDENT_MAX_POINTS * 8),
-         sms=torch.cuda.get_device_properties(dev).multi_processor_count)
-
-    # ---- 7. the main path through fused1 -----------------------------------
-    pipe = build_pipeline(cfg, "fused1")
-    check([s.kind for s in pipe.steps] == ["mega"] and pipe.dispatches == 1,
-          "fused1 compiles to one mega step")
-    step = pipe.steps[0]
-    check(step.kernel_kw["residency"] == "staged", "4096^2 is staged")
-    reset_counts()
-    img = pipe.run(raw)
-    torch.cuda.synchronize()
-    got_counts = counts()
-    check(got_counts == ({"mega_resident": 0, "mega_staged": 1}, 0),
-          f"fused1 4096^2 launches {got_counts}")
-    check(bool(torch.isfinite(img).all()), "fused1: non-finite image")
-    rep_k = score(img)
-    for r in rep_k:
-        off = r["wide_peak_offset"]
-        check(max(abs(off[0]), abs(off[1])) <= 8,
-              f"fused1: target peak {off} px from expected")
-        check(r["snr_db"] > 30.0, f"fused1: SNR {r['snr_db']}")
-    check(torch.equal(img, fused3_img), "fused1 != fused3 at 4096^2")
-    seg_args = [t for a in step.seg_filter_args for t in a]
-    xr, xi = planlib.split(raw)
-    img_p = planlib.unsplit(*ops.mega_spectral_op_plain(
-        xr, xi, *seg_args, **step.kernel_kw))
-    torch.cuda.synchronize()
-    rep_p = score(img_p)
-    dsnr = [abs(a["snr_db"] - b["snr_db"]) for a, b in zip(rep_k, rep_p)]
-    check([r["peak"] for r in rep_k] == [r["peak"] for r in rep_p],
-          "fused1: kernel and plain peaks differ")
-    check(max(dsnr) <= GATE_DB, f"fused1: dSNR {dsnr}")
-    staged_err, staged_rel = split_err(img, img_p)
-    check(staged_rel <= TOL, f"fused1 vs plain: rel err {staged_rel:.3e}")
-    emit("main", variant="fused1", scene=[cfg.na, cfg.nr],
-         residency="staged", launches=got_counts[0],
-         spectral_launches=got_counts[1], targets=rep_k,
-         equal_to_fused3=True, snr_delta_db_vs_plain=dsnr,
-         max_abs_err_vs_plain=staged_err, rel_err_vs_plain=staged_rel)
-    del img, img_p, fused3_img
-
-    small_f3 = build_pipeline(small, "fused3").run(small_raw)
-    pipe_s = build_pipeline(small, "fused1")
-    step_s = pipe_s.steps[0]
-    check(step_s.kernel_kw["residency"] == "vmem", "128^2 is resident")
-    reset_counts()
-    img_s = pipe_s.run(small_raw)
-    torch.cuda.synchronize()
-    small_counts = counts()
-    check(small_counts == ({"mega_resident": 1, "mega_staged": 0}, 0),
-          f"fused1 128^2 launches {small_counts}")
-    check(torch.equal(img_s, small_f3), "fused1 != fused3 at 128^2")
-    staged_s = build_pipeline(small, "fused1", residency="staged").run(
-        small_raw)
-    check(torch.equal(img_s, staged_s), "resident != staged at 128^2")
-    on_cpu = build_pipeline(small, "fused1", device="cpu").run(
-        small_raw.cpu())
-    _, cpu_rel = split_err(img_s.cpu(), on_cpu)
-    check(cpu_rel <= TOL, f"128^2 fused1 card vs CPU: {cpu_rel:.3e}")
-    sr, si = planlib.split(small_raw)
-    seg_args_s = [t for a in step_s.seg_filter_args for t in a]
-    img_sp = planlib.unsplit(*ops.mega_spectral_op_plain(
-        sr, si, *seg_args_s, **step_s.kernel_kw))
-    resident_err, _ = split_err(img_s, img_sp)
-    peaks = [(r.row, r.col) for r in metrics.analyze_scene(
-        img_s.cpu().numpy(), small, paper_targets(small))]
-    emit("main", variant="fused1", scene=[small.na, small.nr],
-         residency="vmem", launches=small_counts[0],
-         spectral_launches=small_counts[1], equal_to_fused3=True,
-         equal_to_staged=True, rel_err_vs_cpu=cpu_rel,
-         max_abs_err_vs_plain=resident_err, peaks=peaks)
-
-    # ---- 8. times -----------------------------------------------------------
-    runs = {"fused3": [], "fused1": []}
-    for variant in ("fused3", "fused1", "fused1", "fused3"):
-        p = fused3_pipe if variant == "fused3" else pipe
-        runs[variant].append(cuda_median_ms(lambda: p.run(raw)))
-    emit("time_run", variant="fused1_vs_fused3", scene=[cfg.na, cfg.nr],
-         order=["fused3", "fused1", "fused1", "fused3"],
-         fused3_ms=runs["fused3"], fused1_ms=runs["fused1"],
-         nvidia_smi=smi_line)
-
-    def time_kernel(name, step, x, segments_cfg):
-        """The kernel alone on the main path's split input, beside its
-        bound, its plain version and the torch.fft chain."""
-        xr, xi = planlib.split(x)
-        args = [t for a in step.seg_filter_args for t in a]
-        kk = step.kernel_kw
-        batch, na, nr = xr.shape if xr.ndim == 3 else (1, *xr.shape)
-        spec = MegaSpec(na, nr, tuple(SegmentSpec(*s)
-                                      for s in kk["segments"]))
-        nbytes = 16 * xr.numel() + sum(4 * t.numel() for t in args)
-        flops = _mega_flops(spec) * batch
-        t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        oracle = build_pipeline(segments_cfg, "fused1", backend="torch")
-        rec = dict(
-            kernel=name, scene=[na, nr], batch=batch,
-            ms=cuda_median_ms(lambda: ops.mega_spectral_op(
-                xr, xi, *args, **kk)),
-            plain_ms=cuda_median_ms(lambda: ops.mega_spectral_op_plain(
-                xr, xi, *args, **kk)),
-            library_ms=cuda_median_ms(lambda: oracle.run(x)),
-            bytes=nbytes, flops_nominal=flops,
-            bound_ms=max(t_mem, t_ops),
-            bound_by="bytes" if t_mem >= t_ops else "operations",
-            per_phase_floor_ms=len(kk["segments"]) * 16 * xr.numel()
-            / HBM_BYTES_PER_S * 1e3)
-        emit("time_kernel", nvidia_smi=smi_line, **rec)
-        return rec
-
-    t_staged = time_kernel("mega_staged", step, raw, cfg)
-    batch_raw = small_raw.expand(MEGA_BATCH, *small_raw.shape).contiguous()
-    reset_counts()
-    got = pipe_s.run(batch_raw)
-    want = planlib.unsplit(*ops.mega_spectral_op_plain(
-        *planlib.split(batch_raw), *seg_args_s, **step_s.kernel_kw))
-    torch.cuda.synchronize()
-    check(counts()[0]["mega_resident"] == 1, "batch: one resident launch")
-    _, batch_rel = split_err(got, want)
-    check(batch_rel <= TOL, f"resident batch vs plain: {batch_rel:.3e}")
-    t_resident = time_kernel("mega_resident", step_s, batch_raw, small)
-    small3 = build_pipeline(small, "fused3")
-    batch_runs = {"fused3": [], "fused1": []}
-    for variant in ("fused3", "fused1", "fused1", "fused3"):
-        p = small3 if variant == "fused3" else pipe_s
-        batch_runs[variant].append(cuda_median_ms(lambda: p.run(batch_raw)))
-    emit("time_run", variant="fused1_vs_fused3", scene=[small.na, small.nr],
-         batch=MEGA_BATCH, order=["fused3", "fused1", "fused1", "fused3"],
-         fused3_ms=batch_runs["fused3"], fused1_ms=batch_runs["fused1"],
-         rel_err_vs_plain=batch_rel, nvidia_smi=smi_line)
-
-    def record(name, line, launches, err, t):
-        return {"name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/mega.cu",
-                "replaces": f"src/repro/kernels/fft4step.py:{line}",
-                "launches": launches, "max_abs_err": err, "ms": t["ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
-
-    return [record("mega_resident", 931,
-                   small_counts[0]["mega_resident"], resident_err,
-                   t_resident),
-            record("mega_staged", 1002, got_counts[0]["mega_staged"],
-                   staged_err, t_staged)]
+    return rand
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-
-    from repro_torch.core import plan as planlib
-    from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
-                                      paper_targets, simulate)
-    from repro_torch.core.sar.geometry import test_scene as small_scene
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.fft4step import (FILTER_MODES, SpectralSpec,
-                                              flops_nominal)
-
-    # ---- 1. device ---------------------------------------------------------
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    smi_line = smi.stdout.strip().splitlines()[0]
-    print(smi_line, flush=True)
-    dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    emit("device", nvidia_smi=smi_line, kind=kind,
-         count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda,
-         capability=list(torch.cuda.get_device_capability(0)),
-         allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
-         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
-
-    # ---- 2. build ----------------------------------------------------------
-    t0 = time.perf_counter()
-    logs = _build.build_all(verbose=True)
-    build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "entry function" in ln or "registers" in ln
-                    or "spill" in ln]
-             for name, log in logs.items()}
-    check(set(logs) >= {"spectral", "mega"}, f"built {sorted(logs)}")
-    emit("build", seconds=build_s, sources=sorted(_build.sources()),
-         ptxas=ptxas)
-
-    # ---- 3. kernel vs plain version on the card ----------------------------
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-
-    def rand(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
+def spectral_sweep(torch, ops, rand, fft_impl):
+    """The spectral kernel against its plain version on the card: every
+    filter mode x axis x fwd/inv at N in {128, 4096}, B in {1, 2}, 37
+    lines. Returns (cases, max rel err)."""
+    from repro_torch.kernels.fft4step import FILTER_MODES
     lines, rank = 37, 2
     worst = 0.0
     cases = 0
@@ -411,7 +205,8 @@ def main() -> int:
                         if mode == "none" and not (fwd or inv):
                             continue
                         kw = dict(axis=axis, fwd=fwd, inv=inv,
-                                  filter_mode=mode, block=1)
+                                  filter_mode=mode, block=1,
+                                  fft_impl=fft_impl)
                         got = ops.spectral_op(xr, xi, **filt, **kw)
                         want = ops.spectral_op_plain(xr, xi, **filt, **kw)
                         torch.cuda.synchronize()
@@ -420,6 +215,572 @@ def main() -> int:
                               f"B={batch}: rel err {rel:.3e}")
                         worst = max(worst, rel)
                         cases += 1
+    return cases, worst
+
+
+def mega_sweep(torch, ops, rand, fft_impl):
+    """Both megakernels against ``mega_plain`` on the card over
+    ``mega_chains()`` x ``MEGA_SHAPES`` x B in {1, 2}, resident held
+    ``torch.equal`` to staged. Returns (cases, max rel err, equal pairs)
+    with the first two per kernel."""
+    worst = {"mega_resident": 0.0, "mega_staged": 0.0}
+    cases = {"mega_resident": 0, "mega_staged": 0}
+    equal_pairs = 0
+    for na, nr in MEGA_SHAPES:
+        for batch in (1, 2):
+            x = (rand(batch, na, nr), rand(batch, na, nr))
+            for segments in mega_chains():
+                args = []
+                for axis, _fwd, _inv, mode in segments:
+                    n, lines = (nr, na) if axis == 1 else (na, nr)
+                    if mode in ("shared", "shared_outer"):
+                        args += [rand(n), rand(n)]
+                    if mode == "full":
+                        args += [rand(na, nr), rand(na, nr)]
+                    if mode in ("outer", "shared_outer"):
+                        args += [rand(lines, 2), rand(n, 2)]
+                want = ops.mega_spectral_op_plain(*x, *args,
+                                                  segments=segments,
+                                                  fft_impl=fft_impl)
+                outs = []
+                for residency, kernel in (("vmem", "mega_resident"),
+                                          ("staged", "mega_staged")):
+                    if residency == "vmem" and \
+                            ops.mega_residency(na, nr) != "vmem":
+                        continue
+                    got = ops.mega_spectral_op(*x, *args, segments=segments,
+                                               residency=residency,
+                                               fft_impl=fft_impl)
+                    torch.cuda.synchronize()
+                    _, rel = rel_err(got, want)
+                    check(rel <= TOL, f"{kernel} ({fft_impl}) vs plain "
+                          f"{segments} {na}x{nr} B={batch}: rel err "
+                          f"{rel:.3e}")
+                    worst[kernel] = max(worst[kernel], rel)
+                    cases[kernel] += 1
+                    outs.append(got)
+                if len(outs) == 2:
+                    check(all(torch.equal(a, b) for a, b in zip(*outs)),
+                          f"resident != staged ({fft_impl}) {segments} "
+                          f"{na}x{nr}")
+                    equal_pairs += 1
+            del x, args, want, outs
+    return cases, worst, equal_pairs
+
+
+def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg):
+    """One megakernel alone on the main path's split input, beside its
+    bound, its plain version and the torch.fft chain (``library_ms``)."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fft4step import (MegaSpec, SegmentSpec,
+                                              _mega_flops)
+    xr, xi = planlib.split(x)
+    args = [t for a in step.seg_filter_args for t in a]
+    kk = step.kernel_kw
+    batch, na, nr = xr.shape if xr.ndim == 3 else (1, *xr.shape)
+    spec = MegaSpec(na, nr, tuple(SegmentSpec(*s) for s in kk["segments"]))
+    nbytes = 16 * xr.numel() + sum(4 * t.numel() for t in args)
+    flops = _mega_flops(spec) * batch
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    oracle = build_pipeline(segments_cfg, "fused1", backend="torch")
+    rec = dict(
+        kernel=name, fft_impl=kk["fft_impl"], scene=[na, nr], batch=batch,
+        ms=cuda_median_ms(lambda: ops.mega_spectral_op(xr, xi, *args, **kk)),
+        plain_ms=cuda_median_ms(lambda: ops.mega_spectral_op_plain(
+            xr, xi, *args, **kk)),
+        library_ms=cuda_median_ms(lambda: oracle.run(x)),
+        bytes=nbytes, flops_nominal=flops,
+        bound_ms=max(t_mem, t_ops),
+        bound_by="bytes" if t_mem >= t_ops else "operations",
+        per_phase_floor_ms=len(kk["segments"]) * 16 * xr.numel()
+        / HBM_BYTES_PER_S * 1e3)
+    emit("time_kernel", nvidia_smi=smi_line, **rec)
+    return rec
+
+
+def time_spectral_launch(smi_line, step, xr, xi, x):
+    """One spectral-kernel launch of a compiled plan on its own inputs,
+    beside its bound (bytes over 3.35 TB/s vs nominal 5 N log2 N FLOP over
+    67 TFLOP/s), its plain version and ``library_ms`` (torch.fft ->
+    multiply -> torch.fft, timed only as a yardstick)."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fft4step import SpectralSpec, flops_nominal
+    kk, fk = step.kernel_kw, step.filter_kw
+    if kk["axis"] == 1:
+        nlines, n = xr.shape[-2:]
+    else:
+        n, nlines = xr.shape[-2:]
+    spec = SpectralSpec(n=n, fwd=kk["fwd"], filter_mode=kk["filter_mode"],
+                        inv=kk["inv"], axis=kk["axis"],
+                        fft_impl=kk["fft_impl"])
+    nbytes = 4 * xr.numel() * 4 + sum(4 * t.numel() for t in fk.values())
+    flops = flops_nominal(spec, nlines)
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    rec = dict(
+        launch=step.name, fft_impl=kk["fft_impl"], axis=kk["axis"],
+        mode=kk["filter_mode"], fwd=kk["fwd"], inv=kk["inv"],
+        ms=cuda_median_ms(lambda: ops.spectral_op(xr, xi, **fk, **kk)),
+        plain_ms=cuda_median_ms(
+            lambda: ops.spectral_op_plain(xr, xi, **fk, **kk)),
+        library_ms=cuda_median_ms(lambda: planlib._torch_apply(
+            x, kk["fwd"], kk["inv"], kk["filter_mode"], fk, kk["axis"])),
+        bytes=nbytes, flops_nominal=flops, bound_ms=max(t_mem, t_ops),
+        bound_by="bytes" if t_mem >= t_ops else "operations")
+    if kk["fft_impl"] == "matmul":
+        n1, n2 = spec.factors()
+        ffma = 8.0 * n * (n1 + n2) * nlines * (int(kk["fwd"]) + int(kk["inv"]))
+        rec.update(ffma_flops=ffma,
+                   ffma_floor_ms=ffma / FP32_FLOP_PER_S * 1e3)
+    emit("time_launch", nvidia_smi=smi_line, **rec)
+    return rec
+
+
+def step_inputs(pipe, x):
+    """Run ``pipe``'s steps one by one: [(step, its input)], the output."""
+    out = []
+    for s in pipe.steps:
+        out.append((s, x))
+        x = s.fn(x)
+    return out, x
+
+
+def mega_phases(torch, dev, smi_line, cfg, raw, fused3_img, score, small,
+                small_raw, fused3_pipe):
+    """Phases 6-8 (the megakernels); returns their ``kernels`` records."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline, metrics, paper_targets
+    from repro_torch.kernels import ops
+
+    def split_err(a, b):
+        return rel_err((a.real, a.imag), (b.real, b.imag))
+
+    # ---- 6. each megakernel vs its plain version on the card --------------
+    lib = ops._bind_mega()
+    optin = lib.mega_smem_optin(dev.index or 0)
+    check(optin == ops.SMEM_OPTIN_BYTES,
+          f"shared-memory opt-in {optin} B, the cut assumes "
+          f"{ops.SMEM_OPTIN_BYTES} B")
+    rand = seeded_randn(torch, dev, 1)
+    cases, worst, equal_pairs = mega_sweep(torch, ops, rand, "matmul")
+    emit("mega_kernel", cases=cases, max_rel_err=worst, tol=TOL,
+         resident_equals_staged_cases=equal_pairs, smem_optin_bytes=optin,
+         staged_blocks_per_sm=lib.mega_staged_blocks_per_sm(
+             ops.RESIDENT_MAX_POINTS * 8),
+         sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+
+    # ---- 7. the main path through fused1 -----------------------------------
+    pipe = build_pipeline(cfg, "fused1")
+    check([s.kind for s in pipe.steps] == ["mega"] and pipe.dispatches == 1,
+          "fused1 compiles to one mega step")
+    step = pipe.steps[0]
+    check(step.kernel_kw["residency"] == "staged", "4096^2 is staged")
+    reset_launch_counts()
+    img = pipe.run(raw)
+    torch.cuda.synchronize()
+    got_counts, want = launch_counts(mega_staged=1)
+    check(got_counts == want, f"fused1 4096^2 launches {got_counts}")
+    check(bool(torch.isfinite(img).all()), "fused1: non-finite image")
+    rep_k = score(img)
+    check(torch.equal(img, fused3_img), "fused1 != fused3 at 4096^2")
+    seg_args = [t for a in step.seg_filter_args for t in a]
+    xr, xi = planlib.split(raw)
+    img_p = planlib.unsplit(*ops.mega_spectral_op_plain(
+        xr, xi, *seg_args, **step.kernel_kw))
+    torch.cuda.synchronize()
+    dsnr = check_focus("fused1 vs plain", rep_k, score(img_p))
+    staged_err, staged_rel = split_err(img, img_p)
+    check(staged_rel <= TOL, f"fused1 vs plain: rel err {staged_rel:.3e}")
+    emit("main", variant="fused1", scene=[cfg.na, cfg.nr],
+         residency="staged", launches=got_counts, targets=rep_k,
+         equal_to_fused3=True, snr_delta_db_vs_plain=dsnr,
+         max_abs_err_vs_plain=staged_err, rel_err_vs_plain=staged_rel)
+    del img, img_p, fused3_img
+
+    small_f3 = build_pipeline(small, "fused3").run(small_raw)
+    pipe_s = build_pipeline(small, "fused1")
+    step_s = pipe_s.steps[0]
+    check(step_s.kernel_kw["residency"] == "vmem", "128^2 is resident")
+    reset_launch_counts()
+    img_s = pipe_s.run(small_raw)
+    torch.cuda.synchronize()
+    small_counts, want = launch_counts(mega_resident=1)
+    check(small_counts == want, f"fused1 128^2 launches {small_counts}")
+    check(torch.equal(img_s, small_f3), "fused1 != fused3 at 128^2")
+    staged_s = build_pipeline(small, "fused1", residency="staged").run(
+        small_raw)
+    check(torch.equal(img_s, staged_s), "resident != staged at 128^2")
+    on_cpu = build_pipeline(small, "fused1", device="cpu").run(
+        small_raw.cpu())
+    _, cpu_rel = split_err(img_s.cpu(), on_cpu)
+    check(cpu_rel <= TOL, f"128^2 fused1 card vs CPU: {cpu_rel:.3e}")
+    sr, si = planlib.split(small_raw)
+    seg_args_s = [t for a in step_s.seg_filter_args for t in a]
+    img_sp = planlib.unsplit(*ops.mega_spectral_op_plain(
+        sr, si, *seg_args_s, **step_s.kernel_kw))
+    resident_err, _ = split_err(img_s, img_sp)
+    peaks = [(r.row, r.col) for r in metrics.analyze_scene(
+        img_s.cpu().numpy(), small, paper_targets(small))]
+    emit("main", variant="fused1", scene=[small.na, small.nr],
+         residency="vmem", launches=small_counts, equal_to_fused3=True,
+         equal_to_staged=True, rel_err_vs_cpu=cpu_rel,
+         max_abs_err_vs_plain=resident_err, peaks=peaks)
+
+    # ---- 8. times -----------------------------------------------------------
+    runs = {"fused3": [], "fused1": []}
+    for variant in ("fused3", "fused1", "fused1", "fused3"):
+        p = fused3_pipe if variant == "fused3" else pipe
+        runs[variant].append(cuda_median_ms(lambda: p.run(raw)))
+    emit("time_run", variant="fused1_vs_fused3", scene=[cfg.na, cfg.nr],
+         order=["fused3", "fused1", "fused1", "fused3"],
+         fused3_ms=runs["fused3"], fused1_ms=runs["fused1"],
+         nvidia_smi=smi_line)
+
+    t_staged = time_mega_kernel(torch, smi_line, "mega_staged", step, raw,
+                                cfg)
+    batch_raw = small_raw.expand(MEGA_BATCH, *small_raw.shape).contiguous()
+    reset_launch_counts()
+    got = pipe_s.run(batch_raw)
+    torch.cuda.synchronize()
+    batch_counts, want_counts = launch_counts(mega_resident=1)
+    check(batch_counts == want_counts, f"batch launches {batch_counts}")
+    want = planlib.unsplit(*ops.mega_spectral_op_plain(
+        *planlib.split(batch_raw), *seg_args_s, **step_s.kernel_kw))
+    _, batch_rel = split_err(got, want)
+    check(batch_rel <= TOL, f"resident batch vs plain: {batch_rel:.3e}")
+    t_resident = time_mega_kernel(torch, smi_line, "mega_resident", step_s,
+                                  batch_raw, small)
+    small3 = build_pipeline(small, "fused3")
+    batch_runs = {"fused3": [], "fused1": []}
+    for variant in ("fused3", "fused1", "fused1", "fused3"):
+        p = small3 if variant == "fused3" else pipe_s
+        batch_runs[variant].append(cuda_median_ms(lambda: p.run(batch_raw)))
+    emit("time_run", variant="fused1_vs_fused3", scene=[small.na, small.nr],
+         batch=MEGA_BATCH, order=["fused3", "fused1", "fused1", "fused3"],
+         fused3_ms=batch_runs["fused3"], fused1_ms=batch_runs["fused1"],
+         rel_err_vs_plain=batch_rel, nvidia_smi=smi_line)
+
+    def record(name, line, launches, err, t):
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mega.cu",
+                "replaces": f"src/repro/kernels/fft4step.py:{line}",
+                "launches": launches, "max_abs_err": err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    return [record("mega_resident", 931, small_counts["mega_resident"],
+                   resident_err, t_resident),
+            record("mega_staged", 1002, got_counts["mega_staged"],
+                   staged_err, t_staged)]
+
+
+def check_focus(name, rep, want=None, gate=GATE_DB):
+    """All five targets within 8 px of their expected pixels at SNR > 30
+    dB; with ``want`` (another image's score) the same peaks and |dSNR|
+    <= ``gate``. Returns the |dSNR| list (empty without ``want``)."""
+    for r in rep:
+        off = r["wide_peak_offset"]
+        check(max(abs(off[0]), abs(off[1])) <= 8,
+              f"{name}: target peak {off} px from expected")
+        check(r["snr_db"] > 30.0, f"{name}: SNR {r['snr_db']}")
+    if want is None:
+        return []
+    check([r["peak"] for r in rep] == [r["peak"] for r in want],
+          f"{name}: peaks differ")
+    dsnr = [abs(a["snr_db"] - b["snr_db"]) for a, b in zip(rep, want)]
+    check(max(dsnr) <= gate, f"{name}: dSNR {dsnr}")
+    return dsnr
+
+
+def l2_rel(torch, a, b):
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def baseline_phases(torch, dev, smi_line, cfg, raw, score, replay_plain,
+                    small, small_raw, fused3_pipe, main_inputs, matmul_img):
+    """Phases 9-13 (the paper's baselines: the tiled transpose and the
+    8-launch ``fused`` RDA, the Stockham route of the spectral kernel and
+    both megakernels); returns their ``kernels`` records."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.kernels import ops, transpose
+
+    # ---- 9. the transpose kernel vs its plain version ---------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    cases = 0
+    for dtype in (torch.float32, torch.complex64):
+        for shape in TRANSPOSE_SHAPES:
+            for lead in ((), (2,)):
+                x = torch.randn((*lead, *shape), generator=gen, device=dev,
+                                dtype=dtype)
+                got = transpose.transpose(x)
+                torch.cuda.synchronize()
+                check(torch.equal(got, transpose.transpose_plain(x)),
+                      f"transpose {dtype} {(*lead, *shape)} != plain")
+                cases += 1
+    del x, got
+    emit("transpose_kernel", cases=cases, shapes=TRANSPOSE_SHAPES,
+         batches=[1, 2], dtypes=["float32", "complex64"], equal=True)
+
+    # ---- 10. the Stockham route vs the plain versions ----------------------
+    s_cases, s_worst = spectral_sweep(torch, ops, seeded_randn(torch, dev, 3),
+                                      "stockham")
+    m_cases, m_worst, pairs = mega_sweep(torch, ops,
+                                         seeded_randn(torch, dev, 4),
+                                         "stockham")
+    emit("stockham_kernel", spectral_cases=s_cases,
+         spectral_max_rel_err=s_worst, mega_cases=m_cases,
+         mega_max_rel_err=m_worst, resident_equals_staged_cases=pairs,
+         tol=TOL)
+
+    # ---- 11. the main path through fused -----------------------------------
+    pipe = build_pipeline(cfg, "fused")
+    check(pipe.dispatches == 8 and [s.kind for s in pipe.steps].count(
+        "transpose") == 4, "fused compiles to 8 steps, 4 of them turns")
+    reset_launch_counts()
+    img = pipe.run(raw)
+    torch.cuda.synchronize()
+    fused_counts, want = launch_counts(spectral=3, transpose=4)
+    check(fused_counts == want, f"fused launches {fused_counts}")
+    check(bool(torch.isfinite(img).all()), "fused: non-finite image")
+    rep_k = score(img)
+    check_focus("fused", rep_k)
+    img_u = build_pipeline(cfg, "unfused").run(raw)
+    dsnr_u = check_focus("fused vs unfused", rep_k, score(img_u))
+    l2_u = l2_rel(torch, img, img_u)
+    del img_u
+    img_p = replay_plain(pipe, raw)
+    torch.cuda.synchronize()
+    dsnr_p = check_focus("fused vs plain", rep_k, score(img_p))
+    l2_p = l2_rel(torch, img, img_p)
+    del img_p
+    inputs, out = step_inputs(pipe, raw)
+    check(torch.equal(out, img), "fused: a second run differs")
+    for s, x in inputs:
+        if s.kind == "transpose":
+            check(torch.equal(transpose.transpose(x),
+                              transpose.transpose_plain(x)),
+                  f"fused turn {s.name}: kernel != plain")
+    emit("main", variant="fused", scene=[cfg.na, cfg.nr],
+         launches=fused_counts, targets=rep_k,
+         snr_delta_db_vs_unfused=dsnr_u, l2_rel_vs_unfused=l2_u,
+         snr_delta_db_vs_plain=dsnr_p, l2_rel_vs_plain=l2_p,
+         turns_equal_to_plain=True)
+    del img, out
+
+    # ---- 12. the main path on the Stockham route ---------------------------
+    st3 = build_pipeline(cfg, "fused3", fft_impl="stockham")
+    reset_launch_counts()
+    img3 = st3.run(raw)
+    torch.cuda.synchronize()
+    st_counts, want = launch_counts(spectral=3)
+    check(st_counts == want, f"stockham fused3 launches {st_counts}")
+    check(bool(torch.isfinite(img3).all()), "stockham fused3: non-finite")
+    rep3 = score(img3)
+    dsnr_m = check_focus("stockham fused3 vs matmul", rep3, score(matmul_img))
+    l2_m = l2_rel(torch, img3, matmul_img)
+    img_p = replay_plain(st3, raw)
+    torch.cuda.synchronize()
+    dsnr_p = check_focus("stockham fused3 vs plain", rep3, score(img_p))
+    del img_p, matmul_img
+    st_inputs = {}
+    st_err = 0.0
+    for s, x in step_inputs(st3, raw)[0]:
+        xr, xi = planlib.split(x)
+        st_inputs[s.name] = (s, xr, xi, x)
+        got = ops.spectral_op(xr, xi, **s.filter_kw, **s.kernel_kw)
+        want_p = ops.spectral_op_plain(xr, xi, **s.filter_kw, **s.kernel_kw)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want_p)
+        check(rel <= TOL, f"stockham launch {s.name}: rel err {rel:.3e}")
+        st_err = max(st_err, err)
+    del got, want_p
+    emit("main", variant="fused3", fft_impl="stockham",
+         scene=[cfg.na, cfg.nr], launches=st_counts, targets=rep3,
+         snr_delta_db_vs_matmul=dsnr_m, l2_rel_vs_matmul=l2_m,
+         snr_delta_db_vs_plain=dsnr_p, max_abs_err_launches=st_err)
+
+    st1 = build_pipeline(cfg, "fused1", fft_impl="stockham")
+    check(st1.steps[0].kernel_kw["residency"] == "staged", "4096^2 staged")
+    reset_launch_counts()
+    img1 = st1.run(raw)
+    torch.cuda.synchronize()
+    st1_counts, want = launch_counts(mega_staged=1)
+    check(st1_counts == want, f"stockham fused1 launches {st1_counts}")
+    check(torch.equal(img1, img3), "stockham fused1 != stockham fused3")
+    del img1, img3
+    small3 = build_pipeline(small, "fused3", fft_impl="stockham").run(
+        small_raw)
+    st1s = build_pipeline(small, "fused1", fft_impl="stockham")
+    check(st1s.steps[0].kernel_kw["residency"] == "vmem", "128^2 resident")
+    reset_launch_counts()
+    img1s = st1s.run(small_raw)
+    torch.cuda.synchronize()
+    st1s_counts, want = launch_counts(mega_resident=1)
+    check(st1s_counts == want, f"stockham fused1 128^2 {st1s_counts}")
+    check(torch.equal(img1s, small3), "stockham fused1 != fused3 at 128^2")
+    staged_s = build_pipeline(small, "fused1", fft_impl="stockham",
+                              residency="staged").run(small_raw)
+    check(torch.equal(staged_s, small3), "stockham staged != fused3 128^2")
+    emit("main", variant="fused1", fft_impl="stockham",
+         launches_4096=st1_counts, launches_128=st1s_counts,
+         equal_to_stockham_fused3=[True, True],
+         staged_equal_to_stockham_fused3_128=True)
+
+    # ---- 13. times ---------------------------------------------------------
+    turns = []
+    for s, x in inputs:
+        if s.kind != "transpose":
+            continue
+        nbytes = 2 * x.numel() * x.element_size()
+        rec = dict(
+            step=s.name, shape=list(x.shape), dtype=str(x.dtype),
+            ms=cuda_median_ms(lambda: transpose.transpose(x)),
+            plain_ms=cuda_median_ms(lambda: transpose.transpose_plain(x)),
+            library_ms=cuda_median_ms(
+                lambda: x.transpose(-1, -2).contiguous()),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes")
+        emit("time_transpose", nvidia_smi=smi_line, **rec)
+        turns.append(rec)
+    spec_t = []
+    for s, x in inputs:
+        if s.kind == "spectral":
+            xr, xi = planlib.split(x)
+            spec_t.append(time_spectral_launch(smi_line, s, xr, xi, x))
+    sinc_step, sinc_x = next((s, x) for s, x in inputs
+                             if s.kind == "sinc_rcmc")
+    sinc_ms = cuda_median_ms(lambda: sinc_step.fn(sinc_x))
+    fused_ms = cuda_median_ms(lambda: pipe.run(raw))
+    steps_ms = (sum(r["ms"] for r in spec_t) + sum(r["ms"] for r in turns)
+                + sinc_ms)
+    emit("time_run", variant="fused", scene=[cfg.na, cfg.nr], ms=fused_ms,
+         spectral_ms=[r["ms"] for r in spec_t],
+         transpose_ms=[r["ms"] for r in turns], sinc_rcmc_ms=sinc_ms,
+         split_unsplit_ms=fused_ms - steps_ms, nvidia_smi=smi_line)
+    del inputs
+
+    st_t = []
+    for name, (s, xr, xi, x) in st_inputs.items():
+        ms_, xr_m, xi_m, _ = main_inputs[name]
+        mm = [cuda_median_ms(lambda: ops.spectral_op(
+            xr_m, xi_m, **ms_.filter_kw, **ms_.kernel_kw))]
+        rec = time_spectral_launch(smi_line, s, xr, xi, x)
+        mm.append(cuda_median_ms(lambda: ops.spectral_op(
+            xr_m, xi_m, **ms_.filter_kw, **ms_.kernel_kw)))
+        emit("time_route", launch=name, order=["matmul", "stockham",
+                                               "matmul"],
+             matmul_ms=mm, stockham_ms=rec["ms"], nvidia_smi=smi_line)
+        st_t.append(rec)
+    t_st_staged = time_mega_kernel(torch, smi_line, "mega_staged",
+                                   st1.steps[0], raw, cfg)
+    batch_raw = small_raw.expand(MEGA_BATCH, *small_raw.shape).contiguous()
+    reset_launch_counts()
+    got = st1s.run(batch_raw)
+    torch.cuda.synchronize()
+    batch_counts, want = launch_counts(mega_resident=1)
+    check(batch_counts == want, f"stockham batch launches {batch_counts}")
+    step_s = st1s.steps[0]
+    want_b = planlib.unsplit(*ops.mega_spectral_op_plain(
+        *planlib.split(batch_raw),
+        *[t for a in step_s.seg_filter_args for t in a], **step_s.kernel_kw))
+    _, batch_rel = rel_err((got.real, got.imag), (want_b.real, want_b.imag))
+    check(batch_rel <= TOL, f"stockham resident batch: {batch_rel:.3e}")
+    del got, want_b
+    t_st_resident = time_mega_kernel(torch, smi_line, "mega_resident",
+                                     step_s, batch_raw, small)
+    runs = {"matmul": [], "stockham": []}
+    for route in ("matmul", "stockham", "stockham", "matmul"):
+        p = fused3_pipe if route == "matmul" else st3
+        runs[route].append(cuda_median_ms(lambda: p.run(raw)))
+    emit("time_run", variant="fused3_matmul_vs_stockham",
+         scene=[cfg.na, cfg.nr],
+         order=["matmul", "stockham", "stockham", "matmul"],
+         matmul_ms=runs["matmul"], stockham_ms=runs["stockham"],
+         nvidia_smi=smi_line)
+
+    def total(recs, key):
+        return sum(r[key] for r in recs)
+
+    return [
+        {"name": "transpose", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/transpose.cu",
+         "replaces": "src/repro/kernels/transpose.py:26",
+         "also_replaces": "src/repro/kernels/transpose.py:30",
+         "launches": fused_counts["transpose"], "max_abs_err": 0.0,
+         "ms": total(turns, "ms"), "plain_ms": total(turns, "plain_ms"),
+         "bound_ms": total(turns, "bound_ms"), "bound_by": "bytes",
+         "library_ms": total(turns, "library_ms")},
+        {"name": "stockham", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/spectral.cu",
+         "device_code": "src/repro_torch/kernels/csrc/spectral_common.cuh",
+         "replaces": "src/repro/kernels/fft4step.py:422",
+         "launches": st_counts["spectral"], "max_abs_err": st_err,
+         "ms": total(st_t, "ms"), "plain_ms": total(st_t, "plain_ms"),
+         "bound_ms": total(st_t, "bound_ms"),
+         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in st_t)
+         else "operations",
+         "library_ms": total(st_t, "library_ms"),
+         "mega_staged_ms": t_st_staged["ms"],
+         "mega_staged_launches": st1_counts["mega_staged"],
+         "mega_resident_ms": t_st_resident["ms"],
+         "mega_resident_launches": st1s_counts["mega_resident"]},
+    ]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
+                                      paper_targets, simulate)
+    from repro_torch.core.sar.geometry import test_scene as small_scene
+    from repro_torch.kernels import _build, ops, transpose
+
+    # ---- 1. device ---------------------------------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(smi_line, flush=True)
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi_line, kind=kind,
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda,
+         capability=list(torch.cuda.get_device_capability(0)),
+         allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
+
+    # ---- 2. build ----------------------------------------------------------
+    # forced: every source compiles again, so the ptxas report is there on
+    # a second run in the same checkout too
+    t0 = time.perf_counter()
+    logs = _build.build_all(verbose=True, force=True)
+    build_s = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln]
+             for name, log in logs.items()}
+    check(set(logs) >= {"spectral", "mega", "transpose"},
+          f"built {sorted(logs)}")
+    emit("build", seconds=build_s, sources=sorted(_build.sources()),
+         ptxas=ptxas)
+
+    # ---- 3. kernel vs plain version on the card ----------------------------
+    cases, worst = spectral_sweep(torch, ops, seeded_randn(torch, dev, 0),
+                                  "matmul")
     emit("kernel", cases=cases, max_rel_err=worst, tol=TOL)
 
     # ---- 4. the main path at the paper's size ------------------------------
@@ -431,12 +792,19 @@ def main() -> int:
           "simulated scene shape/device")
 
     def replay_plain(pipe, x):
-        """The compiled steps through the plain version, on the card."""
+        """The compiled steps through the plain versions, on the card: a
+        spectral step through ``spectral_op_plain``, a transpose through
+        ``transpose_plain``, the sinc RCMC (plain PyTorch already) through
+        its own ``fn``."""
         for s in pipe.steps:
-            xr, xi = planlib.split(x)
-            yr, yi = ops.spectral_op_plain(xr, xi, **s.filter_kw,
-                                           **s.kernel_kw)
-            x = planlib.unsplit(yr, yi)
+            if s.kind == "spectral":
+                xr, xi = planlib.split(x)
+                x = planlib.unsplit(*ops.spectral_op_plain(
+                    xr, xi, **s.filter_kw, **s.kernel_kw))
+            elif s.kind == "transpose":
+                x = transpose.transpose_plain(x)
+            else:
+                x = s.fn(x)
         return x
 
     def score(img):
@@ -460,31 +828,18 @@ def main() -> int:
     for variant, want_launches in (("fused3", 3), ("fused_tfree", 4)):
         pipe = build_pipeline(cfg, variant)
         check(pipe.dispatches == want_launches, f"{variant} dispatches")
-        ops.SPECTRAL_LAUNCHES = 0
-        ops.MEGA_LAUNCHES.update(mega_resident=0, mega_staged=0)
+        reset_launch_counts()
         img = pipe.run(raw)
         torch.cuda.synchronize()
-        launches = ops.SPECTRAL_LAUNCHES
-        check(launches == want_launches,
-              f"{variant}: {launches} kernel launches, want {want_launches}")
-        check(not any(ops.MEGA_LAUNCHES.values()),
-              f"{variant}: megakernel launches {ops.MEGA_LAUNCHES}")
+        got_counts, want = launch_counts(spectral=want_launches)
+        check(got_counts == want, f"{variant}: launches {got_counts}")
+        launches = got_counts["spectral"]
         check(bool(torch.isfinite(img).all()), f"{variant}: non-finite image")
         rep_k = score(img)
-        for r in rep_k:
-            off = r["wide_peak_offset"]
-            check(max(abs(off[0]), abs(off[1])) <= 8,
-                  f"{variant}: target peak {off} px from expected")
-            check(r["snr_db"] > 30.0, f"{variant}: SNR {r['snr_db']}")
         img_p = replay_plain(pipe, raw)
         torch.cuda.synchronize()
-        rep_p = score(img_p)
-        dsnr = [abs(a["snr_db"] - b["snr_db"]) for a, b in zip(rep_k, rep_p)]
-        check([r["peak"] for r in rep_k] == [r["peak"] for r in rep_p],
-              f"{variant}: kernel and plain peaks differ")
-        check(max(dsnr) <= GATE_DB, f"{variant}: dSNR {dsnr}")
-        l2 = float(torch.linalg.vector_norm(img - img_p)
-                   / torch.linalg.vector_norm(img_p))
+        dsnr = check_focus(f"{variant} vs plain", rep_k, score(img_p))
+        l2 = l2_rel(torch, img, img_p)
         results[variant] = dict(launches=launches, targets=rep_k,
                                 snr_delta_db_vs_plain=dsnr,
                                 l2_rel_vs_plain=l2)
@@ -530,34 +885,8 @@ def main() -> int:
          peaks=small_peaks[0])
 
     # ---- 5. times ----------------------------------------------------------
-    launches_t = []
-    for name, (s, xr, xi, x) in main_inputs.items():
-        kk, fk = s.kernel_kw, s.filter_kw
-        n = cfg.nr if kk["axis"] == 1 else cfg.na
-        nlines = cfg.na if kk["axis"] == 1 else cfg.nr
-        spec = SpectralSpec(n=n, fwd=kk["fwd"], filter_mode=kk["filter_mode"],
-                            inv=kk["inv"], axis=kk["axis"])
-        nbytes = 4 * xr.numel() * 4 + sum(4 * t.numel() for t in fk.values())
-        flops = flops_nominal(spec, nlines)
-        n1, n2 = spec.factors()
-        ffma = 8.0 * n * (n1 + n2) * nlines * (int(kk["fwd"]) + int(kk["inv"]))
-        t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        rec = dict(
-            launch=name, axis=kk["axis"], mode=kk["filter_mode"],
-            fwd=kk["fwd"], inv=kk["inv"],
-            ms=cuda_median_ms(lambda: ops.spectral_op(xr, xi, **fk, **kk)),
-            plain_ms=cuda_median_ms(
-                lambda: ops.spectral_op_plain(xr, xi, **fk, **kk)),
-            library_ms=cuda_median_ms(lambda: planlib._torch_apply(
-                x, kk["fwd"], kk["inv"], kk["filter_mode"], fk,
-                kk["axis"])),
-            bytes=nbytes, flops_nominal=flops,
-            bound_ms=max(t_mem, t_ops),
-            bound_by="bytes" if t_mem >= t_ops else "operations",
-            ffma_flops=ffma, ffma_floor_ms=ffma / FP32_FLOP_PER_S * 1e3)
-        launches_t.append(rec)
-        emit("time_launch", nvidia_smi=smi_line, **rec)
+    launches_t = [time_spectral_launch(smi_line, s, xr, xi, x)
+                  for s, xr, xi, x in main_inputs.values()]
     run_ms = cuda_median_ms(lambda: fused3_pipe.run(raw))
     emit("time_run", variant="fused3", ms=run_ms, nvidia_smi=smi_line,
          launch_ms_sum=sum(r["ms"] for r in launches_t))
@@ -581,6 +910,9 @@ def main() -> int:
     }]
     kernels += mega_phases(torch, dev, smi_line, cfg, raw, images["fused3"],
                            score, small, small_raw, fused3_pipe)
+    kernels += baseline_phases(torch, dev, smi_line, cfg, raw, score,
+                               replay_plain, small, small_raw, fused3_pipe,
+                               main_inputs, images.pop("fused3"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,6 +14,10 @@ it into a :class:`Pipeline` of launches of the fused spectral op
   Under ``FUSE_MEGA`` (the megakernel grammar) an axis change opens a
   new in-kernel segment instead of a new launch: a cross-axis group
   compiles to ONE ``ops.mega_spectral_op`` launch.
+* **Orientation** — a transpose step turns the scene (one launch of the
+  tiled transpose kernel) and flips the orientation the compiler tracks:
+  a spectral step inside a transposed section launches on the other
+  physical axis, and its FULL filter is transposed with the data.
 * **Filter caching** — host filter math is cached per
   ``(SceneConfig, params, filter_name)`` and composed payloads per
   ``(SceneConfig, plan, fuse, backend)``.
@@ -44,6 +48,7 @@ from repro_torch.kernels.fft4step import (
     FILTER_SHARED_OUTER,
     resolve_precision,
 )
+from repro_torch.kernels.transpose import transpose
 
 BACKEND_KERNEL = "kernel"   # fused launches of the spectral op
 BACKEND_TORCH = "torch"     # one torch.fft op per group (the unfused oracle)
@@ -53,8 +58,6 @@ BACKEND_TORCH = "torch"     # one torch.fft op per group (the unfused oracle)
 #   True       per-axis fusion: fft? mul* ifft? on ONE transform axis
 #   FUSE_MEGA  cross-axis fusion (the megakernel grammar)
 FUSE_MEGA = "mega"
-
-_TODO_TRANSPOSE = "the tiled transpose (ROADMAP.md Queue 2, item 5)"
 
 
 def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -421,7 +424,9 @@ class Step:
     performs — ``phys_axis``, ``filter_mode``, ``filter_kw`` (device
     filter tensors) and ``kernel_kw`` (``ops.spectral_op`` keywords) — so
     it can be replayed through another implementation of the op, e.g.
-    ``ops.spectral_op_plain`` on the card. A mega step (``kind="mega"``)
+    ``ops.spectral_op_plain`` on the card. A transpose step
+    (``kind="transpose"``) turns the scene's last two axes. A mega step
+    (``kind="mega"``)
     keeps ``kernel_kw`` (``ops.mega_spectral_op`` keywords) and
     ``seg_filter_args``, one tuple of device filter tensors per segment,
     whose concatenation is the launch's ``filter_args``.
@@ -475,8 +480,12 @@ class Pipeline:
 # The compiler
 # ---------------------------------------------------------------------------
 
-def _payload_to_device(mode: str, arrays: tuple, device) -> dict:
-    """Scene-coordinate payload -> ``ops.spectral_op`` filter kwargs."""
+def _payload_to_device(mode: str, arrays: tuple, device,
+                       transposed: bool = False) -> dict:
+    """Scene-coordinate payload -> ``ops.spectral_op`` filter kwargs in
+    the physical orientation (a FULL filter transposes with the data;
+    shared vectors and outer u/v are orientation-invariant given the
+    physical axis)."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -484,6 +493,8 @@ def _payload_to_device(mode: str, arrays: tuple, device) -> dict:
         return {}
     if mode in (FILTER_SHARED, FILTER_FULL):
         h = arrays[0]
+        if mode == FILTER_FULL and transposed:
+            h = h.T
         return {"hr": t(h.real.astype(np.float32)),
                 "hi": t(h.imag.astype(np.float32))}
     if mode == FILTER_OUTER:
@@ -517,19 +528,22 @@ def _torch_apply(x, fwd, inv, mode, fk, phys_axis):
     return x
 
 
-def _make_spectral_step(group, mode, arrays, *, backend, opts) -> Step:
-    axis = group[0].axis                       # no transposes: phys == scene
+def _make_spectral_step(group, mode, arrays, *, transposed, backend,
+                        opts) -> Step:
+    axis = group[0].axis                       # logical (scene) axis
+    phys_axis = (1 - axis) if transposed else axis
     fwd = any(a.kind == "fft" for a in group)
     inv = any(a.kind == "ifft" for a in group)
     name = group[0].stage.name
-    block = (opts["block"] or 8) if axis == 1 else (opts["col_block"] or 128)
+    block = ((opts["block"] or 8) if phys_axis == 1
+             else (opts["col_block"] or 128))
     stage_prec = next((a.stage.precision for a in group
                        if a.stage.precision is not None), None)
     precision = resolve_precision(opts["precision"] or stage_prec).name
-    kernel_kw = dict(axis=axis, fwd=fwd, inv=inv, filter_mode=mode,
+    kernel_kw = dict(axis=phys_axis, fwd=fwd, inv=inv, filter_mode=mode,
                      block=block, fft_impl=opts["fft_impl"],
                      precision=precision)
-    filter_kw = _payload_to_device(mode, arrays, opts["device"])
+    filter_kw = _payload_to_device(mode, arrays, opts["device"], transposed)
 
     if backend == BACKEND_KERNEL:
         def fn(x, _fk=filter_kw):
@@ -538,10 +552,10 @@ def _make_spectral_step(group, mode, arrays, *, backend, opts) -> Step:
             return unsplit(yr, yi)
     else:
         def fn(x, _fk=filter_kw):
-            return _torch_apply(x, fwd, inv, mode, _fk, axis)
+            return _torch_apply(x, fwd, inv, mode, _fk, phys_axis)
 
     fused = backend == BACKEND_KERNEL and len(group) > 1
-    return Step(name, fn, 1, 1, fused, kind="spectral", phys_axis=axis,
+    return Step(name, fn, 1, 1, fused, kind="spectral", phys_axis=phys_axis,
                 filter_mode=mode, filter_kw=filter_kw, kernel_kw=kernel_kw)
 
 
@@ -595,6 +609,20 @@ def _make_mega_step(group, seg_payloads, *, cfg, backend, opts) -> Step:
                 seg_filter_args=tuple(seg_args))
 
 
+def _make_transpose_step(stage: Stage, backend: str) -> Step:
+    """One corner turn of the complex64 scene: in the kernel backend ONE
+    launch of the tiled transpose on 8-byte elements (the reference turns
+    the re and im planes in two calls; a transpose is exact, so the
+    numbers are the same), in the torch backend a swap of the last two
+    axes."""
+    if backend == BACKEND_KERNEL:
+        fn = transpose
+    else:
+        def fn(x):
+            return x.transpose(-1, -2).contiguous()
+    return Step(stage.name, fn, 1, 1, False, kind="transpose")
+
+
 def _make_custom_step(stage: Stage, cfg) -> Step:
     if stage.kind not in _STAGE_IMPLS:
         raise KeyError(f"no implementation registered for stage kind "
@@ -637,6 +665,9 @@ def compile_plan(
     device: where the pipeline runs; None is the CUDA card (raises
       without one), "cpu" runs the plain version.
     block/col_block: line padding granule of rows/columns launches.
+    fft_impl: 'matmul' (the four-step DFT-matrix stages) or 'stockham'
+      (the self-sorting radix-4/radix-2 Stockham passes, the paper's
+      scalar baseline), in every spectral and mega step.
     precision: matmul-operand policy for every spectral stage (over each
       ``Stage.precision``); the CUDA kernels take f32 only.
     residency: megakernel mode of mega steps — 'vmem' (on Hopper: the
@@ -655,20 +686,31 @@ def compile_plan(
                 phase_block=phase_block, buffer_depth=buffer_depth,
                 batch_block=batch_block)
     steps: list[Step] = []
+    transposed = False
     for group, (mode, arrays) in zip(groups, payloads):
         kind = group[0].kind
         if mode == MEGA:
+            if transposed:
+                raise ValueError(
+                    f"mega step {group[0].stage.name!r} inside a "
+                    "transposed section is not supported")
             steps.append(_make_mega_step(
                 group, arrays, cfg=cfg, backend=backend, opts=opts))
         elif kind in ("fft", "ifft", "mul"):
             steps.append(_make_spectral_step(
-                group, mode, arrays, backend=backend, opts=opts))
+                group, mode, arrays, transposed=transposed, backend=backend,
+                opts=opts))
         elif kind == "transpose":
-            raise NotImplementedError(
-                f"transpose stage {group[0].stage.name!r} needs "
-                f"{_TODO_TRANSPOSE}")
+            steps.append(_make_transpose_step(group[0].stage, backend))
+            transposed = not transposed
         else:
+            if transposed:
+                raise ValueError(
+                    f"custom stage {group[0].stage.name!r} inside a "
+                    "transposed section is not supported")
             steps.append(_make_custom_step(group[0].stage, cfg))
+    if transposed:
+        raise ValueError(f"plan {plan.name!r} ends in transposed orientation")
     return Pipeline(plan.name, cfg, steps, dev, plan)
 
 

@@ -11,6 +11,13 @@ Variants
 ``unfused``      The paper's baseline: one torch.fft op per atom (FFT,
                  multiply, IFFT, ...) and the 8-tap sinc RCMC.
                  7 dispatches.
+``fused``        Paper-faithful fusion (Sec. IV-A): range compression as
+                 ONE launch (FFT * H_r * IFFT), the azimuth FFT as
+                 transpose -> row FFT -> transpose, RCMC the separate
+                 8-tap sinc step, azimuth compression as transpose ->
+                 row H_a * IFFT -> transpose. 8 launches: 3 of the
+                 spectral kernel, 4 of the tiled transpose kernel, and
+                 the sinc RCMC in plain PyTorch ops.
 ``fused_tfree``  Column launches transform azimuth in place, RCMC is a
                  fused Fourier-shift launch, azimuth compression a fused
                  column launch. 4 launches, no global transposes.
@@ -23,7 +30,9 @@ Variants
                  that fit one block (128^2), grid-staged through device
                  memory beyond (the paper's 4096^2). 1 launch.
 
-``fused`` (global transposes) is not ported yet (ROADMAP.md Queue 1).
+Every variant compiles with ``fft_impl="matmul"`` (the four-step
+DFT-matrix stages, the default) or ``fft_impl="stockham"`` (the paper's
+scalar radix-4/radix-2 Stockham baseline), in the same launch counts.
 """
 from __future__ import annotations
 
@@ -117,6 +126,23 @@ def plan_unfused(rcmc_mode: str = "sinc") -> SpectralPlan:
     ))
 
 
+def plan_fused() -> SpectralPlan:
+    """The paper's pipeline (Sec. IV-A): steps 1 & 4 fused, the azimuth
+    transform via global transposes, RCMC a separate sinc step."""
+    return SpectralPlan("fused", (
+        Stage("range_compression", axis=1, fwd=True, inv=True,
+              filters=("range_mf",)),
+        Stage("azimuth_fft_turn_in", kind="transpose"),
+        Stage("azimuth_fft", axis=0, fwd=True),
+        Stage("azimuth_fft_turn_out", kind="transpose"),
+        Stage("rcmc", kind="sinc_rcmc"),
+        Stage("azimuth_compression_turn_in", kind="transpose"),
+        Stage("azimuth_compression", axis=0, inv=True,
+              filters=("azimuth_mf",)),
+        Stage("azimuth_compression_turn_out", kind="transpose"),
+    ))
+
+
 def plan_fused_tfree(synth_phase: bool = False) -> SpectralPlan:
     """4 launches, no global transposes, RCMC fused via the shift theorem.
 
@@ -166,6 +192,8 @@ planlib.register_variant(
     compile_defaults=(("backend", planlib.BACKEND_TORCH), ("fuse", False)),
     plan_kw=("rcmc_mode",), dispatches=7)
 planlib.register_variant(
+    "fused", plan_fused, dispatches=8)
+planlib.register_variant(
     "fused_tfree", plan_fused_tfree, plan_kw=("synth_phase",), dispatches=4)
 planlib.register_variant(
     "fused3", plan_fused3, plan_kw=("synth_phase",), dispatches=3)
@@ -213,5 +241,5 @@ def _build(variant: str, cfg: SceneConfig, **kw) -> Pipeline:
 
 BUILDERS: dict[str, Callable[..., Pipeline]] = {
     v: functools.partial(_build, v)
-    for v in ("unfused", "fused_tfree", "fused3", "fused1")
+    for v in ("unfused", "fused", "fused_tfree", "fused3", "fused1")
 }

@@ -7,11 +7,15 @@ fft4step.py     — filter modes, precision policy, factorization, DFT
 ops.py          — public wrappers (padding, filter plumbing, batch sugar,
                   the residency cut): the CUDA kernels on CUDA tensors,
                   the plain versions on CPU.
+transpose.py    — the tiled corner turn (the ``fused`` variant's): the CUDA
+                  kernel on CUDA tensors, the plain version on CPU.
 ref.py          — torch.fft oracles.
 _build.py       — nvcc build of csrc/*.cu, loaded with ctypes.
 csrc/spectral.cu        — the per-axis kernel (sm_90a).
 csrc/mega.cu            — mega_resident and mega_staged (sm_90a).
-csrc/spectral_common.cuh— the device code both share.
+csrc/spectral_common.cuh— the device code both share (four-step stages,
+                          the Stockham pass, filter, tile pass).
+csrc/transpose.cu       — the tiled transpose (sm_90a).
 """
 from repro_torch.kernels.fft4step import (  # noqa: F401
     FILTER_FULL,
@@ -26,4 +30,4 @@ from repro_torch.kernels.fft4step import (  # noqa: F401
     dft_constants,
     resolve_precision,
 )
-from repro_torch.kernels import ops, ref  # noqa: F401
+from repro_torch.kernels import ops, ref, transpose  # noqa: F401

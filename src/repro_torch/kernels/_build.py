@@ -71,15 +71,16 @@ def _stale(name: str, src: str) -> bool:
     return any(built < os.path.getmtime(p) for p in [src, *headers])
 
 
-def build_all(verbose: bool = False) -> dict[str, str]:
-    """Compile every stale source, all ``nvcc`` processes at once.
-    Returns name -> compiler output (``-Xptxas -v`` register and shared
-    memory report when ``verbose``). Raises on any failed build."""
+def build_all(verbose: bool = False, force: bool = False) -> dict[str, str]:
+    """Compile every stale source (every source with ``force``), all
+    ``nvcc`` processes at once. Returns name -> compiler output of each
+    source compiled (``-Xptxas -v`` register and shared memory report when
+    ``verbose``). Raises on any failed build."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     for name, src in sources().items():
-        if not _stale(name, src):
+        if not (force or _stale(name, src)):
             continue
         tmp = lib_path(name) + f".tmp{os.getpid()}"
         cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, src]

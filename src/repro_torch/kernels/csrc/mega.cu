@@ -10,10 +10,14 @@
 //   src/repro/kernels/fft4step.py:1002 `_mega_kernel_staged`
 //   (pallas_call at fft4step.py:1288, residency="staged"),
 // both wrapped by src/repro/kernels/ops.py:161 `mega_spectral_op`; at
-// float32 with karatsuba=False, fft_impl="matmul", N <= 4096 on each
-// transformed axis as a two-factor split, all five filter modes on either
-// axis (rank-K outer), fwd-only / inv-only / fwd+inv / filter-only
-// segments, at most kMaxSegments segments.
+// float32 with karatsuba=False, N <= 4096 on each transformed axis, all
+// five filter modes on either axis (rank-K outer), fwd-only / inv-only /
+// fwd+inv / filter-only segments, at most kMaxSegments segments. Each FFT
+// runs on one of two routes: fft_impl="matmul" (the four-step stages, N a
+// two-factor split) or fft_impl="stockham" (the radix-4/radix-2 Stockham
+// passes, which the reference reaches through _run_segment -> _run_fft ->
+// _fft_stockham, src/repro/kernels/fft4step.py:422; N any power of two
+// from 2 to 4096), both from spectral_common.cuh.
 //
 // mega_resident — one CTA holds one scene's whole split slab in shared
 // memory: na * nr * 8 bytes, at most the 232,448 B a Hopper block may opt
@@ -25,7 +29,10 @@
 // ends in natural order (an inverse-only segment first permutes into the
 // transposed order, a forward-only one back out of it, both staged through
 // registers between two barriers), so the next segment's per-line filter
-// index is the natural one. DFT constants, u, v, shared vectors and FULL
+// index is the natural one. The Stockham route is self-sorting and needs
+// neither permutation. Its passes read and write each point of the slab
+// once a pass, in place, so the slab still takes na * nr * 8 bytes. DFT
+// constants, the Stockham twiddle table, u, v, shared vectors and FULL
 // filters are read from global memory (L1/L2) in place. Nothing of the
 // scene goes to device memory between segments.
 //   What bounds it: per scene it moves 16 B a point once (0.010 ms for
@@ -53,7 +60,9 @@
 // and write the image once, 268 MB, 0.080 ms at 3.35 TB/s; staged through
 // device memory it moves the scene once per phase, 3 x 268 MB, 0.24 ms.
 // Its FFMA stages (~1.0 ms at 67 TFLOP/s for fused1's four transforms) and
-// their load issue are what it spends its time on, as in spectral.cu.
+// their load issue are what it spends its time on, as in spectral.cu; on
+// the Stockham route (~0.06 ms of nominal flops) its shared-memory passes,
+// barriers and the three device-memory round trips.
 //
 // Both kernels run, for each point, exactly the float operations of
 // spectral.cu's launches (spectral_common.cuh, -fmad=false), so at f32
@@ -76,7 +85,7 @@ namespace {
 using namespace spectral;
 
 constexpr int kMaxSegments = 8;
-constexpr int kSegFields = 25;   // int64 fields per segment in the table
+constexpr int kSegFields = 26;   // int64 fields per segment in the table
 
 struct Segment {
   Dft d;
@@ -101,30 +110,30 @@ __device__ __forceinline__ void resident_segment(const Lines& L,
                                                  const Segment& g) {
   const Dft& d = g.d;
   const bool fwd = g.fwd, inv = g.inv;
-  if (!fwd && inv) {
+  const bool four_step = d.stw == nullptr;   // Stockham: natural order
+  if (four_step && !fwd && inv) {
     reorder<kLineFast>(L, kToTransposed, d.n1, d.n2, 1.0f, 1.0f);
   }
-  if (fwd) {
-    stage<true, kLineFast>(L, d.n1, d.n2, d.f1r, d.f1i, d.twr, d.twi, false);
-    stage<false, kLineFast>(L, d.n1, d.n2, d.f2r, d.f2i, nullptr, nullptr,
-                            false);
-  }
+  if (fwd) transform<kLineFast>(L, d, false);
   if (g.f.mode != kNone) {
-    filter_pass<kLineFast>(L, g.f, 0, L.lines, fwd || inv, d.n1, d.n2);
+    filter_pass<kLineFast>(L, g.f, 0, L.lines, four_step && (fwd || inv),
+                           d.n1, d.n2);
   }
   if (inv) {
-    stage<false, kLineFast>(L, d.n1, d.n2, d.f2r, d.f2i, d.twr, d.twi, true);
-    stage<true, kLineFast>(L, d.n1, d.n2, d.f1r, d.f1i, nullptr, nullptr,
-                           false);
+    transform<kLineFast>(L, d, true);
     const float scale = inverse_scale(true, d.n);
     reorder<kLineFast>(L, kKeep, d.n1, d.n2, scale, -scale);
-  } else if (fwd) {
+  } else if (fwd && four_step) {
     reorder<kLineFast>(L, kToNatural, d.n1, d.n2, 1.0f, 1.0f);
   }
 }
 
 // grid = batch; one scene per CTA, its (na, nr) slab at s[a * nr + r].
-__global__ void __launch_bounds__(kMaxThreads)
+// With the Stockham passes beside the four-step stages, the thread bound
+// alone let ptxas hold this kernel to 32 registers (8.5 KB of spills, as
+// mega_staged below); naming one block per SM gives it the 64 that bound
+// allows. A 128^2 slab takes one SM's shared memory anyway.
+__global__ void __launch_bounds__(kMaxThreads, 1)
 mega_resident(const __grid_constant__ MegaArgs a) {
   extern __shared__ float2 s[];
   const int na = a.na, nr = a.nr;
@@ -182,7 +191,8 @@ const T* as_ptr(long long v) {
 
 // Fill MegaArgs from the host's segment table (kSegFields int64 a segment:
 // axis, fwd, inv, mode, rank, n, n1, n2, tile, f1r, f1i, f2r, f2i, twr,
-// twi, hr, hi, h_line, h_k, u, v, u_line, u_k, v_n, v_k).
+// twi, hr, hi, h_line, h_k, u, v, u_line, u_k, v_n, v_k, stw). A non-null
+// stw (the Stockham twiddle table) puts the segment on the Stockham route.
 cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
                    float* yi, int batch, int na, int nr, int nseg,
                    const long long* table) {
@@ -205,9 +215,13 @@ cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
     g.f.h_line = r[17]; g.f.h_k = r[18];
     g.f.u = as_ptr<float>(r[19]);   g.f.v = as_ptr<float>(r[20]);
     g.f.u_line = r[21]; g.f.u_k = r[22]; g.f.v_n = r[23]; g.f.v_k = r[24];
+    g.d.stw = as_ptr<float2>(r[25]);
     if (g.axis != 0 && g.axis != 1) return cudaErrorInvalidValue;
     if (g.d.n != (g.axis == 1 ? nr : na)) return cudaErrorInvalidValue;
-    if ((g.fwd || g.inv) && g.d.n1 * g.d.n2 != g.d.n) {
+    const int n = g.d.n;
+    if ((g.fwd || g.inv) &&
+        (g.d.stw != nullptr ? n < 2 || (n & (n - 1)) != 0
+                            : g.d.n1 * g.d.n2 != n)) {
       return cudaErrorInvalidValue;
     }
   }

@@ -1,7 +1,9 @@
 // Device code shared by the hand-written spectral kernels (spectral.cu and
-// mega.cu) for Hopper (sm_90a): the four-step FFT contraction stages over
-// whole lines held in shared memory, the pointwise filter, the four-step
-// order permutations with the inverse's 1/N, and the device-memory <->
+// mega.cu) for Hopper (sm_90a): two FFT routes over whole lines held in
+// shared memory — the four-step FFT contraction stages (fft_impl="matmul")
+// and the self-sorting radix-4/radix-2 Stockham passes
+// (fft_impl="stockham") — the pointwise filter, the four-step order
+// permutations with the inverse's 1/N, and the device-memory <->
 // shared-memory pass of one per-axis op on a tile of lines.
 //
 // Lines in shared memory are complex, interleaved (float2). A set of
@@ -17,6 +19,20 @@
 // swapped factorization on that order and ends in natural order, so
 // fwd+inv permutes nothing; fwd-only permutes back to natural order at its
 // end, inv-only into the transposed order at its start.
+//
+// The Stockham route (replacing the JAX package's _fft_stockham,
+// src/repro/kernels/fft4step.py:422) runs radix-4 passes while the
+// remaining length divides by 4 and one radix-2 pass last when log2 N is
+// odd (the reference's pass order), each reading and writing every point
+// once, in place, staged through registers between two barriers as the
+// four-step stages are. It is self-sorting: natural order in and out, so
+// no permutation and no transposed filter index. Its twiddles come from
+// one table built on the host (fft4step.stockham_table) that the plain
+// version reads too. Per
+// point and transform it does ~8.5 flops a pass (~51 at N = 4096) against
+// the four-step's 8 (n1 + n2) = 1024, so on Hopper, which has no float32
+// tensor-core product, its time goes to the passes' shared-memory traffic
+// and barriers and to the tile's device-memory I/O, not to FFMA issue.
 //
 // Numerics: every complex and twiddle product is written with explicit
 // rounding intrinsics (__fmaf_rn, __fmul_rn, __fadd_rn, __fsub_rn), and the
@@ -38,7 +54,9 @@ constexpr int kMaxThreads = 1024;
 enum FilterMode { kNone = 0, kShared = 1, kFull = 2, kOuter = 3,
                   kSharedOuter = 4 };
 
-// DFT matrices F1 (n1 x n1), F2 (n2 x n2) and twiddles (n1 x n2) of n.
+// DFT matrices F1 (n1 x n1), F2 (n2 x n2) and twiddles (n1 x n2) of n on
+// the four-step route; the Stockham twiddle table on the Stockham route
+// (stw != nullptr selects it, and the other pointers are unused).
 struct Dft {
   const float* f1r;
   const float* f1i;
@@ -46,6 +64,7 @@ struct Dft {
   const float* f2i;
   const float* twr;
   const float* twi;
+  const float2* stw;
   int n, n1, n2;
 };
 
@@ -74,15 +93,22 @@ struct Lines {
 //               neighbouring lines.
 // The mapping decides which thread computes a point, never its value; the
 // unit stride stays a compile-time constant in the inner loops.
+// Output o of a pass over `lines` lines of `per_line` items each.
+template <bool kLineFast>
+__device__ __forceinline__ void split_items(int lines, int per_line, int o,
+                                            int& c, int& p) {
+  if (kLineFast) {
+    c = o % lines;
+    p = o / lines;
+  } else {
+    c = o / per_line;
+    p = o - c * per_line;
+  }
+}
+
 template <bool kLineFast>
 __device__ __forceinline__ void split(const Lines& L, int o, int& c, int& p) {
-  if (kLineFast) {
-    c = o % L.lines;
-    p = o / L.lines;
-  } else {
-    c = o / L.n;
-    p = o - c * L.n;
-  }
+  split_items<kLineFast>(L.lines, L.n, o, c, p);
 }
 
 template <bool kLineFast>
@@ -174,6 +200,121 @@ __device__ __forceinline__ void stage(const Lines& L, int n1, int n2,
     }
   }
   __syncthreads();
+}
+
+// One radix-R pass of the Stockham FFT on every line, in place, pass for
+// pass the JAX package's _fft_stockham. With s = 2^log_s points already
+// combined (s = 1 at the first pass), butterfly b = k * s + q of a line
+// (b < n / R) reads x_r = y[r * (n / R) + b] (r < R) and writes
+// y[(k * R + r) * s + q] = t_r, with twiddles w of index k:
+//   radix 4: t0 = (a + c) + (b + d)          t2 = ((a + c) - (b + d)) w2
+//            t1 = ((a - c) - i (b - d)) w1   t3 = ((a - c) + i (b - d)) w3
+//   radix 2: t0 = a + b,  t1 = (a - b) w1
+// conj_in conjugates the inputs (the first pass of an inverse). Each
+// thread stages its butterflies' outputs in registers between two barriers.
+template <bool kLineFast, int kRadix>
+__device__ __forceinline__ void stockham_pass(const Lines& L, int log_s,
+                                              const float2* __restrict__ tw,
+                                              bool conj_in) {
+  constexpr int kBfly = kPerThread / kRadix;   // butterflies a thread
+  float2 stash[kPerThread];
+  const int span = L.n / kRadix;               // butterflies a line
+  const int total = L.lines * span;
+#pragma unroll
+  for (int i = 0; i < kBfly; ++i) {
+    const int o = threadIdx.x + i * blockDim.x;
+    if (o < total) {
+      int c, b;
+      split_items<kLineFast>(L.lines, span, o, c, b);
+      const int k = b >> log_s;
+      float2 v[kRadix];
+#pragma unroll
+      for (int r = 0; r < kRadix; ++r) {
+        v[r] = *at<kLineFast>(L, c, r * span + b);
+        if (conj_in) v[r].y = -v[r].y;   // exact
+      }
+      float2* out = stash + i * kRadix;
+      if constexpr (kRadix == 4) {
+        const float2 w1 = __ldg(tw + 3 * k);
+        const float2 w2 = __ldg(tw + 3 * k + 1);
+        const float2 w3 = __ldg(tw + 3 * k + 2);
+        const float2 apc = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+        const float2 amc = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+        const float2 bpd = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+        const float2 bmd = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
+        out[0] = make_float2(apc.x + bpd.x, apc.y + bpd.y);
+        out[1] = cmul(make_float2(amc.x + bmd.y, amc.y - bmd.x), w1.x, w1.y);
+        out[2] = cmul(make_float2(apc.x - bpd.x, apc.y - bpd.y), w2.x, w2.y);
+        out[3] = cmul(make_float2(amc.x - bmd.y, amc.y + bmd.x), w3.x, w3.y);
+      } else {
+        const float2 w1 = __ldg(tw + k);
+        out[0] = make_float2(v[0].x + v[1].x, v[0].y + v[1].y);
+        out[1] = cmul(make_float2(v[0].x - v[1].x, v[0].y - v[1].y), w1.x,
+                      w1.y);
+      }
+    }
+  }
+  __syncthreads();
+  const int s_mask = (1 << log_s) - 1;
+#pragma unroll
+  for (int i = 0; i < kBfly; ++i) {
+    const int o = threadIdx.x + i * blockDim.x;
+    if (o < total) {
+      int c, b;
+      split_items<kLineFast>(L.lines, span, o, c, b);
+      const int k = b >> log_s;
+      const int base = ((k * kRadix) << log_s) + (b & s_mask);
+#pragma unroll
+      for (int r = 0; r < kRadix; ++r) {
+        *at<kLineFast>(L, c, base + (r << log_s)) = stash[i * kRadix + r];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The n-point Stockham FFT of every line (n = L.n, a power of two >= 2),
+// natural order in and out; `tw` is the table of fft4step.stockham_table
+// (per pass: (w1, w2, w3) pairs for radix 4, w1 for radix 2).
+template <bool kLineFast>
+__device__ __forceinline__ void stockham(const Lines& L,
+                                         const float2* __restrict__ tw,
+                                         bool conj_in) {
+  int cur = L.n, log_s = 0;
+  while (cur > 1) {
+    if ((cur & 3) == 0) {
+      cur >>= 2;
+      stockham_pass<kLineFast, 4>(L, log_s, tw, conj_in);
+      tw += 3 * cur;
+      log_s += 2;
+    } else {
+      cur >>= 1;
+      stockham_pass<kLineFast, 2>(L, log_s, tw, conj_in);
+      tw += cur;
+      log_s += 1;
+    }
+    conj_in = false;
+  }
+}
+
+// The transform of every line on the Dft's route: forward, or the inverse
+// without its closing conjugate and 1/N (those come with the store). The
+// four-step forward ends in the transposed order and its inverse starts
+// from it; the Stockham route stays in natural order.
+template <bool kLineFast>
+__device__ __forceinline__ void transform(const Lines& L, const Dft& d,
+                                          bool inverse) {
+  if (d.stw != nullptr) {
+    stockham<kLineFast>(L, d.stw, inverse);
+  } else if (!inverse) {
+    stage<true, kLineFast>(L, d.n1, d.n2, d.f1r, d.f1i, d.twr, d.twi, false);
+    stage<false, kLineFast>(L, d.n1, d.n2, d.f2r, d.f2i, nullptr, nullptr,
+                            false);
+  } else {
+    stage<false, kLineFast>(L, d.n1, d.n2, d.f2r, d.f2i, d.twr, d.twi, true);
+    stage<true, kLineFast>(L, d.n1, d.n2, d.f1r, d.f1i, nullptr, nullptr,
+                           false);
+  }
 }
 
 // The filter at natural index k of line gl (precise sincosf: the azimuth
@@ -276,8 +417,9 @@ __device__ __forceinline__ void tile_op(float2* s, const float* xr,
   const int total = C * n;
   const int T = blockDim.x;
   const int valid = min(C, lines - line0);
-  const bool perm_in = !fwd && inv;    // load into the transposed order
-  const bool perm_out = fwd && !inv;   // store out of it
+  const bool four_step = d.stw == nullptr;   // Stockham: natural order
+  const bool perm_in = four_step && !fwd && inv;    // load into the
+  const bool perm_out = four_step && fwd && !inv;   // transposed order / out
 
   for (int idx = threadIdx.x; idx < total; idx += T) {
     int c, j;
@@ -296,17 +438,12 @@ __device__ __forceinline__ void tile_op(float2* s, const float* xr,
   __syncthreads();
 
   const Lines L{s, C, n, n, 1};
-  if (fwd) {
-    stage<true, false>(L, n1, n2, d.f1r, d.f1i, d.twr, d.twi, false);
-    stage<false, false>(L, n1, n2, d.f2r, d.f2i, nullptr, nullptr, false);
-  }
+  if (fwd) transform<false>(L, d, false);
   if (f.mode != kNone) {
-    filter_pass<false>(L, f, line0, valid, fwd || inv, n1, n2);
+    filter_pass<false>(L, f, line0, valid, four_step && (fwd || inv), n1,
+                       n2);
   }
-  if (inv) {
-    stage<false, false>(L, n1, n2, d.f2r, d.f2i, d.twr, d.twi, true);
-    stage<true, false>(L, n1, n2, d.f1r, d.f1i, nullptr, nullptr, false);
-  }
+  if (inv) transform<false>(L, d, true);
 
   const float scale = inverse_scale(inv, n);
   const float iscale = inv ? -scale : 1.0f;

@@ -15,6 +15,9 @@ This module holds what every implementation of that op shares:
   constants are float64 math rounded to float32, element for element
   the same as the JAX package's, so the hand-written kernel and the plain
   version contract against identical matrices;
+* ``stockham_twiddles`` / ``stockham_table`` — the per-pass twiddles of
+  the Stockham route, one table read by the kernels and the plain
+  version alike;
 * the bs16 block-exponent codec (``line_exponents`` ... ``remove_exponents``);
 * ``spectral_plain`` — the plain PyTorch version of the fused op: the same
   recursion as the CUDA kernel's reference design, written with
@@ -32,6 +35,8 @@ prepares (see ``_apply_filters``).
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import dataclasses
 import functools
 import math
@@ -309,9 +314,89 @@ def _fft_cols_matmul(xr, xi, consts, spec: SpectralSpec):
     return rec(xr, xi, 0)
 
 
+# ---------------------------------------------------------------------------
+# Stockham FFT (plain version) and its twiddle table
+# ---------------------------------------------------------------------------
+
+def stockham_radices(n: int) -> tuple[int, ...]:
+    """The pass order of the Stockham route: radix 4 while the remaining
+    length divides by 4, else radix 2 (any power of two n >= 2)."""
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"Stockham length must be a power of two >= 2, "
+                         f"got {n}")
+    out = []
+    while n > 1:
+        radix = 4 if n % 4 == 0 else 2
+        out.append(radix)
+        n //= radix
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    for fn in (lib.cosf, lib.sinf):
+        fn.argtypes = [ctypes.c_float]
+        fn.restype = ctypes.c_float
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _stockham_host(n: int) -> tuple[tuple[torch.Tensor, ...], ...]:
+    """Per-pass float32 twiddles on the host (see ``stockham_twiddles``)."""
+    libm = _libm()
+    passes = []
+    cur = n
+    for radix in stockham_radices(n):
+        m = cur // radix
+        th = (-2.0 * math.pi / cur) * torch.arange(m, dtype=torch.float32)
+        w1r = torch.tensor([libm.cosf(t) for t in th.tolist()],
+                           dtype=torch.float32)
+        w1i = torch.tensor([libm.sinf(t) for t in th.tolist()],
+                           dtype=torch.float32)
+        if radix == 4:
+            w2r, w2i = _cmul(w1r, w1i, w1r, w1i)
+            w3r, w3i = _cmul(w2r, w2i, w1r, w1i)
+            passes.append((w1r, w1i, w2r, w2i, w3r, w3i))
+        else:
+            passes.append((w1r, w1i))
+        cur = m
+    return tuple(passes)
+
+
+@functools.lru_cache(maxsize=64)
+def stockham_twiddles(n: int, device: str) -> tuple:
+    """The twiddles of each Stockham pass of an n-point FFT, on ``device``
+    (cached per ``(n, device)``): a radix-4 pass of remaining length c
+    holds ``(w1r, w1i, w2r, w2i, w3r, w3i)``, each (c/4,), with
+    w1 = e^{-2 pi i k / c}, w2 = w1 * w1, w3 = w2 * w1; a radix-2 pass
+    ``(w1r, w1i)``, each (c/2,).
+
+    The JAX package's kernel computes the same float32 formula in place:
+    theta = (-2 pi / c) * k in float32, cos/sin, then the products through
+    ``_cmul``. Its float32 cos/sin run, on the CPU, as the C library's
+    ``cosf`` / ``sinf``, so the table takes them from there (torch.cos and
+    torch.sin differ from them in the last bit for c >= 16) and builds it
+    once on the host; every device gets the same numbers."""
+    return tuple(tuple(t.to(device) for t in p) for p in _stockham_host(n))
+
+
+@functools.lru_cache(maxsize=64)
+def stockham_table(n: int, device: str) -> torch.Tensor:
+    """``stockham_twiddles`` flattened for the CUDA kernels: float32 pairs
+    (re, im), pass after pass; a radix-4 pass holds (w1, w2, w3) for k = 0,
+    1, ..., a radix-2 pass w1 for k = 0, 1, ...."""
+    parts = []
+    for p in _stockham_host(n):
+        pairs = [torch.stack(p[i:i + 2], dim=1) for i in range(0, len(p), 2)]
+        parts.append(torch.stack(pairs, dim=1).reshape(-1))
+    return torch.cat(parts).to(device)
+
+
 def _fft_stockham(xr, xi, axis: int):
     """Self-sorting radix-4/radix-2 Stockham FFT along `axis` of a 2-D
-    block, elementwise ops only (the paper's scalar baseline)."""
+    block, elementwise ops only (the paper's scalar baseline); twiddles
+    from ``stockham_twiddles``, the table the CUDA kernels read."""
     if axis == 0:
         yr, yi = _fft_stockham(xr.T, xi.T, 1)
         return yr.T, yi.T
@@ -319,17 +404,14 @@ def _fft_stockham(xr, xi, axis: int):
     yr = xr.reshape(L, N, 1)
     yi = xi.reshape(L, N, 1)
     n, s = N, 1
-    dev = xr.device
-    while n > 1:
-        radix = 4 if n % 4 == 0 else 2
+    for radix, tw in zip(stockham_radices(N),
+                         stockham_twiddles(N, str(xr.device))):
         m = n // radix
-        k = torch.arange(m, dtype=torch.float32, device=dev)[:, None]
-        th = (-2.0 * math.pi / n) * k
-        w1r, w1i = torch.cos(th), torch.sin(th)
+        w1r, w1i = tw[0][:, None], tw[1][:, None]
         sl = lambda z, q: z[:, q * m:(q + 1) * m, :]  # noqa: E731
         if radix == 4:
-            w2r, w2i = _cmul(w1r, w1i, w1r, w1i)
-            w3r, w3i = _cmul(w2r, w2i, w1r, w1i)
+            w2r, w2i = tw[2][:, None], tw[3][:, None]
+            w3r, w3i = tw[4][:, None], tw[5][:, None]
             a_r, a_i = sl(yr, 0), sl(yi, 0)
             b_r, b_i = sl(yr, 1), sl(yi, 1)
             c_r, c_i = sl(yr, 2), sl(yi, 2)

@@ -54,6 +54,8 @@ from repro_torch.kernels.fft4step import (
     remove_exponents,
     resolve_precision,
     spectral_plain,
+    stockham_radices,
+    stockham_table,
 )
 
 # Launches of the CUDA spectral kernel in this process (one per call on a
@@ -64,6 +66,7 @@ MEGA_LAUNCHES = {"mega_resident": 0, "mega_staged": 0}
 
 KERNEL_NAME = "spectral"
 KERNEL_MAX_N = 4096
+FFT_IMPLS = ("matmul", "stockham")   # the FFT routes of the CUDA kernels
 _MODE_CODES = {m: i for i, m in enumerate(FILTER_MODES)}
 _ROADMAP = "ROADMAP.md Queue 2, item 1"
 
@@ -143,7 +146,7 @@ def _bind():
     fn = lib.spectral_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([p] * 4 + [i] * 9 + [p] * 10 + [i] + [ll] * 6
+        fn.argtypes = ([p] * 4 + [i] * 9 + [p] * 11 + [i] + [ll] * 6
                        + [i, i, p])
         fn.restype = ctypes.c_int
         lib.spectral_error_string.argtypes = [ctypes.c_int]
@@ -162,7 +165,9 @@ def kernel_tile(n: int, axis: int) -> tuple[int, int]:
 
 def check_kernel_spec(spec: SpectralSpec) -> tuple[int, int]:
     """Raise ValueError for what the CUDA kernel does not take yet;
-    returns its two-factor split (n1, n2)."""
+    returns its two-factor split (n1, n2) on the four-step route
+    (``fft_impl="matmul"``) and (n, 1) on the Stockham route, which takes
+    any power of two from 2 to 4096 and splits nothing."""
     if spec.precision != "f32":
         raise ValueError(
             f"precision {spec.precision!r} is not taken by the CUDA "
@@ -170,14 +175,16 @@ def check_kernel_spec(spec: SpectralSpec) -> tuple[int, int]:
     if spec.karatsuba:
         raise ValueError("karatsuba=True is not taken by the CUDA "
                          f"spectral kernel yet ({_ROADMAP}c)")
-    if spec.fft_impl != "matmul":
-        raise ValueError(f"fft_impl={spec.fft_impl!r} is not taken by the "
-                         "CUDA spectral kernel yet (ROADMAP.md Queue 2, "
-                         "item 4)")
+    if spec.fft_impl not in FFT_IMPLS:
+        raise ValueError(f"unknown fft_impl {spec.fft_impl!r}: the CUDA "
+                         f"kernels take {FFT_IMPLS} (ROADMAP.md Queue 2)")
     if spec.n > KERNEL_MAX_N:
         raise ValueError(
             f"n={spec.n} > {KERNEL_MAX_N} is not taken by the CUDA spectral "
             f"kernel yet ({_ROADMAP}d)")
+    if spec.fft_impl == "stockham":
+        stockham_radices(spec.n)          # a power of two >= 2
+        return spec.n, 1
     factors = spec.factors()
     if len(factors) != 2:
         raise ValueError(
@@ -188,6 +195,17 @@ def check_kernel_spec(spec: SpectralSpec) -> tuple[int, int]:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _route_constants(spec: SpectralSpec, n1: int, n2: int, dev) -> tuple:
+    """The seven constant pointers' tensors of one transform: the four-step
+    DFT matrices and twiddles and no Stockham table, or the other way
+    round (all None without a transform)."""
+    if not (spec.fwd or spec.inv):
+        return (None,) * 7
+    if spec.fft_impl == "stockham":
+        return (None,) * 6 + (stockham_table(spec.n, str(dev)),)
+    return (*device_constants((n1, n2), str(dev)), None)
 
 
 def _filter_launch_args(mode: str, axis: int, filter_args):
@@ -243,7 +261,7 @@ def _launch_cuda(spec: SpectralSpec, xr, xi, filter_args):
     yi = torch.empty_like(xi)
     if yr.numel() == 0:
         return yr, yi
-    consts = device_constants((n1, n2), str(dev))
+    consts = _route_constants(spec, n1, n2, dev)
     keep, filt = _filter_launch_args(spec.filter_mode, spec.axis,
                                      filter_args)
     tile, threads = kernel_tile(n, spec.axis)
@@ -298,9 +316,10 @@ def spectral_op(xr, xi, hr=None, hi=None, u=None, v=None, **kw):
                     filter = exp(i * sum_k u[line,k] * v[sample,k])
       shared_outer: hr/hi and u/v (the shared vector first)
     Keywords: axis, fwd, inv, filter_mode, block (line padding granule),
-    fft_impl, karatsuba, precision (f32 | bf16 | f16 | bs16), n1/n2/n3
-    (factorization override). On a CUDA tensor this launches the CUDA
-    kernel, which takes f32, karatsuba=False, matmul and N <= 4096 and
+    fft_impl ('matmul' | 'stockham'), karatsuba, precision (f32 | bf16 |
+    f16 | bs16), n1/n2/n3 (factorization override). On a CUDA tensor this
+    launches the CUDA kernel, which takes f32, karatsuba=False, both FFT
+    routes and N <= 4096 (a two-factor split on the matmul route) and
     raises ValueError for anything else; on a CPU tensor it runs the
     plain version, which takes all of them.
     """
@@ -378,7 +397,7 @@ SMEM_OPTIN_BYTES = 232_448
 # (16 a thread): the resident kernel's other capacity limit.
 RESIDENT_MAX_POINTS = 1024 * 16
 MEGA_MAX_SEGMENTS = 8
-_SEG_FIELDS = 25            # int64 fields per segment in the launch table
+_SEG_FIELDS = 26            # int64 fields per segment in the launch table
 
 
 def mega_residency(na: int, nr: int, batch_block: int = 1,
@@ -533,17 +552,16 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
                   v_k) = _filter_launch_args(seg.filter_mode, seg.axis, fargs)
         keep += tensors
         n1 = n2 = 1
-        consts = (None,) * 6
         if seg.fwd or seg.inv:
-            n1, n2 = sspec.factors()
-            consts = device_constants((n1, n2), str(dev))
+            n1, n2 = check_kernel_spec(sspec)
+        *consts, stw = _route_constants(sspec, n1, n2, dev)
         table.append([
             seg.axis, int(seg.fwd), int(seg.inv),
             _MODE_CODES[seg.filter_mode], rank, sspec.n, n1, n2,
             staged_tile(sspec.n, lines),
             *(_ptr(c) or 0 for c in consts),
             hr or 0, hi or 0, h_line, h_k, u or 0, v or 0,
-            u_line, u_k, v_n, v_k])
+            u_line, u_k, v_n, v_k, _ptr(stw) or 0])
     flat = [int(f) for rec in table for f in rec]
     assert len(flat) == _SEG_FIELDS * len(table)
     ctable = (ctypes.c_longlong * len(flat))(*flat)
@@ -635,9 +653,10 @@ def mega_spectral_op(xr, xi, *filter_args, **kw):
     back scaled with the exponents along the last segment's free axis).
 
     On a CUDA tensor this launches ``mega_resident`` or ``mega_staged``
-    (f32, karatsuba=False, matmul, N <= 4096 two-factor splits, at most 8
-    segments) and raises ValueError for anything else — including a
-    forced 'vmem' on a scene that does not fit; on a CPU tensor it runs
+    (f32, karatsuba=False, both FFT routes, N <= 4096 — a two-factor split
+    on the matmul route — at most 8 segments) and raises ValueError for
+    anything else — including a forced 'vmem' on a scene that does not
+    fit; on a CPU tensor it runs
     ``fft4step.mega_plain``, which takes all of them.
     """
     return _mega(xr, xi, filter_args, False, **kw)

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (the spectral kernel and the two
-megakernels) against their plain PyTorch versions, on the card. Imports
+megakernels, each on both FFT routes, and the tiled transpose) against
+their plain PyTorch versions, on the card. Imports
 neither JAX nor the JAX package, so it runs where only PyTorch is
 installed:
 
@@ -7,12 +8,13 @@ installed:
 
 Every test here needs a CUDA card (marker ``gpu``) and skips without one:
 the CUDA kernels have no CPU mode. Tolerance 2e-4 x max|want|, the
-reference's own (tests/test_kernels.py).
+reference's own (tests/test_kernels.py); a transpose is exact.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import transpose as tr
 
 TOL = 2e-4
 MODES = ["none", "shared", "full", "outer", "shared_outer"]
@@ -81,17 +83,44 @@ def test_cuda_kernel_unbatched_and_padded(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fwd,inv", DIRS)
+@pytest.mark.parametrize("n", [2, 32, 128, 4096])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_stockham_matches_plain(cuda_device, mode, axis, n, fwd, inv):
+    """The Stockham route: N = 2 and 32 and 128 have a radix-2 pass,
+    4096 is radix-4 only."""
+    if mode == "none" and not (fwd or inv):
+        pytest.skip("nothing to compute")
+    x, filt = make_case(cuda_device, n + 1, mode, axis, n, 2, lines=13)
+    kw = dict(axis=axis, fwd=fwd, inv=inv, filter_mode=mode, block=1,
+              fft_impl="stockham")
+    before = ops.SPECTRAL_LAUNCHES
+    got = ops.spectral_op(*x, **filt, **kw)
+    torch.cuda.synchronize()
+    assert ops.SPECTRAL_LAUNCHES == before + 1
+    assert_close(got, ops.spectral_op_plain(*x, **filt, **kw))
+
+
+@pytest.mark.gpu
 def test_cuda_kernel_refuses_and_never_falls_back(cuda_device):
     x, _ = make_case(cuda_device, 5, "none", 1, 64, 1, lines=4)
     before = ops.SPECTRAL_LAUNCHES
-    for kw in (dict(precision="bf16"), dict(karatsuba=True),
-               dict(fft_impl="stockham")):
+    for kw in (dict(precision="bf16"), dict(precision="bs16"),
+               dict(karatsuba=True), dict(fft_impl="bluestein")):
         with pytest.raises(ValueError, match="ROADMAP"):
             ops.fft_rows(*x, **kw)
     big = make_case(cuda_device, 5, "none", 1, 8192, 1, lines=2)[0]
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ops.fft_rows(*big)
+    for kw in (dict(), dict(fft_impl="stockham")):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            ops.fft_rows(*big, **kw)
     assert ops.SPECTRAL_LAUNCHES == before
+    # the Stockham route, refused before, now launches
+    got = ops.fft_rows(*x, fft_impl="stockham")
+    torch.cuda.synchronize()
+    assert ops.SPECTRAL_LAUNCHES == before + 1
+    assert_close(got, ops.spectral_op_plain(*x, fwd=True, inv=False,
+                                            fft_impl="stockham"))
 
 
 # ---------------------------------------------------------------------------
@@ -130,14 +159,17 @@ def make_mega_case(device, seed, segments, batch, na, nr, rank=2):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
 @pytest.mark.parametrize("batch", [1, 2])
 @pytest.mark.parametrize("shape", [(64, 128), (128, 64), (128, 128),
                                    (256, 512)])
 @pytest.mark.parametrize("chain", sorted(MEGA_CHAINS))
-def test_cuda_megakernels_match_plain(cuda_device, chain, shape, batch):
+def test_cuda_megakernels_match_plain(cuda_device, chain, shape, batch,
+                                      fft_impl):
     segments = MEGA_CHAINS[chain]
     x, args = make_mega_case(cuda_device, 1, segments, batch, *shape)
-    want = ops.mega_spectral_op_plain(*x, *args, segments=segments)
+    want = ops.mega_spectral_op_plain(*x, *args, segments=segments,
+                                      fft_impl=fft_impl)
     outs = []
     for residency in ("vmem", "staged"):
         if residency == "vmem" and ops.mega_residency(*shape) != "vmem":
@@ -145,7 +177,7 @@ def test_cuda_megakernels_match_plain(cuda_device, chain, shape, batch):
         kernel = "mega_resident" if residency == "vmem" else "mega_staged"
         before = ops.MEGA_LAUNCHES[kernel]
         got = ops.mega_spectral_op(*x, *args, segments=segments,
-                                   residency=residency)
+                                   residency=residency, fft_impl=fft_impl)
         torch.cuda.synchronize()
         assert ops.MEGA_LAUNCHES[kernel] == before + 1
         assert_close(got, want)
@@ -155,21 +187,23 @@ def test_cuda_megakernels_match_plain(cuda_device, chain, shape, batch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
 @pytest.mark.parametrize("n", [128, 256])
-def test_cuda_fused1_equals_fused3(cuda_device, n):
+def test_cuda_fused1_equals_fused3(cuda_device, n, fft_impl):
     from repro_torch.core.sar import build_pipeline, paper_targets, simulate
     from repro_torch.core.sar.geometry import test_scene
     cfg = test_scene(n)
     raw = simulate(cfg, paper_targets(cfg))
-    f3 = build_pipeline(cfg, "fused3").run(raw)
+    f3 = build_pipeline(cfg, "fused3", fft_impl=fft_impl).run(raw)
     kernel = "mega_resident" if n == 128 else "mega_staged"
     before = dict(ops.MEGA_LAUNCHES), ops.SPECTRAL_LAUNCHES
-    f1 = build_pipeline(cfg, "fused1").run(raw)
+    f1 = build_pipeline(cfg, "fused1", fft_impl=fft_impl).run(raw)
     torch.cuda.synchronize()
     before[0][kernel] += 1
     assert (ops.MEGA_LAUNCHES, ops.SPECTRAL_LAUNCHES) == before
     assert torch.equal(f1, f3)
-    staged = build_pipeline(cfg, "fused1", residency="staged").run(raw)
+    staged = build_pipeline(cfg, "fused1", residency="staged",
+                            fft_impl=fft_impl).run(raw)
     assert torch.equal(staged, f3)
 
 
@@ -184,7 +218,66 @@ def test_cuda_megakernels_refuse_and_never_fall_back(cuda_device):
     with pytest.raises(ValueError, match="does not fit"):
         ops.mega_spectral_op(*big, *big_args, segments=segments,
                              residency="vmem")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ops.mega_spectral_op(*x, *args, segments=segments,
-                             fft_impl="stockham")
+    for kw in (dict(karatsuba=True), dict(fft_impl="bluestein")):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            ops.mega_spectral_op(*x, *args, segments=segments, **kw)
     assert ops.MEGA_LAUNCHES == before
+    # the Stockham route, refused before, now launches
+    got = ops.mega_spectral_op(*x, *args, segments=segments,
+                               fft_impl="stockham")
+    torch.cuda.synchronize()
+    before["mega_resident"] += 1
+    assert ops.MEGA_LAUNCHES == before
+    assert_close(got, ops.mega_spectral_op_plain(
+        *x, *args, segments=segments, fft_impl="stockham"))
+
+
+# ---------------------------------------------------------------------------
+# The tiled transpose (csrc/transpose.cu) and the fused variant
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("shape", [(64, 64), (128, 256), (96, 32), (37, 4096),
+                                   (7, 5), (4096, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_cuda_transpose_equals_plain(cuda_device, dtype, shape, batch):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(shape[0] * 7 + shape[1])
+    full = shape if batch is None else (batch, *shape)
+    x = torch.randn(full, generator=gen, device=cuda_device, dtype=dtype)
+    before = tr.TRANSPOSE_LAUNCHES
+    got = tr.transpose(x)
+    torch.cuda.synchronize()
+    assert tr.TRANSPOSE_LAUNCHES == before + 1
+    assert torch.equal(got, tr.transpose_plain(x))
+    assert torch.equal(got, x.transpose(-1, -2))
+
+
+@pytest.mark.gpu
+def test_cuda_transpose_refuses_other_dtypes(cuda_device):
+    before = tr.TRANSPOSE_LAUNCHES
+    for dtype in (torch.float64, torch.float16, torch.int32):
+        with pytest.raises(ValueError, match="float32 or complex64"):
+            tr.transpose(torch.zeros(4, 8, dtype=dtype, device=cuda_device))
+    assert tr.TRANSPOSE_LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("na", [128, 256])
+def test_cuda_fused_launches_and_matches_plain_replay(cuda_device, na):
+    import dataclasses
+    from repro_torch.core.sar import build_pipeline, paper_targets, simulate
+    from repro_torch.core.sar.geometry import test_scene
+    cfg = dataclasses.replace(test_scene(128), na=na)
+    raw = simulate(cfg, paper_targets(cfg))
+    pipe = build_pipeline(cfg, "fused")
+    before = (ops.SPECTRAL_LAUNCHES, tr.TRANSPOSE_LAUNCHES,
+              dict(ops.MEGA_LAUNCHES))
+    img = pipe.run(raw)
+    torch.cuda.synchronize()
+    assert (ops.SPECTRAL_LAUNCHES, tr.TRANSPOSE_LAUNCHES,
+            ops.MEGA_LAUNCHES) == (before[0] + 3, before[1] + 4, before[2])
+    on_cpu = build_pipeline(cfg, "fused", device="cpu").run(raw.cpu())
+    assert_close((img.real.cpu(), img.imag.cpu()),
+                 (on_cpu.real, on_cpu.imag))

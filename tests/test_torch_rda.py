@@ -242,15 +242,32 @@ def test_reference_plan_json_compiles_to_same_image():
     assert torch.equal(loaded, own)
 
 
+FUSED_STEPS = [  # (name, kind, physical axis) in the reference's order
+    ("range_compression", "spectral", 1),
+    ("azimuth_fft_turn_in", "transpose", None),
+    ("azimuth_fft", "spectral", 1),
+    ("azimuth_fft_turn_out", "transpose", None),
+    ("rcmc", "sinc_rcmc", None),
+    ("azimuth_compression_turn_in", "transpose", None),
+    ("azimuth_compression", "spectral", 1),
+    ("azimuth_compression_turn_out", "transpose", None),
+]
+
+
 def test_megakernel_and_transpose_groups_are_not_ported_yet():
-    """A mega group now compiles to one step; transposes still raise."""
+    """Both are ported now: a mega group compiles to one step, and the
+    transposes of ``fused`` to one transpose step each, in the
+    reference's order (the azimuth stages run on physical rows)."""
     pipe = tplan.compile_plan(trda.plan_fused3(), tcfg(), device="cpu",
                               fuse=tplan.FUSE_MEGA)
     assert [s.kind for s in pipe.steps] == ["mega"]
     assert pipe.dispatches == 1
-    turn = tplan.SpectralPlan("t", (tplan.Stage("turn", kind="transpose"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplan.compile_plan(turn, tcfg(), device="cpu")
+    fused = tplan.compile_plan(trda.plan_fused(), tcfg(), device="cpu")
+    assert [(s.name, s.kind, s.phys_axis) for s in fused.steps] == \
+        FUSED_STEPS
+    jfused = jplan.compile_plan(jrda.plan_fused(), jscene()[0], tune="off")
+    assert [(s.name, s.kind, s.phys_axis) for s in jfused.steps] == \
+        FUSED_STEPS
 
 
 def test_unknown_filter_and_variant_raise():
@@ -258,8 +275,11 @@ def test_unknown_filter_and_variant_raise():
         "s", axis=1, fwd=True, inv=True, filters=("no_such_filter",)),))
     with pytest.raises(KeyError, match="no_such_filter"):
         tplan.compile_plan(bad, tcfg(), device="cpu")
-    with pytest.raises(KeyError, match="'fused'"):
-        P.build_pipeline(tcfg(), "fused", device="cpu")
+    with pytest.raises(KeyError, match="'fused9'"):
+        P.build_pipeline(tcfg(), "fused9", device="cpu")
+    pipe = P.build_pipeline(tcfg(), "fused", device="cpu")
+    assert [s.name for s in pipe.steps] == [n for n, _, _ in FUSED_STEPS]
+    assert pipe.dispatches == P.documented_dispatches("fused") == 8
 
 
 # ---------------------------------------------------------------------------
