@@ -11,33 +11,46 @@ each printing one JSON line (any failed check raises and exits non-zero):
              printed on a line of its own), torch / CUDA versions; TF32 is
              switched off for matmul and cuDNN.
 2. build   — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``,
-             forced, so a second run in the same checkout reports the
-             compiler's register and spill lines too.
+             forced, so a second run in the same checkout reports ptxas's
+             registers and spills per instantiation too; ``cuobjdump
+             -sass`` must show HMMA TF32 instructions in the matmul
+             instantiations of ``spectral_kernel``, ``mega_resident`` and
+             ``mega_staged`` (the tensor-core stage).
 3. kernel  — the CUDA spectral kernel against its plain PyTorch version on
              the card: every filter mode x axis x fwd/inv combination at
              N in {128, 4096}, B in {1, 2}, 37 lines (ragged against every
-             tile), tolerance 2e-4 x max|want|.
+             tile), tolerance 2e-4 x max|want|; each N = 4096 case also
+             against a complex128 ``torch.fft`` oracle at 1e-5 x max|want|
+             (the outer phase rounded as the kernels round it).
 4. main    — the main path at the paper's size: ``simulate`` a 4096^2
              scene, ``build_pipeline(cfg, "fused3").run(raw)`` with the
              launch counts reset just before and read just after (exactly
              3 spectral launches and no other), all five targets within 8 px of ``metrics.expected_pixel``
              (argmax over a +-64 px window), the same compiled plan replayed
              through the plain version on the card (same peaks, |dSNR| <=
-             0.1 dB), each launch's inputs through kernel and plain version;
+             0.1 dB), the image within 1e-5 x max|want| of the plan in
+             complex128, each launch's inputs through kernel and plain
+             version;
              then ``fused_tfree`` (exactly 4 launches); then a 128^2 scene
              on the card against the plain version on the CPU.
 5. times   — CUDA events, 2 warm-ups, median of 7: each fused3 launch and
              the whole run, beside the launch's bound (bytes over 3.35 TB/s
              vs nominal 5 N log2 N FLOP over 67 TFLOP/s, H100 SXM spec
-             sheet), the plain version and ``library_ms`` (torch.fft ->
-             multiply -> torch.fft, timed only as a yardstick).
+             sheet), ``mma_floor_ms`` (the stages' 3 TF32 passes of
+             8 N (n1 + n2) flop a line and transform over 495 TFLOP/s),
+             the plain version, ``library_ms`` (torch.fft -> multiply ->
+             torch.fft, timed only as a yardstick) and ``vs_library``
+             (kernel ms over library ms; on every time_launch and
+             time_kernel line).
 6. mega_kernel — each CUDA megakernel (``csrc/mega.cu``) against
              ``fft4step.mega_plain`` on the card, 2e-4 x max|want|: fused1's
              3-segment chain with every filter mode on both axes, one- and
              two-segment chains and a same-axis boundary, on 64x128,
              128x64, 128^2 (both kernels, held ``torch.equal`` to each
-             other), 256^2 and 4096^2 (staged), B in {1, 2}. The shared-
-             memory opt-in the residency cut assumes is read from the card.
+             other), 256^2 and 4096^2 (staged), B in {1, 2}; each 4096^2
+             case also against the chain in complex128 at 1e-5. The
+             shared-memory opt-in the residency cut assumes is read from
+             the card.
 7. main fused1 — ``build_pipeline(cfg, "fused1").run(raw)`` at 4096^2
              (staged by the cut): exactly one ``mega_staged`` launch and no
              spectral launch, all five targets within 8 px, ``torch.equal``
@@ -88,6 +101,7 @@ The line before the last lists each kernel; the last line is
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -98,9 +112,84 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM spec sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM spec sheet, FP32 outside tensor cores
+TF32_FLOP_PER_S = 495e12       # H100 SXM spec sheet, dense TF32 tensor cores
+TF32_PASSES = 3                # the matmul route's 3xTF32 split
 TOL = 2e-4                     # x max|want| (tests/test_kernels.py)
+ORACLE_TOL = 1e-5              # x max|want|, matmul route vs complex128
 GATE_DB = 0.1
 SEARCH = 64                    # window of the peak-position check
+
+
+# the matmul-route instantiations, which must run on the tensor cores
+MMA_KERNELS = ("spectral_kernel<matmul>", "mega_resident<matmul>",
+               "mega_staged<matmul>")
+_KERNEL_NAMES = ("spectral_kernel", "mega_resident", "mega_staged",
+                 "transpose_kernel")
+_ROUTES = {"ILb0E": "matmul", "ILb1E": "stockham"}
+
+
+def instantiation(mangled):
+    """A readable name of a mangled kernel, e.g. 'mega_staged<matmul>'
+    (the template flag kStockham of spectral.cu and mega.cu)."""
+    for name in _KERNEL_NAMES:
+        i = mangled.find(name)
+        if i < 0:
+            continue
+        rest = mangled[i + len(name):]
+        for key, route in _ROUTES.items():
+            if rest.startswith(key):
+                return f"{name}<{route}>"
+        if rest.startswith("I"):
+            return f"{name}<{rest[1:rest.find('E')]}>"
+        return name
+    return mangled
+
+
+def ptxas_report(log):
+    """{instantiation: registers, spill stores and loads} from one source's
+    ``-Xptxas -v`` output."""
+    out = {}
+    cur = props = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = m.group(1)
+            out[instantiation(cur)] = {}
+            continue
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            props = m.group(1)
+            continue
+        if cur is None:
+            continue
+        rec = out[instantiation(cur)]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and props == cur:
+            rec.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            rec["registers"] = int(m.group(1))
+    return out
+
+
+def sass_hmma_tf32(lib):
+    """{instantiation: HMMA ... TF32 instructions} in the SASS of one built
+    library (``cuobjdump -sass``, beside nvcc)."""
+    from repro_torch.kernels import _build
+    exe = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([exe, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {}
+    cur = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = instantiation(m.group(1))
+            counts.setdefault(cur, 0)
+        elif cur is not None and "HMMA" in ln and "TF32" in ln:
+            counts[cur] += 1
+    return counts
 
 
 def emit(phase, **kw):
@@ -117,6 +206,53 @@ def rel_err(got, want):
     scale = max(float(w.abs().max()) for w in want)
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     return err, err / max(scale, 1e-30)
+
+
+def phase_f32(torch, u, v):
+    """The rank-K outer phase sum_q u[l, q] v[k, q] as the kernels round
+    it (``ph = fmaf(u_q, v_q, ph)`` in float32, q in order), as float64
+    (lines, n): the float64 product of two float32 values is exact, so
+    each step rounds once to float32 (up to a rare double-rounding tie)."""
+    u = u.reshape(u.shape[0], -1).double()
+    v = v.reshape(v.shape[0], -1).double()
+    ph = torch.zeros(u.shape[0], v.shape[0], dtype=torch.float64,
+                     device=u.device)
+    for q in range(u.shape[1]):
+        ph = (u[:, q, None] * v[None, :, q] + ph).float().double()
+    return ph
+
+
+def oracle_op(torch, x, axis, fwd, inv, mode, hr=None, hi=None, u=None,
+              v=None):
+    """One per-axis op [FFT] -> filter -> [IFFT] in complex128 through
+    torch.fft, on a complex (..., lines, n) rows / (..., n, lines) cols
+    tensor, with the filter payloads of ``ops.spectral_op``; the outer
+    phase rounded as the kernels round it (``phase_f32``), so what is
+    held is the FFT arithmetic."""
+    dim = -1 if axis == 1 else -2
+    x = x.to(torch.complex128)
+    if fwd:
+        x = torch.fft.fft(x, dim=dim)
+    if mode in ("shared", "full", "shared_outer"):
+        h = torch.complex(hr.double(), hi.double())
+        if mode != "full":
+            h = h[None, :] if axis == 1 else h[:, None]
+        x = x * h
+    if mode in ("outer", "shared_outer"):
+        ph = phase_f32(torch, u, v)
+        if axis == 0:
+            ph = ph.T
+        x = x * torch.polar(torch.ones_like(ph), ph)
+    if inv:
+        x = torch.fft.ifft(x, dim=dim)
+    return x
+
+
+def oracle_err(torch, got, want):
+    """max|got - want| / max|want| of a split float32 result against a
+    complex128 oracle."""
+    g = torch.complex(got[0].double(), got[1].double())
+    return float((g - want).abs().max() / want.abs().max())
 
 
 def cuda_median_ms(fn, warm=2, reps=7):
@@ -182,11 +318,13 @@ def seeded_randn(torch, dev, seed):
 def spectral_sweep(torch, ops, rand, fft_impl):
     """The spectral kernel against its plain version on the card: every
     filter mode x axis x fwd/inv at N in {128, 4096}, B in {1, 2}, 37
-    lines. Returns (cases, max rel err)."""
+    lines; on the matmul route each N = 4096 case also against the
+    complex128 oracle (``ORACLE_TOL``). Returns (cases, max rel err, oracle
+    cases, max oracle err)."""
     from repro_torch.kernels.fft4step import FILTER_MODES
     lines, rank = 37, 2
-    worst = 0.0
-    cases = 0
+    worst = worst_oracle = 0.0
+    cases = oracle_cases = 0
     for n in (128, 4096):
         for batch in (1, 2):
             for axis in (0, 1):
@@ -215,17 +353,28 @@ def spectral_sweep(torch, ops, rand, fft_impl):
                               f"B={batch}: rel err {rel:.3e}")
                         worst = max(worst, rel)
                         cases += 1
-    return cases, worst
+                        if fft_impl == "matmul" and n == 4096:
+                            o = oracle_err(torch, got, oracle_op(
+                                torch, torch.complex(xr, xi), axis, fwd,
+                                inv, mode, **filt))
+                            check(o <= ORACLE_TOL, f"kernel vs complex128 "
+                                  f"{kw} n={n} B={batch}: {o:.3e}")
+                            worst_oracle = max(worst_oracle, o)
+                            oracle_cases += 1
+    return cases, worst, oracle_cases, worst_oracle
 
 
 def mega_sweep(torch, ops, rand, fft_impl):
     """Both megakernels against ``mega_plain`` on the card over
     ``mega_chains()`` x ``MEGA_SHAPES`` x B in {1, 2}, resident held
-    ``torch.equal`` to staged. Returns (cases, max rel err, equal pairs)
-    with the first two per kernel."""
+    ``torch.equal`` to staged; on the matmul route each 4096^2 case also
+    against the complex128 oracle chain (``ORACLE_TOL``). Returns (cases,
+    max rel err, equal pairs, oracle cases, max oracle err) with the first
+    two per kernel."""
     worst = {"mega_resident": 0.0, "mega_staged": 0.0}
     cases = {"mega_resident": 0, "mega_staged": 0}
-    equal_pairs = 0
+    equal_pairs = oracle_cases = 0
+    worst_oracle = 0.0
     for na, nr in MEGA_SHAPES:
         for batch in (1, 2):
             x = (rand(batch, na, nr), rand(batch, na, nr))
@@ -259,18 +408,48 @@ def mega_sweep(torch, ops, rand, fft_impl):
                     worst[kernel] = max(worst[kernel], rel)
                     cases[kernel] += 1
                     outs.append(got)
+                    if fft_impl == "matmul" and na == nr == 4096:
+                        o = oracle_err(torch, got, oracle_chain(
+                            torch, torch.complex(*x), segments, args))
+                        check(o <= ORACLE_TOL, f"{kernel} vs complex128 "
+                              f"{segments} {na}x{nr} B={batch}: {o:.3e}")
+                        worst_oracle = max(worst_oracle, o)
+                        oracle_cases += 1
                 if len(outs) == 2:
                     check(all(torch.equal(a, b) for a, b in zip(*outs)),
                           f"resident != staged ({fft_impl}) {segments} "
                           f"{na}x{nr}")
                     equal_pairs += 1
             del x, args, want, outs
-    return cases, worst, equal_pairs
+    return cases, worst, equal_pairs, oracle_cases, worst_oracle
+
+
+def oracle_chain(torch, x, segments, args):
+    """A megakernel chain in complex128 (``oracle_op`` per segment, the
+    filter payloads in scene coordinates, in segment order)."""
+    it = iter(args)
+    for axis, fwd, inv, mode in segments:
+        filt = {}
+        if mode in ("shared", "full", "shared_outer"):
+            filt.update(hr=next(it), hi=next(it))
+        if mode in ("outer", "shared_outer"):
+            filt.update(u=next(it), v=next(it))
+        x = oracle_op(torch, x, axis, fwd, inv, mode, **filt)
+    return x
+
+
+def mma_floor(n, n1, n2, lines, transforms):
+    """(tensor-core flops, ms) of the matmul route's stages: 8 N (n1 + n2)
+    real flops a line and transform, issued as ``TF32_PASSES`` TF32
+    passes, over the dense TF32 rate."""
+    flops = TF32_PASSES * 8.0 * n * (n1 + n2) * lines * transforms
+    return flops, flops / TF32_FLOP_PER_S * 1e3
 
 
 def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg):
     """One megakernel alone on the main path's split input, beside its
-    bound, its plain version and the torch.fft chain (``library_ms``)."""
+    bound, its plain version, the torch.fft chain (``library_ms``) and,
+    on the matmul route, the tensor-core floor of its stages."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import build_pipeline
     from repro_torch.kernels import ops
@@ -297,6 +476,14 @@ def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg):
         bound_by="bytes" if t_mem >= t_ops else "operations",
         per_phase_floor_ms=len(kk["segments"]) * 16 * xr.numel()
         / HBM_BYTES_PER_S * 1e3)
+    rec["vs_library"] = rec["ms"] / rec["library_ms"]
+    if kk["fft_impl"] == "matmul":
+        mma = [mma_floor(sspec.n, *sspec.factors(),
+                         batch * (na if seg.axis == 1 else nr),
+                         int(seg.fwd) + int(seg.inv))
+               for seg in spec.segments for sspec in [spec.seg_spec(seg)]]
+        rec.update(mma_flops=sum(f for f, _ in mma),
+                   mma_floor_ms=sum(t for _, t in mma))
     emit("time_kernel", nvidia_smi=smi_line, **rec)
     return rec
 
@@ -331,11 +518,11 @@ def time_spectral_launch(smi_line, step, xr, xi, x):
             x, kk["fwd"], kk["inv"], kk["filter_mode"], fk, kk["axis"])),
         bytes=nbytes, flops_nominal=flops, bound_ms=max(t_mem, t_ops),
         bound_by="bytes" if t_mem >= t_ops else "operations")
+    rec["vs_library"] = rec["ms"] / rec["library_ms"]
     if kk["fft_impl"] == "matmul":
-        n1, n2 = spec.factors()
-        ffma = 8.0 * n * (n1 + n2) * nlines * (int(kk["fwd"]) + int(kk["inv"]))
-        rec.update(ffma_flops=ffma,
-                   ffma_floor_ms=ffma / FP32_FLOP_PER_S * 1e3)
+        mma, mma_ms = mma_floor(n, *spec.factors(), nlines,
+                                int(kk["fwd"]) + int(kk["inv"]))
+        rec.update(mma_flops=mma, mma_floor_ms=mma_ms)
     emit("time_launch", nvidia_smi=smi_line, **rec)
     return rec
 
@@ -366,11 +553,15 @@ def mega_phases(torch, dev, smi_line, cfg, raw, fused3_img, score, small,
           f"shared-memory opt-in {optin} B, the cut assumes "
           f"{ops.SMEM_OPTIN_BYTES} B")
     rand = seeded_randn(torch, dev, 1)
-    cases, worst, equal_pairs = mega_sweep(torch, ops, rand, "matmul")
+    cases, worst, equal_pairs, o_cases, o_worst = mega_sweep(
+        torch, ops, rand, "matmul")
+    staged_smem = (ops.RESIDENT_MAX_POINTS * 8
+                   + ops.dft_smem_bytes(64, 64))   # 4096^2, matmul
     emit("mega_kernel", cases=cases, max_rel_err=worst, tol=TOL,
+         oracle_cases=o_cases, max_oracle_err=o_worst, oracle_tol=ORACLE_TOL,
          resident_equals_staged_cases=equal_pairs, smem_optin_bytes=optin,
-         staged_blocks_per_sm=lib.mega_staged_blocks_per_sm(
-             ops.RESIDENT_MAX_POINTS * 8),
+         staged_smem_bytes=staged_smem,
+         staged_blocks_per_sm=lib.mega_staged_blocks_per_sm(staged_smem, 0),
          sms=torch.cuda.get_device_properties(dev).multi_processor_count)
 
     # ---- 7. the main path through fused1 -----------------------------------
@@ -528,11 +719,10 @@ def baseline_phases(torch, dev, smi_line, cfg, raw, score, replay_plain,
          batches=[1, 2], dtypes=["float32", "complex64"], equal=True)
 
     # ---- 10. the Stockham route vs the plain versions ----------------------
-    s_cases, s_worst = spectral_sweep(torch, ops, seeded_randn(torch, dev, 3),
-                                      "stockham")
-    m_cases, m_worst, pairs = mega_sweep(torch, ops,
-                                         seeded_randn(torch, dev, 4),
-                                         "stockham")
+    s_cases, s_worst, _, _ = spectral_sweep(
+        torch, ops, seeded_randn(torch, dev, 3), "stockham")
+    m_cases, m_worst, pairs, _, _ = mega_sweep(
+        torch, ops, seeded_randn(torch, dev, 4), "stockham")
     emit("stockham_kernel", spectral_cases=s_cases,
          spectral_max_rel_err=s_worst, mega_cases=m_cases,
          mega_max_rel_err=m_worst, resident_equals_staged_cases=pairs,
@@ -769,19 +959,23 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all(verbose=True, force=True)
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "entry function" in ln or "registers" in ln
-                    or "spill" in ln]
-             for name, log in logs.items()}
     check(set(logs) >= {"spectral", "mega", "transpose"},
           f"built {sorted(logs)}")
+    ptxas = {}
+    hmma = {}
+    for name, log in logs.items():
+        ptxas.update(ptxas_report(log))
+        hmma.update(sass_hmma_tf32(_build.lib_path(name)))
+    for kernel in MMA_KERNELS:
+        check(hmma.get(kernel, 0) > 0, f"{kernel}: no HMMA TF32 in its SASS")
     emit("build", seconds=build_s, sources=sorted(_build.sources()),
-         ptxas=ptxas)
+         ptxas=ptxas, hmma_tf32=hmma)
 
     # ---- 3. kernel vs plain version on the card ----------------------------
-    cases, worst = spectral_sweep(torch, ops, seeded_randn(torch, dev, 0),
-                                  "matmul")
-    emit("kernel", cases=cases, max_rel_err=worst, tol=TOL)
+    cases, worst, o_cases, o_worst = spectral_sweep(
+        torch, ops, seeded_randn(torch, dev, 0), "matmul")
+    emit("kernel", cases=cases, max_rel_err=worst, tol=TOL,
+         oracle_cases=o_cases, max_oracle_err=o_worst, oracle_tol=ORACLE_TOL)
 
     # ---- 4. the main path at the paper's size ------------------------------
     cfg = paper_scene()
@@ -858,6 +1052,21 @@ def main() -> int:
             fused3_pipe = pipe
     del img, img_p, images["fused_tfree"]
 
+    # the 4096^2 image against the same plan in complex128 (fused1 is held
+    # torch.equal to this image in phase 7)
+    want = raw
+    for s in fused3_pipe.steps:
+        kk = s.kernel_kw
+        want = oracle_op(torch, want, kk["axis"], kk["fwd"], kk["inv"],
+                         kk["filter_mode"], **s.filter_kw)
+    img3 = images["fused3"]
+    main_oracle = oracle_err(torch, (img3.real, img3.imag), want)
+    check(main_oracle <= ORACLE_TOL,
+          f"fused3 4096^2 vs complex128: {main_oracle:.3e}")
+    emit("main_oracle", variant="fused3", scene=[cfg.na, cfg.nr],
+         rel_err=main_oracle, tol=ORACLE_TOL)
+    del want, img3
+
     main_err = 0.0
     for name, (s, xr, xi, _x) in main_inputs.items():
         got = ops.spectral_op(xr, xi, **s.filter_kw, **s.kernel_kw)
@@ -888,11 +1097,12 @@ def main() -> int:
     launches_t = [time_spectral_launch(smi_line, s, xr, xi, x)
                   for s, xr, xi, x in main_inputs.values()]
     run_ms = cuda_median_ms(lambda: fused3_pipe.run(raw))
-    emit("time_run", variant="fused3", ms=run_ms, nvidia_smi=smi_line,
-         launch_ms_sum=sum(r["ms"] for r in launches_t))
-
     total = {k: sum(r[k] for r in launches_t)
-             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                       "mma_floor_ms")}
+    emit("time_run", variant="fused3", ms=run_ms, nvidia_smi=smi_line,
+         launch_ms_sum=total["ms"], launch_sums=total,
+         launch_vs_library=total["ms"] / total["library_ms"])
     t_mem = sum(r["bytes"] for r in launches_t) / HBM_BYTES_PER_S * 1e3
     kernels = [{
         "name": "spectral",
@@ -907,6 +1117,7 @@ def main() -> int:
         "bound_by": "bytes" if t_mem >= total["bound_ms"] - 1e-12
         else "operations",
         "library_ms": total["library_ms"],
+        "oracle_rel_err": main_oracle,
     }]
     kernels += mega_phases(torch, dev, smi_line, cfg, raw, images["fused3"],
                            score, small, small_raw, fused3_pipe)

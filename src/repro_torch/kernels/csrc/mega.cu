@@ -19,54 +19,65 @@
 // _fft_stockham, src/repro/kernels/fft4step.py:422; N any power of two
 // from 2 to 4096), both from spectral_common.cuh.
 //
+// Each kernel is instantiated once per FFT route (template flag
+// kStockham); one fft_impl covers all segments of a call, and the host
+// checks that every transforming segment is on the instantiation's route.
+//
 // mega_resident — one CTA holds one scene's whole split slab in shared
 // memory: na * nr * 8 bytes, at most the 232,448 B a Hopper block may opt
-// in to and the 16 points a thread of a 1024-thread block stages, i.e. up
-// to 128 x 128 (128 KiB). Grid = batch. Each segment runs in place on the
-// slab through the strided stages of spectral_common.cuh: a row segment
-// contracts along the slab's rows, a column segment along its columns, so
-// the corner turn is purely logical, as on the TPU. A segment starts and
-// ends in natural order (an inverse-only segment first permutes into the
-// transposed order, a forward-only one back out of it, both staged through
-// registers between two barriers), so the next segment's per-line filter
-// index is the natural one. The Stockham route is self-sorting and needs
-// neither permutation. Its passes read and write each point of the slab
-// once a pass, in place, so the slab still takes na * nr * 8 bytes. DFT
+// in to and 16384 points, i.e. up to 128 x 128 (128 KiB). Grid = batch.
+// Each segment runs in place on the slab through the strided stages of
+// spectral_common.cuh: a row segment contracts along the slab's rows, a
+// column segment along its columns, so the corner turn is purely logical,
+// as on the TPU. A segment starts and ends in natural order (an
+// inverse-only segment first permutes into the transposed order, a
+// forward-only one back out of it, both staged through registers between
+// two barriers, in rounds of whole lines), so the next segment's per-line
+// filter index is the natural one. The matmul route runs the tensor-core
+// stage at up to 512 threads (the same fragment arithmetic as spectral.cu,
+// in as many rounds of lines as the slab needs) and reads F1 and F2 from
+// device memory (L1) in place, so the slab keeps the shared memory; the
+// Stockham route runs at up to 1024 threads, 16 points a thread. DFT
 // constants, the Stockham twiddle table, u, v, shared vectors and FULL
-// filters are read from global memory (L1/L2) in place. Nothing of the
-// scene goes to device memory between segments.
+// filters are read from global memory in place. Nothing of the scene goes
+// to device memory between segments.
 //   What bounds it: per scene it moves 16 B a point once (0.010 ms for
-// 132 scenes of 128^2 at 3.35 TB/s); its FFMA stages (8 N (n1 + n2) real
-// flops per transform) and their shared-memory loads are what it spends
-// its time on, so one CTA per SM must hide them without a second CTA.
+// 132 scenes of 128^2 at 3.35 TB/s); its stages, their shared-memory
+// loads and barriers are what it spends its time on, with one CTA per SM.
 //
 // mega_staged — a persistent cooperative kernel for scenes that do not
 // fit one block. Launched with cudaLaunchCooperativeKernel on at most the
 // co-resident block count (occupancy x SMs, queried after the dynamic
 // shared-memory attribute is set). One phase per segment: each block walks
-// the (scene, tile) pairs of the phase, a tile being whole lines that fill
-// the 1024-thread block's 16 points a thread (4 rows or 4 columns at
-// N = 4096, 128 KiB), and runs the per-axis op of spectral.cu on it
-// (tile_op: load, stages, filter, stages, store). Phases are separated by
-// a grid-wide barrier (cooperative_groups::this_grid().sync()). The
-// corner-turned intermediate lives in device memory, and the OUTPUT buffer
-// serves as that scratch: each block reads its whole tile into shared
-// memory before it writes the tile back, and the tiles of one phase are
-// disjoint, so phase p may read and write the same buffer. The buffer is
-// read through __ldcg (L2), never a read-only path: other blocks wrote it
-// before the barrier. No cp.async/TMA prefetch yet (buffer_depth is
-// validated only).
+// the (scene, tile) pairs of the phase, a tile being whole lines of 16384
+// points (4 rows or 4 columns at N = 4096, 128 KiB: what 1024 threads
+// stage in one Stockham pass, 512 in two rounds of the tensor-core
+// stage), and runs the per-axis op of spectral.cu on it (tile_op: load,
+// stages, filter, stages, store). On the matmul route F1 and F2 are
+// copied into shared memory past the tile once per phase (34 KiB at
+// N = 4096, one matrix, so a block takes 162 KiB), and the block runs 512
+// threads at up to 128 registers (__launch_bounds__(512, 1)). Phases are
+// separated by a grid-wide barrier
+// (cooperative_groups::this_grid().sync()). The corner-turned intermediate
+// lives in device memory, and the OUTPUT buffer serves as that scratch:
+// each block reads its whole tile into shared memory before it writes the
+// tile back, and the tiles of one phase are disjoint, so phase p may read
+// and write the same buffer. The buffer is read through __ldcg (L2), never
+// a read-only path: other blocks wrote it before the barrier. No cp.async
+// or TMA prefetch of the next tile (buffer_depth is validated only): a
+// second 128 KiB tile does not fit beside the tile and the F matrix.
 //   What bounds it at 4096^2: the whole fused1 call must read the raw scene
 // and write the image once, 268 MB, 0.080 ms at 3.35 TB/s; staged through
 // device memory it moves the scene once per phase, 3 x 268 MB, 0.24 ms.
-// Its FFMA stages (~1.0 ms at 67 TFLOP/s for fused1's four transforms) and
-// their load issue are what it spends its time on, as in spectral.cu; on
-// the Stockham route (~0.06 ms of nominal flops) its shared-memory passes,
-// barriers and the three device-memory round trips.
+// fused1's four transforms take ~0.42 ms of 3xTF32 tensor-core work at
+// 495 TFLOP/s; with one block per SM that cannot overlap a tile's load,
+// stages and store, the phases' I/O and the stages add up rather than
+// overlap. On the Stockham route (~0.06 ms of nominal flops) its
+// shared-memory passes, barriers and the three device-memory round trips.
 //
-// Both kernels run, for each point, exactly the float operations of
-// spectral.cu's launches (spectral_common.cuh, -fmad=false), so at f32
-// they equal the three-launch fused3 chain and each other bit for bit.
+// Both kernels run, for each point, exactly the operations of spectral.cu's
+// launches (spectral_common.cuh, -fmad=false), so at f32 they equal the
+// three-launch fused3 chain and each other bit for bit.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // -shared -Xcompiler -fPIC; bound through ctypes by
@@ -105,22 +116,23 @@ struct MegaArgs {
 
 // One segment in place on the resident slab (lines in natural order on
 // entry and on exit).
-template <bool kLineFast>
+template <bool kLineFast, bool kStockham>
 __device__ __forceinline__ void resident_segment(const Lines& L,
                                                  const Segment& g) {
   const Dft& d = g.d;
   const bool fwd = g.fwd, inv = g.inv;
-  const bool four_step = d.stw == nullptr;   // Stockham: natural order
+  const bool four_step = !kStockham;         // Stockham: natural order
+  const Mats m = kStockham ? Mats{} : mats_in_place(d);
   if (four_step && !fwd && inv) {
     reorder<kLineFast>(L, kToTransposed, d.n1, d.n2, 1.0f, 1.0f);
   }
-  if (fwd) transform<kLineFast>(L, d, false);
+  if (fwd) transform<kLineFast, kStockham>(L, d, m, false);
   if (g.f.mode != kNone) {
     filter_pass<kLineFast>(L, g.f, 0, L.lines, four_step && (fwd || inv),
                            d.n1, d.n2);
   }
   if (inv) {
-    transform<kLineFast>(L, d, true);
+    transform<kLineFast, kStockham>(L, d, m, true);
     const float scale = inverse_scale(true, d.n);
     reorder<kLineFast>(L, kKeep, d.n1, d.n2, scale, -scale);
   } else if (fwd && four_step) {
@@ -129,11 +141,12 @@ __device__ __forceinline__ void resident_segment(const Lines& L,
 }
 
 // grid = batch; one scene per CTA, its (na, nr) slab at s[a * nr + r].
-// With the Stockham passes beside the four-step stages, the thread bound
-// alone let ptxas hold this kernel to 32 registers (8.5 KB of spills, as
-// mega_staged below); naming one block per SM gives it the 64 that bound
-// allows. A 128^2 slab takes one SM's shared memory anyway.
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// Naming one block per SM gives ptxas the whole register file of the
+// thread bound (64 registers at 1024 threads, 128 at 512); under the
+// thread bound alone it held the kernel to 32 (8.5 KB of spills). A 128^2
+// slab takes one SM's shared memory anyway.
+template <bool kStockham>
+__global__ void __launch_bounds__(kStockham ? kMaxThreads : kMmaThreads, 1)
 mega_resident(const __grid_constant__ MegaArgs a) {
   extern __shared__ float2 s[];
   const int na = a.na, nr = a.nr;
@@ -145,10 +158,10 @@ mega_resident(const __grid_constant__ MegaArgs a) {
   __syncthreads();
   for (int k = 0; k < a.nseg; ++k) {
     const Segment& g = a.seg[k];
-    if (g.axis == 1) {
-      resident_segment<false>(Lines{s, na, nr, nr, 1}, g);   // rows
-    } else {
-      resident_segment<true>(Lines{s, nr, na, 1, nr}, g);    // columns
+    if (g.axis == 1) {   // rows
+      resident_segment<false, kStockham>(Lines{s, na, nr, nr, 1}, g);
+    } else {             // columns
+      resident_segment<true, kStockham>(Lines{s, nr, na, 1, nr}, g);
     }
   }
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
@@ -160,8 +173,13 @@ mega_resident(const __grid_constant__ MegaArgs a) {
 // Persistent: each block walks the (scene, tile) pairs of every phase.
 // grid.sync() compiles to a call, and with the thread bound alone ptxas
 // then holds the whole kernel to 32 registers (3.9 KB of spills); naming
-// the one block per SM it runs at gives it the 64 that bound allows.
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// the one block per SM it runs at gives it the whole register file of the
+// thread bound. The matmul route copies the phase's F1 and F2 into shared
+// memory past the tile once per phase: the last phase's final barrier and
+// grid.sync() order the copy after every read of the previous one, and
+// the first tile's load barrier before every read of this one.
+template <bool kStockham>
+__global__ void __launch_bounds__(kStockham ? kMaxThreads : kMmaThreads, 1)
 mega_staged(const __grid_constant__ MegaArgs a) {
   extern __shared__ float2 s[];
   cg::grid_group grid = cg::this_grid();
@@ -171,13 +189,20 @@ mega_staged(const __grid_constant__ MegaArgs a) {
     const int lines = g.axis == 1 ? a.na : a.nr;
     const int C = g.tile;
     const int tiles = (lines + C - 1) / C;
+    Mats m{};
+    if constexpr (!kStockham) {
+      if (g.fwd || g.inv) {
+        m = mats_to_shared(reinterpret_cast<float*>(s + C * g.d.n), g.d);
+      }
+    }
     // phase 0 reads the input; later phases the intermediate in the output
     const float* xr = k == 0 ? a.xr : a.yr;
     const float* xi = k == 0 ? a.xi : a.yi;
     for (int t = blockIdx.x; t < a.batch * tiles; t += gridDim.x) {
       const int b = t / tiles;
-      tile_op(s, xr, xi, a.yr, a.yi, b * scene_points, lines,
-              (t - b * tiles) * C, C, g.axis, g.fwd, g.inv, g.d, g.f);
+      tile_op<kStockham>(s, xr, xi, a.yr, a.yi, b * scene_points, lines,
+                         (t - b * tiles) * C, C, g.axis, g.fwd, g.inv, g.d, m,
+                         g.f);
       __syncthreads();   // the next tile's load overwrites s
     }
     if (k + 1 < a.nseg) grid.sync();
@@ -228,6 +253,80 @@ cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
   return cudaSuccess;
 }
 
+// The route of a call: Stockham iff a transforming segment carries the
+// twiddle table. Every transforming segment must agree (-1 otherwise).
+int route(const MegaArgs& a) {
+  int r = 0, seen = 0;
+  for (int k = 0; k < a.nseg; ++k) {
+    const Segment& g = a.seg[k];
+    if (!(g.fwd || g.inv)) continue;
+    const int sk = g.d.stw != nullptr;
+    if (seen && sk != r) return -1;
+    r = sk;
+    seen = 1;
+  }
+  return r;
+}
+
+// Shared memory of a mega_staged phase: its tile, and on the matmul route
+// F1 and F2 past it.
+size_t staged_smem(const Segment& g, bool stockham) {
+  size_t bytes = (size_t)g.tile * g.d.n * sizeof(float2);
+  if (!stockham && (g.fwd || g.inv)) {
+    bytes += dft_smem_floats(g.d.n1, g.d.n2) * sizeof(float);
+  }
+  return bytes;
+}
+
+template <bool kStockham>
+cudaError_t launch_resident(const MegaArgs& a, int threads, size_t smem,
+                            cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mega_resident<kStockham>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  mega_resident<kStockham><<<a.batch, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Blocks of mega_staged<kStockham> one SM holds with `smem` bytes of
+// dynamic shared memory (after setting the attribute), or the error.
+template <bool kStockham>
+cudaError_t staged_per_sm(size_t smem, int& per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mega_staged<kStockham>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, mega_staged<kStockham>, kStockham ? kMaxThreads : kMmaThreads,
+      smem);
+}
+
+template <bool kStockham>
+cudaError_t launch_staged(MegaArgs& a, long long work, size_t smem,
+                          cudaStream_t stream) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if ((err = staged_per_sm<kStockham>(smem, per_sm)) != cudaSuccess) {
+    return err;
+  }
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int grid = (int)std::min((long long)per_sm * sms, work);
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)mega_staged<kStockham>,
+                                    dim3(grid),
+                                    dim3(kStockham ? kMaxThreads : kMmaThreads),
+                                    params, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -242,16 +341,26 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
   MegaArgs a;
   cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg, table);
   if (err != cudaSuccess) return (int)err;
+  const int r = route(a);
+  if (r < 0) return (int)cudaErrorInvalidValue;
   const int total = na * nr;
-  const int threads = ((total + kPerThread - 1) / kPerThread + 31) / 32 * 32;
+  const int need = ((total + kPerThread - 1) / kPerThread + 31) / 32 * 32;
+  // Stockham: 16 points a thread in one round; matmul: 256..512 threads,
+  // the stages and reorder loop over rounds of lines
+  const int threads = r ? need : std::min(kMmaThreads, std::max(256, need));
   if (threads > kMaxThreads) return (int)cudaErrorInvalidConfiguration;
+  for (int k = 0; k < nseg; ++k) {
+    const Segment& g = a.seg[k];
+    if (!r && (g.fwd || g.inv) &&
+        !(mma_fits(threads, g.d.n1, g.d.n2) &&
+          mma_fits(threads, g.d.n2, g.d.n1))) {
+      return (int)cudaErrorInvalidConfiguration;
+    }
+  }
   const size_t smem = (size_t)total * sizeof(float2);
-  err = cudaFuncSetAttribute(mega_resident,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  mega_resident<<<batch, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(r ? launch_resident<true>(a, threads, smem, st)
+                 : launch_resident<false>(a, threads, smem, st));
 }
 
 int mega_staged_launch(const float* xr, const float* xi, float* yr,
@@ -262,56 +371,38 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
   MegaArgs a;
   cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg, table);
   if (err != cudaSuccess) return (int)err;
+  const int r = route(a);
+  if (r < 0) return (int)cudaErrorInvalidValue;
+  const int threads = r ? kMaxThreads : kMmaThreads;
   size_t smem = 0;
   long long work = 0;
   for (int k = 0; k < nseg; ++k) {
     const Segment& g = a.seg[k];
     const int lines = g.axis == 1 ? na : nr;
-    if (g.tile < 1 || g.tile * g.d.n > kMaxThreads * kPerThread) {
+    if (g.tile < 1 || (r ? g.tile * g.d.n > kMaxThreads * kPerThread
+                         : (g.fwd || g.inv) &&
+                               !(mma_fits(threads, g.d.n1, g.d.n2) &&
+                                 mma_fits(threads, g.d.n2, g.d.n1)))) {
       return (int)cudaErrorInvalidConfiguration;
     }
-    smem = std::max(smem, (size_t)g.tile * g.d.n * sizeof(float2));
+    smem = std::max(smem, staged_smem(g, r));
     work = std::max(work,
                     (long long)batch * ((lines + g.tile - 1) / g.tile));
   }
-  err = cudaFuncSetAttribute(mega_staged,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_staged,
-                                                      kMaxThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = (int)std::min((long long)per_sm * sms, work);
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)mega_staged, dim3(grid),
-                                    dim3(kMaxThreads), params, smem,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(r ? launch_staged<true>(a, work, smem, st)
+                 : launch_staged<false>(a, work, smem, st));
 }
 
-// Blocks of mega_staged one SM holds with `smem` bytes of dynamic shared
-// memory (-1 on error): its persistent grid is this times the SM count.
-int mega_staged_blocks_per_sm(long long smem) {
-  if (cudaFuncSetAttribute(mega_staged,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess) {
-    return -1;
-  }
+// Blocks of mega_staged on the given route (stockham != 0) one SM holds
+// with `smem` bytes of dynamic shared memory (-1 on error): its persistent
+// grid is this times the SM count.
+int mega_staged_blocks_per_sm(long long smem, int stockham) {
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, mega_staged, kMaxThreads, (size_t)smem) != cudaSuccess) {
-    return -1;
-  }
-  return per_sm;
+  const cudaError_t err =
+      stockham ? staged_per_sm<true>((size_t)smem, per_sm)
+               : staged_per_sm<false>((size_t)smem, per_sm);
+  return err == cudaSuccess ? per_sm : -1;
 }
 
 // cudaDevAttrMaxSharedMemoryPerBlockOptin of device `dev` (-1 on error).

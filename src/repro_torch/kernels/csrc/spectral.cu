@@ -15,15 +15,18 @@
 // ~80 us at the spec sheet's 3.35 TB/s; the nominal FFT work
 // (5 N log2 N per transform) of the fused range launch (forward +
 // inverse over 4096 lines) is ~2.1 GFLOP, ~31 us at 67 TFLOP/s FP32.
-// So by the nominal count it is bound by bytes. The four-step FFMA form
-// used here does 8 N (n1 + n2) real flops per transform, ~34 GFLOP for
-// that launch (~0.5 ms at 67 TFLOP/s), so its arithmetic floor sits
-// above the memory bound; closing that gap (tensor-core stages for the
-// reduced precisions, register tiling of the contractions) is later work.
-// The Stockham route does ~5 N log2 N flops a transform, the nominal
-// count, so its arithmetic floor is below the memory bound; what it
-// spends time on is its log4 N in-place passes over the tile in shared
-// memory (one load and one store a point a pass, two barriers a pass).
+// So by the nominal count it is bound by bytes. The four-step form does
+// 8 N (n1 + n2) real flops per transform, ~34 GFLOP for that launch; on
+// the tensor cores as 3 TF32 passes that is ~103 GFLOP, ~0.21 ms at the
+// dense 495 TFLOP/s TF32 rate (mma_floor_ms in chip_smoke.py), still
+// above the bytes bound; mma.sync reaches about two thirds of that rate
+// on its own (src/repro_torch/kernels/probe.py). A block does not overlap
+// its tile's load, stages and store, and the column launches hold one
+// tile per SM, so the tile's device-memory I/O is the other half of their
+// time (filter-only launches, the same probe). The Stockham route does
+// ~5 N log2 N flops a transform, the nominal count; what it spends time
+// on is its log4 N in-place passes over the tile in shared memory (one
+// load and one store a point a pass, two barriers a pass).
 //
 // Design:
 //   * A CTA holds a tile of whole lines in shared memory (complex,
@@ -31,31 +34,35 @@
 //     cols take at least 4 adjacent columns so that global loads of the
 //     strided column layout come in 16-byte runs (128 KiB at N=4096,
 //     opted in with cudaFuncAttributeMaxDynamicSharedMemorySize).
-//   * N = n1 * n2, two in-place four-step stages per transform, the
-//     spectrum left in the transposed order between a forward and an
-//     inverse transform (spectral_common.cuh, shared with mega.cu), so
-//     fwd+inv permutes nothing; fwd-only permutes on the store, inv-only
-//     on the load. Every stage reads only its own row or column group of
-//     the tile, so each thread stages its 16 outputs in registers, the
-//     CTA syncs, and the outputs overwrite their inputs in place.
-//   * Inner loops are FFMA in float32 (no tensor cores, no TF32); the
-//     warp reads consecutive shared-memory words and a broadcast (or
-//     coalesced, L1-resident) DFT-matrix entry per step. The DFT
-//     matrices and twiddles are the float32 tensors of
-//     `dft_constants(n1, n2)`; DFT matrices are symmetric, which both
-//     stage orientations use.
-//   * fft_impl="stockham" replaces the two stages of each transform by
-//     the radix-4/radix-2 Stockham passes of spectral_common.cuh, in place
-//     on the same tile with the same register staging; it is
-//     self-sorting, so nothing is permuted on load or store and the
-//     filter index is the natural one. Its twiddles are read from the
-//     table fft4step.stockham_table builds on the host (the plain version
-//     reads the same numbers), not computed in the kernel.
+//   * The route is a template flag (spectral_kernel<kStockham>), so each
+//     route has its own launch bound and register budget.
+//   * Matmul route: N = n1 * n2, two in-place four-step stages per
+//     transform on mma.sync TF32 in the 3xTF32 form (spectral_common.cuh,
+//     shared with mega.cu), the spectrum left in the transposed order
+//     between a forward and an inverse transform, so fwd+inv permutes
+//     nothing; fwd-only permutes on the store, inv-only on the load. F1
+//     and F2 (`dft_constants(n1, n2)`, one f32 copy each, one matrix when
+//     n1 == n2) are copied into shared memory past the tile once per
+//     block, rows padded to n + 4 floats (34 KiB at N = 4096: a row tile
+//     takes 66 KiB, a column tile 162 KiB). 256 to 512 threads
+//     (__launch_bounds__(512): up to 128 registers for the 32 accumulator
+//     floats of a warp's task and the split fragments): 256 at 4096
+//     points a tile, 8 warps of 16 x 32 outputs of the 64 x 64 block a
+//     line; 512 for the 16384-point column tile, in two rounds of lines.
+//   * Stockham route: the radix-4/radix-2 Stockham passes of
+//     spectral_common.cuh in place on the same tile at 1024 threads, 16
+//     points a thread; self-sorting, so nothing is permuted on load or
+//     store and the filter index is the natural one. Its twiddles are read
+//     from the table fft4step.stockham_table builds on the host (the plain
+//     version reads the same numbers), not computed in the kernel.
+//   * On both routes the tile moves between device and shared memory in
+//     16-byte accesses (4 points of a row, or one point of 4 adjacent
+//     columns) wherever the layout and alignment allow.
 //   * The filter runs on the tile in shared memory, with precise
 //     sincosf for the outer phase (the azimuth and RCMC phases are not
 //     small). Lines past the end of a ragged tile are zero-filled and
 //     never stored.
-//
+
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // -shared -Xcompiler -fPIC (no --use_fast_math); bound through ctypes by
 // src/repro_torch/kernels/_build.py and src/repro_torch/kernels/ops.py.
@@ -78,13 +85,34 @@ struct Args {
   int tile;           // lines per CTA
 };
 
-// One tile of whole lines per CTA: grid (tiles, batch).
-__global__ void __launch_bounds__(kMaxThreads)
+// One tile of whole lines per CTA: grid (tiles, batch). The matmul route
+// keeps F1 and F2 in shared memory past the tile.
+template <bool kStockham>
+__global__ void __launch_bounds__(kStockham ? kMaxThreads : kMmaThreads)
 spectral_kernel(const Args a) {
   extern __shared__ float2 s[];
-  tile_op(s, a.xr, a.xi, a.yr, a.yi,
-          (long long)blockIdx.y * a.lines * a.d.n, a.lines,
-          blockIdx.x * a.tile, a.tile, a.axis, a.fwd, a.inv, a.d, a.f);
+  Mats m{};
+  if constexpr (!kStockham) {
+    if (a.fwd || a.inv) {
+      m = mats_to_shared(reinterpret_cast<float*>(s + a.tile * a.d.n), a.d);
+    }
+  }
+  tile_op<kStockham>(s, a.xr, a.xi, a.yr, a.yi,
+                     (long long)blockIdx.y * a.lines * a.d.n, a.lines,
+                     blockIdx.x * a.tile, a.tile, a.axis, a.fwd, a.inv, a.d,
+                     m, a.f);
+}
+
+template <bool kStockham>
+cudaError_t launch(const Args& a, int batch, int threads, size_t smem,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      spectral_kernel<kStockham>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.lines + a.tile - 1) / a.tile, batch);
+  spectral_kernel<kStockham><<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -93,9 +121,10 @@ extern "C" {
 
 // Launches one fused spectral op on `stream`; returns cudaGetLastError()
 // after the launch (0 on success). `stw` (the Stockham twiddle table, or
-// null) selects the route: the four-step stages read f1*, f2*, tw* with
-// N = n1 * n2; Stockham reads stw alone. The caller has checked shapes,
-// types, devices and contiguity.
+// null) selects the route and with it the instantiation: the four-step
+// stages read f1*, f2*, tw* with N = n1 * n2 (at most 512 threads);
+// Stockham reads stw alone (at most 1024, 16 points a thread). The caller
+// has checked shapes, types, devices and contiguity.
 int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
                     int batch, int lines, int n, int n1, int n2, int axis,
                     int fwd, int inv, int mode, const float* f1r,
@@ -114,21 +143,23 @@ int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
   a.lines = lines;
   a.axis = axis; a.fwd = fwd; a.inv = inv;
   a.tile = tile;
-  if (threads > kMaxThreads || threads * kPerThread < tile * n) {
+  const bool stockham = stw != nullptr;
+  const bool any_fft = fwd || inv;
+  if (stockham ? threads > kMaxThreads || threads * kPerThread < tile * n
+               : threads > kMmaThreads || threads % 32 != 0 ||
+                     (any_fft && !(mma_fits(threads, n1, n2) &&
+                                     mma_fits(threads, n2, n1)))) {
     return (int)cudaErrorInvalidConfiguration;
   }
-  if ((fwd || inv) && (stw != nullptr ? n < 2 || (n & (n - 1)) != 0
-                                      : n1 * n2 != n)) {
+  if (any_fft && (stockham ? n < 2 || (n & (n - 1)) != 0
+                             : n1 * n2 != n)) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)tile * n * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      spectral_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((lines + tile - 1) / tile, batch);
-  spectral_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  size_t smem = (size_t)tile * n * sizeof(float2);
+  if (!stockham && any_fft) smem += dft_smem_floats(n1, n2) * sizeof(float);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(stockham ? launch<true>(a, batch, threads, smem, st)
+                        : launch<false>(a, batch, threads, smem, st));
 }
 
 const char* spectral_error_string(int code) {

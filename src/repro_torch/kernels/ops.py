@@ -48,6 +48,7 @@ from repro_torch.kernels.fft4step import (
     _filter_ref_count,
     apply_exponents,
     check_mega,
+    default_factorization,
     device_constants,
     line_exponents,
     mega_plain,
@@ -154,13 +155,57 @@ def _bind():
     return lib
 
 
-def kernel_tile(n: int, axis: int) -> tuple[int, int]:
-    """(lines per CTA, threads per CTA) of the spectral kernel: rows hold
-    4096/N whole lines (one 32 KiB line at N=4096), cols at least 4
-    adjacent columns so strided loads come in 16-byte runs; every thread
-    stages 16 outputs of each stage."""
+# Shared memory one block may opt in to on sm_90 (cudaDevAttr-
+# MaxSharedMemoryPerBlockOptin; chip_smoke.py checks it on the card).
+SMEM_OPTIN_BYTES = 232_448
+# The matmul route's block: 256 to 512 threads, each warp holding one task
+# of 4 m16n8 output tiles (16 points a thread) a round of its tensor-core
+# stage, which loops over rounds of lines; 256 threads hold a whole line
+# of any split of N <= 4096 in one round. (The Stockham route: up to 1024
+# threads, 16 points a thread in one pass.)
+MMA_THREADS = (256, 512)
+# Points of one mega_staged tile on either route: 4 lines at N = 4096
+# (16-byte runs of the column layout), what a 1024-thread Stockham block
+# stages in one pass and a 512-thread matmul block in two rounds.
+STAGED_TILE_POINTS = 16384
+
+
+def dft_smem_bytes(n1: int, n2: int) -> int:
+    """Shared memory of the matmul route's F1 and F2 copy (re, im; rows
+    padded to n + 4 floats; one matrix when n1 == n2): 34,816 B at
+    64 x 64."""
+    return 8 * (n1 * (n1 + 4) + (0 if n1 == n2 else n2 * (n2 + 4)))
+
+
+def _fit_tile(tile: int, n: int, fft_impl: str, n1: int, n2: int) -> int:
+    """Halve ``tile`` until the tile and, on the matmul route, F1 and F2
+    fit one block's shared memory (only n1 = 128 overrides need it)."""
+    extra = dft_smem_bytes(n1, n2) if fft_impl == "matmul" else 0
+    while tile > 1 and tile * n * 8 + extra > SMEM_OPTIN_BYTES:
+        tile //= 2
+    return tile
+
+
+def kernel_tile(n: int, axis: int, fft_impl: str = "matmul",
+                n1: Optional[int] = None,
+                n2: Optional[int] = None) -> tuple[int, int]:
+    """(lines per CTA, threads per CTA) of the spectral kernel on one FFT
+    route: rows hold 4096/N whole lines (one 32 KiB line at N=4096), cols
+    at least 4 adjacent columns so strided loads come in 16-byte runs
+    (128 KiB at N = 4096). Stockham: every thread stages 16 points of each
+    pass. Matmul (``n1 x n2``, default the two-factor split): 16 points a
+    thread a round, 256 to 512 threads (256 for a 4096-point tile: 8 warps
+    of 16 x 32 outputs of the 64 x 64 block; 512 for the 16384-point
+    column tile, in two rounds); the tile shrinks only where F1 and F2
+    would not fit beside it."""
     tile = max(1 if axis == 1 else 4, 4096 // n)
-    return tile, tile * n // 16
+    if fft_impl == "stockham":
+        return tile, tile * n // 16
+    if n1 is None or n2 is None:
+        n1, n2 = default_factorization(n)[:2]
+    tile = _fit_tile(tile, n, fft_impl, n1, n2)
+    lo, hi = MMA_THREADS
+    return tile, max(lo, min(hi, tile * n // 16))
 
 
 def check_kernel_spec(spec: SpectralSpec) -> tuple[int, int]:
@@ -264,7 +309,10 @@ def _launch_cuda(spec: SpectralSpec, xr, xi, filter_args):
     consts = _route_constants(spec, n1, n2, dev)
     keep, filt = _filter_launch_args(spec.filter_mode, spec.axis,
                                      filter_args)
-    tile, threads = kernel_tile(n, spec.axis)
+    if spec.fwd or spec.inv:
+        tile, threads = kernel_tile(n, spec.axis, spec.fft_impl, n1, n2)
+    else:   # no route's constants: the matmul instantiation, no F1 / F2
+        tile, threads = kernel_tile(n, spec.axis, "matmul", 1, 1)
     lib = _bind()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -390,11 +438,10 @@ def fused_rc_rcmc_rows(xr, xi, hr, hi, u, v, **kw):
 # ---------------------------------------------------------------------------
 
 MEGA_KERNEL_NAME = "mega"
-# Shared memory one block may opt in to on sm_90 (cudaDevAttr-
-# MaxSharedMemoryPerBlockOptin; chip_smoke.py checks it on the card).
-SMEM_OPTIN_BYTES = 232_448
-# Points one 1024-thread block stages in registers per in-place pass
-# (16 a thread): the resident kernel's other capacity limit.
+# Points the resident kernel's slab may hold besides the shared-memory
+# limit: what one 1024-thread block of the Stockham route stages per
+# in-place pass (16 a thread). The matmul route stages them at 512
+# threads in rounds of lines, so the cut is the same on both routes.
 RESIDENT_MAX_POINTS = 1024 * 16
 MEGA_MAX_SEGMENTS = 8
 _SEG_FIELDS = 26            # int64 fields per segment in the launch table
@@ -479,7 +526,7 @@ def _bind_mega():
         lib.mega_staged_launch.argtypes = [p] * 4 + [i] * 5 + [p, p]
         for fn in (lib.mega_resident_launch, lib.mega_staged_launch):
             fn.restype = ctypes.c_int
-        lib.mega_staged_blocks_per_sm.argtypes = [ctypes.c_longlong]
+        lib.mega_staged_blocks_per_sm.argtypes = [ctypes.c_longlong, i]
         lib.mega_staged_blocks_per_sm.restype = ctypes.c_int
         lib.mega_smem_optin.argtypes = [i]
         lib.mega_smem_optin.restype = ctypes.c_int
@@ -488,11 +535,14 @@ def _bind_mega():
     return lib
 
 
-def staged_tile(n: int, lines: int) -> int:
-    """Lines per tile of one ``mega_staged`` phase: whole lines filling
-    the 1024-thread block's 16 points a thread (4 rows or columns at
-    N = 4096), never more than the scene has."""
-    return min(RESIDENT_MAX_POINTS // n, lines)
+def staged_tile(n: int, lines: int, fft_impl: str, n1: int,
+                n2: int) -> int:
+    """Lines per tile of one ``mega_staged`` phase: whole lines of
+    ``STAGED_TILE_POINTS`` (4 rows or columns at N = 4096), never more
+    than the scene has; on the matmul route the tile and the phase's F1
+    and F2 (``n1 x n2``) share the block's shared memory."""
+    tile = min(max(1, STAGED_TILE_POINTS // n), lines)
+    return _fit_tile(tile, n, fft_impl, n1, n2)
 
 
 def check_mega_kernel(spec: MegaSpec) -> None:
@@ -558,7 +608,7 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
         table.append([
             seg.axis, int(seg.fwd), int(seg.inv),
             _MODE_CODES[seg.filter_mode], rank, sspec.n, n1, n2,
-            staged_tile(sspec.n, lines),
+            staged_tile(sspec.n, lines, sspec.fft_impl, n1, n2),
             *(_ptr(c) or 0 for c in consts),
             hr or 0, hi or 0, h_line, h_k, u or 0, v or 0,
             u_line, u_k, v_n, v_k, _ptr(stw) or 0])

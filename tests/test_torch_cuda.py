@@ -8,7 +8,9 @@ installed:
 
 Every test here needs a CUDA card (marker ``gpu``) and skips without one:
 the CUDA kernels have no CPU mode. Tolerance 2e-4 x max|want|, the
-reference's own (tests/test_kernels.py); a transpose is exact.
+reference's own (tests/test_kernels.py); a transpose is exact. The matmul
+route's tensor-core stages (3xTF32) are also held to torch.fft in
+complex128 at 1e-5 x max|want|, which one TF32 pass (~3e-4) would miss.
 """
 import pytest
 import torch
@@ -17,6 +19,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import transpose as tr
 
 TOL = 2e-4
+ORACLE_TOL = 1e-5
 MODES = ["none", "shared", "full", "outer", "shared_outer"]
 DIRS = [(True, False), (False, True), (True, True), (False, False)]
 
@@ -71,6 +74,48 @@ def test_cuda_kernel_matches_plain(cuda_device, mode, axis, n, fwd, inv):
     torch.cuda.synchronize()
     assert ops.SPECTRAL_LAUNCHES == before + 1
     assert_close(got, ops.spectral_op_plain(*x, **filt, **kw))
+
+
+def assert_oracle(got, z):
+    """Split float32 ``got`` within ORACLE_TOL x max|z| of complex128 z."""
+    err = max(float((got[0].double() - z.real).abs().max()),
+              float((got[1].double() - z.imag).abs().max()))
+    assert err <= ORACLE_TOL * float(z.abs().max()), err
+
+
+def fft128(z, dim, fwd, inv):
+    if fwd:
+        z = torch.fft.fft(z, dim=dim)
+    if inv:
+        z = torch.fft.ifft(z, dim=dim)
+    return z
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fwd,inv", DIRS[:3])
+@pytest.mark.parametrize("n", [16, 128, 1024, 4096])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_cuda_matmul_route_matches_complex128(cuda_device, axis, n, fwd,
+                                              inv):
+    x, _ = make_case(cuda_device, n + 2, "none", axis, n, 2, lines=13)
+    got = ops.spectral_op(*x, axis=axis, fwd=fwd, inv=inv, block=1)
+    z = torch.complex(x[0].double(), x[1].double())
+    assert_oracle(got, fft128(z, -1 if axis == 1 else -2, fwd, inv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("residency,shape", [
+    ("vmem", (128, 128)), ("staged", (128, 128)), ("vmem", (64, 128)),
+    ("staged", (256, 512))])
+def test_cuda_megakernels_match_complex128(cuda_device, residency, shape):
+    segments = ((0, True, False, "none"), (1, True, True, "none"),
+                (0, False, True, "none"))
+    x, _ = make_mega_case(cuda_device, 3, segments, 2, *shape)
+    got = ops.mega_spectral_op(*x, segments=segments, residency=residency)
+    z = torch.complex(x[0].double(), x[1].double())
+    for axis, fwd, inv, _mode in segments:
+        z = fft128(z, -1 if axis == 1 else -2, fwd, inv)
+    assert_oracle(got, z)
 
 
 @pytest.mark.gpu

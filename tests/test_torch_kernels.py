@@ -268,12 +268,22 @@ def test_kernel_refuses_what_it_does_not_take(kw):
         tops.check_kernel_spec(tfft.SpectralSpec(**spec))
 
 
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
 @pytest.mark.parametrize("n,axis", [(16, 1), (4096, 1), (4096, 0), (2048, 0)])
-def test_kernel_tile_fits_the_block(n, axis):
-    tile, threads = tops.kernel_tile(n, axis)
-    assert tile * n == threads * 16            # 16 staged outputs a thread
-    assert threads <= 1024 and threads % 32 == 0
-    assert tile * n * 8 <= 227 * 1024          # shared memory of one block
+def test_kernel_tile_fits_the_block(n, axis, fft_impl):
+    tile, threads = tops.kernel_tile(n, axis, fft_impl)
+    smem = tile * n * 8
+    if fft_impl == "stockham":
+        assert tile * n == threads * 16        # 16 staged points a thread
+        assert threads <= 1024
+    else:
+        # the tensor-core stage: 16 points a thread a round (one task of
+        # 4 m16n8 tiles a warp), at most two rounds, 256..512 threads, F1
+        # and F2 in shared memory beside the tile
+        assert tile * n <= threads * 32 and 256 <= threads <= 512
+        smem += tops.dft_smem_bytes(*tfft.default_factorization(n))
+    assert threads % 32 == 0
+    assert smem <= 227 * 1024                  # shared memory of one block
     assert tops.check_kernel_spec(tfft.SpectralSpec(
         n=n, fwd=True, filter_mode="none", inv=False)) \
         == tfft.default_factorization(n)
