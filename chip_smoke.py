@@ -12,10 +12,12 @@ each printing one JSON line (any failed check raises and exits non-zero):
              switched off for matmul and cuDNN.
 2. build   — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``,
              forced, so a second run in the same checkout reports ptxas's
-             registers and spills per instantiation too; ``cuobjdump
-             -sass`` must show HMMA TF32 instructions in the matmul
-             instantiations of ``spectral_kernel``, ``mega_resident`` and
-             ``mega_staged`` (the tensor-core stage).
+             registers and spills per instantiation too (and per
+             out-of-line Stockham op, 'kernel/stockham_n<layout,N,...>');
+             ``cuobjdump -sass`` must show HMMA TF32 instructions in the
+             matmul instantiations of ``spectral_kernel``,
+             ``mega_resident`` and ``mega_staged`` (the tensor-core
+             stage).
 3. kernel  — the CUDA spectral kernel against its plain PyTorch version on
              the card: every filter mode x axis x fwd/inv combination at
              N in {128, 4096}, B in {1, 2}, 37 lines (ragged against every
@@ -33,8 +35,11 @@ each printing one JSON line (any failed check raises and exits non-zero):
              version;
              then ``fused_tfree`` (exactly 4 launches); then a 128^2 scene
              on the card against the plain version on the CPU.
-5. times   — CUDA events, 2 warm-ups, median of 7: each fused3 launch and
-             the whole run, beside the launch's bound (bytes over 3.35 TB/s
+5. times   — CUDA events, 2 warm-ups, median of 7: each fused3 launch
+             (every kernel, plain and library time is queued behind a
+             spin on the card, so the host's time before the launch is
+             not in it) and the whole run (with the host's time),
+             beside the launch's bound (bytes over 3.35 TB/s
              vs nominal 5 N log2 N FLOP over 67 TFLOP/s, H100 SXM spec
              sheet), ``mma_floor_ms`` (the stages' 3 TF32 passes of
              8 N (n1 + n2) flop a line and transform over 495 TFLOP/s),
@@ -68,11 +73,11 @@ each printing one JSON line (any failed check raises and exits non-zero):
              against ``transpose_plain`` with ``torch.equal``: float32 and
              complex64, 2-D and B = 2, square, non-square and ragged shapes
              up to 4096^2.
-10. stockham_kernel — phase 3's grid with ``fft_impl="stockham"`` (the
-             Stockham route of the spectral kernel), then phase 6's chains
-             through both megakernels on the Stockham route, against the
-             plain versions (2e-4 x max|want|; resident ``torch.equal`` to
-             staged).
+10. stockham_kernel — phase 3's grid with ``fft_impl="stockham"`` at N in
+             {16, 128, 256, 1024, 4096} (the Stockham route of the
+             spectral kernel), then phase 6's chains through both
+             megakernels on the Stockham route, each ``torch.equal`` to
+             its plain version (and resident to staged).
 11. main fused — ``build_pipeline(cfg, "fused").run(raw)`` at 4096^2 with
              the counts reset just before and read just after (exactly 3
              spectral, 4 transpose, 0 mega launches), all five targets
@@ -102,7 +107,6 @@ The line before the last lists each kernel; the last line is
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -123,22 +127,32 @@ SEARCH = 64                    # window of the peak-position check
 # the matmul-route instantiations, which must run on the tensor cores
 MMA_KERNELS = ("spectral_kernel<matmul>", "mega_resident<matmul>",
                "mega_staged<matmul>")
-_KERNEL_NAMES = ("spectral_kernel", "mega_resident", "mega_staged",
-                 "transpose_kernel")
+_KERNEL_NAMES = ("spectral_kernel", "mega_resident",
+                 "mega_staged", "transpose_kernel")
 _ROUTES = {"ILb0E": "matmul", "ILb1E": "stockham"}
 
 
 def instantiation(mangled):
     """A readable name of a mangled kernel, e.g. 'mega_staged<matmul>'
-    (the template flag kStockham of spectral.cu and mega.cu)."""
+    (the template flag kStockham of spectral.cu and mega.cu; a megakernel
+    specialised on its N, 'mega_staged<stockham,4096>'), or of one
+    out-of-line Stockham op, e.g. 'stockham_n<cols,4096,io,32>' (layout,
+    N, device-memory tile or in-place slab, points a thread)."""
+    m = re.search(r"stockham_nILb([01])ELi(\d+)ELb([01])ELi(\d+)E", mangled)
+    if m:
+        return (f"stockham_n<{'cols' if m.group(1) == '1' else 'rows'},"
+                f"{m.group(2)},{'io' if m.group(3) == '1' else 'slab'},"
+                f"{m.group(4)}>")
     for name in _KERNEL_NAMES:
         i = mangled.find(name)
         if i < 0:
             continue
         rest = mangled[i + len(name):]
         for key, route in _ROUTES.items():
-            if rest.startswith(key):
-                return f"{name}<{route}>"
+            if rest.startswith(key):   # a megakernel's N, where specialised
+                m = re.match(r"ILb[01]ELi([1-9]\d*)E", rest)
+                return f"{name}<{route},{m.group(1)}>" if m else \
+                    f"{name}<{route}>"
         if rest.startswith("I"):
             return f"{name}<{rest[1:rest.find('E')]}>"
         return name
@@ -147,7 +161,10 @@ def instantiation(mangled):
 
 def ptxas_report(log):
     """{instantiation: registers, spill stores and loads} from one source's
-    ``-Xptxas -v`` output."""
+    ``-Xptxas -v`` output; an out-of-line Stockham op (``stockham_n``, a
+    call of its kernel, compiled for each kernel's register budget) gets
+    its own spill record under 'kernel/op' (its registers count in its
+    kernel's)."""
     out = {}
     cur = props = None
     for ln in log.splitlines():
@@ -167,6 +184,9 @@ def ptxas_report(log):
         if m and props == cur:
             rec.update(spill_stores=int(m.group(1)),
                        spill_loads=int(m.group(2)))
+        elif m and props and "stockham_n" in props:
+            out[f"{instantiation(cur)}/{instantiation(props)}"] = dict(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             rec["registers"] = int(m.group(1))
@@ -255,26 +275,20 @@ def oracle_err(torch, got, want):
     return float((g - want).abs().max() / want.abs().max())
 
 
-def cuda_median_ms(fn, warm=2, reps=7):
-    import torch
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+def cuda_median_ms(fn, warm=2, reps=7, queued=False):
+    """Median of ``reps`` CUDA-event timings of ``fn``. ``queued``: each
+    timing waits behind a spin on the card, so the events bracket the
+    card's work and not the host's Python time before each launch — the
+    kernel times; a whole pipeline run is timed with the host in it."""
+    from repro_torch.kernels.probe import median_ms
+    return median_ms(fn, warm=warm, reps=reps, queued=queued)
 
 
 TRANSPOSE_SHAPES = ((64, 64), (128, 256), (96, 32), (37, 4096), (4096, 4096))
 MEGA_MODES = ("none", "shared", "full", "outer", "shared_outer")
 MEGA_SHAPES = ((64, 128), (128, 64), (128, 128), (256, 256), (4096, 4096))
 MEGA_BATCH = 132               # resident timing: one 128^2 scene per SM
+STOCKHAM_SIZES = (16, 128, 256, 1024, 4096)   # phase 10's spectral sweep
 
 
 def mega_chains():
@@ -315,17 +329,19 @@ def seeded_randn(torch, dev, seed):
     return rand
 
 
-def spectral_sweep(torch, ops, rand, fft_impl):
+def spectral_sweep(torch, ops, rand, fft_impl, sizes=(128, 4096),
+                   exact=False):
     """The spectral kernel against its plain version on the card: every
-    filter mode x axis x fwd/inv at N in {128, 4096}, B in {1, 2}, 37
-    lines; on the matmul route each N = 4096 case also against the
-    complex128 oracle (``ORACLE_TOL``). Returns (cases, max rel err, oracle
-    cases, max oracle err)."""
+    filter mode x axis x fwd/inv at N in ``sizes``, B in {1, 2}, 37
+    lines, within ``TOL`` or, ``exact``, ``torch.equal``; on the matmul
+    route each N = 4096 case also against the complex128 oracle
+    (``ORACLE_TOL``). Returns (cases, max rel err, oracle cases, max oracle
+    err)."""
     from repro_torch.kernels.fft4step import FILTER_MODES
     lines, rank = 37, 2
     worst = worst_oracle = 0.0
     cases = oracle_cases = 0
-    for n in (128, 4096):
+    for n in sizes:
         for batch in (1, 2):
             for axis in (0, 1):
                 scene = (lines, n) if axis == 1 else (n, lines)
@@ -351,6 +367,10 @@ def spectral_sweep(torch, ops, rand, fft_impl):
                         _, rel = rel_err(got, want)
                         check(rel <= TOL, f"kernel vs plain {kw} n={n} "
                               f"B={batch}: rel err {rel:.3e}")
+                        check(not exact or all(
+                            torch.equal(g, w) for g, w in zip(got, want)),
+                              f"kernel != plain {kw} n={n} B={batch}: "
+                              f"rel err {rel:.3e}")
                         worst = max(worst, rel)
                         cases += 1
                         if fft_impl == "matmul" and n == 4096:
@@ -364,9 +384,10 @@ def spectral_sweep(torch, ops, rand, fft_impl):
     return cases, worst, oracle_cases, worst_oracle
 
 
-def mega_sweep(torch, ops, rand, fft_impl):
+def mega_sweep(torch, ops, rand, fft_impl, exact=False):
     """Both megakernels against ``mega_plain`` on the card over
-    ``mega_chains()`` x ``MEGA_SHAPES`` x B in {1, 2}, resident held
+    ``mega_chains()`` x ``MEGA_SHAPES`` x B in {1, 2} (within ``TOL`` or,
+    ``exact``, ``torch.equal``), resident held
     ``torch.equal`` to staged; on the matmul route each 4096^2 case also
     against the complex128 oracle chain (``ORACLE_TOL``). Returns (cases,
     max rel err, equal pairs, oracle cases, max oracle err) with the first
@@ -405,6 +426,10 @@ def mega_sweep(torch, ops, rand, fft_impl):
                     check(rel <= TOL, f"{kernel} ({fft_impl}) vs plain "
                           f"{segments} {na}x{nr} B={batch}: rel err "
                           f"{rel:.3e}")
+                    check(not exact or all(
+                        torch.equal(g, w) for g, w in zip(got, want)),
+                          f"{kernel} ({fft_impl}) != plain {segments} "
+                          f"{na}x{nr} B={batch}: rel err {rel:.3e}")
                     worst[kernel] = max(worst[kernel], rel)
                     cases[kernel] += 1
                     outs.append(got)
@@ -467,10 +492,11 @@ def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg):
     oracle = build_pipeline(segments_cfg, "fused1", backend="torch")
     rec = dict(
         kernel=name, fft_impl=kk["fft_impl"], scene=[na, nr], batch=batch,
-        ms=cuda_median_ms(lambda: ops.mega_spectral_op(xr, xi, *args, **kk)),
+        ms=cuda_median_ms(lambda: ops.mega_spectral_op(xr, xi, *args, **kk),
+                          queued=True),
         plain_ms=cuda_median_ms(lambda: ops.mega_spectral_op_plain(
-            xr, xi, *args, **kk)),
-        library_ms=cuda_median_ms(lambda: oracle.run(x)),
+            xr, xi, *args, **kk), queued=True),
+        library_ms=cuda_median_ms(lambda: oracle.run(x), queued=True),
         bytes=nbytes, flops_nominal=flops,
         bound_ms=max(t_mem, t_ops),
         bound_by="bytes" if t_mem >= t_ops else "operations",
@@ -511,11 +537,13 @@ def time_spectral_launch(smi_line, step, xr, xi, x):
     rec = dict(
         launch=step.name, fft_impl=kk["fft_impl"], axis=kk["axis"],
         mode=kk["filter_mode"], fwd=kk["fwd"], inv=kk["inv"],
-        ms=cuda_median_ms(lambda: ops.spectral_op(xr, xi, **fk, **kk)),
+        ms=cuda_median_ms(lambda: ops.spectral_op(xr, xi, **fk, **kk),
+                          queued=True),
         plain_ms=cuda_median_ms(
-            lambda: ops.spectral_op_plain(xr, xi, **fk, **kk)),
+            lambda: ops.spectral_op_plain(xr, xi, **fk, **kk), queued=True),
         library_ms=cuda_median_ms(lambda: planlib._torch_apply(
-            x, kk["fwd"], kk["inv"], kk["filter_mode"], fk, kk["axis"])),
+            x, kk["fwd"], kk["inv"], kk["filter_mode"], fk, kk["axis"]),
+            queued=True),
         bytes=nbytes, flops_nominal=flops, bound_ms=max(t_mem, t_ops),
         bound_by="bytes" if t_mem >= t_ops else "operations")
     rec["vs_library"] = rec["ms"] / rec["library_ms"]
@@ -719,14 +747,18 @@ def baseline_phases(torch, dev, smi_line, cfg, raw, score, replay_plain,
          batches=[1, 2], dtypes=["float32", "complex64"], equal=True)
 
     # ---- 10. the Stockham route vs the plain versions ----------------------
+    # bit for bit: pairing passes changes which thread computes a point,
+    # never how; N = 16, 256, 4096 turn around in registers, 1024 has two
+    # pairs and a lone pass, 128 a radix-4/radix-2 pair
     s_cases, s_worst, _, _ = spectral_sweep(
-        torch, ops, seeded_randn(torch, dev, 3), "stockham")
+        torch, ops, seeded_randn(torch, dev, 3), "stockham",
+        sizes=STOCKHAM_SIZES, exact=True)
     m_cases, m_worst, pairs, _, _ = mega_sweep(
-        torch, ops, seeded_randn(torch, dev, 4), "stockham")
-    emit("stockham_kernel", spectral_cases=s_cases,
+        torch, ops, seeded_randn(torch, dev, 4), "stockham", exact=True)
+    emit("stockham_kernel", spectral_cases=s_cases, sizes=STOCKHAM_SIZES,
          spectral_max_rel_err=s_worst, mega_cases=m_cases,
          mega_max_rel_err=m_worst, resident_equals_staged_cases=pairs,
-         tol=TOL)
+         equal_to_plain=True)
 
     # ---- 11. the main path through fused -----------------------------------
     pipe = build_pipeline(cfg, "fused")
@@ -830,10 +862,11 @@ def baseline_phases(torch, dev, smi_line, cfg, raw, score, replay_plain,
         nbytes = 2 * x.numel() * x.element_size()
         rec = dict(
             step=s.name, shape=list(x.shape), dtype=str(x.dtype),
-            ms=cuda_median_ms(lambda: transpose.transpose(x)),
-            plain_ms=cuda_median_ms(lambda: transpose.transpose_plain(x)),
+            ms=cuda_median_ms(lambda: transpose.transpose(x), queued=True),
+            plain_ms=cuda_median_ms(lambda: transpose.transpose_plain(x),
+                                    queued=True),
             library_ms=cuda_median_ms(
-                lambda: x.transpose(-1, -2).contiguous()),
+                lambda: x.transpose(-1, -2).contiguous(), queued=True),
             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes")
         emit("time_transpose", nvidia_smi=smi_line, **rec)
@@ -859,10 +892,10 @@ def baseline_phases(torch, dev, smi_line, cfg, raw, score, replay_plain,
     for name, (s, xr, xi, x) in st_inputs.items():
         ms_, xr_m, xi_m, _ = main_inputs[name]
         mm = [cuda_median_ms(lambda: ops.spectral_op(
-            xr_m, xi_m, **ms_.filter_kw, **ms_.kernel_kw))]
+            xr_m, xi_m, **ms_.filter_kw, **ms_.kernel_kw), queued=True)]
         rec = time_spectral_launch(smi_line, s, xr, xi, x)
         mm.append(cuda_median_ms(lambda: ops.spectral_op(
-            xr_m, xi_m, **ms_.filter_kw, **ms_.kernel_kw)))
+            xr_m, xi_m, **ms_.filter_kw, **ms_.kernel_kw), queued=True))
         emit("time_route", launch=name, order=["matmul", "stockham",
                                                "matmul"],
              matmul_ms=mm, stockham_ms=rec["ms"], nvidia_smi=smi_line)

@@ -37,7 +37,12 @@
 // stage at up to 512 threads (the same fragment arithmetic as spectral.cu,
 // in as many rounds of lines as the slab needs) and reads F1 and F2 from
 // device memory (L1) in place, so the slab keeps the shared memory; the
-// Stockham route runs at up to 1024 threads, 16 points a thread. DFT
+// Stockham route holds the slab as 16 points a thread in registers (32 at
+// 512 threads; the 128^2 slab of the main path 16 at 1024 threads in a
+// specialisation with its ops inlined), one exchange through the
+// (swizzled) slab a pair of passes, a fwd+inv segment turned around in
+// registers where N allows it, the inverse's 1/N on its last write
+// (stockham_op). DFT
 // constants, the Stockham twiddle table, u, v, shared vectors and FULL
 // filters are read from global memory in place. Nothing of the scene goes
 // to device memory between segments.
@@ -50,10 +55,13 @@
 // co-resident block count (occupancy x SMs, queried after the dynamic
 // shared-memory attribute is set). One phase per segment: each block walks
 // the (scene, tile) pairs of the phase, a tile being whole lines of 16384
-// points (4 rows or 4 columns at N = 4096, 128 KiB: what 1024 threads
-// stage in one Stockham pass, 512 in two rounds of the tensor-core
-// stage), and runs the per-axis op of spectral.cu on it (tile_op: load,
-// stages, filter, stages, store). On the matmul route F1 and F2 are
+// points (4 rows or 4 columns at N = 4096, 128 KiB: what 512 threads
+// stage in two rounds of the tensor-core stage, or hold as 32 points a
+// thread on the Stockham route; its rows and other lengths take 8192
+// points, 16 a thread), and runs the per-axis op of spectral.cu on it
+// (tile_op: load, stages, filter, stages, store). The Stockham route runs
+// 512 threads too (128 registers), specialised with its ops inlined when
+// every transform has N = 4096. On the matmul route F1 and F2 are
 // copied into shared memory past the tile once per phase (34 KiB at
 // N = 4096, one matrix, so a block takes 162 KiB), and the block runs 512
 // threads at up to 128 registers (__launch_bounds__(512, 1)). Phases are
@@ -72,8 +80,11 @@
 // fused1's four transforms take ~0.42 ms of 3xTF32 tensor-core work at
 // 495 TFLOP/s; with one block per SM that cannot overlap a tile's load,
 // stages and store, the phases' I/O and the stages add up rather than
-// overlap. On the Stockham route (~0.06 ms of nominal flops) its
-// shared-memory passes, barriers and the three device-memory round trips.
+// overlap. On the Stockham route (~0.06 ms of nominal flops) the three
+// device-memory round trips: each tile's first pair of passes loads it
+// straight into registers and its last pair stores it, one exchange
+// through shared memory a pair between them; rows synchronise per line
+// (2 lines of 256 threads at N = 4096), columns per block.
 //
 // Both kernels run, for each point, exactly the operations of spectral.cu's
 // launches (spectral_common.cuh, -fmad=false), so at f32 they equal the
@@ -105,6 +116,15 @@ struct Segment {
   int tile;           // mega_staged: lines per tile
 };
 
+// mega_resident's thread bound: the 128^2 Stockham specialisation holds
+// its slab as 16 points a thread of 1024 (inlined, 64 registers: 0.57x
+// the time of the 512 x 32 slab ops out of line, PERF.md); otherwise 512.
+constexpr int resident_threads(bool stockham, int n) {
+  return stockham && n == 128 ? 2 * kStockhamThreads
+         : stockham           ? kStockhamThreads
+                              : kMmaThreads;
+}
+
 struct MegaArgs {
   const float* xr;
   const float* xi;
@@ -115,58 +135,83 @@ struct MegaArgs {
 };
 
 // One segment in place on the resident slab (lines in natural order on
-// entry and on exit).
-template <bool kLineFast, bool kStockham>
+// entry and on exit). The Stockham route keeps the slab swizzled (swz) and
+// runs stockham_op in place, its inverse's 1/N and conjugate on the last
+// step's write; a filter-only segment is one pass over the slab. kN > 0:
+// every transform of the kernel has N = kN (stockham_op inlines it).
+template <bool kLineFast, bool kStockham, int kN>
 __device__ __forceinline__ void resident_segment(const Lines& L,
                                                  const Segment& g) {
   const Dft& d = g.d;
   const bool fwd = g.fwd, inv = g.inv;
-  const bool four_step = !kStockham;         // Stockham: natural order
-  const Mats m = kStockham ? Mats{} : mats_in_place(d);
-  if (four_step && !fwd && inv) {
+  if constexpr (kStockham) {
+    if (fwd || inv) {
+      // 32 points a thread where 16 do not cover the slab (one round of
+      // 512 threads for 128^2); else 16, in rounds of the lines the block
+      // holds at once where even that does not cover it (N < 32)
+      const float scale = inverse_scale(inv, d.n);
+      const int points = stockham_per_thread(L.lines * d.n, d.n, blockDim.x);
+      const int units = d.n / points;
+      const int round = units > 0 ? (int)blockDim.x / units
+                                  : (int)blockDim.x * points / d.n;
+      for (int line0 = 0; line0 < L.lines; line0 += round) {
+        stockham_op<kLineFast, false, kN>(L, Io{}, d.stw, fwd, inv, g.f, 0,
+                                          L.lines, scale,
+                                          inv ? -scale : 1.0f,
+                                          LineSync{0, 0}, line0, points);
+      }
+    } else {
+      filter_pass<kLineFast, true>(L, g.f, 0, L.lines, false, 1, 1);
+    }
+    return;
+  }
+  const Mats m = mats_in_place(d);
+  if (!fwd && inv) {
     reorder<kLineFast>(L, kToTransposed, d.n1, d.n2, 1.0f, 1.0f);
   }
-  if (fwd) transform<kLineFast, kStockham>(L, d, m, false);
+  if (fwd) transform<kLineFast>(L, d, m, false);
   if (g.f.mode != kNone) {
-    filter_pass<kLineFast>(L, g.f, 0, L.lines, four_step && (fwd || inv),
-                           d.n1, d.n2);
+    filter_pass<kLineFast>(L, g.f, 0, L.lines, fwd || inv, d.n1, d.n2);
   }
   if (inv) {
-    transform<kLineFast, kStockham>(L, d, m, true);
+    transform<kLineFast>(L, d, m, true);
     const float scale = inverse_scale(true, d.n);
     reorder<kLineFast>(L, kKeep, d.n1, d.n2, scale, -scale);
-  } else if (fwd && four_step) {
+  } else if (fwd) {
     reorder<kLineFast>(L, kToNatural, d.n1, d.n2, 1.0f, 1.0f);
   }
 }
 
-// grid = batch; one scene per CTA, its (na, nr) slab at s[a * nr + r].
+// grid = batch; one scene per CTA, its (na, nr) slab at s[a * nr + r]
+// (s[swz(a * nr + r)] on the Stockham route).
 // Naming one block per SM gives ptxas the whole register file of the
 // thread bound (64 registers at 1024 threads, 128 at 512); under the
 // thread bound alone it held the kernel to 32 (8.5 KB of spills). A 128^2
-// slab takes one SM's shared memory anyway.
-template <bool kStockham>
-__global__ void __launch_bounds__(kStockham ? kMaxThreads : kMmaThreads, 1)
+// slab takes one SM's shared memory anyway. kN: as resident_segment's
+// (the Stockham route's 128^2 slabs, the main path's, take kN = 128).
+template <bool kStockham, int kN>
+__global__ void __launch_bounds__(resident_threads(kStockham, kN), 1)
 mega_resident(const __grid_constant__ MegaArgs a) {
   extern __shared__ float2 s[];
   const int na = a.na, nr = a.nr;
   const int total = na * nr;
   const long long scene = (long long)blockIdx.x * total;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    s[i] = make_float2(a.xr[scene + i], a.xi[scene + i]);
+    s[kStockham ? swz(i) : i] = make_float2(a.xr[scene + i], a.xi[scene + i]);
   }
   __syncthreads();
   for (int k = 0; k < a.nseg; ++k) {
     const Segment& g = a.seg[k];
     if (g.axis == 1) {   // rows
-      resident_segment<false, kStockham>(Lines{s, na, nr, nr, 1}, g);
+      resident_segment<false, kStockham, kN>(Lines{s, na, nr, nr, 1}, g);
     } else {             // columns
-      resident_segment<true, kStockham>(Lines{s, nr, na, 1, nr}, g);
+      resident_segment<true, kStockham, kN>(Lines{s, nr, na, 1, nr}, g);
     }
   }
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    a.yr[scene + i] = s[i].x;
-    a.yi[scene + i] = s[i].y;
+    const float2 v = s[kStockham ? swz(i) : i];
+    a.yr[scene + i] = v.x;
+    a.yi[scene + i] = v.y;
   }
 }
 
@@ -177,9 +222,13 @@ mega_resident(const __grid_constant__ MegaArgs a) {
 // thread bound. The matmul route copies the phase's F1 and F2 into shared
 // memory past the tile once per phase: the last phase's final barrier and
 // grid.sync() order the copy after every read of the previous one, and
-// the first tile's load barrier before every read of this one.
-template <bool kStockham>
-__global__ void __launch_bounds__(kStockham ? kMaxThreads : kMmaThreads, 1)
+// the first tile's load barrier before every read of this one. kN > 0:
+// every transform has N = kN and its Stockham ops are inlined (the main
+// path's 4096^2 scene takes kN = 4096: out of line they spilled 1-3 KB
+// each under this kernel's register budget).
+template <bool kStockham, int kN>
+__global__ void __launch_bounds__(kStockham ? kStockhamThreads : kMmaThreads,
+                                  1)
 mega_staged(const __grid_constant__ MegaArgs a) {
   extern __shared__ float2 s[];
   cg::grid_group grid = cg::this_grid();
@@ -200,9 +249,9 @@ mega_staged(const __grid_constant__ MegaArgs a) {
     const float* xi = k == 0 ? a.xi : a.yi;
     for (int t = blockIdx.x; t < a.batch * tiles; t += gridDim.x) {
       const int b = t / tiles;
-      tile_op<kStockham>(s, xr, xi, a.yr, a.yi, b * scene_points, lines,
-                         (t - b * tiles) * C, C, g.axis, g.fwd, g.inv, g.d, m,
-                         g.f);
+      tile_op<kStockham, kN>(s, xr, xi, a.yr, a.yi, b * scene_points, lines,
+                             (t - b * tiles) * C, C, g.axis, g.fwd, g.inv,
+                             g.d, m, g.f);
       __syncthreads();   // the next tile's load overwrites s
     }
     if (k + 1 < a.nseg) grid.sync();
@@ -268,41 +317,56 @@ int route(const MegaArgs& a) {
   return r;
 }
 
-// Shared memory of a mega_staged phase: its tile, and on the matmul route
-// F1 and F2 past it.
+// The N of every transforming segment when they agree, else 0.
+int transform_n(const MegaArgs& a) {
+  int n = 0;
+  for (int k = 0; k < a.nseg; ++k) {
+    const Segment& g = a.seg[k];
+    if (!(g.fwd || g.inv)) continue;
+    if (n != 0 && g.d.n != n) return 0;
+    n = g.d.n;
+  }
+  return n;
+}
+
+// Shared memory of a mega_staged phase: its tile (whole runs of 16 points
+// on the Stockham route, for swz), and on the matmul route F1 and F2 past
+// it.
 size_t staged_smem(const Segment& g, bool stockham) {
-  size_t bytes = (size_t)g.tile * g.d.n * sizeof(float2);
+  const int points = g.tile * g.d.n;
+  size_t bytes =
+      (size_t)(stockham ? stockham_points(points) : points) * sizeof(float2);
   if (!stockham && (g.fwd || g.inv)) {
     bytes += dft_smem_floats(g.d.n1, g.d.n2) * sizeof(float);
   }
   return bytes;
 }
 
-template <bool kStockham>
+template <bool kStockham, int kN>
 cudaError_t launch_resident(const MegaArgs& a, int threads, size_t smem,
                             cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      mega_resident<kStockham>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      mega_resident<kStockham, kN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  mega_resident<kStockham><<<a.batch, threads, smem, stream>>>(a);
+  mega_resident<kStockham, kN><<<a.batch, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// Blocks of mega_staged<kStockham> one SM holds with `smem` bytes of
+// Blocks of mega_staged<kStockham, kN> one SM holds with `smem` bytes of
 // dynamic shared memory (after setting the attribute), or the error.
-template <bool kStockham>
+template <bool kStockham, int kN>
 cudaError_t staged_per_sm(size_t smem, int& per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
-      mega_staged<kStockham>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mega_staged<kStockham, kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mega_staged<kStockham>, kStockham ? kMaxThreads : kMmaThreads,
-      smem);
+      &per_sm, mega_staged<kStockham, kN>,
+      kStockham ? kStockhamThreads : kMmaThreads, smem);
 }
 
-template <bool kStockham>
+template <bool kStockham, int kN>
 cudaError_t launch_staged(MegaArgs& a, long long work, size_t smem,
                           cudaStream_t stream) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -313,15 +377,16 @@ cudaError_t launch_staged(MegaArgs& a, long long work, size_t smem,
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if ((err = staged_per_sm<kStockham>(smem, per_sm)) != cudaSuccess) {
+  if ((err = staged_per_sm<kStockham, kN>(smem, per_sm)) != cudaSuccess) {
     return err;
   }
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int grid = (int)std::min((long long)per_sm * sms, work);
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)mega_staged<kStockham>,
+  err = cudaLaunchCooperativeKernel((const void*)mega_staged<kStockham, kN>,
                                     dim3(grid),
-                                    dim3(kStockham ? kMaxThreads : kMmaThreads),
+                                    dim3(kStockham ? kStockhamThreads
+                                                   : kMmaThreads),
                                     params, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -345,10 +410,21 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
   if (r < 0) return (int)cudaErrorInvalidValue;
   const int total = na * nr;
   const int need = ((total + kPerThread - 1) / kPerThread + 31) / 32 * 32;
-  // Stockham: 16 points a thread in one round; matmul: 256..512 threads,
-  // the stages and reorder loop over rounds of lines
-  const int threads = r ? need : std::min(kMmaThreads, std::max(256, need));
-  if (threads > kMaxThreads) return (int)cudaErrorInvalidConfiguration;
+  // Stockham: up to 512 threads, 16 points a thread, rounds of lines;
+  // matmul: 256..512 threads, the stages and reorder loop over rounds of
+  // lines
+  const bool n128 = r && transform_n(a) == 128;
+  const int threads =
+      r ? std::min(resident_threads(true, n128 ? 128 : 0), need)
+        : std::min(kMmaThreads, std::max(256, need));
+  if (r) {   // every segment's line fits the threads of a round
+    for (int k = 0; k < nseg; ++k) {
+      const int n = a.seg[k].d.n;
+      if (n / stockham_per_thread(total, n, threads) > threads) {
+        return (int)cudaErrorInvalidConfiguration;
+      }
+    }
+  }
   for (int k = 0; k < nseg; ++k) {
     const Segment& g = a.seg[k];
     if (!r && (g.fwd || g.inv) &&
@@ -357,10 +433,12 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
       return (int)cudaErrorInvalidConfiguration;
     }
   }
-  const size_t smem = (size_t)total * sizeof(float2);
+  const size_t smem = (size_t)(r ? stockham_points(total) : total) *
+                      sizeof(float2);
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(r ? launch_resident<true>(a, threads, smem, st)
-                 : launch_resident<false>(a, threads, smem, st));
+  if (!r) return (int)launch_resident<false, 0>(a, threads, smem, st);
+  return (int)(n128 ? launch_resident<true, 128>(a, threads, smem, st)
+                   : launch_resident<true, 0>(a, threads, smem, st));
 }
 
 int mega_staged_launch(const float* xr, const float* xi, float* yr,
@@ -373,13 +451,15 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
   if (err != cudaSuccess) return (int)err;
   const int r = route(a);
   if (r < 0) return (int)cudaErrorInvalidValue;
-  const int threads = r ? kMaxThreads : kMmaThreads;
+  const int threads = r ? kStockhamThreads : kMmaThreads;
   size_t smem = 0;
   long long work = 0;
   for (int k = 0; k < nseg; ++k) {
     const Segment& g = a.seg[k];
     const int lines = g.axis == 1 ? na : nr;
-    if (g.tile < 1 || (r ? g.tile * g.d.n > kMaxThreads * kPerThread
+    const int per = stockham_per_thread(g.tile * g.d.n, g.d.n);
+    if (g.tile < 1 || (r ? g.tile * g.d.n > kStockhamThreads * per ||
+                               !stockham_tile_built(g.axis, g.d.n, per)
                          : (g.fwd || g.inv) &&
                                !(mma_fits(threads, g.d.n1, g.d.n2) &&
                                  mma_fits(threads, g.d.n2, g.d.n1)))) {
@@ -390,8 +470,10 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
                     (long long)batch * ((lines + g.tile - 1) / g.tile));
   }
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(r ? launch_staged<true>(a, work, smem, st)
-                 : launch_staged<false>(a, work, smem, st));
+  if (!r) return (int)launch_staged<false, 0>(a, work, smem, st);
+  return (int)(transform_n(a) == 4096
+                   ? launch_staged<true, 4096>(a, work, smem, st)
+                   : launch_staged<true, 0>(a, work, smem, st));
 }
 
 // Blocks of mega_staged on the given route (stockham != 0) one SM holds
@@ -400,8 +482,8 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
 int mega_staged_blocks_per_sm(long long smem, int stockham) {
   int per_sm = 0;
   const cudaError_t err =
-      stockham ? staged_per_sm<true>((size_t)smem, per_sm)
-               : staged_per_sm<false>((size_t)smem, per_sm);
+      stockham ? staged_per_sm<true, 0>((size_t)smem, per_sm)
+               : staged_per_sm<false, 0>((size_t)smem, per_sm);
   return err == cudaSuccess ? per_sm : -1;
 }
 

@@ -25,8 +25,8 @@
 // tile per SM, so the tile's device-memory I/O is the other half of their
 // time (filter-only launches, the same probe). The Stockham route does
 // ~5 N log2 N flops a transform, the nominal count; what it spends time
-// on is its log4 N in-place passes over the tile in shared memory (one
-// load and one store a point a pass, two barriers a pass).
+// on is the tile's device-memory I/O and its exchanges through shared
+// memory, one a pair of passes (spectral_common.cuh).
 //
 // Design:
 //   * A CTA holds a tile of whole lines in shared memory (complex,
@@ -49,18 +49,24 @@
 //     floats of a warp's task and the split fragments): 256 at 4096
 //     points a tile, 8 warps of 16 x 32 outputs of the 64 x 64 block a
 //     line; 512 for the 16384-point column tile, in two rounds of lines.
-//   * Stockham route: the radix-4/radix-2 Stockham passes of
-//     spectral_common.cuh in place on the same tile at 1024 threads, 16
-//     points a thread; self-sorting, so nothing is permuted on load or
-//     store and the filter index is the natural one. Its twiddles are read
-//     from the table fft4step.stockham_table builds on the host (the plain
-//     version reads the same numbers), not computed in the kernel.
-//   * On both routes the tile moves between device and shared memory in
+//   * Stockham route (stockham_op in spectral_common.cuh): 16 points a
+//     thread in registers, 32 in a 4-column tile at N = 4096 (256
+//     threads for a row, 512 for that tile; up to 128 registers), the
+//     radix-4/radix-2 passes two at a time on them, one exchange through
+//     the swizzled tile in shared memory a pair; the first pair loads the
+//     tile's points straight from device memory, the last stores them,
+//     and a fwd+inv launch turns around in registers at N = 16, 256,
+//     4096. Columns put adjacent columns of a point on neighbouring lanes;
+//     rows of a multi-line tile synchronise per line (named barriers).
+//     Self-sorting, so nothing is permuted and the filter index is the
+//     natural one; twiddles from the table fft4step.stockham_table builds
+//     on the host (the plain version reads the same numbers).
+//   * The matmul route moves the tile between device and shared memory in
 //     16-byte accesses (4 points of a row, or one point of 4 adjacent
-//     columns) wherever the layout and alignment allow.
-//   * The filter runs on the tile in shared memory, with precise
-//     sincosf for the outer phase (the azimuth and RCMC phases are not
-//     small). Lines past the end of a ragged tile are zero-filled and
+//     columns) wherever the layout and alignment allow, and filters it in
+//     shared memory; the Stockham route filters in registers. Both use
+//     precise sincosf for the outer phase (the azimuth and RCMC phases are
+//     not small). Lines past the end of a ragged tile are zero-filled and
 //     never stored.
 
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
@@ -88,8 +94,7 @@ struct Args {
 // One tile of whole lines per CTA: grid (tiles, batch). The matmul route
 // keeps F1 and F2 in shared memory past the tile.
 template <bool kStockham>
-__global__ void __launch_bounds__(kStockham ? kMaxThreads : kMmaThreads)
-spectral_kernel(const Args a) {
+__device__ __forceinline__ void spectral_tile(const Args& a) {
   extern __shared__ float2 s[];
   Mats m{};
   if constexpr (!kStockham) {
@@ -104,14 +109,32 @@ spectral_kernel(const Args a) {
 }
 
 template <bool kStockham>
-cudaError_t launch(const Args& a, int batch, int threads, size_t smem,
-                   cudaStream_t stream) {
+__global__ void spectral_kernel(const Args a);
+
+template <>
+__global__ void __launch_bounds__(kMmaThreads)
+spectral_kernel<false>(const Args a) {
+  spectral_tile<false>(a);
+}
+
+// Naming the blocks an SM holds gives ptxas the register file of the
+// thread bound (128 at 512 threads; a 256-thread row tile runs two blocks
+// an SM): with the bound alone it held the kernel to 32 registers once
+// the kernel made a call.
+template <>
+__global__ void __launch_bounds__(kStockhamThreads, 1)
+spectral_kernel<true>(const Args a) {
+  spectral_tile<true>(a);
+}
+
+template <class K>
+cudaError_t launch(K kernel, const Args& a, int batch, int threads,
+                   size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      spectral_kernel<kStockham>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.lines + a.tile - 1) / a.tile, batch);
-  spectral_kernel<kStockham><<<grid, threads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -123,8 +146,10 @@ extern "C" {
 // after the launch (0 on success). `stw` (the Stockham twiddle table, or
 // null) selects the route and with it the instantiation: the four-step
 // stages read f1*, f2*, tw* with N = n1 * n2 (at most 512 threads);
-// Stockham reads stw alone (at most 1024, 16 points a thread). The caller
-// has checked shapes, types, devices and contiguity.
+// Stockham reads stw alone (at most 512 threads, stockham_per_thread
+// points a thread, a tile op that is built: threads = tile * n / points
+// puts no thread idle, which per-line barriers need). The caller has
+// checked shapes, types, devices and contiguity.
 int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
                     int batch, int lines, int n, int n1, int n2, int axis,
                     int fwd, int inv, int mode, const float* f1r,
@@ -145,7 +170,9 @@ int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
   a.tile = tile;
   const bool stockham = stw != nullptr;
   const bool any_fft = fwd || inv;
-  if (stockham ? threads > kMaxThreads || threads * kPerThread < tile * n
+  const int per = stockham_per_thread(tile * n, n, threads);   // Stockham
+  if (stockham ? threads > kStockhamThreads || threads * per < tile * n ||
+                     !stockham_tile_built(axis, n, per)
                : threads > kMmaThreads || threads % 32 != 0 ||
                      (any_fft && !(mma_fits(threads, n1, n2) &&
                                      mma_fits(threads, n2, n1)))) {
@@ -156,10 +183,14 @@ int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
     return (int)cudaErrorInvalidValue;
   }
   size_t smem = (size_t)tile * n * sizeof(float2);
+  if (stockham) smem = (size_t)stockham_points(tile * n) * sizeof(float2);
   if (!stockham && any_fft) smem += dft_smem_floats(n1, n2) * sizeof(float);
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(stockham ? launch<true>(a, batch, threads, smem, st)
-                        : launch<false>(a, batch, threads, smem, st));
+  return (int)(stockham
+                   ? launch(spectral_kernel<true>, a, batch, threads, smem,
+                            st)
+                   : launch(spectral_kernel<false>, a, batch, threads, smem,
+                            st));
 }
 
 const char* spectral_error_string(int code) {

@@ -38,16 +38,11 @@
 // registers. The wgmma form is later work.
 //
 // The Stockham route (replacing the JAX package's _fft_stockham,
-// src/repro/kernels/fft4step.py:422) runs radix-4 passes while the
-// remaining length divides by 4 and one radix-2 pass last when log2 N is
-// odd (the reference's pass order), each reading and writing every point
-// once, in place, staged through registers between two barriers. It is
-// self-sorting: natural order in and out, so no permutation and no
-// transposed filter index. Its twiddles come from one table built on the
-// host (fft4step.stockham_table) that the plain version reads too. Per
-// point and transform it does ~8.5 flops a pass (~51 at N = 4096), so its
-// time goes to the passes' shared-memory traffic and barriers and to the
-// tile's device-memory I/O.
+// src/repro/kernels/fft4step.py:422) runs its radix-4/radix-2 passes two
+// at a time on registers, one shared-memory exchange a pair, the tile's
+// load fused into the first pair and its store into the last, and a
+// fwd+inv op turned around in registers where it can (the section "The
+// Stockham route" below).
 //
 // Numerics: every complex and twiddle product outside the tensor cores is
 // written with explicit rounding intrinsics (__fmaf_rn, __fmul_rn,
@@ -66,10 +61,33 @@
 
 namespace spectral {
 
-// The Stockham route's block shape (and reorder's staging): 1024 threads,
-// 16 points a thread per in-place pass.
+// The Stockham route's block shape (and reorder's staging): 16 points a
+// thread in registers, up to 512 threads, so that a thread may take 128
+// registers (at 1024 threads and 64 the out-of-line ops spilled ~1.2-1.8
+// KB each).
 constexpr int kPerThread = 16;
-constexpr int kMaxThreads = 1024;
+constexpr int kStockhamThreads = 512;
+// Points a thread holds where 16 a thread do not cover a block's lines:
+// two groups, so that 16384 points (a 4-column tile at N = 4096, whose
+// 16-byte runs need the 4 columns) fit 512 threads.
+constexpr int kWidePerThread = 32;
+
+// The one rule of a Stockham block's shape (ops.stockham_per_thread is its
+// host copy): points a thread holds when `threads` threads hold `points`
+// points of n-point lines at once — 16, or 32 where 16 do not cover them.
+__host__ __device__ constexpr int stockham_per_thread(
+    int points, int n, int threads = kStockhamThreads) {
+  return points > kPerThread * threads && n >= kWidePerThread
+             ? kWidePerThread
+             : kPerThread;
+}
+
+// Whether the device-memory tile op (tile_op) of `per` points a thread is
+// built for (axis, n): at 32 a thread only the 4-column tile at N = 4096.
+__host__ __device__ constexpr bool stockham_tile_built(int axis, int n,
+                                                       int per) {
+  return per == kPerThread || (axis == 0 && n == 4096);
+}
 
 enum FilterMode { kNone = 0, kShared = 1, kFull = 2, kOuter = 3,
                   kSharedOuter = 4 };
@@ -134,6 +152,26 @@ __device__ __forceinline__ void split(const Lines& L, int o, int& c, int& p) {
 template <bool kLineFast>
 __device__ __forceinline__ float2* at(const Lines& L, int c, int p) {
   return kLineFast ? L.s + c + p * L.es : L.s + c * L.ls + p;
+}
+
+// The Stockham route keeps its lines in shared memory XOR-swizzled:
+// element i (c * ls + p * es, as `at`) lives at swz(i), its low four bits
+// permuted by the next four. Each step's 8-byte reads and writes then fall
+// on 16 distinct bank pairs in every half-warp, on rows and columns, tiles
+// and slabs alike; unswizzled, the first pair's writes (16 consecutive
+// points a thread) hit one bank pair 16 times. The map stays inside each
+// aligned run of 16 elements, so the launches round the shared memory up
+// to a multiple of 16 points.
+__device__ __forceinline__ int swz(int i) { return i ^ ((i >> 4) & 15); }
+
+// Points of shared memory a Stockham tile or slab of `points` takes.
+__host__ __device__ inline int stockham_points(int points) {
+  return (points + 15) & ~15;
+}
+
+template <bool kLineFast>
+__device__ __forceinline__ float2* sat(const Lines& L, int c, int p) {
+  return L.s + swz(kLineFast ? c + p * L.es : c * L.ls + p);
 }
 
 __device__ __forceinline__ float2 cmul(float2 a, float br, float bi) {
@@ -381,117 +419,19 @@ __device__ __forceinline__ void run_stage(const Lines& L, const StageMap& g,
   }
 }
 
-// One radix-R pass of the Stockham FFT on every line, in place, pass for
-// pass the JAX package's _fft_stockham. With s = 2^log_s points already
-// combined (s = 1 at the first pass), butterfly b = k * s + q of a line
-// (b < n / R) reads x_r = y[r * (n / R) + b] (r < R) and writes
-// y[(k * R + r) * s + q] = t_r, with twiddles w of index k:
-//   radix 4: t0 = (a + c) + (b + d)          t2 = ((a + c) - (b + d)) w2
-//            t1 = ((a - c) - i (b - d)) w1   t3 = ((a - c) + i (b - d)) w3
-//   radix 2: t0 = a + b,  t1 = (a - b) w1
-// conj_in conjugates the inputs (the first pass of an inverse). Each
-// thread stages its butterflies' outputs in registers between two barriers.
-template <bool kLineFast, int kRadix>
-__device__ __forceinline__ void stockham_pass(const Lines& L, int log_s,
-                                              const float2* __restrict__ tw,
-                                              bool conj_in) {
-  constexpr int kBfly = kPerThread / kRadix;   // butterflies a thread
-  float2 stash[kPerThread];
-  const int span = L.n / kRadix;               // butterflies a line
-  const int total = L.lines * span;
-#pragma unroll
-  for (int i = 0; i < kBfly; ++i) {
-    const int o = threadIdx.x + i * blockDim.x;
-    if (o < total) {
-      int c, b;
-      split_items<kLineFast>(L.lines, span, o, c, b);
-      const int k = b >> log_s;
-      float2 v[kRadix];
-#pragma unroll
-      for (int r = 0; r < kRadix; ++r) {
-        v[r] = *at<kLineFast>(L, c, r * span + b);
-        if (conj_in) v[r].y = -v[r].y;   // exact
-      }
-      float2* out = stash + i * kRadix;
-      if constexpr (kRadix == 4) {
-        const float2 w1 = __ldg(tw + 3 * k);
-        const float2 w2 = __ldg(tw + 3 * k + 1);
-        const float2 w3 = __ldg(tw + 3 * k + 2);
-        const float2 apc = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
-        const float2 amc = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
-        const float2 bpd = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
-        const float2 bmd = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
-        out[0] = make_float2(apc.x + bpd.x, apc.y + bpd.y);
-        out[1] = cmul(make_float2(amc.x + bmd.y, amc.y - bmd.x), w1.x, w1.y);
-        out[2] = cmul(make_float2(apc.x - bpd.x, apc.y - bpd.y), w2.x, w2.y);
-        out[3] = cmul(make_float2(amc.x - bmd.y, amc.y + bmd.x), w3.x, w3.y);
-      } else {
-        const float2 w1 = __ldg(tw + k);
-        out[0] = make_float2(v[0].x + v[1].x, v[0].y + v[1].y);
-        out[1] = cmul(make_float2(v[0].x - v[1].x, v[0].y - v[1].y), w1.x,
-                      w1.y);
-      }
-    }
-  }
-  __syncthreads();
-  const int s_mask = (1 << log_s) - 1;
-#pragma unroll
-  for (int i = 0; i < kBfly; ++i) {
-    const int o = threadIdx.x + i * blockDim.x;
-    if (o < total) {
-      int c, b;
-      split_items<kLineFast>(L.lines, span, o, c, b);
-      const int k = b >> log_s;
-      const int base = ((k * kRadix) << log_s) + (b & s_mask);
-#pragma unroll
-      for (int r = 0; r < kRadix; ++r) {
-        *at<kLineFast>(L, c, base + (r << log_s)) = stash[i * kRadix + r];
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// The n-point Stockham FFT of every line (n = L.n, a power of two >= 2),
-// natural order in and out; `tw` is the table of fft4step.stockham_table
-// (per pass: (w1, w2, w3) pairs for radix 4, w1 for radix 2).
+// The four-step transform of every line (the matmul route): forward, or
+// the inverse without its closing conjugate and 1/N (those come with the
+// store). The forward ends in the transposed order and its inverse starts
+// from it; the DFT matrices are read through m. The forward's stage A
+// writes a[hi, lo] to point lo * n1 + hi, so that stage B reads along hi
+// (consecutive words in a fragment row group: 4-way instead of 8-way bank
+// conflicts); the inverse reads the transposed order as it comes. (The
+// Stockham route runs stockham_op below instead.)
 template <bool kLineFast>
-__device__ __forceinline__ void stockham(const Lines& L,
-                                         const float2* __restrict__ tw,
-                                         bool conj_in) {
-  int cur = L.n, log_s = 0;
-  while (cur > 1) {
-    if ((cur & 3) == 0) {
-      cur >>= 2;
-      stockham_pass<kLineFast, 4>(L, log_s, tw, conj_in);
-      tw += 3 * cur;
-      log_s += 2;
-    } else {
-      cur >>= 1;
-      stockham_pass<kLineFast, 2>(L, log_s, tw, conj_in);
-      tw += cur;
-      log_s += 1;
-    }
-    conj_in = false;
-  }
-}
-
-// The transform of every line on the Dft's route: forward, or the inverse
-// without its closing conjugate and 1/N (those come with the store). The
-// four-step forward ends in the transposed order and its inverse starts
-// from it; the Stockham route stays in natural order. kStockham is the
-// route of the instantiation; the matmul route reads its DFT matrices
-// through m. The forward's stage A writes a[hi, lo] to point lo * n1 + hi,
-// so that stage B reads along hi (consecutive words in a fragment row
-// group: 4-way instead of 8-way bank conflicts); the inverse reads the
-// transposed order as it comes.
-template <bool kLineFast, bool kStockham>
 __device__ __forceinline__ void transform(const Lines& L, const Dft& d,
                                           const Mats& m, bool inverse) {
   const int n1 = d.n1, n2 = d.n2;
-  if constexpr (kStockham) {
-    stockham<kLineFast>(L, d.stw, inverse);
-  } else if (!inverse) {
+  if (!inverse) {
     //            nf  nq  sk  sq  om  oq  twm twq
     run_stage<kLineFast>(L, StageMap{n1, n2, n2, 1, 1, n1, n2, 1}, m.f1r,
                          m.f1i, m.ld1, d.twr, d.twi, false);
@@ -507,13 +447,21 @@ __device__ __forceinline__ void transform(const Lines& L, const Dft& d,
 
 // The filter at natural index k of line gl (precise sincosf: the azimuth
 // and RCMC phases are not small).
+__device__ __forceinline__ bool has_h(const Filter& f) {
+  return f.mode == kShared || f.mode == kFull || f.mode == kSharedOuter;
+}
+
+__device__ __forceinline__ bool has_phase(const Filter& f) {
+  return f.mode == kOuter || f.mode == kSharedOuter;
+}
+
 __device__ __forceinline__ float2 apply_filter(float2 x, const Filter& f,
                                                long long gl, int k) {
-  if (f.mode == kShared || f.mode == kFull || f.mode == kSharedOuter) {
+  if (has_h(f)) {
     const long long g = gl * f.h_line + (long long)k * f.h_k;
     x = cmul(x, f.hr[g], f.hi[g]);
   }
-  if (f.mode == kOuter || f.mode == kSharedOuter) {
+  if (has_phase(f)) {
     float ph = 0.0f;
     for (int q = 0; q < f.rank; ++q) {
       ph = __fmaf_rn(f.u[gl * f.u_line + q * f.u_k],
@@ -528,7 +476,8 @@ __device__ __forceinline__ float2 apply_filter(float2 x, const Filter& f,
 
 // The filter in place on lines [0, valid) (line c is line line0 + c of the
 // scene); `transposed` when the lines hold the transposed order.
-template <bool kLineFast>
+// kSwz: the lines are the Stockham route's (swizzled).
+template <bool kLineFast, bool kSwz = false>
 __device__ __forceinline__ void filter_pass(const Lines& L, const Filter& f,
                                             long long line0, int valid,
                                             bool transposed, int n1, int n2) {
@@ -538,7 +487,7 @@ __device__ __forceinline__ void filter_pass(const Lines& L, const Filter& f,
     split<kLineFast>(L, o, c, p);
     if (c >= valid) continue;
     const int k = transposed ? from_transposed(p, n1, n2) : p;
-    float2* e = at<kLineFast>(L, c, p);
+    float2* e = kSwz ? sat<kLineFast>(L, c, p) : at<kLineFast>(L, c, p);
     *e = apply_filter(*e, f, line0 + c, k);
   }
   __syncthreads();
@@ -591,6 +540,622 @@ __device__ __forceinline__ void reorder(const Lines& L, int order, int n1,
 // part (the closing conjugate of conj-FFT-conj); 1 without an inverse.
 __device__ __forceinline__ float inverse_scale(bool inv, int n) {
   return inv ? __fdiv_rn(1.0f, (float)n) : 1.0f;
+}
+
+// ---------------------------------------------------------------------------
+// The Stockham route (replacing the JAX package's _fft_stockham,
+// src/repro/kernels/fft4step.py:422)
+// ---------------------------------------------------------------------------
+//
+// Radix-4 passes while the remaining length divides by 4, one radix-2 pass
+// last when log2 N is odd (the reference's pass order); self-sorting, so
+// natural order in and out. A pass of radix R and stride s has butterfly
+// b = k * s + q read y[r * N / R + b] and write y[(k R + r) s + q] = t_r:
+//   radix 4: t0 = (a + c) + (b + d)          t2 = ((a + c) - (b + d)) w2
+//            t1 = ((a - c) - i (b - d)) w1   t3 = ((a - c) + i (b - d)) w3
+//   radix 2: t0 = a + b,  t1 = (a - b) w1
+// with the twiddles of index k from the host's table
+// (fft4step.stockham_table, which the plain version reads too).
+//
+// The passes run in steps of two (fft4step.stockham_pairs gives the plan
+// and tests/test_torch_stockham_pairs.py runs it on the CPU): two passes
+// (R1, R2) split a line into N / G independent groups of G = R1 R2
+// points, so a thread holds a group in registers, runs R2 butterflies of
+// the first pass and R1 of the second on them, and trips through shared
+// memory once per step instead of once per pass. Group g = k' s + q reads
+// points {g + m N / G} and writes {G s k' + q + s m}; the last pass is a
+// step of its own when the count of passes is odd. A thread holds 16
+// points (one group of a (4, 4) step, two of a (4, 2), four of a lone
+// radix-4 pass, eight of a radix-2 one) or, where a block holds 32 a
+// thread, twice that. At N = 4096 a transform is 3 steps.
+//
+// Around the steps: the first step reads its groups straight from device
+// memory (__ldcg, all loads issued before the first use) and the last one
+// writes straight to it, times (scale, iscale), so a tile of tile_op goes
+// through shared memory only between steps. The filter is applied in
+// registers to the forward's last outputs (or, inverse-only, to the loaded
+// inputs) at their natural index, with apply_filter's operations; the
+// outer phase's (cos, sin) goes through the thread's own points of shared
+// memory, computed out of line (phase_factors). Where the forward's last
+// step and the inverse's first have the same G (N = 2, 4, 8, 16, 256,
+// 4096) the last step of group g wrote exactly the points the first step
+// of group g reads: the thread turns around in its registers, applying
+// the filter and the inverse's conjugate there, with no exchange at all.
+// Rows of a multi-line tile synchronise per line (named barriers).
+//
+// Shape: the steps are compile-time (StockhamOp<..., kN, ...>), so the
+// points stay in registers; 16 points and two passes' butterflies want
+// ~100 registers, so blocks take at most 512 threads (128 registers), and
+// the lengths a kernel takes run out of line, one function each
+// (stockham_n), except where a megakernel is specialised on the main
+// path's N and inlines its ops (PERF.md measures both).
+//
+// Per point and transform ~8.5 flops a pass (~51 at N = 4096), so what
+// bounds it is the tile's device-memory I/O, the outer phase's sincosf
+// and the exchanges. Each thread computes every point with the float
+// operations of the plain version, so the kernels equal it bit for bit.
+
+// One step of an n-point transform, fixed at compile time: the step that
+// starts at remaining length kCur (stride s = 2^kLogS) with its first
+// pass's twiddles at kTw in the table; r2 = 1 for a lone pass.
+template <int kCur, int kLogS, int kTw>
+struct Step {
+  static constexpr int cur = kCur, log_s = kLogS;
+  static constexpr int r1 = kCur == 2 ? 2 : 4;
+  static constexpr int r2 = kCur >= 16 ? 4 : kCur == 8 ? 2 : 1;
+  static constexpr int g = r1 * r2;             // points of a group
+  static constexpr int lg = (r1 == 4 ? 2 : 1) + (r2 == 4 ? 2 : r2 - 1);
+  static constexpr int tw1 = kTw;
+  static constexpr int tw2 = kTw + (r1 == 4 ? 3 * (kCur / 4) : kCur / 2);
+  static constexpr int tw_next =
+      tw2 + (r2 == 4 ? 3 * (kCur / 16) : r2 == 2 ? kCur / 8 : 0);
+  static constexpr bool last = kCur == g;
+};
+
+template <class S>
+using NextStep = Step<S::cur / S::g, S::log_s + S::lg, S::tw_next>;
+
+template <class S, bool kLast = S::last>
+struct LastStep {
+  using type = typename LastStep<NextStep<S>>::type;
+};
+
+template <class S>
+struct LastStep<S, true> {
+  using type = S;
+};
+
+// A radix-kR butterfly on v[0], v[kS], ..., v[(kR - 1) kS], in place,
+// with the twiddles of index k of its pass's table.
+template <int kR, int kS>
+__device__ __forceinline__ void butterfly(float2* v,
+                                          const float2* __restrict__ tw,
+                                          int k) {
+  if constexpr (kR == 4) {
+    const float2 w1 = __ldg(tw + 3 * k);
+    const float2 w2 = __ldg(tw + 3 * k + 1);
+    const float2 w3 = __ldg(tw + 3 * k + 2);
+    const float2 a = v[0], b = v[kS], c = v[2 * kS], d = v[3 * kS];
+    const float2 apc = make_float2(a.x + c.x, a.y + c.y);
+    const float2 amc = make_float2(a.x - c.x, a.y - c.y);
+    const float2 bpd = make_float2(b.x + d.x, b.y + d.y);
+    const float2 bmd = make_float2(b.x - d.x, b.y - d.y);
+    v[0] = make_float2(apc.x + bpd.x, apc.y + bpd.y);
+    v[kS] = cmul(make_float2(amc.x + bmd.y, amc.y - bmd.x), w1.x, w1.y);
+    v[2 * kS] = cmul(make_float2(apc.x - bpd.x, apc.y - bpd.y), w2.x, w2.y);
+    v[3 * kS] = cmul(make_float2(amc.x - bmd.y, amc.y + bmd.x), w3.x, w3.y);
+  } else {
+    const float2 w1 = __ldg(tw + k);
+    const float2 a = v[0], b = v[kS];
+    v[0] = make_float2(a.x + b.x, a.y + b.y);
+    v[kS] = cmul(make_float2(a.x - b.x, a.y - b.y), w1.x, w1.y);
+  }
+}
+
+// Where a Stockham op's first step reads and its last step writes: a
+// tile's lines in device memory (point p of line c at
+// scene + (line0 + c) * n + p for rows, scene + p * lines + line0 + c for
+// columns), or the Lines themselves (mega_resident's slab).
+struct Io {
+  const float* xr;
+  const float* xi;
+  float* yr;
+  float* yi;
+  long long scene;
+  int lines, line0, axis;
+  __device__ __forceinline__ long long at(int c, int p, int n) const {
+    return scene + (axis == 1 ? (long long)(line0 + c) * n + p
+                              : (long long)p * lines + line0 + c);
+  }
+};
+
+// A barrier over the threads of one line (named barrier 1 + line, `count`
+// threads) where each line of the block has whole warps of its own, or
+// over the block (id 0): the lines of a tile are independent, so a line
+// need not wait for the block between its steps.
+struct LineSync {
+  int id, count;
+  __device__ __forceinline__ void sync() const {
+    if (id == 0) {
+      __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+    }
+  }
+};
+
+// Per line where rows of n points, `points` a thread, give every line its
+// own warps, the block holds at most 15 lines and no thread is idle; else
+// the block.
+template <bool kLineFast>
+__device__ __forceinline__ LineSync line_sync(int lines, int n, int points) {
+  const int units = n / points;
+  if (!kLineFast && lines > 1 && lines <= 15 && units % 32 == 0 &&
+      lines * units == (int)blockDim.x) {
+    return LineSync{1 + (int)threadIdx.x / units, units};
+  }
+  return LineSync{0, 0};
+}
+
+// This thread's line c and unit u (n >= points): a thread keeps one line
+// and one unit u < n / points through every step, its groups
+// g = u + i n / points. Rows put a line's units on neighbouring threads,
+// columns (kLineFast) the
+// lines, so that the 4 columns of one point of a column tile sit on
+// neighbouring lanes and load in 16-byte runs. False: no line.
+template <bool kLineFast>
+__device__ __forceinline__ bool thread_unit(int lines, int units, int& c,
+                                            int& u) {
+  const int t = threadIdx.x;
+  if (kLineFast) {
+    c = t % lines;
+    u = t / lines;
+    return u < units;
+  }
+  c = t / units;
+  u = t - c * units;
+  return c < lines;
+}
+
+// The phase factors (cos, sin) of this thread's points into its own points
+// of B (the positions it last read, free while their values sit in
+// registers): a step's inputs g + span m, or the last step's outputs, the
+// same points held as output r1 r'' + t in register r2 t + r''. Rolled and
+// kept out of line, so that sincosf (whose slow path is a call) has one
+// site outside the unrolled steps: unrolled over 16 points in every
+// specialisation, its slow path became a call at each, and the registers
+// live across them spilled.
+template <bool kLineFast>
+__device__ __noinline__ void phase_factors(const Lines B, int points,
+                                           int r1, int r2, bool outputs,
+                                           const Filter f, long long fline0,
+                                           int valid, int line_base, int c0,
+                                           int u, bool on) {
+  const int big = r1 * r2, span = B.n / big, units = B.n / points;
+  const float* __restrict__ fu = f.u;   // read-only: u of a line loads once
+  const float* __restrict__ fv = f.v;
+  for (int i = 0; i < points / big; ++i) {
+    int c = c0, g = u + i * units;
+    bool ok = on;
+    if (units == 0) {   // n < points: slot i is a whole line
+      c = line_base + threadIdx.x + i * blockDim.x;
+      g = 0;
+      ok = c < B.lines;
+    }
+    if (!ok || c >= valid) continue;
+    const long long gl = fline0 + c;
+    for (int j = 0; j < big; ++j) {
+      const int p = g + span * (outputs ? r1 * (j % r2) + j / r2 : j);
+      float ph = 0.0f;   // apply_filter's operations
+      for (int q = 0; q < f.rank; ++q) {
+        ph = __fmaf_rn(__ldg(fu + gl * f.u_line + q * f.u_k),
+                       __ldg(fv + (long long)p * f.v_n + q * f.v_k), ph);
+      }
+      float sn, cs;
+      sincosf(ph, &sn, &cs);
+      *sat<kLineFast>(B, c, p) = make_float2(cs, sn);
+    }
+  }
+}
+
+// One per-axis op [FFT] -> filter -> [IFFT] (at least one transform) of
+// kN-point lines on the Stockham route: this thread's 16 points in a,
+// through the steps of the op (compile-time, so that a stays in
+// registers). L.s: the swizzled lines in shared memory, read and written
+// in place (an exchange: every read of a step, a barrier, its writes, a
+// barrier). kIo: the first step reads from io's device memory and the
+// last writes there (tile_op); else both in place in L (mega_resident).
+// Line c is line fline0 + c of the filter; lines from `valid` on read as
+// zero and are never filtered nor stored. The block's threads take lines
+// from line_base on (a slab of more lines than the block holds runs in
+// rounds). In place, every write is done on exit.
+template <bool kLineFast, int kN, bool kIo, int kP>
+struct StockhamOp {
+  static constexpr int kUnits = kN / kP;   // threads a line (kN >= kP)
+  using First = Step<kN, 0, 0>;
+  using Last = typename LastStep<First>::type;
+
+  const Lines& L;
+  const Io& io;
+  const float2* __restrict__ tw;
+  const Filter& f;
+  const long long fline0;
+  const int valid;
+  const LineSync& bar;
+  const int line_base;      // the first line of the block's round
+  int c0 = 0, u = 0;        // kN >= kP: this thread's line and unit
+  bool on = false;          // kN >= kP: the thread has a line
+  long long base = 0;       // kIo, kN >= kP: element of (c0, point 0)
+  long long pstride = 0;    // kIo: element distance of neighbouring points
+  bool from_shared = !kIo;  // a was read from L.s (else device memory)
+  float2 a[kP];
+
+  __device__ __forceinline__ StockhamOp(const Lines& lines, const Io& io_,
+                                        const float2* __restrict__ tw_,
+                                        const Filter& f_, long long fline0_,
+                                        int valid_, const LineSync& bar_,
+                                        int line_base_)
+      : L(lines), io(io_), tw(tw_), f(f_), fline0(fline0_), valid(valid_),
+        bar(bar_), line_base(line_base_) {
+    if constexpr (kN >= kP) {
+      const int here = min(L.lines - line_base, (int)blockDim.x / kUnits);
+      on = thread_unit<kLineFast>(here, kUnits, c0, u);
+      c0 += line_base;
+    }
+    if constexpr (kIo) {
+      pstride = io.axis == 1 ? 1 : io.lines;
+      if constexpr (kN >= kP) base = io.at(c0, 0, kN);
+    }
+  }
+
+  // slot i's line c and group g (false: no group)
+  __device__ __forceinline__ bool slot(int i, int& c, int& g) const {
+    if constexpr (kN >= kP) {
+      c = c0;
+      g = u + i * kUnits;
+      return on;
+    } else {   // one step, one group a line: slot i is a whole line
+      c = line_base + threadIdx.x + i * blockDim.x;
+      g = 0;
+      return c < L.lines;
+    }
+  }
+
+  __device__ __forceinline__ long long element(int c, int p) const {
+    if constexpr (kN >= kP) return base + p * pstride;
+    return io.at(c, p, kN);
+  }
+
+  __device__ __forceinline__ float2* shared(float2* buf, int c, int p) const {
+    return buf + swz(kLineFast ? c + p * L.es : c * L.ls + p);
+  }
+
+  // point of register j of group g after step S: output r1 r'' + t sits
+  // in register r2 t + r''
+  template <class S>
+  static __device__ __forceinline__ int out_point(int g, int j) {
+    constexpr int s = 1 << S::log_s;
+    const int t = j / S::r2, r = j % S::r2;
+    return (g >> S::log_s) * S::g * s + (g & (s - 1)) + (S::r1 * r + t) * s;
+  }
+
+  // the inputs of step S, g + span m into register m of its group: from
+  // device memory (kGlobal; lines past `valid` read as zero) or buf, every
+  // load issued before the first use; conj_in: the inverse's first pass
+  template <class S, bool kGlobal>
+  __device__ __forceinline__ void read(float2* buf, bool conj_in) {
+    constexpr int span = kN / S::g;
+#pragma unroll
+    for (int i = 0; i < kP / S::g; ++i) {
+      int c, g;
+      const bool ok = slot(i, c, g);
+      const bool load = ok && c < valid;
+#pragma unroll
+      for (int j = 0; j < S::g; ++j) {
+        const int p = g + j * span;
+        float2 v = make_float2(0.0f, 0.0f);
+        if constexpr (kGlobal) {
+          if (load) {
+            const long long e = element(c, p);
+            v = make_float2(__ldcg(io.xr + e), __ldcg(io.xi + e));
+          }
+        } else if (ok) {
+          v = *shared(buf, c, p);
+        }
+        if (conj_in) v.y = -v.y;   // exact
+        a[i * S::g + j] = v;
+      }
+    }
+  }
+
+  // step S's passes on every slot's group
+  template <class S>
+  __device__ __forceinline__ void compute() {
+    constexpr int kk = S::cur / S::g;   // K': groups of one first-pass row
+#pragma unroll
+    for (int i = 0; i < kP / S::g; ++i) {
+      int c, g;
+      if (!slot(i, c, g)) continue;
+      const int kp = g >> S::log_s;
+      float2* v = a + i * S::g;
+#pragma unroll
+      for (int r = 0; r < S::r2; ++r) {
+        butterfly<S::r1, S::r2>(v + r, tw + S::tw1, r * kk + kp);
+      }
+      if constexpr (S::r2 > 1) {
+#pragma unroll
+        for (int t = 0; t < S::r1; ++t) {
+          butterfly<S::r2, 1>(v + S::r2 * t, tw + S::tw2, kp);
+        }
+      }
+    }
+  }
+
+  // the filter on step S's inputs or (`outputs`, S the last step) its
+  // outputs, at each point's natural index, with apply_filter's
+  // operations; the phase factors go through this thread's points of buf
+  template <class S>
+  __device__ __forceinline__ void filter(float2* buf, bool outputs) {
+    constexpr int span = kN / S::g;
+    const Lines B{buf, L.lines, kN, L.ls, L.es};
+    const bool phase = has_phase(f), h = has_h(f);
+    if (phase) {
+      phase_factors<kLineFast>(B, kP, S::r1, S::r2, outputs, f, fline0,
+                               valid, line_base, c0, u, on);
+    }
+#pragma unroll
+    for (int i = 0; i < kP / S::g; ++i) {
+      int c, g;
+      if (!slot(i, c, g) || c >= valid) continue;
+#pragma unroll
+      for (int j = 0; j < S::g; ++j) {
+        const int p = outputs ? out_point<S>(g, j) : g + j * span;
+        float2 x = a[i * S::g + j];
+        if (h) {
+          const long long e = (fline0 + c) * f.h_line + (long long)p * f.h_k;
+          x = cmul(x, f.hr[e], f.hi[e]);
+        }
+        if (phase) {
+          const float2 w = *shared(buf, c, p);
+          x = cmul(x, w.x, w.y);
+        }
+        a[i * S::g + j] = x;
+      }
+    }
+  }
+
+  // step S's outputs to device memory (kGlobal; lines below `valid`) or
+  // buf, times (scale, iscale) when `scaled`
+  template <class S, bool kGlobal>
+  __device__ __forceinline__ void write(float2* buf, bool scaled,
+                                        float scale, float iscale) {
+#pragma unroll
+    for (int i = 0; i < kP / S::g; ++i) {
+      int c, g;
+      const bool ok = slot(i, c, g);
+      const bool store = ok && c < valid;
+#pragma unroll
+      for (int j = 0; j < S::g; ++j) {
+        const int p = out_point<S>(g, j);
+        float2 v = a[i * S::g + j];
+        if (scaled) {
+          v = make_float2(__fmul_rn(v.x, scale), __fmul_rn(v.y, iscale));
+        }
+        if constexpr (kGlobal) {
+          if (store) {
+            const long long e = element(c, p);
+            io.yr[e] = v.x;
+            io.yi[e] = v.y;
+          }
+        } else if (ok) {
+          *shared(buf, c, p) = v;
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void conj() {
+#pragma unroll
+    for (int j = 0; j < kP; ++j) a[j].y = -a[j].y;   // exact
+  }
+
+  // the forward's last outputs of each group as the inverse's first
+  // inputs (same G): output r1 r'' + t sits in register r2 t + r''
+  __device__ __forceinline__ void turn() {
+    using S = Last;
+#pragma unroll
+    for (int i = 0; i < kP / S::g; ++i) {
+      float2 t[S::g];
+#pragma unroll
+      for (int m = 0; m < S::g; ++m) {
+        t[m] = a[i * S::g + S::r2 * (m % S::r1) + m / S::r1];
+      }
+#pragma unroll
+      for (int m = 0; m < S::g; ++m) a[i * S::g + m] = t[m];
+    }
+    conj();
+  }
+
+  // step S's outputs to shared memory, then step T's inputs from there
+  // (every read of S's inputs from L.s done first)
+  template <class S, class T>
+  __device__ __forceinline__ void exchange(bool conj_in) {
+    if (from_shared) bar.sync();
+    write<S, false>(L.s, false, 1.0f, 1.0f);
+    bar.sync();
+    read<T, false>(L.s, conj_in);
+    from_shared = true;
+  }
+
+  // a transform's steps from S on, the last one's outputs left in a
+  template <class S>
+  __device__ __forceinline__ void steps() {
+    compute<S>();
+    if constexpr (!S::last) {
+      exchange<S, NextStep<S>>(false);
+      steps<NextStep<S>>();
+    }
+  }
+
+  __device__ __forceinline__ void run(bool fwd, bool inv, float scale,
+                                      float iscale) {
+    const bool filt = f.mode != kNone;
+    read<First, kIo>(L.s, !fwd && !filt);
+    if (!fwd && filt) {       // inverse-only: filter the loaded inputs
+      filter<First>(L.s, false);
+      conj();
+      if (kIo) bar.sync();    // L.s held factors: before its first write
+    }
+    steps<First>();
+    if (fwd) {
+      if (filt) filter<Last>(L.s, true);
+      if (inv) {
+        if constexpr (Last::g == First::g) {
+          turn();             // the turnaround in registers
+        } else {
+          exchange<Last, First>(true);
+        }
+        steps<First>();
+      }
+    }
+    if constexpr (kIo) {      // the last step, scaled, out
+      write<Last, true>(nullptr, true, scale, iscale);
+    } else {
+      bar.sync();
+      write<Last, false>(L.s, true, scale, iscale);
+      bar.sync();
+    }
+  }
+};
+
+// One Stockham op on kN-point lines, out of line: each n, layout and
+// source gets a register allocation of its own (inlined side by side, the
+// twelve lengths shared one and spilled).
+template <bool kLineFast, int kN, bool kIo, int kP>
+__device__ __noinline__ void stockham_n(const Lines L, const Io io,
+                                        const float2* __restrict__ tw,
+                                        bool fwd, bool inv, const Filter f,
+                                        long long fline0, int valid,
+                                        float scale, float iscale,
+                                        const LineSync bar, int line_base) {
+  StockhamOp<kLineFast, kN, kIo, kP>(L, io, tw, f, fline0, valid, bar,
+                                     line_base)
+      .run(fwd, inv, scale, iscale);
+}
+
+// One Stockham op on L's lines (see StockhamOp); `points` a thread, as
+// stockham_per_thread gives them for the block: kPerThread, or
+// kWidePerThread (N >= 32) for a 4-column tile at N = 4096 (kIo; the one
+// wide tile op built, stockham_tile_built) or a 16384-point slab on 512
+// threads (mega_resident). kN > 0: every op of the kernel has L.n == kN,
+// and the op is inlined at one shape (a megakernel on the main path's
+// scene, whose out-of-line ops spilled 1-3 KB each under its register
+// budget and ran slower, PERF.md): 32 points a thread in a 4-column tile
+// at N = 4096, else 16, `points` unused; kN == 0: by L.n, out of line. A
+// shape no op is built for traps (the launchers refuse it first).
+template <bool kLineFast, bool kIo, int kN = 0>
+__device__ __forceinline__ void stockham_op(const Lines& L, const Io& io,
+                                            const float2* __restrict__ tw,
+                                            bool fwd, bool inv,
+                                            const Filter& f, long long fline0,
+                                            int valid, float scale,
+                                            float iscale, const LineSync& bar,
+                                            int line_base = 0,
+                                            int points = kPerThread) {
+  if constexpr (kN > 0) {   // the one shape built for (layout, kN)
+    constexpr int kP =
+        kIo && stockham_tile_built(kLineFast ? 0 : 1, kN, kWidePerThread)
+            ? kWidePerThread
+            : kPerThread;
+    if (kIo && L.lines * kN > kP * (int)blockDim.x) __trap();
+    StockhamOp<kLineFast, kN, kIo, kP>(L, io, tw, f, fline0, valid, bar,
+                                       line_base)
+        .run(fwd, inv, scale, iscale);
+    return;
+  }
+#define SPECTRAL_STOCKHAM_N(kN, kP)                                          \
+  case kN:                                                                   \
+    stockham_n<kLineFast, kN, kIo, kP>(L, io, tw, fwd, inv, f, fline0,       \
+                                       valid, scale, iscale, bar,            \
+                                       line_base);                           \
+    return;
+  if (points == kWidePerThread) {
+    if constexpr (kIo) {   // columns at N = 4096
+      if constexpr (kLineFast) {
+        if (L.n == 4096) {
+          stockham_n<kLineFast, 4096, kIo, kWidePerThread>(
+              L, io, tw, fwd, inv, f, fline0, valid, scale, iscale, bar,
+              line_base);
+          return;
+        }
+      }
+    } else {
+      switch (L.n) {
+        SPECTRAL_STOCKHAM_N(32, kWidePerThread)
+        SPECTRAL_STOCKHAM_N(64, kWidePerThread)
+        SPECTRAL_STOCKHAM_N(128, kWidePerThread)
+        SPECTRAL_STOCKHAM_N(256, kWidePerThread)
+        SPECTRAL_STOCKHAM_N(512, kWidePerThread)
+        SPECTRAL_STOCKHAM_N(1024, kWidePerThread)
+        SPECTRAL_STOCKHAM_N(2048, kWidePerThread)
+        SPECTRAL_STOCKHAM_N(4096, kWidePerThread)
+        default:
+          break;
+      }
+    }
+    __trap();
+  }
+  switch (L.n) {
+    SPECTRAL_STOCKHAM_N(2, kPerThread)
+    SPECTRAL_STOCKHAM_N(4, kPerThread)
+    SPECTRAL_STOCKHAM_N(8, kPerThread)
+    SPECTRAL_STOCKHAM_N(16, kPerThread)
+    SPECTRAL_STOCKHAM_N(32, kPerThread)
+    SPECTRAL_STOCKHAM_N(64, kPerThread)
+    SPECTRAL_STOCKHAM_N(128, kPerThread)
+    SPECTRAL_STOCKHAM_N(256, kPerThread)
+    SPECTRAL_STOCKHAM_N(512, kPerThread)
+    SPECTRAL_STOCKHAM_N(1024, kPerThread)
+    SPECTRAL_STOCKHAM_N(2048, kPerThread)
+    SPECTRAL_STOCKHAM_N(4096, kPerThread)
+    default:
+      break;
+  }
+#undef SPECTRAL_STOCKHAM_N
+  __trap();
+}
+
+// One per-axis op on the Stockham route on a tile of C whole lines (see
+// tile_op): a transform through stockham_op, the tile in s as
+// C lines of n points — rows s[c * n + p], columns s[p * C + c], so that
+// neighbouring lanes take neighbouring columns — swizzled; filter-only
+// straight from device memory to device memory.
+template <bool kLineFast, int kN = 0>
+__device__ __forceinline__ void stockham_tile(float2* s, const Io& io,
+                                              int C, int n,
+                                              int valid, bool fwd, bool inv,
+                                              const float2* tw,
+                                              const Filter& f, float scale,
+                                              float iscale) {
+  const Lines L = kLineFast ? Lines{s, C, n, 1, C} : Lines{s, C, n, n, 1};
+  if (fwd || inv) {
+    const int points = stockham_per_thread(C * n, n, blockDim.x);
+    stockham_op<kLineFast, true, kN>(L, io, tw, fwd, inv, f, io.line0,
+                                     valid, scale, iscale,
+                                     line_sync<kLineFast>(C, n, points), 0,
+                                     points);
+    return;
+  }
+  for (int o = threadIdx.x; o < C * n; o += blockDim.x) {
+    int c, p;
+    split_items<kLineFast>(C, n, o, c, p);
+    if (c >= valid) continue;
+    const long long e = io.at(c, p, n);
+    float2 v = make_float2(__ldcg(io.xr + e), __ldcg(io.xi + e));
+    v = apply_filter(v, f, io.line0 + c, p);
+    io.yr[e] = __fmul_rn(v.x, scale);
+    io.yi[e] = __fmul_rn(v.y, iscale);
+  }
 }
 
 // Both routes move 4 points a thread in one 16-byte access of re and one
@@ -661,8 +1226,9 @@ __device__ __forceinline__ void move_vec4(bool store, float2* s,
 // is read through __ldcg (L2, coherent across blocks), never a read-only
 // path: in mega_staged it was written by other blocks before the last
 // grid barrier, and may be the same buffer as the output. On the matmul
-// route m holds the DFT matrices (in shared memory past the tile).
-template <bool kStockham>
+// route m holds the DFT matrices (in shared memory past the tile). The
+// Stockham route runs stockham_tile (kN: as stockham_op's).
+template <bool kStockham, int kN = 0>
 __device__ __forceinline__ void tile_op(float2* s, const float* xr,
                                         const float* xi, float* yr, float* yi,
                                         long long scene, int lines, int line0,
@@ -673,16 +1239,26 @@ __device__ __forceinline__ void tile_op(float2* s, const float* xr,
   const int total = C * n;
   const int T = blockDim.x;
   const int valid = min(C, lines - line0);
-  const bool four_step = !kStockham;         // Stockham: natural order
-  const bool perm_in = four_step && !fwd && inv;    // load into the
-  const bool perm_out = four_step && fwd && !inv;   // transposed order / out
+  const float scale = inverse_scale(inv, n);
+  const float iscale = inv ? -scale : 1.0f;
+  if constexpr (kStockham) {
+    const Io io{xr, xi, yr, yi, scene, lines, line0, axis};
+    if (axis == 1) {
+      stockham_tile<false, kN>(s, io, C, n, valid, fwd, inv, d.stw, f, scale,
+                               iscale);
+    } else {
+      stockham_tile<true, kN>(s, io, C, n, valid, fwd, inv, d.stw, f, scale,
+                              iscale);
+    }
+    return;
+  }
+  const bool perm_in = !fwd && inv;    // load into the transposed order
+  const bool perm_out = fwd && !inv;   // and out of it
   const bool vec =                           // 16-byte accesses
       (axis == 1 ? n % 4 == 0
                  : C % 4 == 0 && lines % 4 == 0 && valid == C) &&
       aligned16(xr + scene) && aligned16(xi + scene) &&
       aligned16(yr + scene) && aligned16(yi + scene);
-  const float scale = inverse_scale(inv, n);
-  const float iscale = inv ? -scale : 1.0f;
 
   if (vec && !(axis == 1 && perm_in)) {
     move_vec4(false, s, xr, xi, yr, yi, scene, lines, line0, C, n, valid,
@@ -706,12 +1282,11 @@ __device__ __forceinline__ void tile_op(float2* s, const float* xr,
   __syncthreads();
 
   const Lines L{s, C, n, n, 1};
-  if (fwd) transform<false, kStockham>(L, d, m, false);
+  if (fwd) transform<false>(L, d, m, false);
   if (f.mode != kNone) {
-    filter_pass<false>(L, f, line0, valid, four_step && (fwd || inv), n1,
-                       n2);
+    filter_pass<false>(L, f, line0, valid, fwd || inv, n1, n2);
   }
-  if (inv) transform<false, kStockham>(L, d, m, true);
+  if (inv) transform<false>(L, d, m, true);
 
   if (vec && !(axis == 1 && perm_out)) {
     move_vec4(true, s, xr, xi, yr, yi, scene, lines, line0, C, n, valid,

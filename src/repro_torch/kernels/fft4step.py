@@ -332,6 +332,71 @@ def stockham_radices(n: int) -> tuple[int, ...]:
     return tuple(out)
 
 
+@dataclasses.dataclass(frozen=True)
+class StockhamStep:
+    """One exchange of the CUDA kernels' Stockham schedule: one pass, or two
+    consecutive passes run on registers between two trips through shared
+    memory. A group of ``G = prod(radices)`` points is what one thread
+    holds in registers ``0 .. G-1``; a step has ``n // G`` groups a line.
+
+    ``inputs[g, j]`` is the point loaded into register j of group g; with
+    radices (R1, R2) (R2 = 1 for a lone pass), register ``R2 * r + r'``
+    is input r of the first pass's butterfly r', which leaves its output r
+    there. The second pass's butterfly t takes registers ``R2 * t ..
+    R2 * t + R2 - 1`` as its inputs and leaves its outputs in place.
+    ``outputs[g, j]`` is the point register j holds after the step.
+    ``twiddles[i][g, b]`` is the index k into pass ``passes[i]``'s part of
+    ``stockham_twiddles`` of butterfly b of group g in that pass."""
+
+    passes: tuple[int, ...]
+    radices: tuple[int, ...]
+    inputs: torch.Tensor       # (n // G, G) int64
+    outputs: torch.Tensor      # (n // G, G) int64
+    twiddles: tuple[torch.Tensor, ...]
+
+
+def stockham_pairs(n: int) -> tuple[StockhamStep, ...]:
+    """The schedule ``spectral_common.cuh`` runs the Stockham passes in:
+    consecutive passes paired, the last pass left alone when their count
+    is odd (a radix-2 pass at N = 2, 32, 512; a radix-4 one at N = 4, 64,
+    1024).
+
+    A pass of radix R and stride s (s = 1 at the first pass, s *= R after
+    each) has butterfly ``b = k * s + q`` read ``y[r * n / R + b]`` and
+    write ``y[(k * R + r) * s + q]``. Two passes (R1, R2) split every
+    line into n / (R1 R2) independent groups: group ``g = k' * s + q``
+    reads ``{g + m * n / G}`` and writes ``{G * s * k' + q + s * m}``; in
+    the last step of a transform k' = 0, so it writes the set it read.
+    Where the first and last steps have the same G (N = 2, 4, 8, 16, 256,
+    4096), the forward's last outputs of group g are the inverse's first
+    inputs of group g: the kernels turn around in registers there."""
+    rads = stockham_radices(n)
+    steps = []
+    p = log_s = 0
+    while p < len(rads):
+        pair = rads[p:p + 2]
+        r1, r2 = pair[0], (pair[1] if len(pair) == 2 else 1)
+        big = r1 * r2
+        s = 1 << log_s
+        g = torch.arange(n // big)
+        kp, q = g >> log_s, g & (s - 1)
+        kk = n // (big * s)                  # K': k' of one first-pass row
+        j = torch.arange(big)
+        t, r_out = j // r2, j % r2           # register R2 t + r''
+        inputs = g[:, None] + (n // big) * j[None, :]
+        outputs = (big * s * kp + q)[:, None] + s * (r1 * r_out + t)[None, :]
+        twiddles = [torch.arange(r2)[None, :] * kk + kp[:, None]]
+        if len(pair) == 2:
+            twiddles.append(kp[:, None].expand(-1, r1).clone())
+        steps.append(StockhamStep(
+            passes=tuple(range(p, p + len(pair))), radices=tuple(pair),
+            inputs=inputs, outputs=outputs,
+            twiddles=tuple(twiddles)))
+        log_s += sum(r.bit_length() - 1 for r in pair)
+        p += len(pair)
+    return tuple(steps)
+
+
 @functools.lru_cache(maxsize=None)
 def _libm():
     lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
@@ -466,6 +531,41 @@ def _run_fft(xr, xi, consts, spec: SpectralSpec, inverse: bool):
     return yr, yi
 
 
+def fma32(a, b, c):
+    """float32 ``a * b + c`` rounded once, as the kernels' ``__fmaf_rn``,
+    on any device: the product is exact in float64, the sum is rounded to
+    odd there (TwoSum gives its error), which makes the last rounding, to
+    float32, the correct one."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)            # s + err == p + c exactly
+    inexact = err != 0
+    bits = s.view(torch.int64)
+    bits = bits - (inexact & ((err > 0) != (s > 0))).long()  # toward zero
+    return (bits | inexact.long()).view(torch.float64).float()
+
+
+def outer_phase(u, v, axis: int):
+    """The rank-K phase ``sum_q u[line, q] v[k, q]`` of the outer filter in
+    the per-axis layouts (rows: u (L, K), v (K, n) -> (L, n); cols:
+    u (K, L), v (n, K) -> (n, L)), rounded as the kernels round it:
+    ``ph = fma(u_q, v_q, ph)`` from 0, q in order. (A matrix product sums
+    in an order its library picks by shape, 1 ulp off the kernels at some
+    shapes.)"""
+    rank = u.shape[1] if axis == 1 else u.shape[0]
+    ph = None
+    for q in range(rank):
+        a, b = (u[:, q, None], v[None, q, :]) if axis == 1 \
+            else (v[:, q, None], u[None, q, :])
+        if ph is None:
+            ph = torch.zeros(torch.broadcast_shapes(a.shape, b.shape),
+                             dtype=torch.float32, device=u.device)
+        ph = fma32(a, b, ph)
+    return ph
+
+
 def _apply_filters(xr, xi, axis: int, filter_mode: str, filt):
     """Apply one composed filter to a (B, L, n) / (B, n, L) batch.
 
@@ -477,7 +577,7 @@ def _apply_filters(xr, xi, axis: int, filter_mode: str, filt):
     2-D payloads broadcast over the leading batch dim."""
 
     def _apply_outer(xr, xi, u, v):
-        phase = u @ v if axis == 1 else v @ u
+        phase = outer_phase(u, v, axis)
         return _cmul(xr, xi, torch.cos(phase), torch.sin(phase))
 
     if filter_mode in (FILTER_SHARED, FILTER_FULL):

@@ -161,13 +161,29 @@ SMEM_OPTIN_BYTES = 232_448
 # The matmul route's block: 256 to 512 threads, each warp holding one task
 # of 4 m16n8 output tiles (16 points a thread) a round of its tensor-core
 # stage, which loops over rounds of lines; 256 threads hold a whole line
-# of any split of N <= 4096 in one round. (The Stockham route: up to 1024
-# threads, 16 points a thread in one pass.)
+# of any split of N <= 4096 in one round.
 MMA_THREADS = (256, 512)
-# Points of one mega_staged tile on either route: 4 lines at N = 4096
-# (16-byte runs of the column layout), what a 1024-thread Stockham block
-# stages in one pass and a 512-thread matmul block in two rounds.
+# The Stockham route's block: at most 512 threads, so that a thread may
+# take 128 registers (at 1024 threads and 64 registers its out-of-line ops
+# spilled kilobytes and ran slower, PERF.md; the 128^2 resident slab, its
+# ops inlined, is the one 1024-thread block, chosen in csrc/mega.cu).
+STOCKHAM_THREADS = 512
+# Points of one mega_staged tile on the matmul route: 4 lines at N = 4096
+# (16-byte runs of the column layout), what a 512-thread block stages in
+# two rounds of the tensor-core stage.
 STAGED_TILE_POINTS = 16384
+
+
+def stockham_per_thread(points: int, n: int,
+                        threads: int = STOCKHAM_THREADS) -> int:
+    """Points a thread of the Stockham route holds in registers when
+    ``threads`` threads hold ``points`` points of ``n``-point lines at
+    once: 16 (one group of two radix-4 passes), or 32 (two groups) where
+    16 do not cover them — the 4-column tile at N = 4096, whose 16-byte
+    runs need the 4 columns. The host copy of
+    ``csrc/spectral_common.cuh::stockham_per_thread``, which the
+    launchers check."""
+    return 32 if points > 16 * threads and n >= 32 else 16
 
 
 def dft_smem_bytes(n1: int, n2: int) -> int:
@@ -192,15 +208,17 @@ def kernel_tile(n: int, axis: int, fft_impl: str = "matmul",
     """(lines per CTA, threads per CTA) of the spectral kernel on one FFT
     route: rows hold 4096/N whole lines (one 32 KiB line at N=4096), cols
     at least 4 adjacent columns so strided loads come in 16-byte runs
-    (128 KiB at N = 4096). Stockham: every thread stages 16 points of each
-    pass. Matmul (``n1 x n2``, default the two-factor split): 16 points a
+    (128 KiB at N = 4096). Stockham: every thread holds
+    ``stockham_per_thread`` points in registers through the paired
+    passes, tile * N / points threads, no thread idle, at most
+    ``STOCKHAM_THREADS``. Matmul (``n1 x n2``, default the two-factor split): 16 points a
     thread a round, 256 to 512 threads (256 for a 4096-point tile: 8 warps
     of 16 x 32 outputs of the 64 x 64 block; 512 for the 16384-point
     column tile, in two rounds); the tile shrinks only where F1 and F2
     would not fit beside it."""
     tile = max(1 if axis == 1 else 4, 4096 // n)
     if fft_impl == "stockham":
-        return tile, tile * n // 16
+        return tile, tile * n // stockham_per_thread(tile * n, n)
     if n1 is None or n2 is None:
         n1, n2 = default_factorization(n)[:2]
     tile = _fit_tile(tile, n, fft_impl, n1, n2)
@@ -439,10 +457,10 @@ def fused_rc_rcmc_rows(xr, xi, hr, hi, u, v, **kw):
 
 MEGA_KERNEL_NAME = "mega"
 # Points the resident kernel's slab may hold besides the shared-memory
-# limit: what one 1024-thread block of the Stockham route stages per
-# in-place pass (16 a thread). The matmul route stages them at 512
-# threads in rounds of lines, so the cut is the same on both routes.
-RESIDENT_MAX_POINTS = 1024 * 16
+# limit: what the Stockham route holds in registers at once (16 points a
+# thread of 1024 for 128^2); the matmul route stages them at 512 threads
+# in rounds of lines, so the cut is the same on both routes.
+RESIDENT_MAX_POINTS = 16384
 MEGA_MAX_SEGMENTS = 8
 _SEG_FIELDS = 26            # int64 fields per segment in the launch table
 
@@ -536,11 +554,19 @@ def _bind_mega():
 
 
 def staged_tile(n: int, lines: int, fft_impl: str, n1: int,
-                n2: int) -> int:
-    """Lines per tile of one ``mega_staged`` phase: whole lines of
-    ``STAGED_TILE_POINTS`` (4 rows or columns at N = 4096), never more
-    than the scene has; on the matmul route the tile and the phase's F1
-    and F2 (``n1 x n2``) share the block's shared memory."""
+                n2: int, axis: int = 0) -> int:
+    """Lines per tile of one ``mega_staged`` phase, never more than the
+    scene has. Matmul: whole lines of ``STAGED_TILE_POINTS`` (4 rows or
+    columns at N = 4096), the tile and the phase's F1 and F2
+    (``n1 x n2``) sharing the block's shared memory. Stockham: the lines
+    ``STOCKHAM_THREADS`` threads hold at 16 points a thread (2 rows at
+    N = 4096: 4 rows at 32 a thread spilled ~1.9 KB, PERF.md), or the
+    spectral kernel's tile where that is wider (the 4 columns at
+    N = 4096, 32 points a thread)."""
+    if fft_impl == "stockham":
+        tile = max(kernel_tile(n, axis, fft_impl)[0],
+                   16 * STOCKHAM_THREADS // n)
+        return min(tile, lines)
     tile = min(max(1, STAGED_TILE_POINTS // n), lines)
     return _fit_tile(tile, n, fft_impl, n1, n2)
 
@@ -608,7 +634,7 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
         table.append([
             seg.axis, int(seg.fwd), int(seg.inv),
             _MODE_CODES[seg.filter_mode], rank, sspec.n, n1, n2,
-            staged_tile(sspec.n, lines, sspec.fft_impl, n1, n2),
+            staged_tile(sspec.n, lines, sspec.fft_impl, n1, n2, seg.axis),
             *(_ptr(c) or 0 for c in consts),
             hr or 0, hi or 0, h_line, h_k, u or 0, v or 0,
             u_line, u_k, v_n, v_k, _ptr(stw) or 0])

@@ -1,6 +1,6 @@
-"""What bounds the spectral kernel's matmul route on the card (opt-in).
+"""What bounds the spectral kernels on the card (opt-in).
 
-    PYTHONPATH=src python -m repro_torch.kernels.probe
+    PYTHONPATH=src python -m repro_torch.kernels.probe [--parts mma,spectral,mega]
 
 Needs one CUDA card (Hopper, sm_90a) and ``nvcc``. Prints the card's
 ``nvidia-smi`` name and power limit on a line of its own, then one JSON
@@ -15,7 +15,17 @@ line:
   (no transform: the tile's device-memory I/O and one multiply; a launch
   without a transform takes the matmul instantiation, and both
   instantiations share the I/O code, so it is one number for both
-  routes), then ``fwd`` and ``fwd_inv`` on each route.
+  routes), then ``fwd`` and ``fwd_inv`` on each route;
+- ``mega_stockham_ms``: both megakernels on the Stockham route, fused1's
+  chain shape (cols fwd; rows fwd+inv, ``shared_outer``; cols inv,
+  ``outer``) on random scenes, each call queued behind a spin on the
+  card so that the host's time is not counted: ``mega_staged`` at
+  4096^2 (the main path's N) and 2048^2, ``mega_resident`` on 132 scenes
+  (one an SM) of 128^2 and of 64^2, and ``fused3_1x4096``, the same chain
+  as three spectral-kernel launches at 4096^2 (the same tile ops, with
+  the spectral kernel's registers and spills).
+
+``--parts`` picks which of the three run (all by default).
 """
 import ctypes
 import json
@@ -53,8 +63,17 @@ extern "C" int mma_probe_launch(float* out, int blocks, int threads, int iters) 
 """
 
 
-def median_ms(fn, warm=2, reps=7):
-    """Median of ``reps`` timings of ``fn`` with CUDA events."""
+# GPU cycles of the spin a queued timing puts ahead of its first event
+# (~5 ms at the H100's ~2 GHz): longer than the host takes to issue the
+# timed calls, so that they run back to back on the card
+QUEUE_SPIN_CYCLES = 10_000_000
+
+
+def median_ms(fn, warm=2, reps=7, queued=False):
+    """Median of ``reps`` timings of ``fn`` with CUDA events. ``queued``:
+    each timing waits behind a spin kernel, so the events bracket the
+    card's work alone and not the host's Python time before each launch
+    (which is a large and variable share of a 0.2 ms megakernel call)."""
     import torch
     for _ in range(warm):
         fn()
@@ -62,6 +81,8 @@ def median_ms(fn, warm=2, reps=7):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -117,8 +138,62 @@ def spectral_parts(torch, dev, n=4096):
     return parts
 
 
-def main() -> int:
+# fused1's chain: (axis, fwd, inv, filter mode) a segment
+FUSED1_CHAIN = ((0, True, False, "none"), (1, True, True, "shared_outer"),
+                (0, False, True, "outer"))
+MEGA_CASES = (("staged", 1, 4096), ("staged", 1, 2048),
+              ("resident", 132, 128), ("resident", 132, 64))
+_RESIDENCY = {"staged": "staged", "resident": "vmem"}
+
+
+def mega_parts(torch, dev):
+    """Both megakernels on the Stockham route by scene (``MEGA_CASES``)."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    parts = {}
+    for residency, batch, n in MEGA_CASES:
+        x = (rand(batch, n, n), rand(batch, n, n))
+        args = []
+        for axis, _fwd, _inv, mode in FUSED1_CHAIN:
+            if mode in ("shared", "shared_outer"):
+                args += [rand(n), rand(n)]
+            if mode in ("outer", "shared_outer"):
+                args += [rand(n, 2), rand(n, 2)]
+        parts[f"{residency}_{batch}x{n}"] = median_ms(
+            lambda: ops.mega_spectral_op(*x, *args, segments=FUSED1_CHAIN,
+                                         residency=_RESIDENCY[residency],
+                                         fft_impl="stockham"), queued=True)
+        if (residency, n) == ("staged", 4096):
+            parts["fused3_1x4096"] = median_ms(
+                lambda: fused3(ops, x, args), queued=True)
+        del x, args
+    return parts
+
+
+def fused3(ops, x, args):
+    """``FUSED1_CHAIN`` as one spectral-kernel launch a segment."""
+    it = iter(args)
+    for axis, fwd, inv, mode in FUSED1_CHAIN:
+        filt = {}
+        if mode in ("shared", "shared_outer"):
+            filt.update(hr=next(it), hi=next(it))
+        if mode in ("outer", "shared_outer"):
+            filt.update(u=next(it), v=next(it))
+        x = ops.spectral_op(*x, **filt, axis=axis, fwd=fwd, inv=inv,
+                            filter_mode=mode, fft_impl="stockham", block=1)
+    return x
+
+
+def main(argv=None) -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parts", default="mma,spectral,mega")
+    parts = set(ap.parse_args(argv).parts.split(","))
     if not torch.cuda.is_available():
         print("probe: no CUDA device")
         return 2
@@ -129,12 +204,17 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     print(smi_line, flush=True)
     dev = torch.device("cuda", 0)
-    tflops = mma_sync_tflops(torch, dev)
-    print(json.dumps({
-        "phase": "probe", "nvidia_smi": smi_line,
-        "mma_sync_tf32_tflops": tflops,
-        "mma_sync_share_of_dense_tf32": tflops * 1e12 / TF32_FLOP_PER_S,
-        "spectral_4096_ms": spectral_parts(torch, dev)}), flush=True)
+    rec = {"phase": "probe", "nvidia_smi": smi_line}
+    if "mma" in parts:
+        tflops = mma_sync_tflops(torch, dev)
+        rec.update(mma_sync_tf32_tflops=tflops,
+                   mma_sync_share_of_dense_tf32=tflops * 1e12
+                   / TF32_FLOP_PER_S)
+    if "spectral" in parts:
+        rec["spectral_4096_ms"] = spectral_parts(torch, dev)
+    if "mega" in parts:
+        rec["mega_stockham_ms"] = mega_parts(torch, dev)
+    print(json.dumps(rec), flush=True)
     return 0
 
 

@@ -274,8 +274,12 @@ def test_kernel_tile_fits_the_block(n, axis, fft_impl):
     tile, threads = tops.kernel_tile(n, axis, fft_impl)
     smem = tile * n * 8
     if fft_impl == "stockham":
-        assert tile * n == threads * 16        # 16 staged points a thread
-        assert threads <= 1024
+        # 16 points a thread in registers, 32 (two groups) in the 4-column
+        # tile at N = 4096; at most 512 threads (128 registers a thread)
+        per = 32 if (n, axis) == (4096, 0) else 16
+        assert tops.stockham_per_thread(tile * n, n) == per
+        assert tile * n == threads * per
+        assert threads <= tops.STOCKHAM_THREADS == 512
     else:
         # the tensor-core stage: 16 points a thread a round (one task of
         # 4 m16n8 tiles a warp), at most two rounds, 256..512 threads, F1
@@ -289,8 +293,72 @@ def test_kernel_tile_fits_the_block(n, axis, fft_impl):
         == tfft.default_factorization(n)
 
 
+@pytest.mark.parametrize("n,axis", [(2, 1), (16, 0), (128, 1), (128, 0),
+                                    (2048, 0), (4096, 1), (4096, 0)])
+def test_staged_tile_fills_the_stockham_block(n, axis):
+    # mega_staged runs every phase on one 512-thread block shape: a tile
+    # holds 16 points a thread, or 32 in the one wide tile op the kernels
+    # build (4 columns at N = 4096); the matmul route keeps its own tile
+    tile = tops.staged_tile(n, 8192, "stockham", n, 1, axis)
+    per = tops.stockham_per_thread(tile * n, n)
+    assert per == (32 if (n, axis) == (4096, 0) else 16)
+    assert tile * n == tops.STOCKHAM_THREADS * per
+    assert tile >= tops.kernel_tile(n, axis, "stockham")[0]
+    assert tops.staged_tile(n, 3, "stockham", n, 1, axis) == min(tile, 3)
+    n1, n2 = tfft.default_factorization(n)[:2]
+    assert tops.staged_tile(n, 8192, "matmul", n1, n2, axis) == max(
+        1, tops.STAGED_TILE_POINTS // n)
+
+
 def test_cpu_tensors_never_launch():
     before = tops.SPECTRAL_LAUNCHES
     x, filt = make_case(1, "shared", 1, 64, None, lines=4)
     run_port(x, filt, axis=1, filter_mode="shared")
     assert tops.SPECTRAL_LAUNCHES == before
+
+
+def test_fma32_rounds_once():
+    """fma32 is the kernels' __fmaf_rn: one rounding of the exact a*b + c,
+    also where rounding the float64 sum to float32 would round twice (a
+    float32 tie after the float64 sum lost the bits below it)."""
+    a = torch.tensor([1 - 2 ** -23, -(1 - 2 ** -23), 3.0, 0.0])
+    b = torch.tensor([2 ** -24 * (1 + 2 ** -23)] * 2 + [0.5, 7.0])
+    c = torch.tensor([1 + 2 ** -23, -(1 + 2 ** -23), -1.5, -2.0])
+    got = tfft.fma32(a, b, c)
+    assert got.tolist() == [1 + 2 ** -23, -(1 + 2 ** -23), 0.0, -2.0]
+    twice = (a.double() * b.double() + c.double()).float()
+    assert twice[0] != got[0]          # the case that needs rounding to odd
+    rng = np.random.default_rng(3)
+    a, b, c = (torch.from_numpy(rng.standard_normal(4096).astype(np.float32)
+                                * 2.0 ** rng.integers(-20, 20, 4096))
+               for _ in range(3))
+    from fractions import Fraction
+    got = tfft.fma32(a, b, c)
+    inf = np.float32(np.inf)
+    for i in range(0, 4096, 64):
+        exact = (Fraction(float(a[i])) * Fraction(float(b[i]))
+                 + Fraction(float(c[i])))
+        g = np.float32(got[i])
+        near = [Fraction(float(np.nextafter(g, d))) for d in (inf, -inf)]
+        assert all(abs(Fraction(float(g)) - exact) <= abs(x - exact)
+                   for x in near)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_outer_phase_is_the_kernels_fma_chain(axis):
+    rng = np.random.default_rng(5 + axis)
+    lines, n, rank = 7, 16, 3
+    u = torch.from_numpy(rng.standard_normal(
+        (lines, rank) if axis == 1 else (rank, lines)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal(
+        (rank, n) if axis == 1 else (n, rank)).astype(np.float32))
+    got = tfft.outer_phase(u, v, axis)
+    want = torch.zeros(got.shape)
+    for q in range(rank):
+        a, b = (u[:, q, None], v[None, q, :]) if axis == 1 \
+            else (v[:, q, None], u[None, q, :])
+        want = tfft.fma32(a.expand(got.shape), b.expand(got.shape), want)
+    assert torch.equal(got, want)
+    ref = (u @ v if axis == 1 else v @ u).double()
+    assert float((got.double() - ref).abs().max()) <= 4e-6 * float(
+        ref.abs().max())
