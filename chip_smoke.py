@@ -77,7 +77,9 @@ each printing one JSON line (any failed check raises and exits non-zero):
              {16, 128, 256, 1024, 4096} (the Stockham route of the
              spectral kernel), then phase 6's chains through both
              megakernels on the Stockham route, each ``torch.equal`` to
-             its plain version (and resident to staged).
+             its plain version (and resident to staged); each N = 4096
+             case and each 4096^2 chain also against the complex128
+             oracle at 1e-5, as on the matmul route.
 11. main fused — ``build_pipeline(cfg, "fused").run(raw)`` at 4096^2 with
              the counts reset just before and read just after (exactly 3
              spectral, 4 transpose, 0 mega launches), all five targets
@@ -88,7 +90,8 @@ each printing one JSON line (any failed check raises and exits non-zero):
 12. main stockham — ``fused3`` with ``fft_impl="stockham"`` at 4096^2
              (exactly 3 spectral launches, five targets within 8 px, the
              same peaks and |dSNR| <= 0.1 dB against the matmul fused3
-             image and the plain replay); ``fused1`` on the Stockham route
+             image and the plain replay, the image within 1e-5 of the plan
+             in complex128); ``fused1`` on the Stockham route
              at 4096^2 (one ``mega_staged`` launch) and 128^2 (one
              ``mega_resident`` launch, and ``residency="staged"``), each
              ``torch.equal`` to the Stockham fused3 image of its size.
@@ -100,8 +103,34 @@ each printing one JSON line (any failed check raises and exits non-zero):
              launch of the same segment; both megakernels on the Stockham
              route; fused3 runs on the two routes in turns (matmul,
              stockham, stockham, matmul).
+14. csa / omega-K — the paper's scene through ``csa`` (the torch backend's
+             7 ops, no kernel launch, the baseline), then on each FFT
+             route ``csa_fused`` and ``omegak`` (exactly 3 spectral
+             launches, FULL screens read from device memory; five targets
+             within 8 px, the plain replay's peaks and |dSNR| <= 0.1 dB,
+             ``csa_fused`` within 0.1 dB of ``csa``; each launch against
+             its plain version) and ``csa_fused1`` / ``omegak_fused1``
+             (exactly one ``mega_staged``, ``torch.equal`` to the three
+             launches); each launch and megakernel timed beside its bound
+             and ``library_ms`` (the variant through torch.fft and torch
+             multiplies by the same screens), the two variants' runs in
+             turns; then 132 scenes of 128^2 through ``mega_resident``,
+             ``torch.equal`` to the three launches, timed the same way.
+15. precisions — the Stockham route at bf16, f16 and bs16: the spectral
+             kernel's grid at N in {16 ... 4096} with odd lines subnormal
+             and both megakernels' chains (a unit-scale scene beside a
+             subnormal one), bs16 ``torch.equal`` to its plain version and
+             different from f32 where values are subnormal, bf16 and f16
+             equal to f32; then ``fused3``, ``fused1``, ``csa_fused``,
+             ``csa_fused1``, ``omegak`` and ``omegak_fused1`` at 4096^2 and
+             ``fused1`` at 128^2 at each precision (launch counts,
+             ``torch.equal`` to the plain replay, within 0.1 dB of the f32
+             image, whether it equals f32 bit for bit), each bs16 launch
+             timed.
 
-The line before the last lists each kernel; the last line is
+The line before the last lists each kernel — on the main path and on each
+path of phases 14 and 15, with the precisions it runs on each route; the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
@@ -119,7 +148,7 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM spec sheet, FP32 outside tensor cores
 TF32_FLOP_PER_S = 495e12       # H100 SXM spec sheet, dense TF32 tensor cores
 TF32_PASSES = 3                # the matmul route's 3xTF32 split
 TOL = 2e-4                     # x max|want| (tests/test_kernels.py)
-ORACLE_TOL = 1e-5              # x max|want|, matmul route vs complex128
+ORACLE_TOL = 1e-5              # x max|want|, either route vs complex128
 GATE_DB = 0.1
 SEARCH = 64                    # window of the peak-position check
 
@@ -135,14 +164,16 @@ _ROUTES = {"ILb0E": "matmul", "ILb1E": "stockham"}
 def instantiation(mangled):
     """A readable name of a mangled kernel, e.g. 'mega_staged<matmul>'
     (the template flag kStockham of spectral.cu and mega.cu; a megakernel
-    specialised on its N, 'mega_staged<stockham,4096>'), or of one
-    out-of-line Stockham op, e.g. 'stockham_n<cols,4096,io,32>' (layout,
-    N, device-memory tile or in-place slab, points a thread)."""
-    m = re.search(r"stockham_nILb([01])ELi(\d+)ELb([01])ELi(\d+)E", mangled)
+    specialised on its N, 'mega_staged<stockham,4096>'; the bs16 codec's
+    instantiations end in ',bs16'), or of one out-of-line Stockham op, e.g.
+    'stockham_n<cols,4096,io,32>' (layout, N, device-memory tile or
+    in-place slab, points a thread, ',bs16' with the codec)."""
+    m = re.search(r"stockham_nILb([01])ELi(\d+)ELb([01])ELi(\d+)ELb([01])E",
+                  mangled)
     if m:
         return (f"stockham_n<{'cols' if m.group(1) == '1' else 'rows'},"
                 f"{m.group(2)},{'io' if m.group(3) == '1' else 'slab'},"
-                f"{m.group(4)}>")
+                f"{m.group(4)}{',bs16' if m.group(5) == '1' else ''}>")
     for name in _KERNEL_NAMES:
         i = mangled.find(name)
         if i < 0:
@@ -150,9 +181,11 @@ def instantiation(mangled):
         rest = mangled[i + len(name):]
         for key, route in _ROUTES.items():
             if rest.startswith(key):   # a megakernel's N, where specialised
-                m = re.match(r"ILb[01]ELi([1-9]\d*)E", rest)
-                return f"{name}<{route},{m.group(1)}>" if m else \
-                    f"{name}<{route}>"
+                m = re.match(r"ILb[01]E(?:Li(\d+)E)?Lb([01])E", rest)
+                n = f",{m.group(1)}" if m and m.group(1) not in (None, "0") \
+                    else ""
+                bs = ",bs16" if m and m.group(2) == "1" else ""
+                return f"{name}<{route}{n}{bs}>"
         if rest.startswith("I"):
             return f"{name}<{rest[1:rest.find('E')]}>"
         return name
@@ -268,6 +301,17 @@ def oracle_op(torch, x, axis, fwd, inv, mode, hr=None, hi=None, u=None,
     return x
 
 
+def image_oracle(torch, pipe, raw):
+    """A compiled pipeline of spectral steps, in complex128 through
+    ``oracle_op`` with each step's own payloads."""
+    want = raw
+    for s in pipe.steps:
+        kk = s.kernel_kw
+        want = oracle_op(torch, want, kk["axis"], kk["fwd"], kk["inv"],
+                         kk["filter_mode"], **s.filter_kw)
+    return want
+
+
 def oracle_err(torch, got, want):
     """max|got - want| / max|want| of a split float32 result against a
     complex128 oracle."""
@@ -333,8 +377,8 @@ def spectral_sweep(torch, ops, rand, fft_impl, sizes=(128, 4096),
                    exact=False):
     """The spectral kernel against its plain version on the card: every
     filter mode x axis x fwd/inv at N in ``sizes``, B in {1, 2}, 37
-    lines, within ``TOL`` or, ``exact``, ``torch.equal``; on the matmul
-    route each N = 4096 case also against the complex128 oracle
+    lines, within ``TOL`` or, ``exact``, ``torch.equal``; on either route
+    each N = 4096 case also against the complex128 oracle
     (``ORACLE_TOL``). Returns (cases, max rel err, oracle cases, max oracle
     err)."""
     from repro_torch.kernels.fft4step import FILTER_MODES
@@ -373,7 +417,7 @@ def spectral_sweep(torch, ops, rand, fft_impl, sizes=(128, 4096),
                               f"rel err {rel:.3e}")
                         worst = max(worst, rel)
                         cases += 1
-                        if fft_impl == "matmul" and n == 4096:
+                        if n == 4096:
                             o = oracle_err(torch, got, oracle_op(
                                 torch, torch.complex(xr, xi), axis, fwd,
                                 inv, mode, **filt))
@@ -388,7 +432,7 @@ def mega_sweep(torch, ops, rand, fft_impl, exact=False):
     """Both megakernels against ``mega_plain`` on the card over
     ``mega_chains()`` x ``MEGA_SHAPES`` x B in {1, 2} (within ``TOL`` or,
     ``exact``, ``torch.equal``), resident held
-    ``torch.equal`` to staged; on the matmul route each 4096^2 case also
+    ``torch.equal`` to staged; on either route each 4096^2 case also
     against the complex128 oracle chain (``ORACLE_TOL``). Returns (cases,
     max rel err, equal pairs, oracle cases, max oracle err) with the first
     two per kernel."""
@@ -433,7 +477,7 @@ def mega_sweep(torch, ops, rand, fft_impl, exact=False):
                     worst[kernel] = max(worst[kernel], rel)
                     cases[kernel] += 1
                     outs.append(got)
-                    if fft_impl == "matmul" and na == nr == 4096:
+                    if na == nr == 4096:
                         o = oracle_err(torch, got, oracle_chain(
                             torch, torch.complex(*x), segments, args))
                         check(o <= ORACLE_TOL, f"{kernel} vs complex128 "
@@ -471,10 +515,12 @@ def mma_floor(n, n1, n2, lines, transforms):
     return flops, flops / TF32_FLOP_PER_S * 1e3
 
 
-def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg):
+def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg,
+                     variant="fused1"):
     """One megakernel alone on the main path's split input, beside its
-    bound, its plain version, the torch.fft chain (``library_ms``) and,
-    on the matmul route, the tensor-core floor of its stages."""
+    bound, its plain version, ``variant``'s chain through torch.fft and
+    torch multiplies by the same payloads (``library_ms``) and, on the
+    matmul route, the tensor-core floor of its stages."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import build_pipeline
     from repro_torch.kernels import ops
@@ -489,9 +535,10 @@ def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg):
     flops = _mega_flops(spec) * batch
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
-    oracle = build_pipeline(segments_cfg, "fused1", backend="torch")
+    oracle = build_pipeline(segments_cfg, variant, backend="torch")
     rec = dict(
-        kernel=name, fft_impl=kk["fft_impl"], scene=[na, nr], batch=batch,
+        kernel=name, variant=variant, fft_impl=kk["fft_impl"],
+        precision=kk["precision"], scene=[na, nr], batch=batch,
         ms=cuda_median_ms(lambda: ops.mega_spectral_op(xr, xi, *args, **kk),
                           queued=True),
         plain_ms=cuda_median_ms(lambda: ops.mega_spectral_op_plain(
@@ -514,8 +561,9 @@ def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg):
     return rec
 
 
-def time_spectral_launch(smi_line, step, xr, xi, x):
-    """One spectral-kernel launch of a compiled plan on its own inputs,
+def time_spectral_launch(smi_line, step, xr, xi, x, variant="fused3"):
+    """One spectral-kernel launch of ``variant``'s compiled plan on its own
+    inputs,
     beside its bound (bytes over 3.35 TB/s vs nominal 5 N log2 N FLOP over
     67 TFLOP/s), its plain version and ``library_ms`` (torch.fft ->
     multiply -> torch.fft, timed only as a yardstick)."""
@@ -529,13 +577,14 @@ def time_spectral_launch(smi_line, step, xr, xi, x):
         n, nlines = xr.shape[-2:]
     spec = SpectralSpec(n=n, fwd=kk["fwd"], filter_mode=kk["filter_mode"],
                         inv=kk["inv"], axis=kk["axis"],
-                        fft_impl=kk["fft_impl"])
+                        fft_impl=kk["fft_impl"], precision=kk["precision"])
     nbytes = 4 * xr.numel() * 4 + sum(4 * t.numel() for t in fk.values())
     flops = flops_nominal(spec, nlines)
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     rec = dict(
-        launch=step.name, fft_impl=kk["fft_impl"], axis=kk["axis"],
+        launch=step.name, variant=variant, fft_impl=kk["fft_impl"],
+        precision=kk["precision"], axis=kk["axis"],
         mode=kk["filter_mode"], fwd=kk["fwd"], inv=kk["inv"],
         ms=cuda_median_ms(lambda: ops.spectral_op(xr, xi, **fk, **kk),
                           queued=True),
@@ -750,15 +799,19 @@ def baseline_phases(torch, dev, smi_line, cfg, raw, score, replay_plain,
     # bit for bit: pairing passes changes which thread computes a point,
     # never how; N = 16, 256, 4096 turn around in registers, 1024 has two
     # pairs and a lone pass, 128 a radix-4/radix-2 pair
-    s_cases, s_worst, _, _ = spectral_sweep(
+    # and, as the matmul route, each N = 4096 case against the complex128
+    # oracle, whose outer phase is rounded as the kernels round it
+    s_cases, s_worst, so_cases, so_worst = spectral_sweep(
         torch, ops, seeded_randn(torch, dev, 3), "stockham",
         sizes=STOCKHAM_SIZES, exact=True)
-    m_cases, m_worst, pairs, _, _ = mega_sweep(
+    m_cases, m_worst, pairs, mo_cases, mo_worst = mega_sweep(
         torch, ops, seeded_randn(torch, dev, 4), "stockham", exact=True)
     emit("stockham_kernel", spectral_cases=s_cases, sizes=STOCKHAM_SIZES,
          spectral_max_rel_err=s_worst, mega_cases=m_cases,
          mega_max_rel_err=m_worst, resident_equals_staged_cases=pairs,
-         equal_to_plain=True)
+         equal_to_plain=True, spectral_oracle_cases=so_cases,
+         spectral_max_oracle_err=so_worst, mega_oracle_cases=mo_cases,
+         mega_max_oracle_err=mo_worst, oracle_tol=ORACLE_TOL)
 
     # ---- 11. the main path through fused -----------------------------------
     pipe = build_pipeline(cfg, "fused")
@@ -810,6 +863,10 @@ def baseline_phases(torch, dev, smi_line, cfg, raw, score, replay_plain,
     torch.cuda.synchronize()
     dsnr_p = check_focus("stockham fused3 vs plain", rep3, score(img_p))
     del img_p, matmul_img
+    st_oracle = oracle_err(torch, (img3.real, img3.imag),
+                           image_oracle(torch, st3, raw))
+    check(st_oracle <= ORACLE_TOL,
+          f"stockham fused3 4096^2 vs complex128: {st_oracle:.3e}")
     st_inputs = {}
     st_err = 0.0
     for s, x in step_inputs(st3, raw)[0]:
@@ -825,7 +882,8 @@ def baseline_phases(torch, dev, smi_line, cfg, raw, score, replay_plain,
     emit("main", variant="fused3", fft_impl="stockham",
          scene=[cfg.na, cfg.nr], launches=st_counts, targets=rep3,
          snr_delta_db_vs_matmul=dsnr_m, l2_rel_vs_matmul=l2_m,
-         snr_delta_db_vs_plain=dsnr_p, max_abs_err_launches=st_err)
+         snr_delta_db_vs_plain=dsnr_p, max_abs_err_launches=st_err,
+         oracle_rel_err=st_oracle, oracle_tol=ORACLE_TOL)
 
     st1 = build_pipeline(cfg, "fused1", fft_impl="stockham")
     check(st1.steps[0].kernel_kw["residency"] == "staged", "4096^2 staged")
@@ -875,7 +933,8 @@ def baseline_phases(torch, dev, smi_line, cfg, raw, score, replay_plain,
     for s, x in inputs:
         if s.kind == "spectral":
             xr, xi = planlib.split(x)
-            spec_t.append(time_spectral_launch(smi_line, s, xr, xi, x))
+            spec_t.append(time_spectral_launch(smi_line, s, xr, xi, x,
+                                               variant="fused"))
     sinc_step, sinc_x = next((s, x) for s, x in inputs
                              if s.kind == "sinc_rcmc")
     sinc_ms = cuda_median_ms(lambda: sinc_step.fn(sinc_x))
@@ -954,6 +1013,429 @@ def baseline_phases(torch, dev, smi_line, cfg, raw, score, replay_plain,
          "mega_resident_ms": t_st_resident["ms"],
          "mega_resident_launches": st1s_counts["mega_resident"]},
     ]
+
+
+# CSA and omega-K: each three-launch variant and its one-launch twin
+FAMILIES = {"csa_fused": "csa_fused1", "omegak": "omegak_fused1"}
+PRECISION_VARIANTS = ("fused3", "fused1", "csa_fused", "csa_fused1", "omegak",
+                      "omegak_fused1")
+NARROW = ("bf16", "f16", "bs16")      # the Stockham route's other precisions
+BS16_CHAINS = (((0, True, False, "full"), (1, True, True, "full"),
+                (0, False, True, "full")),
+               ((1, False, False, "full"), (0, True, True, "shared"),
+                (1, False, False, "outer")))
+
+
+def replay_mega_plain(step, x):
+    """One mega step through ``mega_spectral_op_plain`` on x's device."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.kernels import ops
+    return planlib.unsplit(*ops.mega_spectral_op_plain(
+        *planlib.split(x), *[t for a in step.seg_filter_args for t in a],
+        **step.kernel_kw))
+
+
+def family_phases(torch, smi_line, cfg, raw, score, replay_plain, small,
+                  small_raw):
+    """Phase 14: CSA and omega-K on the paper's scene on both FFT routes,
+    and on 132 scenes of 128^2 through ``mega_resident``. Returns the
+    ``kernels`` records, the Stockham images (for phase 15) and the
+    seconds the screens took to build."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.kernels import ops
+
+    # the screens (three float64 4096^2 screens for CSA, one for omega-K),
+    # built on the host once per (cfg, plan) and kept on the card by the
+    # compiler's caches: before any timed window
+    t0 = time.perf_counter()
+    base = build_pipeline(cfg, "csa")        # torch backend: the baseline
+    pipes = {(v, r): build_pipeline(cfg, v, fft_impl=r)
+             for r in ("matmul", "stockham")
+             for three, one in FAMILIES.items() for v in (three, one)}
+    torch.cuda.synchronize()
+    screens_s = time.perf_counter() - t0
+    check(base.dispatches == 7 and all(
+        p.dispatches == (1 if v.endswith("fused1") else 3)
+        for (v, _), p in pipes.items()), "CSA / omega-K dispatches")
+    reset_launch_counts()
+    img_base = base.run(raw)
+    torch.cuda.synchronize()
+    base_counts, want = launch_counts()
+    check(base_counts == want, f"csa (torch backend) launches {base_counts}")
+    rep_base = score(img_base)
+    emit("main", variant="csa", backend="torch", scene=[cfg.na, cfg.nr],
+         launches=base_counts, targets=rep_base, screens_seconds=screens_s)
+    check_focus("csa", rep_base)
+    del img_base
+
+    images = {}
+    records = []
+    for fft_impl in ("matmul", "stockham"):
+        for three, one in FAMILIES.items():
+            p3, p1 = pipes[(three, fft_impl)], pipes[(one, fft_impl)]
+            reset_launch_counts()
+            img3 = p3.run(raw)
+            torch.cuda.synchronize()
+            counts3, want = launch_counts(spectral=3)
+            check(counts3 == want, f"{three} ({fft_impl}) launches {counts3}")
+            check(bool(torch.isfinite(img3).all()), f"{three}: non-finite")
+            rep3 = score(img3)
+            emit("main", variant=three, fft_impl=fft_impl,
+                 scene=[cfg.na, cfg.nr], launches=counts3, targets=rep3)
+            img_p = replay_plain(p3, raw)
+            torch.cuda.synchronize()
+            dsnr_p = check_focus(f"{three} ({fft_impl}) vs plain", rep3,
+                                 score(img_p))
+            del img_p
+            dsnr_b = (check_focus(f"{three} ({fft_impl}) vs csa", rep3,
+                                  rep_base)
+                      if three == "csa_fused" else None)
+            # where every transform of the chain has 4096 points, the
+            # Stockham route's mega_staged takes its specialisation
+            # (csrc/mega.cu: transform_n == 4096)
+            step1 = p1.steps[0]
+            check(step1.kernel_kw["residency"] == "staged", f"{one}: staged")
+            reset_launch_counts()
+            img1 = p1.run(raw)
+            torch.cuda.synchronize()
+            counts1, want = launch_counts(mega_staged=1)
+            check(counts1 == want, f"{one} ({fft_impl}) launches {counts1}")
+            check(torch.equal(img1, img3), f"{one} != {three} ({fft_impl})")
+            img1_p = replay_mega_plain(step1, raw)
+            err1, rel1 = rel_err((img1.real, img1.imag),
+                                 (img1_p.real, img1_p.imag))
+            check(rel1 <= TOL, f"{one} ({fft_impl}) vs plain: {rel1:.3e}")
+            del img1_p
+            launch_err = 0.0
+            timed = []
+            for s, x in step_inputs(p3, raw)[0]:
+                xr, xi = planlib.split(x)
+                got = ops.spectral_op(xr, xi, **s.filter_kw, **s.kernel_kw)
+                want_p = ops.spectral_op_plain(xr, xi, **s.filter_kw,
+                                               **s.kernel_kw)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, want_p)
+                check(rel <= TOL and (fft_impl == "matmul" or all(
+                    torch.equal(g, w) for g, w in zip(got, want_p))),
+                      f"{three} launch {s.name} ({fft_impl}): {rel:.3e}")
+                launch_err = max(launch_err, err)
+                del got, want_p
+                timed.append(time_spectral_launch(smi_line, s, xr, xi, x,
+                                                  variant=three))
+            t1 = time_mega_kernel(torch, smi_line, "mega_staged", step1, raw,
+                                  cfg, variant=one)
+            runs = {three: [], one: []}
+            for v in (three, one, one, three):
+                p = p3 if v == three else p1
+                runs[v].append(cuda_median_ms(lambda: p.run(raw)))
+            emit("main", variant=one, fft_impl=fft_impl,
+                 scene=[cfg.na, cfg.nr], launches=counts1,
+                 specialised_4096=cfg.na == cfg.nr == 4096,
+                 equal_to_three_launches=True, targets=rep3,
+                 snr_delta_db_vs_plain=dsnr_p, snr_delta_db_vs_csa=dsnr_b,
+                 max_abs_err_launches=launch_err, rel_err_fused1_vs_plain=rel1)
+            emit("time_run", variant=f"{three}_vs_{one}", fft_impl=fft_impl,
+                 scene=[cfg.na, cfg.nr], order=[three, one, one, three],
+                 **{f"{three}_ms": runs[three], f"{one}_ms": runs[one]},
+                 launch_ms_sum=sum(r["ms"] for r in timed),
+                 launch_library_ms_sum=sum(r["library_ms"] for r in timed),
+                 nvidia_smi=smi_line)
+            if fft_impl == "stockham":
+                images[three] = img3
+            del img1
+            records.append(kernel_record(
+                "spectral", three, fft_impl, counts3["spectral"], launch_err,
+                timed))
+            records.append(kernel_record(
+                "mega_staged", one, fft_impl, counts1["mega_staged"], err1,
+                [t1]))
+
+    # one scene of 128^2 per SM through mega_resident, beside its twin
+    batch_raw = small_raw.expand(MEGA_BATCH, *small_raw.shape).contiguous()
+    for fft_impl in ("matmul", "stockham"):
+        for three, one in FAMILIES.items():
+            img3 = build_pipeline(small, three, fft_impl=fft_impl).run(
+                batch_raw)
+            p1 = build_pipeline(small, one, fft_impl=fft_impl)
+            check(p1.steps[0].kernel_kw["residency"] == "vmem", "resident")
+            reset_launch_counts()
+            img1 = p1.run(batch_raw)
+            torch.cuda.synchronize()
+            counts, want = launch_counts(mega_resident=1)
+            check(counts == want, f"{one} 132 x 128^2 launches {counts}")
+            check(torch.equal(img1, img3),
+                  f"{one} != {three} on 132 x 128^2 ({fft_impl})")
+            want_p = replay_mega_plain(p1.steps[0], batch_raw)
+            err, rel = rel_err((img1.real, img1.imag),
+                               (want_p.real, want_p.imag))
+            check(rel <= TOL, f"{one} 132 x 128^2 vs plain: {rel:.3e}")
+            t = time_mega_kernel(torch, smi_line, "mega_resident",
+                                 p1.steps[0], batch_raw, small, variant=one)
+            emit("main", variant=one, fft_impl=fft_impl,
+                 scene=[small.na, small.nr], batch=MEGA_BATCH,
+                 launches=counts, equal_to_three_launches=True,
+                 rel_err_vs_plain=rel)
+            records.append(kernel_record("mega_resident", one, fft_impl,
+                                         counts["mega_resident"], err, [t]))
+            del img1, img3, want_p
+    return records, images, screens_s
+
+
+def kernel_precisions(name):
+    """What a ``kernels`` entry's kernel runs: precisions by FFT route
+    (``ops.KERNEL_PRECISIONS``; the ``stockham`` entry is that route of
+    the spectral kernel), or the transpose's element types."""
+    from repro_torch.kernels import ops
+    if name == "transpose":
+        return {"elements": ["float32", "complex64"]}
+    routes = ("stockham",) if name == "stockham" else ops.FFT_IMPLS
+    return {r: list(ops.KERNEL_PRECISIONS[r]) for r in routes}
+
+
+def kernel_record(name, variant, fft_impl, launches, err, timed):
+    """One ``kernels`` entry for a kernel on a path of phase 14 or 15: the
+    sums over the path's launches of that kernel."""
+    source = "spectral.cu" if name == "spectral" else "mega.cu"
+    line = {"spectral": 598, "mega_resident": 931, "mega_staged": 1002}[name]
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/fft4step.py:{line}",
+            "path": variant, "fft_impl": fft_impl,
+            "precision": timed[0]["precision"],
+            "launches": launches, "max_abs_err": err,
+            "ms": sum(r["ms"] for r in timed),
+            "plain_ms": sum(r["plain_ms"] for r in timed),
+            "bound_ms": sum(r["bound_ms"] for r in timed),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in timed) else "operations",
+            "library_ms": sum(r["library_ms"] for r in timed)}
+
+
+def subnormal_lines(torch, x, axis):
+    """Odd lines times 1e-40 (subnormal floats), beside unit-scale lines:
+    where the bs16 codec changes a result on the Stockham route."""
+    scale = torch.ones(x[0].shape[-2 if axis == 1 else -1],
+                       device=x[0].device)
+    scale[1::2] = 1e-40
+    view = (-1, 1) if axis == 1 else (1, -1)
+    return [t * scale.view(view) for t in x]
+
+
+def precision_sweeps(torch, ops, dev):
+    """Phase 15a: the Stockham route at bf16, f16 and bs16 against the
+    plain versions: the spectral kernel at ``STOCKHAM_SIZES`` (every filter
+    mode x axis x fwd/inv, B = 2, 37 lines, odd lines subnormal) and both
+    megakernels over ``mega_chains()`` and ``BS16_CHAINS`` on the shapes up
+    to 256^2 (a unit-scale scene beside a subnormal one). bs16 equals its
+    plain version bit for bit and differs from f32 where values are
+    subnormal alone (a round trip with nothing between, fwd+inv unfiltered,
+    may land on the input's subnormal grid either way, so it is counted
+    apart); bf16 and f16 equal f32."""
+    from repro_torch.kernels.fft4step import FILTER_MODES
+    rand = seeded_randn(torch, dev, 5)
+    lines, rank = 37, 2
+    cases = differ = trips = trips_differ = 0
+    for n in STOCKHAM_SIZES:
+        for axis in (0, 1):
+            scene = (lines, n) if axis == 1 else (n, lines)
+            x = subnormal_lines(torch, (rand(2, *scene), rand(2, *scene)),
+                                axis)
+            normal = (slice(None), slice(0, None, 2)) if axis == 1 else \
+                (slice(None), slice(None), slice(0, None, 2))
+            for mode in FILTER_MODES:
+                filt = {}
+                if mode in ("shared", "shared_outer"):
+                    filt.update(hr=rand(n), hi=rand(n))
+                if mode == "full":
+                    filt.update(hr=rand(*scene), hi=rand(*scene))
+                if mode in ("outer", "shared_outer"):
+                    filt.update(u=rand(lines, rank), v=rand(n, rank))
+                for fwd, inv in ((True, False), (False, True), (True, True),
+                                 (False, False)):
+                    if mode == "none" and not (fwd or inv):
+                        continue
+                    kw = dict(axis=axis, fwd=fwd, inv=inv, filter_mode=mode,
+                              block=1, fft_impl="stockham")
+                    f32 = ops.spectral_op(*x, **filt, **kw)
+                    got = ops.spectral_op(*x, **filt, precision="bs16", **kw)
+                    want = ops.spectral_op_plain(*x, **filt,
+                                                 precision="bs16", **kw)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                          f"bs16 kernel != plain {kw} n={n}")
+                    check(all(torch.equal(g[normal], w[normal])
+                              for g, w in zip(got, f32)),
+                          f"bs16 != f32 on unit-scale lines {kw} n={n}")
+                    changed = not all(torch.equal(g, w)
+                                      for g, w in zip(got, f32))
+                    if mode == "none" and fwd and inv:
+                        trips += 1
+                        trips_differ += changed
+                    else:
+                        differ += changed
+                    for precision in ("bf16", "f16"):
+                        narrow = ops.spectral_op(*x, **filt,
+                                                 precision=precision, **kw)
+                        check(all(torch.equal(g, w)
+                                  for g, w in zip(narrow, f32)),
+                              f"{precision} != f32 {kw} n={n}")
+                    cases += 1
+    check(differ == cases - trips, f"bs16 equals f32 on subnormal lines in "
+          f"{cases - trips - differ} of {cases - trips} cases")
+    m_cases = m_pairs = 0
+    for na, nr in MEGA_SHAPES[:-1]:
+        for segments in mega_chains() + list(BS16_CHAINS):
+            x = [rand(2, na, nr), rand(2, na, nr)]
+            for t in x:
+                t[1] *= 1e-40
+            args = []
+            for axis, _fwd, _inv, mode in segments:
+                n, nl = (nr, na) if axis == 1 else (na, nr)
+                if mode in ("shared", "shared_outer"):
+                    args += [rand(n), rand(n)]
+                if mode == "full":
+                    args += [rand(na, nr), rand(na, nr)]
+                if mode in ("outer", "shared_outer"):
+                    args += [rand(nl, 2), rand(n, 2)]
+            kw = dict(segments=segments, fft_impl="stockham")
+            want = ops.mega_spectral_op_plain(*x, *args, precision="bs16",
+                                              **kw)
+            outs = []
+            for residency in ("vmem", "staged"):
+                if residency == "vmem" and \
+                        ops.mega_residency(na, nr) != "vmem":
+                    continue
+                got = ops.mega_spectral_op(*x, *args, residency=residency,
+                                           precision="bs16", **kw)
+                f32 = ops.mega_spectral_op(*x, *args, residency=residency,
+                                           **kw)
+                torch.cuda.synchronize()
+                where = f"{residency} {segments} {na}x{nr}"
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"bs16 megakernel != plain {where}")
+                check(all(torch.equal(g[0], w[0]) for g, w in zip(got, f32))
+                      and not all(torch.equal(g[1], w[1])
+                                  for g, w in zip(got, f32)),
+                      f"bs16 vs f32 megakernel {where}")
+                for precision in ("bf16", "f16"):
+                    narrow = ops.mega_spectral_op(
+                        *x, *args, residency=residency, precision=precision,
+                        **kw)
+                    check(all(torch.equal(g, w)
+                              for g, w in zip(narrow, f32)),
+                          f"{precision} megakernel != f32 {where}")
+                outs.append(got)
+                m_cases += 1
+            if len(outs) == 2:
+                check(all(torch.equal(a, b) for a, b in zip(*outs)),
+                      f"bs16 resident != staged {segments} {na}x{nr}")
+                m_pairs += 1
+    emit("precision_kernel", fft_impl="stockham", precisions=list(NARROW),
+         spectral_cases=cases, bs16_differs_from_f32_cases=differ,
+         round_trips=trips, round_trips_differing=trips_differ,
+         sizes=STOCKHAM_SIZES, mega_cases=m_cases,
+         resident_equals_staged_cases=m_pairs, equal_to_plain=True)
+
+
+def precision_phases(torch, smi_line, cfg, raw, score, replay_plain, small,
+                     small_raw, f32_images):
+    """Phase 15b: every main-path variant on the Stockham route at bf16,
+    f16 and bs16 on the paper's scene (and fused1 / fused3 on 128^2):
+    launch counts, ``torch.equal`` to the plain version on the card,
+    within 0.1 dB of the f32 image; each bs16 launch timed. Returns the
+    ``kernels`` records of the bs16 paths."""
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.core import plan as planlib
+    records = []
+    for variant in PRECISION_VARIANTS:
+        one = variant.endswith("fused1")
+        f32_img = f32_images[variant]
+        rep_f32 = score(f32_img)
+        for precision in NARROW:
+            pipe = build_pipeline(cfg, variant, fft_impl="stockham",
+                                  precision=precision)
+            reset_launch_counts()
+            img = pipe.run(raw)
+            torch.cuda.synchronize()
+            counts, want = (launch_counts(mega_staged=1) if one
+                            else launch_counts(spectral=3))
+            check(counts == want, f"{variant} {precision} launches {counts}")
+            check(bool(torch.isfinite(img).all()),
+                  f"{variant} {precision}: non-finite")
+            plain = (replay_mega_plain(pipe.steps[0], raw) if one
+                     else replay_plain(pipe, raw))
+            torch.cuda.synchronize()
+            check(torch.equal(img, plain), f"{variant} {precision} != plain")
+            rep = score(img)
+            dsnr = check_focus(f"{variant} {precision} vs f32", rep, rep_f32)
+            emit("main", variant=variant, fft_impl="stockham",
+                 precision=precision, scene=[cfg.na, cfg.nr],
+                 launches=counts, equal_to_plain=True,
+                 equal_to_f32=torch.equal(img, f32_img),
+                 snr_delta_db_vs_f32=dsnr)
+            if precision == "bs16":
+                if one:
+                    timed = [time_mega_kernel(
+                        torch, smi_line, "mega_staged", pipe.steps[0], raw,
+                        cfg, variant=variant)]
+                else:
+                    timed = []
+                    for s, x in step_inputs(pipe, raw)[0]:
+                        xr, xi = planlib.split(x)
+                        timed.append(time_spectral_launch(
+                            smi_line, s, xr, xi, x, variant=variant))
+                records.append(kernel_record(
+                    "mega_staged" if one else "spectral", variant,
+                    "stockham", counts["mega_staged" if one else "spectral"],
+                    0.0, timed))
+            del img, plain
+    # the resident megakernel at bs16 on one 128^2 scene per SM, beside the
+    # same kernel at f32 in this call
+    batch_raw = small_raw.expand(MEGA_BATCH, *small_raw.shape).contiguous()
+    for variant in ("fused1", "csa_fused1", "omegak_fused1"):
+        timed = {}
+        for precision in ("f32", "bs16", "bs16", "f32"):
+            pipe = build_pipeline(small, variant, fft_impl="stockham",
+                                  precision=precision)
+            reset_launch_counts()
+            img = pipe.run(batch_raw)
+            torch.cuda.synchronize()
+            counts, want = launch_counts(mega_resident=1)
+            check(counts == want, f"{variant} 132 x 128^2 {precision}")
+            check(torch.equal(img, replay_mega_plain(pipe.steps[0],
+                                                     batch_raw)),
+                  f"{variant} 132 x 128^2 {precision} != plain")
+            timed.setdefault(precision, []).append(time_mega_kernel(
+                torch, smi_line, "mega_resident", pipe.steps[0], batch_raw,
+                small, variant=variant))
+        records.append(kernel_record("mega_resident", variant, "stockham",
+                                     counts["mega_resident"], 0.0,
+                                     timed["bs16"][:1]))
+        emit("time_run", variant=f"{variant}_f32_vs_bs16",
+             scene=[small.na, small.nr], batch=MEGA_BATCH,
+             order=["f32", "bs16", "bs16", "f32"],
+             f32_ms=[t["ms"] for t in timed["f32"]],
+             bs16_ms=[t["ms"] for t in timed["bs16"]], nvidia_smi=smi_line)
+    small_f32 = build_pipeline(small, "fused3", fft_impl="stockham").run(
+        small_raw)
+    for precision in NARROW:
+        kw = dict(fft_impl="stockham", precision=precision)
+        f3 = build_pipeline(small, "fused3", **kw).run(small_raw)
+        pipe = build_pipeline(small, "fused1", **kw)
+        reset_launch_counts()
+        img = pipe.run(small_raw)
+        torch.cuda.synchronize()
+        counts, want = launch_counts(mega_resident=1)
+        check(counts == want, f"fused1 128^2 {precision} launches {counts}")
+        check(torch.equal(img, f3), f"fused1 != fused3 128^2 {precision}")
+        check(torch.equal(img, replay_mega_plain(pipe.steps[0], small_raw)),
+              f"fused1 128^2 {precision} != plain")
+        emit("main", variant="fused1", fft_impl="stockham",
+             precision=precision, scene=[small.na, small.nr],
+             launches=counts, equal_to_fused3=True, equal_to_plain=True,
+             equal_to_f32=torch.equal(img, small_f32))
+    return records
 
 
 def main() -> int:
@@ -1087,11 +1569,7 @@ def main() -> int:
 
     # the 4096^2 image against the same plan in complex128 (fused1 is held
     # torch.equal to this image in phase 7)
-    want = raw
-    for s in fused3_pipe.steps:
-        kk = s.kernel_kw
-        want = oracle_op(torch, want, kk["axis"], kk["fwd"], kk["inv"],
-                         kk["filter_mode"], **s.filter_kw)
+    want = image_oracle(torch, fused3_pipe, raw)
     img3 = images["fused3"]
     main_oracle = oracle_err(torch, (img3.real, img3.imag), want)
     check(main_oracle <= ORACLE_TOL,
@@ -1157,6 +1635,23 @@ def main() -> int:
     kernels += baseline_phases(torch, dev, smi_line, cfg, raw, score,
                                replay_plain, small, small_raw, fused3_pipe,
                                main_inputs, images.pop("fused3"))
+
+    # ---- 14. CSA and omega-K ------------------------------------------------
+    records, f32_images, _ = family_phases(
+        torch, smi_line, cfg, raw, score, replay_plain, small, small_raw)
+    kernels += records
+
+    # ---- 15. bf16 / f16 / bs16 on the Stockham route ------------------------
+    precision_sweeps(torch, ops, dev)
+    f32_images["fused3"] = build_pipeline(cfg, "fused3",
+                                          fft_impl="stockham").run(raw)
+    f32_images["fused1"] = f32_images["fused3"]
+    f32_images["csa_fused1"] = f32_images["csa_fused"]
+    f32_images["omegak_fused1"] = f32_images["omegak"]
+    kernels += precision_phases(torch, smi_line, cfg, raw, score,
+                                replay_plain, small, small_raw, f32_images)
+    for k in kernels:
+        k["precisions"] = kernel_precisions(k["name"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

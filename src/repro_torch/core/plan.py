@@ -669,7 +669,8 @@ def compile_plan(
       (the self-sorting radix-4/radix-2 Stockham passes, the paper's
       scalar baseline), in every spectral and mega step.
     precision: matmul-operand policy for every spectral stage (over each
-      ``Stage.precision``); the CUDA kernels take f32 only.
+      ``Stage.precision``); the CUDA kernels take all four on the
+      Stockham route and f32 alone on the matmul route.
     residency: megakernel mode of mega steps — 'vmem' (on Hopper: the
       whole scene in one block's shared memory) or 'staged' (phases
       through device memory); None picks by ``ops.mega_residency``.

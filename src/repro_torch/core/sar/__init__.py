@@ -1,5 +1,5 @@
-"""SAR substrate: geometry, simulator, filters, plan-compiled RDA,
-metrics."""
+"""SAR substrate: geometry, simulator, filters, plan-compiled RDA / CSA /
+omega-K pipelines, metrics."""
 from repro_torch.core.sar.geometry import (  # noqa: F401
     C,
     PointTarget,
@@ -19,4 +19,4 @@ from repro_torch.core.sar.rda import (  # noqa: F401
     focus,
     variant_names,
 )
-from repro_torch.core.sar import filters, metrics  # noqa: F401
+from repro_torch.core.sar import csa, filters, metrics, omegak  # noqa: F401

@@ -86,6 +86,17 @@
 // through shared memory a pair between them; rows synchronise per line
 // (2 lines of 256 threads at N = 4096), columns per block.
 //
+// bs16 (the Stockham route; bf16 and f16 are its f32 passes): every segment
+// runs the codec of one spectral.cu launch — each line's exponent taken on
+// the segment's load, the line scaled by 2^-e there and by 2^e at its store
+// — which is, point for point, fft4step.mega_plain's carrying the exponents
+// to the next segment boundary and applying them once at the end (a staged
+// tile holds whole lines, a resident slab every line, so each reduction
+// stays inside one block). mega_staged codes in registers, as spectral.cu
+// does; mega_resident codes the slab in shared memory before and after the
+// segment (an exponent a line past the slab). The codec is a template flag
+// of both kernels (kBs): the f32 instantiations carry none of its code.
+//
 // Both kernels run, for each point, exactly the operations of spectral.cu's
 // launches (spectral_common.cuh, -fmad=false), so at f32 they equal the
 // three-launch fused3 chain and each other bit for bit.
@@ -131,6 +142,7 @@ struct MegaArgs {
   float* yr;
   float* yi;
   int batch, na, nr, nseg;
+  int bs;             // the bs16 codec in every segment (the route's choice)
   Segment seg[kMaxSegments];
 };
 
@@ -138,13 +150,17 @@ struct MegaArgs {
 // entry and on exit). The Stockham route keeps the slab swizzled (swz) and
 // runs stockham_op in place, its inverse's 1/N and conjugate on the last
 // step's write; a filter-only segment is one pass over the slab. kN > 0:
-// every transform of the kernel has N = kN (stockham_op inlines it).
-template <bool kLineFast, bool kStockham, int kN>
+// every transform of the kernel has N = kN (stockham_op inlines it). kBs
+// (Stockham route): the slab's lines coded before the segment and decoded
+// after it, their exponents in ex.
+template <bool kLineFast, bool kStockham, int kN, bool kBs>
 __device__ __forceinline__ void resident_segment(const Lines& L,
-                                                 const Segment& g) {
+                                                 const Segment& g, int* ex) {
+  static_assert(kStockham || !kBs, "the codec runs on the Stockham route");
   const Dft& d = g.d;
   const bool fwd = g.fwd, inv = g.inv;
   if constexpr (kStockham) {
+    if constexpr (kBs) lines_encode<kLineFast, true>(L, ex);
     if (fwd || inv) {
       // 32 points a thread where 16 do not cover the slab (one round of
       // 512 threads for 128^2); else 16, in rounds of the lines the block
@@ -163,6 +179,7 @@ __device__ __forceinline__ void resident_segment(const Lines& L,
     } else {
       filter_pass<kLineFast, true>(L, g.f, 0, L.lines, false, 1, 1);
     }
+    if constexpr (kBs) lines_decode<kLineFast, true>(L, ex);
     return;
   }
   const Mats m = mats_in_place(d);
@@ -183,19 +200,21 @@ __device__ __forceinline__ void resident_segment(const Lines& L,
 }
 
 // grid = batch; one scene per CTA, its (na, nr) slab at s[a * nr + r]
-// (s[swz(a * nr + r)] on the Stockham route).
+// (s[swz(a * nr + r)] on the Stockham route), the codec's exponents past it.
 // Naming one block per SM gives ptxas the whole register file of the
 // thread bound (64 registers at 1024 threads, 128 at 512); under the
 // thread bound alone it held the kernel to 32 (8.5 KB of spills). A 128^2
 // slab takes one SM's shared memory anyway. kN: as resident_segment's
 // (the Stockham route's 128^2 slabs, the main path's, take kN = 128).
-template <bool kStockham, int kN>
+template <bool kStockham, int kN, bool kBs>
 __global__ void __launch_bounds__(resident_threads(kStockham, kN), 1)
 mega_resident(const __grid_constant__ MegaArgs a) {
   extern __shared__ float2 s[];
   const int na = a.na, nr = a.nr;
   const int total = na * nr;
   const long long scene = (long long)blockIdx.x * total;
+  int* ex = reinterpret_cast<int*>(s + (kStockham ? stockham_points(total)
+                                                  : total));
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     s[kStockham ? swz(i) : i] = make_float2(a.xr[scene + i], a.xi[scene + i]);
   }
@@ -203,9 +222,11 @@ mega_resident(const __grid_constant__ MegaArgs a) {
   for (int k = 0; k < a.nseg; ++k) {
     const Segment& g = a.seg[k];
     if (g.axis == 1) {   // rows
-      resident_segment<false, kStockham, kN>(Lines{s, na, nr, nr, 1}, g);
+      resident_segment<false, kStockham, kN, kBs>(Lines{s, na, nr, nr, 1}, g,
+                                                  ex);
     } else {             // columns
-      resident_segment<true, kStockham, kN>(Lines{s, nr, na, 1, nr}, g);
+      resident_segment<true, kStockham, kN, kBs>(Lines{s, nr, na, 1, nr}, g,
+                                                 ex);
     }
   }
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
@@ -226,7 +247,7 @@ mega_resident(const __grid_constant__ MegaArgs a) {
 // every transform has N = kN and its Stockham ops are inlined (the main
 // path's 4096^2 scene takes kN = 4096: out of line they spilled 1-3 KB
 // each under this kernel's register budget).
-template <bool kStockham, int kN>
+template <bool kStockham, int kN, bool kBs>
 __global__ void __launch_bounds__(kStockham ? kStockhamThreads : kMmaThreads,
                                   1)
 mega_staged(const __grid_constant__ MegaArgs a) {
@@ -249,9 +270,9 @@ mega_staged(const __grid_constant__ MegaArgs a) {
     const float* xi = k == 0 ? a.xi : a.yi;
     for (int t = blockIdx.x; t < a.batch * tiles; t += gridDim.x) {
       const int b = t / tiles;
-      tile_op<kStockham, kN>(s, xr, xi, a.yr, a.yi, b * scene_points, lines,
-                             (t - b * tiles) * C, C, g.axis, g.fwd, g.inv,
-                             g.d, m, g.f);
+      tile_op<kStockham, kN, kBs>(s, xr, xi, a.yr, a.yi, b * scene_points,
+                                  lines, (t - b * tiles) * C, C, g.axis,
+                                  g.fwd, g.inv, g.d, m, g.f);
       __syncthreads();   // the next tile's load overwrites s
     }
     if (k + 1 < a.nseg) grid.sync();
@@ -268,13 +289,13 @@ const T* as_ptr(long long v) {
 // twi, hr, hi, h_line, h_k, u, v, u_line, u_k, v_n, v_k, stw). A non-null
 // stw (the Stockham twiddle table) puts the segment on the Stockham route.
 cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
-                   float* yi, int batch, int na, int nr, int nseg,
+                   float* yi, int batch, int na, int nr, int nseg, int bs,
                    const long long* table) {
   if (nseg < 1 || nseg > kMaxSegments || batch < 1 || na < 1 || nr < 1) {
     return cudaErrorInvalidValue;
   }
   a.xr = xr; a.xi = xi; a.yr = yr; a.yi = yi;
-  a.batch = batch; a.na = na; a.nr = nr; a.nseg = nseg;
+  a.batch = batch; a.na = na; a.nr = nr; a.nseg = nseg; a.bs = bs;
   for (int k = 0; k < nseg; ++k) {
     const long long* r = table + (long long)k * kSegFields;
     Segment& g = a.seg[k];
@@ -303,7 +324,9 @@ cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
 }
 
 // The route of a call: Stockham iff a transforming segment carries the
-// twiddle table. Every transforming segment must agree (-1 otherwise).
+// twiddle table. Every transforming segment must agree (-1 otherwise). A
+// chain of filter-only segments runs the matmul instantiation, or, with the
+// bs16 codec, the Stockham one (the only one that codes).
 int route(const MegaArgs& a) {
   int r = 0, seen = 0;
   for (int k = 0; k < a.nseg; ++k) {
@@ -314,7 +337,7 @@ int route(const MegaArgs& a) {
     r = sk;
     seen = 1;
   }
-  return r;
+  return seen ? r : (a.bs != 0);
 }
 
 // The N of every transforming segment when they agree, else 0.
@@ -331,42 +354,44 @@ int transform_n(const MegaArgs& a) {
 
 // Shared memory of a mega_staged phase: its tile (whole runs of 16 points
 // on the Stockham route, for swz), and on the matmul route F1 and F2 past
-// it.
-size_t staged_smem(const Segment& g, bool stockham) {
+// it; with bs (Stockham route) the codec's words past the tile: two a
+// thread for a transform, or one a line (codec_words).
+size_t staged_smem(const Segment& g, bool stockham, bool bs) {
   const int points = g.tile * g.d.n;
   size_t bytes =
       (size_t)(stockham ? stockham_points(points) : points) * sizeof(float2);
   if (!stockham && (g.fwd || g.inv)) {
     bytes += dft_smem_floats(g.d.n1, g.d.n2) * sizeof(float);
   }
+  if (bs) bytes += codec_words(g.tile, kStockhamThreads) * sizeof(int);
   return bytes;
 }
 
-template <bool kStockham, int kN>
+template <bool kStockham, int kN, bool kBs = false>
 cudaError_t launch_resident(const MegaArgs& a, int threads, size_t smem,
                             cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      mega_resident<kStockham, kN>,
+      mega_resident<kStockham, kN, kBs>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  mega_resident<kStockham, kN><<<a.batch, threads, smem, stream>>>(a);
+  mega_resident<kStockham, kN, kBs><<<a.batch, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Blocks of mega_staged<kStockham, kN> one SM holds with `smem` bytes of
 // dynamic shared memory (after setting the attribute), or the error.
-template <bool kStockham, int kN>
+template <bool kStockham, int kN, bool kBs = false>
 cudaError_t staged_per_sm(size_t smem, int& per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
-      mega_staged<kStockham, kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      mega_staged<kStockham, kN, kBs>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mega_staged<kStockham, kN>,
+      &per_sm, mega_staged<kStockham, kN, kBs>,
       kStockham ? kStockhamThreads : kMmaThreads, smem);
 }
 
-template <bool kStockham, int kN>
+template <bool kStockham, int kN, bool kBs = false>
 cudaError_t launch_staged(MegaArgs& a, long long work, size_t smem,
                           cudaStream_t stream) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -377,13 +402,15 @@ cudaError_t launch_staged(MegaArgs& a, long long work, size_t smem,
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if ((err = staged_per_sm<kStockham, kN>(smem, per_sm)) != cudaSuccess) {
+  if ((err = staged_per_sm<kStockham, kN, kBs>(smem, per_sm)) !=
+      cudaSuccess) {
     return err;
   }
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int grid = (int)std::min((long long)per_sm * sms, work);
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)mega_staged<kStockham, kN>,
+  err = cudaLaunchCooperativeKernel((const void*)mega_staged<kStockham, kN,
+                                                            kBs>,
                                     dim3(grid),
                                     dim3(kStockham ? kStockhamThreads
                                                    : kMmaThreads),
@@ -400,14 +427,18 @@ extern "C" {
 // (cudaGetLastError() after it; 0 on success). The caller has checked
 // shapes, types, devices and contiguity.
 
+// block_scaled: the bs16 codec in every segment (the Stockham route only).
+
 int mega_resident_launch(const float* xr, const float* xi, float* yr,
                          float* yi, int batch, int na, int nr, int nseg,
-                         const long long* table, void* stream) {
+                         int block_scaled, const long long* table,
+                         void* stream) {
   MegaArgs a;
-  cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg, table);
+  cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg,
+                           block_scaled, table);
   if (err != cudaSuccess) return (int)err;
   const int r = route(a);
-  if (r < 0) return (int)cudaErrorInvalidValue;
+  if (r < 0 || (block_scaled && !r)) return (int)cudaErrorInvalidValue;
   const int total = na * nr;
   const int need = ((total + kPerThread - 1) / kPerThread + 31) / 32 * 32;
   // Stockham: up to 512 threads, 16 points a thread, rounds of lines;
@@ -433,24 +464,30 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
       return (int)cudaErrorInvalidConfiguration;
     }
   }
-  const size_t smem = (size_t)(r ? stockham_points(total) : total) *
-                      sizeof(float2);
+  const size_t smem =
+      (size_t)(r ? stockham_points(total) : total) * sizeof(float2) +
+      (block_scaled ? (size_t)std::max(na, nr) * sizeof(int) : 0);
   const cudaStream_t st = (cudaStream_t)stream;
   if (!r) return (int)launch_resident<false, 0>(a, threads, smem, st);
+  if (block_scaled) {
+    return (int)(n128 ? launch_resident<true, 128, true>(a, threads, smem, st)
+                      : launch_resident<true, 0, true>(a, threads, smem, st));
+  }
   return (int)(n128 ? launch_resident<true, 128>(a, threads, smem, st)
                    : launch_resident<true, 0>(a, threads, smem, st));
 }
 
 int mega_staged_launch(const float* xr, const float* xi, float* yr,
                        float* yi, int batch, int na, int nr, int nseg,
-                       int buffer_depth, const long long* table,
-                       void* stream) {
+                       int buffer_depth, int block_scaled,
+                       const long long* table, void* stream) {
   if (buffer_depth < 1) return (int)cudaErrorInvalidValue;
   MegaArgs a;
-  cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg, table);
+  cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg,
+                           block_scaled, table);
   if (err != cudaSuccess) return (int)err;
   const int r = route(a);
-  if (r < 0) return (int)cudaErrorInvalidValue;
+  if (r < 0 || (block_scaled && !r)) return (int)cudaErrorInvalidValue;
   const int threads = r ? kStockhamThreads : kMmaThreads;
   size_t smem = 0;
   long long work = 0;
@@ -465,15 +502,19 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
                                  mma_fits(threads, g.d.n2, g.d.n1)))) {
       return (int)cudaErrorInvalidConfiguration;
     }
-    smem = std::max(smem, staged_smem(g, r));
+    smem = std::max(smem, staged_smem(g, r, block_scaled));
     work = std::max(work,
                     (long long)batch * ((lines + g.tile - 1) / g.tile));
   }
   const cudaStream_t st = (cudaStream_t)stream;
   if (!r) return (int)launch_staged<false, 0>(a, work, smem, st);
-  return (int)(transform_n(a) == 4096
-                   ? launch_staged<true, 4096>(a, work, smem, st)
-                   : launch_staged<true, 0>(a, work, smem, st));
+  const bool n4096 = transform_n(a) == 4096;
+  if (block_scaled) {
+    return (int)(n4096 ? launch_staged<true, 4096, true>(a, work, smem, st)
+                       : launch_staged<true, 0, true>(a, work, smem, st));
+  }
+  return (int)(n4096 ? launch_staged<true, 4096>(a, work, smem, st)
+                     : launch_staged<true, 0>(a, work, smem, st));
 }
 
 // Blocks of mega_staged on the given route (stockham != 0) one SM holds

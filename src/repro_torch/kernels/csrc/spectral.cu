@@ -61,6 +61,15 @@
 //     Self-sorting, so nothing is permuted and the filter index is the
 //     natural one; twiddles from the table fft4step.stockham_table builds
 //     on the host (the plain version reads the same numbers).
+//   * bs16 (Stockham route; bf16 and f16 are its f32 passes, since the
+//     route has no matrix operands): each line's exponent is reduced from
+//     the points the first step loaded into registers (warp shuffles, and
+//     a slot a thread in shared memory where a line spans warps), the
+//     points scaled by 2^-e before the first butterflies and by 2^e at the
+//     store (spectral_common.cuh, "The bs16 codec"); a filter-only launch
+//     codes its tile in shared memory. The codec is a template flag
+//     (spectral_kernel<kStockham, kBs>): the f32 instantiations carry none
+//     of its code.
 //   * The matmul route moves the tile between device and shared memory in
 //     16-byte accesses (4 points of a row, or one point of 4 adjacent
 //     columns) wherever the layout and alignment allow, and filters it in
@@ -92,8 +101,9 @@ struct Args {
 };
 
 // One tile of whole lines per CTA: grid (tiles, batch). The matmul route
-// keeps F1 and F2 in shared memory past the tile.
-template <bool kStockham>
+// keeps F1 and F2 in shared memory past the tile; kBs (the Stockham route)
+// the codec's words (codec_words).
+template <bool kStockham, bool kBs = false>
 __device__ __forceinline__ void spectral_tile(const Args& a) {
   extern __shared__ float2 s[];
   Mats m{};
@@ -102,18 +112,18 @@ __device__ __forceinline__ void spectral_tile(const Args& a) {
       m = mats_to_shared(reinterpret_cast<float*>(s + a.tile * a.d.n), a.d);
     }
   }
-  tile_op<kStockham>(s, a.xr, a.xi, a.yr, a.yi,
-                     (long long)blockIdx.y * a.lines * a.d.n, a.lines,
-                     blockIdx.x * a.tile, a.tile, a.axis, a.fwd, a.inv, a.d,
-                     m, a.f);
+  tile_op<kStockham, 0, kBs>(s, a.xr, a.xi, a.yr, a.yi,
+                             (long long)blockIdx.y * a.lines * a.d.n, a.lines,
+                             blockIdx.x * a.tile, a.tile, a.axis, a.fwd,
+                             a.inv, a.d, m, a.f);
 }
 
-template <bool kStockham>
+template <bool kStockham, bool kBs>
 __global__ void spectral_kernel(const Args a);
 
 template <>
 __global__ void __launch_bounds__(kMmaThreads)
-spectral_kernel<false>(const Args a) {
+spectral_kernel<false, false>(const Args a) {
   spectral_tile<false>(a);
 }
 
@@ -123,8 +133,14 @@ spectral_kernel<false>(const Args a) {
 // the kernel made a call.
 template <>
 __global__ void __launch_bounds__(kStockhamThreads, 1)
-spectral_kernel<true>(const Args a) {
+spectral_kernel<true, false>(const Args a) {
   spectral_tile<true>(a);
+}
+
+template <>
+__global__ void __launch_bounds__(kStockhamThreads, 1)
+spectral_kernel<true, true>(const Args a) {
+  spectral_tile<true, true>(a);
 }
 
 template <class K>
@@ -149,7 +165,9 @@ extern "C" {
 // Stockham reads stw alone (at most 512 threads, stockham_per_thread
 // points a thread, a tile op that is built: threads = tile * n / points
 // puts no thread idle, which per-line barriers need). The caller has
-// checked shapes, types, devices and contiguity.
+// checked shapes, types, devices and contiguity. block_scaled: the bs16
+// codec around the op, on the Stockham instantiation (a filter-only launch
+// takes it too, with the tile and threads the host gave).
 int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
                     int batch, int lines, int n, int n1, int n2, int axis,
                     int fwd, int inv, int mode, const float* f1r,
@@ -159,7 +177,7 @@ int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
                     const float* hi, const float* u, const float* v, int rank,
                     long long h_line, long long h_k, long long u_line,
                     long long u_k, long long v_n, long long v_k, int tile,
-                    int threads, void* stream) {
+                    int threads, int block_scaled, void* stream) {
   Args a;
   a.xr = xr; a.xi = xi; a.yr = yr; a.yi = yi;
   a.d = Dft{f1r, f1i, f2r, f2i, twr, twi,
@@ -168,8 +186,11 @@ int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
   a.lines = lines;
   a.axis = axis; a.fwd = fwd; a.inv = inv;
   a.tile = tile;
-  const bool stockham = stw != nullptr;
   const bool any_fft = fwd || inv;
+  if (block_scaled && any_fft && stw == nullptr) {   // the matmul route's
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool stockham = stw != nullptr || block_scaled;
   const int per = stockham_per_thread(tile * n, n, threads);   // Stockham
   if (stockham ? threads > kStockhamThreads || threads * per < tile * n ||
                      !stockham_tile_built(axis, n, per)
@@ -185,12 +206,17 @@ int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
   size_t smem = (size_t)tile * n * sizeof(float2);
   if (stockham) smem = (size_t)stockham_points(tile * n) * sizeof(float2);
   if (!stockham && any_fft) smem += dft_smem_floats(n1, n2) * sizeof(float);
+  if (block_scaled) smem += codec_words(tile, threads) * sizeof(int);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (block_scaled) {
+    return (int)launch(spectral_kernel<true, true>, a, batch, threads, smem,
+                       st);
+  }
   return (int)(stockham
-                   ? launch(spectral_kernel<true>, a, batch, threads, smem,
-                            st)
-                   : launch(spectral_kernel<false>, a, batch, threads, smem,
-                            st));
+                   ? launch(spectral_kernel<true, false>, a, batch, threads,
+                            smem, st)
+                   : launch(spectral_kernel<false, false>, a, batch, threads,
+                            smem, st));
 }
 
 const char* spectral_error_string(int code) {

@@ -543,6 +543,103 @@ __device__ __forceinline__ float inverse_scale(bool inv, int n) {
 }
 
 // ---------------------------------------------------------------------------
+// The bs16 codec (replacing the JAX package's line_exponents /
+// remove_exponents / apply_exponents, src/repro/kernels/fft4step.py:551-590,
+// as its _spectral_kernel runs them around a transform, :617-635)
+// ---------------------------------------------------------------------------
+//
+// One power-of-two exponent a line, e = ceil(log2(max(amax, 1e-37))) in
+// [-126, 126], amax the line's largest |re| or |im| on the op's load; the
+// line is scaled by 2^-e there and by 2^e at the store, after the inverse's
+// (scale, iscale). Both scales are built from the exponent bits (never
+// exp2f), and the ceil-log2 is read from the float's bits, as the plain
+// version (fft4step.line_exponents) reads it, so kernel and plain version
+// agree bit for bit. On the Stockham route a power-of-two scale commutes
+// with every pass exactly, so bs16 changes a result only where values leave
+// the normal float range (a subnormal line comes out more exactly). A
+// megakernel runs the codec in every segment: each segment's store folds
+// its exponents back in, which is, point for point, the plain version's
+// carrying them to the next segment boundary.
+
+// The codec's exponent of a line whose largest |re| or |im| is amax (the
+// floor keeps the argument a normal float, so its bits give the ceil).
+__device__ __forceinline__ int line_exponent(float amax) {
+  const unsigned b = __float_as_uint(fmaxf(amax, 1e-37f));
+  const int e = (int)(b >> 23) - 127 + ((b & 0x7fffffu) != 0u ? 1 : 0);
+  return min(126, max(-126, e));
+}
+
+// Words of shared memory the codec takes past a Stockham tile of `lines`
+// lines: stockham_op's two a thread (a line's partial maxima, then 2^e for
+// the store), or a filter-only tile's exponent a line.
+__host__ __device__ inline int codec_words(int lines, int threads) {
+  return 2 * threads > lines ? 2 * threads : lines;
+}
+
+// 2^e for an integer e in [-126, 126], exactly.
+__device__ __forceinline__ float pow2(int e) {
+  return __int_as_float((e + 127) << 23);
+}
+
+__device__ __forceinline__ float point_amax(float2 v) {
+  return fmaxf(fabsf(v.x), fabsf(v.y));
+}
+
+__device__ __forceinline__ float2 scale2(float2 v, float s) {
+  return make_float2(__fmul_rn(v.x, s), __fmul_rn(v.y, s));
+}
+
+template <bool kLineFast, bool kSwz>
+__device__ __forceinline__ float2* line_point(const Lines& L, int c, int p) {
+  return kSwz ? L.s + swz(kLineFast ? c + p * L.es : c * L.ls + p)
+              : at<kLineFast>(L, c, p);
+}
+
+// The codec on lines held in shared memory (a filter-only tile, the
+// resident slab; kSwz: the Stockham route's swizzled lines): encode takes
+// each line's exponent into ex[c] (its amax by an atomicMax on the bits,
+// which order non-negative floats) and scales the line by 2^-e in place;
+// decode scales it by 2^e. Whole passes over the lines, between barriers.
+template <bool kLineFast, bool kSwz>
+__device__ __forceinline__ void lines_encode(const Lines& L, int* ex) {
+  unsigned* bits = reinterpret_cast<unsigned*>(ex);
+  for (int c = threadIdx.x; c < L.lines; c += blockDim.x) bits[c] = 0u;
+  __syncthreads();
+  const int total = L.lines * L.n;
+  for (int o = threadIdx.x; o < total; o += blockDim.x) {
+    int c, p;
+    split<kLineFast>(L, o, c, p);
+    atomicMax(bits + c,
+              __float_as_uint(point_amax(*line_point<kLineFast, kSwz>(L, c,
+                                                                      p))));
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < L.lines; c += blockDim.x) {
+    ex[c] = line_exponent(__uint_as_float(bits[c]));
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < total; o += blockDim.x) {
+    int c, p;
+    split<kLineFast>(L, o, c, p);
+    float2* e = line_point<kLineFast, kSwz>(L, c, p);
+    *e = scale2(*e, pow2(-ex[c]));
+  }
+  __syncthreads();
+}
+
+template <bool kLineFast, bool kSwz>
+__device__ __forceinline__ void lines_decode(const Lines& L, const int* ex) {
+  const int total = L.lines * L.n;
+  for (int o = threadIdx.x; o < total; o += blockDim.x) {
+    int c, p;
+    split<kLineFast>(L, o, c, p);
+    float2* e = line_point<kLineFast, kSwz>(L, c, p);
+    *e = scale2(*e, pow2(ex[c]));
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
 // The Stockham route (replacing the JAX package's _fft_stockham,
 // src/repro/kernels/fft4step.py:422)
 // ---------------------------------------------------------------------------
@@ -697,6 +794,45 @@ __device__ __forceinline__ LineSync line_sync(int lines, int n, int points) {
   return LineSync{0, 0};
 }
 
+// The maximum of m over the threads of this thread's line, `units` threads
+// a line: a run of consecutive threads (rows), or every `here`-th thread
+// with `here` lines in the block (columns). Lanes of one line combine by
+// shuffles; where a line spans warps, each thread leaves its value in
+// red[thread] and, behind bar, reads one of each warp (or each thread of
+// the line, where its lanes do not pair by xor). Every thread of the block
+// calls it; a thread with no line holds 0.
+template <bool kLineFast>
+__device__ __forceinline__ float line_max(float m, int here, int units,
+                                          float* red, const LineSync& bar) {
+  const unsigned full = 0xffffffffu;
+  const int t = threadIdx.x;
+  int first, step, count;
+  if (!kLineFast) {
+    for (int off = 1; off < min(units, 32); off <<= 1) {
+      m = fmaxf(m, __shfl_xor_sync(full, m, off));
+    }
+    if (units <= 32) return m;
+    first = t - t % units;
+    step = 32;
+    count = units / 32;
+  } else {
+    step = here;
+    if (here < 32 && (here & (here - 1)) == 0) {
+      for (int off = here; off < 32; off <<= 1) {
+        m = fmaxf(m, __shfl_xor_sync(full, m, off));
+      }
+      step = 32;
+    }
+    first = t % here;
+    count = here * units / step;
+  }
+  red[t] = m;
+  bar.sync();
+  float r = 0.0f;
+  for (int k = 0; k < count; ++k) r = fmaxf(r, red[first + k * step]);
+  return r;
+}
+
 // This thread's line c and unit u (n >= points): a thread keeps one line
 // and one unit u < n / points through every step, its groups
 // g = u + i n / points. Rows put a line's units on neighbouring threads,
@@ -769,8 +905,9 @@ __device__ __noinline__ void phase_factors(const Lines B, int points,
 // zero and are never filtered nor stored. The block's threads take lines
 // from line_base on (a slab of more lines than the block holds runs in
 // rounds). In place, every write is done on exit.
-template <bool kLineFast, int kN, bool kIo, int kP>
+template <bool kLineFast, int kN, bool kIo, int kP, bool kBs = false>
 struct StockhamOp {
+  static_assert(kIo || !kBs, "the codec in registers needs a device tile");
   static constexpr int kUnits = kN / kP;   // threads a line (kN >= kP)
   using First = Step<kN, 0, 0>;
   using Last = typename LastStep<First>::type;
@@ -789,6 +926,7 @@ struct StockhamOp {
   long long pstride = 0;    // kIo: element distance of neighbouring points
   bool from_shared = !kIo;  // a was read from L.s (else device memory)
   float2 a[kP];
+  float up[kN < kP ? kP / kN : 1];   // kBs, kN < kP: 2^e of a slot's line
 
   __device__ __forceinline__ StockhamOp(const Lines& lines, const Io& io_,
                                         const float2* __restrict__ tw_,
@@ -924,11 +1062,55 @@ struct StockhamOp {
     }
   }
 
+  // kBs: the codec's 2 blockDim floats of shared memory past the tile
+  __device__ __forceinline__ float* codec() const {
+    return reinterpret_cast<float*>(L.s + stockham_points(L.lines * kN));
+  }
+
+  // kBs on the loaded points: each line's exponent (this thread's
+  // maximum, then its line's through line_max, where a line spans
+  // threads), the points scaled by 2^-e in registers, 2^e kept for the
+  // store (codec()[blockDim + thread]; per slot where a slot is a whole
+  // line)
+  __device__ __forceinline__ void encode() {
+    if constexpr (kN >= kP) {
+      float* red = codec();
+      float m = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kP; ++j) m = fmaxf(m, point_amax(a[j]));
+      const int here = min(L.lines - line_base, (int)blockDim.x / kUnits);
+      const int e = line_exponent(
+          line_max<kLineFast>(m, here, kUnits, red, bar));
+      const float down = pow2(-e);
+#pragma unroll
+      for (int j = 0; j < kP; ++j) a[j] = scale2(a[j], down);
+      red[blockDim.x + threadIdx.x] = pow2(e);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kP / kN; ++i) {
+        float m = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kN; ++j) m = fmaxf(m, point_amax(a[i * kN + j]));
+        const int e = line_exponent(m);
+        const float down = pow2(-e);
+#pragma unroll
+        for (int j = 0; j < kN; ++j) a[i * kN + j] = scale2(a[i * kN + j],
+                                                            down);
+        up[i] = pow2(e);
+      }
+    }
+  }
+
   // step S's outputs to device memory (kGlobal; lines below `valid`) or
-  // buf, times (scale, iscale) when `scaled`
+  // buf, times (scale, iscale) when `scaled`, then, kGlobal with kBs, by
+  // the line's 2^e
   template <class S, bool kGlobal>
   __device__ __forceinline__ void write(float2* buf, bool scaled,
                                         float scale, float iscale) {
+    float up_line = 1.0f;
+    if constexpr (kGlobal && kBs && kN >= kP) {
+      up_line = codec()[blockDim.x + threadIdx.x];
+    }
 #pragma unroll
     for (int i = 0; i < kP / S::g; ++i) {
       int c, g;
@@ -940,6 +1122,9 @@ struct StockhamOp {
         float2 v = a[i * S::g + j];
         if (scaled) {
           v = make_float2(__fmul_rn(v.x, scale), __fmul_rn(v.y, iscale));
+        }
+        if constexpr (kGlobal && kBs) {
+          v = scale2(v, kN >= kP ? up_line : up[kN >= kP ? 0 : i]);
         }
         if constexpr (kGlobal) {
           if (store) {
@@ -1001,6 +1186,7 @@ struct StockhamOp {
                                       float iscale) {
     const bool filt = f.mode != kNone;
     read<First, kIo>(L.s, !fwd && !filt);
+    if constexpr (kBs) encode();
     if (!fwd && filt) {       // inverse-only: filter the loaded inputs
       filter<First>(L.s, false);
       conj();
@@ -1031,15 +1217,15 @@ struct StockhamOp {
 // One Stockham op on kN-point lines, out of line: each n, layout and
 // source gets a register allocation of its own (inlined side by side, the
 // twelve lengths shared one and spilled).
-template <bool kLineFast, int kN, bool kIo, int kP>
+template <bool kLineFast, int kN, bool kIo, int kP, bool kBs>
 __device__ __noinline__ void stockham_n(const Lines L, const Io io,
                                         const float2* __restrict__ tw,
                                         bool fwd, bool inv, const Filter f,
                                         long long fline0, int valid,
                                         float scale, float iscale,
                                         const LineSync bar, int line_base) {
-  StockhamOp<kLineFast, kN, kIo, kP>(L, io, tw, f, fline0, valid, bar,
-                                     line_base)
+  StockhamOp<kLineFast, kN, kIo, kP, kBs>(L, io, tw, f, fline0, valid, bar,
+                                          line_base)
       .run(fwd, inv, scale, iscale);
 }
 
@@ -1053,7 +1239,7 @@ __device__ __noinline__ void stockham_n(const Lines L, const Io io,
 // budget and ran slower, PERF.md): 32 points a thread in a 4-column tile
 // at N = 4096, else 16, `points` unused; kN == 0: by L.n, out of line. A
 // shape no op is built for traps (the launchers refuse it first).
-template <bool kLineFast, bool kIo, int kN = 0>
+template <bool kLineFast, bool kIo, int kN = 0, bool kBs = false>
 __device__ __forceinline__ void stockham_op(const Lines& L, const Io& io,
                                             const float2* __restrict__ tw,
                                             bool fwd, bool inv,
@@ -1068,22 +1254,22 @@ __device__ __forceinline__ void stockham_op(const Lines& L, const Io& io,
             ? kWidePerThread
             : kPerThread;
     if (kIo && L.lines * kN > kP * (int)blockDim.x) __trap();
-    StockhamOp<kLineFast, kN, kIo, kP>(L, io, tw, f, fline0, valid, bar,
-                                       line_base)
+    StockhamOp<kLineFast, kN, kIo, kP, kBs>(L, io, tw, f, fline0, valid,
+                                            bar, line_base)
         .run(fwd, inv, scale, iscale);
     return;
   }
 #define SPECTRAL_STOCKHAM_N(kN, kP)                                          \
   case kN:                                                                   \
-    stockham_n<kLineFast, kN, kIo, kP>(L, io, tw, fwd, inv, f, fline0,       \
-                                       valid, scale, iscale, bar,            \
-                                       line_base);                           \
+    stockham_n<kLineFast, kN, kIo, kP, kBs>(L, io, tw, fwd, inv, f, fline0,  \
+                                            valid, scale, iscale, bar,       \
+                                            line_base);                      \
     return;
   if (points == kWidePerThread) {
     if constexpr (kIo) {   // columns at N = 4096
       if constexpr (kLineFast) {
         if (L.n == 4096) {
-          stockham_n<kLineFast, 4096, kIo, kWidePerThread>(
+          stockham_n<kLineFast, 4096, kIo, kWidePerThread, kBs>(
               L, io, tw, fwd, inv, f, fline0, valid, scale, iscale, bar,
               line_base);
           return;
@@ -1129,8 +1315,11 @@ __device__ __forceinline__ void stockham_op(const Lines& L, const Io& io,
 // tile_op): a transform through stockham_op, the tile in s as
 // C lines of n points — rows s[c * n + p], columns s[p * C + c], so that
 // neighbouring lanes take neighbouring columns — swizzled; filter-only
-// straight from device memory to device memory.
-template <bool kLineFast, int kN = 0>
+// straight from device memory to device memory, or with kBs (the bs16
+// codec) through s, its lines coded there, their exponents past the tile.
+// kBs: the codec's shared memory follows the tile (codec_words: stockham_op's
+// 2 blockDim floats, or a filter-only tile's C exponents).
+template <bool kLineFast, int kN = 0, bool kBs = false>
 __device__ __forceinline__ void stockham_tile(float2* s, const Io& io,
                                               int C, int n,
                                               int valid, bool fwd, bool inv,
@@ -1140,10 +1329,37 @@ __device__ __forceinline__ void stockham_tile(float2* s, const Io& io,
   const Lines L = kLineFast ? Lines{s, C, n, 1, C} : Lines{s, C, n, n, 1};
   if (fwd || inv) {
     const int points = stockham_per_thread(C * n, n, blockDim.x);
-    stockham_op<kLineFast, true, kN>(L, io, tw, fwd, inv, f, io.line0,
-                                     valid, scale, iscale,
-                                     line_sync<kLineFast>(C, n, points), 0,
-                                     points);
+    stockham_op<kLineFast, true, kN, kBs>(L, io, tw, fwd, inv, f, io.line0,
+                                          valid, scale, iscale,
+                                          line_sync<kLineFast>(C, n, points),
+                                          0, points);
+    return;
+  }
+  if constexpr (kBs) {
+    int* ex = reinterpret_cast<int*>(s + stockham_points(C * n));
+    for (int o = threadIdx.x; o < C * n; o += blockDim.x) {
+      int c, p;
+      split_items<kLineFast>(C, n, o, c, p);
+      float2 v = make_float2(0.0f, 0.0f);
+      if (c < valid) {
+        const long long e = io.at(c, p, n);
+        v = make_float2(__ldcg(io.xr + e), __ldcg(io.xi + e));
+      }
+      *at<kLineFast>(L, c, p) = v;
+    }
+    __syncthreads();
+    lines_encode<kLineFast, false>(L, ex);
+    filter_pass<kLineFast>(L, f, io.line0, valid, false, 1, 1);
+    lines_decode<kLineFast, false>(L, ex);   // scale, iscale: 1 here
+    for (int o = threadIdx.x; o < C * n; o += blockDim.x) {
+      int c, p;
+      split_items<kLineFast>(C, n, o, c, p);
+      if (c >= valid) continue;
+      const long long e = io.at(c, p, n);
+      const float2 v = *at<kLineFast>(L, c, p);
+      io.yr[e] = __fmul_rn(v.x, scale);
+      io.yi[e] = __fmul_rn(v.y, iscale);
+    }
     return;
   }
   for (int o = threadIdx.x; o < C * n; o += blockDim.x) {
@@ -1227,14 +1443,16 @@ __device__ __forceinline__ void move_vec4(bool store, float2* s,
 // path: in mega_staged it was written by other blocks before the last
 // grid barrier, and may be the same buffer as the output. On the matmul
 // route m holds the DFT matrices (in shared memory past the tile). The
-// Stockham route runs stockham_tile (kN: as stockham_op's).
-template <bool kStockham, int kN = 0>
+// Stockham route runs stockham_tile (kN: as stockham_op's; kBs: the bs16
+// codec around the op, the Stockham route's alone).
+template <bool kStockham, int kN = 0, bool kBs = false>
 __device__ __forceinline__ void tile_op(float2* s, const float* xr,
                                         const float* xi, float* yr, float* yi,
                                         long long scene, int lines, int line0,
                                         int C, int axis, bool fwd, bool inv,
                                         const Dft& d, const Mats& m,
                                         const Filter& f) {
+  static_assert(kStockham || !kBs, "the codec runs on the Stockham route");
   const int n = d.n, n1 = d.n1, n2 = d.n2;
   const int total = C * n;
   const int T = blockDim.x;
@@ -1244,11 +1462,11 @@ __device__ __forceinline__ void tile_op(float2* s, const float* xr,
   if constexpr (kStockham) {
     const Io io{xr, xi, yr, yi, scene, lines, line0, axis};
     if (axis == 1) {
-      stockham_tile<false, kN>(s, io, C, n, valid, fwd, inv, d.stw, f, scale,
-                               iscale);
+      stockham_tile<false, kN, kBs>(s, io, C, n, valid, fwd, inv, d.stw, f,
+                                    scale, iscale);
     } else {
-      stockham_tile<true, kN>(s, io, C, n, valid, fwd, inv, d.stw, f, scale,
-                              iscale);
+      stockham_tile<true, kN, kBs>(s, io, C, n, valid, fwd, inv, d.stw, f,
+                                   scale, iscale);
     }
     return;
   }

@@ -65,11 +65,16 @@ MAX_FACTOR = 128  # every DFT-matrix factor is a power of two <= 128
 # Matmul-operand precision of the DFT stages. Accumulation is always
 # float32; only the contraction operands are narrowed.
 #
-#   f32   float32 operands (default; the only precision the CUDA kernel takes)
+#   f32   float32 operands (default)
 #   bf16  bfloat16 operands
 #   f16   float16 operands (overflows past |x| ~ 6.5e4; prefer bs16)
 #   bs16  block-scaled float16: one power-of-two exponent per line is
 #         scaled out before the transform and folded back at the store
+#
+# The Stockham route has no matrix operands (``_fft_stockham`` takes no
+# precision), so there bf16 and f16 are the f32 passes and bs16 is the
+# exponent codec around them; the CUDA kernels take all four on that route
+# and f32 alone on the matmul route.
 
 @dataclasses.dataclass(frozen=True)
 class Precision:
@@ -596,15 +601,24 @@ def _apply_filters(xr, xi, axis: int, filter_mode: str, filt):
 
 def line_exponents(xr, xi, axis: int):
     """One power-of-two exponent per line, reduced over the transform axis
-    (the last dim when axis=1, the second-to-last when axis=0). The 1e-37
-    floor keeps all-zero lines finite; the clamp to [-126, 126] keeps
-    ``_pow2`` exact for both exp and -exp."""
+    (the last dim when axis=1, the second-to-last when axis=0):
+    ceil(log2(max(amax, 1e-37))), clamped to [-126, 126]. The 1e-37 floor
+    keeps all-zero lines finite (and the argument a normal float); the
+    clamp keeps ``_pow2`` exact for both exp and -exp.
+
+    The ceil-log2 is read from the float32 bits — the exponent field, plus
+    one unless the mantissa is zero — so it is exact, and the CUDA
+    kernels compute the same integer ops (``spectral_common.cuh::
+    line_exponent``). A float32 ``log2`` rounds to the integer below just
+    above a power of two (log2(2^k (1 + 2^-23)) -> k for k >= 4), where
+    the exact ceil is k + 1."""
     red = xr.ndim - 1 if axis == 1 else xr.ndim - 2
     amax = torch.maximum(xr.abs().amax(dim=red, keepdim=True),
                          xi.abs().amax(dim=red, keepdim=True))
     floor = torch.tensor(1e-37, dtype=torch.float32, device=xr.device)
-    exp = torch.ceil(torch.log2(torch.maximum(amax, floor)))
-    return torch.clamp(exp, -126.0, 126.0)
+    bits = torch.maximum(amax, floor).view(torch.int32)
+    exp = (bits >> 23) - 127 + ((bits & 0x7FFFFF) != 0).to(torch.int32)
+    return torch.clamp(exp, -126, 126).to(torch.float32)
 
 
 def _pow2(exp):

@@ -70,6 +70,23 @@ KERNEL_MAX_N = 4096
 FFT_IMPLS = ("matmul", "stockham")   # the FFT routes of the CUDA kernels
 _MODE_CODES = {m: i for i, m in enumerate(FILTER_MODES)}
 _ROADMAP = "ROADMAP.md Queue 2, item 1"
+# Precisions the CUDA kernels take on each FFT route: the Stockham route
+# has no matrix operands, so bf16 and f16 run its f32 passes and bs16 adds
+# the per-line exponent codec; the matmul route's narrowed operands
+# (m16n8k16 mma.sync) are not written yet.
+KERNEL_PRECISIONS = {"matmul": ("f32",),
+                     "stockham": ("f32", "bf16", "f16", "bs16")}
+
+
+def _check_precision(spec, what: str) -> None:
+    """Raise ValueError for a precision the kernels do not take on
+    ``spec.fft_impl`` (a route they do not know is refused by the caller)."""
+    if spec.precision not in KERNEL_PRECISIONS.get(spec.fft_impl,
+                                                   (spec.precision,)):
+        raise ValueError(
+            f"precision {spec.precision!r} is not taken by the CUDA {what} "
+            f"on the matmul route yet (its bf16/f16/bs16 operands: "
+            f"{_ROADMAP}b, the matmul half; fft_impl='stockham' takes them)")
 
 
 def _pad_lines(x, axis, mult):
@@ -148,7 +165,7 @@ def _bind():
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = ([p] * 4 + [i] * 9 + [p] * 11 + [i] + [ll] * 6
-                       + [i, i, p])
+                       + [i, i, i, p])
         fn.restype = ctypes.c_int
         lib.spectral_error_string.argtypes = [ctypes.c_int]
         lib.spectral_error_string.restype = ctypes.c_char_p
@@ -231,10 +248,7 @@ def check_kernel_spec(spec: SpectralSpec) -> tuple[int, int]:
     returns its two-factor split (n1, n2) on the four-step route
     (``fft_impl="matmul"``) and (n, 1) on the Stockham route, which takes
     any power of two from 2 to 4096 and splits nothing."""
-    if spec.precision != "f32":
-        raise ValueError(
-            f"precision {spec.precision!r} is not taken by the CUDA "
-            f"spectral kernel yet (bf16/f16/bs16: {_ROADMAP}b)")
+    _check_precision(spec, "spectral kernel")
     if spec.karatsuba:
         raise ValueError("karatsuba=True is not taken by the CUDA "
                          f"spectral kernel yet ({_ROADMAP}c)")
@@ -258,6 +272,13 @@ def check_kernel_spec(spec: SpectralSpec) -> tuple[int, int]:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _block_scaled(precision: str) -> int:
+    """The launch's codec flag: 1 for bs16 (per-line exponents scaled out
+    after the load and folded back at the store), else 0 — bf16 and f16
+    run the f32 passes on the Stockham route, the only one taking them."""
+    return int(resolve_precision(precision).block_scaled)
 
 
 def _route_constants(spec: SpectralSpec, n1: int, n2: int, dev) -> tuple:
@@ -338,7 +359,7 @@ def _launch_cuda(spec: SpectralSpec, xr, xi, filter_args):
             _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi),
             b, lines, n, n1, n2, spec.axis, int(spec.fwd), int(spec.inv),
             _MODE_CODES[spec.filter_mode], *(_ptr(c) for c in consts),
-            *filt, tile, threads, stream)
+            *filt, tile, threads, _block_scaled(spec.precision), stream)
     del keep
     if err != 0:
         msg = lib.spectral_error_string(err).decode()
@@ -384,10 +405,11 @@ def spectral_op(xr, xi, hr=None, hi=None, u=None, v=None, **kw):
     Keywords: axis, fwd, inv, filter_mode, block (line padding granule),
     fft_impl ('matmul' | 'stockham'), karatsuba, precision (f32 | bf16 |
     f16 | bs16), n1/n2/n3 (factorization override). On a CUDA tensor this
-    launches the CUDA kernel, which takes f32, karatsuba=False, both FFT
-    routes and N <= 4096 (a two-factor split on the matmul route) and
-    raises ValueError for anything else; on a CPU tensor it runs the
-    plain version, which takes all of them.
+    launches the CUDA kernel, which takes karatsuba=False, N <= 4096 and
+    both FFT routes — f32 and a two-factor split on the matmul route,
+    every precision on the Stockham route — and raises ValueError for
+    anything else; on a CPU tensor it runs the plain version, which takes
+    all of them.
     """
     return _spectral(xr, xi, hr, hi, u, v, False, **kw)
 
@@ -540,8 +562,8 @@ def _bind_mega():
     lib = _build.load(MEGA_KERNEL_NAME)
     if lib.mega_resident_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mega_resident_launch.argtypes = [p] * 4 + [i] * 4 + [p, p]
-        lib.mega_staged_launch.argtypes = [p] * 4 + [i] * 5 + [p, p]
+        lib.mega_resident_launch.argtypes = [p] * 4 + [i] * 5 + [p, p]
+        lib.mega_staged_launch.argtypes = [p] * 4 + [i] * 6 + [p, p]
         for fn in (lib.mega_resident_launch, lib.mega_staged_launch):
             fn.restype = ctypes.c_int
         lib.mega_staged_blocks_per_sm.argtypes = [ctypes.c_longlong, i]
@@ -573,10 +595,7 @@ def staged_tile(n: int, lines: int, fft_impl: str, n1: int,
 
 def check_mega_kernel(spec: MegaSpec) -> None:
     """Raise ValueError for what the CUDA megakernels do not take yet."""
-    if spec.precision != "f32":
-        raise ValueError(
-            f"precision {spec.precision!r} is not taken by the CUDA "
-            f"megakernels yet (bf16/f16/bs16: {_ROADMAP}b)")
+    _check_precision(spec, "megakernels")
     if len(spec.segments) > MEGA_MAX_SEGMENTS:
         raise ValueError(f"the CUDA megakernels take at most "
                          f"{MEGA_MAX_SEGMENTS} segments, got "
@@ -646,12 +665,13 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
         stream = torch.cuda.current_stream(dev).cuda_stream
         head = (_ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), b, spec.na, spec.nr,
                 len(table))
+        bs = _block_scaled(spec.precision)
         if spec.residency == RESIDENT_VMEM:
             kernel = "mega_resident"
-            err = lib.mega_resident_launch(*head, ctable, stream)
+            err = lib.mega_resident_launch(*head, bs, ctable, stream)
         else:
             kernel = "mega_staged"
-            err = lib.mega_staged_launch(*head, spec.buffer_depth, ctable,
+            err = lib.mega_staged_launch(*head, spec.buffer_depth, bs, ctable,
                                          stream)
     del keep
     if err != 0:
@@ -729,8 +749,10 @@ def mega_spectral_op(xr, xi, *filter_args, **kw):
     back scaled with the exponents along the last segment's free axis).
 
     On a CUDA tensor this launches ``mega_resident`` or ``mega_staged``
-    (f32, karatsuba=False, both FFT routes, N <= 4096 — a two-factor split
-    on the matmul route — at most 8 segments) and raises ValueError for
+    (karatsuba=False, N <= 4096, at most 8 segments, both FFT routes: f32
+    and a two-factor split on the matmul route, every precision on the
+    Stockham route, where bs16 runs the codec in each segment) and raises
+    ValueError for
     anything else — including a forced 'vmem' on a scene that does not
     fit; on a CPU tensor it runs
     ``fft4step.mega_plain``, which takes all of them.

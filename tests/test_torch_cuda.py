@@ -8,9 +8,12 @@ installed:
 
 Every test here needs a CUDA card (marker ``gpu``) and skips without one:
 the CUDA kernels have no CPU mode. Tolerance 2e-4 x max|want|, the
-reference's own (tests/test_kernels.py); a transpose is exact. The matmul
-route's tensor-core stages (3xTF32) are also held to torch.fft in
-complex128 at 1e-5 x max|want|, which one TF32 pass (~3e-4) would miss.
+reference's own (tests/test_kernels.py); a transpose is exact. Both FFT
+routes are also held to torch.fft in complex128 at 1e-5 x max|want|,
+which one TF32 pass (~3e-4) on the matmul route's tensor-core stages
+would miss. The Stockham route's bf16 and f16 are its f32 passes, and its
+bs16 codec is held bit for bit to the plain version on lines whose values
+are subnormal, the one place where it changes a result.
 """
 import pytest
 import torch
@@ -92,26 +95,33 @@ def fft128(z, dim, fwd, inv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
 @pytest.mark.parametrize("fwd,inv", DIRS[:3])
 @pytest.mark.parametrize("n", [16, 128, 1024, 4096])
 @pytest.mark.parametrize("axis", [0, 1])
 def test_cuda_matmul_route_matches_complex128(cuda_device, axis, n, fwd,
-                                              inv):
+                                              inv, fft_impl):
+    """Each FFT route against torch.fft in complex128 (the name predates
+    the Stockham route's oracle)."""
     x, _ = make_case(cuda_device, n + 2, "none", axis, n, 2, lines=13)
-    got = ops.spectral_op(*x, axis=axis, fwd=fwd, inv=inv, block=1)
+    got = ops.spectral_op(*x, axis=axis, fwd=fwd, inv=inv, block=1,
+                          fft_impl=fft_impl)
     z = torch.complex(x[0].double(), x[1].double())
     assert_oracle(got, fft128(z, -1 if axis == 1 else -2, fwd, inv))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
 @pytest.mark.parametrize("residency,shape", [
     ("vmem", (128, 128)), ("staged", (128, 128)), ("vmem", (64, 128)),
     ("staged", (256, 512))])
-def test_cuda_megakernels_match_complex128(cuda_device, residency, shape):
+def test_cuda_megakernels_match_complex128(cuda_device, residency, shape,
+                                           fft_impl):
     segments = ((0, True, False, "none"), (1, True, True, "none"),
                 (0, False, True, "none"))
     x, _ = make_mega_case(cuda_device, 3, segments, 2, *shape)
-    got = ops.mega_spectral_op(*x, segments=segments, residency=residency)
+    got = ops.mega_spectral_op(*x, segments=segments, residency=residency,
+                               fft_impl=fft_impl)
     z = torch.complex(x[0].double(), x[1].double())
     for axis, fwd, inv, _mode in segments:
         z = fft128(z, -1 if axis == 1 else -2, fwd, inv)
@@ -150,6 +160,54 @@ def test_cuda_stockham_matches_plain(cuda_device, mode, axis, n, fwd, inv):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def subnormal_lines(x, axis):
+    """Odd lines times 1e-40 (subnormal floats), beside unit-scale lines."""
+    for t in x:
+        if axis == 1:
+            t[:, 1::2] *= 1e-40
+        else:
+            t[:, :, 1::2] *= 1e-40
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fwd,inv", DIRS)
+@pytest.mark.parametrize("n", [16, 128, 1024, 4096])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_stockham_precisions_match_plain(cuda_device, mode, axis, n,
+                                              fwd, inv):
+    """bs16 on the Stockham route: each line's exponent from its loaded
+    points, scaled out before the first butterflies and back in at the
+    store. On lines whose values are subnormal it changes the result, and
+    there the kernel equals its bs16 plain version bit for bit and differs
+    from the f32 kernel; bf16 and f16 are the f32 passes."""
+    if mode == "none" and not (fwd or inv):
+        pytest.skip("nothing to compute")
+    x, filt = make_case(cuda_device, n + 3, mode, axis, n, 2, lines=13)
+    x = subnormal_lines(x, axis)
+    kw = dict(axis=axis, fwd=fwd, inv=inv, filter_mode=mode, block=1,
+              fft_impl="stockham")
+    f32 = ops.spectral_op(*x, **filt, **kw)
+    before = ops.SPECTRAL_LAUNCHES
+    got = ops.spectral_op(*x, **filt, precision="bs16", **kw)
+    torch.cuda.synchronize()
+    assert ops.SPECTRAL_LAUNCHES == before + 1
+    want = ops.spectral_op_plain(*x, **filt, precision="bs16", **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if not (mode == "none" and fwd and inv):
+        # a round trip with nothing between can land on the input's
+        # subnormal grid either way: its 1/N shrinks the f32 path's error
+        # below that grid's step
+        assert not all(torch.equal(g, w) for g, w in zip(got, f32))
+    normal = (slice(None), slice(0, None, 2)) if axis == 1 else \
+        (slice(None), slice(None), slice(0, None, 2))
+    assert all(torch.equal(g[normal], w[normal]) for g, w in zip(got, f32))
+    for precision in ("bf16", "f16"):
+        narrow = ops.spectral_op(*x, **filt, precision=precision, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(narrow, f32))
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_refuses_and_never_falls_back(cuda_device):
     x, _ = make_case(cuda_device, 5, "none", 1, 64, 1, lines=4)
@@ -183,6 +241,16 @@ MEGA_CHAINS = {
     "same_axis": ((1, True, False, "shared"), (1, False, True, "full"),
                   (0, True, True, "outer")),
     "one_segment": ((0, True, True, "shared_outer"),),
+}
+# the CSA and omega-K chains, and filter-only segments (the codec through
+# shared memory)
+BS16_CHAINS = {
+    "csa": ((0, True, False, "full"), (1, True, True, "full"),
+            (0, False, True, "full")),
+    "omegak": ((0, True, False, "none"), (1, True, True, "full"),
+               (0, False, True, "outer")),
+    "filter_only": ((1, False, False, "full"), (0, True, True, "shared"),
+                    (1, False, False, "outer")),
 }
 
 
@@ -253,6 +321,101 @@ def test_cuda_fused1_equals_fused3(cuda_device, n, fft_impl):
     staged = build_pipeline(cfg, "fused1", residency="staged",
                             fft_impl=fft_impl).run(raw)
     assert torch.equal(staged, f3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 128), (128, 64), (128, 128),
+                                   (256, 512)])
+@pytest.mark.parametrize("chain", sorted(MEGA_CHAINS) + ["csa", "omegak",
+                                                          "filter_only"])
+def test_cuda_megakernels_bs16_match_plain(cuda_device, chain, shape):
+    """bs16 through both megakernels on the Stockham route (the codec in
+    every segment), on a batch of a unit-scale scene beside a subnormal
+    one: equal to the plain version bit for bit, resident to staged, and
+    different from f32 on the subnormal scene alone."""
+    segments = {**MEGA_CHAINS, **BS16_CHAINS}[chain]
+    x, args = make_mega_case(cuda_device, 4, segments, 2, *shape)
+    for t in x:
+        t[1] *= 1e-40
+    kw = dict(segments=segments, fft_impl="stockham")
+    want = ops.mega_spectral_op_plain(*x, *args, precision="bs16", **kw)
+    outs = []
+    for residency in ("vmem", "staged"):
+        if residency == "vmem" and ops.mega_residency(*shape) != "vmem":
+            continue
+        kernel = "mega_resident" if residency == "vmem" else "mega_staged"
+        before = ops.MEGA_LAUNCHES[kernel]
+        got = ops.mega_spectral_op(*x, *args, residency=residency,
+                                   precision="bs16", **kw)
+        torch.cuda.synchronize()
+        assert ops.MEGA_LAUNCHES[kernel] == before + 1
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        f32 = ops.mega_spectral_op(*x, *args, residency=residency, **kw)
+        assert all(torch.equal(g[0], w[0]) for g, w in zip(got, f32))
+        assert not all(torch.equal(g[1], w[1]) for g, w in zip(got, f32))
+        for precision in ("bf16", "f16"):
+            narrow = ops.mega_spectral_op(*x, *args, residency=residency,
+                                          precision=precision, **kw)
+            assert all(torch.equal(g, w) for g, w in zip(narrow, f32))
+        outs.append(got)
+    if len(outs) == 2:
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", [None, "bs16"])
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
+@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("variant,twin", [("csa_fused1", "csa_fused"),
+                                          ("omegak_fused1", "omegak")])
+def test_cuda_csa_omegak_fused1_equals_twin(cuda_device, variant, twin, n,
+                                            fft_impl, precision):
+    """CSA and omega-K in one megakernel launch (FULL screens read from
+    device memory) equal their three spectral launches bit for bit."""
+    from repro_torch.core.sar import build_pipeline, paper_targets, simulate
+    from repro_torch.core.sar.geometry import test_scene
+    if precision == "bs16" and fft_impl == "matmul":
+        pytest.skip("bs16 runs on the Stockham route (ROADMAP.md Queue 2 1b)")
+    cfg = test_scene(n)
+    raw = simulate(cfg, paper_targets(cfg))
+    kw = dict(fft_impl=fft_impl, precision=precision)
+    before = ops.SPECTRAL_LAUNCHES
+    three = build_pipeline(cfg, twin, **kw).run(raw)
+    torch.cuda.synchronize()
+    assert ops.SPECTRAL_LAUNCHES == before + 3
+    kernel = "mega_resident" if n == 128 else "mega_staged"
+    before = dict(ops.MEGA_LAUNCHES), ops.SPECTRAL_LAUNCHES
+    one = build_pipeline(cfg, variant, **kw).run(raw)
+    torch.cuda.synchronize()
+    before[0][kernel] += 1
+    assert (ops.MEGA_LAUNCHES, ops.SPECTRAL_LAUNCHES) == before
+    assert torch.isfinite(one).all()
+    assert torch.equal(one, three)
+    staged = build_pipeline(cfg, variant, residency="staged", **kw).run(raw)
+    assert torch.equal(staged, three)
+
+
+@pytest.mark.gpu
+def test_cuda_precisions_refused_on_the_matmul_route_alone(cuda_device):
+    x, _ = make_case(cuda_device, 6, "none", 1, 64, 1, lines=4)
+    segments = MEGA_CHAINS["fused1"]
+    mx, margs = make_mega_case(cuda_device, 6, segments, 1, 64, 64)
+    before = ops.SPECTRAL_LAUNCHES, dict(ops.MEGA_LAUNCHES)
+    for precision in ("bf16", "f16", "bs16"):
+        with pytest.raises(ValueError, match=r"1b, the matmul half"):
+            ops.fft_rows(*x, precision=precision)
+        with pytest.raises(ValueError, match=r"1b, the matmul half"):
+            ops.mega_spectral_op(*mx, *margs, segments=segments,
+                                 precision=precision)
+    assert (ops.SPECTRAL_LAUNCHES, ops.MEGA_LAUNCHES) == before
+    for precision in ("bf16", "f16", "bs16"):
+        ops.fft_rows(*x, precision=precision, fft_impl="stockham")
+        ops.mega_spectral_op(*mx, *margs, segments=segments,
+                             precision=precision, fft_impl="stockham")
+    torch.cuda.synchronize()
+    assert ops.SPECTRAL_LAUNCHES == before[0] + 3
+    assert ops.MEGA_LAUNCHES["mega_resident"] == \
+        before[1]["mega_resident"] + 3
 
 
 @pytest.mark.gpu
