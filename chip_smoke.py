@@ -13,11 +13,14 @@ each printing one JSON line (any failed check raises and exits non-zero):
 2. build   — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``,
              forced, so a second run in the same checkout reports ptxas's
              registers and spills per instantiation too (and per
-             out-of-line Stockham op, 'kernel/stockham_n<layout,N,...>');
+             out-of-line Stockham op, 'kernel/stockham_n<layout,N,...>')
+             and each source's seconds (all compile at once; the matmul
+             route's operand forms of the megakernels build from
+             ``mega.cu`` into a library of their own, ``mega_forms.cu``);
              ``cuobjdump -sass`` must show HMMA TF32 instructions in the
              matmul instantiations of ``spectral_kernel``,
              ``mega_resident`` and ``mega_staged`` (the tensor-core
-             stage).
+             stage), and HMMA BF16 / F16 in the bf16 / f16 / bs16 ones.
 3. kernel  — the CUDA spectral kernel against its plain PyTorch version on
              the card: every filter mode x axis x fwd/inv combination at
              N in {128, 4096}, B in {1, 2}, 37 lines (ragged against every
@@ -128,9 +131,34 @@ each printing one JSON line (any failed check raises and exits non-zero):
              image, whether it equals f32 bit for bit), each bs16 launch
              timed.
 
+16. tuning — the matmul route's operand forms and the tuner that drives
+             them: (1) f32 with Karatsuba, bf16, f16, bs16 and bs16 with
+             Karatsuba through phase 3's grid (both splits at N = 4096,
+             odd lines subnormal for bs16) and phase 6's chains (f16's up
+             to 256^2: a random 4096^2 chain overflows f16 in the plain
+             version too), each within ``FORM_TOL`` of its plain version,
+             resident == staged, f32 with Karatsuba within 1e-5 of
+             complex128 at N = 4096; (2) fused3 and fused1 at 4096^2 and
+             fused1 at 128^2 at bf16, f16, bs16 and with Karatsuba (launch
+             counts, five targets within 8 px and |dSNR| <= 0.1 dB against
+             the f32 image and the plain replay where the image is finite,
+             fused1 == fused3 and resident == staged bit for bit); (3)
+             ``search_kernel`` at N = 4096 over f32 / bf16 / bs16 behind
+             the SNR gate, its cache in a temporary directory, strictly
+             fewer candidates timed than the space holds, the winner
+             persisted and compiled by ``build_pipeline``'s default
+             ``tune="cached"`` into every fused3 launch; ``search_schedule``
+             for fused1 at 4096^2 and 128^2, fused1 through each winner
+             ``torch.equal`` to the same knobs given by hand, and a
+             schedule whose azimuth and range segments split differently
+             reaching ``mega_staged``; (4) each fused3 launch and both
+             megakernels at bf16, bs16 and f32 with Karatsuba beside f32,
+             in turns, with bounds, ``mma_floor_ms``, plain and library
+             times.
+
 The line before the last lists each kernel — on the main path and on each
-path of phases 14 and 15, with the precisions it runs on each route; the
-last line is
+path of phases 14 to 16, with the precisions and Karatsuba flags it runs
+on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
@@ -146,28 +174,40 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM spec sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM spec sheet, FP32 outside tensor cores
 TF32_FLOP_PER_S = 495e12       # H100 SXM spec sheet, dense TF32 tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM spec sheet, dense BF16 / FP16
 TF32_PASSES = 3                # the matmul route's 3xTF32 split
 TOL = 2e-4                     # x max|want| (tests/test_kernels.py)
+# The matmul route's operand forms against their plain versions
+# (tests/test_torch_cuda.py states the same): f32 keeps TOL; bf16 / f16 /
+# bs16 differ only in the order of f32 accumulation and where a reordered
+# sum rounds to the other 16-bit neighbour at a later stage (a megakernel
+# chains three segments of such roundings).
+FORM_TOL = {"f32": TOL, "bf16": 1e-2, "f16": 2e-3, "bs16": 2e-3}
 ORACLE_TOL = 1e-5              # x max|want|, either route vs complex128
 GATE_DB = 0.1
 SEARCH = 64                    # window of the peak-position check
 
 
-# the matmul-route instantiations, which must run on the tensor cores
+# the matmul-route f32 instantiations, which must run on the tensor cores
 MMA_KERNELS = ("spectral_kernel<matmul>", "mega_resident<matmul>",
                "mega_staged<matmul>")
 _KERNEL_NAMES = ("spectral_kernel", "mega_resident",
                  "mega_staged", "transpose_kernel")
-_ROUTES = {"ILb0E": "matmul", "ILb1E": "stockham"}
+
+
+_OPERAND_NAMES = {1: "bf16", 2: "f16"}
 
 
 def instantiation(mangled):
     """A readable name of a mangled kernel, e.g. 'mega_staged<matmul>'
     (the template flag kStockham of spectral.cu and mega.cu; a megakernel
     specialised on its N, 'mega_staged<stockham,4096>'; the bs16 codec's
-    instantiations end in ',bs16'), or of one out-of-line Stockham op, e.g.
-    'stockham_n<cols,4096,io,32>' (layout, N, device-memory tile or
-    in-place slab, points a thread, ',bs16' with the codec)."""
+    instantiations end in ',bs16'; the matmul route's other operand forms
+    name theirs, ',bf16' / ',f16', and Karatsuba, ',kara' in every
+    transform or ',kara/seg' chosen per segment), or of one out-of-line
+    Stockham op, e.g. 'stockham_n<cols,4096,io,32>' (layout, N,
+    device-memory tile or in-place slab, points a thread, ',bs16' with the
+    codec)."""
     m = re.search(r"stockham_nILb([01])ELi(\d+)ELb([01])ELi(\d+)ELb([01])E",
                   mangled)
     if m:
@@ -179,16 +219,26 @@ def instantiation(mangled):
         if i < 0:
             continue
         rest = mangled[i + len(name):]
-        for key, route in _ROUTES.items():
-            if rest.startswith(key):   # a megakernel's N, where specialised
-                m = re.match(r"ILb[01]E(?:Li(\d+)E)?Lb([01])E", rest)
-                n = f",{m.group(1)}" if m and m.group(1) not in (None, "0") \
-                    else ""
-                bs = ",bs16" if m and m.group(2) == "1" else ""
-                return f"{name}<{route}{n}{bs}>"
-        if rest.startswith("I"):
-            return f"{name}<{rest[1:rest.find('E')]}>"
-        return name
+        m = re.match(r"I((?:L[bi]\d+E)+)E", rest)
+        if m is None:   # the transpose's element type, or no template
+            return (f"{name}<{rest[1:rest.find('E')]}>"
+                    if rest.startswith("I") else name)
+        args = [int(v) for v in re.findall(r"L[bi](\d+)E", m.group(1))]
+        if name == "spectral_kernel":   # <kStockham, kBs, kOp, kKara>
+            stockham, bs, op, kara = args
+            n = 0
+        else:                            # <kStockham, kN, kBs, kOp, kKara>
+            stockham, n, bs, op, kara = args
+        tags = ["stockham" if stockham else "matmul"]
+        if n:
+            tags.append(str(n))
+        if bs:
+            tags.append("bs16")
+        elif op:
+            tags.append(_OPERAND_NAMES[op])
+        if kara:
+            tags.append("kara" if kara == 1 else "kara/seg")
+        return f"{name}<{','.join(tags)}>"
     return mangled
 
 
@@ -226,9 +276,11 @@ def ptxas_report(log):
     return out
 
 
-def sass_hmma_tf32(lib):
-    """{instantiation: HMMA ... TF32 instructions} in the SASS of one built
-    library (``cuobjdump -sass``, beside nvcc)."""
+def sass_hmma(lib):
+    """{instantiation: {operand type: HMMA instructions}} in the SASS of one
+    built library (``cuobjdump -sass``, beside nvcc): 'tf32'
+    (HMMA.1684.F32.TF32), 'bf16' (HMMA.16816.F32.BF16) and 'f16'
+    (HMMA.16816.F32)."""
     from repro_torch.kernels import _build
     exe = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([exe, "-sass", lib], capture_output=True,
@@ -239,10 +291,25 @@ def sass_hmma_tf32(lib):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             cur = instantiation(m.group(1))
-            counts.setdefault(cur, 0)
-        elif cur is not None and "HMMA" in ln and "TF32" in ln:
-            counts[cur] += 1
+            counts.setdefault(cur, {"tf32": 0, "bf16": 0, "f16": 0})
+        elif cur is not None and "HMMA" in ln:
+            kind = "tf32" if "TF32" in ln else "bf16" if "BF16" in ln \
+                else "f16"
+            counts[cur][kind] += 1
     return counts
+
+
+def hmma_wanted(name):
+    """The HMMA operand type a matmul-route instantiation must run on (its
+    stages' form), or None for a kernel without tensor-core stages."""
+    if not name.startswith(("spectral_kernel<matmul", "mega_resident<matmul",
+                            "mega_staged<matmul")):
+        return None
+    if ",bf16" in name:
+        return "bf16"
+    if ",f16" in name or ",bs16" in name:
+        return "f16"
+    return "tf32"
 
 
 def emit(phase, **kw):
@@ -373,76 +440,109 @@ def seeded_randn(torch, dev, seed):
     return rand
 
 
+def filter_payload(rand, mode, n, scene, lines, rank=2):
+    """The filter keywords of ``ops.spectral_op`` for one sweep case."""
+    filt = {}
+    if mode in ("shared", "shared_outer"):
+        filt.update(hr=rand(n), hi=rand(n))
+    if mode == "full":
+        filt.update(hr=rand(*scene), hi=rand(*scene))
+    if mode in ("outer", "shared_outer"):
+        filt.update(u=rand(lines, rank), v=rand(n, rank))
+    return filt
+
+
 def spectral_sweep(torch, ops, rand, fft_impl, sizes=(128, 4096),
-                   exact=False):
+                   exact=False, precision="f32", karatsuba=False, tol=TOL,
+                   splits=((None, None),), subnormal=False):
     """The spectral kernel against its plain version on the card: every
-    filter mode x axis x fwd/inv at N in ``sizes``, B in {1, 2}, 37
-    lines, within ``TOL`` or, ``exact``, ``torch.equal``; on either route
+    filter mode x axis x fwd/inv at N in ``sizes`` (at N = 4096 each split
+    of ``splits``, (None, None) the default), B in {1, 2}, 37 lines,
+    within ``tol`` or, ``exact``, ``torch.equal``; ``subnormal``: odd lines
+    scaled into the subnormal floats, and held to ``tol`` of their own
+    largest value too (the bs16 codec's lines). At f32, on either route,
     each N = 4096 case also against the complex128 oracle
-    (``ORACLE_TOL``). Returns (cases, max rel err, oracle cases, max oracle
-    err)."""
+    (``ORACLE_TOL``). Returns {cases, max_rel_err, subnormal_max_rel_err,
+    oracle_cases, max_oracle_err}."""
     from repro_torch.kernels.fft4step import FILTER_MODES
-    lines, rank = 37, 2
-    worst = worst_oracle = 0.0
-    cases = oracle_cases = 0
+    lines = 37
+    out = dict(cases=0, max_rel_err=0.0, subnormal_max_rel_err=0.0,
+               oracle_cases=0, max_oracle_err=0.0)
     for n in sizes:
-        for batch in (1, 2):
-            for axis in (0, 1):
-                scene = (lines, n) if axis == 1 else (n, lines)
-                xr, xi = rand(batch, *scene), rand(batch, *scene)
-                for mode in FILTER_MODES:
-                    filt = {}
-                    if mode in ("shared", "shared_outer"):
-                        filt.update(hr=rand(n), hi=rand(n))
-                    if mode == "full":
-                        filt.update(hr=rand(*scene), hi=rand(*scene))
-                    if mode in ("outer", "shared_outer"):
-                        filt.update(u=rand(lines, rank), v=rand(n, rank))
-                    for fwd, inv in ((True, False), (False, True),
-                                     (True, True), (False, False)):
-                        if mode == "none" and not (fwd or inv):
-                            continue
-                        kw = dict(axis=axis, fwd=fwd, inv=inv,
-                                  filter_mode=mode, block=1,
-                                  fft_impl=fft_impl)
-                        got = ops.spectral_op(xr, xi, **filt, **kw)
-                        want = ops.spectral_op_plain(xr, xi, **filt, **kw)
-                        torch.cuda.synchronize()
-                        _, rel = rel_err(got, want)
-                        check(rel <= TOL, f"kernel vs plain {kw} n={n} "
-                              f"B={batch}: rel err {rel:.3e}")
-                        check(not exact or all(
-                            torch.equal(g, w) for g, w in zip(got, want)),
-                              f"kernel != plain {kw} n={n} B={batch}: "
-                              f"rel err {rel:.3e}")
-                        worst = max(worst, rel)
-                        cases += 1
-                        if n == 4096:
-                            o = oracle_err(torch, got, oracle_op(
-                                torch, torch.complex(xr, xi), axis, fwd,
-                                inv, mode, **filt))
-                            check(o <= ORACLE_TOL, f"kernel vs complex128 "
-                                  f"{kw} n={n} B={batch}: {o:.3e}")
-                            worst_oracle = max(worst_oracle, o)
-                            oracle_cases += 1
-    return cases, worst, oracle_cases, worst_oracle
+        for n1, n2 in (splits if n == 4096 else ((None, None),)):
+            for batch in (1, 2):
+                for axis in (0, 1):
+                    scene = (lines, n) if axis == 1 else (n, lines)
+                    xr, xi = rand(batch, *scene), rand(batch, *scene)
+                    if subnormal:
+                        xr, xi = subnormal_lines(torch, (xr, xi), axis)
+                    odd = ((slice(None), slice(1, None, 2)) if axis == 1
+                           else (slice(None), slice(None), slice(1, None, 2)))
+                    for mode in FILTER_MODES:
+                        filt = filter_payload(rand, mode, n, scene, lines)
+                        for fwd, inv in ((True, False), (False, True),
+                                         (True, True), (False, False)):
+                            if mode == "none" and not (fwd or inv):
+                                continue
+                            kw = dict(axis=axis, fwd=fwd, inv=inv,
+                                      filter_mode=mode, block=1,
+                                      fft_impl=fft_impl, precision=precision,
+                                      karatsuba=karatsuba, n1=n1, n2=n2)
+                            got = ops.spectral_op(xr, xi, **filt, **kw)
+                            want = ops.spectral_op_plain(xr, xi, **filt, **kw)
+                            torch.cuda.synchronize()
+                            _, rel = rel_err(got, want)
+                            where = f"{kw} n={n} B={batch}"
+                            check(rel <= tol, f"kernel vs plain {where}: "
+                                  f"rel err {rel:.3e}")
+                            check(not exact or all(
+                                torch.equal(g, w) for g, w in zip(got, want)),
+                                  f"kernel != plain {where}: rel err "
+                                  f"{rel:.3e}")
+                            out["max_rel_err"] = max(out["max_rel_err"], rel)
+                            if subnormal:
+                                _, sub = rel_err([g[odd] for g in got],
+                                                 [w[odd] for w in want])
+                                check(sub <= tol, f"subnormal lines {where}: "
+                                      f"rel err {sub:.3e}")
+                                out["subnormal_max_rel_err"] = max(
+                                    out["subnormal_max_rel_err"], sub)
+                            out["cases"] += 1
+                            if n == 4096 and precision == "f32":
+                                o = oracle_err(torch, got, oracle_op(
+                                    torch, torch.complex(xr, xi), axis, fwd,
+                                    inv, mode, **filt))
+                                check(o <= ORACLE_TOL, f"kernel vs complex128 "
+                                      f"{where}: {o:.3e}")
+                                out["max_oracle_err"] = max(
+                                    out["max_oracle_err"], o)
+                                out["oracle_cases"] += 1
+    return out
 
 
-def mega_sweep(torch, ops, rand, fft_impl, exact=False):
+def mega_sweep(torch, ops, rand, fft_impl, exact=False, precision="f32",
+               karatsuba=False, tol=TOL, shapes=MEGA_SHAPES,
+               subnormal=False):
     """Both megakernels against ``mega_plain`` on the card over
-    ``mega_chains()`` x ``MEGA_SHAPES`` x B in {1, 2} (within ``TOL`` or,
-    ``exact``, ``torch.equal``), resident held
-    ``torch.equal`` to staged; on either route each 4096^2 case also
-    against the complex128 oracle chain (``ORACLE_TOL``). Returns (cases,
-    max rel err, equal pairs, oracle cases, max oracle err) with the first
-    two per kernel."""
-    worst = {"mega_resident": 0.0, "mega_staged": 0.0}
-    cases = {"mega_resident": 0, "mega_staged": 0}
-    equal_pairs = oracle_cases = 0
-    worst_oracle = 0.0
-    for na, nr in MEGA_SHAPES:
+    ``mega_chains()`` x ``shapes`` x B in {1, 2} (within ``tol`` or,
+    ``exact``, ``torch.equal``), resident held ``torch.equal`` to staged;
+    ``subnormal``: the batch's second scene scaled into the subnormal
+    floats and held to ``tol`` of its own largest value (B = 2). At f32,
+    on either route, each 4096^2 case also against the complex128 oracle
+    chain (``ORACLE_TOL``). Returns {cases, max_rel_err (per kernel),
+    subnormal_max_rel_err, resident_equals_staged_cases, oracle_cases,
+    max_oracle_err}."""
+    out = dict(cases={"mega_resident": 0, "mega_staged": 0},
+               max_rel_err={"mega_resident": 0.0, "mega_staged": 0.0},
+               subnormal_max_rel_err=0.0, resident_equals_staged_cases=0,
+               oracle_cases=0, max_oracle_err=0.0)
+    kw = dict(fft_impl=fft_impl, precision=precision, karatsuba=karatsuba)
+    for na, nr in shapes:
         for batch in (1, 2):
             x = (rand(batch, na, nr), rand(batch, na, nr))
+            if subnormal and batch == 2:
+                for t in x:
+                    t[1] *= 1e-40
             for segments in mega_chains():
                 args = []
                 for axis, _fwd, _inv, mode in segments:
@@ -454,8 +554,7 @@ def mega_sweep(torch, ops, rand, fft_impl, exact=False):
                     if mode in ("outer", "shared_outer"):
                         args += [rand(lines, 2), rand(n, 2)]
                 want = ops.mega_spectral_op_plain(*x, *args,
-                                                  segments=segments,
-                                                  fft_impl=fft_impl)
+                                                  segments=segments, **kw)
                 outs = []
                 for residency, kernel in (("vmem", "mega_resident"),
                                           ("staged", "mega_staged")):
@@ -463,34 +562,39 @@ def mega_sweep(torch, ops, rand, fft_impl, exact=False):
                             ops.mega_residency(na, nr) != "vmem":
                         continue
                     got = ops.mega_spectral_op(*x, *args, segments=segments,
-                                               residency=residency,
-                                               fft_impl=fft_impl)
+                                               residency=residency, **kw)
                     torch.cuda.synchronize()
                     _, rel = rel_err(got, want)
-                    check(rel <= TOL, f"{kernel} ({fft_impl}) vs plain "
-                          f"{segments} {na}x{nr} B={batch}: rel err "
-                          f"{rel:.3e}")
+                    where = (f"{kernel} {kw} {segments} {na}x{nr} "
+                             f"B={batch}")
+                    check(rel <= tol, f"{where} vs plain: rel err {rel:.3e}")
                     check(not exact or all(
                         torch.equal(g, w) for g, w in zip(got, want)),
-                          f"{kernel} ({fft_impl}) != plain {segments} "
-                          f"{na}x{nr} B={batch}: rel err {rel:.3e}")
-                    worst[kernel] = max(worst[kernel], rel)
-                    cases[kernel] += 1
+                          f"{where} != plain: rel err {rel:.3e}")
+                    out["max_rel_err"][kernel] = max(
+                        out["max_rel_err"][kernel], rel)
+                    out["cases"][kernel] += 1
+                    if subnormal and batch == 2:
+                        _, sub = rel_err([g[1] for g in got],
+                                         [w[1] for w in want])
+                        check(sub <= tol, f"{where} subnormal scene: "
+                              f"{sub:.3e}")
+                        out["subnormal_max_rel_err"] = max(
+                            out["subnormal_max_rel_err"], sub)
                     outs.append(got)
-                    if na == nr == 4096:
+                    if na == nr == 4096 and precision == "f32":
                         o = oracle_err(torch, got, oracle_chain(
                             torch, torch.complex(*x), segments, args))
-                        check(o <= ORACLE_TOL, f"{kernel} vs complex128 "
-                              f"{segments} {na}x{nr} B={batch}: {o:.3e}")
-                        worst_oracle = max(worst_oracle, o)
-                        oracle_cases += 1
+                        check(o <= ORACLE_TOL, f"{where} vs complex128: "
+                              f"{o:.3e}")
+                        out["max_oracle_err"] = max(out["max_oracle_err"], o)
+                        out["oracle_cases"] += 1
                 if len(outs) == 2:
                     check(all(torch.equal(a, b) for a, b in zip(*outs)),
-                          f"resident != staged ({fft_impl}) {segments} "
-                          f"{na}x{nr}")
-                    equal_pairs += 1
+                          f"resident != staged {kw} {segments} {na}x{nr}")
+                    out["resident_equals_staged_cases"] += 1
             del x, args, want, outs
-    return cases, worst, equal_pairs, oracle_cases, worst_oracle
+    return out
 
 
 def oracle_chain(torch, x, segments, args):
@@ -507,12 +611,18 @@ def oracle_chain(torch, x, segments, args):
     return x
 
 
-def mma_floor(n, n1, n2, lines, transforms):
+def mma_floor(n, n1, n2, lines, transforms, precision="f32",
+              karatsuba=False):
     """(tensor-core flops, ms) of the matmul route's stages: 8 N (n1 + n2)
-    real flops a line and transform, issued as ``TF32_PASSES`` TF32
-    passes, over the dense TF32 rate."""
-    flops = TF32_PASSES * 8.0 * n * (n1 + n2) * lines * transforms
-    return flops, flops / TF32_FLOP_PER_S * 1e3
+    real flops a line and transform (6 N (n1 + n2) with Karatsuba's three
+    products), issued as ``TF32_PASSES`` TF32 passes over the dense TF32
+    rate at f32, as one pass over the dense BF16 / FP16 rate at bf16, f16
+    and bs16."""
+    flops = (6.0 if karatsuba else 8.0) * n * (n1 + n2) * lines * transforms
+    if precision == "f32":
+        flops *= TF32_PASSES
+        return flops, flops / TF32_FLOP_PER_S * 1e3
+    return flops, flops / BF16_FLOP_PER_S * 1e3
 
 
 def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg,
@@ -530,7 +640,11 @@ def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg,
     args = [t for a in step.seg_filter_args for t in a]
     kk = step.kernel_kw
     batch, na, nr = xr.shape if xr.ndim == 3 else (1, *xr.shape)
-    spec = MegaSpec(na, nr, tuple(SegmentSpec(*s) for s in kk["segments"]))
+    spec = MegaSpec(na, nr, tuple(
+        SegmentSpec(*s[:4], **dict(zip(("n1", "n2", "n3", "karatsuba"),
+                                       s[4:])))
+        for s in kk["segments"]), karatsuba=kk.get("karatsuba", False),
+        n1=kk.get("n1"), n2=kk.get("n2"))
     nbytes = 16 * xr.numel() + sum(4 * t.numel() for t in args)
     flops = _mega_flops(spec) * batch
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
@@ -538,7 +652,9 @@ def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg,
     oracle = build_pipeline(segments_cfg, variant, backend="torch")
     rec = dict(
         kernel=name, variant=variant, fft_impl=kk["fft_impl"],
-        precision=kk["precision"], scene=[na, nr], batch=batch,
+        precision=kk["precision"],
+        karatsuba=[spec.seg_spec(g).karatsuba for g in spec.segments],
+        segments=kk["segments"], scene=[na, nr], batch=batch,
         ms=cuda_median_ms(lambda: ops.mega_spectral_op(xr, xi, *args, **kk),
                           queued=True),
         plain_ms=cuda_median_ms(lambda: ops.mega_spectral_op_plain(
@@ -553,7 +669,8 @@ def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg,
     if kk["fft_impl"] == "matmul":
         mma = [mma_floor(sspec.n, *sspec.factors(),
                          batch * (na if seg.axis == 1 else nr),
-                         int(seg.fwd) + int(seg.inv))
+                         int(seg.fwd) + int(seg.inv), kk["precision"],
+                         sspec.karatsuba)
                for seg in spec.segments for sspec in [spec.seg_spec(seg)]]
         rec.update(mma_flops=sum(f for f, _ in mma),
                    mma_floor_ms=sum(t for _, t in mma))
@@ -577,14 +694,17 @@ def time_spectral_launch(smi_line, step, xr, xi, x, variant="fused3"):
         n, nlines = xr.shape[-2:]
     spec = SpectralSpec(n=n, fwd=kk["fwd"], filter_mode=kk["filter_mode"],
                         inv=kk["inv"], axis=kk["axis"],
-                        fft_impl=kk["fft_impl"], precision=kk["precision"])
+                        fft_impl=kk["fft_impl"], precision=kk["precision"],
+                        n1=kk.get("n1"), n2=kk.get("n2"),
+                        karatsuba=kk.get("karatsuba", False))
     nbytes = 4 * xr.numel() * 4 + sum(4 * t.numel() for t in fk.values())
     flops = flops_nominal(spec, nlines)
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     rec = dict(
         launch=step.name, variant=variant, fft_impl=kk["fft_impl"],
-        precision=kk["precision"], axis=kk["axis"],
+        precision=kk["precision"], karatsuba=spec.karatsuba,
+        split=list(spec.factors()), axis=kk["axis"],
         mode=kk["filter_mode"], fwd=kk["fwd"], inv=kk["inv"],
         ms=cuda_median_ms(lambda: ops.spectral_op(xr, xi, **fk, **kk),
                           queued=True),
@@ -598,7 +718,8 @@ def time_spectral_launch(smi_line, step, xr, xi, x, variant="fused3"):
     rec["vs_library"] = rec["ms"] / rec["library_ms"]
     if kk["fft_impl"] == "matmul":
         mma, mma_ms = mma_floor(n, *spec.factors(), nlines,
-                                int(kk["fwd"]) + int(kk["inv"]))
+                                int(kk["fwd"]) + int(kk["inv"]),
+                                kk["precision"], spec.karatsuba)
         rec.update(mma_flops=mma, mma_floor_ms=mma_ms)
     emit("time_launch", nvidia_smi=smi_line, **rec)
     return rec
@@ -630,13 +751,14 @@ def mega_phases(torch, dev, smi_line, cfg, raw, fused3_img, score, small,
           f"shared-memory opt-in {optin} B, the cut assumes "
           f"{ops.SMEM_OPTIN_BYTES} B")
     rand = seeded_randn(torch, dev, 1)
-    cases, worst, equal_pairs, o_cases, o_worst = mega_sweep(
-        torch, ops, rand, "matmul")
+    ms = mega_sweep(torch, ops, rand, "matmul")
     staged_smem = (ops.RESIDENT_MAX_POINTS * 8
                    + ops.dft_smem_bytes(64, 64))   # 4096^2, matmul
-    emit("mega_kernel", cases=cases, max_rel_err=worst, tol=TOL,
-         oracle_cases=o_cases, max_oracle_err=o_worst, oracle_tol=ORACLE_TOL,
-         resident_equals_staged_cases=equal_pairs, smem_optin_bytes=optin,
+    emit("mega_kernel", cases=ms["cases"], max_rel_err=ms["max_rel_err"],
+         tol=TOL, oracle_cases=ms["oracle_cases"],
+         max_oracle_err=ms["max_oracle_err"], oracle_tol=ORACLE_TOL,
+         resident_equals_staged_cases=ms["resident_equals_staged_cases"],
+         smem_optin_bytes=optin,
          staged_smem_bytes=staged_smem,
          staged_blocks_per_sm=lib.mega_staged_blocks_per_sm(staged_smem, 0),
          sms=torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -801,17 +923,18 @@ def baseline_phases(torch, dev, smi_line, cfg, raw, score, replay_plain,
     # pairs and a lone pass, 128 a radix-4/radix-2 pair
     # and, as the matmul route, each N = 4096 case against the complex128
     # oracle, whose outer phase is rounded as the kernels round it
-    s_cases, s_worst, so_cases, so_worst = spectral_sweep(
-        torch, ops, seeded_randn(torch, dev, 3), "stockham",
-        sizes=STOCKHAM_SIZES, exact=True)
-    m_cases, m_worst, pairs, mo_cases, mo_worst = mega_sweep(
-        torch, ops, seeded_randn(torch, dev, 4), "stockham", exact=True)
-    emit("stockham_kernel", spectral_cases=s_cases, sizes=STOCKHAM_SIZES,
-         spectral_max_rel_err=s_worst, mega_cases=m_cases,
-         mega_max_rel_err=m_worst, resident_equals_staged_cases=pairs,
-         equal_to_plain=True, spectral_oracle_cases=so_cases,
-         spectral_max_oracle_err=so_worst, mega_oracle_cases=mo_cases,
-         mega_max_oracle_err=mo_worst, oracle_tol=ORACLE_TOL)
+    sw = spectral_sweep(torch, ops, seeded_randn(torch, dev, 3), "stockham",
+                        sizes=STOCKHAM_SIZES, exact=True)
+    ms = mega_sweep(torch, ops, seeded_randn(torch, dev, 4), "stockham",
+                    exact=True)
+    emit("stockham_kernel", spectral_cases=sw["cases"], sizes=STOCKHAM_SIZES,
+         spectral_max_rel_err=sw["max_rel_err"], mega_cases=ms["cases"],
+         mega_max_rel_err=ms["max_rel_err"],
+         resident_equals_staged_cases=ms["resident_equals_staged_cases"],
+         equal_to_plain=True, spectral_oracle_cases=sw["oracle_cases"],
+         spectral_max_oracle_err=sw["max_oracle_err"],
+         mega_oracle_cases=ms["oracle_cases"],
+         mega_max_oracle_err=ms["max_oracle_err"], oracle_tol=ORACLE_TOL)
 
     # ---- 11. the main path through fused -----------------------------------
     pipe = build_pipeline(cfg, "fused")
@@ -1193,16 +1316,32 @@ def kernel_precisions(name):
     return {r: list(ops.KERNEL_PRECISIONS[r]) for r in routes}
 
 
-def kernel_record(name, variant, fft_impl, launches, err, timed):
-    """One ``kernels`` entry for a kernel on a path of phase 14 or 15: the
-    sums over the path's launches of that kernel."""
-    source = "spectral.cu" if name == "spectral" else "mega.cu"
+def kernel_karatsuba(name):
+    """The Karatsuba flags a ``kernels`` entry's kernel runs by FFT route:
+    both on the matmul route's stages, none to take on the Stockham
+    route (no complex contraction there)."""
+    if name == "transpose":
+        return {}
+    if name == "stockham":
+        return {"stockham": [False]}
+    return {"matmul": [False, True], "stockham": [False]}
+
+
+def kernel_record(name, variant, fft_impl, launches, err, timed,
+                  source=None):
+    """One ``kernels`` entry for a kernel on a path of phase 14, 15 or 16:
+    the sums over the path's launches of that kernel (``source``: the
+    file in csrc/ its library builds from, when not the kernel's own)."""
+    source = source or ("spectral.cu" if name == "spectral" else "mega.cu")
     line = {"spectral": 598, "mega_resident": 931, "mega_staged": 1002}[name]
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/fft4step.py:{line}",
             "path": variant, "fft_impl": fft_impl,
             "precision": timed[0]["precision"],
+            "karatsuba": any(any(r["karatsuba"]) if isinstance(
+                r.get("karatsuba"), list) else r.get("karatsuba", False)
+                for r in timed),
             "launches": launches, "max_abs_err": err,
             "ms": sum(r["ms"] for r in timed),
             "plain_ms": sum(r["plain_ms"] for r in timed),
@@ -1438,12 +1577,427 @@ def precision_phases(torch, smi_line, cfg, raw, score, replay_plain, small,
     return records
 
 
+# Phase 16: the matmul route's operand forms (precision, karatsuba)
+FORMS16 = (("f32", True), ("bf16", False), ("f16", False), ("bs16", False),
+           ("bs16", True))
+# the forms timed beside f32, in turns
+TIMED_FORMS = (("f32", False), ("bf16", False), ("bs16", False),
+               ("f32", True))
+FUSED1_SEGMENTS = (dict(axis=0, fwd=True),
+                   dict(axis=1, fwd=True, inv=True, filtered=True),
+                   dict(axis=0, inv=True, filtered=True))
+
+
+def bit_equal(torch, a, b):
+    """Equal bit for bit, NaN payloads included (an f16 image overflows)."""
+    return torch.equal(torch.view_as_real(a).view(torch.int32),
+                       torch.view_as_real(b).view(torch.int32))
+
+
+def form_kw(precision, karatsuba):
+    """Compile keywords of one operand form: the precision, and Karatsuba
+    in every segment through a Schedule (each fused3 launch and each
+    in-kernel segment of fused1 take one segment of it), tuning off."""
+    from repro_torch import tuning
+    sched = tuning.Schedule(
+        segments=(tuning.SegmentConfig(karatsuba=True),) * 3) \
+        if karatsuba else None
+    return dict(precision=precision, schedule=sched, tune="off")
+
+
+def form_sweeps(torch, ops, dev):
+    """Phase 16.1: each operand form of the matmul route against the plain
+    versions on the card: the spectral kernel's grid of phase 3 (both
+    splits at N = 4096, odd lines subnormal for bs16), phase 6's chains
+    through both megakernels (resident == staged); f32 with Karatsuba
+    against complex128 at N = 4096 too."""
+    for i, (precision, kara) in enumerate(FORMS16):
+        t0 = time.perf_counter()
+        kw = dict(precision=precision, karatsuba=kara,
+                  tol=FORM_TOL[precision], subnormal=precision == "bs16")
+        # f16 (no codec) overflows its range on a random 4096^2 chain, in
+        # the plain version as in the kernels: its chains stop at 256^2
+        shapes = MEGA_SHAPES[:-1] if precision == "f16" else MEGA_SHAPES
+        sw = spectral_sweep(torch, ops, seeded_randn(torch, dev, 20 + i),
+                            "matmul", splits=((None, None), (128, 32)), **kw)
+        ms = mega_sweep(torch, ops, seeded_randn(torch, dev, 30 + i),
+                        "matmul", shapes=shapes, **kw)
+        emit("form_kernel", precision=precision, karatsuba=kara,
+             tol=FORM_TOL[precision], oracle_tol=ORACLE_TOL, spectral=sw,
+             mega=ms, mega_shapes=shapes, seconds=time.perf_counter() - t0)
+
+
+def form_images(torch, smi_line, cfg, raw, score, replay_plain, small,
+                small_raw):
+    """Phase 16.2: fused3 and fused1 at 4096^2 and fused1 at 128^2 at each
+    operand form: launch counts, the focus gate against the f32 image and
+    the plain replay, fused1 bit for bit equal to fused3, resident to
+    staged. At 4096^2 f16 and bs16 overflow f16's range (the range
+    launch's inverse sums a compressed line past 65504 before its 1/N,
+    behind bs16's per-line exponents too): there the plain replay must be
+    non-finite as well, and the counts of non-finite points are printed.
+    Returns the
+    ``kernels`` records of each form's paths (launch counts and errors
+    from these runs, times from phase 16.4)."""
+    from repro_torch.core.sar import build_pipeline
+    f32_img = build_pipeline(cfg, "fused3").run(raw)
+    rep_f32 = score(f32_img)
+    del f32_img
+    out = {}
+    for precision, kara in FORMS16[1:] + (("f32", True),):
+        if (precision, kara) in out:
+            continue
+        kw = form_kw(precision, kara)
+        p3 = build_pipeline(cfg, "fused3", **kw)
+        reset_launch_counts()
+        img3 = p3.run(raw)
+        torch.cuda.synchronize()
+        c3, want = launch_counts(spectral=3)
+        check(c3 == want, f"fused3 {precision} kara={kara}: {c3}")
+        p1 = build_pipeline(cfg, "fused1", **kw)
+        reset_launch_counts()
+        img1 = p1.run(raw)
+        torch.cuda.synchronize()
+        c1, want = launch_counts(mega_staged=1)
+        check(c1 == want, f"fused1 {precision} kara={kara}: {c1}")
+        check(bit_equal(torch, img1, img3),
+              f"fused1 != fused3 at {precision} kara={kara}")
+        plain = replay_plain(p3, raw)
+        torch.cuda.synchronize()
+        # the kernels' image has the plain replay's non-finite points, no
+        # others, and is within FORM_TOL of it on the rest
+        fin = torch.isfinite(plain)
+        check(torch.equal(torch.isfinite(img3), fin),
+              f"fused3 {precision} kara={kara}: non-finite points differ "
+              f"from the plain replay's")
+        err = rel = 0.0              # f16 at 4096^2: no finite point
+        if bool(fin.any()):
+            got, want = img3[fin], plain[fin]
+            err, rel = rel_err((got.real, got.imag), (want.real, want.imag))
+            del got, want
+        check(rel <= FORM_TOL[precision],
+              f"fused3 {precision} kara={kara} vs plain on its finite "
+              f"points: {rel:.3e}")
+        finite = bool(fin.all())
+        rec = dict(variant="fused3+fused1", precision=precision,
+                   karatsuba=kara, scene=[cfg.na, cfg.nr],
+                   launches=[c3, c1], fused1_equals_fused3=True,
+                   finite=finite, max_abs_err_vs_plain=err,
+                   rel_err_vs_plain=rel, tol=FORM_TOL[precision])
+        if finite:
+            rep = score(img3)
+            rec.update(
+                targets=rep,
+                snr_delta_db_vs_f32=check_focus(
+                    f"fused3 {precision} vs f32", rep, rep_f32),
+                snr_delta_db_vs_plain=check_focus(
+                    f"fused3 {precision} vs plain", rep, score(plain)))
+        else:
+            # f16's range: a compressed range line's partial sums pass
+            # 65504 (PERF.md §6)
+            check(precision in ("f16", "bs16"),
+                  f"fused3 {precision} kara={kara}: non-finite image")
+            rec.update(nonfinite_points=int((~fin).sum()))
+        del img1, img3, plain, fin
+        # 128^2: mega_resident, and staged
+        f3s = build_pipeline(small, "fused3", **kw).run(small_raw)
+        p1s = build_pipeline(small, "fused1", **kw)
+        reset_launch_counts()
+        img1s = p1s.run(small_raw)
+        torch.cuda.synchronize()
+        cs, want = launch_counts(mega_resident=1)
+        check(cs == want, f"fused1 128^2 {precision} kara={kara}: {cs}")
+        check(bit_equal(torch, img1s, f3s),
+              f"fused1 != fused3 at 128^2, {precision} kara={kara}")
+        staged = build_pipeline(small, "fused1", residency="staged",
+                                **kw).run(small_raw)
+        check(bit_equal(torch, staged, img1s),
+              f"resident != staged at 128^2, {precision} kara={kara}")
+        rec.update(launches_128=cs, resident_equals_staged_128=True)
+        emit("form_image", **rec)
+        out[(precision, kara)] = rec
+    return out
+
+
+def tuning_path(torch, smi_line, cfg, raw, score, replay_plain, small,
+                small_raw):
+    """Phase 16.3: the tuning path at full width, its cache in a temporary
+    directory: ``search_kernel`` at N = 4096 (f32, bf16, bs16 behind the
+    SNR gate), the winner persisted and read back by ``build_pipeline``'s
+    default ``tune="cached"`` into every fused3 launch of the paper's
+    scene; ``search_schedule`` for fused1 at 4096^2 (staged) and 128^2
+    (both lanes), fused1 compiled through each winner, bit for bit equal
+    to ``mega_spectral_op`` with the same knobs given by hand; a schedule
+    whose azimuth and range segments split differently reaching
+    ``mega_staged`` as those segment records."""
+    import tempfile
+    from repro_torch import tuning
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.kernels import ops
+    outer_cache = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+            tmp, "autotune_cache.json")
+        tuning.clear_memory_cache()
+        planlib.clear_pipeline_cache()
+        # -- search_kernel ---------------------------------------------------
+        gates, timed = {}, []
+
+        def log(what, t, r):
+            if isinstance(what, str):       # gate_<precision>, dB, admitted
+                gates[what[5:]] = dict(
+                    snr_delta_db=t if t != float("inf") else None,
+                    image_finite=t != float("inf"), admitted=r)
+            else:
+                timed.append(dict(config=what.to_dict(), seconds=t,
+                                  rung=r))
+
+        t0 = time.perf_counter()
+        key = tuning.TuneKey.kernel(cfg.nr, lines=16)
+        res = tuning.search_kernel(key, precisions=("f32", "bf16", "bs16"),
+                                   log=log)
+        search_s = time.perf_counter() - t0
+        check(res.measured < res.space,
+              f"search timed {res.measured} of {res.space}")
+        # a candidate the cost model admits and the kernel refuses is a
+        # bug in the cut, not noise: measured_search records it as None
+        check(all(t is not None for _, t in res.trace),
+              f"search_kernel candidates raised at launch: "
+              f"{[c.to_dict() for c, t in res.trace if t is None]}")
+        check(tuning.cached_config(cfg.nr) == res.config,
+              "the search's winner did not persist")
+        win = res.config
+        emit("tuning_search", key=key.encode(), space=res.space,
+             measured=res.measured, gates=gates, times=timed,
+             winner=win.to_dict(), winner_seconds=res.seconds,
+             predicted_rank=res.predicted_rank, seconds=search_s,
+             nvidia_smi=smi_line)
+
+        # -- fused3 through the cache ---------------------------------------
+        pipe = build_pipeline(cfg, "fused3")
+        for s in pipe.steps:
+            kk = s.kernel_kw
+            got = (kk["n1"], kk["n2"], kk["karatsuba"], kk["precision"])
+            check(got == (win.n1, win.n2, bool(win.karatsuba),
+                          win.precision or "f32"),
+                  f"fused3 launch {s.name} took {got}, not the winner")
+            n = cfg.nr if kk["axis"] == 1 else cfg.na
+            line = (1, 1, n) if kk["axis"] == 1 else (1, n, 1)
+            spec = ops._prepare(
+                torch.empty(line), torch.empty(line), None, None, None,
+                None, axis=kk["axis"], fwd=kk["fwd"], inv=kk["inv"],
+                filter_mode="none", block=1, fft_impl=kk["fft_impl"],
+                karatsuba=kk["karatsuba"], precision=kk["precision"],
+                n1=kk["n1"], n2=kk["n2"], n3=kk["n3"])[0]
+            check((spec.factors(), spec.karatsuba, spec.precision) ==
+                  ((win.n1, win.n2), bool(win.karatsuba),
+                   win.precision or "f32"), f"{s.name}: spec {spec}")
+        reset_launch_counts()
+        img = pipe.run(raw)
+        torch.cuda.synchronize()
+        counts, want = launch_counts(spectral=3)
+        check(counts == want, f"tuned fused3 launches {counts}")
+        rep = score(img)
+        dsnr = check_focus("tuned fused3 vs plain", rep,
+                           score(replay_plain(pipe, raw)))
+        emit("tuned_main", variant="fused3", scene=[cfg.na, cfg.nr],
+             launches=counts, winner=win.to_dict(), targets=rep,
+             snr_delta_db_vs_plain=dsnr)
+        del img
+
+        # -- search_schedule and fused1 through its winners ---------------
+        scheds = {}
+        for scene, sraw, lanes in ((cfg, raw, ("staged",)),
+                                   (small, small_raw, ("vmem", "staged"))):
+            problem = tuning.ScheduleProblem.mega_2d(
+                scene.na, scene.nr,
+                tuple(tuning.SegmentShape(**d) for d in FUSED1_SEGMENTS))
+            skey = tuning.TuneKey.pipeline("fused1", scene.na, scene.nr)
+            t0 = time.perf_counter()
+            # search_schedule has no SNR gate (as the reference's): the
+            # precisions whose 4096^2 images are finite
+            sres = tuning.search_schedule(
+                problem, skey, k=8, precisions=("f32", "bf16"))
+            check({s.residency for s, _ in sres.trace} <= set(lanes),
+                  f"{scene.na}^2: a lane the kernels refuse was measured")
+            check(all(t is not None for _, t in sres.trace),
+                  f"{scene.na}^2: a frontier schedule raised at launch")
+            best = sres.schedule
+            p1 = build_pipeline(scene, "fused1", schedule=best)
+            step = p1.steps[0]
+            check(step.kernel_kw["residency"] == best.residency,
+                  "fused1 compiled a residency its schedule did not pick")
+            reset_launch_counts()
+            img = p1.run(sraw)
+            torch.cuda.synchronize()
+            kernel = ("mega_resident" if best.residency == "vmem"
+                      else "mega_staged")
+            counts, want = launch_counts(**{kernel: 1})
+            check(counts == want, f"scheduled fused1 launches {counts}")
+            by_hand = tuple(
+                (d["axis"], d.get("fwd", False), d.get("inv", False), mode,
+                 sc.n1, sc.n2, sc.n3, sc.karatsuba)
+                for d, mode, sc in zip(
+                    FUSED1_SEGMENTS, [r[3] for r in step.kernel_kw[
+                        "segments"]], best.segments))
+            xr, xi = planlib.split(sraw)
+            explicit = planlib.unsplit(*ops.mega_spectral_op(
+                xr, xi, *[t for a in step.seg_filter_args for t in a],
+                segments=by_hand, residency=best.residency,
+                precision=best.precision or "f32"))
+            check(bit_equal(torch, img, explicit),
+                  f"fused1 through the schedule != by hand at "
+                  f"{scene.na}^2")
+            emit("tuning_schedule", scene=[scene.na, scene.nr],
+                 frontier=sres.space, measured=sres.measured,
+                 winner=best.to_dict(), winner_seconds=sres.seconds,
+                 predicted_rank=sres.predicted_rank, launches=counts,
+                 equal_to_explicit=True,
+                 seconds=time.perf_counter() - t0)
+            scheds[scene.na] = best
+            del img, explicit
+
+        # -- different splits for the azimuth and range segments -----------
+        # at 4096^2: (64, 64) with Karatsuba on azimuth, (128, 32) on range
+        az = (*tuning.factorizations(cfg.na)[0], None, True)
+        rg = (*tuning.factorizations(cfg.nr)[1], None, False)
+        mixed = tuning.Schedule(
+            segments=tuple(tuning.SegmentConfig(*r) for r in (az, rg, az)),
+            residency="staged")
+        # tune="off": f32, not the cached winner's precision
+        p1 = build_pipeline(cfg, "fused1", schedule=mixed, tune="off")
+        recs = [r[4:] for r in p1.steps[0].kernel_kw["segments"]]
+        check(recs == [az, rg, az], f"segment records {recs}")
+        reset_launch_counts()
+        img = p1.run(raw)
+        torch.cuda.synchronize()
+        counts, want = launch_counts(mega_staged=1)
+        check(counts == want, f"mixed-split fused1 launches {counts}")
+        plain = replay_mega_plain(p1.steps[0], raw)
+        _, rel = rel_err((img.real, img.imag), (plain.real, plain.imag))
+        check(rel <= TOL, f"mixed-split fused1 vs plain: {rel:.3e}")
+        default = build_pipeline(cfg, "fused1", tune="off").run(raw)
+        check(not torch.equal(img, default),
+              "the mixed splits did not reach the kernel")
+        emit("tuning_mixed_splits", scene=[cfg.na, cfg.nr],
+             segment_records=recs, launches=counts, rel_err_vs_plain=rel,
+             differs_from_default_splits=True)
+        del img, plain, default
+        os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE")
+        if outer_cache is not None:
+            os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = outer_cache
+        tuning.clear_memory_cache()
+        planlib.clear_pipeline_cache()
+    return search_s
+
+
+def form_times(torch, smi_line, cfg, raw, small, small_raw, images):
+    """Phase 16.4: each fused3 launch and both megakernels at bf16, bs16
+    and f32 with Karatsuba, beside f32, in turns (f32, forms..., forms
+    reversed, f32): the first pass times kernel, plain version and
+    library, the second the kernel again. Returns the ``kernels`` records
+    of the timed forms."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.kernels import ops
+    batch_raw = small_raw.expand(MEGA_BATCH, *small_raw.shape).contiguous()
+    paths = {}
+    for form in TIMED_FORMS:
+        kw = form_kw(*form)
+        p3 = build_pipeline(cfg, "fused3", **kw)
+        paths[form] = dict(
+            launches=[(s, *planlib.split(x), x)
+                      for s, x in step_inputs(p3, raw)[0]],
+            staged=build_pipeline(cfg, "fused1", **kw).steps[0],
+            resident=build_pipeline(small, "fused1", **kw).steps[0])
+    first = {}
+    for form in TIMED_FORMS:
+        p = paths[form]
+        variant = "fused3" if form == ("f32", False) else \
+            f"fused3_{form[0]}{'_kara' if form[1] else ''}"
+        first[form] = dict(
+            launches=[time_spectral_launch(smi_line, s, xr, xi, x,
+                                           variant=variant)
+                      for s, xr, xi, x in p["launches"]],
+            staged=time_mega_kernel(torch, smi_line, "mega_staged",
+                                    p["staged"], raw, cfg),
+            resident=time_mega_kernel(torch, smi_line, "mega_resident",
+                                      p["resident"], batch_raw, small))
+    second = {}
+    scenes = {"staged": planlib.split(raw),
+              "resident": planlib.split(batch_raw)}
+
+    def mega_ms(step, x):
+        args = [t for a in step.seg_filter_args for t in a]
+        return cuda_median_ms(lambda: ops.mega_spectral_op(
+            *x, *args, **step.kernel_kw), queued=True)
+
+    for form in reversed(TIMED_FORMS):
+        p = paths[form]
+        second[form] = dict(
+            launches=[cuda_median_ms(lambda: ops.spectral_op(
+                xr, xi, **s.filter_kw, **s.kernel_kw), queued=True)
+                for s, xr, xi, x in p["launches"]],
+            **{k: mega_ms(p[k], x) for k, x in scenes.items()})
+    order = [list(f) for f in TIMED_FORMS + tuple(reversed(TIMED_FORMS))]
+    for form in TIMED_FORMS:
+        f1, f2 = first[form], second[form]
+        emit("time_forms", precision=form[0], karatsuba=form[1],
+             order=order, fused3_launch_ms=[
+                 [r["ms"], t] for r, t in zip(f1["launches"],
+                                              f2["launches"])],
+             fused3_sum_ms=[sum(r["ms"] for r in f1["launches"]),
+                            sum(f2["launches"])],
+             fused3_mma_floor_ms=sum(r["mma_floor_ms"]
+                                     for r in f1["launches"]),
+             fused3_bound_ms=sum(r["bound_ms"] for r in f1["launches"]),
+             fused3_plain_ms=sum(r["plain_ms"] for r in f1["launches"]),
+             fused3_library_ms=sum(r["library_ms"]
+                                   for r in f1["launches"]),
+             mega_staged_ms=[f1["staged"]["ms"], f2["staged"]],
+             mega_staged_mma_floor_ms=f1["staged"]["mma_floor_ms"],
+             mega_resident_ms=[f1["resident"]["ms"], f2["resident"]],
+             mega_resident_mma_floor_ms=f1["resident"]["mma_floor_ms"],
+             nvidia_smi=smi_line)
+    records = []
+    for form in TIMED_FORMS[1:]:
+        img = images.get(form, {})
+        counts3, counts1 = img.get("launches", [{}, {}])
+        err = img.get("max_abs_err_vs_plain", 0.0)
+        variant = f"{form[0]}{'+karatsuba' if form[1] else ''}"
+        records.append(kernel_record(
+            "spectral", f"fused3 {variant}", "matmul",
+            counts3.get("spectral", 0), err, first[form]["launches"]))
+        records.append(kernel_record(
+            "mega_staged", f"fused1 {variant}", "matmul",
+            counts1.get("mega_staged", 0), err, [first[form]["staged"]],
+            source="mega_forms.cu"))
+        records.append(kernel_record(
+            "mega_resident", f"fused1 128^2 {variant}", "matmul",
+            img.get("launches_128", {}).get("mega_resident", 0), err,
+            [first[form]["resident"]], source="mega_forms.cu"))
+    return records
+
+
 def main() -> int:
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # tune="cached" is the compile default: every compile reads an empty
+    # tuning cache of this run's own (phase 16 searches in another), so
+    # what the user's cache holds never reaches a check
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+            tmp, "autotune_cache.json")
+        return run(torch)
 
+
+def run(torch) -> int:
+    """Phases 1-16 on the card (``main`` has found it)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
                                       paper_targets, simulate)
@@ -1474,23 +2028,30 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all(verbose=True, force=True)
     build_s = time.perf_counter() - t0
-    check(set(logs) >= {"spectral", "mega", "transpose"},
+    check(set(logs) >= {"spectral", "mega", "mega_forms", "transpose"},
           f"built {sorted(logs)}")
     ptxas = {}
     hmma = {}
     for name, log in logs.items():
         ptxas.update(ptxas_report(log))
-        hmma.update(sass_hmma_tf32(_build.lib_path(name)))
+        hmma.update(sass_hmma(_build.lib_path(name)))
     for kernel in MMA_KERNELS:
-        check(hmma.get(kernel, 0) > 0, f"{kernel}: no HMMA TF32 in its SASS")
-    emit("build", seconds=build_s, sources=sorted(_build.sources()),
-         ptxas=ptxas, hmma_tf32=hmma)
+        check(hmma.get(kernel, {}).get("tf32", 0) > 0,
+              f"{kernel}: no HMMA TF32 in its SASS")
+    # the operand forms (bf16 / f16 / bs16 / Karatsuba) on the matmul route
+    forms = sorted(k for k in hmma if hmma_wanted(k) and k not in MMA_KERNELS)
+    for kernel in forms:
+        check(hmma[kernel][hmma_wanted(kernel)] > 0,
+              f"{kernel}: no HMMA {hmma_wanted(kernel)} in its SASS")
+    emit("build", seconds=build_s, source_seconds=_build.BUILD_SECONDS,
+         sources=sorted(_build.sources()), ptxas=ptxas, hmma=hmma,
+         operand_form_instantiations=len(forms), operand_forms=forms)
 
     # ---- 3. kernel vs plain version on the card ----------------------------
-    cases, worst, o_cases, o_worst = spectral_sweep(
-        torch, ops, seeded_randn(torch, dev, 0), "matmul")
-    emit("kernel", cases=cases, max_rel_err=worst, tol=TOL,
-         oracle_cases=o_cases, max_oracle_err=o_worst, oracle_tol=ORACLE_TOL)
+    sw = spectral_sweep(torch, ops, seeded_randn(torch, dev, 0), "matmul")
+    emit("kernel", cases=sw["cases"], max_rel_err=sw["max_rel_err"], tol=TOL,
+         oracle_cases=sw["oracle_cases"],
+         max_oracle_err=sw["max_oracle_err"], oracle_tol=ORACLE_TOL)
 
     # ---- 4. the main path at the paper's size ------------------------------
     cfg = paper_scene()
@@ -1650,8 +2211,19 @@ def main() -> int:
     f32_images["omegak_fused1"] = f32_images["omegak"]
     kernels += precision_phases(torch, smi_line, cfg, raw, score,
                                 replay_plain, small, small_raw, f32_images)
+    del f32_images
+
+    # ---- 16. tuning: the matmul route's operand forms and the tuner --------
+    form_sweeps(torch, ops, dev)
+    images = form_images(torch, smi_line, cfg, raw, score, replay_plain,
+                         small, small_raw)
+    tuning_path(torch, smi_line, cfg, raw, score, replay_plain, small,
+                small_raw)
+    kernels += form_times(torch, smi_line, cfg, raw, small, small_raw,
+                          images)
     for k in kernels:
         k["precisions"] = kernel_precisions(k["name"])
+        k["karatsuba_by_route"] = kernel_karatsuba(k["name"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

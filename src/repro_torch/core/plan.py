@@ -25,6 +25,11 @@ it into a :class:`Pipeline` of launches of the fused spectral op
   hand-written CUDA kernels on a CUDA device, their plain versions on the
   CPU); ``"torch"``: ``torch.fft`` ops per group (per segment of a
   cross-axis group), the unfused oracle.
+* **Tuning** — each launch's knobs resolve in the reference's order:
+  explicit compile args, then a :class:`~repro_torch.tuning.Schedule`,
+  then the device-fingerprinted tuning cache (``tune="cached"``, a lookup,
+  never a sweep), then library defaults; :func:`cached_pipeline` keeps
+  compiled pipelines.
 
 Plans serialize to/from JSON (``plan_to_json`` / ``plan_from_json``) in
 the JAX package's format, so one plan definition drives both packages.
@@ -49,6 +54,8 @@ from repro_torch.kernels.fft4step import (
     resolve_precision,
 )
 from repro_torch.kernels.transpose import transpose
+from repro_torch.tuning.search import cached_config
+from repro_torch.tuning.space import KernelConfig, Schedule, SegmentConfig
 
 BACKEND_KERNEL = "kernel"   # fused launches of the spectral op
 BACKEND_TORCH = "torch"     # one torch.fft op per group (the unfused oracle)
@@ -528,21 +535,87 @@ def _torch_apply(x, fwd, inv, mode, fk, phys_axis):
     return x
 
 
-def _make_spectral_step(group, mode, arrays, *, transposed, backend,
+def _tuned_config(n: int, batch: int, device) -> KernelConfig:
+    """Best-known kernel config for (n, batch) on ``device`` from the
+    repro_torch.tuning cache (device-fingerprinted; batch normalized to
+    its serving bucket). Never triggers a sweep — compile time is
+    lookup-only; an empty KernelConfig (all defaults) on a miss."""
+    return cached_config(n, batch, device=device) or KernelConfig()
+
+
+def _schedule_segments(opts, count: int) -> tuple:
+    """Consume ``count`` per-segment configs from the compile-wide
+    schedule cursor. Spectral steps take one, a mega-fused group one per
+    in-kernel segment, so a Schedule's segments map onto the plan's
+    spectral segments in compile order. Empty configs when compiling
+    without a schedule; a schedule shorter than the plan pads with empty
+    configs too (``Schedule.segment`` past-the-end behaviour)."""
+    sched = opts["schedule"]
+    if sched is None:
+        return (SegmentConfig(),) * count
+    lo = opts["_seg_cursor"][0]
+    opts["_seg_cursor"][0] = lo + count
+    return tuple(sched.segment(lo + i) for i in range(count))
+
+
+def _schedule_globals(tuned: KernelConfig, opts) -> KernelConfig:
+    """The schedule's dispatch-global knobs applied over the tuned-cache
+    config. Runs BEFORE the explicit fft_kw merge, so the resolution
+    order stays: explicit compile args > schedule > tuned cache >
+    library defaults."""
+    sched = opts["schedule"]
+    if sched is None:
+        return tuned
+    knobs = dict(block=sched.block, col_block=sched.col_block,
+                 precision=sched.precision, residency=sched.residency,
+                 phase_block=sched.phase_block,
+                 buffer_depth=sched.buffer_depth)
+    return tuned.merge_overrides(
+        {k: v for k, v in knobs.items() if v is not None})
+
+
+def _base_config(n: int, backend: str, opts) -> KernelConfig:
+    """A launch's config before its segment's decisions: the tuned cache
+    entry for (n, batch) on the pipeline's device (kernel backend,
+    ``tune="cached"``), then the schedule's global knobs over it."""
+    tuned = _tuned_config(n, opts["batch"], opts["device"]) if (
+        backend == BACKEND_KERNEL and opts["tune"] != "off") else \
+        KernelConfig()
+    return _schedule_globals(tuned, opts)
+
+
+def _make_spectral_step(group, mode, arrays, *, cfg, transposed, backend,
                         opts) -> Step:
     axis = group[0].axis                       # logical (scene) axis
     phys_axis = (1 - axis) if transposed else axis
     fwd = any(a.kind == "fft" for a in group)
     inv = any(a.kind == "ifft" for a in group)
+    n = cfg.nr if axis == 1 else cfg.na
     name = group[0].stage.name
-    block = ((opts["block"] or 8) if phys_axis == 1
-             else (opts["col_block"] or 128))
+
+    # per-launch kernel config: explicit compile args > stage precision >
+    # schedule > tuned cache entry > library defaults
+    tuned = _base_config(n, backend, opts)
+    seg = _schedule_segments(opts, 1)[0]
+    if seg.n1 is not None:
+        tuned = tuned.merge_overrides(dict(n1=seg.n1, n2=seg.n2, n3=seg.n3))
+    if seg.karatsuba is not None:
+        tuned = tuned.merge_overrides(dict(karatsuba=seg.karatsuba))
+    fkw = opts["fft_kw"] if axis == 1 else None
+    if fkw:
+        tuned = tuned.merge_overrides(fkw)
+    if phys_axis == 1:
+        block = opts["block"] or tuned.block or 8
+    else:
+        block = opts["col_block"] or 128
     stage_prec = next((a.stage.precision for a in group
                        if a.stage.precision is not None), None)
-    precision = resolve_precision(opts["precision"] or stage_prec).name
+    precision = resolve_precision(
+        opts["precision"] or stage_prec or tuned.precision).name
     kernel_kw = dict(axis=phys_axis, fwd=fwd, inv=inv, filter_mode=mode,
                      block=block, fft_impl=opts["fft_impl"],
-                     precision=precision)
+                     precision=precision, n1=tuned.n1, n2=tuned.n2,
+                     n3=tuned.n3, karatsuba=bool(tuned.karatsuba))
     filter_kw = _payload_to_device(mode, arrays, opts["device"], transposed)
 
     if backend == BACKEND_KERNEL:
@@ -563,8 +636,10 @@ def _make_mega_step(group, seg_payloads, *, cfg, backend, opts) -> Step:
     """One cross-axis fused group -> ONE megakernel launch (or the
     per-segment torch.fft oracle chain in the torch backend).
 
-    Residency: the explicit compile option, else the shared-memory cut
-    ``ops.mega_residency`` (128^2 resident, larger scenes staged)."""
+    Residency: the explicit compile option, else the tuned cache entry or
+    schedule, else the shared-memory cut ``ops.mega_residency`` (128^2
+    resident, larger scenes staged). A schedule's per-segment split and
+    Karatsuba ride in 8-field segment records."""
     segs = _split_segments(group)
     name = "+".join(dict.fromkeys(a.stage.name for a in group))
     segments = []
@@ -581,17 +656,29 @@ def _make_mega_step(group, seg_payloads, *, cfg, backend, opts) -> Step:
     segments = tuple(segments)
     filter_args = [t for args in seg_args for t in args]
 
+    tuned = _base_config(cfg.nr, backend, opts)
+    seg_cfgs = _schedule_segments(opts, len(segs))
+    if opts["fft_kw"]:
+        tuned = tuned.merge_overrides(opts["fft_kw"])
     stage_prec = next((a.stage.precision for a in group
                        if a.stage.precision is not None), None)
-    precision = resolve_precision(opts["precision"] or stage_prec).name
+    precision = resolve_precision(
+        opts["precision"] or stage_prec or tuned.precision).name
     batch_block = opts["batch_block"]
-    residency = opts["residency"] or ops.mega_residency(
+    residency = opts["residency"] or tuned.residency or ops.mega_residency(
         cfg.na, cfg.nr, batch_block or 1, precision)
+    # per-segment schedule decisions ride as extended 8-field segment
+    # records (axis, fwd, inv, mode, n1, n2, n3, karatsuba) — the kernel
+    # resolves each against the launch-global factorization/karatsuba
+    if any(sc != SegmentConfig() for sc in seg_cfgs):
+        segments = tuple(rec + (sc.n1, sc.n2, sc.n3, sc.karatsuba)
+                         for rec, sc in zip(segments, seg_cfgs))
     kernel_kw = dict(
         segments=segments, residency=residency, batch_block=batch_block,
-        phase_block=opts["phase_block"] or 8,
-        buffer_depth=opts["buffer_depth"] or 2,
-        fft_impl=opts["fft_impl"], precision=precision)
+        phase_block=opts["phase_block"] or tuned.phase_block or 8,
+        buffer_depth=opts["buffer_depth"] or tuned.buffer_depth or 2,
+        fft_impl=opts["fft_impl"], precision=precision, n1=tuned.n1,
+        n2=tuned.n2, n3=tuned.n3, karatsuba=bool(tuned.karatsuba))
 
     if backend == BACKEND_KERNEL:
         def fn(x, _fa=tuple(filter_args)):
@@ -651,6 +738,10 @@ def compile_plan(
     phase_block: Optional[int] = None,
     buffer_depth: Optional[int] = None,
     batch_block: Optional[int] = None,
+    batch: int = 1,
+    tune: str = "cached",
+    fft_kw: Optional[dict] = None,
+    schedule: Optional[Schedule] = None,
 ) -> Pipeline:
     """Compile a plan against a concrete scene into a :class:`Pipeline`.
 
@@ -677,15 +768,34 @@ def compile_plan(
     phase_block / buffer_depth / batch_block: the megakernel's staged line
       granule (default 8), prefetch depth (default 2) and resident scenes
       per slab (default 1), as the reference takes them.
+    batch: scene-batch size the tuned configs are *looked up* for
+      (normalized to the serving power-of-two bucket); it does not
+      restrict the shapes the pipeline accepts.
+    tune: 'cached' pulls per-launch kernel configs (split, Karatsuba,
+      precision, block; residency and staged knobs for mega steps) from
+      the repro_torch.tuning cache under this device's fingerprint; 'off'
+      uses library defaults. With an empty cache both compile the same.
+    fft_kw: explicit config for range-axis (axis=1) launches — e.g. a
+      just-measured split from a repro_torch.tuning search.
+    schedule: a :class:`repro_torch.tuning.Schedule` (a schedule search
+      winner) to compile through. Its global knobs override the tuned
+      cache entry, and its per-segment split/Karatsuba decisions map onto
+      the plan's spectral segments in compile order — a mega step takes
+      one per in-kernel segment (8-field segment records), every other
+      spectral step one. Explicit per-knob compile args (block,
+      precision, fft_kw, residency, ...) still win over the schedule.
     """
     if backend not in (BACKEND_KERNEL, BACKEND_TORCH):
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
     groups, payloads = _group_payloads(plan, cfg, fuse, backend)
+    if tune not in ("cached", "off"):
+        raise ValueError(f"tune must be 'cached' or 'off', got {tune!r}")
     opts = dict(block=block, col_block=col_block, fft_impl=fft_impl,
                 precision=precision, device=dev, residency=residency,
                 phase_block=phase_block, buffer_depth=buffer_depth,
-                batch_block=batch_block)
+                batch_block=batch_block, batch=batch, tune=tune,
+                fft_kw=fft_kw or {}, schedule=schedule, _seg_cursor=[0])
     steps: list[Step] = []
     transposed = False
     for group, (mode, arrays) in zip(groups, payloads):
@@ -699,8 +809,8 @@ def compile_plan(
                 group, arrays, cfg=cfg, backend=backend, opts=opts))
         elif kind in ("fft", "ifft", "mul"):
             steps.append(_make_spectral_step(
-                group, mode, arrays, transposed=transposed, backend=backend,
-                opts=opts))
+                group, mode, arrays, cfg=cfg, transposed=transposed,
+                backend=backend, opts=opts))
         elif kind == "transpose":
             steps.append(_make_transpose_step(group[0].stage, backend))
             transposed = not transposed
@@ -760,3 +870,42 @@ def build_variant(cfg, name: str, **kw) -> Pipeline:
     compile_args = dict(var.compile_defaults)
     compile_args.update(kw)
     return compile_plan(var.plan_fn(**plan_args), cfg, **compile_args)
+
+
+# ---------------------------------------------------------------------------
+# Compiled-pipeline cache
+# ---------------------------------------------------------------------------
+#
+# compile_plan is cheap-ish (payloads are cached) but not free: one warm
+# Pipeline per (scene geometry, variant, compile options) keeps its device
+# filter payloads and tuning lookups. Bounded FIFO like the filter caches:
+# pipelines hold scene-sized device payloads.
+
+_PIPELINE_CACHE: dict = {}
+_PIPELINE_CACHE_MAX = 32
+
+
+def _freeze(v):
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    return v
+
+
+def cached_pipeline(cfg, variant: str, **kw) -> Pipeline:
+    """``build_variant`` behind a bounded cache keyed on
+    ``(cfg, variant, compile kwargs)``. Repeated calls return the SAME
+    Pipeline object, so device filter payloads and tuning lookups are
+    warm. Unhashable kwarg values (dicts/lists, e.g. ``fft_kw``) are
+    frozen to tuples for the key."""
+    key = (cfg, variant, _freeze(kw))
+    if key not in _PIPELINE_CACHE:
+        import repro_torch.core.sar  # noqa: F401  (registers the variants)
+        _fifo_put(_PIPELINE_CACHE, key, build_variant(cfg, variant, **kw),
+                  _PIPELINE_CACHE_MAX)
+    return _PIPELINE_CACHE[key]
+
+
+def clear_pipeline_cache() -> None:
+    _PIPELINE_CACHE.clear()

@@ -212,7 +212,8 @@ def build_pipeline(cfg: SceneConfig, variant: str, **kw) -> Pipeline:
 
     kw: plan kwargs (rcmc_mode / synth_phase, per variant) plus any
     compile_plan option (device, block, col_block, fft_impl, precision,
-    backend, fuse, residency, phase_block, buffer_depth, batch_block).
+    backend, fuse, residency, phase_block, buffer_depth, batch_block,
+    batch, tune, fft_kw, schedule; ``tune="cached"`` by default).
     ``device=None`` (the default) runs on the CUDA card and raises without
     one; pass ``device="cpu"`` for the plain version."""
     return planlib.build_variant(cfg, variant, **kw)

@@ -3,8 +3,8 @@
 Every ``csrc/*.cu`` source compiles, at first use, into its own shared
 library with a plain C interface under ``kernels/_build/`` (listed in
 .gitignore); nothing prebuilt ships with the repository. All sources
-build at once, one ``nvcc`` process each. A library is rebuilt when its
-source, or any ``csrc/*.cuh`` header, is newer than it.
+build at once, one ``nvcc`` process each. A library is rebuilt when any
+file of ``csrc/`` is newer than it.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -fmad=false -shared -Xcompiler -fPIC \
@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
@@ -32,6 +33,9 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+# Seconds each source took to compile in the last build_all (its nvcc
+# process from start to exit; all run at once).
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def sources() -> dict[str, str]:
@@ -60,15 +64,15 @@ def lib_path(name: str) -> str:
 
 
 def _stale(name: str, src: str) -> bool:
-    """No library yet, or one older than its source or any shared header
-    (every ``csrc/*.cuh``, which a source may include)."""
+    """No library yet, or one older than any file of ``csrc/`` (a source
+    may include the shared headers, and another source: mega_forms.cu
+    builds mega.cu's operand forms)."""
     out = lib_path(name)
     if not os.path.exists(out):
         return True
-    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
-               if f.endswith(".cuh")]
     built = os.path.getmtime(out)
-    return any(built < os.path.getmtime(p) for p in [src, *headers])
+    return any(built < os.path.getmtime(os.path.join(CSRC, f))
+               for f in os.listdir(CSRC))
 
 
 def build_all(verbose: bool = False, force: bool = False) -> dict[str, str]:
@@ -79,6 +83,7 @@ def build_all(verbose: bool = False, force: bool = False) -> dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
+    t0 = time.perf_counter()
     for name, src in sources().items():
         if not (force or _stale(name, src)):
             continue
@@ -91,9 +96,17 @@ def build_all(verbose: bool = False, force: bool = False) -> dict[str, str]:
             text=True))
     logs = {}
     failed = []
+    BUILD_SECONDS.clear()
+    outs = {name: [] for name in procs}
+    readers = [threading.Thread(target=_drain, args=(proc, outs[name]))
+               for name, (_, proc) in procs.items()]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
     for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
+        BUILD_SECONDS[name] = outs[name][1] - t0
+        logs[name] = out = outs[name][0]
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
         else:
@@ -101,6 +114,12 @@ def build_all(verbose: bool = False, force: bool = False) -> dict[str, str]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def _drain(proc: subprocess.Popen, out: list) -> None:
+    """Read one nvcc process's output to its end: [output, exit time]."""
+    text, _ = proc.communicate()
+    out[:] = [text, time.perf_counter()]
 
 
 def load(name: str) -> ctypes.CDLL:

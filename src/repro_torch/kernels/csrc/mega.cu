@@ -10,7 +10,8 @@
 //   src/repro/kernels/fft4step.py:1002 `_mega_kernel_staged`
 //   (pallas_call at fft4step.py:1288, residency="staged"),
 // both wrapped by src/repro/kernels/ops.py:161 `mega_spectral_op`; at
-// float32 with karatsuba=False, N <= 4096 on each transformed axis, all
+// every precision (f32, bf16, f16, bs16), Karatsuba per segment on the
+// matmul route, N <= 4096 on each transformed axis, all
 // five filter modes on either axis (rank-K outer), fwd-only / inv-only /
 // fwd+inv / filter-only segments, at most kMaxSegments segments. Each FFT
 // runs on one of two routes: fft_impl="matmul" (the four-step stages, N a
@@ -86,7 +87,14 @@
 // through shared memory a pair between them; rows synchronise per line
 // (2 lines of 256 threads at N = 4096), columns per block.
 //
-// bs16 (the Stockham route; bf16 and f16 are its f32 passes): every segment
+// The matmul route's operand forms (bf16, f16, bs16, Karatsuba; the
+// stages of spectral_common.cuh) are template parameters of both kernels
+// (kOp, kKara), one instantiation each, so the f32 form's code is the same
+// as without them; Karatsuba is chosen per segment (the table's kara
+// field), both stage forms compiled into the kernel that takes it
+// (kKara = 2).
+//
+// bs16 (on the Stockham route bf16 and f16 are its f32 passes): every segment
 // runs the codec of one spectral.cu launch — each line's exponent taken on
 // the segment's load, the line scaled by 2^-e there and by 2^e at its store
 // — which is, point for point, fft4step.mega_plain's carrying the exponents
@@ -94,7 +102,8 @@
 // tile holds whole lines, a resident slab every line, so each reduction
 // stays inside one block). mega_staged codes in registers, as spectral.cu
 // does; mega_resident codes the slab in shared memory before and after the
-// segment (an exponent a line past the slab). The codec is a template flag
+// segment (an exponent a line past the slab), and so does the matmul
+// route's tile_op its tile. The codec is a template flag
 // of both kernels (kBs): the f32 instantiations carry none of its code.
 //
 // Both kernels run, for each point, exactly the operations of spectral.cu's
@@ -108,23 +117,34 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "spectral_common.cuh"
 
 namespace cg = cooperative_groups;
+
+// This source builds the Stockham route and the matmul route's f32 form;
+// mega_forms.cu includes it with MEGA_OPERAND_FORMS set, to build the
+// matmul route's other operand forms (bf16, f16, bs16, Karatsuba) into a
+// library of their own, so that the two compile side by side. Each
+// library refuses the calls the other takes.
+#ifndef MEGA_OPERAND_FORMS
+#define MEGA_OPERAND_FORMS 0
+#endif
 
 namespace {
 
 using namespace spectral;
 
 constexpr int kMaxSegments = 8;
-constexpr int kSegFields = 26;   // int64 fields per segment in the table
+constexpr int kSegFields = 27;   // int64 fields per segment in the table
 
 struct Segment {
   Dft d;
   Filter f;
   int axis, fwd, inv;
   int tile;           // mega_staged: lines per tile
+  int kara;           // the matmul route: Karatsuba in this segment
 };
 
 // mega_resident's thread bound: the 128^2 Stockham specialisation holds
@@ -143,6 +163,7 @@ struct MegaArgs {
   float* yi;
   int batch, na, nr, nseg;
   int bs;             // the bs16 codec in every segment (the route's choice)
+  int op;             // the matmul route's operand form (Operand)
   Segment seg[kMaxSegments];
 };
 
@@ -152,11 +173,13 @@ struct MegaArgs {
 // step's write; a filter-only segment is one pass over the slab. kN > 0:
 // every transform of the kernel has N = kN (stockham_op inlines it). kBs
 // (Stockham route): the slab's lines coded before the segment and decoded
-// after it, their exponents in ex.
-template <bool kLineFast, bool kStockham, int kN, bool kBs>
+// after it, their exponents in ex — on the matmul route too, whose stages
+// run the operand form (kOp; kKara as transform_k's, the segment's own
+// g.kara where kKara == 2).
+template <bool kLineFast, bool kStockham, int kN, bool kBs, int kOp,
+          int kKara>
 __device__ __forceinline__ void resident_segment(const Lines& L,
                                                  const Segment& g, int* ex) {
-  static_assert(kStockham || !kBs, "the codec runs on the Stockham route");
   const Dft& d = g.d;
   const bool fwd = g.fwd, inv = g.inv;
   if constexpr (kStockham) {
@@ -183,20 +206,24 @@ __device__ __forceinline__ void resident_segment(const Lines& L,
     return;
   }
   const Mats m = mats_in_place(d);
+  if constexpr (kBs) lines_encode<kLineFast, false>(L, ex);
   if (!fwd && inv) {
     reorder<kLineFast>(L, kToTransposed, d.n1, d.n2, 1.0f, 1.0f);
   }
-  if (fwd) transform<kLineFast>(L, d, m, false);
+  if (fwd) transform_k<kLineFast, kOp, kKara>(L, d, m, false, g.kara);
   if (g.f.mode != kNone) {
     filter_pass<kLineFast>(L, g.f, 0, L.lines, fwd || inv, d.n1, d.n2);
   }
   if (inv) {
-    transform<kLineFast>(L, d, m, true);
+    transform_k<kLineFast, kOp, kKara>(L, d, m, true, g.kara);
     const float scale = inverse_scale(true, d.n);
     reorder<kLineFast>(L, kKeep, d.n1, d.n2, scale, -scale);
   } else if (fwd) {
     reorder<kLineFast>(L, kToNatural, d.n1, d.n2, 1.0f, 1.0f);
   }
+  // the inverse's 1/N came with its reorder: 2^e after it, as the plain
+  // version orders them
+  if constexpr (kBs) lines_decode<kLineFast, false>(L, ex);
 }
 
 // grid = batch; one scene per CTA, its (na, nr) slab at s[a * nr + r]
@@ -205,8 +232,9 @@ __device__ __forceinline__ void resident_segment(const Lines& L,
 // thread bound (64 registers at 1024 threads, 128 at 512); under the
 // thread bound alone it held the kernel to 32 (8.5 KB of spills). A 128^2
 // slab takes one SM's shared memory anyway. kN: as resident_segment's
-// (the Stockham route's 128^2 slabs, the main path's, take kN = 128).
-template <bool kStockham, int kN, bool kBs>
+// (the Stockham route's 128^2 slabs, the main path's, take kN = 128);
+// kOp, kKara: the matmul route's operand form (resident_segment's).
+template <bool kStockham, int kN, bool kBs, int kOp = kTf32x3, int kKara = 0>
 __global__ void __launch_bounds__(resident_threads(kStockham, kN), 1)
 mega_resident(const __grid_constant__ MegaArgs a) {
   extern __shared__ float2 s[];
@@ -222,11 +250,11 @@ mega_resident(const __grid_constant__ MegaArgs a) {
   for (int k = 0; k < a.nseg; ++k) {
     const Segment& g = a.seg[k];
     if (g.axis == 1) {   // rows
-      resident_segment<false, kStockham, kN, kBs>(Lines{s, na, nr, nr, 1}, g,
-                                                  ex);
+      resident_segment<false, kStockham, kN, kBs, kOp, kKara>(
+          Lines{s, na, nr, nr, 1}, g, ex);
     } else {             // columns
-      resident_segment<true, kStockham, kN, kBs>(Lines{s, nr, na, 1, nr}, g,
-                                                 ex);
+      resident_segment<true, kStockham, kN, kBs, kOp, kKara>(
+          Lines{s, nr, na, 1, nr}, g, ex);
     }
   }
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
@@ -246,8 +274,9 @@ mega_resident(const __grid_constant__ MegaArgs a) {
 // the first tile's load barrier before every read of this one. kN > 0:
 // every transform has N = kN and its Stockham ops are inlined (the main
 // path's 4096^2 scene takes kN = 4096: out of line they spilled 1-3 KB
-// each under this kernel's register budget).
-template <bool kStockham, int kN, bool kBs>
+// each under this kernel's register budget). kOp, kKara: the matmul
+// route's operand form (tile_op's), each segment's Karatsuba its own.
+template <bool kStockham, int kN, bool kBs, int kOp = kTf32x3, int kKara = 0>
 __global__ void __launch_bounds__(kStockham ? kStockhamThreads : kMmaThreads,
                                   1)
 mega_staged(const __grid_constant__ MegaArgs a) {
@@ -270,9 +299,9 @@ mega_staged(const __grid_constant__ MegaArgs a) {
     const float* xi = k == 0 ? a.xi : a.yi;
     for (int t = blockIdx.x; t < a.batch * tiles; t += gridDim.x) {
       const int b = t / tiles;
-      tile_op<kStockham, kN, kBs>(s, xr, xi, a.yr, a.yi, b * scene_points,
-                                  lines, (t - b * tiles) * C, C, g.axis,
-                                  g.fwd, g.inv, g.d, m, g.f);
+      tile_op<kStockham, kN, kBs, kOp, kKara>(
+          s, xr, xi, a.yr, a.yi, b * scene_points, lines, (t - b * tiles) * C,
+          C, g.axis, g.fwd, g.inv, g.d, m, g.f, g.kara);
       __syncthreads();   // the next tile's load overwrites s
     }
     if (k + 1 < a.nseg) grid.sync();
@@ -286,16 +315,19 @@ const T* as_ptr(long long v) {
 
 // Fill MegaArgs from the host's segment table (kSegFields int64 a segment:
 // axis, fwd, inv, mode, rank, n, n1, n2, tile, f1r, f1i, f2r, f2i, twr,
-// twi, hr, hi, h_line, h_k, u, v, u_line, u_k, v_n, v_k, stw). A non-null
-// stw (the Stockham twiddle table) puts the segment on the Stockham route.
+// twi, hr, hi, h_line, h_k, u, v, u_line, u_k, v_n, v_k, stw, kara). A
+// non-null stw (the Stockham twiddle table) puts the segment on the
+// Stockham route; kara (the matmul route) its stages on Karatsuba.
 cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
                    float* yi, int batch, int na, int nr, int nseg, int bs,
-                   const long long* table) {
-  if (nseg < 1 || nseg > kMaxSegments || batch < 1 || na < 1 || nr < 1) {
+                   int op, const long long* table) {
+  if (nseg < 1 || nseg > kMaxSegments || batch < 1 || na < 1 || nr < 1 ||
+      op < kTf32x3 || op > kF16 || (bs && op != kF16)) {
     return cudaErrorInvalidValue;
   }
   a.xr = xr; a.xi = xi; a.yr = yr; a.yi = yi;
   a.batch = batch; a.na = na; a.nr = nr; a.nseg = nseg; a.bs = bs;
+  a.op = op;
   for (int k = 0; k < nseg; ++k) {
     const long long* r = table + (long long)k * kSegFields;
     Segment& g = a.seg[k];
@@ -311,7 +343,11 @@ cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
     g.f.u = as_ptr<float>(r[19]);   g.f.v = as_ptr<float>(r[20]);
     g.f.u_line = r[21]; g.f.u_k = r[22]; g.f.v_n = r[23]; g.f.v_k = r[24];
     g.d.stw = as_ptr<float2>(r[25]);
+    g.kara = (int)r[26];
     if (g.axis != 0 && g.axis != 1) return cudaErrorInvalidValue;
+    if (g.kara && (g.d.stw != nullptr || !(g.fwd || g.inv))) {
+      g.kara = 0;     // no stage runs Karatsuba there
+    }
     if (g.d.n != (g.axis == 1 ? nr : na)) return cudaErrorInvalidValue;
     const int n = g.d.n;
     if ((g.fwd || g.inv) &&
@@ -326,7 +362,8 @@ cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
 // The route of a call: Stockham iff a transforming segment carries the
 // twiddle table. Every transforming segment must agree (-1 otherwise). A
 // chain of filter-only segments runs the matmul instantiation, or, with the
-// bs16 codec, the Stockham one (the only one that codes).
+// bs16 codec, the Stockham one (a filter-only segment's codec is the same
+// on both routes).
 int route(const MegaArgs& a) {
   int r = 0, seen = 0;
   for (int k = 0; k < a.nseg; ++k) {
@@ -338,6 +375,14 @@ int route(const MegaArgs& a) {
     seen = 1;
   }
   return seen ? r : (a.bs != 0);
+}
+
+// Whether a transforming segment runs Karatsuba (the matmul route).
+bool any_kara(const MegaArgs& a) {
+  for (int k = 0; k < a.nseg; ++k) {
+    if (a.seg[k].kara) return true;
+  }
+  return false;
 }
 
 // The N of every transforming segment when they agree, else 0.
@@ -354,44 +399,87 @@ int transform_n(const MegaArgs& a) {
 
 // Shared memory of a mega_staged phase: its tile (whole runs of 16 points
 // on the Stockham route, for swz), and on the matmul route F1 and F2 past
-// it; with bs (Stockham route) the codec's words past the tile: two a
-// thread for a transform, or one a line (codec_words).
+// it; with bs the codec's words: on the Stockham route past the tile, two
+// a thread for a transform, or one a line (codec_words); on the matmul
+// route an exponent a line past F1 and F2 (tile_op).
 size_t staged_smem(const Segment& g, bool stockham, bool bs) {
   const int points = g.tile * g.d.n;
   size_t bytes =
       (size_t)(stockham ? stockham_points(points) : points) * sizeof(float2);
-  if (!stockham && (g.fwd || g.inv)) {
+  if (!stockham && (g.fwd || g.inv || bs)) {
     bytes += dft_smem_floats(g.d.n1, g.d.n2) * sizeof(float);
   }
-  if (bs) bytes += codec_words(g.tile, kStockhamThreads) * sizeof(int);
+  if (bs) {
+    bytes += (stockham ? codec_words(g.tile, kStockhamThreads) : g.tile) *
+             sizeof(int);
+  }
   return bytes;
 }
 
-template <bool kStockham, int kN, bool kBs = false>
+// f(op, bs, kara) with the matmul route's operand form as compile-time
+// constants (std::integral_constant): bs16 is f16 behind the codec, and
+// kara puts each segment's Karatsuba in (kKara = 2). This library's forms
+// alone (MEGA_OPERAND_FORMS): f32 without Karatsuba, or every other.
+template <class F>
+cudaError_t with_form(int op, bool bs, bool kara, F&& f) {
+  using Yes = std::true_type;
+  using No = std::false_type;
+  using Tf32 = std::integral_constant<int, kTf32x3>;
+  using Bf16 = std::integral_constant<int, kBf16>;
+  using F16 = std::integral_constant<int, kF16>;
+  const bool form = op != kTf32x3 || bs || kara;   // not the f32 form
+  if (form != (MEGA_OPERAND_FORMS != 0)) {
+    return cudaErrorInvalidValue;   // the other library's call
+  }
+#if !MEGA_OPERAND_FORMS
+  return f(Tf32{}, No{}, No{});
+#else
+  if (bs) {
+    if (op != kF16) return cudaErrorInvalidValue;
+    return kara ? f(F16{}, Yes{}, Yes{}) : f(F16{}, Yes{}, No{});
+  }
+  switch (op) {
+    case kTf32x3:
+      return f(Tf32{}, No{}, Yes{});
+    case kBf16:
+      return kara ? f(Bf16{}, No{}, Yes{}) : f(Bf16{}, No{}, No{});
+    case kF16:
+      return kara ? f(F16{}, No{}, Yes{}) : f(F16{}, No{}, No{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+#endif
+}
+
+template <bool kStockham, int kN, bool kBs = false, int kOp = kTf32x3,
+          int kKara = 0>
 cudaError_t launch_resident(const MegaArgs& a, int threads, size_t smem,
                             cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      mega_resident<kStockham, kN, kBs>,
+      mega_resident<kStockham, kN, kBs, kOp, kKara>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  mega_resident<kStockham, kN, kBs><<<a.batch, threads, smem, stream>>>(a);
+  mega_resident<kStockham, kN, kBs, kOp, kKara>
+      <<<a.batch, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Blocks of mega_staged<kStockham, kN> one SM holds with `smem` bytes of
 // dynamic shared memory (after setting the attribute), or the error.
-template <bool kStockham, int kN, bool kBs = false>
+template <bool kStockham, int kN, bool kBs = false, int kOp = kTf32x3,
+          int kKara = 0>
 cudaError_t staged_per_sm(size_t smem, int& per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
-      mega_staged<kStockham, kN, kBs>,
+      mega_staged<kStockham, kN, kBs, kOp, kKara>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mega_staged<kStockham, kN, kBs>,
+      &per_sm, mega_staged<kStockham, kN, kBs, kOp, kKara>,
       kStockham ? kStockhamThreads : kMmaThreads, smem);
 }
 
-template <bool kStockham, int kN, bool kBs = false>
+template <bool kStockham, int kN, bool kBs = false, int kOp = kTf32x3,
+          int kKara = 0>
 cudaError_t launch_staged(MegaArgs& a, long long work, size_t smem,
                           cudaStream_t stream) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -402,7 +490,7 @@ cudaError_t launch_staged(MegaArgs& a, long long work, size_t smem,
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if ((err = staged_per_sm<kStockham, kN, kBs>(smem, per_sm)) !=
+  if ((err = staged_per_sm<kStockham, kN, kBs, kOp, kKara>(smem, per_sm)) !=
       cudaSuccess) {
     return err;
   }
@@ -410,7 +498,7 @@ cudaError_t launch_staged(MegaArgs& a, long long work, size_t smem,
   const int grid = (int)std::min((long long)per_sm * sms, work);
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel((const void*)mega_staged<kStockham, kN,
-                                                            kBs>,
+                                                            kBs, kOp, kKara>,
                                     dim3(grid),
                                     dim3(kStockham ? kStockhamThreads
                                                    : kMmaThreads),
@@ -427,18 +515,21 @@ extern "C" {
 // (cudaGetLastError() after it; 0 on success). The caller has checked
 // shapes, types, devices and contiguity.
 
-// block_scaled: the bs16 codec in every segment (the Stockham route only).
+// block_scaled: the bs16 codec in every segment. op: the matmul route's
+// operand form (0 f32 as 3xTF32, 1 bf16, 2 f16; 2 with block_scaled for
+// bs16), which the Stockham route ignores (its bf16 and f16 are its f32
+// passes); each segment's Karatsuba is its table record's.
 
 int mega_resident_launch(const float* xr, const float* xi, float* yr,
                          float* yi, int batch, int na, int nr, int nseg,
-                         int block_scaled, const long long* table,
+                         int block_scaled, int op, const long long* table,
                          void* stream) {
   MegaArgs a;
   cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg,
-                           block_scaled, table);
+                           block_scaled, op, table);
   if (err != cudaSuccess) return (int)err;
   const int r = route(a);
-  if (r < 0 || (block_scaled && !r)) return (int)cudaErrorInvalidValue;
+  if (r < 0) return (int)cudaErrorInvalidValue;
   const int total = na * nr;
   const int need = ((total + kPerThread - 1) / kPerThread + 31) / 32 * 32;
   // Stockham: up to 512 threads, 16 points a thread, rounds of lines;
@@ -468,26 +559,38 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
       (size_t)(r ? stockham_points(total) : total) * sizeof(float2) +
       (block_scaled ? (size_t)std::max(na, nr) * sizeof(int) : 0);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (!r) return (int)launch_resident<false, 0>(a, threads, smem, st);
+  if (!r) {
+    return (int)with_form(a.op, block_scaled, any_kara(a),
+                          [&](auto op, auto bs, auto kara) {
+      return launch_resident<false, 0, decltype(bs)::value,
+                             decltype(op)::value,
+                             decltype(kara)::value ? 2 : 0>(a, threads, smem,
+                                                            st);
+    });
+  }
+#if MEGA_OPERAND_FORMS
+  return (int)cudaErrorInvalidValue;    // the Stockham route: mega.cu's
+#else
   if (block_scaled) {
     return (int)(n128 ? launch_resident<true, 128, true>(a, threads, smem, st)
                       : launch_resident<true, 0, true>(a, threads, smem, st));
   }
   return (int)(n128 ? launch_resident<true, 128>(a, threads, smem, st)
                    : launch_resident<true, 0>(a, threads, smem, st));
+#endif
 }
 
 int mega_staged_launch(const float* xr, const float* xi, float* yr,
                        float* yi, int batch, int na, int nr, int nseg,
-                       int buffer_depth, int block_scaled,
+                       int buffer_depth, int block_scaled, int op,
                        const long long* table, void* stream) {
   if (buffer_depth < 1) return (int)cudaErrorInvalidValue;
   MegaArgs a;
   cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg,
-                           block_scaled, table);
+                           block_scaled, op, table);
   if (err != cudaSuccess) return (int)err;
   const int r = route(a);
-  if (r < 0 || (block_scaled && !r)) return (int)cudaErrorInvalidValue;
+  if (r < 0) return (int)cudaErrorInvalidValue;
   const int threads = r ? kStockhamThreads : kMmaThreads;
   size_t smem = 0;
   long long work = 0;
@@ -507,7 +610,17 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
                     (long long)batch * ((lines + g.tile - 1) / g.tile));
   }
   const cudaStream_t st = (cudaStream_t)stream;
-  if (!r) return (int)launch_staged<false, 0>(a, work, smem, st);
+  if (!r) {
+    return (int)with_form(a.op, block_scaled, any_kara(a),
+                          [&](auto op, auto bs, auto kara) {
+      return launch_staged<false, 0, decltype(bs)::value,
+                           decltype(op)::value,
+                           decltype(kara)::value ? 2 : 0>(a, work, smem, st);
+    });
+  }
+#if MEGA_OPERAND_FORMS
+  return (int)cudaErrorInvalidValue;    // the Stockham route: mega.cu's
+#else
   const bool n4096 = transform_n(a) == 4096;
   if (block_scaled) {
     return (int)(n4096 ? launch_staged<true, 4096, true>(a, work, smem, st)
@@ -515,8 +628,10 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
   }
   return (int)(n4096 ? launch_staged<true, 4096>(a, work, smem, st)
                      : launch_staged<true, 0>(a, work, smem, st));
+#endif
 }
 
+#if !MEGA_OPERAND_FORMS
 // Blocks of mega_staged on the given route (stockham != 0) one SM holds
 // with `smem` bytes of dynamic shared memory (-1 on error): its persistent
 // grid is this times the SM count.
@@ -527,6 +642,7 @@ int mega_staged_blocks_per_sm(long long smem, int stockham) {
                : staged_per_sm<false, 0>((size_t)smem, per_sm);
   return err == cudaSuccess ? per_sm : -1;
 }
+#endif
 
 // cudaDevAttrMaxSharedMemoryPerBlockOptin of device `dev` (-1 on error).
 int mega_smem_optin(int dev) {

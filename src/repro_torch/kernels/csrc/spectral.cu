@@ -4,7 +4,8 @@
 // Replaces: the Pallas TPU kernel src/repro/kernels/fft4step.py:598
 // `_spectral_kernel` (built by `build_spectral_call`, pallas_call at
 // fft4step.py:728, wrapped by src/repro/kernels/ops.py:66 `spectral_op`),
-// at float32 with karatsuba=False, N <= 4096, both layouts (rows:
+// at every precision (f32, bf16, f16, bs16) with and without Karatsuba,
+// N <= 4096 and a two-factor split, both layouts (rows:
 // (B, lines, N); cols: (B, N, lines)), all five filter modes (rank-K
 // outer), fwd-only / inv-only / fwd+inv / filter-only; and, with
 // fft_impl="stockham", also src/repro/kernels/fft4step.py:422
@@ -49,6 +50,12 @@
 //     floats of a warp's task and the split fragments): 256 at 4096
 //     points a tile, 8 warps of 16 x 32 outputs of the 64 x 64 block a
 //     line; 512 for the 16384-point column tile, in two rounds of lines.
+//     bf16 / f16 run the stages as one pass of mma.sync.m16n8k16 with f32
+//     accumulation, bs16 f16 behind the per-line exponent codec (the
+//     tile's lines coded in shared memory after the load, decoded before
+//     the store), Karatsuba 3 real products a complex contraction instead
+//     of 4; each form its own instantiation (spectral_kernel<matmul, kBs,
+//     kOp, kKara>), so the f32 form's code is the same as without them.
 //   * Stockham route (stockham_op in spectral_common.cuh): 16 points a
 //     thread in registers, 32 in a 4-column tile at N = 4096 (256
 //     threads for a row, 512 for that tile; up to 128 registers), the
@@ -61,8 +68,8 @@
 //     Self-sorting, so nothing is permuted and the filter index is the
 //     natural one; twiddles from the table fft4step.stockham_table builds
 //     on the host (the plain version reads the same numbers).
-//   * bs16 (Stockham route; bf16 and f16 are its f32 passes, since the
-//     route has no matrix operands): each line's exponent is reduced from
+//   * bs16 on the Stockham route (bf16 and f16 are its f32 passes, since
+//     the route has no matrix operands): each line's exponent is reduced from
 //     the points the first step loaded into registers (warp shuffles, and
 //     a slot a thread in shared memory where a line spans warps), the
 //     points scaled by 2^-e before the first butterflies and by 2^e at the
@@ -101,9 +108,11 @@ struct Args {
 };
 
 // One tile of whole lines per CTA: grid (tiles, batch). The matmul route
-// keeps F1 and F2 in shared memory past the tile; kBs (the Stockham route)
-// the codec's words (codec_words).
-template <bool kStockham, bool kBs = false>
+// keeps F1 and F2 in shared memory past the tile, and with kBs (bs16) the
+// codec's exponent a line past them; the Stockham route with kBs the
+// codec's words past the tile (codec_words). kOp, kKara: the matmul
+// route's operand form (transform_k; kKara 0 or 1 here).
+template <bool kStockham, bool kBs = false, int kOp = kTf32x3, int kKara = 0>
 __device__ __forceinline__ void spectral_tile(const Args& a) {
   extern __shared__ float2 s[];
   Mats m{};
@@ -112,19 +121,19 @@ __device__ __forceinline__ void spectral_tile(const Args& a) {
       m = mats_to_shared(reinterpret_cast<float*>(s + a.tile * a.d.n), a.d);
     }
   }
-  tile_op<kStockham, 0, kBs>(s, a.xr, a.xi, a.yr, a.yi,
-                             (long long)blockIdx.y * a.lines * a.d.n, a.lines,
-                             blockIdx.x * a.tile, a.tile, a.axis, a.fwd,
-                             a.inv, a.d, m, a.f);
+  tile_op<kStockham, 0, kBs, kOp, kKara>(
+      s, a.xr, a.xi, a.yr, a.yi, (long long)blockIdx.y * a.lines * a.d.n,
+      a.lines, blockIdx.x * a.tile, a.tile, a.axis, a.fwd, a.inv, a.d, m,
+      a.f);
 }
 
-template <bool kStockham, bool kBs>
-__global__ void spectral_kernel(const Args a);
-
-template <>
+// The matmul route, every operand form: f32 (3xTF32), bf16, f16, bs16
+// (kBs with f16), each with or without Karatsuba (kKara = 1).
+template <bool kStockham, bool kBs, int kOp, int kKara>
 __global__ void __launch_bounds__(kMmaThreads)
-spectral_kernel<false, false>(const Args a) {
-  spectral_tile<false>(a);
+spectral_kernel(const Args a) {
+  static_assert(!kStockham, "the Stockham route's kernels follow");
+  spectral_tile<false, kBs, kOp, kKara>(a);
 }
 
 // Naming the blocks an SM holds gives ptxas the register file of the
@@ -133,13 +142,13 @@ spectral_kernel<false, false>(const Args a) {
 // the kernel made a call.
 template <>
 __global__ void __launch_bounds__(kStockhamThreads, 1)
-spectral_kernel<true, false>(const Args a) {
+spectral_kernel<true, false, kTf32x3, 0>(const Args a) {
   spectral_tile<true>(a);
 }
 
 template <>
 __global__ void __launch_bounds__(kStockhamThreads, 1)
-spectral_kernel<true, true>(const Args a) {
+spectral_kernel<true, true, kTf32x3, 0>(const Args a) {
   spectral_tile<true, true>(a);
 }
 
@@ -154,6 +163,35 @@ cudaError_t launch(K kernel, const Args& a, int batch, int threads,
   return cudaGetLastError();
 }
 
+// The matmul route's instantiation of one operand form.
+template <bool kBs, int kOp>
+cudaError_t launch_mma(const Args& a, bool kara, int batch, int threads,
+                       size_t smem, cudaStream_t st) {
+  return kara ? launch(spectral_kernel<false, kBs, kOp, 1>, a, batch,
+                       threads, smem, st)
+              : launch(spectral_kernel<false, kBs, kOp, 0>, a, batch,
+                       threads, smem, st);
+}
+
+cudaError_t launch_form(const Args& a, int op, bool bs, bool kara, int batch,
+                        int threads, size_t smem, cudaStream_t st) {
+  if (bs) {   // bs16: f16 operands behind the codec
+    return op == kF16 ? launch_mma<true, kF16>(a, kara, batch, threads, smem,
+                                               st)
+                      : cudaErrorInvalidValue;
+  }
+  switch (op) {
+    case kTf32x3:
+      return launch_mma<false, kTf32x3>(a, kara, batch, threads, smem, st);
+    case kBf16:
+      return launch_mma<false, kBf16>(a, kara, batch, threads, smem, st);
+    case kF16:
+      return launch_mma<false, kF16>(a, kara, batch, threads, smem, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -161,13 +199,16 @@ extern "C" {
 // Launches one fused spectral op on `stream`; returns cudaGetLastError()
 // after the launch (0 on success). `stw` (the Stockham twiddle table, or
 // null) selects the route and with it the instantiation: the four-step
-// stages read f1*, f2*, tw* with N = n1 * n2 (at most 512 threads);
-// Stockham reads stw alone (at most 512 threads, stockham_per_thread
-// points a thread, a tile op that is built: threads = tile * n / points
-// puts no thread idle, which per-line barriers need). The caller has
-// checked shapes, types, devices and contiguity. block_scaled: the bs16
-// codec around the op, on the Stockham instantiation (a filter-only launch
-// takes it too, with the tile and threads the host gave).
+// stages read f1*, f2*, tw* with N = n1 * n2 (at most 512 threads) on the
+// operand form `op` (0 f32 as 3xTF32, 1 bf16, 2 f16; with block_scaled,
+// bs16) with Karatsuba's 3 products when `karatsuba`; Stockham reads stw
+// alone (at most 512 threads, stockham_per_thread points a thread, a tile
+// op that is built: threads = tile * n / points puts no thread idle, which
+// per-line barriers need) and takes no operand form (bf16 and f16 run its
+// f32 passes). The caller has checked shapes, types, devices and
+// contiguity. block_scaled: the bs16 codec around the op (a filter-only
+// launch, which runs no stage, takes it on the Stockham instantiation,
+// with the tile and threads the host gave).
 int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
                     int batch, int lines, int n, int n1, int n2, int axis,
                     int fwd, int inv, int mode, const float* f1r,
@@ -177,7 +218,8 @@ int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
                     const float* hi, const float* u, const float* v, int rank,
                     long long h_line, long long h_k, long long u_line,
                     long long u_k, long long v_n, long long v_k, int tile,
-                    int threads, int block_scaled, void* stream) {
+                    int threads, int block_scaled, int op, int karatsuba,
+                    void* stream) {
   Args a;
   a.xr = xr; a.xi = xi; a.yr = yr; a.yi = yi;
   a.d = Dft{f1r, f1i, f2r, f2i, twr, twi,
@@ -187,10 +229,10 @@ int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
   a.axis = axis; a.fwd = fwd; a.inv = inv;
   a.tile = tile;
   const bool any_fft = fwd || inv;
-  if (block_scaled && any_fft && stw == nullptr) {   // the matmul route's
+  if (op < kTf32x3 || op > kF16 || (block_scaled && op != kF16)) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool stockham = stw != nullptr || block_scaled;
+  const bool stockham = stw != nullptr || (block_scaled && !any_fft);
   const int per = stockham_per_thread(tile * n, n, threads);   // Stockham
   if (stockham ? threads > kStockhamThreads || threads * per < tile * n ||
                      !stockham_tile_built(axis, n, per)
@@ -206,17 +248,23 @@ int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
   size_t smem = (size_t)tile * n * sizeof(float2);
   if (stockham) smem = (size_t)stockham_points(tile * n) * sizeof(float2);
   if (!stockham && any_fft) smem += dft_smem_floats(n1, n2) * sizeof(float);
-  if (block_scaled) smem += codec_words(tile, threads) * sizeof(int);
-  const cudaStream_t st = (cudaStream_t)stream;
   if (block_scaled) {
-    return (int)launch(spectral_kernel<true, true>, a, batch, threads, smem,
-                       st);
+    smem += (stockham ? codec_words(tile, threads) : tile) * sizeof(int);
   }
-  return (int)(stockham
-                   ? launch(spectral_kernel<true, false>, a, batch, threads,
-                            smem, st)
-                   : launch(spectral_kernel<false, false>, a, batch, threads,
-                            smem, st));
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (stockham) {
+    return (int)(block_scaled
+                     ? launch(spectral_kernel<true, true, kTf32x3, 0>, a,
+                              batch, threads, smem, st)
+                     : launch(spectral_kernel<true, false, kTf32x3, 0>, a,
+                              batch, threads, smem, st));
+  }
+  if (!any_fft) {   // a filter-only launch runs no stage: the f32 form
+    op = kTf32x3;
+    karatsuba = 0;
+  }
+  return (int)launch_form(a, op, block_scaled, karatsuba, batch, threads,
+                          smem, st);
 }
 
 const char* spectral_error_string(int code) {

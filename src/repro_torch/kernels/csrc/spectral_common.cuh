@@ -35,7 +35,11 @@
 // because wgmma takes a TF32 B operand only K-major from shared memory
 // (stage A's data is N-major there) and would need the hi/lo halves
 // written back to shared memory; mma.sync takes the split fragments from
-// registers. The wgmma form is later work.
+// registers. The wgmma form is later work. The other operand forms of the
+// stage — bf16 and f16 on mma.sync.m16n8k16 (one pass; bs16 is f16 behind
+// the per-line exponent codec), and Karatsuba's 3 real products a complex
+// contraction on each — are instantiations of their own (stage_kara,
+// stage16), so the f32 form's code is the same whether they exist or not.
 //
 // The Stockham route (replacing the JAX package's _fft_stockham,
 // src/repro/kernels/fft4step.py:422) runs its radix-4/radix-2 passes two
@@ -57,6 +61,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma16.cuh"
 #include "tf32_mma.cuh"
 
 namespace spectral {
@@ -405,18 +410,387 @@ __device__ __forceinline__ void stage(const Lines& L, const StageMap& g,
   }
 }
 
+// The stage's other operand forms (bf16, f16, and Karatsuba on each), one
+// instantiation each, so that the f32 form above keeps its code.
+//
+// Karatsuba takes 3 real products a complex contraction instead of 4:
+// P1 = Fr Xr, P2 = Fi Xi, P3 = (Fr + Fi)(Xr + Xi), each in accumulators of
+// its own, the sums formed in f32 and then split or rounded (the inverse's
+// conj_in flips Xi before its sum), and Re Y = P1 - P2,
+// Im Y = (P3 - P1) - P2 at the write-back, as fft4step._cdot computes
+// them: 9 mma.sync a tile and k-step on 3xTF32 (stage_kara) instead of 12,
+// 3 on 16-bit operands (stage16) instead of 4.
+//
+// stage16 runs one pass of mma.sync.m16n8k16 on bf16 or f16 operands
+// (mma16.cuh) with f32 accumulation, k-steps of 16: each operand, F and
+// the data alike, rounded to nearest even once as it enters a fragment,
+// where fft4step._cast rounds it; the twiddle stays an f32 cmul at the
+// write-back. A product of two 16-bit operands is exact in f32, so such a
+// stage differs from the plain version only in the order of f32
+// accumulation.
+
+// The write-back of one stage's accumulators (between the stage's two
+// barriers), the twiddle with the rounded cmul: (Re, Im) of the
+// four-product form, or Karatsuba's from (P1, P2, P3).
+template <bool kLineFast, bool kMasked, bool kKara, int kAcc>
+__device__ __forceinline__ void stage_write(const Lines& L, const StageMap& g,
+                                            const float (&acc)[kGroup][kAcc][4],
+                                            int m0, int col0, int c0,
+                                            int cols,
+                                            const float* __restrict__ twr,
+                                            const float* __restrict__ twi) {
+  const int lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tq = lane & 3;
+  const int lstr = kLineFast ? 1 : L.ls;
+  const int pstr = kLineFast ? L.es : 1;
+  const int lq = __ffs(g.nq) - 1;
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + grp + (e >> 1) * 8;
+      const int col = col0 + 8 * j + 2 * tq + (e & 1);
+      if ((!kMasked || m < g.nf) && (!kMasked || col < cols)) {
+        const int q = col & (g.nq - 1);
+        float2 y;
+        if constexpr (kKara) {
+          y = make_float2(__fsub_rn(acc[j][0][e], acc[j][1][e]),
+                          __fsub_rn(__fsub_rn(acc[j][2][e], acc[j][0][e]),
+                                    acc[j][1][e]));
+        } else {
+          y = make_float2(acc[j][0][e], acc[j][1][e]);
+        }
+        if (twr != nullptr) {
+          const int w = m * g.twm + q * g.twq;
+          y = cmul(y, __ldg(twr + w), __ldg(twi + w));
+        }
+        L.s[(c0 + (col >> lq)) * lstr + (m * g.om + q * g.oq) * pstr] = y;
+      }
+    }
+  }
+}
+
+// Karatsuba on 3xTF32: stage()'s task shape, k-steps of 8 and splits,
+// each of P1, P2, P3 as lo hi + hi lo + hi hi.
+template <bool kLineFast, bool kMasked>
+__device__ __forceinline__ void stage_kara(const Lines& L, const StageMap& g,
+                                           const float* fr, const float* fi,
+                                           int fld,
+                                           const float* __restrict__ twr,
+                                           const float* __restrict__ twi,
+                                           bool conj_in) {
+  const int nf = g.nf, nq = g.nq;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int grp = lane >> 2, tq = lane & 3;
+  const int lstr = kLineFast ? 1 : L.ls;
+  const int pstr = kLineFast ? L.es : 1;
+  const int kstr = g.sk * pstr;
+  const int lq = __ffs(nq) - 1;
+  const int mt = (nf + 15) >> 4;
+  const int chunk = max(1, ((nwarps / mt) * kGroupCols) >> lq);
+  const float2* xs = L.s;
+  const float2 zero = make_float2(0.0f, 0.0f);
+  for (int c0 = 0; c0 < L.lines; c0 += chunk) {
+    const int cols = min(chunk, L.lines - c0) << lq;
+    const int tasks = mt * ((cols + kGroupCols - 1) / kGroupCols);
+    const bool busy = warp < tasks;
+    const int m0 = (warp % mt) * 16;
+    const int col0 = (warp / mt) * kGroupCols;
+    float acc[kGroup][3][4];
+    if (busy) {
+      const int r0 = m0 + grp, r1 = r0 + 8;
+      const bool rv0 = !kMasked || r0 < nf, rv1 = !kMasked || r1 < nf;
+      const int fo0 = (rv0 ? r0 : 0) * fld + tq;
+      const int fo1 = (rv1 ? r1 : 0) * fld + tq;
+      int xo[kGroup];
+      bool xv[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        const int col = col0 + 8 * j + grp;
+        xv[j] = !kMasked || col < cols;
+        xo[j] = xv[j] ? (c0 + (col >> lq)) * lstr
+                            + (col & (nq - 1)) * g.sq * pstr + tq * kstr
+                      : 0;
+#pragma unroll
+        for (int h = 0; h < 3; ++h) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][h][e] = 0.0f;
+        }
+      }
+      for (int k0 = 0; k0 < nf; k0 += 8) {
+        const bool kav = !kMasked || k0 + tq < nf;
+        const bool kbv = !kMasked || k0 + tq + 4 < nf;
+        const int fidx[4] = {fo0 + k0, fo1 + k0, fo0 + k0 + 4, fo1 + k0 + 4};
+        const bool fok[4] = {rv0 && kav, rv1 && kav, rv0 && kbv, rv1 && kbv};
+        uint32_t frh[4], frl[4], fih[4], fil[4], fsh[4], fsl[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a = fok[i] ? fr[fidx[i]] : 0.0f;
+          const float b = fok[i] ? fi[fidx[i]] : 0.0f;
+          const Tf32Pair pr = split_tf32(a), pi = split_tf32(b);
+          const Tf32Pair ps = split_tf32(__fadd_rn(a, b));
+          frh[i] = pr.hi; frl[i] = pr.lo;
+          fih[i] = pi.hi; fil[i] = pi.lo;
+          fsh[i] = ps.hi; fsl[i] = ps.lo;
+        }
+        const int xk = k0 * kstr;
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          if (kMasked && col0 + 8 * j >= cols) continue;   // warp-uniform
+          float2 x0 = xv[j] && kav ? xs[xo[j] + xk] : zero;
+          float2 x1 = xv[j] && kbv ? xs[xo[j] + xk + 4 * kstr] : zero;
+          if (conj_in) { x0.y = -x0.y; x1.y = -x1.y; }   // exact
+          const Tf32Pair r0s = split_tf32(x0.x), r1s = split_tf32(x1.x);
+          const Tf32Pair i0s = split_tf32(x0.y), i1s = split_tf32(x1.y);
+          const Tf32Pair s0s = split_tf32(__fadd_rn(x0.x, x0.y));
+          const Tf32Pair s1s = split_tf32(__fadd_rn(x1.x, x1.y));
+          float (&p1)[4] = acc[j][0];
+          float (&p2)[4] = acc[j][1];
+          float (&p3)[4] = acc[j][2];
+          mma_tf32(p1, frl, r0s.hi, r1s.hi);
+          mma_tf32(p2, fil, i0s.hi, i1s.hi);
+          mma_tf32(p3, fsl, s0s.hi, s1s.hi);
+          mma_tf32(p1, frh, r0s.lo, r1s.lo);
+          mma_tf32(p2, fih, i0s.lo, i1s.lo);
+          mma_tf32(p3, fsh, s0s.lo, s1s.lo);
+          mma_tf32(p1, frh, r0s.hi, r1s.hi);
+          mma_tf32(p2, fih, i0s.hi, i1s.hi);
+          mma_tf32(p3, fsh, s0s.hi, s1s.hi);
+        }
+      }
+    }
+    __syncthreads();
+    if (busy) {
+      stage_write<kLineFast, kMasked, true>(L, g, acc, m0, col0, c0, cols,
+                                            twr, twi);
+    }
+    __syncthreads();
+  }
+}
+
+// One pass of 16-bit operands (kOp: kBf16 or kF16), four products or
+// Karatsuba's three: stage()'s task shape with k-steps of 16.
+template <bool kLineFast, bool kMasked, int kOp, bool kKara>
+__device__ __forceinline__ void stage16(const Lines& L, const StageMap& g,
+                                        const float* fr, const float* fi,
+                                        int fld,
+                                        const float* __restrict__ twr,
+                                        const float* __restrict__ twi,
+                                        bool conj_in) {
+  constexpr int kAcc = kKara ? 3 : 2;
+  const int nf = g.nf, nq = g.nq;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int grp = lane >> 2, tq = lane & 3;
+  const int lstr = kLineFast ? 1 : L.ls;
+  const int pstr = kLineFast ? L.es : 1;
+  const int kstr = g.sk * pstr;
+  const int lq = __ffs(nq) - 1;
+  const int mt = (nf + 15) >> 4;
+  const int chunk = max(1, ((nwarps / mt) * kGroupCols) >> lq);
+  const float2* xs = L.s;
+  const float2 zero = make_float2(0.0f, 0.0f);
+  for (int c0 = 0; c0 < L.lines; c0 += chunk) {
+    const int cols = min(chunk, L.lines - c0) << lq;
+    const int tasks = mt * ((cols + kGroupCols - 1) / kGroupCols);
+    const bool busy = warp < tasks;
+    const int m0 = (warp % mt) * 16;
+    const int col0 = (warp / mt) * kGroupCols;
+    float acc[kGroup][kAcc][4];
+    if (busy) {
+      // this lane's fragment offsets at k = 0: F rows r0, r1 at columns
+      // 2tq, 2tq + 1 (+ 8); the data of its column of each n8 tile at rows
+      // 2tq, 2tq + 1 (+ 8)
+      const int r0 = m0 + grp, r1 = r0 + 8;
+      const bool rv0 = !kMasked || r0 < nf, rv1 = !kMasked || r1 < nf;
+      const int fo0 = (rv0 ? r0 : 0) * fld + 2 * tq;
+      const int fo1 = (rv1 ? r1 : 0) * fld + 2 * tq;
+      int xo[kGroup];
+      bool xv[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        const int col = col0 + 8 * j + grp;
+        xv[j] = !kMasked || col < cols;
+        xo[j] = xv[j] ? (c0 + (col >> lq)) * lstr
+                            + (col & (nq - 1)) * g.sq * pstr + 2 * tq * kstr
+                      : 0;
+#pragma unroll
+        for (int h = 0; h < kAcc; ++h) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][h][e] = 0.0f;
+        }
+      }
+      for (int k0 = 0; k0 < nf; k0 += 16) {
+        // element t of the lane's pairs sits at k = k0 + 2tq + kOff(t)
+        bool kv[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          kv[t] = !kMasked || k0 + 2 * tq + (t >> 1) * 8 + (t & 1) < nf;
+        }
+        // A: a_i at row (i & 1 ? r1 : r0), columns k0 + 2tq + 8 (i >> 1)
+        // and the next
+        uint32_t ar[4], ai[4], as[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool rv = (i & 1) ? rv1 : rv0;
+          const int fo = ((i & 1) ? fo1 : fo0) + k0 + (i >> 1) * 8;
+          const bool v0 = rv && kv[(i >> 1) * 2];
+          const bool v1 = rv && kv[(i >> 1) * 2 + 1];
+          const float rl = v0 ? fr[fo] : 0.0f, rh = v1 ? fr[fo + 1] : 0.0f;
+          const float il = v0 ? fi[fo] : 0.0f, ih = v1 ? fi[fo + 1] : 0.0f;
+          ar[i] = pack16<kOp>(rl, rh);
+          ai[i] = pack16<kOp>(il, ih);
+          if constexpr (kKara) {
+            as[i] = pack16<kOp>(__fadd_rn(rl, il), __fadd_rn(rh, ih));
+          }
+        }
+        const int xk = k0 * kstr;
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          if (kMasked && col0 + 8 * j >= cols) continue;   // warp-uniform
+          float2 x[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            x[t] = xv[j] && kv[t]
+                       ? xs[xo[j] + xk + ((t >> 1) * 8 + (t & 1)) * kstr]
+                       : zero;
+            if (conj_in) x[t].y = -x[t].y;   // exact
+          }
+          const uint32_t br0 = pack16<kOp>(x[0].x, x[1].x);
+          const uint32_t br1 = pack16<kOp>(x[2].x, x[3].x);
+          const uint32_t bi0 = pack16<kOp>(x[0].y, x[1].y);
+          const uint32_t bi1 = pack16<kOp>(x[2].y, x[3].y);
+          if constexpr (kKara) {
+            const uint32_t bs0 = pack16<kOp>(__fadd_rn(x[0].x, x[0].y),
+                                             __fadd_rn(x[1].x, x[1].y));
+            const uint32_t bs1 = pack16<kOp>(__fadd_rn(x[2].x, x[2].y),
+                                             __fadd_rn(x[3].x, x[3].y));
+            mma16<kOp>(acc[j][0], ar, br0, br1);
+            mma16<kOp>(acc[j][1], ai, bi0, bi1);
+            mma16<kOp>(acc[j][2], as, bs0, bs1);
+          } else {
+            mma16<kOp>(acc[j][0], ar, br0, br1);
+            mma16<kOp>(acc[j][0], ai, neg16(bi0), neg16(bi1));
+            mma16<kOp>(acc[j][1], ar, bi0, bi1);
+            mma16<kOp>(acc[j][1], ai, br0, br1);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (busy) {
+      stage_write<kLineFast, kMasked, kKara>(L, g, acc, m0, col0, c0, cols,
+                                             twr, twi);
+    }
+    __syncthreads();
+  }
+}
+
+// The stage of one operand form (kOp, kKara).
+template <bool kLineFast, bool kMasked, int kOp, bool kKara>
+__device__ __forceinline__ void stage_form(const Lines& L, const StageMap& g,
+                                           const float* fr, const float* fi,
+                                           int fld, const float* twr,
+                                           const float* twi, bool conj_in) {
+  if constexpr (kOp != kTf32x3) {
+    stage16<kLineFast, kMasked, kOp, kKara>(L, g, fr, fi, fld, twr, twi,
+                                            conj_in);
+  } else if constexpr (kKara) {
+    stage_kara<kLineFast, kMasked>(L, g, fr, fi, fld, twr, twi, conj_in);
+  } else {
+    stage<kLineFast, kMasked>(L, g, fr, fi, fld, twr, twi, conj_in);
+  }
+}
+
 // A stage on its unmasked form where the shape allows it (the choice
 // depends on the shape alone, so every caller takes the same one).
-template <bool kLineFast>
+template <bool kLineFast, int kOp = kTf32x3, bool kKara = false>
 __device__ __forceinline__ void run_stage(const Lines& L, const StageMap& g,
                                           const float* fr, const float* fi,
                                           int fld, const float* twr,
                                           const float* twi, bool conj_in) {
   if (g.nf >= 16 && g.nq >= kGroupCols) {
-    stage<kLineFast, false>(L, g, fr, fi, fld, twr, twi, conj_in);
+    stage_form<kLineFast, false, kOp, kKara>(L, g, fr, fi, fld, twr, twi,
+                                             conj_in);
   } else {
-    stage<kLineFast, true>(L, g, fr, fi, fld, twr, twi, conj_in);
+    stage_form<kLineFast, true, kOp, kKara>(L, g, fr, fi, fld, twr, twi,
+                                            conj_in);
   }
+}
+
+enum Order { kKeep = 0, kToNatural = 1, kToTransposed = 2 };
+
+// In place, per line: out[q] = in[src(q)] * (scale, iscale), with src the
+// identity (kKeep), to_transposed (kToNatural: a forward-only spectrum back
+// to natural order) or from_transposed (kToTransposed: natural data into
+// the order an inverse-only segment reads). Staged through registers, in
+// rounds of whole lines of at most kPerThread points a thread (the host
+// keeps n <= kPerThread * blockDim.x).
+template <bool kLineFast>
+__device__ __forceinline__ void reorder(const Lines& L, int order, int n1,
+                                        int n2, float scale, float iscale) {
+  const int chunk = max(1, kPerThread * (int)blockDim.x / L.n);
+  for (int c0 = 0; c0 < L.lines; c0 += chunk) {
+    const int cl = min(chunk, L.lines - c0);
+    const int total = cl * L.n;
+    float2 stash[kPerThread];
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int o = threadIdx.x + i * blockDim.x;
+      if (o < total) {
+        int c, q;
+        split_items<kLineFast>(cl, L.n, o, c, q);
+        const int src = order == kToNatural ? to_transposed(q, n1, n2)
+                        : order == kToTransposed ? from_transposed(q, n1, n2)
+                        : q;
+        const float2 v = *at<kLineFast>(L, c0 + c, src);
+        stash[i] = make_float2(__fmul_rn(v.x, scale), __fmul_rn(v.y, iscale));
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int o = threadIdx.x + i * blockDim.x;
+      if (o < total) {
+        int c, q;
+        split_items<kLineFast>(cl, L.n, o, c, q);
+        *at<kLineFast>(L, c0 + c, q) = stash[i];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The forward's two stages, the split (n1, n2) on natural order, ending in
+// the transposed order (conj_in: the inverse's opening conjugate).
+template <bool kLineFast, int kOp, bool kKara>
+__device__ __forceinline__ void stages_n1n2(const Lines& L, const Dft& d,
+                                            const Mats& m, bool conj_in) {
+  const int n1 = d.n1, n2 = d.n2;
+  //            nf  nq  sk  sq  om  oq  twm twq
+  run_stage<kLineFast, kOp, kKara>(
+      L, StageMap{n1, n2, n2, 1, 1, n1, n2, 1}, m.f1r, m.f1i, m.ld1, d.twr,
+      d.twi, conj_in);
+  run_stage<kLineFast, kOp, kKara>(
+      L, StageMap{n2, n1, n1, 1, 1, n2, 0, 0}, m.f2r, m.f2i, m.ld2,
+      nullptr, nullptr, false);
+}
+
+// The swapped split (n2, n1) on the transposed order, ending in natural
+// order: the inverse (its opening conjugate included).
+template <bool kLineFast, int kOp, bool kKara>
+__device__ __forceinline__ void stages_n2n1(const Lines& L, const Dft& d,
+                                            const Mats& m) {
+  const int n1 = d.n1, n2 = d.n2;
+  run_stage<kLineFast, kOp, kKara>(
+      L, StageMap{n2, n1, 1, n2, 1, n2, 1, n2}, m.f2r, m.f2i, m.ld2, d.twr,
+      d.twi, true);
+  run_stage<kLineFast, kOp, kKara>(
+      L, StageMap{n1, n2, n2, 1, n2, 1, 0, 0}, m.f1r, m.f1i, m.ld1,
+      nullptr, nullptr, false);
 }
 
 // The four-step transform of every line (the matmul route): forward, or
@@ -425,23 +799,51 @@ __device__ __forceinline__ void run_stage(const Lines& L, const StageMap& g,
 // from it; the DFT matrices are read through m. The forward's stage A
 // writes a[hi, lo] to point lo * n1 + hi, so that stage B reads along hi
 // (consecutive words in a fragment row group: 4-way instead of 8-way bank
-// conflicts); the inverse reads the transposed order as it comes. (The
-// Stockham route runs stockham_op below instead.)
-template <bool kLineFast>
+// conflicts); the inverse reads the transposed order as it comes, which
+// makes it the four-step of the swapped split (n2, n1). At f32 that
+// differs from the plain version's (n1, n2) inverse (fft4step._run_fft)
+// in rounding alone. A 16-bit operand form rounds its operands where the
+// plain version does, so at a split of two unequal factors its inverse
+// turns the lines to natural order, runs the forward's (n1, n2) stages on
+// them and turns the result back (two exact permutations in shared
+// memory); at n1 == n2 the two splits contract the same values. Two
+// other forms measured slower on the card (PERF.md §6): permuting
+// at every split, and the (n1, n2) inverse out of line. (The Stockham
+// route runs stockham_op below instead.)
+template <bool kLineFast, int kOp = kTf32x3, bool kKara = false>
 __device__ __forceinline__ void transform(const Lines& L, const Dft& d,
                                           const Mats& m, bool inverse) {
-  const int n1 = d.n1, n2 = d.n2;
-  if (!inverse) {
-    //            nf  nq  sk  sq  om  oq  twm twq
-    run_stage<kLineFast>(L, StageMap{n1, n2, n2, 1, 1, n1, n2, 1}, m.f1r,
-                         m.f1i, m.ld1, d.twr, d.twi, false);
-    run_stage<kLineFast>(L, StageMap{n2, n1, n1, 1, 1, n2, 0, 0}, m.f2r,
-                         m.f2i, m.ld2, nullptr, nullptr, false);
+  if constexpr (kOp != kTf32x3) {
+    const bool natural = inverse && d.n1 != d.n2;
+    if (natural) reorder<kLineFast>(L, kToNatural, d.n1, d.n2, 1.0f, 1.0f);
+    if (!inverse || natural) {
+      stages_n1n2<kLineFast, kOp, kKara>(L, d, m, inverse);
+    } else {
+      stages_n2n1<kLineFast, kOp, kKara>(L, d, m);
+    }
+    if (natural) reorder<kLineFast>(L, kToNatural, d.n1, d.n2, 1.0f, 1.0f);
+  } else if (!inverse) {
+    stages_n1n2<kLineFast, kOp, kKara>(L, d, m, false);
   } else {
-    run_stage<kLineFast>(L, StageMap{n2, n1, 1, n2, 1, n2, 1, n2}, m.f2r,
-                         m.f2i, m.ld2, d.twr, d.twi, true);
-    run_stage<kLineFast>(L, StageMap{n1, n2, n2, 1, n2, 1, 0, 0}, m.f1r,
-                         m.f1i, m.ld1, nullptr, nullptr, false);
+    stages_n2n1<kLineFast, kOp, kKara>(L, d, m);
+  }
+}
+
+// Karatsuba by instantiation: kKara 0 never (no Karatsuba code), 1 every
+// transform, 2 as each call's `kara` says (a megakernel's segments choose
+// their own; both forms compiled in).
+template <bool kLineFast, int kOp, int kKara>
+__device__ __forceinline__ void transform_k(const Lines& L, const Dft& d,
+                                            const Mats& m, bool inverse,
+                                            bool kara) {
+  if constexpr (kKara == 2) {
+    if (kara) {
+      transform<kLineFast, kOp, true>(L, d, m, inverse);
+    } else {
+      transform<kLineFast, kOp, false>(L, d, m, inverse);
+    }
+  } else {
+    transform<kLineFast, kOp, kKara == 1>(L, d, m, inverse);
   }
 }
 
@@ -493,49 +895,6 @@ __device__ __forceinline__ void filter_pass(const Lines& L, const Filter& f,
   __syncthreads();
 }
 
-enum Order { kKeep = 0, kToNatural = 1, kToTransposed = 2 };
-
-// In place, per line: out[q] = in[src(q)] * (scale, iscale), with src the
-// identity (kKeep), to_transposed (kToNatural: a forward-only spectrum back
-// to natural order) or from_transposed (kToTransposed: natural data into
-// the order an inverse-only segment reads). Staged through registers, in
-// rounds of whole lines of at most kPerThread points a thread (the host
-// keeps n <= kPerThread * blockDim.x).
-template <bool kLineFast>
-__device__ __forceinline__ void reorder(const Lines& L, int order, int n1,
-                                        int n2, float scale, float iscale) {
-  const int chunk = max(1, kPerThread * (int)blockDim.x / L.n);
-  for (int c0 = 0; c0 < L.lines; c0 += chunk) {
-    const int cl = min(chunk, L.lines - c0);
-    const int total = cl * L.n;
-    float2 stash[kPerThread];
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int o = threadIdx.x + i * blockDim.x;
-      if (o < total) {
-        int c, q;
-        split_items<kLineFast>(cl, L.n, o, c, q);
-        const int src = order == kToNatural ? to_transposed(q, n1, n2)
-                        : order == kToTransposed ? from_transposed(q, n1, n2)
-                        : q;
-        const float2 v = *at<kLineFast>(L, c0 + c, src);
-        stash[i] = make_float2(__fmul_rn(v.x, scale), __fmul_rn(v.y, iscale));
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int o = threadIdx.x + i * blockDim.x;
-      if (o < total) {
-        int c, q;
-        split_items<kLineFast>(cl, L.n, o, c, q);
-        *at<kLineFast>(L, c0 + c, q) = stash[i];
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // The inverse's store scale: 1/N on the real part, -1/N on the imaginary
 // part (the closing conjugate of conj-FFT-conj); 1 without an inverse.
 __device__ __forceinline__ float inverse_scale(bool inv, int n) {
@@ -554,9 +913,12 @@ __device__ __forceinline__ float inverse_scale(bool inv, int n) {
 // (scale, iscale). Both scales are built from the exponent bits (never
 // exp2f), and the ceil-log2 is read from the float's bits, as the plain
 // version (fft4step.line_exponents) reads it, so kernel and plain version
-// agree bit for bit. On the Stockham route a power-of-two scale commutes
-// with every pass exactly, so bs16 changes a result only where values leave
-// the normal float range (a subnormal line comes out more exactly). A
+// take the same exponents. On the Stockham route a power-of-two scale
+// commutes with every pass exactly, so bs16 changes a result only where
+// values leave the normal float range (a subnormal line comes out more
+// exactly). The matmul route codes the lines of its tile or slab in shared
+// memory (lines_encode, lines_decode_scaled / lines_decode) and runs its
+// stages on f16 operands between them. A
 // megakernel runs the codec in every segment: each segment's store folds
 // its exponents back in, which is, point for point, the plain version's
 // carrying them to the next segment boundary.
@@ -635,6 +997,24 @@ __device__ __forceinline__ void lines_decode(const Lines& L, const int* ex) {
     split<kLineFast>(L, o, c, p);
     float2* e = line_point<kLineFast, kSwz>(L, c, p);
     *e = scale2(*e, pow2(ex[c]));
+  }
+  __syncthreads();
+}
+
+// lines_decode after the inverse's (scale, iscale), in the plain version's
+// order (its 1/N, then 2^e): the matmul route's tile, whose store then
+// scales by 1.
+__device__ __forceinline__ void lines_decode_scaled(const Lines& L,
+                                                    const int* ex,
+                                                    float scale,
+                                                    float iscale) {
+  const int total = L.lines * L.n;
+  for (int o = threadIdx.x; o < total; o += blockDim.x) {
+    int c, p;
+    split<false>(L, o, c, p);
+    float2* e = at<false>(L, c, p);
+    *e = scale2(make_float2(__fmul_rn(e->x, scale), __fmul_rn(e->y, iscale)),
+                pow2(ex[c]));
   }
   __syncthreads();
 }
@@ -1442,17 +1822,22 @@ __device__ __forceinline__ void move_vec4(bool store, float2* s,
 // is read through __ldcg (L2, coherent across blocks), never a read-only
 // path: in mega_staged it was written by other blocks before the last
 // grid barrier, and may be the same buffer as the output. On the matmul
-// route m holds the DFT matrices (in shared memory past the tile). The
-// Stockham route runs stockham_tile (kN: as stockham_op's; kBs: the bs16
-// codec around the op, the Stockham route's alone).
-template <bool kStockham, int kN = 0, bool kBs = false>
+// route m holds the DFT matrices (in shared memory past the tile) and its
+// stages run the operand form (kOp, kKara: as transform_k's, `kara` its
+// per-call choice); kBs codes the tile's lines in shared memory after the
+// load (their exponents past F1 and F2) and decodes them, after the
+// inverse's scale, before the store. The Stockham route runs
+// stockham_tile (kN: as stockham_op's; kBs: the bs16 codec around the op).
+template <bool kStockham, int kN = 0, bool kBs = false, int kOp = kTf32x3,
+          int kKara = 0>
 __device__ __forceinline__ void tile_op(float2* s, const float* xr,
                                         const float* xi, float* yr, float* yi,
                                         long long scene, int lines, int line0,
                                         int C, int axis, bool fwd, bool inv,
                                         const Dft& d, const Mats& m,
-                                        const Filter& f) {
-  static_assert(kStockham || !kBs, "the codec runs on the Stockham route");
+                                        const Filter& f, bool kara = false) {
+  static_assert(!kStockham || (kOp == kTf32x3 && kKara == 0),
+                "the Stockham route has no matrix operands");
   const int n = d.n, n1 = d.n1, n2 = d.n2;
   const int total = C * n;
   const int T = blockDim.x;
@@ -1500,15 +1885,26 @@ __device__ __forceinline__ void tile_op(float2* s, const float* xr,
   __syncthreads();
 
   const Lines L{s, C, n, n, 1};
-  if (fwd) transform<false>(L, d, m, false);
+  float out_scale = scale, out_iscale = iscale;
+  int* ex = nullptr;
+  if constexpr (kBs) {
+    ex = reinterpret_cast<int*>(reinterpret_cast<float*>(s + total) +
+                                dft_smem_floats(n1, n2));
+    lines_encode<false, false>(L, ex);
+  }
+  if (fwd) transform_k<false, kOp, kKara>(L, d, m, false, kara);
   if (f.mode != kNone) {
     filter_pass<false>(L, f, line0, valid, fwd || inv, n1, n2);
   }
-  if (inv) transform<false>(L, d, m, true);
+  if (inv) transform_k<false, kOp, kKara>(L, d, m, true, kara);
+  if constexpr (kBs) {
+    lines_decode_scaled(L, ex, scale, iscale);
+    out_scale = out_iscale = 1.0f;
+  }
 
   if (vec && !(axis == 1 && perm_out)) {
     move_vec4(true, s, xr, xi, yr, yi, scene, lines, line0, C, n, valid,
-              axis, perm_out, n1, n2, scale, iscale);
+              axis, perm_out, n1, n2, out_scale, out_iscale);
   } else {
     for (int idx = threadIdx.x; idx < total; idx += T) {
       int c, j;
@@ -1520,8 +1916,8 @@ __device__ __forceinline__ void tile_op(float2* s, const float* xr,
       const long long g = scene + (axis == 1
           ? (long long)(line0 + c) * n + j
           : (long long)j * lines + line0 + c);
-      yr[g] = __fmul_rn(val.x, scale);
-      yi[g] = __fmul_rn(val.y, iscale);
+      yr[g] = __fmul_rn(val.x, out_scale);
+      yi[g] = __fmul_rn(val.y, out_iscale);
     }
   }
 }

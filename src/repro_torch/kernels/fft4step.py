@@ -73,8 +73,8 @@ MAX_FACTOR = 128  # every DFT-matrix factor is a power of two <= 128
 #
 # The Stockham route has no matrix operands (``_fft_stockham`` takes no
 # precision), so there bf16 and f16 are the f32 passes and bs16 is the
-# exponent codec around them; the CUDA kernels take all four on that route
-# and f32 alone on the matmul route.
+# exponent codec around them; the CUDA kernels take all four on both
+# routes.
 
 @dataclasses.dataclass(frozen=True)
 class Precision:

@@ -70,23 +70,16 @@ KERNEL_MAX_N = 4096
 FFT_IMPLS = ("matmul", "stockham")   # the FFT routes of the CUDA kernels
 _MODE_CODES = {m: i for i, m in enumerate(FILTER_MODES)}
 _ROADMAP = "ROADMAP.md Queue 2, item 1"
-# Precisions the CUDA kernels take on each FFT route: the Stockham route
-# has no matrix operands, so bf16 and f16 run its f32 passes and bs16 adds
-# the per-line exponent codec; the matmul route's narrowed operands
-# (m16n8k16 mma.sync) are not written yet.
-KERNEL_PRECISIONS = {"matmul": ("f32",),
+# Precisions the CUDA kernels take on each FFT route. The matmul route runs
+# its stages on 3xTF32 (f32), or one m16n8k16 pass of bf16 or f16 operands
+# (bs16: f16 behind the per-line exponent codec), each with or without
+# Karatsuba; the Stockham route has no matrix operands, so bf16 and f16 run
+# its f32 passes, bs16 adds the codec, and Karatsuba changes nothing.
+KERNEL_PRECISIONS = {"matmul": ("f32", "bf16", "f16", "bs16"),
                      "stockham": ("f32", "bf16", "f16", "bs16")}
-
-
-def _check_precision(spec, what: str) -> None:
-    """Raise ValueError for a precision the kernels do not take on
-    ``spec.fft_impl`` (a route they do not know is refused by the caller)."""
-    if spec.precision not in KERNEL_PRECISIONS.get(spec.fft_impl,
-                                                   (spec.precision,)):
-        raise ValueError(
-            f"precision {spec.precision!r} is not taken by the CUDA {what} "
-            f"on the matmul route yet (its bf16/f16/bs16 operands: "
-            f"{_ROADMAP}b, the matmul half; fft_impl='stockham' takes them)")
+# The launchers' operand form of each precision on the matmul route
+# (csrc/mma16.cuh, enum Operand); bs16 adds the codec flag.
+_OPERANDS = {"f32": 0, "bf16": 1, "f16": 2, "bs16": 2}
 
 
 def _pad_lines(x, axis, mult):
@@ -165,7 +158,7 @@ def _bind():
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = ([p] * 4 + [i] * 9 + [p] * 11 + [i] + [ll] * 6
-                       + [i, i, i, p])
+                       + [i] * 5 + [p])
         fn.restype = ctypes.c_int
         lib.spectral_error_string.argtypes = [ctypes.c_int]
         lib.spectral_error_string.restype = ctypes.c_char_p
@@ -247,11 +240,8 @@ def check_kernel_spec(spec: SpectralSpec) -> tuple[int, int]:
     """Raise ValueError for what the CUDA kernel does not take yet;
     returns its two-factor split (n1, n2) on the four-step route
     (``fft_impl="matmul"``) and (n, 1) on the Stockham route, which takes
-    any power of two from 2 to 4096 and splits nothing."""
-    _check_precision(spec, "spectral kernel")
-    if spec.karatsuba:
-        raise ValueError("karatsuba=True is not taken by the CUDA "
-                         f"spectral kernel yet ({_ROADMAP}c)")
+    any power of two from 2 to 4096 and splits nothing. Every precision
+    and ``karatsuba`` are taken on both routes."""
     if spec.fft_impl not in FFT_IMPLS:
         raise ValueError(f"unknown fft_impl {spec.fft_impl!r}: the CUDA "
                          f"kernels take {FFT_IMPLS} (ROADMAP.md Queue 2)")
@@ -276,9 +266,16 @@ def _ptr(t):
 
 def _block_scaled(precision: str) -> int:
     """The launch's codec flag: 1 for bs16 (per-line exponents scaled out
-    after the load and folded back at the store), else 0 — bf16 and f16
-    run the f32 passes on the Stockham route, the only one taking them."""
+    after the load and folded back at the store), else 0."""
     return int(resolve_precision(precision).block_scaled)
+
+
+def _karatsuba(spec: SpectralSpec) -> int:
+    """The launch's Karatsuba flag: the matmul route's stages alone have
+    complex contractions to take it (the Stockham route ignores it, as the
+    plain version does)."""
+    return int(bool(spec.karatsuba) and spec.fft_impl == "matmul"
+               and (spec.fwd or spec.inv))
 
 
 def _route_constants(spec: SpectralSpec, n1: int, n2: int, dev) -> tuple:
@@ -359,7 +356,8 @@ def _launch_cuda(spec: SpectralSpec, xr, xi, filter_args):
             _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi),
             b, lines, n, n1, n2, spec.axis, int(spec.fwd), int(spec.inv),
             _MODE_CODES[spec.filter_mode], *(_ptr(c) for c in consts),
-            *filt, tile, threads, _block_scaled(spec.precision), stream)
+            *filt, tile, threads, _block_scaled(spec.precision),
+            _OPERANDS[spec.precision], _karatsuba(spec), stream)
     del keep
     if err != 0:
         msg = lib.spectral_error_string(err).decode()
@@ -405,11 +403,10 @@ def spectral_op(xr, xi, hr=None, hi=None, u=None, v=None, **kw):
     Keywords: axis, fwd, inv, filter_mode, block (line padding granule),
     fft_impl ('matmul' | 'stockham'), karatsuba, precision (f32 | bf16 |
     f16 | bs16), n1/n2/n3 (factorization override). On a CUDA tensor this
-    launches the CUDA kernel, which takes karatsuba=False, N <= 4096 and
-    both FFT routes — f32 and a two-factor split on the matmul route,
-    every precision on the Stockham route — and raises ValueError for
-    anything else; on a CPU tensor it runs the plain version, which takes
-    all of them.
+    launches the CUDA kernel, which takes N <= 4096 and both FFT routes at
+    every precision (a two-factor split, and Karatsuba, on the matmul
+    route) and raises ValueError for anything else; on a CPU tensor it runs
+    the plain version, which takes all of them.
     """
     return _spectral(xr, xi, hr, hi, u, v, False, **kw)
 
@@ -478,13 +475,16 @@ def fused_rc_rcmc_rows(xr, xi, hr, hi, u, v, **kw):
 # ---------------------------------------------------------------------------
 
 MEGA_KERNEL_NAME = "mega"
+# The library of the matmul route's other operand forms (bf16, f16, bs16,
+# Karatsuba): csrc/mega_forms.cu, built from mega.cu beside it.
+MEGA_FORMS_NAME = "mega_forms"
 # Points the resident kernel's slab may hold besides the shared-memory
 # limit: what the Stockham route holds in registers at once (16 points a
 # thread of 1024 for 128^2); the matmul route stages them at 512 threads
 # in rounds of lines, so the cut is the same on both routes.
 RESIDENT_MAX_POINTS = 16384
 MEGA_MAX_SEGMENTS = 8
-_SEG_FIELDS = 26            # int64 fields per segment in the launch table
+_SEG_FIELDS = 27            # int64 fields per segment in the launch table
 
 
 def mega_residency(na: int, nr: int, batch_block: int = 1,
@@ -558,16 +558,17 @@ def _mega_prepare(na, nr, filter_args, *, segments, residency, batch_block,
     return spec, prepared
 
 
-def _bind_mega():
-    lib = _build.load(MEGA_KERNEL_NAME)
+def _bind_mega(name: str = MEGA_KERNEL_NAME):
+    lib = _build.load(name)
     if lib.mega_resident_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mega_resident_launch.argtypes = [p] * 4 + [i] * 5 + [p, p]
-        lib.mega_staged_launch.argtypes = [p] * 4 + [i] * 6 + [p, p]
+        lib.mega_resident_launch.argtypes = [p] * 4 + [i] * 6 + [p, p]
+        lib.mega_staged_launch.argtypes = [p] * 4 + [i] * 7 + [p, p]
         for fn in (lib.mega_resident_launch, lib.mega_staged_launch):
             fn.restype = ctypes.c_int
-        lib.mega_staged_blocks_per_sm.argtypes = [ctypes.c_longlong, i]
-        lib.mega_staged_blocks_per_sm.restype = ctypes.c_int
+        if name == MEGA_KERNEL_NAME:   # the f32 and Stockham kernels'
+            lib.mega_staged_blocks_per_sm.argtypes = [ctypes.c_longlong, i]
+            lib.mega_staged_blocks_per_sm.restype = ctypes.c_int
         lib.mega_smem_optin.argtypes = [i]
         lib.mega_smem_optin.restype = ctypes.c_int
         lib.mega_error_string.argtypes = [i]
@@ -595,7 +596,6 @@ def staged_tile(n: int, lines: int, fft_impl: str, n1: int,
 
 def check_mega_kernel(spec: MegaSpec) -> None:
     """Raise ValueError for what the CUDA megakernels do not take yet."""
-    _check_precision(spec, "megakernels")
     if len(spec.segments) > MEGA_MAX_SEGMENTS:
         raise ValueError(f"the CUDA megakernels take at most "
                          f"{MEGA_MAX_SEGMENTS} segments, got "
@@ -656,23 +656,32 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
             staged_tile(sspec.n, lines, sspec.fft_impl, n1, n2, seg.axis),
             *(_ptr(c) or 0 for c in consts),
             hr or 0, hi or 0, h_line, h_k, u or 0, v or 0,
-            u_line, u_k, v_n, v_k, _ptr(stw) or 0])
+            u_line, u_k, v_n, v_k, _ptr(stw) or 0, _karatsuba(sspec)])
     flat = [int(f) for rec in table for f in rec]
     assert len(flat) == _SEG_FIELDS * len(table)
     ctable = (ctypes.c_longlong * len(flat))(*flat)
-    lib = _bind_mega()
+    bs = _block_scaled(spec.precision)
+    op = _OPERANDS[spec.precision]
+    # a chain without a transform runs no stage: the f32 form (or, with
+    # bs16, the Stockham route's codec), in mega.cu's library; the matmul
+    # route's other forms are mega_forms.cu's
+    has_fft = any(seg.fwd or seg.inv for seg in spec.segments)
+    if not has_fft and not bs:
+        op = 0
+    forms = has_fft and spec.fft_impl == "matmul" and (
+        op != 0 or any(rec[-1] for rec in table))
+    lib = _bind_mega(MEGA_FORMS_NAME if forms else MEGA_KERNEL_NAME)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         head = (_ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), b, spec.na, spec.nr,
                 len(table))
-        bs = _block_scaled(spec.precision)
         if spec.residency == RESIDENT_VMEM:
             kernel = "mega_resident"
-            err = lib.mega_resident_launch(*head, bs, ctable, stream)
+            err = lib.mega_resident_launch(*head, bs, op, ctable, stream)
         else:
             kernel = "mega_staged"
-            err = lib.mega_staged_launch(*head, spec.buffer_depth, bs, ctable,
-                                         stream)
+            err = lib.mega_staged_launch(*head, spec.buffer_depth, bs, op,
+                                         ctable, stream)
     del keep
     if err != 0:
         msg = lib.mega_error_string(err).decode()
@@ -749,10 +758,9 @@ def mega_spectral_op(xr, xi, *filter_args, **kw):
     back scaled with the exponents along the last segment's free axis).
 
     On a CUDA tensor this launches ``mega_resident`` or ``mega_staged``
-    (karatsuba=False, N <= 4096, at most 8 segments, both FFT routes: f32
-    and a two-factor split on the matmul route, every precision on the
-    Stockham route, where bs16 runs the codec in each segment) and raises
-    ValueError for
+    (N <= 4096, at most 8 segments, both FFT routes at every precision —
+    bs16 runs the codec in each segment — with a two-factor split and
+    Karatsuba per segment on the matmul route) and raises ValueError for
     anything else — including a forced 'vmem' on a scene that does not
     fit; on a CPU tensor it runs
     ``fft4step.mega_plain``, which takes all of them.

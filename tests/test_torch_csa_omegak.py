@@ -314,21 +314,24 @@ def test_within_gate_of_golden(family, variant):
 
 @pytest.mark.parametrize("precision", ["bf16", "f16", "bs16"])
 def test_stockham_takes_every_precision_matmul_refuses(precision):
+    """Both routes take every precision (the matmul route's narrowed
+    operands since they were written; the name predates them): the
+    Stockham route splits nothing, the matmul route returns its split,
+    and both megakernels take the CSA chain, with Karatsuba too."""
     spec = tfft.SpectralSpec(n=4096, fwd=True, filter_mode="full", inv=True,
                              fft_impl="stockham", precision=precision)
     assert tops.check_kernel_spec(spec) == (4096, 1)
     segs = tuple(tfft.SegmentSpec(*s) for s in SEGMENTS["csa_fused1"])
-    for residency in ("staged", "vmem"):
-        n = 4096 if residency == "staged" else 128
-        tops.check_mega_kernel(tfft.MegaSpec(
-            n, n, segs, residency=residency, fft_impl="stockham",
-            precision=precision))
-    with pytest.raises(ValueError, match=r"item 1b.*matmul half"):
-        tops.check_kernel_spec(dataclasses.replace(spec, fft_impl="matmul"))
-    with pytest.raises(ValueError, match=r"item 1b.*matmul half"):
-        tops.check_mega_kernel(tfft.MegaSpec(4096, 4096, segs,
-                                             residency="staged",
-                                             precision=precision))
+    for fft_impl in ("stockham", "matmul"):
+        for residency in ("staged", "vmem"):
+            n = 4096 if residency == "staged" else 128
+            tops.check_mega_kernel(tfft.MegaSpec(
+                n, n, segs, residency=residency, fft_impl=fft_impl,
+                precision=precision, karatsuba=fft_impl == "matmul"))
+    matmul = dataclasses.replace(spec, fft_impl="matmul")
+    assert tops.check_kernel_spec(matmul) == (64, 64)
+    assert tops.check_kernel_spec(
+        dataclasses.replace(matmul, karatsuba=True)) == (64, 64)
 
 
 @pytest.mark.parametrize("axis", [0, 1])

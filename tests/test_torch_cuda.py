@@ -14,6 +14,15 @@ which one TF32 pass (~3e-4) on the matmul route's tensor-core stages
 would miss. The Stockham route's bf16 and f16 are its f32 passes, and its
 bs16 codec is held bit for bit to the plain version on lines whose values
 are subnormal, the one place where it changes a result.
+
+The matmul route's other operand forms (bf16 and f16 on m16n8k16, bs16,
+Karatsuba) round every operand where the plain version does, so they
+differ from it only in the order of f32 accumulation, and where a
+re-ordered sum lands on the other side of a 16-bit rounding at a later
+stage, and a megakernel chains up to three segments of such roundings:
+FORM_TOL holds them to 1e-2 x max|want| (bf16) and 2e-3 (f16, bs16), five
+and twenty-five times inside the reference's bf16 bound of 5e-2; f32 with
+Karatsuba keeps 2e-4 and the complex128 oracle's 1e-5.
 """
 import pytest
 import torch
@@ -23,8 +32,22 @@ from repro_torch.kernels import transpose as tr
 
 TOL = 2e-4
 ORACLE_TOL = 1e-5
+FORM_TOL = {"f32": TOL, "bf16": 1e-2, "f16": 2e-3, "bs16": 2e-3}
+# the matmul route's operand forms besides f32: (precision, karatsuba)
+FORMS = [("f32", True), ("bf16", False), ("bf16", True), ("f16", False),
+         ("f16", True), ("bs16", False), ("bs16", True)]
 MODES = ["none", "shared", "full", "outer", "shared_outer"]
 DIRS = [(True, False), (False, True), (True, True), (False, False)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def empty_tuning_cache(tmp_path_factory):
+    """tune="cached" is the compile default: the compiles here read an
+    empty tuning cache of this module's own, never the user's."""
+    path = tmp_path_factory.mktemp("tuning") / "autotune_cache.json"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(path))
+        yield
 
 
 @pytest.fixture
@@ -54,12 +77,12 @@ def make_case(device, seed, mode, axis, n, batch, lines, rank=2):
     return x, filt
 
 
-def assert_close(got, want):
+def assert_close(got, want, tol=TOL):
     scale = max(float(w.abs().max()) for w in want)
     for g, w in zip(got, want):
         assert g.shape == w.shape
         err = float((g - w).abs().max())
-        assert err <= TOL * scale, (err, scale)
+        assert err <= tol * scale, (err, scale)
 
 
 @pytest.mark.gpu
@@ -212,21 +235,24 @@ def test_cuda_stockham_precisions_match_plain(cuda_device, mode, axis, n,
 def test_cuda_kernel_refuses_and_never_falls_back(cuda_device):
     x, _ = make_case(cuda_device, 5, "none", 1, 64, 1, lines=4)
     before = ops.SPECTRAL_LAUNCHES
-    for kw in (dict(precision="bf16"), dict(precision="bs16"),
-               dict(karatsuba=True), dict(fft_impl="bluestein")):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            ops.fft_rows(*x, **kw)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        ops.fft_rows(*x, fft_impl="bluestein")
     big = make_case(cuda_device, 5, "none", 1, 8192, 1, lines=2)[0]
     for kw in (dict(), dict(fft_impl="stockham")):
         with pytest.raises(ValueError, match="ROADMAP"):
             ops.fft_rows(*big, **kw)
     assert ops.SPECTRAL_LAUNCHES == before
-    # the Stockham route, refused before, now launches
-    got = ops.fft_rows(*x, fft_impl="stockham")
-    torch.cuda.synchronize()
-    assert ops.SPECTRAL_LAUNCHES == before + 1
-    assert_close(got, ops.spectral_op_plain(*x, fwd=True, inv=False,
-                                            fft_impl="stockham"))
+    # the Stockham route and the matmul route's bf16, bs16 and Karatsuba,
+    # refused before, now launch
+    kws = (dict(fft_impl="stockham"), dict(precision="bf16"),
+           dict(precision="bs16"), dict(karatsuba=True))
+    for i, kw in enumerate(kws):
+        got = ops.fft_rows(*x, **kw)
+        torch.cuda.synchronize()
+        assert ops.SPECTRAL_LAUNCHES == before + i + 1
+        assert_close(got, ops.spectral_op_plain(*x, fwd=True, inv=False,
+                                                **kw),
+                     FORM_TOL[kw.get("precision", "f32")])
 
 
 # ---------------------------------------------------------------------------
@@ -374,8 +400,6 @@ def test_cuda_csa_omegak_fused1_equals_twin(cuda_device, variant, twin, n,
     device memory) equal their three spectral launches bit for bit."""
     from repro_torch.core.sar import build_pipeline, paper_targets, simulate
     from repro_torch.core.sar.geometry import test_scene
-    if precision == "bs16" and fft_impl == "matmul":
-        pytest.skip("bs16 runs on the Stockham route (ROADMAP.md Queue 2 1b)")
     cfg = test_scene(n)
     raw = simulate(cfg, paper_targets(cfg))
     kw = dict(fft_impl=fft_impl, precision=precision)
@@ -397,25 +421,27 @@ def test_cuda_csa_omegak_fused1_equals_twin(cuda_device, variant, twin, n,
 
 @pytest.mark.gpu
 def test_cuda_precisions_refused_on_the_matmul_route_alone(cuda_device):
+    """Both routes take bf16, f16 and bs16 now (the name predates the
+    matmul route's forms): each precision launches once a route and
+    kernel, within its tolerance of the plain version."""
     x, _ = make_case(cuda_device, 6, "none", 1, 64, 1, lines=4)
     segments = MEGA_CHAINS["fused1"]
     mx, margs = make_mega_case(cuda_device, 6, segments, 1, 64, 64)
     before = ops.SPECTRAL_LAUNCHES, dict(ops.MEGA_LAUNCHES)
     for precision in ("bf16", "f16", "bs16"):
-        with pytest.raises(ValueError, match=r"1b, the matmul half"):
-            ops.fft_rows(*x, precision=precision)
-        with pytest.raises(ValueError, match=r"1b, the matmul half"):
-            ops.mega_spectral_op(*mx, *margs, segments=segments,
-                                 precision=precision)
-    assert (ops.SPECTRAL_LAUNCHES, ops.MEGA_LAUNCHES) == before
-    for precision in ("bf16", "f16", "bs16"):
-        ops.fft_rows(*x, precision=precision, fft_impl="stockham")
-        ops.mega_spectral_op(*mx, *margs, segments=segments,
-                             precision=precision, fft_impl="stockham")
-    torch.cuda.synchronize()
-    assert ops.SPECTRAL_LAUNCHES == before[0] + 3
+        for fft_impl in ("matmul", "stockham"):
+            kw = dict(precision=precision, fft_impl=fft_impl)
+            got = ops.fft_rows(*x, **kw)
+            torch.cuda.synchronize()
+            assert_close(got, ops.spectral_op_plain(
+                *x, fwd=True, inv=False, **kw), FORM_TOL[precision])
+            got = ops.mega_spectral_op(*mx, *margs, segments=segments, **kw)
+            torch.cuda.synchronize()
+            assert_close(got, ops.mega_spectral_op_plain(
+                *mx, *margs, segments=segments, **kw), FORM_TOL[precision])
+    assert ops.SPECTRAL_LAUNCHES == before[0] + 6
     assert ops.MEGA_LAUNCHES["mega_resident"] == \
-        before[1]["mega_resident"] + 3
+        before[1]["mega_resident"] + 6
 
 
 @pytest.mark.gpu
@@ -424,23 +450,164 @@ def test_cuda_megakernels_refuse_and_never_fall_back(cuda_device):
     x, args = make_mega_case(cuda_device, 2, segments, 1, 64, 64)
     big, big_args = make_mega_case(cuda_device, 2, segments, 1, 256, 256)
     before = dict(ops.MEGA_LAUNCHES)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ops.mega_spectral_op(*x, *args, segments=segments, precision="bs16")
     with pytest.raises(ValueError, match="does not fit"):
         ops.mega_spectral_op(*big, *big_args, segments=segments,
                              residency="vmem")
-    for kw in (dict(karatsuba=True), dict(fft_impl="bluestein")):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            ops.mega_spectral_op(*x, *args, segments=segments, **kw)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        ops.mega_spectral_op(*x, *args, segments=segments,
+                             fft_impl="bluestein")
     assert ops.MEGA_LAUNCHES == before
-    # the Stockham route, refused before, now launches
-    got = ops.mega_spectral_op(*x, *args, segments=segments,
-                               fft_impl="stockham")
+    # the Stockham route and the matmul route's bs16 and Karatsuba,
+    # refused before, now launch
+    for kw in (dict(fft_impl="stockham"), dict(precision="bs16"),
+               dict(karatsuba=True)):
+        got = ops.mega_spectral_op(*x, *args, segments=segments, **kw)
+        torch.cuda.synchronize()
+        before["mega_resident"] += 1
+        assert ops.MEGA_LAUNCHES == before
+        assert_close(got, ops.mega_spectral_op_plain(
+            *x, *args, segments=segments, **kw),
+            FORM_TOL[kw.get("precision", "f32")])
+
+
+# ---------------------------------------------------------------------------
+# The matmul route's operand forms: bf16 / f16 / bs16 and Karatsuba
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [None, (128, 32)])
+@pytest.mark.parametrize("n", [128, 4096])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("mode", ["none", "shared_outer", "full"])
+@pytest.mark.parametrize("precision,karatsuba", FORMS)
+def test_cuda_matmul_forms_match_plain(cuda_device, precision, karatsuba,
+                                       mode, axis, n, split):
+    """Each operand form of the spectral kernel against its plain version,
+    fwd / inv / fwd+inv (bs16 on a batch with subnormal odd lines, which
+    the codec keeps to the tolerance of their own scale); f32 with
+    Karatsuba against complex128 too at N = 4096."""
+    if split is not None and n != 4096:
+        pytest.skip("the (128, 32) split is a split of 4096")
+    x, filt = make_case(cuda_device, n + 7, mode, axis, n, 2, lines=13)
+    if precision == "bs16":
+        x = subnormal_lines(x, axis)
+    n1, n2 = split or (None, None)
+    tol = FORM_TOL[precision]
+    for fwd, inv in DIRS[:3]:
+        kw = dict(axis=axis, fwd=fwd, inv=inv, filter_mode=mode, block=1,
+                  precision=precision, karatsuba=karatsuba, n1=n1, n2=n2)
+        before = ops.SPECTRAL_LAUNCHES
+        got = ops.spectral_op(*x, **filt, **kw)
+        torch.cuda.synchronize()
+        assert ops.SPECTRAL_LAUNCHES == before + 1
+        want = ops.spectral_op_plain(*x, **filt, **kw)
+        assert_close(got, want, tol)
+        if precision == "bs16":
+            odd = ((slice(None), slice(1, None, 2)) if axis == 1 else
+                   (slice(None), slice(None), slice(1, None, 2)))
+            assert_close([g[odd] for g in got], [w[odd] for w in want], tol)
+        if precision == "f32" and n == 4096 and mode == "none":
+            z = torch.complex(x[0].double(), x[1].double())
+            assert_oracle(got, fft128(z, -1 if axis == 1 else -2, fwd, inv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 128), (128, 128), (256, 512)])
+@pytest.mark.parametrize("precision,karatsuba", FORMS)
+def test_cuda_megakernel_forms_match_plain(cuda_device, precision,
+                                           karatsuba, shape):
+    """Both megakernels at each operand form against the plain version,
+    resident equal to staged bit for bit; Karatsuba also per segment
+    (8-field records, the middle segment without it)."""
+    segments = MEGA_CHAINS["fused1"]
+    x, args = make_mega_case(cuda_device, 9, segments, 2, *shape)
+    per_seg = tuple(rec + (None, None, None, karatsuba and i != 1)
+                    for i, rec in enumerate(segments))
+    for segs in (segments, per_seg):
+        kw = dict(segments=segs, precision=precision, karatsuba=karatsuba)
+        want = ops.mega_spectral_op_plain(*x, *args, **kw)
+        outs = []
+        for residency in ("vmem", "staged"):
+            if residency == "vmem" and ops.mega_residency(*shape) != "vmem":
+                continue
+            kernel = "mega_resident" if residency == "vmem" else \
+                "mega_staged"
+            before = ops.MEGA_LAUNCHES[kernel]
+            got = ops.mega_spectral_op(*x, *args, residency=residency, **kw)
+            torch.cuda.synchronize()
+            assert ops.MEGA_LAUNCHES[kernel] == before + 1
+            assert_close(got, want, FORM_TOL[precision])
+            outs.append(got)
+        if len(outs) == 2:
+            assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("karatsuba", [False, True])
+@pytest.mark.parametrize("precision", ["bf16", "f16", "bs16"])
+@pytest.mark.parametrize("n", [128, 256])
+def test_cuda_matmul_fused1_equals_fused3(cuda_device, n, precision,
+                                          karatsuba):
+    """The matmul route's fused1 equals its fused3 bit for bit at every
+    narrowed precision, with and without Karatsuba (a Schedule giving it
+    to every segment: each launch of fused3, each in-kernel segment of
+    fused1), resident and staged. f16 overflows its range on these scenes
+    (in the plain version and the JAX reference too:
+    tests/test_torch_rda.py); its non-finite points are held bit for bit
+    as well."""
+    from repro_torch import tuning
+    from repro_torch.core.sar import build_pipeline, paper_targets, simulate
+    from repro_torch.core.sar.geometry import test_scene
+    cfg = test_scene(n)
+    raw = simulate(cfg, paper_targets(cfg))
+    sched = tuning.Schedule(
+        segments=(tuning.SegmentConfig(karatsuba=karatsuba),) * 3)
+    kw = dict(precision=precision, schedule=sched, tune="off")
+    f3 = build_pipeline(cfg, "fused3", **kw).run(raw)
+    kernel = "mega_resident" if n == 128 else "mega_staged"
+    before = dict(ops.MEGA_LAUNCHES), ops.SPECTRAL_LAUNCHES
+    f1 = build_pipeline(cfg, "fused1", **kw).run(raw)
     torch.cuda.synchronize()
-    before["mega_resident"] += 1
-    assert ops.MEGA_LAUNCHES == before
-    assert_close(got, ops.mega_spectral_op_plain(
-        *x, *args, segments=segments, fft_impl="stockham"))
+    before[0][kernel] += 1
+    assert (ops.MEGA_LAUNCHES, ops.SPECTRAL_LAUNCHES) == before
+    assert bool(torch.isfinite(f1).all()) == (precision != "f16")
+
+    def bits(z):
+        return torch.view_as_real(z).view(torch.int32)
+
+    assert torch.equal(bits(f1), bits(f3))
+    staged = build_pipeline(cfg, "fused1", residency="staged", **kw).run(raw)
+    assert torch.equal(bits(staged), bits(f3))
+
+
+@pytest.mark.gpu
+def test_cuda_tiny_search_persists_and_compiles(cuda_device, tmp_path,
+                                                monkeypatch):
+    """A small search_kernel on the card times fewer candidates than its
+    space, persists its winner, and compile_plan reads it back into the
+    range launch of a fused3 pipeline."""
+    from repro_torch import tuning
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.core.sar.geometry import test_scene
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "c.json"))
+    tuning.clear_memory_cache()
+    planlib.clear_pipeline_cache()
+    key = tuning.TuneKey.kernel(128, lines=16)
+    assert key.backend == "cuda"
+    res = tuning.search_kernel(key, precisions=("f32", "bf16"),
+                               gate=lambda p: 0.0)
+    assert res.measured < res.space
+    assert tuning.cached_config(128) == res.config
+    pipe = build_pipeline(test_scene(128), "fused3")
+    (row,) = [s for s in pipe.steps if s.phys_axis == 1]
+    kk = row.kernel_kw
+    want = res.config
+    assert (kk["n1"], kk["n2"], kk["karatsuba"], kk["precision"],
+            kk["block"]) == (want.n1, want.n2, bool(want.karatsuba),
+                             want.precision or "f32", want.block)
+    tuning.clear_memory_cache()
+    planlib.clear_pipeline_cache()
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ Inputs come from ``np.random.default_rng(seed)`` and go to both packages
 as numpy arrays. Tolerances are the reference's own
 (tests/test_kernels.py): 2e-4 x max|want| at f32, 5e-2 at bf16.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -175,6 +177,49 @@ def test_reduced_precisions_match_reference(precision, tol):
                  tol=tol)
 
 
+# The plain version rounds each contraction's operands where the reference
+# does, so at 16 bits the two differ only in f32 accumulation order, far
+# inside this tolerance at these sizes; an inverse on the swapped split
+# (n2, n1) rounds other values and misses it (the test after next).
+ROUNDING_TOL = 5e-5
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16", "bs16"])
+@pytest.mark.parametrize("n1,n2,axis", [(16, 8, 1), (16, 8, 0), (8, 16, 1),
+                                        (32, 16, 0)])
+def test_narrow_precisions_round_where_the_reference_does(precision, n1, n2,
+                                                          axis):
+    x, filt = make_case(17, "shared", axis, n1 * n2, 2, lines=5)
+    kw = dict(axis=axis, fwd=True, inv=True, filter_mode="shared", block=4,
+              precision=precision, n1=n1, n2=n2)
+    assert_close(to_np(run_port(x, filt, **kw)), run_ref(x, filt, **kw),
+                 tol=ROUNDING_TOL)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16", "bs16"])
+def test_a_swapped_inverse_misses_the_rounding_tolerance(precision,
+                                                         monkeypatch):
+    """The check above tells rounding orders apart: the plain version with
+    its inverse on the swapped split (n2, n1), as the kernels' f32 inverse
+    runs it, misses ROUNDING_TOL by more than three times."""
+    run = tfft._run_fft
+
+    def swapped(xr, xi, consts, spec, inverse):
+        if inverse:
+            fs = spec.factors()[::-1]
+            spec = dataclasses.replace(spec, n1=fs[0], n2=fs[1])
+            consts = tfft.device_constants(fs, str(xr.device))
+        return run(xr, xi, consts, spec, inverse)
+
+    monkeypatch.setattr(tfft, "_run_fft", swapped)
+    x, filt = make_case(17, "shared", 1, 128, 2, lines=5)
+    kw = dict(axis=1, fwd=True, inv=True, filter_mode="shared", block=4,
+              precision=precision, n1=16, n2=8)
+    with pytest.raises(AssertionError):
+        assert_close(to_np(run_port(x, filt, **kw)), run_ref(x, filt, **kw),
+                     tol=3 * ROUNDING_TOL)
+
+
 @pytest.mark.parametrize("opt", [dict(karatsuba=True),
                                  dict(fft_impl="stockham"),
                                  dict(n1=16, n2=4), dict(n1=128, n2=8)])
@@ -262,10 +307,16 @@ def test_bs16_codec_matches_reference(mag, axis):
                                 dict(fft_impl="bluestein"),
                                 dict(n=8192), dict(n=32768)])
 def test_kernel_refuses_what_it_does_not_take(kw):
+    """The matmul route takes bf16, bs16 and Karatsuba (the split it
+    returns is the four-step's); an unknown route and N > 4096 (three
+    factors at 32768) stay refused, naming their ROADMAP item."""
     spec = dict(n=4096, fwd=True, filter_mode="none", inv=False)
     spec.update(kw)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tops.check_kernel_spec(tfft.SpectralSpec(**spec))
+    if "fft_impl" in kw or "n" in kw:
+        with pytest.raises(ValueError, match="ROADMAP"):
+            tops.check_kernel_spec(tfft.SpectralSpec(**spec))
+    else:
+        assert tops.check_kernel_spec(tfft.SpectralSpec(**spec)) == (64, 64)
 
 
 @pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
