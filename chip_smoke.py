@@ -156,8 +156,27 @@ each printing one JSON line (any failed check raises and exits non-zero):
              in turns, with bounds, ``mma_floor_ms``, plain and library
              times.
 
+17. service — the port's streaming executor and focusing service: (1)
+             ``run_streamed(raw, strips=4)`` at 4096^2 for fused3 on both
+             routes, ``csa_fused`` and ``unfused``, each bit-equal to
+             ``run`` in 3 x 4 spectral launches (``unfused``: the torch
+             backend, none), timed on the host clock against ``run`` from
+             the card and from the host; ``fused`` and ``fused1`` refused;
+             (2) ``FocusService(ServiceConfig())`` on the card, warmed,
+             its bs16 gate measured: 16 default-tier 128^2 requests in one
+             burst (only ``mega_resident`` launches, one a batch, each
+             reply bit-equal to fused1 at the tier the gate admitted), then
+             4096^2 f32 requests (3 spectral launches, five targets within
+             8 px, bit-equal to fused3), then the same scene over
+             ``device_budget_bytes`` on the stream lane (3 x 4 launches,
+             bit-equal to in memory); per-request latency p50 / p99 beside
+             ``Pipeline.run`` alone; no request off tier 0; (3) the seeded
+             chaos replay (dispatch error, NaN output, lane hang) at 128^2:
+             0 lost requests; (4) the service paths' launches timed
+             beside their plain versions and bounds.
+
 The line before the last lists each kernel — on the main path and on each
-path of phases 14 to 16, with the precisions and Karatsuba flags it runs
+path of phases 14 to 17, with the precisions and Karatsuba flags it runs
 on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -1980,6 +1999,367 @@ def form_times(torch, smi_line, cfg, raw, small, small_raw, images):
     return records
 
 
+STREAM_STRIPS = 4              # phase 17's strips a streamed launch
+STREAM_VARIANTS = (("fused3", "matmul"), ("fused3", "stockham"),
+                   ("csa_fused", "matmul"), ("unfused", None))
+BURST = 16                     # phase 17's 128^2 default-tier requests
+
+
+def host_ms(torch, fn, reps=5):
+    """Median host-clock ms of ``fn`` with a device synchronisation after
+    it (a request or a streamed run: the host's time is the point)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def percentiles(values):
+    """p50 / p99 of request latencies, nearest rank (the service's own
+    ``metrics.percentile``)."""
+    from repro_torch.service.metrics import percentile
+    return {"p50_ms": percentile(values, 50),
+            "p99_ms": percentile(values, 99), "n": len(values)}
+
+
+def strip_launches(torch, pipe, raw_host, strips):
+    """The spectral launches ``run_streamed`` makes, each with its own
+    strip of the host scene on the card and its sliced filter payloads
+    (for timing each beside its plain version and bound)."""
+    import types
+    from repro_torch.core import plan as planlib
+    out = []
+    x = torch.from_numpy(raw_host)
+    for s in pipe.steps:
+        n = x.shape[s.stream_axis]
+        sizes = [n // strips + (1 if i < n % strips else 0)
+                 for i in range(strips)]
+        lo = 0
+        for size in sizes:
+            sl = planlib._strip(s.stream_axis, lo, lo + size)
+            xs = x[sl].contiguous().cuda()
+            fk = planlib._slice_filter_kwargs(
+                s.filter_kw, s.filter_mode, s.phys_axis, lo, lo + size)
+            out.append((types.SimpleNamespace(
+                name=f"{s.name}[{lo}:{lo + size}]", kernel_kw=s.kernel_kw,
+                filter_kw=fk), *planlib.split(xs), xs))
+            lo += size
+        x = s.fn(x.cuda()).cpu()
+    return out
+
+
+def service_breakdown(torch, backend, key, batch_host, strips=None):
+    """Host-clock ms (median of 3, each ending in a synchronisation) of
+    the steps a request's batch takes through ``backend`` outside the
+    event loop: stacking, the copy up through pinned memory, the run, the
+    copy back, the output sentinel; for a streamed key, ``run_streamed``
+    alone and the backend's ``execute_streamed``."""
+    import numpy as np
+    from repro_torch.service.resilience import HealthSentinel
+    sentinel = HealthSentinel()
+    if strips is not None:
+        pipe = backend._pipeline(key, variant=key.variant)
+        img = pipe.run_streamed(batch_host[0], strips=strips)
+        return dict(
+            run_streamed_ms=host_ms(torch, lambda: pipe.run_streamed(
+                batch_host[0], strips=strips), reps=3),
+            execute_streamed_ms=host_ms(torch, lambda: backend.
+                                        execute_streamed(key, batch_host[0],
+                                                         strips), reps=3),
+            sentinel_ms=host_ms(torch, lambda: sentinel.check(
+                batch_host[0], img), reps=3))
+    fn = backend._fn(key)
+    padded = backend._to_device(batch_host)
+    out = fn(padded)
+    imgs = backend._to_host(out)
+    return dict(
+        stack_ms=host_ms(torch, lambda: np.stack(list(batch_host)), reps=3),
+        to_device_ms=host_ms(torch, lambda: backend._to_device(batch_host),
+                             reps=3),
+        run_ms=host_ms(torch, lambda: fn(padded), reps=3),
+        to_host_ms=host_ms(torch, lambda: backend._to_host(out), reps=3),
+        sentinel_ms=host_ms(torch, lambda: [
+            sentinel.check(r, i) for r, i in zip(batch_host, imgs)], reps=3),
+        execute_ms=host_ms(torch, lambda: backend.execute(key, batch_host),
+                           reps=3))
+
+
+def service_phase(torch, smi_line, cfg, raw, score, small, small_raw):
+    """Phase 17: the focusing service (``repro_torch.service``) on the
+    card; returns its ``kernels`` records (path ``service:*``)."""
+    import asyncio
+
+    import numpy as np
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.service import (BatchKey, ChaosBackend, FaultInjector,
+                                     FocusService, LocalBackend,
+                                     OutputCorrupted, ServiceConfig,
+                                     SimulatedFailure, seeded_schedule)
+    from repro_torch.service.resilience import LaneStalled
+    raw_host = raw.cpu().numpy()
+    small_host = small_raw.cpu().numpy()
+
+    # -- 17.1 streamed pipelines at 4096^2 -----------------------------------
+    streamed = {}
+    for variant, fft_impl in STREAM_VARIANTS:
+        kw = {} if fft_impl is None else {"fft_impl": fft_impl}
+        pipe = build_pipeline(cfg, variant, **kw)
+        want = pipe.run(raw).cpu().numpy()
+        reset_launch_counts()
+        got = pipe.run_streamed(raw_host, strips=STREAM_STRIPS)
+        torch.cuda.synchronize()
+        spectral = 3 * STREAM_STRIPS if variant != "unfused" else 0
+        counts, want_counts = launch_counts(spectral=spectral)
+        check(counts == want_counts,
+              f"streamed {variant}/{fft_impl}: launches {counts}")
+        check(np.array_equal(got, want),
+              f"streamed {variant}/{fft_impl} != run at 4096^2")
+        rec = dict(
+            variant=variant, fft_impl=fft_impl, strips=STREAM_STRIPS,
+            launches=counts, equal_to_run=True,
+            streamed_ms=host_ms(torch, lambda: pipe.run_streamed(
+                raw_host, strips=STREAM_STRIPS), reps=3),
+            in_memory_ms=host_ms(torch, lambda: pipe.run(raw), reps=3),
+            in_memory_from_host_ms=host_ms(
+                torch, lambda: pipe.run(raw_host).cpu().numpy(), reps=3))
+        streamed[(variant, fft_impl)] = rec
+        emit("streamed", scene=[cfg.na, cfg.nr], nvidia_smi=smi_line, **rec)
+        del want, got
+    for variant in ("fused", "fused1"):
+        try:
+            build_pipeline(cfg, variant).run_streamed(raw_host)
+        except ValueError:
+            continue
+        raise RuntimeError(f"check failed: run_streamed took {variant}")
+
+    # -- 17.2 the service: burst, 4096^2 in memory, 4096^2 streamed ----------
+    scenes = [small_host * np.float32(1 + 0.1 * i) for i in range(BURST)]
+
+    async def timed(svc, x, c, **kw):
+        t0 = time.perf_counter()
+        img = await svc.focus(x, c, **kw)
+        return img, (time.perf_counter() - t0) * 1e3
+
+    async def main_service():
+        svc = FocusService(ServiceConfig(), device=None)
+        await svc.start(warm=[(small, "fused3", None),
+                              (small, "fused3", "bs16"),
+                              (cfg, "fused3", "f32")])
+        await svc._ensure_gate_measured("bs16")
+        reset_launch_counts()
+        burst = await asyncio.gather(*[timed(svc, x, small)
+                                       for x in scenes])
+        torch.cuda.synchronize()
+        burst_counts = launch_counts()[0]
+        burst_snap = svc.metrics.snapshot()
+        reset_launch_counts()
+        big = [await timed(svc, raw_host, cfg, precision="f32")]
+        torch.cuda.synchronize()
+        big_counts = launch_counts()[0]
+        for _ in range(4):
+            big.append(await timed(svc, raw_host, cfg, precision="f32"))
+        # a cooperative mega_staged launch (a request naming fused1 at
+        # 4096^2) on one lane beside resident bursts on the other
+        hist = dict(svc.metrics.snapshot()["batch_size_hist"])
+        reset_launch_counts()
+        mixed = await asyncio.gather(
+            timed(svc, raw_host, cfg, variant="fused1", precision="f32"),
+            *[timed(svc, x, small) for x in scenes[:8]])
+        torch.cuda.synchronize()
+        mixed_counts = launch_counts()[0]
+        mixed_snap = svc.metrics.snapshot()
+        mixed_batches = sum(mixed_snap["batch_size_hist"].values()) \
+            - sum(hist.values()) - 1
+        await svc.stop()
+        return (svc, burst, burst_counts, burst_snap, big, big_counts,
+                mixed, mixed_counts, mixed_batches, mixed_snap)
+
+    t0 = time.perf_counter()
+    (svc, burst, burst_counts, burst_snap, big, big_counts, mixed,
+     mixed_counts, mixed_batches, mixed_snap) = asyncio.run(main_service())
+    service_s = time.perf_counter() - t0
+    deviation = svc._gate_cache["bs16"]
+    tier = "bs16" if deviation <= GATE_DB else "f32"
+    check(burst_snap["tier_fallbacks"] == (0 if tier == "bs16" else BURST),
+          f"served tier: {burst_snap['tier_fallbacks']} fallbacks, gate "
+          f"{deviation} dB")
+    check(not svc.backend.fallbacks,
+          f"off tier 0: {dict(svc.backend.fallbacks)}")
+    batches = sum(burst_snap["batch_size_hist"].values())
+    _, want_counts = launch_counts(mega_resident=batches)
+    check(burst_counts == want_counts,
+          f"burst launches {burst_counts} for {batches} batches")
+    pipe1 = build_pipeline(small, "fused1", precision=tier)
+    for x, (img, _) in zip(scenes, burst):
+        check(np.array_equal(img, pipe1.run(x).cpu().numpy()),
+              f"burst reply != fused1 at {tier}")
+    _, want_counts = launch_counts(spectral=3)
+    check(big_counts == want_counts, f"4096^2 launches {big_counts}")
+    pipe3 = build_pipeline(cfg, "fused3")
+    img3 = pipe3.run(raw)
+    big_img = big[0][0]
+    check(np.array_equal(big_img, img3.cpu().numpy()),
+          "4096^2 served image != fused3")
+    rep = score(torch.from_numpy(big_img))
+    check_focus("service 4096^2", rep)
+    _, want_counts = launch_counts(mega_staged=1,
+                                   mega_resident=mixed_batches)
+    check(mixed_counts == want_counts,
+          f"mixed lanes: launches {mixed_counts}, {mixed_batches} bursts")
+    check(np.array_equal(mixed[0][0], big_img),
+          "4096^2 fused1 request != fused3 request")
+    for x, (img, _) in zip(scenes[:8], mixed[1:]):
+        check(np.array_equal(img, pipe1.run(x).cpu().numpy()),
+              "mixed-lane burst reply != fused1")
+    emit("service_concurrent", lanes=mixed_snap["lane_batches"],
+         launches=mixed_counts, staged_equal_to_fused3=True,
+         staged_latency_ms=mixed[0][1],
+         burst_latency=percentiles([t for _, t in mixed[1:]]),
+         nvidia_smi=smi_line)
+    batch4 = torch.from_numpy(np.stack(scenes[:4])).cuda()
+    emit("service", scene=[small.na, small.nr], requests=BURST,
+         served_tier=tier, gate_snr_deviation_db=deviation,
+         gate_db=GATE_DB, batch_size_hist=burst_snap["batch_size_hist"],
+         lane_batches=burst_snap["lane_batches"], launches=burst_counts,
+         equal_to_fused1=True, latency=percentiles([t for _, t in burst]),
+         run_alone_batch4_ms=cuda_median_ms(lambda: pipe1.run(batch4)),
+         run_alone_one_ms=cuda_median_ms(
+             lambda: pipe1.run(small_raw)), nvidia_smi=smi_line)
+    emit("service", scene=[cfg.na, cfg.nr], precision="f32",
+         launches=big_counts, equal_to_fused3=True, targets=rep,
+         latency=percentiles([t for _, t in big]),
+         run_alone_ms=cuda_median_ms(lambda: pipe3.run(raw)),
+         run_from_host_ms=host_ms(
+             torch, lambda: pipe3.run(raw_host).cpu().numpy(), reps=3),
+         service_seconds=service_s, nvidia_smi=smi_line)
+
+    async def stream_service():
+        svc2 = FocusService(ServiceConfig(
+            device_budget_bytes=raw_host.nbytes - 1,
+            stream_strips=STREAM_STRIPS), backend=svc.backend)
+        await svc2.start()
+        reset_launch_counts()
+        out = [await timed(svc2, raw_host, cfg, precision="f32")]
+        torch.cuda.synchronize()
+        counts = launch_counts()[0]
+        for _ in range(2):
+            out.append(await timed(svc2, raw_host, cfg, precision="f32"))
+        await svc2.stop()
+        return out, counts, svc2.metrics.snapshot()
+
+    stream_out, stream_counts, stream_snap = asyncio.run(stream_service())
+    _, want_counts = launch_counts(spectral=3 * STREAM_STRIPS)
+    check(stream_counts == want_counts,
+          f"streamed request launches {stream_counts}")
+    check(stream_snap["lane_batches"] == {"stream": 3}
+          and stream_snap["streamed"] == 3,
+          f"stream lane: {stream_snap['lane_batches']}")
+    check(np.array_equal(stream_out[0][0], big_img),
+          "streamed request != in-memory request")
+    check(not svc.backend.fallbacks,
+          f"off tier 0: {dict(svc.backend.fallbacks)}")
+    emit("service_stream", scene=[cfg.na, cfg.nr], precision="f32",
+         strips=STREAM_STRIPS, launches=stream_counts,
+         equal_to_in_memory=True,
+         latency=percentiles([t for _, t in stream_out]),
+         in_memory_latency=percentiles([t for _, t in big]),
+         nvidia_smi=smi_line)
+    del big, stream_out, big_img
+    for name, scene_cfg, prec, batch_host, strips in (
+            ("burst", small, tier, np.stack(scenes[:4]), None),
+            ("in_memory", cfg, "f32", raw_host[None], None),
+            ("stream", cfg, "f32", raw_host[None], STREAM_STRIPS)):
+        key = BatchKey(scene_cfg, "fused3", prec, strips is not None)
+        emit("service_breakdown", request=name,
+             scene=[scene_cfg.na, scene_cfg.nr], precision=prec,
+             batch=len(batch_host), nvidia_smi=smi_line,
+             **service_breakdown(torch, svc.backend, key, batch_host,
+                                 strips))
+
+    # -- 17.3 the seeded chaos replay ----------------------------------------
+    ref = build_pipeline(small, "fused1").run(small_raw).cpu().numpy()
+    injector = FaultInjector(
+        seeded_schedule(20260808, 7,
+                        ("dispatch_error", "nan_output", "lane_hang")),
+        hang_timeout_s=60.0)
+    inner = LocalBackend(sweep=((None, None),))
+    chaos = ChaosBackend(inner, injector)
+
+    async def replay():
+        svc3 = FocusService(ServiceConfig(
+            max_batch=2, max_delay_ms=20.0, precision=None, lanes=2,
+            inflight_cap=1, max_retries=2, retry_backoff_ms=5.0,
+            stall_factor=3.0, stall_floor_s=1.5), backend=chaos)
+        await svc3.start(warm=[(small, "fused3", None)])
+        outs = await asyncio.gather(
+            *[svc3.focus(small_host, small) for _ in range(14)],
+            return_exceptions=True)
+        await svc3.stop()
+        return outs, svc3.metrics.snapshot()
+
+    try:
+        outs, chaos_snap = asyncio.run(replay())
+    finally:
+        injector.release_hangs()
+    lost = sum(1 for o in outs
+               if not (isinstance(o, np.ndarray) and np.array_equal(o, ref))
+               and not isinstance(o, (SimulatedFailure, OutputCorrupted,
+                                      LaneStalled)))
+    check(lost == 0, f"chaos replay lost {lost} requests")
+    check(len(injector.seams_fired()) == 3,
+          f"seams fired {injector.seams_fired()}")
+    check(not inner.fallbacks, f"chaos off tier 0: {dict(inner.fallbacks)}")
+    emit("service_chaos", scene=[small.na, small.nr], requests=14, lost=0,
+         seams=injector.seams_fired(), completed=chaos_snap["completed"],
+         failed=chaos_snap["failed"], retries=chaos_snap["retries"],
+         lane_stalls=chaos_snap["lane_stalls"],
+         bisections=chaos_snap["bisections"])
+
+    # -- the service paths' kernels, each beside its plain version -----------
+    key = BatchKey(small, "fused3", tier, False)
+    step = svc.backend._pipeline(key).steps[0]
+    check(step.kind == "mega" and step.kernel_kw["residency"] == "vmem",
+          "the 128^2 service route is one resident mega step")
+    xr, xi = planlib.split(batch4)
+    args = [t for a in step.seg_filter_args for t in a]
+    got = ops.mega_spectral_op(xr, xi, *args, **step.kernel_kw)
+    want = ops.mega_spectral_op_plain(xr, xi, *args, **step.kernel_kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    check(rel <= FORM_TOL[tier], f"service mega_resident: {rel:.3e}")
+    t_res = time_mega_kernel(torch, smi_line, "mega_resident", step, batch4,
+                             small)
+    records = [kernel_record("mega_resident", "service:fused1", "matmul",
+                             burst_counts["mega_resident"], err, [t_res])]
+    for path, pipe, counts, inputs in (
+            ("service:fused3", pipe3, big_counts,
+             [(s, *planlib.split(x), x)
+              for s, x in step_inputs(pipe3, raw)[0]]),
+            ("service:stream", pipe3, stream_counts,
+             strip_launches(torch, pipe3, raw_host, STREAM_STRIPS))):
+        err = 0.0
+        for s, sxr, sxi, _ in inputs:
+            got = ops.spectral_op(sxr, sxi, **s.filter_kw, **s.kernel_kw)
+            want = ops.spectral_op_plain(sxr, sxi, **s.filter_kw,
+                                         **s.kernel_kw)
+            torch.cuda.synchronize()
+            e, rel = rel_err(got, want)
+            check(rel <= TOL, f"{path} launch {s.name}: {rel:.3e}")
+            err = max(err, e)
+        timed_launches = [time_spectral_launch(smi_line, s, sxr, sxi, x)
+                          for s, sxr, sxi, x in inputs]
+        records.append(kernel_record("spectral", path, "matmul",
+                                     counts["spectral"], err,
+                                     timed_launches))
+    return records
+
+
 def main() -> int:
     import tempfile
 
@@ -1997,7 +2377,7 @@ def main() -> int:
 
 
 def run(torch) -> int:
-    """Phases 1-16 on the card (``main`` has found it)."""
+    """Phases 1-17 on the card (``main`` has found it)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
                                       paper_targets, simulate)
@@ -2221,6 +2601,10 @@ def run(torch) -> int:
                 small_raw)
     kernels += form_times(torch, smi_line, cfg, raw, small, small_raw,
                           images)
+
+    # ---- 17. the focusing service -------------------------------------------
+    kernels += service_phase(torch, smi_line, cfg, raw, score, small,
+                             small_raw)
     for k in kernels:
         k["precisions"] = kernel_precisions(k["name"])
         k["karatsuba_by_route"] = kernel_karatsuba(k["name"])

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from collections import deque
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -232,13 +233,17 @@ def clear_filter_caches() -> None:
 # Custom stage implementations (non-spectral kinds)
 # ---------------------------------------------------------------------------
 #
-# impl(x, cfg, opts) -> x: complex in/out, batch-polymorphic.
+# impl(x, cfg, opts, lo, hi) -> x: complex in/out, batch-polymorphic.
+# lo/hi select a row range for the streaming executor (None = whole scene);
+# stream_axis names the scene axis the stage can be stripped along (None:
+# the stage needs the whole scene and refuses to stream).
 
-_STAGE_IMPLS: dict[str, Callable] = {}
+_STAGE_IMPLS: dict[str, tuple[Callable, Optional[int]]] = {}
 
 
-def register_stage_impl(kind: str, impl: Callable) -> None:
-    _STAGE_IMPLS[kind] = impl
+def register_stage_impl(kind: str, impl: Callable,
+                        stream_axis: Optional[int] = None) -> None:
+    _STAGE_IMPLS[kind] = (impl, stream_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +442,12 @@ class Step:
     keeps ``kernel_kw`` (``ops.mega_spectral_op`` keywords) and
     ``seg_filter_args``, one tuple of device filter tensors per segment,
     whose concatenation is the launch's ``filter_args``.
+
+    ``stream_axis`` is the scene axis the step's launch may be cut along
+    into strips (its free, line axis) and ``strip_fn(xs, lo, hi)`` runs the
+    step on the strip ``lo:hi`` of that axis, with its line-indexed filter
+    payloads sliced to it (``Pipeline.run_streamed``); both are None for a
+    step that needs the whole scene (a transpose, a mega step).
     """
 
     name: str
@@ -450,6 +461,8 @@ class Step:
     filter_kw: Optional[dict] = None      # device filter payloads
     kernel_kw: Optional[dict] = None      # ops.(mega_)spectral_op keywords
     seg_filter_args: Optional[tuple] = None   # mega: per-segment payloads
+    stream_axis: Optional[int] = None     # scene axis strips cut along
+    strip_fn: Optional[Callable] = None   # (xs, lo, hi) -> ys
 
 
 @dataclasses.dataclass
@@ -481,6 +494,118 @@ class Pipeline:
         for s in self.steps:
             x = s.fn(x)
         return x
+
+    def jitted(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The callable a caller runs batches through (the focusing
+        service's warm path). The JAX package jit-compiles the step
+        sequence here; the port's steps are already eager launches of the
+        hand-written kernels, so this is :meth:`run` itself — no
+        ``torch.compile``, which would put a compiled plain version in
+        place of the kernels."""
+        return self.run
+
+    def lower_sharded(self, mesh=None, axes=("data",), **kw):
+        """The multi-device lowering (corner-turn collectives between
+        per-device slabs) is not ported yet: it raises, naming the queue
+        item that brings it."""
+        raise NotImplementedError(
+            "Pipeline.lower_sharded: the multi-device lowering is not "
+            "ported yet (ROADMAP.md Queue 1, item 5)")
+
+    def run_streamed(self, raw, strips: int = 4,
+                     inflight: int = 2) -> np.ndarray:
+        """Execute over host memory in ``strips`` tiles per step.
+
+        Each launch runs strip by strip along its free (line) axis, with
+        the line-indexed filter payloads sliced to the strip, so a scene
+        that does not fit the device flows through the same compiled
+        steps; between steps the scene lives on the host. On a CUDA device
+        every strip is staged through pinned host memory: its
+        host-to-device copy is issued ``non_blocking`` on a copy stream and
+        ordered before the strip's launch by an event, so strip k+1's copy
+        overlaps strip k's kernels; at most ``inflight`` strips are
+        un-synchronised before the oldest is waited for, and each output
+        strip comes back through a pinned buffer into a pinned host array
+        (a fresh pageable one takes its first-touch page faults inside
+        every step). On the CPU the strips
+        run in turn. The image equals :meth:`run`'s bit for bit (every
+        kernel treats its lines independently). ``raw`` is one ``(na, nr)``
+        scene; returns the complex64 image as a numpy array."""
+        x = torch.as_tensor(raw).to("cpu", torch.complex64)
+        if x.ndim != 2:
+            raise ValueError("run_streamed expects one (na, nr) scene")
+        for step in self.steps:
+            if step.stream_axis is None or step.strip_fn is None:
+                raise ValueError(
+                    f"step {step.name!r} does not support streaming "
+                    "(global transposes need the whole scene; cross-axis "
+                    "megakernel steps have no single free axis to strip "
+                    "— use a per-axis variant like fused3)")
+        cuda = self.device.type == "cuda"
+        for step in self.steps:
+            n = x.shape[step.stream_axis]
+            sizes = [n // strips + (1 if i < n % strips else 0)
+                     for i in range(strips)]
+            bounds = []
+            lo = 0
+            for size in sizes:
+                if size:
+                    bounds.append((lo, lo + size))
+                    lo += size
+            if cuda:
+                x = _stream_step_cuda(step, x, bounds, max(1, inflight),
+                                      self.device)
+            else:
+                x = _stream_step_cpu(step, x, bounds)
+        return x.numpy()
+
+
+def _strip(axis: int, lo: int, hi: int) -> tuple:
+    return ((slice(lo, hi), slice(None)) if axis == 0
+            else (slice(None), slice(lo, hi)))
+
+
+def _stream_step_cpu(step: Step, x, bounds):
+    out = torch.empty_like(x)
+    for lo, hi in bounds:
+        sl = _strip(step.stream_axis, lo, hi)
+        out[sl] = step.strip_fn(x[sl].contiguous(), lo, hi)
+    return out
+
+
+def _stream_step_cuda(step: Step, x, bounds, inflight, device):
+    """One step over the host scene ``x``, strip by strip through pinned
+    staging buffers into a pinned output: the copy in on a copy stream,
+    the launch and the copy back on the current (compute) stream,
+    ``inflight`` strips in flight at most."""
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    compute = torch.cuda.current_stream(device)
+    copy = torch.cuda.Stream(device=device)
+    pending: deque = deque()
+
+    def retire():
+        sl, back, done = pending.popleft()
+        done.synchronize()
+        out[sl] = back
+
+    for lo, hi in bounds:
+        sl = _strip(step.stream_axis, lo, hi)
+        stage = torch.empty(x[sl].shape, dtype=x.dtype, pin_memory=True)
+        stage.copy_(x[sl])
+        with torch.cuda.stream(copy):
+            xs = stage.to(device, non_blocking=True)
+            ready = copy.record_event()
+        compute.wait_event(ready)
+        xs.record_stream(compute)       # made on the copy stream
+        ys = step.strip_fn(xs, lo, hi)
+        back = torch.empty(ys.shape, dtype=ys.dtype, pin_memory=True)
+        back.copy_(ys, non_blocking=True)
+        pending.append((sl, back, compute.record_event()))
+        while len(pending) >= inflight:
+            retire()
+    while pending:
+        retire()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -514,7 +639,11 @@ def _payload_to_device(mode: str, arrays: tuple, device,
 
 
 def _torch_apply(x, fwd, inv, mode, fk, phys_axis):
-    """The unfused oracle: the same math as one launch, in torch.fft ops."""
+    """The unfused oracle: the same math as one launch, in torch.fft ops.
+    The result is made contiguous: a column transform returns a strided
+    tensor, and torch.fft's bits depend on its input's strides, so every
+    op takes the same layout whether it sees the scene or a strip of it
+    (``Pipeline.run_streamed`` == ``run`` bit for bit)."""
     ax = -1 if phys_axis == 1 else -2
     if fwd:
         x = torch.fft.fft(x, dim=ax)
@@ -532,7 +661,7 @@ def _torch_apply(x, fwd, inv, mode, fk, phys_axis):
         x = x * torch.polar(torch.ones_like(phase), phase)
     if inv:
         x = torch.fft.ifft(x, dim=ax)
-    return x
+    return x.contiguous()
 
 
 def _tuned_config(n: int, batch: int, device) -> KernelConfig:
@@ -584,6 +713,20 @@ def _base_config(n: int, backend: str, opts) -> KernelConfig:
     return _schedule_globals(tuned, opts)
 
 
+def _slice_filter_kwargs(kw: dict, mode: str, phys_axis: int, lo: int,
+                         hi: int) -> dict:
+    """Slice the line-indexed filter payloads to a [lo, hi) line strip
+    (a FULL filter's lines are its rows on a rows launch, its columns on a
+    columns launch; the outer phase's u is (lines, K))."""
+    out = dict(kw)
+    if mode == FILTER_FULL:
+        for k in ("hr", "hi"):
+            out[k] = kw[k][lo:hi] if phys_axis == 1 else kw[k][:, lo:hi]
+    if mode in (FILTER_OUTER, FILTER_SHARED_OUTER):
+        out["u"] = kw["u"][lo:hi]
+    return out
+
+
 def _make_spectral_step(group, mode, arrays, *, cfg, transposed, backend,
                         opts) -> Step:
     axis = group[0].axis                       # logical (scene) axis
@@ -627,9 +770,24 @@ def _make_spectral_step(group, mode, arrays, *, cfg, transposed, backend,
         def fn(x, _fk=filter_kw):
             return _torch_apply(x, fwd, inv, mode, _fk, phys_axis)
 
+    # streaming: strips run along the physical line axis; the scene must be
+    # in its natural orientation for host strips to be meaningful
+    stream_axis = None
+    strip_fn = None
+    if not transposed:
+        stream_axis = 0 if phys_axis == 1 else 1
+
+        def strip_fn(xs, lo, hi, _fk=filter_kw):
+            fk = _slice_filter_kwargs(_fk, mode, phys_axis, lo, hi)
+            if backend == BACKEND_KERNEL:
+                xr, xi = split(xs)
+                return unsplit(*ops.spectral_op(xr, xi, **fk, **kernel_kw))
+            return _torch_apply(xs, fwd, inv, mode, fk, phys_axis)
+
     fused = backend == BACKEND_KERNEL and len(group) > 1
     return Step(name, fn, 1, 1, fused, kind="spectral", phys_axis=phys_axis,
-                filter_mode=mode, filter_kw=filter_kw, kernel_kw=kernel_kw)
+                filter_mode=mode, filter_kw=filter_kw, kernel_kw=kernel_kw,
+                stream_axis=stream_axis, strip_fn=strip_fn)
 
 
 def _make_mega_step(group, seg_payloads, *, cfg, backend, opts) -> Step:
@@ -714,13 +872,18 @@ def _make_custom_step(stage: Stage, cfg) -> Step:
     if stage.kind not in _STAGE_IMPLS:
         raise KeyError(f"no implementation registered for stage kind "
                        f"{stage.kind!r}")
-    impl = _STAGE_IMPLS[stage.kind]
+    impl, stream_axis = _STAGE_IMPLS[stage.kind]
     opts = stage.opt_dict()
 
     def fn(x):
-        return impl(x, cfg, opts)
+        return impl(x, cfg, opts, None, None)
 
-    return Step(stage.name, fn, 1, 1, False, kind=stage.kind)
+    strip_fn = None
+    if stream_axis is not None:
+        def strip_fn(xs, lo, hi):
+            return impl(xs, cfg, opts, lo, hi)
+    return Step(stage.name, fn, 1, 1, False, kind=stage.kind,
+                stream_axis=stream_axis, strip_fn=strip_fn)
 
 
 def compile_plan(

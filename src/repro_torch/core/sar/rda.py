@@ -37,7 +37,7 @@ scalar radix-4/radix-2 Stockham baseline), in the same launch counts.
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -60,18 +60,23 @@ from repro_torch.core.sar.geometry import SceneConfig
 # ---------------------------------------------------------------------------
 
 def rcmc_sinc(x: torch.Tensor, cfg: SceneConfig, taps: int = 8,
-              range_variant: bool = False) -> torch.Tensor:
+              range_variant: bool = False, lo: Optional[int] = None,
+              hi: Optional[int] = None) -> torch.Tensor:
     """8-tap windowed-sinc RCMC in the range-Doppler domain (paper step 3).
 
     x: (na, nr) or (B, na, nr) complex, rows = Doppler bins. Row f_a is
     shifted by -s(f_a) samples, y[..., row, col] = x[..., row, col + s]
     interpolated (the shift table broadcasts across any batch dim).
+    lo/hi restrict the shift table to a row strip (the streaming executor,
+    ``Pipeline.run_streamed``); x then holds rows lo..hi only.
     """
     dev = x.device
     if range_variant:
         s_np = filters.rcmc_shift_samples_variant(cfg)
     else:
         s_np = filters.rcmc_shift_samples(cfg)[:, None]
+    if lo is not None:
+        s_np = s_np[lo:hi]
     s = torch.as_tensor(s_np, dtype=torch.float32, device=dev)
     base = torch.floor(s)
     frac = s - base  # in [0, 1)
@@ -94,12 +99,13 @@ def rcmc_sinc(x: torch.Tensor, cfg: SceneConfig, taps: int = 8,
     return y
 
 
-def _sinc_rcmc_impl(x, cfg, opts):
+def _sinc_rcmc_impl(x, cfg, opts, lo, hi):
     return rcmc_sinc(x, cfg, taps=opts.get("taps", 8),
-                     range_variant=opts.get("range_variant", False))
+                     range_variant=opts.get("range_variant", False),
+                     lo=lo, hi=hi)
 
 
-planlib.register_stage_impl("sinc_rcmc", _sinc_rcmc_impl)
+planlib.register_stage_impl("sinc_rcmc", _sinc_rcmc_impl, stream_axis=0)
 
 
 # ---------------------------------------------------------------------------

@@ -497,6 +497,40 @@ def schedule_seconds(schedule: Schedule,
     return total
 
 
+# RDA-family megakernel shape (fused1 / csa_fused1 / omegak_fused1 all
+# lower to an azimuth -> range -> azimuth segment chain): the canonical
+# workload ``serve_batch_seconds`` prices.
+_MEGA_SEGMENTS_2D = (
+    SegmentShape(axis=0, fwd=True, inv=False, filtered=False),
+    SegmentShape(axis=1, fwd=True, inv=True, filtered=True),
+    SegmentShape(axis=0, fwd=False, inv=True, filtered=True),
+)
+
+
+def serve_batch_seconds(na: int, nr: int, batch: int = 1,
+                        precision: Optional[str] = None,
+                        streamed: bool = False) -> float:
+    """Predicted seconds of ONE served micro-batch — the worker pool's
+    lane-routing weight (``repro_torch.service.workers.WorkerPool.route``).
+
+    Prices the canonical azimuth->range->azimuth megakernel (the shape
+    every served RDA-family variant lowers to) with
+    :func:`schedule_seconds`, at the residency the compiler would pick for
+    the scene (``mega_residency``) — pinned to the staged tier for
+    ``streamed`` keys, whose scenes are over the device budget by
+    definition. Relative ordering across keys is the contract, as for the
+    kernel search: a 1024² batch must weigh a lane's backlog more than a
+    256² one, by roughly the model's ratio."""
+    problem = ScheduleProblem.mega_2d(na, nr, _MEGA_SEGMENTS_2D,
+                                      batch=max(1, batch))
+    res = (RESIDENT_STAGED if streamed
+           else mega_residency(na, nr, precision=precision))
+    sched = Schedule(
+        segments=(SegmentConfig(),) * len(_MEGA_SEGMENTS_2D),
+        precision=precision, residency=res, phase_block=8, buffer_depth=2)
+    return schedule_seconds(sched, problem)
+
+
 def nominal_flops(key: TuneKey, fwd: bool = True, inv: bool = True,
                   filtered: bool = True) -> float:
     """The algorithmic 5 n log2 n count (``fft4step.flops_nominal``) for

@@ -659,3 +659,72 @@ def test_cuda_fused_launches_and_matches_plain_replay(cuda_device, na):
     on_cpu = build_pipeline(cfg, "fused", device="cpu").run(raw.cpu())
     assert_close((img.real.cpu(), img.imag.cpu()),
                  (on_cpu.real, on_cpu.imag))
+
+
+# ---------------------------------------------------------------------------
+# The streaming executor and the focusing service on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strips", [1, 3, 4])
+@pytest.mark.parametrize("variant,fft_impl,precision", [
+    ("fused3", "matmul", None), ("fused3", "stockham", None),
+    ("fused3", "matmul", "bs16"), ("csa_fused", "matmul", None),
+    ("omegak", "matmul", None), ("unfused", "matmul", None)])
+def test_cuda_run_streamed_equals_run(cuda_device, variant, fft_impl,
+                                      precision, strips):
+    """Strips through pinned memory and a copy stream give the in-memory
+    image bit for bit, each strip one launch a spectral step."""
+    from repro_torch.core.sar import build_pipeline, paper_targets, simulate
+    from repro_torch.core.sar.geometry import test_scene
+    cfg = test_scene(256)
+    raw = simulate(cfg, paper_targets(cfg))
+    kw = {} if variant == "unfused" else dict(fft_impl=fft_impl,
+                                              precision=precision)
+    pipe = build_pipeline(cfg, variant, **kw)
+    want = pipe.run(raw).cpu()
+    spectral = sum(s.kind == "spectral" for s in pipe.steps)
+    before = ops.SPECTRAL_LAUNCHES
+    got = pipe.run_streamed(raw.cpu().numpy(), strips=strips)
+    launched = ops.SPECTRAL_LAUNCHES - before
+    assert launched == (0 if variant == "unfused" else spectral * strips)
+    assert torch.equal(torch.from_numpy(got), want)
+
+
+@pytest.mark.gpu
+def test_cuda_service_round_trip(cuda_device):
+    """One burst of 128^2 default-tier requests through the service on
+    the card: one coalesced batch through ``mega_resident`` alone, each
+    image bit-equal to fused1 at the tier the gate admitted."""
+    import asyncio
+
+    import numpy as np
+    from repro_torch.core.sar import build_pipeline, paper_targets, simulate
+    from repro_torch.core.sar.geometry import test_scene
+    from repro_torch.service import FocusService, LocalBackend, ServiceConfig
+    cfg = test_scene(128)
+    raw = simulate(cfg, paper_targets(cfg)).cpu().numpy()
+    scenes = [raw * (1 + 0.1 * i) for i in range(4)]
+
+    async def main():
+        svc = FocusService(ServiceConfig(max_delay_ms=200.0),
+                           backend=LocalBackend(sweep=((None, None),)))
+        await svc.start(warm=[(cfg, "fused3", None)])
+        await svc._ensure_gate_measured("bs16")
+        before = (ops.SPECTRAL_LAUNCHES, dict(ops.MEGA_LAUNCHES))
+        outs = await asyncio.gather(*[svc.focus(s, cfg) for s in scenes])
+        after = (ops.SPECTRAL_LAUNCHES, dict(ops.MEGA_LAUNCHES))
+        await svc.stop()
+        return outs, before, after, svc
+
+    outs, before, after, svc = asyncio.run(main())
+    snap = svc.metrics.snapshot()
+    tier = "f32" if snap["tier_fallbacks"] else "bs16"
+    assert snap["batch_size_hist"] == {4: 1}
+    assert not svc.backend.fallbacks
+    assert after[0] == before[0]
+    assert after[1]["mega_resident"] == before[1]["mega_resident"] + 1
+    assert after[1]["mega_staged"] == before[1]["mega_staged"]
+    pipe = build_pipeline(cfg, "fused1", precision=tier)
+    for s, out in zip(scenes, outs):
+        assert np.array_equal(out, pipe.run(s).cpu().numpy())
