@@ -175,8 +175,31 @@ each printing one JSON line (any failed check raises and exits non-zero):
              0 lost requests; (4) the service paths' launches timed
              beside their plain versions and bounds.
 
+18. sharded — the multi-device lowering (``core.sar.distributed``) on
+             meshes that repeat the one card, P = 1, 2 and 8 slabs (each
+             slab its own launches, each corner turn on-card copies, not
+             NVLink; every line says so), and on every visible card: at
+             4096^2 lowered fused3 (3 x P spectral launches), fused1
+             (3 x P ``mega_staged``: the azimuth FFT on (4096, 4096/P)
+             slabs, range fwd . H . inv on (4096/P, 4096), azimuth H .
+             inv), fused1 pinned staged, csa_fused1 and omegak_fused1 on
+             both routes, each ``torch.equal`` to its local twin; fused1
+             bs16 (the Stockham route: f16's range overflows on the
+             matmul route at 4096^2) equal to the local bs16 image;
+             corner2 equal to fused3 and with a bf16 wire within the
+             0.1 dB gate; halo at the largest P its bound admits, equal
+             to its one-device plan and within 0.01 dB of ``unfused``
+             (and at 256^2 l2 < 1e-5, the reference's own check); 132 x
+             128^2 fused1 at P = 8 through 24 ``mega_resident`` launches;
+             the sharded backend serving three 4096^2 requests and the
+             local backend's sharded route for a streamed one, equal to
+             fused3 with no fallback. Launch counts are read around each
+             run; each unit is timed on its P slabs beside its plain
+             version, torch.fft and its bound, each turn's copies beside
+             their bytes bound, and each run per P.
+
 The line before the last lists each kernel — on the main path and on each
-path of phases 14 to 17, with the precisions and Karatsuba flags it runs
+path of phases 14 to 18, with the precisions and Karatsuba flags it runs
 on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -2360,6 +2383,437 @@ def service_phase(torch, smi_line, cfg, raw, score, small, small_raw):
     return records
 
 
+SHARD_PS = (1, 2, 8)           # phase 18's slab counts on one card
+SHARD_BATCH = 132              # 128^2 scenes of the resident lowering
+SHARD_ROUTES = ("matmul", "stockham")
+# bs16 at 4096^2 runs on the Stockham route: on the matmul route a
+# compressed range line's partial sums overflow f16's range at this size,
+# in the plain version too (phase 16)
+SHARD_BS16_ROUTES = ("stockham",)
+# every phase-18 line says what its P means on a one-card machine
+SHARD_MESH = ("P slabs emulated on one H100 (a mesh repeating cuda:0): "
+              "each slab its own launches, each corner turn on-card "
+              "copies, not NVLink")
+SHARD_TWINS = (("fused3", "fused3"), ("fused1", "fused3"),
+               ("csa_fused1", "csa_fused"), ("omegak_fused1", "omegak"))
+
+
+def slab_replay(torch, run, devices, raw):
+    """A lowered f32 runner replayed unit by unit on its slabs: each
+    unit's input slabs [(unit, xr, xi)] and each turn's [(from_axis, xr,
+    xi)], and the output slabs."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.distributed import mesh as meshlib
+    bpre = raw.ndim - 2
+    cur = run.units[0].stream_axis
+    planes = [planlib.split(s)
+              for s in meshlib.shard(raw, bpre + cur, devices)]
+    xr, xi = [a for a, _ in planes], [b for _, b in planes]
+    units, turns = [], []
+    for u in run.units:
+        if u.stream_axis != cur:
+            turns.append((cur, bpre, xr, xi))
+            xr = meshlib.all_to_all(xr, bpre + 1 - cur, bpre + cur)
+            xi = meshlib.all_to_all(xi, bpre + 1 - cur, bpre + cur)
+            cur = u.stream_axis
+        units.append((u, xr, xi))
+        outs = [u.apply(i, xr[i], xi[i]) for i in range(len(devices))]
+        xr, xi = [o[0] for o in outs], [o[1] for o in outs]
+    return units, turns
+
+
+def _unit_plain(u, i, xr, xi):
+    from repro_torch.kernels import ops
+    if u.kind == "spectral":
+        return ops.spectral_op_plain(xr, xi, **u.filter_args[i],
+                                     **u.kernel_kw)
+    return ops.mega_spectral_op_plain(xr, xi, *u.filter_args[i],
+                                      **u.kernel_kw)
+
+
+def _unit_library(torch, u, i, xr, xi):
+    """One unit's math on one slab through torch.fft and torch multiplies
+    (the yardstick library call): a spectral launch one ``_torch_apply``,
+    a mega group one per segment."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.kernels.fft4step import _filter_ref_count
+    x = torch.complex(xr, xi)
+    kk = u.kernel_kw
+    if u.kind == "spectral":
+        return planlib._torch_apply(x, kk["fwd"], kk["inv"],
+                                    kk["filter_mode"], u.filter_args[i],
+                                    kk["axis"])
+    args = iter(u.filter_args[i])
+    names = {"none": (), "shared": ("hr", "hi"), "full": ("hr", "hi"),
+             "outer": ("u", "v"), "shared_outer": ("hr", "hi", "u", "v")}
+    for rec in kk["segments"]:
+        axis, fwd, inv, mode = rec[:4]
+        fk = {n: next(args) for n in names[mode]}
+        assert len(fk) == _filter_ref_count(mode)
+        x = planlib._torch_apply(x, fwd, inv, mode, fk, axis)
+    return x
+
+
+def time_units(torch, smi_line, units, p, path, plain=True):
+    """Each unit of a lowering timed alone on its P slabs (queued: the
+    card's work, not the host's), beside its plain version, its
+    torch.fft yardstick and its bound (the P slabs' bytes over 3.35 TB/s
+    vs their nominal FLOP over 67 TFLOP/s); each launch held to its plain
+    version at 2e-4 x max|want|. Returns the records."""
+    from repro_torch.kernels.fft4step import (MegaSpec, SegmentSpec,
+                                              SpectralSpec, _mega_flops,
+                                              flops_nominal)
+    recs = []
+    for u, xr, xi in units:
+        kk = u.kernel_kw
+        err = 0.0
+        nbytes = 0
+        flops = 0.0
+        for i in range(p):
+            got = u.apply(i, xr[i], xi[i])
+            want = _unit_plain(u, i, xr[i], xi[i])
+            torch.cuda.synchronize()
+            e, rel = rel_err(got, want)
+            check(rel <= TOL, f"{path} {u.name} slab {i}: {rel:.3e}")
+            err = max(err, e)
+            fa = u.filter_args[i]
+            fa = fa.values() if isinstance(fa, dict) else fa
+            nbytes += 16 * xr[i].numel() + sum(4 * t.numel() for t in fa)
+            batch = xr[i].shape[0] if xr[i].ndim == 3 else 1
+            na, nr = xr[i].shape[-2:]
+            if u.kind == "spectral":
+                n = nr if kk["axis"] == 1 else na
+                lines = batch * (na if kk["axis"] == 1 else nr)
+                flops += flops_nominal(SpectralSpec(
+                    n=n, fwd=kk["fwd"], inv=kk["inv"],
+                    filter_mode=kk["filter_mode"], axis=kk["axis"]), lines)
+            else:
+                flops += batch * _mega_flops(MegaSpec(na, nr, tuple(
+                    SegmentSpec(*r[:4]) for r in kk["segments"])))
+        t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+
+        def launch_all(fn):
+            return lambda: [fn(i) for i in range(p)]
+        rec = dict(
+            path=path, unit=u.name, kind=u.kind, residency=u.residency,
+            fft_impl=kk["fft_impl"], precision=kk["precision"], slabs=p,
+            slab=list(xr[0].shape),
+            ms=cuda_median_ms(launch_all(
+                lambda i: u.apply(i, xr[i], xi[i])), queued=True),
+            plain_ms=(cuda_median_ms(launch_all(
+                lambda i: _unit_plain(u, i, xr[i], xi[i])), queued=True)
+                if plain else None),
+            library_ms=(cuda_median_ms(launch_all(
+                lambda i: _unit_library(torch, u, i, xr[i], xi[i])),
+                queued=True) if plain else None),
+            bytes=nbytes, flops_nominal=flops, bound_ms=max(t_mem, t_ops),
+            bound_by="bytes" if t_mem >= t_ops else "operations",
+            max_abs_err=err, mesh=SHARD_MESH)
+        emit("time_sharded_unit", nvidia_smi=smi_line, **rec)
+        recs.append(rec)
+    return recs
+
+
+def time_turns(torch, smi_line, turns, path):
+    """Each corner turn's copies alone (queued): the all-to-all of the re
+    and im slabs, beside the bytes bound of its HBM traffic (the scene
+    read and written once)."""
+    from repro_torch.distributed import mesh as meshlib
+    recs = []
+    for k, (cur, bpre, xr, xi) in enumerate(turns):
+        nbytes = 2 * 2 * 4 * sum(t.numel() for t in xr)
+        ms = cuda_median_ms(lambda: (
+            meshlib.all_to_all(xr, bpre + 1 - cur, bpre + cur),
+            meshlib.all_to_all(xi, bpre + 1 - cur, bpre + cur)),
+            queued=True)
+        rec = dict(path=path, turn=k, from_axis=cur, slabs=len(xr),
+                   bytes=nbytes, ms=ms,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, mesh=SHARD_MESH)
+        emit("time_sharded_turn", nvidia_smi=smi_line, **rec)
+        recs.append(rec)
+    return recs
+
+
+def mega_kernel(run):
+    """The megakernel a lowering's groups launch, by their residency."""
+    res = {u["residency"] for u in run.unit_info}
+    check(len(res) == 1, f"mixed residencies {res}")
+    return "mega_resident" if res == {"vmem"} else "mega_staged"
+
+
+def sharded_record(name, path, launches, timed):
+    """One ``kernels`` entry for a kernel on a phase-18 path: the sums over
+    its units' P-slab launches."""
+    line = {"spectral": 598, "mega_resident": 931, "mega_staged": 1002}[name]
+    source = "spectral.cu" if name == "spectral" else "mega.cu"
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/fft4step.py:{line}",
+            "path": path, "fft_impl": timed[0]["fft_impl"],
+            "precision": timed[0]["precision"], "karatsuba": False,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in timed),
+            "ms": sum(r["ms"] for r in timed),
+            "plain_ms": sum(r["plain_ms"] for r in timed),
+            "bound_ms": sum(r["bound_ms"] for r in timed),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in timed) else "operations",
+            "library_ms": sum(r["library_ms"] for r in timed),
+            "mesh": SHARD_MESH}
+
+
+def sharded_phase(torch, smi_line, cfg, raw, score):
+    """Phase 18: the multi-device lowering on one card. Returns its
+    ``kernels`` records."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import (build_pipeline, filters, metrics,
+                                      paper_targets, simulate)
+    from repro_torch.core.sar import distributed as D
+    from repro_torch.core.sar.geometry import test_scene as small_scene
+    from repro_torch.service import (BatchKey, FocusService, LocalBackend,
+                                     ServiceConfig)
+
+    dev = torch.device("cuda", 0)
+    scene = [cfg.na, cfg.nr]
+
+    def counted(fn, **want):
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got, want = launch_counts(**want)
+        return out, got, want
+
+    # the local twins, each through the five-target gate once (a sharded
+    # image equal to its twin passes it by that equality)
+    local = {}
+    for route in SHARD_ROUTES:
+        for variant in ("fused3", "csa_fused", "omegak"):
+            local[(variant, route, "f32")] = build_pipeline(
+                cfg, variant, fft_impl=route).run(raw)
+            check_focus(f"local {variant} {route}",
+                        score(local[(variant, route, "f32")]))
+        if route in SHARD_BS16_ROUTES:
+            local[("fused1", route, "bs16")] = build_pipeline(
+                cfg, "fused1", fft_impl=route, precision="bs16").run(raw)
+            check_focus(f"local fused1 bs16 {route}",
+                        score(local[("fused1", route, "bs16")]),
+                        score(local[("fused3", route, "f32")]))
+    torch.cuda.synchronize()
+    unfused = build_pipeline(cfg, "unfused").run(raw)
+    unfused_score = score(unfused)
+
+    meshes = [(p, D.make_sar_mesh(devices=[dev] * p)) for p in SHARD_PS]
+    visible = D.make_sar_mesh()
+    meshes.append((visible.size(), visible))
+    records = []
+    timing = {}
+    for p, mesh in meshes:
+        devices = mesh.device_list()
+        all_cards = mesh is visible
+        for route in SHARD_ROUTES:
+            for variant, twin in SHARD_TWINS:
+                if all_cards and (variant, route) != ("fused1", "matmul"):
+                    continue
+                pins = [None, "staged"] if variant == "fused1" else [None]
+                for res in pins:
+                    kw = {} if res is None else {"residency": res}
+                    run = build_pipeline(cfg, variant,
+                                         fft_impl=route).lower_sharded(
+                        mesh, **kw)
+                    n = run.dispatches_per_device * p
+                    kernel = ("spectral" if variant == "fused3"
+                              else mega_kernel(run))
+                    img, got, want = counted(lambda: run(raw),
+                                             **{kernel: n})
+                    check(got == want, f"{variant} P={p}: {got}")
+                    check(run.devices == p and run.turns == 2
+                          and run.dispatches_per_device == 3,
+                          f"{variant} P={p}: shape")
+                    ref = local[(twin, route, "f32")]
+                    equal = bool(torch.equal(img, ref))
+                    dsnr = []
+                    if variant == "omegak_fused1" and not equal:
+                        dsnr = check_focus(f"{variant} P={p}", score(img),
+                                           score(ref))
+                    else:
+                        check(equal, f"{variant} {route} P={p} != {twin}")
+                    emit("sharded", variant=variant, twin=twin,
+                         fft_impl=route, precision="f32", residency=res,
+                         slabs=p, all_visible_cards=all_cards, scene=scene,
+                         launches=got, equal_to_twin=equal,
+                         snr_delta_db=dsnr, unit_info=run.unit_info,
+                         mesh=SHARD_MESH)
+                    if route == "matmul" and res is None and \
+                            variant in ("fused3", "fused1") and \
+                            not all_cards:
+                        units, turns = slab_replay(torch, run, devices, raw)
+                        timing[(variant, p)] = dict(
+                            run_ms=cuda_median_ms(lambda: run(raw)),
+                            units=time_units(torch, smi_line, units, p,
+                                             f"{variant} P={p}",
+                                             plain=p == 8),
+                            turns=time_turns(torch, smi_line, turns,
+                                             f"{variant} P={p}"),
+                            launches=got)
+                        del units, turns
+                    del run, img
+            if all_cards or route not in SHARD_BS16_ROUTES:
+                continue
+            # bs16: the carried exponents all-gathered across the turns
+            run = build_pipeline(cfg, "fused1", fft_impl=route,
+                                 precision="bs16").lower_sharded(mesh)
+            img, got, want = counted(lambda: run(raw),
+                                     **{mega_kernel(run): 3 * p})
+            check(got == want, f"fused1 bs16 P={p}: {got}")
+            check(torch.equal(img, local[("fused1", route, "bs16")]),
+                  f"fused1 bs16 {route} P={p} != local bs16")
+            emit("sharded", variant="fused1", twin="fused1", fft_impl=route,
+                 precision="bs16", slabs=p, scene=scene, launches=got,
+                 equal_to_twin=True, unit_info=run.unit_info,
+                 mesh=SHARD_MESH)
+            del run, img
+        if all_cards:
+            continue
+        # corner2, and its bf16 wire
+        for turn_dtype in (None, torch.bfloat16):
+            c2 = D.build_corner2(cfg, mesh, turn_dtype=turn_dtype)
+            img, got, want = counted(lambda: c2(raw), spectral=3 * p)
+            check(got == want, f"corner2 P={p}: {got}")
+            ref = local[("fused3", "matmul", "f32")]
+            if turn_dtype is None:
+                check(torch.equal(img, ref), f"corner2 P={p} != fused3")
+                dsnr = []
+            else:
+                dsnr = check_focus(f"corner2 bf16 P={p}", score(img),
+                                   score(ref))
+            emit("sharded_corner2", slabs=p, scene=scene,
+                 turn_dtype=None if turn_dtype is None else "bfloat16",
+                 launches=got, snr_delta_db=dsnr,
+                 l2_rel_vs_fused3=l2_rel(torch, img, ref), mesh=SHARD_MESH)
+            del img
+    # halo at the largest P its bound admits (build_halo's own bound):
+    # bit for bit its one-device plan (the same launches and sinc RCMC),
+    # within 0.01 dB of unfused; the reference's l2 < 1e-5 against
+    # unfused holds at its own scale, 256^2 (at 4096^2 the on-chip rank-2
+    # azimuth phase against unfused's exact FULL filter alone gives ~1e-5,
+    # in the one-device plan as in the halo runner)
+    need = int(np.ceil(np.max(filters.rcmc_shift_samples(cfg)))) + 8
+    p_halo = max(p for p in SHARD_PS if need <= cfg.nr // p)
+    halo = D.build_halo(cfg, D.make_sar_mesh(devices=[dev] * p_halo))
+    img, got, want = counted(lambda: halo(raw), spectral=3 * p_halo)
+    check(got == want, f"halo P={p_halo}: {got}")
+    twin = planlib.compile_plan(D.plan_halo(), cfg).run(raw)
+    check(torch.equal(img, twin), f"halo P={p_halo} != its one-device plan")
+    l2 = l2_rel(torch, img, unfused)
+    dsnr = check_focus("halo", score(img), unfused_score, gate=0.01)
+    hs = small_scene(256)
+    hs_raw = simulate(hs, paper_targets(hs))
+    hs_img = D.build_halo(hs, D.make_sar_mesh(devices=[dev] * 8))(hs_raw)
+    hs_un = build_pipeline(hs, "unfused").run(hs_raw)
+    hs_cmp = metrics.compare_pipelines(hs_img.cpu().numpy(),
+                                       hs_un.cpu().numpy(), hs,
+                                       paper_targets(hs))
+    check(hs_cmp["l2_relative_error"] < 1e-5
+          and max(hs_cmp["snr_delta_db"]) < 0.01,
+          f"halo 256^2 vs unfused: {hs_cmp['l2_relative_error']:.3e}, "
+          f"{hs_cmp['snr_delta_db']}")
+    emit("sharded_halo", slabs=p_halo, halo=halo.halo, scene=scene,
+         launches=got, equal_to_one_device_plan=True, l2_rel_vs_unfused=l2,
+         snr_delta_db=dsnr, small_scene=[hs.na, hs.nr], small_slabs=8,
+         small_l2_rel_vs_unfused=hs_cmp["l2_relative_error"],
+         small_snr_delta_db=hs_cmp["snr_delta_db"], mesh=SHARD_MESH)
+    del img, twin, halo, unfused, hs_img, hs_un
+
+    # 132 x 128^2 lowered fused1 at P = 8: resident groups
+    small = small_scene(128)
+    one = simulate(small, paper_targets(small))
+    batch = torch.stack([one * (1.0 + 0.01 * k) for k in range(SHARD_BATCH)])
+    want_img = build_pipeline(small, "fused3").run(batch)
+    mesh8 = dict(meshes[:len(SHARD_PS)])[8]
+    run = build_pipeline(small, "fused1").lower_sharded(mesh8)
+    check([u["residency"] for u in run.unit_info] == ["vmem"] * 3,
+          f"128^2 / 8 residency {run.unit_info}")
+    img, res_counts, want = counted(lambda: run(batch),
+                                    mega_resident=3 * 8)
+    check(res_counts == want, f"resident lowering: {res_counts}")
+    check(torch.equal(img, want_img), "132 x 128^2 lowered != fused3")
+    emit("sharded", variant="fused1", twin="fused3", fft_impl="matmul",
+         precision="f32", slabs=8, scene=[small.na, small.nr],
+         batch=SHARD_BATCH, launches=res_counts, equal_to_twin=True,
+         unit_info=run.unit_info, mesh=SHARD_MESH)
+    units, turns = slab_replay(torch, run, mesh8.device_list(), batch)
+    res_timed = time_units(torch, smi_line, units, 8, "fused1 128^2 P=8")
+    res_turns = time_turns(torch, smi_line, turns, "fused1 128^2 P=8")
+    emit("time_sharded_run", variant="fused1", scene=[small.na, small.nr],
+         batch=SHARD_BATCH, slabs=8, run_ms=cuda_median_ms(
+             lambda: run(batch)),
+         kernels_ms=sum(r["ms"] for r in res_timed),
+         turns_ms=sum(r["ms"] for r in res_turns),
+         local_run_ms=cuda_median_ms(
+             lambda: build_pipeline(small, "fused1").run(batch)),
+         nvidia_smi=smi_line, mesh=SHARD_MESH)
+    del units, turns, img, batch, want_img, run
+
+    # the runs per P: the run, the kernels alone, the turns' copies
+    for (variant, p), t in sorted(timing.items()):
+        emit("time_sharded_run", variant=variant, scene=scene, slabs=p,
+             run_ms=t["run_ms"], kernels_ms=sum(r["ms"] for r in t["units"]),
+             turns_ms=sum(r["ms"] for r in t["turns"]),
+             turns_bound_ms=sum(r["bound_ms"] for r in t["turns"]),
+             nvidia_smi=smi_line, mesh=SHARD_MESH)
+
+    # the sharded backend through the service, and the local backend's
+    # sharded route for a streamed scene
+    raw_host = raw.cpu().numpy()
+    ref_host = local[("fused3", "matmul", "f32")].cpu().numpy()
+
+    async def serve():
+        svc = FocusService(ServiceConfig(
+            backend="sharded", precision=None, max_batch=2,
+            max_delay_ms=200.0), mesh=mesh8)
+        await svc.start()
+        outs = await asyncio.gather(*[svc.focus(raw_host, cfg)
+                                      for _ in range(3)])
+        await svc.stop()
+        return outs, svc.metrics.snapshot()
+
+    (outs, snap), got, _ = counted(lambda: asyncio.run(serve()))
+    batches = sum(snap["batch_size_hist"].values())
+    check(got["spectral"] == 3 * 8 * batches and sum(got.values())
+          == got["spectral"], f"sharded service launches {got}")
+    check(all(np.array_equal(o, ref_host) for o in outs),
+          "sharded service != local fused3")
+    emit("sharded_service", backend="sharded", scene=scene, requests=3,
+         batch_size_hist=snap["batch_size_hist"], launches=got,
+         mesh=SHARD_MESH)
+    backend = LocalBackend(sweep=((None, None),), mesh=mesh8)
+    key = BatchKey(cfg, "fused3", None, True)
+    check(backend._sharded_twin(key) == "fused1", "no sharded twin")
+    out, got, _ = counted(lambda: backend.execute_streamed(key, raw_host))
+    check(key in backend._sharded_fns, "the sharded route did not run")
+    _, want = launch_counts(**{mega_kernel(backend._sharded_fns[key]): 24})
+    check(got == want, f"sharded stream route: {got}")
+    check(not backend.fallbacks, f"fallbacks {dict(backend.fallbacks)}")
+    check(np.array_equal(out, ref_host), "sharded stream != fused3")
+    emit("sharded_service", backend="local", route="sharded fused1 twin",
+         scene=scene, launches=got, fallbacks={}, mesh=SHARD_MESH)
+
+    t8 = timing[("fused3", 8)], timing[("fused1", 8)]
+    records += [
+        sharded_record("spectral", "sharded:fused3 P=8",
+                       t8[0]["launches"]["spectral"], t8[0]["units"]),
+        sharded_record("mega_staged", "sharded:fused1 P=8",
+                       t8[1]["launches"]["mega_staged"], t8[1]["units"]),
+        sharded_record("mega_resident", "sharded:fused1 128^2 P=8",
+                       res_counts["mega_resident"], res_timed)]
+    return records
+
+
 def main() -> int:
     import tempfile
 
@@ -2377,7 +2831,7 @@ def main() -> int:
 
 
 def run(torch) -> int:
-    """Phases 1-17 on the card (``main`` has found it)."""
+    """Phases 1-18 on the card (``main`` has found it)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
                                       paper_targets, simulate)
@@ -2605,6 +3059,9 @@ def run(torch) -> int:
     # ---- 17. the focusing service -------------------------------------------
     kernels += service_phase(torch, smi_line, cfg, raw, score, small,
                              small_raw)
+
+    # ---- 18. the multi-device lowering, P slabs on one card ----------------
+    kernels += sharded_phase(torch, smi_line, cfg, raw, score)
     for k in kernels:
         k["precisions"] = kernel_precisions(k["name"])
         k["karatsuba_by_route"] = kernel_karatsuba(k["name"])

@@ -505,12 +505,20 @@ class Pipeline:
         return self.run
 
     def lower_sharded(self, mesh=None, axes=("data",), **kw):
-        """The multi-device lowering (corner-turn collectives between
-        per-device slabs) is not ported yet: it raises, naming the queue
-        item that brings it."""
-        raise NotImplementedError(
-            "Pipeline.lower_sharded: the multi-device lowering is not "
-            "ported yet (ROADMAP.md Queue 1, item 5)")
+        """Lower this compiled pipeline onto a device mesh: every spectral
+        step runs on slabs sharded along its free (line) axis, with an
+        all-to-all corner turn wherever consecutive steps transform
+        different axes. A mega step is split at its in-kernel turn
+        boundaries into per-device segment groups, one megakernel launch
+        per device per group, the turns between groups becoming the
+        collectives. Transpose/custom stages do not lower. ``mesh=None``
+        is every visible card (``distributed.make_sar_mesh``); see
+        :func:`repro_torch.core.sar.distributed.lower_pipeline` (``kw``:
+        ``turn_dtype``, ``residency``). Returns ``fn(raw) -> image``."""
+        from repro_torch.core.sar import distributed
+        if mesh is None:
+            mesh = distributed.make_sar_mesh(axes)
+        return distributed.lower_pipeline(self, mesh, axes=axes, **kw)
 
     def run_streamed(self, raw, strips: int = 4,
                      inflight: int = 2) -> np.ndarray:

@@ -1,5 +1,5 @@
 """SAR substrate: geometry, simulator, filters, plan-compiled RDA / CSA /
-omega-K pipelines, metrics."""
+omega-K pipelines, their multi-device lowering, metrics."""
 from repro_torch.core.sar.geometry import (  # noqa: F401
     C,
     PointTarget,
@@ -20,3 +20,4 @@ from repro_torch.core.sar.rda import (  # noqa: F401
     variant_names,
 )
 from repro_torch.core.sar import csa, filters, metrics, omegak  # noqa: F401
+from repro_torch.core.sar import distributed  # noqa: F401

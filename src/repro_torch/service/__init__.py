@@ -8,8 +8,9 @@ executor lanes (continuous batching: batch k+1 coalesces and pads while
 batch k computes; over-budget scenes stream on a dedicated lane),
 schedules flushes earliest-deadline first with pre-dispatch cancellation
 of past-deadline work, executes through warm per-plan caches on the
-`local` backend (the port's hand-written kernels on the CUDA card; the
-`sharded` backend is not ported yet), enforces a per-request precision
+`local` backend (the port's hand-written kernels on the CUDA card) or
+the `sharded` one (the same kernels on per-device slabs of a device
+mesh, corner turns between them), enforces a per-request precision
 SNR gate, applies admission backpressure with deadline-aware shedding,
 degrades along the reference's failure ladder, and emits
 latency/goodput/lane-occupancy metrics in the BENCH_*.json format.

@@ -24,10 +24,19 @@ is ported:
              CUDA card each lane thread runs its batches on a CUDA stream
              of its own: the batch goes up from pinned host memory, and
              `execute` returns once the images are back on the host.
+             Big streamed scenes route to the SHARDED megakernel twin
+             when the mesh has more than one device and the cost model
+             prefers it (`sharded="off"` opts out; see
+             `execute_streamed`).
 
-``sharded``  Multi-device execution through the corner-turn lowering is
-             not ported yet (ROADMAP.md Queue 1, item 5): the class exists
-             under its name and raises.
+``sharded``  Multi-device execution through the corner-turn lowering
+             (`core.sar.distributed.build_sharded`) over a single-process
+             device mesh: schedule 'corner2' lowers the compiled plan
+             generically (an all-to-all at each transform-axis change),
+             'halo' runs the hand-written single-turn RDA schedule.
+             Oversized scenes go through the mesh too — P devices hold P
+             times the budget — so this backend has no separate
+             streaming path.
 """
 from __future__ import annotations
 
@@ -42,10 +51,9 @@ import torch
 from repro_torch import tuning
 from repro_torch._device import resolve_device
 from repro_torch.core import plan as planlib
+from repro_torch.kernels.fft4step import resolve_precision
 from repro_torch.service.queue import BatchKey
 from repro_torch.service.resilience import BreakerBoard
-
-_SHARDED_ITEM = "ROADMAP.md Queue 1, item 5"
 
 
 def _resolve_blocks(cfg, block: Optional[int], col_block: Optional[int]):
@@ -91,21 +99,31 @@ class LocalBackend:
     """Single-device backend over the compiled-pipeline cache.
 
     ``device=None`` is the CUDA card (raises without one); ``"cpu"`` runs
-    the kernels' plain versions."""
+    the kernels' plain versions. ``mesh`` is the device mesh the sharded
+    route of ``execute_streamed`` runs on: None is every visible card
+    (``distributed.make_sar_mesh``, built at first use, so a backend on
+    one card never shards), and an explicit mesh stands where the
+    reference sets ``XLA_FLAGS`` to emulate devices — e.g.
+    ``make_sar_mesh(devices=[torch.device("cpu")] * 8)``."""
 
     name = "local"
 
     def __init__(self, device=None,
                  sweep: Sequence[Tuple[Optional[int], Optional[int]]]
                  = ((None, None), (32, -1)), tune_cache=None,
-                 fused1: str = "auto",
+                 fused1: str = "auto", sharded: str = "auto", mesh=None,
                  breakers: Optional[BreakerBoard] = None):
         if fused1 not in ("auto", "off"):
             raise ValueError(f"fused1 must be 'auto' or 'off', got "
                              f"{fused1!r}")
+        if sharded not in ("auto", "off"):
+            raise ValueError(f"sharded must be 'auto' or 'off', got "
+                             f"{sharded!r}")
         self.device = resolve_device(device)
         self.sweep = tuple(sweep)
         self.fused1 = fused1
+        self.sharded = sharded
+        self._mesh = mesh
         # per-route circuit breakers (route x variant x shape x precision):
         # a route that keeps failing is skipped on the hot path until its
         # cooldown expires, then re-probed half-open
@@ -115,6 +133,7 @@ class LocalBackend:
         self._best: Dict[BatchKey, Tuple[Optional[int], Optional[int]]] = {}
         self._sched: Dict[BatchKey, "tuning.Schedule"] = {}
         self._fns: Dict[Tuple[BatchKey, str], callable] = {}
+        self._sharded_fns: Dict[BatchKey, callable] = {}
         self._lane = threading.local()      # each thread's CUDA stream
 
     # -- the card ------------------------------------------------------------
@@ -326,37 +345,167 @@ class LocalBackend:
                 return out[:b]
         raise last_err
 
+    def _mesh_size(self) -> int:
+        """Devices of the sharded route's mesh: the explicit mesh's, else
+        the visible cards (0 where there is none)."""
+        if self._mesh is not None:
+            return self._mesh.size()
+        if self.device.type != "cuda":
+            return 0
+        return torch.cuda.device_count()
+
+    def mesh(self):
+        """The sharded route's mesh (every visible card unless one was
+        given), built at first use."""
+        if self._mesh is None:
+            from repro_torch.core.sar.distributed import make_sar_mesh
+            self._mesh = make_sar_mesh()
+        return self._mesh
+
     def _sharded_twin(self, key: BatchKey) -> Optional[str]:
-        """The megakernel twin to run sharded across the visible cards for
-        a big streamed scene, or None to keep the host-strip path. The
-        sharded route (`Pipeline.lower_sharded`) is not ported yet
-        (ROADMAP.md Queue 1, item 5), so every scene keeps the strip path,
-        on one card or many, and `execute_streamed` takes no sharded
-        branch."""
-        return None
+        """The megakernel twin to run SHARDED for a big streamed scene, or
+        None to keep the host-strip path. Routes when a twin exists (any
+        precision: bs16's carried exponents are all-gathered across the
+        corner turns, so the sharded image stays bit-identical), the mesh
+        has more than one device, the scene tiles it, and the cost model
+        prefers P per-device megakernels plus collective corner turns
+        over strip-streaming one device
+        (`repro_torch.tuning.cost.sharded_preferred`)."""
+        twin = FUSED1_TWINS.get(key.variant)
+        if self.sharded != "auto" or self.fused1 == "off" or twin is None:
+            return None
+        p = self._mesh_size()
+        if p <= 1:
+            return None
+        cfg = key.scene
+        prec = resolve_precision(key.precision).name
+        if not tuning.cost.sharded_preferred(cfg.na, cfg.nr, devices=p,
+                                             precision=prec):
+            return None
+        return twin
+
+    def _sharded_fn(self, key: BatchKey):
+        if key not in self._sharded_fns:
+            mesh = self.mesh()
+            kw = dict(device=mesh.device_list()[0])
+            if key.precision is not None:
+                kw["precision"] = key.precision
+            pipe = planlib.cached_pipeline(
+                key.scene, self._sharded_twin(key), **kw)
+            self._sharded_fns[key] = pipe.lower_sharded(mesh)
+        return self._sharded_fns[key]
 
     def execute_streamed(self, key: BatchKey, raw: np.ndarray,
                          strips: int = 4) -> np.ndarray:
-        """One host-resident scene, over the single-device budget:
-        Pipeline.run_streamed on the REQUESTED per-axis variant (strip
-        copies overlapped with the launches; bit-identical to `execute`)
-        — the streaming executor strips one free axis at a time, which a
-        cross-axis megakernel step refuses."""
+        """One host-resident scene, over the single-device budget.
+
+        Default path: Pipeline.run_streamed on the REQUESTED per-axis
+        variant (strip copies overlapped with the launches; bit-identical
+        to `execute`) — the streaming executor strips one free axis at a
+        time, which a cross-axis megakernel step refuses.
+
+        Multi-device path: when the cost model prefers it
+        (`_sharded_twin`), the scene runs as the variant's megakernel
+        twin lowered onto the mesh — one megakernel launch per device per
+        phase group, all-to-all corner turns between groups, each device
+        holding a 1/P slab. Every precision is bit-identical to the strip
+        path (bs16's carried exponents ride the collectives), so the
+        route stays invisible.
+
+        Degradation: a failing (or breaker-open) sharded route falls back
+        to the single-device strip path, counted in
+        ``fallbacks["serve:local_stream"]``; both routes launch the
+        hand-written kernels and give the same image bit for bit."""
         with torch.cuda.stream(self._stream()):
+            twin = self._sharded_twin(key)
+            if twin is not None:
+                br = self._breaker("sharded", twin, key)
+                if br.allow():
+                    try:
+                        out = self._sharded_fn(key)(
+                            torch.from_numpy(np.ascontiguousarray(
+                                raw, np.complex64)))
+                        out = out.cpu().numpy()
+                    except Exception:       # noqa: BLE001 — tier boundary
+                        br.record_failure()
+                        self.fallbacks["serve:local_stream"] += 1
+                    else:
+                        br.record_success()
+                        return out
+                else:
+                    self.fallbacks["skip:sharded"] += 1
             return self._pipeline(key, variant=key.variant).run_streamed(
                 raw, strips=strips)
 
 
 class ShardedBackend:
-    """Multi-device backend over the corner-turn lowering: not ported yet
-    (ROADMAP.md Queue 1, item 5), so constructing one raises."""
+    """Multi-device backend over the corner-turn lowering.
+
+    ``mesh=None`` is ``distributed.make_sar_mesh(axes)`` over every
+    visible card, or over ``device`` alone where one is named (a
+    one-device mesh: ``device="cpu"`` runs the plain versions). An
+    explicit mesh stands where the reference sets ``XLA_FLAGS`` to
+    emulate devices, e.g. ``make_sar_mesh(devices=[cuda:0] * 8)`` for
+    eight slabs on one card."""
 
     name = "sharded"
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(
-            "ShardedBackend: the multi-device lowering is not ported yet "
-            f"({_SHARDED_ITEM}); use the local backend")
+    def __init__(self, mesh=None, axes=("data",), schedule: str = "corner2",
+                 turn_dtype=None, device=None):
+        from repro_torch.core.sar.distributed import make_sar_mesh
+        if mesh is None:
+            mesh = make_sar_mesh(
+                axes, None if device is None else [resolve_device(device)])
+        self.mesh = mesh
+        self.axes = axes
+        self.schedule = schedule
+        self.turn_dtype = turn_dtype
+        self.device = mesh.device_list(axes)[0]
+        self._fns: Dict[BatchKey, callable] = {}
+
+    def _fn(self, key: BatchKey):
+        if key not in self._fns:
+            from repro_torch.core.sar.distributed import build_sharded
+            kw = {}
+            if key.precision is not None:
+                kw["precision"] = key.precision
+            self._fns[key] = build_sharded(
+                key.scene, key.variant, self.mesh, self.axes,
+                schedule=self.schedule, turn_dtype=self.turn_dtype, **kw)
+        return self._fns[key]
+
+    def _run(self, key: BatchKey, x) -> np.ndarray:
+        return self._fn(key)(
+            torch.from_numpy(np.ascontiguousarray(x, np.complex64))
+        ).cpu().numpy()
+
+    def warm(self, key: BatchKey, max_batch: int = 4) -> None:
+        """Compile the lowering and run it once per power-of-two batch
+        bucket up to ``max_batch`` (the halo runner once, per scene)."""
+        cfg = key.scene
+        if self.schedule == "halo":
+            self._run(key, np.zeros((cfg.na, cfg.nr), np.complex64))
+            return
+        zeros = np.zeros((_bucket(max_batch), cfg.na, cfg.nr), np.complex64)
+        b = 1
+        while b <= zeros.shape[0]:
+            self._run(key, zeros[:b])
+            b *= 2
+
+    def execute(self, key: BatchKey, batch: np.ndarray) -> np.ndarray:
+        """(B, na, nr) host batch -> (B, na, nr) focused images on the
+        host, padded to its power-of-two bucket like the local backend's
+        (the halo schedule runs scene by scene)."""
+        if self.schedule == "halo":
+            return np.stack([self._run(key, x) for x in batch])
+        b = batch.shape[0]
+        return self._run(key, _pad_batch(batch))[:b]
+
+    def execute_streamed(self, key: BatchKey, raw: np.ndarray,
+                         strips: int = 4) -> np.ndarray:
+        # a scene over the single-device budget fits the mesh: the slabs
+        # are 1/P of the scene each, so it just runs sharded
+        return self._run(key, raw)
 
 
 BACKENDS = {"local": LocalBackend, "sharded": ShardedBackend}

@@ -80,8 +80,7 @@ class ServiceConfig:
       still subject to the SNR gate like any explicit request. Set None
       (or 'f32') for the full-precision verification path, which never
       consults the gate.
-    backend: 'local' | 'sharded' (see repro_torch.service.backends; the
-      sharded backend is not ported yet and raises).
+    backend: 'local' | 'sharded' (see repro_torch.service.backends).
     max_batch: coalescing bound B — requests per micro-batch.
     max_delay_ms: deadline a lone request waits for batch company.
     max_queue: admission bound on the pre-dispatch backlog (queued +
@@ -104,8 +103,7 @@ class ServiceConfig:
       (Pipeline.run_streamed strips on 'local').
       None disables the check.
     stream_strips: strip count for the streaming route.
-    schedule: sharded backend schedule, kept for when that backend is
-      ported ('corner2' generic plan lowering,
+    schedule: sharded backend schedule ('corner2' generic plan lowering,
       'halo' single-turn RDA).
     """
 
@@ -178,18 +176,23 @@ class FocusService:
 
     ``device=None`` is the CUDA card (raises without one), ``"cpu"`` the
     kernels' plain versions; it is where the default backend runs and
-    where the default SNR gate focuses."""
+    where the default SNR gate focuses. With ``config.backend ==
+    "sharded"`` the default backend runs on ``mesh``, or where it is None
+    on every visible card (``device=None``) or on ``device`` alone."""
 
     def __init__(self, config: ServiceConfig = ServiceConfig(),
-                 backend=None, precision_deviation=None, device=None):
+                 backend=None, precision_deviation=None, device=None,
+                 mesh=None):
         self.config = config
         self.device = resolve_device(device)
         self.metrics = ServiceMetrics(self.device)
         self.queue = RequestQueue(config.max_queue)
         if backend is None:
-            backend = (backends_mod.ShardedBackend(schedule=config.schedule)
+            backend = (backends_mod.ShardedBackend(
+                mesh=mesh, schedule=config.schedule, device=device)
                        if config.backend == "sharded"
-                       else backends_mod.LocalBackend(device=self.device))
+                       else backends_mod.LocalBackend(device=self.device,
+                                                      mesh=mesh))
         self.backend = backend
         self.batcher = MicroBatcher(self.queue, self._dispatch,
                                     max_batch=config.max_batch,

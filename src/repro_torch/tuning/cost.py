@@ -77,6 +77,10 @@ BF16_DENSE_FLOPS = 989e12          # dense BF16 and FP16 (spec sheet)
 # (PERF.md §3): the matmul route's stages issue mma.sync, not wgmma.
 MMA_SYNC_TF32_FLOPS = 319.87e12
 TF32_PASSES = 3                    # f32 as 3xTF32 (csrc/tf32_mma.cuh)
+# One card's NVLink 4 egress: the spec sheet's 900 GB/s is both directions
+# together, and a corner turn's all_to_all is priced by what each device
+# sends, so half of it.
+PEAK_LINK_BYTES = 450e9
 # The on-chip budget: shared memory one block may opt in to.
 SMEM_BUDGET_BYTES = ops.SMEM_OPTIN_BYTES
 
@@ -360,42 +364,88 @@ def segment_seconds(problem: ScheduleProblem, shape: SegmentShape,
                            **kw)["predicted_seconds"]
 
 
+def collective_turn_bytes(na: int, nr: int, batch: int = 1,
+                          devices: int = 1, elem_bytes: int = 4,
+                          precision: Optional[str] = None) -> int:
+    """Per-device all_to_all wire bytes of ONE corner turn: each device
+    holds a split re/im 1/P slab and keeps 1/P of it, so (P-1)/P of the
+    slab leaves it (``elem_bytes=2`` for a bf16 ``turn_dtype``).
+
+    A block-scaled ``precision`` (bs16) adds the carried per-line
+    exponent vector, one f32 a line of the turned axis, all-gathered
+    beside the slab (``core.sar.distributed.lower_pipeline``); the turned
+    axis is not known here, so the longer scene axis bounds it."""
+    p = max(1, devices)
+    slab = 2 * elem_bytes * na * nr * batch // p
+    wire = slab * (devices - 1) // p
+    if resolve_precision(precision).block_scaled:
+        wire += 4 * max(na, nr) * batch * (devices - 1) // p
+    return wire
+
+
 def turn_seconds(problem: ScheduleProblem, *,
                  residency: Optional[str] = None,
                  buffer_depth: Optional[int] = None,
                  precision: Optional[str] = None) -> float:
     """The corner-turn edge weight between two segments on different
-    axes: free for a resident slab (its turn is a change of strides in
-    shared memory), a device-memory write and read of the scene for the
-    staged kernel. No overlap credit: no kernel of the port prefetches
-    (``buffer_depth`` is validated only)."""
-    del buffer_depth, precision
+    axes.
+
+    Local (``devices == 1``): free for a resident slab (its turn is a
+    change of strides in shared memory), a device-memory write and read
+    of the scene for the staged kernel.
+
+    Sharded (``devices > 1``): every turn ends a launch, whatever the
+    residency: each device writes its 1/P slab, sends (P-1)/P of it over
+    NVLink (``collective_turn_bytes`` over ``PEAK_LINK_BYTES``) and reads
+    the re-sharded slab back. No overlap credit: no kernel of the port
+    prefetches (``buffer_depth`` is validated only)."""
+    del buffer_depth
+    if problem.devices > 1:
+        p = problem.devices
+        slab = 2 * 2 * 4 * problem.na * problem.nr * problem.batch // p
+        wire = collective_turn_bytes(problem.na, problem.nr, problem.batch,
+                                     p, precision=precision)
+        return (slab * 2 / PEAK_HBM_BYTES
+                + wire / PEAK_LINK_BYTES) * TURN_OVERLAP
     if residency != RESIDENT_STAGED:
         return 0.0
     traffic = 2 * 2 * 4 * problem.na * problem.nr * problem.batch
     return traffic / PEAK_HBM_BYTES * TURN_OVERLAP
 
 
-def _mega_spec(schedule: Schedule, problem: ScheduleProblem) -> MegaSpec:
-    """The MegaSpec a scheduled megakernel launch checks: each segment's
-    split and Karatsuba in its record, the lane's residency (the cut's
-    when deferred) and precision."""
-    segs = []
+def _mega_specs(schedule: Schedule, problem: ScheduleProblem) -> list:
+    """The MegaSpecs a scheduled megakernel checks: each segment's split
+    and Karatsuba in its record, the lane's residency (the cut's when
+    deferred) and precision. A local problem is one launch; a sharded one
+    is a launch per group of same-axis segments on one device's slab,
+    ``(na/P, nr)`` for range groups and ``(na, nr/P)`` for azimuth ones,
+    as ``core.sar.distributed.lower_pipeline`` splits it."""
+    p = problem.devices
+    groups: list = []
     for i, shape in enumerate(problem.segments):
         sc = schedule.segment(i)
         fs = sc.factors() or default_factorization(problem.seg_n(shape))
-        segs.append(SegmentSpec(
+        seg = SegmentSpec(
             axis=shape.axis, fwd=shape.fwd, inv=shape.inv,
             filter_mode=FILTER_SHARED if shape.filtered else FILTER_NONE,
             n1=fs[0], n2=fs[1] if len(fs) > 1 else None,
-            n3=fs[2] if len(fs) > 2 else None, karatsuba=sc.karatsuba))
+            n3=fs[2] if len(fs) > 2 else None, karatsuba=sc.karatsuba)
+        if groups and (p == 1 or groups[-1][0] == shape.axis):
+            groups[-1][1].append(seg)
+        else:
+            groups.append((shape.axis, [seg]))
     precision = resolve_precision(schedule.precision).name
-    residency = schedule.residency or mega_residency(
-        problem.na, problem.nr, precision=precision)
-    return MegaSpec(
-        na=problem.na, nr=problem.nr, segments=tuple(segs),
-        residency=residency, phase_block=schedule.phase_block or 8,
-        buffer_depth=schedule.buffer_depth or 2, precision=precision)
+    specs = []
+    for axis, segs in groups:
+        na = problem.na // p if p > 1 and axis == 1 else problem.na
+        nr = problem.nr // p if p > 1 and axis == 0 else problem.nr
+        residency = schedule.residency or mega_residency(
+            na, nr, precision=precision)
+        specs.append(MegaSpec(
+            na=na, nr=nr, segments=tuple(segs), residency=residency,
+            phase_block=schedule.phase_block or 8,
+            buffer_depth=schedule.buffer_depth or 2, precision=precision))
+    return specs
 
 
 def schedule_vmem_bytes(schedule: Schedule,
@@ -410,8 +460,8 @@ def schedule_vmem_bytes(schedule: Schedule,
                       lines=problem.na)
         return vmem_bytes(schedule.to_config(), key)
     if schedule.residency == RESIDENT_VMEM:
-        return mega_vmem_bytes(problem.na, problem.nr, 1,
-                               schedule.precision, filter_bytes)
+        return mega_vmem_bytes(problem.na // problem.devices, problem.nr,
+                               1, schedule.precision, filter_bytes)
     out = 0
     for i, shape in enumerate(problem.segments):
         n = problem.seg_n(shape)
@@ -451,9 +501,9 @@ def schedule_structurally_feasible(schedule: Schedule,
             return False
         return True
     try:
-        spec = _mega_spec(schedule, problem)
-        ops.check_mega_kernel(spec)
-        check_mega(spec, problem.batch)
+        for spec in _mega_specs(schedule, problem):
+            ops.check_mega_kernel(spec)
+            check_mega(spec, problem.batch)
     except ValueError:
         return False
     return True
@@ -468,9 +518,11 @@ def schedule_feasible(schedule: Schedule, problem: ScheduleProblem,
 
 
 def slab_io_seconds(problem: ScheduleProblem) -> float:
-    """A megakernel's scene in and out of device memory once."""
+    """A megakernel's scene in and out of device memory once: one 1/P
+    slab per device when sharded (the turns are priced in
+    ``turn_seconds``)."""
     return (2 * 2 * 4 * problem.na * problem.nr * problem.batch
-            / PEAK_HBM_BYTES)
+            / problem.devices / PEAK_HBM_BYTES)
 
 
 def schedule_seconds(schedule: Schedule,
@@ -505,6 +557,48 @@ _MEGA_SEGMENTS_2D = (
     SegmentShape(axis=1, fwd=True, inv=True, filtered=True),
     SegmentShape(axis=0, fwd=False, inv=True, filtered=True),
 )
+
+
+def _default_mega_schedule(na: int, nr: int, devices: int = 1,
+                           precision: Optional[str] = None,
+                           filter_bytes: int = 0) -> Schedule:
+    """The schedule the compiler picks unprompted: the residency cut on
+    the (per-device) slab, default phase_block and buffer_depth."""
+    res = mega_residency(na // devices if devices > 1 else na, nr,
+                         precision=precision, filter_bytes=filter_bytes)
+    return Schedule(segments=(SegmentConfig(),) * len(_MEGA_SEGMENTS_2D),
+                    precision=precision, residency=res,
+                    phase_block=8, buffer_depth=2)
+
+
+def sharded_preferred(na: int, nr: int, batch: int = 1, devices: int = 1,
+                      precision: Optional[str] = None,
+                      filter_bytes: int = 0) -> bool:
+    """Whether the model prefers the P-device sharded megakernel over ONE
+    local launch for this scene: the service's big-scene routing
+    predicate (``LocalBackend.execute_streamed``).
+
+    Prices the canonical azimuth->range->azimuth megakernel both ways
+    with :func:`schedule_seconds`: locally the turns are free (resident)
+    or device-memory priced (staged); sharded they are all_to_all
+    collectives, but every compute and slab term divides by P. A scene
+    whose slab fits one block's shared memory never shards: the local
+    resident megakernel serves it with no device-memory intermediates,
+    and a collective would only add latency."""
+    if devices <= 1 or na % devices or nr % devices:
+        return False
+    if mega_residency(na, nr, precision=precision,
+                      filter_bytes=filter_bytes) == RESIDENT_VMEM:
+        return False
+    local = ScheduleProblem.mega_2d(na, nr, _MEGA_SEGMENTS_2D, batch=batch)
+    shard = ScheduleProblem.mega_2d(na, nr, _MEGA_SEGMENTS_2D, batch=batch,
+                                    devices=devices)
+    local_s = schedule_seconds(
+        _default_mega_schedule(na, nr, 1, precision, filter_bytes), local)
+    shard_s = schedule_seconds(
+        _default_mega_schedule(na, nr, devices, precision, filter_bytes),
+        shard)
+    return shard_s < local_s
 
 
 def serve_batch_seconds(na: int, nr: int, batch: int = 1,

@@ -266,7 +266,8 @@ def schedule_frontier(problem: ScheduleProblem, *,
             buffer_depth=lane.get("buffer_depth"),
             precision=lane.get("precision"))
         if problem.mega:
-            base += costlib.slab_io_seconds(problem)   # slab entry/exit
+            # slab entry/exit, one 1/P slab per device when sharded
+            base += costlib.slab_io_seconds(problem)
         heapq.heappush(heap, (base, next(counter), i, ()))
 
     feasible: list = []

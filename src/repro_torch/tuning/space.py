@@ -424,12 +424,20 @@ class ScheduleProblem:
     batch: int = 1
     segments: tuple = ()                 # tuple[SegmentShape, ...]
     mega: bool = False
+    devices: int = 1                     # mesh size of the lowering (1 = local)
 
     def __post_init__(self):
         segs = tuple(
             s if isinstance(s, SegmentShape) else SegmentShape(**s)
             for s in self.segments)
         object.__setattr__(self, "segments", segs)
+        if self.devices < 1:
+            raise ValueError(f"devices must be >= 1, got {self.devices}")
+        if self.devices > 1 and (self.na % self.devices
+                                 or self.nr % self.devices):
+            raise ValueError(
+                f"scene {self.na}x{self.nr} not divisible by "
+                f"{self.devices} devices")
 
     @classmethod
     def kernel(cls, n: int, batch: int = 1, lines: int = 16
@@ -441,20 +449,27 @@ class ScheduleProblem:
                                           filtered=True),), mega=False)
 
     @classmethod
-    def mega_2d(cls, na: int, nr: int, segments, batch: int = 1
-                ) -> "ScheduleProblem":
+    def mega_2d(cls, na: int, nr: int, segments, batch: int = 1,
+                devices: int = 1) -> "ScheduleProblem":
         """A cross-axis megakernel workload; ``segments`` is a sequence
-        of SegmentShape (or kwargs dicts) in dispatch order."""
+        of SegmentShape (or kwargs dicts) in dispatch order. ``devices``
+        > 1 models the mesh lowering (``core.sar.distributed``): each
+        device holds a 1/P slab sharded along every segment's free axis
+        (the transform axis stays whole on the slab) and corner turns
+        become all_to_all collectives."""
         return cls(na=int(na), nr=int(nr), batch=int(batch),
-                   segments=tuple(segments), mega=True)
+                   segments=tuple(segments), mega=True,
+                   devices=int(devices))
 
     def seg_n(self, shape: SegmentShape) -> int:
-        """The transform length of a segment (the scene axis it strips)."""
+        """The transform length of a segment (the scene axis it strips).
+        Sharding never splits this axis: transforms stay slab-local."""
         return self.nr if shape.axis == 1 else self.na
 
     def seg_lines(self, shape: SegmentShape) -> int:
-        """The free-axis line count the segment's matmuls fold over."""
-        return self.na if shape.axis == 1 else self.nr
+        """The free-axis line count the segment's matmuls fold over, per
+        device: the mesh lowering shards exactly this axis."""
+        return (self.na if shape.axis == 1 else self.nr) // self.devices
 
     def turns(self) -> int:
         """Corner turns between consecutive segments on different axes."""

@@ -728,3 +728,61 @@ def test_cuda_service_round_trip(cuda_device):
     pipe = build_pipeline(cfg, "fused1", precision=tier)
     for s, out in zip(scenes, outs):
         assert np.array_equal(out, pipe.run(s).cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
+@pytest.mark.parametrize("n,p,kernel", [(128, 2, "mega_resident"),
+                                        (256, 8, "mega_resident"),
+                                        (256, 2, "mega_staged"),
+                                        (1024, 2, "mega_staged")])
+def test_cuda_lowered_fused1_equals_fused3(cuda_device, n, p, kernel,
+                                           fft_impl):
+    """fused1 lowered onto p slabs of one card (a mesh repeating it): one
+    megakernel launch per slab per phase group — resident where a slab
+    fits one block (16 x 128 ... 32 x 256), staged beyond (128 x 256 at
+    256^2 / 2) — equal to the local fused3 and fused1 bit for bit;
+    corner2 is fused3's three launches per slab, equal too."""
+    from repro_torch.core.sar import build_pipeline, paper_targets, simulate
+    from repro_torch.core.sar.distributed import build_corner2, make_sar_mesh
+    from repro_torch.core.sar.geometry import test_scene
+    cfg = test_scene(n)
+    raw = simulate(cfg, paper_targets(cfg))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_sar_mesh(devices=[dev] * p)
+    f3 = build_pipeline(cfg, "fused3", fft_impl=fft_impl).run(raw)
+    run = build_pipeline(cfg, "fused1", fft_impl=fft_impl).lower_sharded(
+        mesh)
+    assert [u["residency"] for u in run.unit_info] == \
+        [("vmem" if kernel == "mega_resident" else "staged")] * 3
+    before = dict(ops.MEGA_LAUNCHES), ops.SPECTRAL_LAUNCHES
+    img = run(raw)
+    torch.cuda.synchronize()
+    before[0][kernel] += run.dispatches_per_device * p
+    assert (ops.MEGA_LAUNCHES, ops.SPECTRAL_LAUNCHES) == before
+    assert torch.equal(img, f3)
+    before = ops.SPECTRAL_LAUNCHES
+    c2 = build_corner2(cfg, mesh, fft_impl=fft_impl)(raw)
+    torch.cuda.synchronize()
+    assert ops.SPECTRAL_LAUNCHES == before + 3 * p
+    assert torch.equal(c2, f3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,fft_impl", [(128, "matmul"), (128, "stockham"),
+                                        (1024, "stockham")])
+def test_cuda_lowered_bs16_equals_local_bs16(cuda_device, n, fft_impl):
+    """bs16 on 2 slabs of one card: the carried exponents all-gathered
+    across the turns give the local megakernel's image bit for bit (the
+    matmul route at 128^2 alone: larger scenes overflow f16's range in
+    its compressed range lines, in the plain version too)."""
+    from repro_torch.core.sar import build_pipeline, paper_targets, simulate
+    from repro_torch.core.sar.distributed import make_sar_mesh
+    from repro_torch.core.sar.geometry import test_scene
+    cfg = test_scene(n)
+    raw = simulate(cfg, paper_targets(cfg))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pipe = build_pipeline(cfg, "fused1", precision="bs16", fft_impl=fft_impl)
+    img = pipe.lower_sharded(make_sar_mesh(devices=[dev] * 2))(raw)
+    assert torch.isfinite(img).all()
+    assert torch.equal(img, pipe.run(raw))

@@ -8,7 +8,8 @@ tests of it), and the pure-Python policy held to the JAX package's on
 the same seeds: the same fault schedule and the same backoff sequence.
 
 Every degraded route returns the image the healthy route would have:
-bit-identical for fused1 -> fused3, within 0.1 dB for the bs16 -> f32
+bit-identical for fused1 -> fused3 and for the sharded route -> the
+strips (on a mesh of 8 CPU slabs), within 0.1 dB for the bs16 -> f32
 precision step. When both kernel tiers fail, the request fails: no tier
 serves through a plain PyTorch chain.
 """
@@ -641,6 +642,50 @@ def test_fallback_defused_last_resort_serves_when_both_fused_tiers_fail():
     assert not any(k.startswith("serve:") for k in backend.fallbacks)
     name = f"plan:fused3:{CFG.na}x{CFG.nr}:None"
     assert backend.breakers.get(name).failures == 1
+
+
+def test_fallback_sharded_to_local_stream_bit_identical(monkeypatch):
+    """The big-scene sharded route failing mid-serve falls back to the
+    single-device strip path, bit-identical (same math, same precision,
+    a different partitioning); both routes launch the kernels."""
+    backend = fast_backend()
+    key = BatchKey(CFG, "fused3", None, True)
+    monkeypatch.setattr(backend, "_sharded_twin", lambda k: "fused1")
+    boom = _Boom()
+    monkeypatch.setattr(backend, "_sharded_fn", lambda k: boom)
+    raw = scene()
+    out = backend.execute_streamed(key, raw, strips=4)
+    ref = build_pipeline(CFG, "fused3", device="cpu").run_streamed(
+        raw, strips=4)
+    assert boom.calls == 1
+    assert np.array_equal(out, ref)
+    assert backend.fallbacks["serve:local_stream"] == 1
+
+
+def test_a_megakernel_that_raises_on_the_mesh_falls_back_to_strips(
+        monkeypatch):
+    """On a real 8-slab mesh: a megakernel launch that raises in the
+    sharded route trips its breaker and the strips serve the scene; once
+    the breaker is open the route is skipped (``skip:sharded``)."""
+    from repro_torch.core.sar.distributed import make_sar_mesh
+    from repro_torch.kernels import ops
+
+    big = make_test_scene(256)
+    raw = simulate(big, paper_targets(big), device="cpu").numpy()
+    backend = fast_backend(
+        mesh=make_sar_mesh(devices=[torch.device("cpu")] * 8),
+        breakers=BreakerBoard(threshold=1, cooldown_s=60.0))
+    key = BatchKey(big, "fused3", None, True)
+    assert backend._sharded_twin(key) == "fused1"
+
+    def broken(*a, **k):
+        raise RuntimeError("megakernel launch failed")
+    monkeypatch.setattr(ops, "mega_spectral_op", broken)
+    ref = build_pipeline(big, "fused3", device="cpu").run_streamed(raw)
+    assert np.array_equal(backend.execute_streamed(key, raw), ref)
+    assert np.array_equal(backend.execute_streamed(key, raw), ref)
+    assert backend.fallbacks["serve:local_stream"] == 1
+    assert backend.fallbacks["skip:sharded"] == 1
 
 
 def test_a_kernel_that_raises_falls_through_the_ladder(monkeypatch):

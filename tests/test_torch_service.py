@@ -7,8 +7,10 @@ route, the metrics document — the reference's tests/test_service.py on
 package's service on the same numpy scene (|dSNR| <= 0.1 dB).
 
 Inside the port a served image is held bit for bit (``np.array_equal``)
-to the port's own pipeline on the same scene. The sharded backend and its
-8-device tests are not ported (ROADMAP.md Queue 1, item 5).
+to the port's own pipeline on the same scene. The sharded backend and the
+local backend's sharded route run on a mesh of eight CPU slabs
+(``make_sar_mesh(devices=[cpu] * 8)``), where the reference emulates 8
+XLA devices; the halo schedule is held to ``unfused`` within 0.1 dB.
 """
 import asyncio
 import dataclasses
@@ -29,7 +31,8 @@ from repro.service import FocusService as JFocusService
 from repro.service import LocalBackend as JLocalBackend
 from repro.service import ServiceConfig as JServiceConfig
 
-from repro_torch.core.sar import build_pipeline, paper_targets, simulate
+from repro_torch.core.sar import (build_pipeline, metrics, paper_targets,
+                                  simulate)
 from repro_torch.core.sar import scene_from_dict
 from repro_torch.core.sar.geometry import test_scene as make_test_scene
 from repro_torch.kernels import ops
@@ -62,6 +65,12 @@ def empty_tuning_cache(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(path))
         yield
+
+
+def cpu_mesh(p=8):
+    """p slabs on the CPU: the reference's XLA device emulation."""
+    from repro_torch.core.sar.distributed import make_sar_mesh
+    return make_sar_mesh(devices=[torch.device("cpu")] * p)
 
 
 def fast_backend(**kw):
@@ -105,11 +114,23 @@ def test_service_and_backend_raise_without_a_card(monkeypatch):
         FocusService(ServiceConfig(), backend=fast_backend())
 
 
-def test_sharded_backend_is_refused_naming_its_queue_item():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+def test_sharded_backend_is_refused_naming_its_queue_item(monkeypatch):
+    """The sharded backend, once refused, serves: on a mesh of 8 CPU
+    slabs its image equals the local backend's bit for bit, and a sharded
+    FocusService builds it on the mesh it is given. What is still refused
+    is refused by name: no mesh and no device named without a card."""
+    key = BatchKey(CFG, "fused3", None, False)
+    backend = ShardedBackend(mesh=cpu_mesh())
+    assert backend.mesh.size() == 8
+    out = backend.execute(key, scene()[None])
+    assert np.array_equal(out[0], reference())
+    svc = FocusService(ServiceConfig(backend="sharded"), device="cpu",
+                       mesh=cpu_mesh())
+    assert isinstance(svc.backend, ShardedBackend)
+    assert svc.backend.mesh.size() == 8
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         ShardedBackend()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        FocusService(ServiceConfig(backend="sharded"), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -680,7 +701,7 @@ def test_over_budget_scene_takes_streaming_route():
     ref = reference()
     backend = fast_backend()
     assert backend._sharded_twin(BatchKey(CFG, "fused3", None, True)) \
-        is None, "the sharded route is not ported: strips serve"
+        is None, "a backend on one device never shards: strips serve"
 
     async def main():
         svc = service(ServiceConfig(max_batch=4, max_delay_ms=200.0,
@@ -699,6 +720,131 @@ def test_over_budget_scene_takes_streaming_route():
     assert not backend.fallbacks
     for o in outs:
         assert np.array_equal(o, ref)       # streamed == in-memory
+
+
+# ---------------------------------------------------------------------------
+# Sharded backend and the local backend's sharded route
+# ---------------------------------------------------------------------------
+
+BIG = make_test_scene(256)      # staged locally: the sharded route's size
+
+
+@functools.lru_cache(maxsize=None)
+def _big_scene():
+    return simulate(BIG, paper_targets(BIG), device="cpu").numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _big_reference(variant="fused3", precision=None):
+    kw = {} if precision is None else {"precision": precision}
+    return build_pipeline(BIG, variant, device="cpu", **kw).run(
+        torch.from_numpy(_big_scene())).numpy()
+
+
+def test_sharded_backend_reachable_and_matches_local():
+    """The sharded backend through the service API on a one-device mesh:
+    the wiring, the slabs and the collectives all run."""
+    raw = scene()
+    ref = reference()
+
+    async def main():
+        svc = FocusService(
+            ServiceConfig(backend="sharded", max_batch=2,
+                          max_delay_ms=200.0, precision=None),
+            backend=ShardedBackend(mesh=cpu_mesh(1)), device="cpu")
+        await svc.start()
+        outs = await asyncio.gather(svc.focus(raw, CFG),
+                                    svc.focus(raw, CFG))
+        await svc.stop()
+        return outs, svc.metrics.snapshot()
+
+    outs, snap = asyncio.run(main())
+    assert snap["batch_size_hist"] == {2: 1}
+    for o in outs:
+        assert np.array_equal(o, ref)
+
+
+def test_sharded_backend_parity_8_devices():
+    """The service's sharded backend on 8 CPU slabs: the generic lowering
+    equals the local pipeline and the hand-written corner2 bit for bit;
+    the halo schedule is within 0.1 dB of ``unfused``."""
+    from repro_torch.core.sar.distributed import build_corner2
+    raw = _big_scene()
+    local = _big_reference()
+    mesh = cpu_mesh()
+    gen = build_pipeline(BIG, "fused3", device="cpu").lower_sharded(mesh)(
+        torch.from_numpy(raw)).numpy()
+    c2 = build_corner2(BIG, mesh)(torch.from_numpy(raw)).numpy()
+    assert np.array_equal(gen, c2) and np.array_equal(gen, local)
+
+    async def serve(schedule):
+        svc = FocusService(
+            ServiceConfig(backend="sharded", max_batch=2,
+                          max_delay_ms=200.0, precision=None,
+                          schedule=schedule), device="cpu", mesh=mesh)
+        await svc.start()
+        outs = await asyncio.gather(svc.focus(raw, BIG),
+                                    svc.focus(raw, BIG))
+        await svc.stop()
+        return outs
+
+    for o in asyncio.run(serve("corner2")):
+        assert np.array_equal(o, local)
+    targets = paper_targets(BIG)
+    for o in asyncio.run(serve("halo")):
+        c = metrics.compare_pipelines(o, _big_reference("unfused"), BIG,
+                                      targets)
+        assert max(c["snr_delta_db"]) <= GATE_DB, c["snr_delta_db"]
+
+
+def test_halo_schedule_rejects_unsupported_options():
+    """The halo schedule refuses precision / turn_dtype rather than
+    silently serving unlabelled f32 results."""
+    from repro_torch.core.sar.distributed import build_sharded
+    with pytest.raises(ValueError, match="precision"):
+        build_sharded(CFG, "fused3", cpu_mesh(1), schedule="halo",
+                      precision="bf16")
+    with pytest.raises(ValueError, match="turn_dtype"):
+        build_sharded(CFG, "fused3", cpu_mesh(1), schedule="halo",
+                      turn_dtype=torch.bfloat16)
+
+
+def test_local_backend_routes_big_streamed_scenes_to_the_sharded_twin():
+    """A streamed scene that stages locally goes to the fused1 twin
+    lowered onto the backend's mesh when the cost model prefers it,
+    bit-identical to the per-axis strips; ``sharded="off"`` pins the
+    strips, and a one-device backend has no mesh to shard on."""
+    key = BatchKey(BIG, "fused3", None, True)
+    backend = fast_backend(mesh=cpu_mesh())
+    assert backend._sharded_twin(key) == "fused1"
+    img = backend.execute_streamed(key, _big_scene())
+    assert key in backend._sharded_fns
+    assert np.array_equal(img, _big_reference())
+    assert not backend.fallbacks
+    assert fast_backend(mesh=cpu_mesh(), sharded="off")._sharded_twin(
+        key) is None
+    assert fast_backend()._sharded_twin(key) is None
+    assert fast_backend(mesh=cpu_mesh())._sharded_twin(
+        BatchKey(CFG, "fused3", None, True)) is None   # resident: local
+    with pytest.raises(ValueError, match="sharded"):
+        fast_backend(sharded="on")
+
+
+@pytest.mark.parametrize("precision", [None, "bf16", "f16", "bs16"])
+@pytest.mark.parametrize("sharded", ["auto", "off"])
+@pytest.mark.parametrize("fused1", ["auto", "off"])
+def test_route_invisibility_matrix_sharded_axis(fused1, sharded, precision):
+    """The sharded axis of the route-invisibility matrix: a big streamed
+    scene served on an 8-slab mesh equals the per-axis reference whichever
+    route the backend picks (the sharded fused1 twin, or the strips) at
+    every precision — bs16 included, whose exponents ride the turns."""
+    key = BatchKey(BIG, "fused3", precision, True)
+    backend = fast_backend(mesh=cpu_mesh(), sharded=sharded, fused1=fused1)
+    routed = backend._sharded_twin(key)
+    assert (routed == "fused1") == (sharded == fused1 == "auto")
+    out = backend.execute_streamed(key, _big_scene())
+    assert (key in backend._sharded_fns) == (routed is not None)
+    np.testing.assert_array_equal(out, _big_reference(precision=precision))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The compiler's streaming surface in the port, on the CPU:
 ``Pipeline.run_streamed`` (strips of each launch's free axis over host
-memory), ``Pipeline.jitted`` / ``lower_sharded``, the strip arguments of
-``rda.rcmc_sinc`` and the service's lane price
+memory), ``Pipeline.jitted`` / ``lower_sharded`` (on a CPU mesh; the
+multi-device path itself is tests/test_torch_distributed.py), the strip
+arguments of ``rda.rcmc_sinc`` and the service's lane price
 ``tuning.cost.serve_batch_seconds``.
 
 Inside the port the streamed image is held ``torch.equal`` to ``run``
@@ -124,15 +125,26 @@ def test_custom_stage_without_stream_axis_refuses_to_stream():
         pipe.run_streamed(x.numpy())
 
 
-def test_jitted_runs_the_steps_and_lower_sharded_is_refused():
+def test_jitted_runs_the_steps_and_lower_sharded_is_refused(monkeypatch):
     """``jitted`` is the pipeline's own eager ``run`` (no torch.compile:
-    that would swap the kernels for a compiled plain version);
-    ``lower_sharded`` names the queue item that ports it."""
+    that would swap the kernels for a compiled plain version).
+    ``lower_sharded`` runs the steps on 8 slabs of a CPU mesh, bit for
+    bit ``run``; it is refused where it cannot lower: a transposing
+    variant (naming the megakernel twins that do), and no mesh named
+    without a card (the default mesh is every visible card)."""
+    from repro_torch.core.sar.distributed import make_sar_mesh
     _, _, raw = jscene()
     pipe = port_pipeline("fused3")
     x = torch.from_numpy(raw)
     assert torch.equal(pipe.jitted()(x), pipe.run(x))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+    mesh = make_sar_mesh(devices=[torch.device("cpu")] * 8)
+    run = pipe.lower_sharded(mesh)
+    assert (run.devices, run.dispatches_per_device, run.turns) == (8, 3, 2)
+    assert torch.equal(run(x), pipe.run(x))
+    with pytest.raises(ValueError, match="fused1"):
+        port_pipeline("fused").lower_sharded(mesh)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         pipe.lower_sharded()
 
 

@@ -387,6 +387,112 @@ def test_schedule_cut_is_check_mega_kernel():
 
 
 # ---------------------------------------------------------------------------
+# The collective terms: the mesh lowering priced (core.sar.distributed)
+# ---------------------------------------------------------------------------
+
+MEGA_SEGS = (tt.SegmentShape(0, fwd=True),
+             tt.SegmentShape(1, fwd=True, inv=True, filtered=True),
+             tt.SegmentShape(0, inv=True, filtered=True))
+JMEGA_SEGS = tuple(jt.SegmentShape(axis=s.axis, fwd=s.fwd, inv=s.inv,
+                                   filtered=s.filtered) for s in MEGA_SEGS)
+
+
+def test_collective_turn_bytes_matches_doc_math():
+    """One turn moves 2 . 4 . na . nr . (P-1)/P bytes a device for split
+    f32 re/im (half with a bf16 wire), plus the bs16 exponent vector; the
+    same function as the reference's, value for value."""
+    na = nr = 4096
+    p = 8
+    slab = 2 * 4 * na * nr // p
+    assert cost.collective_turn_bytes(na, nr, devices=p) == slab * 7 // 8
+    assert cost.collective_turn_bytes(na, nr, devices=p, elem_bytes=2) \
+        == slab * 7 // 16
+    assert cost.collective_turn_bytes(na, nr, devices=1) == 0
+    for shape in ((4096, 4096), (256, 512), (128, 128)):
+        for b, dev, eb, prec in ((1, 8, 4, None), (2, 4, 2, "f32"),
+                                 (4, 8, 4, "bs16"), (1, 2, 2, "bs16")):
+            assert cost.collective_turn_bytes(*shape, b, dev, eb, prec) == \
+                jt.cost.collective_turn_bytes(*shape, b, dev, eb, prec)
+
+
+def test_turn_seconds_sharded_is_collective_priced(monkeypatch):
+    local = tt.ScheduleProblem.mega_2d(2048, 2048, MEGA_SEGS)
+    shard = tt.ScheduleProblem.mega_2d(2048, 2048, MEGA_SEGS, devices=8)
+    # sharded turns cost wire time even for resident slabs
+    assert cost.turn_seconds(local, residency="vmem") == 0.0
+    assert cost.turn_seconds(shard, residency="vmem") > 0.0
+    # no kernel of the port prefetches: no overlap credit for any depth
+    assert cost.turn_seconds(shard, residency="staged", buffer_depth=1) \
+        == cost.turn_seconds(shard, residency="staged", buffer_depth=2)
+    assert cost.PEAK_LINK_BYTES == 450e9
+    # the reference's formula: the port's with the reference's constants
+    for name in ("PEAK_HBM_BYTES", "PEAK_LINK_BYTES", "TURN_OVERLAP"):
+        monkeypatch.setattr(cost, name, getattr(jt.cost, name))
+    jshard = jt.ScheduleProblem.mega_2d(2048, 2048, JMEGA_SEGS, devices=8)
+    for res in ("vmem", "staged"):
+        for prec in (None, "bs16"):
+            assert cost.turn_seconds(shard, residency=res, buffer_depth=2,
+                                     precision=prec) == pytest.approx(
+                jt.cost.turn_seconds(jshard, residency=res, buffer_depth=2,
+                                     precision=prec), rel=1e-12)
+
+
+def test_sharded_problem_divides_lines_not_transforms():
+    shard = tt.ScheduleProblem.mega_2d(2048, 1024, MEGA_SEGS, devices=8)
+    jshard = jt.ScheduleProblem.mega_2d(2048, 1024, JMEGA_SEGS, devices=8)
+    range_seg, az_seg = MEGA_SEGS[1], MEGA_SEGS[0]
+    assert shard.seg_n(range_seg) == 1024               # transform whole
+    assert shard.seg_lines(range_seg) == 2048 // 8      # free axis 1/P
+    assert shard.seg_n(az_seg) == 2048
+    assert shard.seg_lines(az_seg) == 1024 // 8
+    for t_seg, j_seg in zip(MEGA_SEGS, JMEGA_SEGS):
+        assert (shard.seg_n(t_seg), shard.seg_lines(t_seg)) == \
+            (jshard.seg_n(j_seg), jshard.seg_lines(j_seg))
+    assert cost.slab_io_seconds(shard) == pytest.approx(
+        cost.slab_io_seconds(tt.ScheduleProblem.mega_2d(
+            2048, 1024, MEGA_SEGS)) / 8)
+    with pytest.raises(ValueError, match="devices"):
+        tt.ScheduleProblem.mega_2d(100, 100, MEGA_SEGS, devices=8)
+    with pytest.raises(ValueError, match="devices"):
+        tt.ScheduleProblem.mega_2d(128, 128, MEGA_SEGS, devices=0)
+
+
+def test_sharded_preferred_routes_big_scenes_only():
+    # a scene resident in one block keeps the local single-launch route
+    assert not cost.sharded_preferred(128, 128, devices=8)
+    # the paper's scale shards, as in the reference
+    for n in (1024, 4096):
+        assert cost.sharded_preferred(n, n, devices=8)
+        assert jt.cost.sharded_preferred(n, n, devices=8)
+    # degenerate meshes / non-tiling scenes never route
+    for args in ((4096, 4096, 1, 1), (4100, 4100, 1, 8)):
+        assert not cost.sharded_preferred(*args)
+        assert not jt.cost.sharded_preferred(*args)
+
+
+def test_schedule_frontier_ranks_sharded_schedules():
+    """The graph search prices devices > 1 problems end to end: the
+    frontier is non-empty, cost-ascending, cheaper than the same local
+    problem at the paper's scale, and each schedule one the kernels take
+    on every group's slab (a 256^2 scene over 8 devices may be resident:
+    its 32 x 256 slabs fit one block)."""
+    shard = tt.ScheduleProblem.mega_2d(4096, 4096, MEGA_SEGS, devices=8)
+    local = tt.ScheduleProblem.mega_2d(4096, 4096, MEGA_SEGS)
+    ranked = tt.schedule_frontier(shard, k=4)
+    assert ranked
+    costs = [cost.schedule_seconds(s, shard) for s in ranked]
+    assert costs == sorted(costs)
+    best_local = min(cost.schedule_seconds(s, local)
+                     for s in tt.schedule_frontier(local, k=4))
+    assert costs[0] < best_local
+    small = tt.ScheduleProblem.mega_2d(256, 256, MEGA_SEGS, devices=8)
+    lanes = {s.residency for s in tt.schedule_frontier(small, k=8)}
+    assert lanes == {"vmem", "staged"}
+    assert {s.residency for s in tt.schedule_frontier(
+        tt.ScheduleProblem.mega_2d(256, 256, MEGA_SEGS), k=8)} == {"staged"}
+
+
+# ---------------------------------------------------------------------------
 # Cache: schema, migration, validation, the reference's documents
 # ---------------------------------------------------------------------------
 
