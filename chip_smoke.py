@@ -16,7 +16,9 @@ each printing one JSON line (any failed check raises and exits non-zero):
              out-of-line Stockham op, 'kernel/stockham_n<layout,N,...>')
              and each source's seconds (all compile at once; the matmul
              route's operand forms of the megakernels build from
-             ``mega.cu`` into a library of their own, ``mega_forms.cu``);
+             ``mega.cu`` into a library of their own, ``mega_forms.cu``,
+             and ``mega_staged`` for chains with a line past one block
+             into another, ``mega_long.cu``);
              ``cuobjdump -sass`` must show HMMA TF32 instructions in the
              matmul instantiations of ``spectral_kernel``,
              ``mega_resident`` and ``mega_staged`` (the tensor-core
@@ -198,8 +200,32 @@ each printing one JSON line (any failed check raises and exits non-zero):
              version, torch.fft and its bound, each turn's copies beside
              their bytes bound, and each run per P.
 
+19. long lines — lines past one block (``csrc/long_lines.cuh``: the
+             four-step over device memory in one cooperative launch): the
+             spectral kernel against its plain version at N in {8192,
+             16384, 32768, 2^18, 2^21}, rows and columns, ragged lines
+             (every filter mode x fwd/inv at 8192 and 32768, fwd * FULL *
+             inv at the others) and, on the matmul route, the explicit
+             splits (8, 8, 8), (16, 8, 4), (16, 16, 16), (32, 16, 16); the
+             Stockham route ``torch.equal``, the matmul route within TOL;
+             each case against complex128 at 1e-5 up to N = 16384 and 4e-5
+             past it; ``mega_staged`` on phase 6's chains with an
+             8192-point segment the same way. Then the 8192 x 16384 paper
+             scene (2^27 points, not cut) through fused3 / fused1,
+             csa_fused / csa_fused1 and omegak / omegak_fused1 on both
+             routes: exactly 3 spectral launches or 1 ``mega_staged``,
+             five targets within 8 px at SNR > 30 dB, the plain replay's
+             peaks and |dSNR| <= 0.1 dB, fused3 within 1e-5 of complex128,
+             each fused1 ``torch.equal`` to its three launches, csa_fused
+             within 0.1 dB of the torch backend's csa; each launch and
+             ``mega_staged`` call timed beside its bound, plain version
+             and ``library_ms``, and the whole fused3 run; fused3 with
+             ``fft_kw=(16, 16, 16)`` on the 4096^2 scene (five targets,
+             1e-5 of complex128); the 4096^2 fused3 launches timed again
+             on both routes.
+
 The line before the last lists each kernel — on the main path and on each
-path of phases 14 to 18, with the precisions and Karatsuba flags it runs
+path of phases 14 to 19, with the precisions and Karatsuba flags it runs
 on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -233,8 +259,11 @@ SEARCH = 64                    # window of the peak-position check
 # the matmul-route f32 instantiations, which must run on the tensor cores
 MMA_KERNELS = ("spectral_kernel<matmul>", "mega_resident<matmul>",
                "mega_staged<matmul>")
-_KERNEL_NAMES = ("spectral_kernel", "mega_resident",
+_KERNEL_NAMES = ("spectral_kernel", "spectral_long", "mega_resident",
                  "mega_staged", "transpose_kernel")
+# the out-of-line device functions of csrc/long_lines.cuh (ptxas reports
+# each under its kernel, as it does the Stockham ops)
+_LONG_FUNCTIONS = r"(long_stage_cols|long_stage|long_segment|long_op)"
 
 
 _OPERAND_NAMES = {1: "bf16", 2: "f16"}
@@ -249,13 +278,20 @@ def instantiation(mangled):
     transform or ',kara/seg' chosen per segment), or of one out-of-line
     Stockham op, e.g. 'stockham_n<cols,4096,io,32>' (layout, N,
     device-memory tile or in-place slab, points a thread, ',bs16' with the
-    codec)."""
+    codec). The lines past one block: 'spectral_long<matmul>', a
+    megakernel's instantiation for chains with such a segment ',long',
+    and their out-of-line functions by name ('long_op<stockham>')."""
     m = re.search(r"stockham_nILb([01])ELi(\d+)ELb([01])ELi(\d+)ELb([01])E",
                   mangled)
     if m:
         return (f"stockham_n<{'cols' if m.group(1) == '1' else 'rows'},"
                 f"{m.group(2)},{'io' if m.group(3) == '1' else 'slab'},"
                 f"{m.group(4)}{',bs16' if m.group(5) == '1' else ''}>")
+    m = re.search(_LONG_FUNCTIONS + r"(?:ILb([01])E)?", mangled)
+    if m:
+        return m.group(1) + ("" if m.group(2) is None else
+                             "<stockham>" if m.group(2) == "1"
+                             else "<matmul>")
     for name in _KERNEL_NAMES:
         i = mangled.find(name)
         if i < 0:
@@ -266,11 +302,15 @@ def instantiation(mangled):
             return (f"{name}<{rest[1:rest.find('E')]}>"
                     if rest.startswith("I") else name)
         args = [int(v) for v in re.findall(r"L[bi](\d+)E", m.group(1))]
+        long_ = 0
         if name == "spectral_kernel":   # <kStockham, kBs, kOp, kKara>
             stockham, bs, op, kara = args
             n = 0
-        else:                            # <kStockham, kN, kBs, kOp, kKara>
-            stockham, n, bs, op, kara = args
+        elif name == "spectral_long":   # <kStockham>
+            (stockham,), n, bs, op, kara = args, 0, 0, 0, 0
+        else:                  # <kStockham, kN, kBs, kOp, kKara[, kLong]>
+            stockham, n, bs, op, kara = args[:5]
+            long_ = args[5] if len(args) > 5 else 0
         tags = ["stockham" if stockham else "matmul"]
         if n:
             tags.append(str(n))
@@ -280,6 +320,8 @@ def instantiation(mangled):
             tags.append(_OPERAND_NAMES[op])
         if kara:
             tags.append("kara" if kara == 1 else "kara/seg")
+        if long_:
+            tags.append("long")
         return f"{name}<{','.join(tags)}>"
     return mangled
 
@@ -309,7 +351,8 @@ def ptxas_report(log):
         if m and props == cur:
             rec.update(spill_stores=int(m.group(1)),
                        spill_loads=int(m.group(2)))
-        elif m and props and "stockham_n" in props:
+        elif m and props and ("stockham_n" in props or
+                              re.search(_LONG_FUNCTIONS, props)):
             out[f"{instantiation(cur)}/{instantiation(props)}"] = dict(
                 spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers", ln)
@@ -654,13 +697,14 @@ def oracle_chain(torch, x, segments, args):
 
 
 def mma_floor(n, n1, n2, lines, transforms, precision="f32",
-              karatsuba=False):
-    """(tensor-core flops, ms) of the matmul route's stages: 8 N (n1 + n2)
-    real flops a line and transform (6 N (n1 + n2) with Karatsuba's three
-    products), issued as ``TF32_PASSES`` TF32 passes over the dense TF32
-    rate at f32, as one pass over the dense BF16 / FP16 rate at bf16, f16
-    and bs16."""
-    flops = (6.0 if karatsuba else 8.0) * n * (n1 + n2) * lines * transforms
+              karatsuba=False, n3=0):
+    """(tensor-core flops, ms) of the matmul route's stages: 8 N (n1 + n2
+    [+ n3]) real flops a line and transform (6 N (...) with Karatsuba's
+    three products), issued as ``TF32_PASSES`` TF32 passes over the dense
+    TF32 rate at f32, as one pass over the dense BF16 / FP16 rate at bf16,
+    f16 and bs16."""
+    flops = ((6.0 if karatsuba else 8.0) * n * (n1 + n2 + n3) * lines
+             * transforms)
     if precision == "f32":
         flops *= TF32_PASSES
         return flops, flops / TF32_FLOP_PER_S * 1e3
@@ -709,10 +753,10 @@ def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg,
         / HBM_BYTES_PER_S * 1e3)
     rec["vs_library"] = rec["ms"] / rec["library_ms"]
     if kk["fft_impl"] == "matmul":
-        mma = [mma_floor(sspec.n, *sspec.factors(),
+        mma = [mma_floor(sspec.n, *sspec.factors()[:2],
                          batch * (na if seg.axis == 1 else nr),
                          int(seg.fwd) + int(seg.inv), kk["precision"],
-                         sspec.karatsuba)
+                         sspec.karatsuba, *sspec.factors()[2:])
                for seg in spec.segments for sspec in [spec.seg_spec(seg)]]
         rec.update(mma_flops=sum(f for f, _ in mma),
                    mma_floor_ms=sum(t for _, t in mma))
@@ -737,7 +781,7 @@ def time_spectral_launch(smi_line, step, xr, xi, x, variant="fused3"):
     spec = SpectralSpec(n=n, fwd=kk["fwd"], filter_mode=kk["filter_mode"],
                         inv=kk["inv"], axis=kk["axis"],
                         fft_impl=kk["fft_impl"], precision=kk["precision"],
-                        n1=kk.get("n1"), n2=kk.get("n2"),
+                        n1=kk.get("n1"), n2=kk.get("n2"), n3=kk.get("n3"),
                         karatsuba=kk.get("karatsuba", False))
     nbytes = 4 * xr.numel() * 4 + sum(4 * t.numel() for t in fk.values())
     flops = flops_nominal(spec, nlines)
@@ -759,9 +803,10 @@ def time_spectral_launch(smi_line, step, xr, xi, x, variant="fused3"):
         bound_by="bytes" if t_mem >= t_ops else "operations")
     rec["vs_library"] = rec["ms"] / rec["library_ms"]
     if kk["fft_impl"] == "matmul":
-        mma, mma_ms = mma_floor(n, *spec.factors(), nlines,
+        mma, mma_ms = mma_floor(n, *spec.factors()[:2], nlines,
                                 int(kk["fwd"]) + int(kk["inv"]),
-                                kk["precision"], spec.karatsuba)
+                                kk["precision"], spec.karatsuba,
+                                *spec.factors()[2:])
         rec.update(mma_flops=mma, mma_floor_ms=mma_ms)
     emit("time_launch", nvidia_smi=smi_line, **rec)
     return rec
@@ -908,6 +953,29 @@ def mega_phases(torch, dev, smi_line, cfg, raw, fused3_img, score, small,
                    resident_err, t_resident),
             record("mega_staged", 1002, got_counts["mega_staged"],
                    staged_err, t_staged)]
+
+
+def scorer(cfg, targets):
+    """score(img): each target's expected pixel, its peak
+    (``metrics.analyze_scene``), the offset of the largest magnitude in a
+    +-SEARCH px window around the expected pixel, and its SNR."""
+    from repro_torch.core.sar import metrics
+
+    def score(img):
+        mag = img.abs().cpu().numpy()
+        reps = metrics.analyze_scene(img.cpu().numpy(), cfg, targets)
+        out = []
+        for t, rep in zip(targets, reps):
+            er, ec = metrics.expected_pixel(cfg, t)
+            rows = [(er + d) % cfg.na for d in range(-SEARCH, SEARCH + 1)]
+            cols = [(ec + d) % cfg.nr for d in range(-SEARCH, SEARCH + 1)]
+            win = mag[rows][:, cols]
+            i, j = divmod(int(win.argmax()), win.shape[1])
+            out.append(dict(expected=[er, ec], peak=[rep.row, rep.col],
+                            wide_peak_offset=[i - SEARCH, j - SEARCH],
+                            snr_db=rep.snr_db))
+        return out
+    return score
 
 
 def check_focus(name, rep, want=None, gate=GATE_DB):
@@ -2814,6 +2882,341 @@ def sharded_phase(torch, smi_line, cfg, raw, score):
     return records
 
 
+LONG_SIZES = (8192, 16384, 32768, 2 ** 18, 2 ** 21)   # phase 19's sweep
+LONG_ALL_MODES = (8192, 32768)   # every filter mode x fwd/inv at these N
+LONG_SPLITS = ((8, 8, 8), (16, 8, 4), (16, 16, 16), (32, 16, 16))
+LONG_ORACLE_N = 16384            # complex128 at ORACLE_TOL up to this N
+LONG_ORACLE_TOL = 4e-5           # x max|want| past it (f32 over 2^21)
+LONG_SCENE = (8192, 16384)       # the paper's geometry, 2^27 points
+LONG_MEGA_SHAPES = ((8192, 64), (64, 8192))
+LONG_FFT_KW = dict(n1=16, n2=16, n3=16)   # fused3's range split at 4096^2
+LONG_FAMILIES = (("fused3", "fused1"), ("csa_fused", "csa_fused1"),
+                 ("omegak", "omegak_fused1"))
+LONG_PRECISIONS = {"matmul": ["f32"], "stockham": ["f32"]}
+LONG_KARATSUBA = {"matmul": [False], "stockham": [False]}
+
+
+def long_sweep(torch, ops, rand, fft_impl):
+    """Phase 19's kernel sweep on one route: the spectral kernel past one
+    block against its plain version (the Stockham route ``torch.equal``,
+    the matmul route within TOL) at N in ``LONG_SIZES``, rows and columns,
+    ragged line counts — every filter mode x fwd/inv at ``LONG_ALL_MODES``,
+    fwd * FULL * inv at the others — and on the matmul route the explicit
+    three-factor ``LONG_SPLITS``; each case against the complex128 oracle,
+    held to ORACLE_TOL up to ``LONG_ORACLE_N`` and to ``LONG_ORACLE_TOL``
+    past it. Then ``mega_staged`` on ``mega_chains()`` with a segment of
+    8192 points against ``mega_plain`` and the oracle chain."""
+    from repro_torch.kernels.fft4step import FILTER_MODES
+    combos = [(m, f, i) for m in FILTER_MODES
+              for f, i in ((True, False), (False, True), (True, True),
+                           (False, False)) if m != "none" or f or i]
+    jobs = []
+    for n in LONG_SIZES:
+        for axis in (0, 1):
+            for c in (combos if n in LONG_ALL_MODES
+                      else [("full", True, True)]):
+                jobs.append((n, axis, c, None))
+    if fft_impl == "matmul":
+        for split in LONG_SPLITS:
+            for axis in (0, 1):
+                for c in (("shared", True, True), ("none", True, False),
+                          ("full", False, True), ("outer", True, True)):
+                    jobs.append((split[0] * split[1] * split[2], axis, c,
+                                 split))
+    out = dict(fft_impl=fft_impl, cases=0, equal_cases=0, max_rel_err=0.0,
+               oracle_cases=0, max_oracle_err=0.0,
+               max_oracle_err_past=0.0, launches=0)
+    before = ops.SPECTRAL_LAUNCHES
+    for n, axis, (mode, fwd, inv), split in jobs:
+        lines, batch = (37, 2) if n <= 32768 else (3, 1)
+        scene = (lines, n) if axis == 1 else (n, lines)
+        xr, xi = rand(batch, *scene), rand(batch, *scene)
+        filt = filter_payload(rand, mode, n, scene, lines)
+        kw = dict(axis=axis, fwd=fwd, inv=inv, filter_mode=mode, block=1,
+                  fft_impl=fft_impl)
+        if split:
+            kw.update(n1=split[0], n2=split[1], n3=split[2])
+        got = ops.spectral_op(xr, xi, **filt, **kw)
+        want = ops.spectral_op_plain(xr, xi, **filt, **kw)
+        torch.cuda.synchronize()
+        _, rel = rel_err(got, want)
+        where = f"{kw} n={n} B={batch}"
+        check(rel <= TOL, f"long kernel vs plain {where}: {rel:.3e}")
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        check(fft_impl == "matmul" or equal,
+              f"long kernel != plain {where}: {rel:.3e}")
+        out["equal_cases"] += int(equal)
+        out["max_rel_err"] = max(out["max_rel_err"], rel)
+        o = oracle_err(torch, got, oracle_op(
+            torch, torch.complex(xr, xi), axis, fwd, inv, mode, **filt))
+        tol = ORACLE_TOL if n <= LONG_ORACLE_N else LONG_ORACLE_TOL
+        check(o <= tol, f"long kernel vs complex128 {where}: {o:.3e}")
+        key = "max_oracle_err" if n <= LONG_ORACLE_N else \
+            "max_oracle_err_past"
+        out[key] = max(out[key], o)
+        out["oracle_cases"] += 1
+        out["cases"] += 1
+        del got, want, xr, xi, filt
+    out["launches"] = ops.SPECTRAL_LAUNCHES - before
+    check(out["launches"] == out["cases"], "one launch a case")
+    emit("long_kernel", sizes=list(LONG_SIZES),
+         splits=[list(sp) for sp in LONG_SPLITS] if fft_impl == "matmul"
+         else [], tol=TOL, oracle_tol=ORACLE_TOL,
+         oracle_tol_past=LONG_ORACLE_TOL, oracle_n=LONG_ORACLE_N, **out)
+
+    mega = dict(fft_impl=fft_impl, cases=0, equal_cases=0, max_rel_err=0.0,
+                max_oracle_err=0.0)
+    for na, nr in LONG_MEGA_SHAPES:
+        x = (rand(1, na, nr), rand(1, na, nr))
+        for segments in mega_chains():
+            args = []
+            for axis, _fwd, _inv, mode in segments:
+                n, lines = (nr, na) if axis == 1 else (na, nr)
+                if mode in ("shared", "shared_outer"):
+                    args += [rand(n), rand(n)]
+                if mode == "full":
+                    args += [rand(na, nr), rand(na, nr)]
+                if mode in ("outer", "shared_outer"):
+                    args += [rand(lines, 2), rand(n, 2)]
+            kw = dict(segments=segments, residency="staged",
+                      fft_impl=fft_impl)
+            before = ops.MEGA_LAUNCHES["mega_staged"]
+            got = ops.mega_spectral_op(*x, *args, **kw)
+            want = ops.mega_spectral_op_plain(*x, *args, **kw)
+            torch.cuda.synchronize()
+            check(ops.MEGA_LAUNCHES["mega_staged"] == before + 1,
+                  "mega_staged: one launch")
+            _, rel = rel_err(got, want)
+            where = f"mega_staged {fft_impl} {segments} {na}x{nr}"
+            check(rel <= TOL, f"{where} vs plain: {rel:.3e}")
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            check(fft_impl == "matmul" or equal, f"{where} != plain")
+            o = oracle_err(torch, got, oracle_chain(
+                torch, torch.complex(*x), segments, args))
+            check(o <= ORACLE_TOL, f"{where} vs complex128: {o:.3e}")
+            mega["equal_cases"] += int(equal)
+            mega["max_rel_err"] = max(mega["max_rel_err"], rel)
+            mega["max_oracle_err"] = max(mega["max_oracle_err"], o)
+            mega["cases"] += 1
+            del got, want
+        del x
+    emit("long_mega_kernel", shapes=[list(sh) for sh in LONG_MEGA_SHAPES],
+         tol=TOL, oracle_tol=ORACLE_TOL, **mega)
+
+
+def step_passes(cfg, step):
+    """The device-memory passes of one spectral step (1: a line of one
+    block)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fft4step import SpectralSpec
+    kk = step.kernel_kw
+    geom = ops.long_geometry(SpectralSpec(
+        n=cfg.nr if kk["axis"] == 1 else cfg.na, fwd=kk["fwd"],
+        inv=kk["inv"], filter_mode=kk["filter_mode"], axis=kk["axis"],
+        fft_impl=kk["fft_impl"], n1=kk.get("n1"), n2=kk.get("n2"),
+        n3=kk.get("n3")))
+    return 1 if geom is None else geom.passes(kk["fwd"], kk["inv"])
+
+
+def long_record(name, variant, fft_impl, launches, err, timed, scene):
+    """A ``kernels`` entry of phase 19's paths: f32 alone, no Karatsuba
+    (``mega_staged`` for such chains builds from ``mega_long.cu``)."""
+    rec = kernel_record(name, f"{variant} {scene[0]}x{scene[1]}", fft_impl,
+                        launches, err, timed,
+                        source="mega_long.cu" if name == "mega_staged"
+                        else None)
+    rec.update(scene=list(scene), precisions=LONG_PRECISIONS,
+               karatsuba_by_route=LONG_KARATSUBA)
+    return rec
+
+
+def long_lines_phase(torch, smi_line, cfg4096, raw4096, score4096,
+                     replay_plain):
+    """Phase 19: lines past one block. The kernel sweeps on both routes;
+    the 8192 x 16384 paper scene through every variant on each route
+    (launch counts, five targets, the plain replay, complex128 for
+    fused3, fused1 == fused3, csa_fused beside the torch backend's csa),
+    each launch and ``mega_staged`` call timed beside its bound, plain
+    version and ``library_ms``, and the whole fused3 run; fused3 with the
+    three-factor split (16, 16, 16) on the 4096^2 scene; the 4096^2 fused3
+    launches timed again on both routes. Returns the ``kernels``
+    records."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import (build_pipeline, paper_scene,
+                                      paper_targets, simulate)
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    for i, fft_impl in enumerate(ops.FFT_IMPLS):
+        long_sweep(torch, ops, seeded_randn(torch, dev, 190 + i), fft_impl)
+    sweep_s = time.perf_counter() - t0
+
+    cfg = paper_scene(*LONG_SCENE)
+    targets = paper_targets(cfg)
+    raw = simulate(cfg, targets)
+    torch.cuda.synchronize()
+    check(raw.shape == LONG_SCENE, "long scene shape")
+    score = scorer(cfg, targets)
+    scene = [cfg.na, cfg.nr]
+    base = build_pipeline(cfg, "csa")        # torch backend: the baseline
+    reset_launch_counts()
+    img = base.run(raw)
+    torch.cuda.synchronize()
+    counts, want = launch_counts()
+    check(counts == want, f"csa {scene} (torch backend) launches {counts}")
+    rep_base = score(img)
+    check_focus("csa long", rep_base)
+    emit("long_main", variant="csa", backend="torch", scene=scene,
+         launches=counts, targets=rep_base)
+    del img
+
+    records = []
+    run_ms = {}
+    for fft_impl in ops.FFT_IMPLS:
+        for three, one in LONG_FAMILIES:
+            p3 = build_pipeline(cfg, three, fft_impl=fft_impl)
+            p1 = build_pipeline(cfg, one, fft_impl=fft_impl)
+            check(p1.steps[0].kernel_kw["residency"] == "staged",
+                  f"{one}: staged")
+            reset_launch_counts()
+            img3 = p3.run(raw)
+            torch.cuda.synchronize()
+            counts3, want = launch_counts(spectral=3)
+            check(counts3 == want, f"{three} {scene} ({fft_impl}) "
+                  f"launches {counts3}")
+            check(bool(torch.isfinite(img3).all()), f"{three}: non-finite")
+            rep3 = score(img3)
+            check_focus(f"{three} {scene} ({fft_impl})", rep3)
+            img_p = replay_plain(p3, raw)
+            torch.cuda.synchronize()
+            dsnr_p = check_focus(f"{three} {scene} ({fft_impl}) vs plain",
+                                 rep3, score(img_p))
+            del img_p
+            oracle = None
+            if three == "fused3":
+                want_o = image_oracle(torch, p3, raw)
+                oracle = oracle_err(torch, (img3.real, img3.imag), want_o)
+                check(oracle <= ORACLE_TOL, f"fused3 {scene} ({fft_impl}) "
+                      f"vs complex128: {oracle:.3e}")
+                del want_o
+            dsnr_b = (check_focus(f"csa_fused {scene} ({fft_impl}) vs csa",
+                                  rep3, rep_base)
+                      if three == "csa_fused" else None)
+            reset_launch_counts()
+            img1 = p1.run(raw)
+            torch.cuda.synchronize()
+            counts1, want = launch_counts(mega_staged=1)
+            check(counts1 == want, f"{one} {scene} ({fft_impl}) launches "
+                  f"{counts1}")
+            check(torch.equal(img1, img3),
+                  f"{one} != {three} {scene} ({fft_impl})")
+            img1_p = replay_mega_plain(p1.steps[0], raw)
+            torch.cuda.synchronize()
+            err1, rel1 = rel_err((img1.real, img1.imag),
+                                 (img1_p.real, img1_p.imag))
+            check(rel1 <= TOL, f"{one} {scene} vs plain: {rel1:.3e}")
+            # img1 == img3: its score is rep3
+            dsnr_1 = check_focus(f"{one} {scene} ({fft_impl}) vs plain",
+                                 rep3, score(img1_p))
+            del img1, img1_p, img3
+            launch_err = 0.0
+            timed = []
+            for s, x in step_inputs(p3, raw)[0]:
+                xr, xi = planlib.split(x)
+                got = ops.spectral_op(xr, xi, **s.filter_kw, **s.kernel_kw)
+                want_p = ops.spectral_op_plain(xr, xi, **s.filter_kw,
+                                               **s.kernel_kw)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, want_p)
+                check(rel <= TOL and (fft_impl == "matmul" or all(
+                    torch.equal(g, w) for g, w in zip(got, want_p))),
+                      f"{three} {scene} launch {s.name} ({fft_impl}): "
+                      f"{rel:.3e}")
+                launch_err = max(launch_err, err)
+                del got, want_p
+                rec = time_spectral_launch(smi_line, s, xr, xi, x,
+                                           variant=f"{three} {scene}")
+                timed.append(rec)
+            t1 = time_mega_kernel(torch, smi_line, "mega_staged",
+                                  p1.steps[0], raw, cfg, variant=one)
+            if three == "fused3":
+                run_ms[fft_impl] = cuda_median_ms(lambda: p3.run(raw))
+                emit("long_time_run", variant="fused3", fft_impl=fft_impl,
+                     scene=scene, ms=run_ms[fft_impl],
+                     launch_ms_sum=sum(r["ms"] for r in timed),
+                     launch_bound_ms_sum=sum(r["bound_ms"] for r in timed),
+                     launch_plain_ms_sum=sum(r["plain_ms"] for r in timed),
+                     launch_library_ms_sum=sum(r["library_ms"]
+                                               for r in timed),
+                     nvidia_smi=smi_line)
+            emit("long_main", variant=three, twin=one, fft_impl=fft_impl,
+                 scene=scene, launches=counts3, twin_launches=counts1,
+                 targets=rep3, snr_delta_db_vs_plain=dsnr_p,
+                 twin_snr_delta_db_vs_plain=dsnr_1,
+                 snr_delta_db_vs_csa=dsnr_b, oracle_rel_err=oracle,
+                 twin_equal=True, twin_rel_err_vs_plain=rel1,
+                 max_abs_err_launches=launch_err,
+                 passes=[step_passes(cfg, s) for s in p3.steps])
+            records.append(long_record("spectral", three, fft_impl,
+                                       counts3["spectral"], launch_err,
+                                       timed, scene))
+            records.append(long_record("mega_staged", one, fft_impl,
+                                       counts1["mega_staged"], err1, [t1],
+                                       scene))
+    del raw
+    torch.cuda.empty_cache()
+
+    # three factors on the main path: fused3 at 4096^2, range (16, 16, 16)
+    split = LONG_FFT_KW
+    p = build_pipeline(cfg4096, "fused3", fft_kw=split)
+    check(any(s.kernel_kw.get("n3") == split["n3"] for s in p.steps),
+          "fused3 fft_kw: a three-factor launch")
+    reset_launch_counts()
+    img = p.run(raw4096)
+    torch.cuda.synchronize()
+    counts, want = launch_counts(spectral=3)
+    check(counts == want, f"fused3 (16, 16, 16) launches {counts}")
+    rep = score4096(img)
+    check_focus("fused3 (16, 16, 16)", rep)
+    want_o = image_oracle(torch, p, raw4096)
+    o3 = oracle_err(torch, (img.real, img.imag), want_o)
+    check(o3 <= ORACLE_TOL, f"fused3 (16, 16, 16) vs complex128: {o3:.3e}")
+    del img, want_o
+    timed3 = []
+    err3 = 0.0
+    for s, x in step_inputs(p, raw4096)[0]:
+        xr, xi = planlib.split(x)
+        got = ops.spectral_op(xr, xi, **s.filter_kw, **s.kernel_kw)
+        want_p = ops.spectral_op_plain(xr, xi, **s.filter_kw, **s.kernel_kw)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want_p)
+        check(rel <= TOL, f"fused3 (16, 16, 16) {s.name}: {rel:.3e}")
+        err3 = max(err3, err)
+        timed3.append(time_spectral_launch(smi_line, s, xr, xi, x,
+                                           variant="fused3 (16,16,16)"))
+    emit("long_main", variant="fused3", fft_kw=split,
+         scene=[cfg4096.na, cfg4096.nr], launches=counts, targets=rep,
+         oracle_rel_err=o3, max_abs_err_launches=err3)
+    records.append(long_record(
+        "spectral", "fused3 n1,n2,n3=" + ",".join(map(str, split.values())),
+        "matmul", counts["spectral"], err3, timed3,
+        [cfg4096.na, cfg4096.nr]))
+
+    # the 4096^2 fused3 launches again on both routes: the N <= 4096 code
+    sums = {}
+    for fft_impl in ops.FFT_IMPLS:
+        p = build_pipeline(cfg4096, "fused3", fft_impl=fft_impl)
+        timed = [time_spectral_launch(smi_line, s, *planlib.split(x)[:2], x)
+                 for s, x in step_inputs(p, raw4096)[0]]
+        sums[fft_impl] = {k: sum(r[k] for r in timed)
+                          for k in ("ms", "plain_ms", "bound_ms",
+                                    "library_ms")}
+    emit("long_time_4096", scene=[cfg4096.na, cfg4096.nr], sums=sums,
+         long_fused3_run_ms=run_ms, sweep_seconds=sweep_s,
+         nvidia_smi=smi_line)
+    return records
+
+
 def main() -> int:
     import tempfile
 
@@ -2831,7 +3234,7 @@ def main() -> int:
 
 
 def run(torch) -> int:
-    """Phases 1-18 on the card (``main`` has found it)."""
+    """Phases 1-19 on the card (``main`` has found it)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
                                       paper_targets, simulate)
@@ -2862,7 +3265,8 @@ def run(torch) -> int:
     t0 = time.perf_counter()
     logs = _build.build_all(verbose=True, force=True)
     build_s = time.perf_counter() - t0
-    check(set(logs) >= {"spectral", "mega", "mega_forms", "transpose"},
+    check(set(logs) >= {"spectral", "mega", "mega_forms", "mega_long",
+                        "transpose"},
           f"built {sorted(logs)}")
     ptxas = {}
     hmma = {}
@@ -2911,20 +3315,7 @@ def run(torch) -> int:
                 x = s.fn(x)
         return x
 
-    def score(img):
-        mag = img.abs().cpu().numpy()
-        reps = metrics.analyze_scene(img.cpu().numpy(), cfg, targets)
-        out = []
-        for t, rep in zip(targets, reps):
-            er, ec = metrics.expected_pixel(cfg, t)
-            rows = [(er + d) % cfg.na for d in range(-SEARCH, SEARCH + 1)]
-            cols = [(ec + d) % cfg.nr for d in range(-SEARCH, SEARCH + 1)]
-            win = mag[rows][:, cols]
-            i, j = divmod(int(win.argmax()), win.shape[1])
-            out.append(dict(expected=[er, ec], peak=[rep.row, rep.col],
-                            wide_peak_offset=[i - SEARCH, j - SEARCH],
-                            snr_db=rep.snr_db))
-        return out
+    score = scorer(cfg, targets)
 
     main_inputs = {}
     results = {}
@@ -3062,9 +3453,13 @@ def run(torch) -> int:
 
     # ---- 18. the multi-device lowering, P slabs on one card ----------------
     kernels += sharded_phase(torch, smi_line, cfg, raw, score)
+
+    # ---- 19. lines past one block: 8192 x 16384, three factors ------------
+    kernels += long_lines_phase(torch, smi_line, cfg, raw, score,
+                                replay_plain)
     for k in kernels:
-        k["precisions"] = kernel_precisions(k["name"])
-        k["karatsuba_by_route"] = kernel_karatsuba(k["name"])
+        k.setdefault("precisions", kernel_precisions(k["name"]))
+        k.setdefault("karatsuba_by_route", kernel_karatsuba(k["name"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

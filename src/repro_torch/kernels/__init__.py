@@ -15,6 +15,8 @@ csrc/spectral.cu        — the per-axis kernel (sm_90a).
 csrc/mega.cu            — mega_resident and mega_staged (sm_90a).
 csrc/spectral_common.cuh— the device code both share (four-step stages,
                           the Stockham pass, filter, tile pass).
+csrc/long_lines.cuh     — lines past one block: the four-step over device
+                          memory in one cooperative launch (both share it).
 csrc/transpose.cu       — the tiled transpose (sm_90a).
 """
 from repro_torch.kernels.fft4step import (  # noqa: F401

@@ -11,7 +11,10 @@
 //   (pallas_call at fft4step.py:1288, residency="staged"),
 // both wrapped by src/repro/kernels/ops.py:161 `mega_spectral_op`; at
 // every precision (f32, bf16, f16, bs16), Karatsuba per segment on the
-// matmul route, N <= 4096 on each transformed axis, all
+// matmul route, N <= 4096 on each transformed axis (mega_staged: any N
+// up to 2^21 and three-factor splits at f32, a segment past one block
+// running long_lines.cuh's device-memory passes as phases of its own,
+// through the same device functions as spectral.cu's), all
 // five filter modes on either axis (rank-K outer), fwd-only / inv-only /
 // fwd+inv / filter-only segments, at most kMaxSegments segments. Each FFT
 // runs on one of two routes: fft_impl="matmul" (the four-step stages, N a
@@ -119,7 +122,7 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "spectral_common.cuh"
+#include "long_lines.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -131,21 +134,17 @@ namespace cg = cooperative_groups;
 #ifndef MEGA_OPERAND_FORMS
 #define MEGA_OPERAND_FORMS 0
 #endif
+// mega_long.cu includes it with MEGA_LONG_LINES set, to build mega_staged
+// for chains with a segment past one block (kLong) alone.
+#ifndef MEGA_LONG_LINES
+#define MEGA_LONG_LINES 0
+#endif
 
 namespace {
 
 using namespace spectral;
 
 constexpr int kMaxSegments = 8;
-constexpr int kSegFields = 27;   // int64 fields per segment in the table
-
-struct Segment {
-  Dft d;
-  Filter f;
-  int axis, fwd, inv;
-  int tile;           // mega_staged: lines per tile
-  int kara;           // the matmul route: Karatsuba in this segment
-};
 
 // mega_resident's thread bound: the 128^2 Stockham specialisation holds
 // its slab as 16 points a thread of 1024 (inlined, 64 registers: 0.57x
@@ -276,7 +275,12 @@ mega_resident(const __grid_constant__ MegaArgs a) {
 // path's 4096^2 scene takes kN = 4096: out of line they spilled 1-3 KB
 // each under this kernel's register budget). kOp, kKara: the matmul
 // route's operand form (tile_op's), each segment's Karatsuba its own.
-template <bool kStockham, int kN, bool kBs, int kOp = kTf32x3, int kKara = 0>
+// kLong (f32, kN = 0): a chain with a segment past one block, which runs
+// long_lines.cuh's device-memory passes as phases of its own (out of line,
+// long_segment); an instantiation of its own, so that the kernels without
+// such a segment keep their code and registers.
+template <bool kStockham, int kN, bool kBs, int kOp = kTf32x3, int kKara = 0,
+          bool kLong = false>
 __global__ void __launch_bounds__(kStockham ? kStockhamThreads : kMmaThreads,
                                   1)
 mega_staged(const __grid_constant__ MegaArgs a) {
@@ -285,6 +289,15 @@ mega_staged(const __grid_constant__ MegaArgs a) {
   const long long scene_points = (long long)a.na * a.nr;
   for (int k = 0; k < a.nseg; ++k) {
     const Segment& g = a.seg[k];
+    if constexpr (kLong) {
+      if (g.lg.on) {   // lines past one block: long_lines.cuh's passes
+        long_segment<kStockham>(s, g, k == 0 ? a.xr : a.yr,
+                                k == 0 ? a.xi : a.yi, a.yr, a.yi, a.batch,
+                                a.na, a.nr);
+        if (k + 1 < a.nseg) grid.sync();
+        continue;
+      }
+    }
     const int lines = g.axis == 1 ? a.na : a.nr;
     const int C = g.tile;
     const int tiles = (lines + C - 1) / C;
@@ -308,16 +321,12 @@ mega_staged(const __grid_constant__ MegaArgs a) {
   }
 }
 
-template <typename T>
-const T* as_ptr(long long v) {
-  return reinterpret_cast<const T*>(static_cast<uintptr_t>(v));
-}
-
-// Fill MegaArgs from the host's segment table (kSegFields int64 a segment:
-// axis, fwd, inv, mode, rank, n, n1, n2, tile, f1r, f1i, f2r, f2i, twr,
-// twi, hr, hi, h_line, h_k, u, v, u_line, u_k, v_n, v_k, stw, kara). A
-// non-null stw (the Stockham twiddle table) puts the segment on the
-// Stockham route; kara (the matmul route) its stages on Karatsuba.
+// Fill MegaArgs from the host's segment table (kSegFields int64 a segment,
+// long_lines.cuh's unpack_segment). A non-null stw (the Stockham twiddle
+// table) puts the segment on the Stockham route; kara (the matmul route)
+// its stages on Karatsuba; a set `on` its lines past one block on
+// long_lines.cuh's device-memory passes (f32 alone: a call with such a
+// segment at another form is refused).
 cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
                    float* yi, int batch, int na, int nr, int nseg, int bs,
                    int op, const long long* table) {
@@ -328,33 +337,17 @@ cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
   a.xr = xr; a.xi = xi; a.yr = yr; a.yi = yi;
   a.batch = batch; a.na = na; a.nr = nr; a.nseg = nseg; a.bs = bs;
   a.op = op;
+  bool any_long = false, any_kara = false;
   for (int k = 0; k < nseg; ++k) {
     const long long* r = table + (long long)k * kSegFields;
-    Segment& g = a.seg[k];
-    g.axis = (int)r[0]; g.fwd = (int)r[1]; g.inv = (int)r[2];
-    g.f.mode = (int)r[3]; g.f.rank = (int)r[4];
-    g.d.n = (int)r[5]; g.d.n1 = (int)r[6]; g.d.n2 = (int)r[7];
-    g.tile = (int)r[8];
-    g.d.f1r = as_ptr<float>(r[9]);  g.d.f1i = as_ptr<float>(r[10]);
-    g.d.f2r = as_ptr<float>(r[11]); g.d.f2i = as_ptr<float>(r[12]);
-    g.d.twr = as_ptr<float>(r[13]); g.d.twi = as_ptr<float>(r[14]);
-    g.f.hr = as_ptr<float>(r[15]);  g.f.hi = as_ptr<float>(r[16]);
-    g.f.h_line = r[17]; g.f.h_k = r[18];
-    g.f.u = as_ptr<float>(r[19]);   g.f.v = as_ptr<float>(r[20]);
-    g.f.u_line = r[21]; g.f.u_k = r[22]; g.f.v_n = r[23]; g.f.v_k = r[24];
-    g.d.stw = as_ptr<float2>(r[25]);
-    g.kara = (int)r[26];
-    if (g.axis != 0 && g.axis != 1) return cudaErrorInvalidValue;
-    if (g.kara && (g.d.stw != nullptr || !(g.fwd || g.inv))) {
-      g.kara = 0;     // no stage runs Karatsuba there
-    }
-    if (g.d.n != (g.axis == 1 ? nr : na)) return cudaErrorInvalidValue;
-    const int n = g.d.n;
-    if ((g.fwd || g.inv) &&
-        (g.d.stw != nullptr ? n < 2 || (n & (n - 1)) != 0
-                            : g.d.n1 * g.d.n2 != n)) {
-      return cudaErrorInvalidValue;
-    }
+    const cudaError_t err =
+        unpack_segment(r, r[0] == 1 ? nr : na, a.seg[k]);
+    if (err != cudaSuccess) return err;
+    any_long = any_long || a.seg[k].lg.on;
+    any_kara = any_kara || a.seg[k].kara;
+  }
+  if (any_long && (op != kTf32x3 || bs || any_kara)) {
+    return cudaErrorInvalidValue;
   }
   return cudaSuccess;
 }
@@ -385,11 +378,13 @@ bool any_kara(const MegaArgs& a) {
   return false;
 }
 
-// The N of every transforming segment when they agree, else 0.
+// The N of every transforming segment when they agree, else 0 (and 0 for a
+// chain with a segment past one block, which the generic kernel runs).
 int transform_n(const MegaArgs& a) {
   int n = 0;
   for (int k = 0; k < a.nseg; ++k) {
     const Segment& g = a.seg[k];
+    if (g.lg.on) return 0;
     if (!(g.fwd || g.inv)) continue;
     if (n != 0 && g.d.n != n) return 0;
     n = g.d.n;
@@ -467,19 +462,19 @@ cudaError_t launch_resident(const MegaArgs& a, int threads, size_t smem,
 // Blocks of mega_staged<kStockham, kN> one SM holds with `smem` bytes of
 // dynamic shared memory (after setting the attribute), or the error.
 template <bool kStockham, int kN, bool kBs = false, int kOp = kTf32x3,
-          int kKara = 0>
+          int kKara = 0, bool kLong = false>
 cudaError_t staged_per_sm(size_t smem, int& per_sm) {
   cudaError_t err = cudaFuncSetAttribute(
-      mega_staged<kStockham, kN, kBs, kOp, kKara>,
+      mega_staged<kStockham, kN, kBs, kOp, kKara, kLong>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mega_staged<kStockham, kN, kBs, kOp, kKara>,
+      &per_sm, mega_staged<kStockham, kN, kBs, kOp, kKara, kLong>,
       kStockham ? kStockhamThreads : kMmaThreads, smem);
 }
 
 template <bool kStockham, int kN, bool kBs = false, int kOp = kTf32x3,
-          int kKara = 0>
+          int kKara = 0, bool kLong = false>
 cudaError_t launch_staged(MegaArgs& a, long long work, size_t smem,
                           cudaStream_t stream) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -490,15 +485,16 @@ cudaError_t launch_staged(MegaArgs& a, long long work, size_t smem,
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if ((err = staged_per_sm<kStockham, kN, kBs, kOp, kKara>(smem, per_sm)) !=
-      cudaSuccess) {
+  if ((err = staged_per_sm<kStockham, kN, kBs, kOp, kKara, kLong>(
+           smem, per_sm)) != cudaSuccess) {
     return err;
   }
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int grid = (int)std::min((long long)per_sm * sms, work);
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel((const void*)mega_staged<kStockham, kN,
-                                                            kBs, kOp, kKara>,
+                                                            kBs, kOp, kKara,
+                                                            kLong>,
                                     dim3(grid),
                                     dim3(kStockham ? kStockhamThreads
                                                    : kMmaThreads),
@@ -524,12 +520,18 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
                          float* yi, int batch, int na, int nr, int nseg,
                          int block_scaled, int op, const long long* table,
                          void* stream) {
+#if MEGA_LONG_LINES
+  return (int)cudaErrorInvalidValue;    // mega.cu's and mega_forms.cu's
+#else
   MegaArgs a;
   cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg,
                            block_scaled, op, table);
   if (err != cudaSuccess) return (int)err;
   const int r = route(a);
   if (r < 0) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < nseg; ++k) {   // lines of one block alone
+    if (a.seg[k].lg.on) return (int)cudaErrorInvalidValue;
+  }
   const int total = na * nr;
   const int need = ((total + kPerThread - 1) / kPerThread + 31) / 32 * 32;
   // Stockham: up to 512 threads, 16 points a thread, rounds of lines;
@@ -578,6 +580,7 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
   return (int)(n128 ? launch_resident<true, 128>(a, threads, smem, st)
                    : launch_resident<true, 0>(a, threads, smem, st));
 #endif
+#endif  // MEGA_LONG_LINES
 }
 
 int mega_staged_launch(const float* xr, const float* xi, float* yr,
@@ -594,8 +597,16 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
   const int threads = r ? kStockhamThreads : kMmaThreads;
   size_t smem = 0;
   long long work = 0;
+  bool any_long = false;
   for (int k = 0; k < nseg; ++k) {
     const Segment& g = a.seg[k];
+    if (g.lg.on) {   // long_lines.cuh's passes, on this kernel's grid
+      any_long = true;
+      const LongOp op = long_op_of(g, xr, xi, yr, yi, batch, na, nr);
+      smem = std::max(smem, long_smem(op, r));
+      work = std::max(work, long_work(op));
+      continue;
+    }
     const int lines = g.axis == 1 ? na : nr;
     const int per = stockham_per_thread(g.tile * g.d.n, g.d.n);
     if (g.tile < 1 || (r ? g.tile * g.d.n > kStockhamThreads * per ||
@@ -610,6 +621,15 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
                     (long long)batch * ((lines + g.tile - 1) / g.tile));
   }
   const cudaStream_t st = (cudaStream_t)stream;
+#if MEGA_LONG_LINES
+  if (!any_long) return (int)cudaErrorInvalidValue;   // mega.cu's
+  // unpack took it at f32 alone
+  return (int)(r ? launch_staged<true, 0, false, kTf32x3, 0, true>(
+                       a, work, smem, st)
+                 : launch_staged<false, 0, false, kTf32x3, 0, true>(
+                       a, work, smem, st));
+#else
+  if (any_long) return (int)cudaErrorInvalidValue;    // mega_long.cu's
   if (!r) {
     return (int)with_form(a.op, block_scaled, any_kara(a),
                           [&](auto op, auto bs, auto kara) {
@@ -629,9 +649,10 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
   return (int)(n4096 ? launch_staged<true, 4096>(a, work, smem, st)
                      : launch_staged<true, 0>(a, work, smem, st));
 #endif
+#endif  // MEGA_LONG_LINES
 }
 
-#if !MEGA_OPERAND_FORMS
+#if !MEGA_OPERAND_FORMS && !MEGA_LONG_LINES
 // Blocks of mega_staged on the given route (stockham != 0) one SM holds
 // with `smem` bytes of dynamic shared memory (-1 on error): its persistent
 // grid is this times the SM count.

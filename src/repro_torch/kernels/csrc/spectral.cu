@@ -9,7 +9,10 @@
 // (B, lines, N); cols: (B, N, lines)), all five filter modes (rank-K
 // outer), fwd-only / inv-only / fwd+inv / filter-only; and, with
 // fft_impl="stockham", also src/repro/kernels/fft4step.py:422
-// `_fft_stockham` inside it (N any power of two from 2 to 4096).
+// `_fft_stockham` inside it (N any power of two from 2 to 4096). Lines
+// past 4096 points (up to 2^21) and three-factor splits run, at f32, as
+// the device-memory passes of long_lines.cuh in one cooperative launch
+// (spectral_long, entry point spectral_long_launch).
 //
 // What bounds it on an H100 SXM at the paper's 4096 x 4096 scene: each
 // launch reads re+im once and writes re+im once, 4 x 64 MiB = ~268 MB,
@@ -89,7 +92,7 @@
 // -shared -Xcompiler -fPIC (no --use_fast_math); bound through ctypes by
 // src/repro_torch/kernels/_build.py and src/repro_torch/kernels/ops.py.
 
-#include "spectral_common.cuh"
+#include "long_lines.cuh"
 
 namespace {
 
@@ -192,6 +195,21 @@ cudaError_t launch_form(const Args& a, int op, bool bs, bool kara, int batch,
   }
 }
 
+// One op on lines past one block (or a three-factor split): every
+// device-memory pass of long_lines.cuh, a grid barrier between two, in one
+// cooperative launch on the co-resident blocks. Naming one block per SM
+// gives ptxas the register file of the thread bound, as for mega_staged.
+struct LongArgs {
+  LongOp op;
+};
+
+template <bool kStockham>
+__global__ void __launch_bounds__(kLongThreads, 1)
+spectral_long(const __grid_constant__ LongArgs a) {
+  extern __shared__ float2 s[];
+  long_op<kStockham>(s, a.op);
+}
+
 }  // namespace
 
 extern "C" {
@@ -265,6 +283,32 @@ int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
   }
   return (int)launch_form(a, op, block_scaled, karatsuba, batch, threads,
                           smem, st);
+}
+
+// Launches one op on lines past one block — fwd / inv / fwd+inv, any
+// filter, or filter-only — on `stream` (returns the launch's error, 0 on
+// success): the (batch, na, nr) scene layout of mega.cu, rows (axis 1,
+// lines of nr points) or columns (axis 0, lines of na points), and one
+// segment record of long_lines.cuh (kSegFields int64) with its `on` set.
+// The Stockham table of the tail (non-null) selects the Stockham route.
+int spectral_long_launch(const float* xr, const float* xi, float* yr,
+                         float* yi, int batch, int na, int nr,
+                         const long long* rec, void* stream) {
+  if (batch < 1 || na < 1 || nr < 1) return (int)cudaErrorInvalidValue;
+  Segment g{};
+  const cudaError_t err =
+      unpack_segment(rec, rec[0] == 1 ? nr : na, g);
+  if (err != cudaSuccess) return (int)err;
+  if (!g.lg.on) return (int)cudaErrorInvalidValue;
+  LongArgs a{long_op_of(g, xr, xi, yr, yi, batch, na, nr)};
+  const bool stockham = g.d.stw != nullptr;
+  const size_t smem = long_smem(a.op, stockham);
+  const long long work = long_work(a.op);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(stockham ? launch_cooperative(spectral_long<true>, a,
+                                             kLongThreads, smem, work, st)
+                        : launch_cooperative(spectral_long<false>, a,
+                                             kLongThreads, smem, work, st));
 }
 
 const char* spectral_error_string(int code) {

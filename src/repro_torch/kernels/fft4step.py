@@ -18,6 +18,10 @@ This module holds what every implementation of that op shares:
 * ``stockham_twiddles`` / ``stockham_table`` — the per-pass twiddles of
   the Stockham route, one table read by the kernels and the plain
   version alike;
+* lines longer than one block holds (``TILE_MAX_N``): the four-step over
+  device memory of ``csrc/long_lines.cuh`` — ``four_step_twiddle``, the
+  table its passes multiply by, and ``stockham_fft``, whose lines past
+  ``TILE_MAX_N`` take the kernels' decomposition;
 * the bs16 block-exponent codec (``line_exponents`` ... ``remove_exponents``);
 * ``spectral_plain`` — the plain PyTorch version of the fused op: the same
   recursion as the CUDA kernel's reference design, written with
@@ -56,6 +60,9 @@ FILTER_MODES = (FILTER_NONE, FILTER_SHARED, FILTER_FULL, FILTER_OUTER,
                 FILTER_SHARED_OUTER)
 
 MAX_FACTOR = 128  # every DFT-matrix factor is a power of two <= 128
+# The longest line one block of the CUDA kernels holds on either route;
+# longer lines (and three-factor splits) run as passes over device memory.
+TILE_MAX_N = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -194,15 +201,36 @@ def dft_constants(*factors: int) -> tuple[np.ndarray, ...]:
     for f in factors:
         out.extend(dft(f))
     for i in range(len(factors) - 1):
-        rest = int(np.prod(factors[i + 1:]))
-        k = np.arange(factors[i])[:, None]
-        j = np.arange(rest)[None, :]
-        tw = np.exp(-2j * np.pi * k * j / (factors[i] * rest))
-        out.append(tw.real.astype(np.float32))
-        out.append(tw.imag.astype(np.float32))
+        out.extend(four_step_twiddle(factors[i],
+                                     int(np.prod(factors[i + 1:]))))
     for a in out:
         a.setflags(write=False)
     return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def four_step_twiddle(f: int, rest: int) -> tuple[np.ndarray, np.ndarray]:
+    """The twiddle between a four-step stage of ``f`` points and the
+    ``rest``-point transforms after it, exp(-2 pi i k j / (f rest)) for
+    k < f, j < rest: (re, im), each (f, rest), float64 math rounded to
+    float32 once (read-only). The matmul route's inter-stage twiddles
+    (``dft_constants``) and the long lines' device-memory passes on both
+    routes read it, the kernels and the plain versions alike."""
+    k = np.arange(f)[:, None]
+    j = np.arange(rest)[None, :]
+    tw = np.exp(-2j * np.pi * k * j / (f * rest))
+    out = (tw.real.astype(np.float32), tw.imag.astype(np.float32))
+    for a in out:
+        a.setflags(write=False)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def four_step_twiddle_tensors(f: int, rest: int,
+                              device: str) -> tuple[torch.Tensor, ...]:
+    """``four_step_twiddle`` as float32 tensors on ``device`` (cached)."""
+    return tuple(torch.from_numpy(np.array(c)).to(device)
+                 for c in four_step_twiddle(f, rest))
 
 
 @functools.lru_cache(maxsize=64)
@@ -506,6 +534,71 @@ def _fft_stockham(xr, xi, axis: int):
     return yr.reshape(L, N), yi.reshape(L, N)
 
 
+def stockham_split(n: int) -> tuple[int, int]:
+    """(A, B) of the Stockham route's long line: its N = A * B points
+    run as A-point transforms over device memory (one pass a direction)
+    and B = ``TILE_MAX_N``-point transforms in a tile."""
+    return n // TILE_MAX_N, TILE_MAX_N
+
+
+def _fft_stockham_long(xr, xi, inverse: bool):
+    """The Stockham route along the last axis of (M, N), N past
+    ``TILE_MAX_N``: the four-step of the CUDA kernels' device-memory
+    passes (``csrc/long_lines.cuh``), each sub-transform ``_fft_stockham``,
+    so that the kernels equal it bit for bit. Natural order in and out.
+
+    View a line as (A, B), point a * B + b. Forward: A-point transforms
+    down the columns b, times ``four_step_twiddle(A, B)[k_a, b]``, then
+    B-point transforms along the rows: X[k_b A + k_a] lands at
+    (k_a, k_b), and the result is that array turned to natural order.
+    ``inverse`` (the caller conjugates in and out and scales): the same
+    transforms in the opposite order on the spectrum held at (k_a, k_b) —
+    B-point transforms along the rows, the twiddle, A-point transforms
+    down the columns — which is the kernels' inverse on the order their
+    forward leaves."""
+    m, n = xr.shape
+    a, b = stockham_split(n)
+    twr, twi = four_step_twiddle_tensors(a, b, str(xr.device))
+
+    def rows(zr, zi, length):    # transforms along the last axis
+        yr, yi = _fft_stockham(zr.reshape(-1, length),
+                               zi.reshape(-1, length), 1)
+        return yr.reshape(zr.shape), yi.reshape(zi.shape)
+
+    def cols(zr, zi):            # (M, A, B): A-point transforms over dim 1
+        yr, yi = rows(zr.transpose(1, 2).contiguous(),
+                      zi.transpose(1, 2).contiguous(), a)
+        return yr.transpose(1, 2), yi.transpose(1, 2)
+
+    if not inverse:
+        zr, zi = cols(xr.reshape(m, a, b), xi.reshape(m, a, b))
+        zr, zi = _cmul(zr, zi, twr, twi)
+        zr, zi = rows(zr.contiguous(), zi.contiguous(), b)
+        return (zr.transpose(1, 2).reshape(m, n),
+                zi.transpose(1, 2).reshape(m, n))
+    zr = xr.reshape(m, b, a).transpose(1, 2).contiguous()
+    zi = xi.reshape(m, b, a).transpose(1, 2).contiguous()
+    zr, zi = rows(zr, zi, b)
+    zr, zi = _cmul(zr, zi, twr, twi)
+    zr, zi = cols(zr, zi)
+    return zr.reshape(m, n), zi.reshape(m, n)
+
+
+def stockham_fft(xr, xi, axis: int, inverse: bool = False):
+    """The Stockham route's transform along ``axis`` of a 2-D block:
+    ``_fft_stockham`` for lines of up to ``TILE_MAX_N`` points (the
+    forward, for either direction: the caller conjugates), and past it
+    the kernels' four-step over device memory (``_fft_stockham_long``),
+    whose inverse runs its passes in the opposite order."""
+    n = xr.shape[1] if axis == 1 else xr.shape[0]
+    if n <= TILE_MAX_N:
+        return _fft_stockham(xr, xi, axis)
+    if axis == 0:
+        yr, yi = _fft_stockham_long(xr.T, xi.T, inverse)
+        return yr.T, yi.T
+    return _fft_stockham_long(xr, xi, inverse)
+
+
 def _run_fft(xr, xi, consts, spec: SpectralSpec, inverse: bool):
     """Forward or inverse (conj-FFT-conj, x 1/N) transform along
     spec.axis of a (B, L, n) / (B, n, L) batch: the batch folds into
@@ -523,7 +616,7 @@ def _run_fft(xr, xi, consts, spec: SpectralSpec, inverse: bool):
         fft = _fft_rows_matmul if spec.axis == 1 else _fft_cols_matmul
         yr, yi = fft(xr2, xi2, consts, spec)
     elif spec.fft_impl == "stockham":
-        yr, yi = _fft_stockham(xr2, xi2, spec.axis)
+        yr, yi = stockham_fft(xr2, xi2, spec.axis, inverse)
     else:
         raise ValueError(f"unknown fft_impl {spec.fft_impl}")
     if inverse:

@@ -9,8 +9,9 @@ arguments are unbatched (scenes share the SceneConfig filters).
 Where it runs is decided by the tensors alone:
 
 * a CUDA tensor launches the hand-written kernel ``csrc/spectral.cu``
-  (one launch per call, counted in ``SPECTRAL_LAUNCHES``), or raises —
-  there is no fallback;
+  (one launch per call, counted in ``SPECTRAL_LAUNCHES``; a line past one
+  block its cooperative ``spectral_long``), or raises — there is no
+  fallback;
 * a CPU tensor runs the plain PyTorch version
   (``fft4step.spectral_plain``).
 
@@ -27,6 +28,8 @@ the two kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -40,22 +43,26 @@ from repro_torch.kernels.fft4step import (
     FILTER_OUTER,
     FILTER_SHARED,
     FILTER_SHARED_OUTER,
+    MAX_FACTOR,
     RESIDENT_STAGED,
     RESIDENT_VMEM,
     MegaSpec,
     SegmentSpec,
     SpectralSpec,
+    TILE_MAX_N,
     _filter_ref_count,
     apply_exponents,
     check_mega,
     default_factorization,
     device_constants,
+    four_step_twiddle_tensors,
     line_exponents,
     mega_plain,
     remove_exponents,
     resolve_precision,
     spectral_plain,
     stockham_radices,
+    stockham_split,
     stockham_table,
 )
 
@@ -66,7 +73,10 @@ SPECTRAL_LAUNCHES = 0
 MEGA_LAUNCHES = {"mega_resident": 0, "mega_staged": 0}
 
 KERNEL_NAME = "spectral"
-KERNEL_MAX_N = 4096
+# The longest line the kernels take (the reference's three-factor limit,
+# 128^3); lines past TILE_MAX_N, and three-factor splits, run as passes
+# over device memory in the same one launch (csrc/long_lines.cuh).
+KERNEL_MAX_N = MAX_FACTOR ** 3
 FFT_IMPLS = ("matmul", "stockham")   # the FFT routes of the CUDA kernels
 _MODE_CODES = {m: i for i, m in enumerate(FILTER_MODES)}
 _ROADMAP = "ROADMAP.md Queue 2, item 1"
@@ -160,6 +170,8 @@ def _bind():
         fn.argtypes = ([p] * 4 + [i] * 9 + [p] * 11 + [i] + [ll] * 6
                        + [i] * 5 + [p])
         fn.restype = ctypes.c_int
+        lib.spectral_long_launch.argtypes = [p] * 4 + [i] * 3 + [p, p]
+        lib.spectral_long_launch.restype = ctypes.c_int
         lib.spectral_error_string.argtypes = [ctypes.c_int]
         lib.spectral_error_string.restype = ctypes.c_char_p
     return lib
@@ -236,28 +248,178 @@ def kernel_tile(n: int, axis: int, fft_impl: str = "matmul",
     return tile, max(lo, min(hi, tile * n // 16))
 
 
-def check_kernel_spec(spec: SpectralSpec) -> tuple[int, int]:
-    """Raise ValueError for what the CUDA kernel does not take yet;
-    returns its two-factor split (n1, n2) on the four-step route
-    (``fft_impl="matmul"``) and (n, 1) on the Stockham route, which takes
-    any power of two from 2 to 4096 and splits nothing. Every precision
-    and ``karatsuba`` are taken on both routes."""
+@dataclasses.dataclass(frozen=True)
+class LongGeometry:
+    """The passes over device memory of one long op (``long_geometry``;
+    ``csrc/long_lines.cuh`` runs them in one cooperative launch).
+
+    A line of N = d_1 ... d_D * B points: the device-memory passes
+    transform the leading factors ``digits`` (the matmul route's leading
+    factors, or the Stockham route's N / ``TILE_MAX_N``), one pass each,
+    the tiles of digit i holding ``digit_tiles[i]`` sub-lines of d_i
+    points, on the matmul route in the stages ``digit_splits[i]`` (fa, fb)
+    (fb = 1: one stage); the tail pass transforms B = prod(``tail``)
+    points a line, ``tail_tile`` lines a tile (the matmul route's one or
+    two factors, the Stockham route's ``TILE_MAX_N``). A filter-only op
+    has no digits and no tail: one elementwise pass."""
+
+    digits: tuple[int, ...]
+    tail: tuple[int, ...]
+    digit_tiles: tuple[int, ...]
+    tail_tile: int
+    fft_impl: str
+    digit_splits: tuple[tuple[int, int], ...] = ()
+
+    @property
+    def tail_n(self) -> int:
+        return math.prod(self.tail) if self.tail else 0
+
+    def passes(self, fwd: bool, inv: bool) -> int:
+        """Passes (grid barriers + 1) of an op: each digit once a
+        direction and the tail once; a filter-only op one."""
+        d = len(self.digits)
+        if not (fwd or inv):
+            return 1
+        return 2 * d + 1 if fwd and inv else d + 1
+
+    def smem_bytes(self) -> int:
+        """Shared memory of the largest pass: its tile and, on the matmul
+        route, the DFT matrix (or the tail's pair) past it; the Stockham
+        route rounds a tile up to whole runs of 16 points."""
+        if not self.tail:
+            return 0
+        stockham = self.fft_impl == "stockham"
+
+        def tile_bytes(points, mats):
+            if stockham:
+                return 8 * ((points + 15) // 16 * 16)
+            return 8 * points + mats
+
+        out = [tile_bytes(f * c, dft_smem_bytes(*(
+                   sp if sp[1] > 1 else (f, f))))
+               for f, c, sp in zip(self.digits, self.digit_tiles,
+                                   self.digit_splits or
+                                   [(f, 1) for f in self.digits])]
+        t = self.tail if len(self.tail) == 2 else self.tail * 2
+        out.append(tile_bytes(self.tail_n * self.tail_tile,
+                              dft_smem_bytes(*t)))
+        return max(out)
+
+
+# The longest sum of products one tensor-core stage of the long passes
+# takes: a larger factor runs in two stages (``_stage_split``). The
+# tensor cores' accumulation truncates, so a long sum strays further (at
+# 128-term sums the 8192 x 16384 image missed complex128 by 1.04e-5,
+# PERF.md).
+LONG_STAGE_MAX = 16
+
+
+def _stage_split(f: int) -> tuple[int, int]:
+    """(fa, fb) of an f-point transform in a long pass on the matmul
+    route: (f, 1), one stage, up to ``LONG_STAGE_MAX``; else the
+    two-factor split (32 = 8 x 4, 64 = 8 x 8, 128 = 16 x 8)."""
+    return (f, 1) if f <= LONG_STAGE_MAX else default_factorization(f)
+
+
+def _long_digit_tile(f: int, rest: int, fft_impl: str) -> int:
+    """Sub-lines of one digit pass's tile: Stockham, what 512 threads hold
+    at 16 points a thread; matmul, at most 16384 points beside the digit's
+    DFT matrices in shared memory, and in one stage (f <= 16) at most the
+    columns one round of it takes (the f x C tile is one line of C
+    columns). Never more than the ``rest`` sub-lines of a block."""
+    if fft_impl == "stockham":
+        c = max(1, 16 * STOCKHAM_THREADS // f)
+    else:
+        fa, fb = _stage_split(f)
+        c = max(1, 16384 // f)
+        if fb == 1:
+            c = min(c, MMA_THREADS[1] // 32 // -(-f // 16) * 32)
+        mats = dft_smem_bytes(fa, fb) if fb > 1 else dft_smem_bytes(f, f)
+        while c > 1 and 8 * c * f + mats > SMEM_OPTIN_BYTES:
+            c //= 2
+    return min(c, rest)
+
+
+def _long_tail_tile(tail: tuple[int, ...], fft_impl: str) -> int:
+    """Lines of one tail tile: Stockham, what 512 threads hold at 16
+    points a thread; matmul, 16384 points, beside the tail's DFT
+    matrices, and with one factor at most one round of the stage's
+    columns (the lines are its columns)."""
+    b = math.prod(tail)
+    if fft_impl == "stockham":
+        return max(1, 16 * STOCKHAM_THREADS // b)
+    c = max(1, 16384 // b)
+    if len(tail) == 1:
+        c = min(c, MMA_THREADS[1] // 32 // -(-b // 16) * 32)
+    mats = dft_smem_bytes(*(tail if len(tail) == 2 else tail * 2))
+    while c > 1 and 8 * c * b + mats > SMEM_OPTIN_BYTES:
+        c //= 2
+    return c
+
+
+def long_geometry(spec: SpectralSpec) -> Optional[LongGeometry]:
+    """The device-memory passes of ``spec`` on the CUDA kernels, or None
+    where one block holds a whole line (N <= ``TILE_MAX_N`` with a
+    two-factor split, or the Stockham route). The matmul route's leading
+    factor is a pass, and the next too where the last two multiply past
+    ``TILE_MAX_N`` (128^3); the Stockham route splits N into
+    N / ``TILE_MAX_N`` x ``TILE_MAX_N`` (``fft4step.stockham_split``)."""
+    if not (spec.fwd or spec.inv):
+        if spec.n <= TILE_MAX_N:
+            return None
+        return LongGeometry((), (), (), 0, spec.fft_impl)
+    if spec.fft_impl == "stockham":
+        if spec.n <= TILE_MAX_N:
+            return None
+        digits, tail = (stockham_split(spec.n)[0],), (TILE_MAX_N,)
+        splits = ()
+    else:
+        fs = spec.factors()
+        if len(fs) == 2 and spec.n <= TILE_MAX_N:
+            return None
+        cut = 2 if len(fs) == 3 and fs[1] * fs[2] > TILE_MAX_N else 1
+        digits, tail = fs[:cut], fs[cut:]
+        if len(tail) == 1:          # its stages as a digit's
+            tail = tuple(f for f in _stage_split(tail[0]) if f > 1)
+        splits = tuple(_stage_split(f) for f in digits)
+    rest, tiles = spec.n, []
+    for f in digits:
+        rest //= f
+        tiles.append(_long_digit_tile(f, rest, spec.fft_impl))
+    return LongGeometry(digits, tail, tuple(tiles),
+                        _long_tail_tile(tail, spec.fft_impl), spec.fft_impl,
+                        splits)
+
+
+def check_kernel_spec(spec: SpectralSpec) -> tuple[int, ...]:
+    """Raise ValueError for what the CUDA kernel does not take; returns the
+    split (n1, n2[, n3]) of the four-step route (``fft_impl="matmul"``)
+    and (n, 1) on the Stockham route, which splits nothing. Both routes
+    take every power of two N up to ``KERNEL_MAX_N`` (2^21), the matmul
+    route every split of two or three factors up to 128; a line past
+    ``TILE_MAX_N`` or a three-factor split runs as passes over device
+    memory (``long_geometry``), at f32 alone: bf16, f16, bs16 and
+    Karatsuba take lines of one block (N <= 4096, two factors)."""
     if spec.fft_impl not in FFT_IMPLS:
         raise ValueError(f"unknown fft_impl {spec.fft_impl!r}: the CUDA "
                          f"kernels take {FFT_IMPLS} (ROADMAP.md Queue 2)")
     if spec.n > KERNEL_MAX_N:
         raise ValueError(
-            f"n={spec.n} > {KERNEL_MAX_N} is not taken by the CUDA spectral "
-            f"kernel yet ({_ROADMAP}d)")
+            f"n={spec.n} > {KERNEL_MAX_N} is taken by no route of the CUDA "
+            f"kernels, nor by the reference's factorization")
     if spec.fft_impl == "stockham":
         stockham_radices(spec.n)          # a power of two >= 2
-        return spec.n, 1
-    factors = spec.factors()
-    if len(factors) != 2:
+        split = (spec.n, 1)
+    else:
+        split = spec.factors()
+    if long_geometry(spec) is not None and (
+            spec.precision != "f32" or spec.karatsuba):
         raise ValueError(
-            f"the CUDA spectral kernel takes a two-factor split, got "
-            f"{factors} ({_ROADMAP}d)")
-    return factors
+            f"precision={spec.precision!r}, karatsuba={spec.karatsuba} at "
+            f"n={spec.n} split {split}: the CUDA kernels' device-memory "
+            f"passes (N > {TILE_MAX_N} or three factors) run f32 without "
+            f"Karatsuba alone ({_ROADMAP}g)")
+    return split
 
 
 def _ptr(t):
@@ -322,9 +484,122 @@ def _filter_launch_args(mode: str, axis: int, filter_args):
                             h_line, h_k, u_line, u_k, v_n, v_k)
 
 
+# The long fields of a segment record (after the 27 of every segment): on,
+# digits, tail tile, scratch re / im, then per digit (factor, tile, fb,
+# F_fa re, F_fa im, F_fb re, F_fb im, (fa, fb) twiddle re, im, Stockham
+# table, four-step twiddle re, im), csrc/long_lines.cuh.
+_DIGIT_FIELDS = 12
+_LONG_FIELDS = 5 + _DIGIT_FIELDS * 2
+
+
+def _long_fields(spec: SpectralSpec, geom: LongGeometry, dev, scratch):
+    """(head, long fields, tensors to keep alive) of a long op's record:
+    head = (n, n1, n2, tile, (F1 re, F1 im, F2 re, F2 im, tw re, tw im),
+    Stockham table) of its tail's transform — the two-factor split's, one
+    factor's as (B, 1), the Stockham route's (B, 1) with B's table — and
+    the device-memory digits' fields (``_LONG_FIELDS``). ``scratch``: the
+    (re, im) buffer a forward-only or inverse-only op moves its permuted
+    lines through, or None."""
+    keep, digits = [], []
+    rest = spec.n
+    for i, (f, c) in enumerate(zip(geom.digits, geom.digit_tiles)):
+        rest //= f
+        tw = four_step_twiddle_tensors(f, rest, str(dev))
+        if spec.fft_impl == "stockham":
+            fb, stages, stw = 0, (None,) * 6, stockham_table(f, str(dev))
+        else:   # F_fa, F_fb and their twiddle; F_f alone in one stage
+            fb, stw = geom.digit_splits[i][1], None
+            stages = device_constants(geom.digit_splits[i] if fb > 1
+                                      else (f,), str(dev))
+            stages = (*stages, *(None,) * (6 - len(stages)))
+        keep += [t for t in (*tw, *stages, stw) if t is not None]
+        digits.append((f, c, fb, stages, stw, *tw))
+    if not geom.tail:                 # filter-only: one elementwise pass
+        head = (spec.n, 1, 1, 0, (None,) * 6, None)
+    elif spec.fft_impl == "stockham":
+        tstw = stockham_table(geom.tail_n, str(dev))
+        keep.append(tstw)
+        head = (geom.tail_n, geom.tail_n, 1, geom.tail_tile, (None,) * 6,
+                tstw)
+    else:
+        tconsts = device_constants(geom.tail, str(dev))
+        keep += tconsts
+        split = geom.tail if len(geom.tail) == 2 else (geom.tail_n, 1)
+        head = (geom.tail_n, *split, geom.tail_tile,
+                (*tconsts, *(None,) * (6 - len(tconsts))), None)
+    sr, si = scratch if scratch is not None else (None, None)
+    fields = [1, len(digits), geom.tail_tile, _ptr(sr) or 0, _ptr(si) or 0]
+    for i in range(2):
+        if i < len(digits):
+            f, c, fb, stages, stw, twr, twi = digits[i]
+            fields += [f, c, fb, *(_ptr(t) or 0 for t in
+                                   (*stages, stw, twr, twi))]
+        else:
+            fields += [0] * _DIGIT_FIELDS
+    assert len(fields) == _LONG_FIELDS
+    return head, fields, keep
+
+
+def _needs_scratch(spec: SpectralSpec) -> bool:
+    """A forward-only or inverse-only long op moves its lines between
+    the spectrum's order and the natural one through a scratch slab."""
+    return spec.fwd != spec.inv
+
+
+def _launch_long(spec: SpectralSpec, geom: LongGeometry, xr, xi,
+                 filter_args):
+    """One op on lines past one block (or a three-factor split): the
+    device-memory passes of ``csrc/long_lines.cuh`` in ONE cooperative
+    launch of spectral.cu's ``spectral_long``."""
+    global SPECTRAL_LAUNCHES
+    b = xr.shape[0]
+    n = spec.n
+    lines = xr.shape[2] if spec.axis == 0 else xr.shape[1]
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    if yr.numel() == 0:
+        return yr, yi
+    dev = xr.device
+    scratch = ((torch.empty_like(xr), torch.empty_like(xi))
+               if _needs_scratch(spec) and geom.tail else None)
+    keep, filt = _filter_launch_args(spec.filter_mode, spec.axis,
+                                     filter_args)
+    head, fields, keep2 = _long_fields(spec, geom, dev, scratch)
+    rec = _record(spec.axis, spec.fwd, spec.inv, spec.filter_mode, filt,
+                  head, 0, fields)
+    ctable = (ctypes.c_longlong * len(rec))(*rec)
+    na, nr = (lines, n) if spec.axis == 1 else (n, lines)
+    lib = _bind()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.spectral_long_launch(_ptr(xr), _ptr(xi), _ptr(yr),
+                                       _ptr(yi), b, na, nr, ctable, stream)
+    del keep, keep2, scratch
+    if err != 0:
+        msg = lib.spectral_error_string(err).decode()
+        raise RuntimeError(f"spectral_long launch failed ({err}): {msg}")
+    SPECTRAL_LAUNCHES += 1
+    return yr, yi
+
+
+def _record(axis, fwd, inv, mode, filt, head, kara, long_fields) -> list:
+    """One segment's int64 record (``_SEG_FIELDS``): axis, fwd, inv,
+    mode, rank, n, n1, n2, tile, f1r, f1i, f2r, f2i, twr, twi, hr, hi,
+    h_line, h_k, u, v, u_line, u_k, v_n, v_k, stw, kara, then the long
+    fields (``_long_fields``; zeros for a line of one block)."""
+    hr, hi, u, v, rank, h_line, h_k, u_line, u_k, v_n, v_k = filt
+    n, n1, n2, tile, consts, stw = head
+    rec = [axis, int(fwd), int(inv), _MODE_CODES[mode], rank, n, n1, n2,
+           tile, *(_ptr(c) or 0 for c in consts), hr or 0, hi or 0,
+           h_line, h_k, u or 0, v or 0, u_line, u_k, v_n, v_k,
+           _ptr(stw) or 0, kara, *long_fields]
+    assert len(rec) == _SEG_FIELDS
+    return [int(f) for f in rec]
+
+
 def _launch_cuda(spec: SpectralSpec, xr, xi, filter_args):
     global SPECTRAL_LAUNCHES
-    n1, n2 = check_kernel_spec(spec)
+    split = check_kernel_spec(spec)
     tensors = [xr, xi, *filter_args]
     dev = xr.device
     for t in tensors:
@@ -333,6 +608,11 @@ def _launch_cuda(spec: SpectralSpec, xr, xi, filter_args):
         if t.dtype != torch.float32:
             raise ValueError(f"the CUDA spectral kernel takes float32, "
                              f"got {t.dtype}")
+    geom = long_geometry(spec)
+    if geom is not None:
+        return _launch_long(spec, geom, xr.contiguous(), xi.contiguous(),
+                            filter_args)
+    n1, n2 = split
     xr = xr.contiguous()
     xi = xi.contiguous()
     b = xr.shape[0]
@@ -403,10 +683,13 @@ def spectral_op(xr, xi, hr=None, hi=None, u=None, v=None, **kw):
     Keywords: axis, fwd, inv, filter_mode, block (line padding granule),
     fft_impl ('matmul' | 'stockham'), karatsuba, precision (f32 | bf16 |
     f16 | bs16), n1/n2/n3 (factorization override). On a CUDA tensor this
-    launches the CUDA kernel, which takes N <= 4096 and both FFT routes at
-    every precision (a two-factor split, and Karatsuba, on the matmul
-    route) and raises ValueError for anything else; on a CPU tensor it runs
-    the plain version, which takes all of them.
+    launches the CUDA kernel, which takes N up to 2^21 on both FFT routes
+    and every split of two or three factors on the matmul route — lines
+    past 4096 points and three-factor splits at f32 alone, as passes over
+    device memory in the one launch (``long_geometry``); a line of one
+    block at every precision, with Karatsuba on the matmul route — and
+    raises ValueError for anything else; on a CPU tensor it runs the plain
+    version, which takes all of them.
     """
     return _spectral(xr, xi, hr, hi, u, v, False, **kw)
 
@@ -478,13 +761,17 @@ MEGA_KERNEL_NAME = "mega"
 # The library of the matmul route's other operand forms (bf16, f16, bs16,
 # Karatsuba): csrc/mega_forms.cu, built from mega.cu beside it.
 MEGA_FORMS_NAME = "mega_forms"
+# The library of mega_staged for chains with a segment past one block:
+# csrc/mega_long.cu, built from mega.cu beside it.
+MEGA_LONG_NAME = "mega_long"
 # Points the resident kernel's slab may hold besides the shared-memory
 # limit: what the Stockham route holds in registers at once (16 points a
 # thread of 1024 for 128^2); the matmul route stages them at 512 threads
 # in rounds of lines, so the cut is the same on both routes.
 RESIDENT_MAX_POINTS = 16384
 MEGA_MAX_SEGMENTS = 8
-_SEG_FIELDS = 27            # int64 fields per segment in the launch table
+_SEG_FIELDS = 27 + _LONG_FIELDS   # int64 fields per segment in the table
+_KARA_FIELD = 26                  # the record's Karatsuba flag (``_record``)
 
 
 def mega_residency(na: int, nr: int, batch_block: int = 1,
@@ -595,19 +882,30 @@ def staged_tile(n: int, lines: int, fft_impl: str, n1: int,
 
 
 def check_mega_kernel(spec: MegaSpec) -> None:
-    """Raise ValueError for what the CUDA megakernels do not take yet."""
+    """Raise ValueError for what the CUDA megakernels do not take yet:
+    ``mega_staged`` takes what the spectral kernel takes in every segment
+    (a segment past one block runs its device-memory passes as phases of
+    its own, at f32); ``mega_resident`` lines of one block alone."""
     if len(spec.segments) > MEGA_MAX_SEGMENTS:
         raise ValueError(f"the CUDA megakernels take at most "
                          f"{MEGA_MAX_SEGMENTS} segments, got "
                          f"{len(spec.segments)}")
     for seg in spec.segments:
         sspec = spec.seg_spec(seg)
-        if sspec.n > KERNEL_MAX_N:
-            raise ValueError(
-                f"n={sspec.n} > {KERNEL_MAX_N} is not taken by the CUDA "
-                f"megakernels yet ({_ROADMAP}d)")
         if seg.fwd or seg.inv:
             check_kernel_spec(sspec)
+        elif sspec.n > TILE_MAX_N and sspec.precision != "f32":
+            raise ValueError(
+                f"precision={sspec.precision!r} on a filter-only segment of "
+                f"n={sspec.n} > {TILE_MAX_N}: the device-memory passes run "
+                f"f32 alone ({_ROADMAP}g)")
+        if spec.residency == RESIDENT_VMEM and \
+                long_geometry(sspec) is not None:
+            raise ValueError(
+                f"mega_resident takes lines of one block (N <= {TILE_MAX_N}, "
+                f"two factors), got n={sspec.n} split "
+                f"{sspec.factors() if seg.fwd or seg.inv else ()} "
+                f"(ROADMAP.md Queue 2, item 2g)")
     if spec.residency == RESIDENT_VMEM:
         if (spec.batch_block or 1) != 1:
             raise ValueError("the CUDA mega_resident kernel holds one scene "
@@ -638,25 +936,36 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
     it = iter(filter_args)
     table = []
     keep = []            # tensors whose pointers the table holds
-    for seg in spec.segments:
-        sspec = spec.seg_spec(seg)
+    specs = [spec.seg_spec(seg) for seg in spec.segments]
+    geoms = [long_geometry(sspec) for sspec in specs]
+    # one scratch slab for every long forward-only or inverse-only segment
+    scratch = None
+    if any(g is not None and g.tail and _needs_scratch(sspec)
+           for g, sspec in zip(geoms, specs)):
+        scratch = (torch.empty_like(xr), torch.empty_like(xi))
+    for seg, sspec, geom in zip(spec.segments, specs, geoms):
         lines = spec.na if seg.axis == 1 else spec.nr
         fargs = [next(it)
                  for _ in range(_filter_ref_count(seg.filter_mode))]
-        tensors, (hr, hi, u, v, rank, h_line, h_k, u_line, u_k, v_n,
-                  v_k) = _filter_launch_args(seg.filter_mode, seg.axis, fargs)
+        tensors, filt = _filter_launch_args(seg.filter_mode, seg.axis, fargs)
         keep += tensors
+        if geom is not None:
+            head, fields, consts = _long_fields(
+                sspec, geom, dev, scratch if _needs_scratch(sspec) else None)
+            keep += consts
+            table.append(_record(seg.axis, seg.fwd, seg.inv,
+                                 seg.filter_mode, filt, head, 0, fields))
+            continue
         n1 = n2 = 1
         if seg.fwd or seg.inv:
             n1, n2 = check_kernel_spec(sspec)
         *consts, stw = _route_constants(sspec, n1, n2, dev)
-        table.append([
-            seg.axis, int(seg.fwd), int(seg.inv),
-            _MODE_CODES[seg.filter_mode], rank, sspec.n, n1, n2,
-            staged_tile(sspec.n, lines, sspec.fft_impl, n1, n2, seg.axis),
-            *(_ptr(c) or 0 for c in consts),
-            hr or 0, hi or 0, h_line, h_k, u or 0, v or 0,
-            u_line, u_k, v_n, v_k, _ptr(stw) or 0, _karatsuba(sspec)])
+        head = (sspec.n, n1, n2,
+                staged_tile(sspec.n, lines, sspec.fft_impl, n1, n2, seg.axis),
+                consts, stw)
+        table.append(_record(seg.axis, seg.fwd, seg.inv, seg.filter_mode,
+                             filt, head, _karatsuba(sspec),
+                             [0] * _LONG_FIELDS))
     flat = [int(f) for rec in table for f in rec]
     assert len(flat) == _SEG_FIELDS * len(table)
     ctable = (ctypes.c_longlong * len(flat))(*flat)
@@ -669,8 +978,9 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
     if not has_fft and not bs:
         op = 0
     forms = has_fft and spec.fft_impl == "matmul" and (
-        op != 0 or any(rec[-1] for rec in table))
-    lib = _bind_mega(MEGA_FORMS_NAME if forms else MEGA_KERNEL_NAME)
+        op != 0 or any(rec[_KARA_FIELD] for rec in table))
+    lib = _bind_mega(MEGA_LONG_NAME if any(g is not None for g in geoms)
+                     else MEGA_FORMS_NAME if forms else MEGA_KERNEL_NAME)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         head = (_ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), b, spec.na, spec.nr,
@@ -682,7 +992,7 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
             kernel = "mega_staged"
             err = lib.mega_staged_launch(*head, spec.buffer_depth, bs, op,
                                          ctable, stream)
-    del keep
+    del keep, scratch
     if err != 0:
         msg = lib.mega_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed ({err}): {msg}")
@@ -758,11 +1068,13 @@ def mega_spectral_op(xr, xi, *filter_args, **kw):
     back scaled with the exponents along the last segment's free axis).
 
     On a CUDA tensor this launches ``mega_resident`` or ``mega_staged``
-    (N <= 4096, at most 8 segments, both FFT routes at every precision —
-    bs16 runs the codec in each segment — with a two-factor split and
-    Karatsuba per segment on the matmul route) and raises ValueError for
-    anything else — including a forced 'vmem' on a scene that does not
-    fit; on a CPU tensor it runs
+    (at most 8 segments, both FFT routes at every precision — bs16 runs
+    the codec in each segment — with a two-factor split and Karatsuba per
+    segment on the matmul route; ``mega_staged`` also runs a segment past
+    4096 points or of three factors, at f32, as the spectral kernel's
+    device-memory passes) and raises ValueError for anything else —
+    including a forced 'vmem' on a scene that does not fit, or one with
+    such a segment; on a CPU tensor it runs
     ``fft4step.mega_plain``, which takes all of them.
     """
     return _mega(xr, xi, filter_args, False, **kw)

@@ -25,17 +25,22 @@ run on the FP32 cores.
 
 **Bytes.** The slab is read and written once a launch (16 B a point), and
 every block copies F1 and F2 and reads the twiddles (``_const_bytes``), one
-block a tile of ``ops.kernel_tile``'s lines. ``block`` only pads lines
+block a tile of ``ops.kernel_tile``'s lines. A line past one block (N >
+4096) or a three-factor split runs as passes over device memory
+(``ops.long_geometry``): each device-memory digit adds one more read and
+write of the slab a transform. ``block`` only pads lines
 (``ops.spectral_op``); the tile does not depend on it, so configs that
 launch the same kernel on the same padded slab are priced alike, and the
 measured rungs choose among them. Narrow operands do not shrink device
 memory traffic (the slab stays f32).
 
 **Feasibility.** A config is cut when the CUDA kernels refuse it
-(``ops.check_kernel_spec``, ``ops.check_mega_kernel``: N > 4096 or a split
-of three factors) or its block's shared memory exceeds the 232,448 B a
-block may opt in to (``ops.SMEM_OPTIN_BYTES``), so nothing the cut admits
-raises at launch.
+(``ops.check_kernel_spec``, ``ops.check_mega_kernel``: a narrow precision
+or Karatsuba on a line past one block or a three-factor split) or its
+block's shared memory exceeds the 232,448 B a block may opt in to
+(``ops.SMEM_OPTIN_BYTES``; a long op's largest pass,
+``LongGeometry.smem_bytes``), so nothing the cut admits raises at
+launch.
 """
 from __future__ import annotations
 
@@ -135,11 +140,27 @@ def _kernel_split(spec: SpectralSpec) -> Optional[tuple]:
         return None
 
 
+def _long(n: int, factors: tuple):
+    """The device-memory passes of an f32 op of this split
+    (``ops.long_geometry``), or None for a line of one block or a split
+    no kernel takes."""
+    try:
+        return ops.long_geometry(SpectralSpec(
+            n=n, fwd=True, inv=True, filter_mode=FILTER_NONE,
+            n1=factors[0], n2=factors[1] if len(factors) > 1 else None,
+            n3=factors[2] if len(factors) > 2 else None))
+    except ValueError:
+        return None
+
+
 def vmem_bytes(config: KernelConfig, key: TuneKey) -> int:
     """Shared memory of one block of the rows launch (its tile, F1 and F2,
-    and a bs16 exponent a line); a split the kernel refuses is priced at
-    its tile and constants alone."""
+    and a bs16 exponent a line; a long op's largest pass); a split the
+    kernel refuses is priced at its tile and constants alone."""
     fs = _factors(config, key.n)
+    geom = _long(key.n, fs)
+    if geom is not None:
+        return geom.smem_bytes()
     n1, n2 = fs[0], math.prod(fs[1:])
     tile = ops.kernel_tile(key.n, 1, "matmul", n1, n2)[0]
     smem = tile * key.n * 8 + ops.dft_smem_bytes(n1, n2)
@@ -222,8 +243,12 @@ def _dispatch_terms(*, n: int, lines: int, batch: int, factors: tuple,
         tile = ops.kernel_tile(n, 1, "matmul", n1, n2)[0]
     blocks = batch * max(1, math.ceil(padded / tile))
     bytes_moved = blocks * _const_bytes(factors)
+    slab = 2 * 2 * 4 * n * lines_total                 # x and y, re+im f32
     if slab_io:
-        bytes_moved += 2 * 2 * 4 * n * lines_total    # x and y, re+im f32
+        bytes_moved += slab
+    geom = _long(n, factors)
+    if geom is not None:   # one more read and write a digit and transform
+        bytes_moved += len(geom.digits) * transforms * slab
     if filtered:
         bytes_moved += 2 * 4 * n                       # shared filter
     memory = bytes_moved / PEAK_HBM_BYTES
@@ -300,7 +325,11 @@ def mega_vmem_bytes(na: int, nr: int, batch_block: int = 1,
 
 def _staged_phase_bytes(n: int, lines: int, axis: int, factors: tuple,
                         precision: Optional[str] = None) -> int:
-    """Shared memory of one mega_staged phase on the matmul route."""
+    """Shared memory of one mega_staged phase on the matmul route (a long
+    segment's largest pass)."""
+    geom = _long(n, factors)
+    if geom is not None:
+        return geom.smem_bytes()
     n1, n2 = factors[0], math.prod(factors[1:])
     tile = ops.staged_tile(n, lines, "matmul", n1, n2, axis)
     smem = tile * n * 8 + ops.dft_smem_bytes(n1, n2)
@@ -641,7 +670,7 @@ def rank(configs, key: TuneKey, vmem_budget: int = VMEM_BUDGET_BYTES,
     the shared-memory cut would exclude EVERY candidate, the cut falls
     back to structural feasibility (what the kernel takes) with the
     footprint folded into the ordering; a problem the kernel takes in no
-    config (N > 4096) ranks nothing."""
+    config (N > 2^21) ranks nothing."""
     feas = [c for c in configs if feasible(c, key, vmem_budget)]
     if feas:
         return sorted(feas, key=lambda c: predicted_seconds(c, key, **kw))

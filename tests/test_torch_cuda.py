@@ -238,10 +238,20 @@ def test_cuda_kernel_refuses_and_never_falls_back(cuda_device):
     with pytest.raises(ValueError, match="ROADMAP"):
         ops.fft_rows(*x, fft_impl="bluestein")
     big = make_case(cuda_device, 5, "none", 1, 8192, 1, lines=2)[0]
-    for kw in (dict(), dict(fft_impl="stockham")):
+    for kw in (dict(precision="bf16"), dict(precision="bs16"),
+               dict(karatsuba=True),
+               dict(fft_impl="stockham", precision="bf16")):
         with pytest.raises(ValueError, match="ROADMAP"):
             ops.fft_rows(*big, **kw)
     assert ops.SPECTRAL_LAUNCHES == before
+    # N = 8192 at f32, refused before, now launches on both routes
+    for i, kw in enumerate((dict(), dict(fft_impl="stockham"))):
+        got = ops.fft_rows(*big, **kw)
+        torch.cuda.synchronize()
+        assert ops.SPECTRAL_LAUNCHES == before + i + 1
+        assert_close(got, ops.spectral_op_plain(*big, fwd=True, inv=False,
+                                                **kw))
+    before = ops.SPECTRAL_LAUNCHES
     # the Stockham route and the matmul route's bf16, bs16 and Karatsuba,
     # refused before, now launch
     kws = (dict(fft_impl="stockham"), dict(precision="bf16"),
@@ -253,6 +263,91 @@ def test_cuda_kernel_refuses_and_never_falls_back(cuda_device):
         assert_close(got, ops.spectral_op_plain(*x, fwd=True, inv=False,
                                                 **kw),
                      FORM_TOL[kw.get("precision", "f32")])
+
+
+# ---------------------------------------------------------------------------
+# Lines past one block and three-factor splits (csrc/long_lines.cuh)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fft_impl,split", [
+    ("matmul", None), ("stockham", None), ("matmul", (32, 16, 16))])
+@pytest.mark.parametrize("fwd,inv", DIRS)
+@pytest.mark.parametrize("n", [8192, 32768])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_long_lines_match_plain(cuda_device, mode, axis, n, fwd, inv,
+                                     fft_impl, split):
+    """The device-memory passes in one launch against the plain version:
+    the Stockham route bit for bit, the matmul route within TOL."""
+    if mode == "none" and not (fwd or inv):
+        pytest.skip("no op")
+    if split is not None and n != 8192:
+        pytest.skip("the split is of 8192")
+    kw = dict(zip(("n1", "n2", "n3"), split)) if split else {}
+    x, filt = make_case(cuda_device, n + axis, mode, axis, n, 2, lines=5)
+    before = ops.SPECTRAL_LAUNCHES
+    got = ops.spectral_op(*x, **filt, axis=axis, fwd=fwd, inv=inv,
+                          filter_mode=mode, fft_impl=fft_impl, block=1, **kw)
+    torch.cuda.synchronize()
+    assert ops.SPECTRAL_LAUNCHES == before + 1
+    want = ops.spectral_op_plain(*x, **filt, axis=axis, fwd=fwd, inv=inv,
+                                 filter_mode=mode, fft_impl=fft_impl,
+                                 block=1, **kw)
+    if fft_impl == "stockham":
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    else:
+        assert_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
+@pytest.mark.parametrize("n", [8192, 32768])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_cuda_long_lines_match_complex128(cuda_device, axis, n, fft_impl):
+    x, filt = make_case(cuda_device, 3, "shared", axis, n, 1, lines=5)
+    got = ops.spectral_op(*x, **filt, axis=axis, fwd=True, inv=True,
+                          filter_mode="shared", fft_impl=fft_impl)
+    dim = -1 if axis == 1 else -2
+    z = torch.complex(x[0].double(), x[1].double())
+    h = torch.complex(filt["hr"].double(), filt["hi"].double())
+    h = h[None, :] if axis == 1 else h[:, None]
+    want = torch.fft.ifft(torch.fft.fft(z, dim=dim) * h, dim=dim)
+    g = torch.complex(got[0].double(), got[1].double())
+    assert float((g - want).abs().max()) <= ORACLE_TOL * float(
+        want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
+@pytest.mark.parametrize("shape", [(8192, 64), (64, 8192)])
+def test_cuda_staged_long_segments_equal_three_launches(cuda_device, shape,
+                                                       fft_impl):
+    na, nr = shape
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(11)
+
+    def rand(*s):
+        return torch.randn(s, generator=gen, device=cuda_device)
+
+    x = (rand(1, na, nr), rand(1, na, nr))
+    args = [rand(nr), rand(nr), rand(na, nr), rand(na, nr)]
+    segs = ((0, True, False, "none"), (1, True, True, "shared"),
+            (0, False, True, "full"))
+    before = ops.MEGA_LAUNCHES["mega_staged"]
+    got = ops.mega_spectral_op(*x, *args, segments=segs, residency="staged",
+                               fft_impl=fft_impl)
+    torch.cuda.synchronize()
+    assert ops.MEGA_LAUNCHES["mega_staged"] == before + 1
+    y = ops.spectral_op(*x, axis=0, fwd=True, inv=False, fft_impl=fft_impl)
+    y = ops.spectral_op(*y, hr=args[0], hi=args[1], axis=1, fwd=True,
+                        inv=True, filter_mode="shared", fft_impl=fft_impl)
+    y = ops.spectral_op(*y, hr=args[2], hi=args[3], axis=0, fwd=False,
+                        inv=True, filter_mode="full", fft_impl=fft_impl)
+    assert all(torch.equal(g, w) for g, w in zip(got, y))
+    want = ops.mega_spectral_op_plain(*x, *args, segments=segs,
+                                      residency="staged", fft_impl=fft_impl)
+    assert_close(got, want)
 
 
 # ---------------------------------------------------------------------------

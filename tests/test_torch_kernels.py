@@ -301,22 +301,27 @@ def test_bs16_codec_matches_reference(mag, axis):
 # What the CUDA kernel takes (checked in Python, before any launch)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw", [dict(precision="bf16"),
-                                dict(precision="bs16"),
-                                dict(karatsuba=True),
-                                dict(fft_impl="bluestein"),
-                                dict(n=8192), dict(n=32768)])
-def test_kernel_refuses_what_it_does_not_take(kw):
-    """The matmul route takes bf16, bs16 and Karatsuba (the split it
-    returns is the four-step's); an unknown route and N > 4096 (three
-    factors at 32768) stay refused, naming their ROADMAP item."""
+@pytest.mark.parametrize("kw,split", [
+    (dict(precision="bf16"), (64, 64)),
+    (dict(precision="bs16"), (64, 64)),
+    (dict(karatsuba=True), (64, 64)),
+    (dict(fft_impl="bluestein"), None),
+    (dict(n=8192), (128, 64)), (dict(n=32768), (32, 32, 32)),
+    (dict(n=8192, precision="bf16"), None),
+    (dict(n=8192, karatsuba=True), None)])
+def test_kernel_refuses_what_it_does_not_take(kw, split):
+    """The matmul route takes bf16, bs16 and Karatsuba at N = 4096 and
+    every f32 split past it (the split it returns is the four-step's:
+    two factors at 8192, three at 32768); an unknown route, and a narrow
+    precision or Karatsuba on lines past one block, stay refused, naming
+    their ROADMAP item."""
     spec = dict(n=4096, fwd=True, filter_mode="none", inv=False)
     spec.update(kw)
-    if "fft_impl" in kw or "n" in kw:
+    if split is None:
         with pytest.raises(ValueError, match="ROADMAP"):
             tops.check_kernel_spec(tfft.SpectralSpec(**spec))
     else:
-        assert tops.check_kernel_spec(tfft.SpectralSpec(**spec)) == (64, 64)
+        assert tops.check_kernel_spec(tfft.SpectralSpec(**spec)) == split
 
 
 @pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])

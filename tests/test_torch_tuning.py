@@ -306,10 +306,10 @@ def test_cost_model_ranks_known_best_in_top3(n, batch):
 
 
 def test_feasibility_cut_admits_what_the_kernels_take():
-    """The cut never empties a space the kernel takes (every N <= 4096) and
-    admits nothing it refuses: past 4096 a line needs a three-factor
-    split or more than one block's shared memory (ROADMAP Queue 2 1d), so
-    the ranking is empty there."""
+    """The cut never empties a space the kernel takes (every N up to
+    2^21: past 4096, and with three factors, at f32 through the
+    device-memory passes) and admits nothing it refuses (a narrow
+    precision or Karatsuba there)."""
     n = 2
     while n <= 2 ** 16:
         key = tt.TuneKey.kernel(n, 1, **CPU)
@@ -699,6 +699,26 @@ def test_search_times_strictly_fewer_candidates_and_finds_best(tmp_path):
     assert res.measured < len(space) and res.measured <= res.space
     assert res.predicted_rank == 1
     assert tt.cached_config(512, 1, cache=cache, device="cpu") == best
+
+
+def test_search_space_at_8192_is_not_empty(tmp_path):
+    """Past one block the f32 split enters the space, as in the
+    reference's search at N = 8192, and the winner is one the kernels
+    take; narrow precisions and Karatsuba there are cut."""
+    key = tt.TuneKey.kernel(8192, 1, **CPU)
+    space = tt.candidates(8192, precisions=("f32", "bs16"))
+    ranked = cost.rank(space, key)
+    assert ranked and all(c.precision in (None, "f32") and not c.karatsuba
+                          for c in ranked)
+    assert len(ranked) == len([c for c in space if cost.feasible(c, key)])
+    measure, calls = _fake_measure({c: 1.0 + i * 0.01
+                                    for i, c in enumerate(ranked)})
+    res = tt.search_kernel(key, precisions=("f32",), measure=measure,
+                           cache=tt.TuneCache(str(tmp_path / "c.json")))
+    assert 0 < res.measured < res.space
+    spec = res.config.apply(tfft.SpectralSpec(n=8192, fwd=True, inv=True,
+                                              filter_mode="shared"))
+    assert tops.check_kernel_spec(spec) == res.config.factors()
 
 
 def test_search_respects_snr_gate_without_timing_gated_configs():
