@@ -230,6 +230,7 @@ on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import json
+import math
 import os
 import re
 import subprocess
@@ -259,11 +260,13 @@ SEARCH = 64                    # window of the peak-position check
 # the matmul-route f32 instantiations, which must run on the tensor cores
 MMA_KERNELS = ("spectral_kernel<matmul>", "mega_resident<matmul>",
                "mega_staged<matmul>")
-_KERNEL_NAMES = ("spectral_kernel", "spectral_long", "mega_resident",
-                 "mega_staged", "transpose_kernel")
+_KERNEL_NAMES = ("spectral_kernel", "spectral_long_form", "spectral_long",
+                 "mega_resident", "mega_staged", "transpose_kernel")
 # the out-of-line device functions of csrc/long_lines.cuh (ptxas reports
 # each under its kernel, as it does the Stockham ops)
-_LONG_FUNCTIONS = r"(long_stage_cols|long_stage|long_segment|long_op)"
+_LONG_FUNCTIONS = (r"(long_stage_cols_kara|long_stage_cols|long_stage_form|"
+                   r"long_stage|long_segment_form|long_segment|long_op_form|"
+                   r"long_op)")
 
 
 _OPERAND_NAMES = {1: "bf16", 2: "f16"}
@@ -287,11 +290,18 @@ def instantiation(mangled):
         return (f"stockham_n<{'cols' if m.group(1) == '1' else 'rows'},"
                 f"{m.group(2)},{'io' if m.group(3) == '1' else 'slab'},"
                 f"{m.group(4)}{',bs16' if m.group(5) == '1' else ''}>")
-    m = re.search(_LONG_FUNCTIONS + r"(?:ILb([01])E)?", mangled)
+    m = re.search(_LONG_FUNCTIONS + r"(I(?:L[bi]\d+E)+E)?", mangled)
     if m:
-        return m.group(1) + ("" if m.group(2) is None else
-                             "<stockham>" if m.group(2) == "1"
-                             else "<matmul>")
+        fn = m.group(1)
+        targs = [int(v) for v in re.findall(r"L[bi](\d+)E", m.group(2) or "")]
+        if fn == "long_stage_form":     # <kOp, kKara>
+            tags = [_OPERAND_NAMES.get(targs[0], "f32")] + (
+                ["kara"] if targs[1] else [])
+            return f"{fn}<{','.join(tags)}>"
+        if not targs:
+            return fn
+        stockham, op, kara, bs = (targs + [0, 0, 0])[:4]
+        return f"{fn}<{','.join(form_tags(stockham, 0, bs, op, kara))}>"
     for name in _KERNEL_NAMES:
         i = mangled.find(name)
         if i < 0:
@@ -306,24 +316,33 @@ def instantiation(mangled):
         if name == "spectral_kernel":   # <kStockham, kBs, kOp, kKara>
             stockham, bs, op, kara = args
             n = 0
-        elif name == "spectral_long":   # <kStockham>
-            (stockham,), n, bs, op, kara = args, 0, 0, 0, 0
+        elif name.startswith("spectral_long"):
+            # <kStockham> (f32), _form <kStockham, kOp, kKara, kBs>
+            stockham, op, kara, bs = (args + [0, 0, 0])[:4]
+            n = 0
         else:                  # <kStockham, kN, kBs, kOp, kKara[, kLong]>
             stockham, n, bs, op, kara = args[:5]
             long_ = args[5] if len(args) > 5 else 0
-        tags = ["stockham" if stockham else "matmul"]
-        if n:
-            tags.append(str(n))
-        if bs:
-            tags.append("bs16")
-        elif op:
-            tags.append(_OPERAND_NAMES[op])
-        if kara:
-            tags.append("kara" if kara == 1 else "kara/seg")
+        tags = form_tags(stockham, n, bs, op, kara)
         if long_:
             tags.append("long")
         return f"{name}<{','.join(tags)}>"
     return mangled
+
+
+def form_tags(stockham, n, bs, op, kara):
+    """The route, N, operand form and Karatsuba tags of an instantiation
+    (``instantiation``)."""
+    tags = ["stockham" if stockham else "matmul"]
+    if n:
+        tags.append(str(n))
+    if bs:
+        tags.append("bs16")
+    elif op:
+        tags.append(_OPERAND_NAMES[op])
+    if kara:
+        tags.append("kara" if kara == 1 else "kara/seg")
+    return tags
 
 
 def ptxas_report(log):
@@ -974,6 +993,44 @@ def scorer(cfg, targets):
             out.append(dict(expected=[er, ec], peak=[rep.row, rep.col],
                             wide_peak_offset=[i - SEARCH, j - SEARCH],
                             snr_db=rep.snr_db))
+        return out
+    return score
+
+
+def card_scorer(torch, cfg, targets):
+    """``scorer``'s score on the card (phases 19 and 20): the same
+    expected pixels, peaks (``metrics``' +-8 px search), wide-window
+    offsets and SNR — the peak's magnitude over the RMS magnitude outside
+    +-64 px guard windows around every target (``metrics.noise_rms``),
+    summed in float64 — for a 2^27-point image, whose host copy and numpy
+    passes take seconds."""
+    from repro_torch.core.sar import metrics
+
+    def window(mag, r, c, half):
+        rows = torch.arange(r - half, r + half + 1, device=mag.device) % cfg.na
+        cols = torch.arange(c - half, c + half + 1, device=mag.device) % cfg.nr
+        win = mag[rows][:, cols]
+        i, j = divmod(int(win.argmax()), win.shape[1])
+        return int(rows[i]), int(cols[j]), i - half, j - half
+
+    def score(img):
+        mag = img.abs()
+        keep = torch.ones_like(mag, dtype=torch.bool)
+        pix = [metrics.expected_pixel(cfg, t) for t in targets]
+        for r, c in pix:
+            rows = torch.arange(r - 64, r + 65, device=mag.device) % cfg.na
+            cols = torch.arange(c - 64, c + 65, device=mag.device) % cfg.nr
+            keep[rows[:, None], cols[None, :]] = False
+        noise = float(torch.sqrt(torch.mean(mag[keep].double() ** 2)))
+        out = []
+        for er, ec in pix:
+            r, c, _, _ = window(mag, er, ec, 8)
+            _, _, di, dj = window(mag, er, ec, SEARCH)
+            peak = float(mag[r, c])
+            out.append(dict(expected=[er, ec], peak=[r, c],
+                            wide_peak_offset=[di, dj],
+                            snr_db=20.0 * math.log10(peak / max(noise,
+                                                                1e-30))))
         return out
     return score
 
@@ -3056,7 +3113,7 @@ def long_lines_phase(torch, smi_line, cfg4096, raw4096, score4096,
     raw = simulate(cfg, targets)
     torch.cuda.synchronize()
     check(raw.shape == LONG_SCENE, "long scene shape")
-    score = scorer(cfg, targets)
+    score = card_scorer(torch, cfg, targets)
     scene = [cfg.na, cfg.nr]
     base = build_pipeline(cfg, "csa")        # torch backend: the baseline
     reset_launch_counts()
@@ -3217,6 +3274,479 @@ def long_lines_phase(torch, smi_line, cfg4096, raw4096, score4096,
     return records
 
 
+LONG_FORM_SIZES = (8192, 16384, 2 ** 21)        # phase 20's sweep
+LONG_FORM_SPLITS = ((32, 16, 16), (16, 16, 16))
+# the forms past one block besides f32: (precision, karatsuba) by route
+# (the Stockham route has no matrix operand: bf16 and f16 are its f32
+# passes, Karatsuba changes nothing)
+LONG_FORMS = {"matmul": (("bf16", False), ("f16", False), ("bs16", False),
+                         ("f32", True), ("bf16", True), ("f16", True),
+                         ("bs16", True)),
+              "stockham": (("bf16", False), ("f16", False), ("bs16", False))}
+LONG_FORM_SCENE_PRECISIONS = ("bs16", "bf16")
+# the forms timed at 8192 x 16384, beside phase 19's f32 rows
+LONG_FORM_TIMED = {"matmul": (("bf16", False), ("f16", False),
+                              ("bs16", False), ("f32", True),
+                              ("bs16", True)),
+                   "stockham": (("bs16", False),)}
+LONG_FORM_GATE_N = 8192          # the SNR gate's scene, n x n
+LONG_FORM_REQUESTS = 3           # the service's default-tier requests
+
+
+def finite_err(torch, got, want):
+    """(max abs error, over max|want|) on the points where both are
+    finite, and whether the non-finite masks are equal."""
+    masks = all(torch.equal(torch.isfinite(g), torch.isfinite(w))
+                for g, w in zip(got, want))
+    fin = [torch.isfinite(g) & torch.isfinite(w) for g, w in zip(got, want)]
+    scale = max((float(w[f].abs().max()) if bool(f.any()) else 0.0)
+                for w, f in zip(want, fin))
+    err = max((float((g - w)[f].abs().max()) if bool(f.any()) else 0.0)
+              for g, w, f in zip(got, want, fin))
+    return err, err / max(scale, 1e-30), masks
+
+
+def long_form_cases(n, fft_impl):
+    """(axis, split, (mode, fwd, inv)) of phase 20's sweep at N = n: every
+    filter mode and direction at 8192, both axes; fwd * shared * inv, fwd
+    and FULL * inv at 16384 and 2^21; on the matmul route the splits
+    (32, 16, 16) and (16, 16, 16) likewise."""
+    from repro_torch.kernels.fft4step import FILTER_MODES
+    few = (("shared", True, True), ("none", True, False),
+           ("full", False, True))
+    every = [(m, True, True) for m in FILTER_MODES] + \
+        [("none", True, False), ("outer", False, True), ("full", False, False)]
+    jobs = [(axis, None, c) for axis in (0, 1)
+            for c in (every if n == 8192 else few)]
+    if fft_impl == "matmul" and n == 8192:
+        jobs += [(axis, sp, c) for sp in LONG_FORM_SPLITS for axis in (0, 1)
+                 for c in (("shared_outer", True, True),
+                           ("none", True, False), ("full", False, True))]
+    return jobs
+
+
+def long_form_sweep(torch, ops, rand, fft_impl):
+    """Phase 20.1: the spectral kernel past one block at each form of
+    ``LONG_FORMS[fft_impl]``, against its plain version — the matmul
+    route within ``FORM_TOL`` where both are finite, with equal non-finite
+    masks; the Stockham route ``torch.equal`` (bs16 with odd lines
+    subnormal) — one launch a case; f32 with Karatsuba also against
+    complex128 (ORACLE_TOL up to ``LONG_ORACLE_N``, ``LONG_ORACLE_TOL``
+    past it, as phase 19's f32 sweep). Then ``mega_staged`` on
+    ``mega_chains()`` with a segment of 8192 points at each form against
+    ``mega_plain``."""
+    out = {}
+    for precision, kara in LONG_FORMS[fft_impl]:
+        t0 = time.perf_counter()
+        rec = dict(cases=0, equal_cases=0, max_rel_err=0.0, nonfinite_cases=0,
+                   oracle_cases=0, max_oracle_err=0.0, launches=0,
+                   mega_cases=0, mega_equal_cases=0, mega_max_rel_err=0.0)
+        tol = FORM_TOL[precision]
+        before = ops.SPECTRAL_LAUNCHES
+        for n in LONG_FORM_SIZES:
+            for axis, split, (mode, fwd, inv) in long_form_cases(n, fft_impl):
+                nn = n if split is None else split[0] * split[1] * split[2]
+                lines, batch = (13, 2) if nn <= 16384 else (3, 1)
+                scene = (lines, nn) if axis == 1 else (nn, lines)
+                xr, xi = rand(batch, *scene), rand(batch, *scene)
+                if precision == "bs16":
+                    xr, xi = subnormal_lines(torch, (xr, xi), axis)
+                filt = filter_payload(rand, mode, nn, scene, lines)
+                kw = dict(axis=axis, fwd=fwd, inv=inv, filter_mode=mode,
+                          block=1, fft_impl=fft_impl, precision=precision,
+                          karatsuba=kara)
+                if split:
+                    kw.update(n1=split[0], n2=split[1], n3=split[2])
+                got = ops.spectral_op(xr, xi, **filt, **kw)
+                want = ops.spectral_op_plain(xr, xi, **filt, **kw)
+                torch.cuda.synchronize()
+                where = f"{kw} n={nn} B={batch}"
+                _, rel, masks = finite_err(torch, got, want)
+                check(masks, f"long form vs plain {where}: non-finite "
+                      f"masks differ")
+                equal = all(torch.equal(g, w) for g, w in zip(got, want))
+                check(equal if fft_impl == "stockham" else rel <= tol,
+                      f"long form vs plain {where}: {rel:.3e}")
+                rec["nonfinite_cases"] += int(not all(
+                    bool(torch.isfinite(w).all()) for w in want))
+                rec["equal_cases"] += int(equal)
+                rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+                if precision == "f32":
+                    o = oracle_err(torch, got, oracle_op(
+                        torch, torch.complex(xr, xi), axis, fwd, inv, mode,
+                        **filt))
+                    otol = ORACLE_TOL if nn <= LONG_ORACLE_N else \
+                        LONG_ORACLE_TOL
+                    check(o <= otol, f"long form vs complex128 {where}: "
+                          f"{o:.3e}")
+                    rec["max_oracle_err"] = max(rec["max_oracle_err"], o)
+                    rec["oracle_cases"] += 1
+                rec["cases"] += 1
+                del got, want, xr, xi, filt
+        rec["launches"] = ops.SPECTRAL_LAUNCHES - before
+        check(rec["launches"] == rec["cases"], "one launch a case")
+        for na, nr in LONG_MEGA_SHAPES:
+            x = (rand(1, na, nr), rand(1, na, nr))
+            if precision == "bs16":
+                x = subnormal_lines(torch, x, 1)
+            for segments in mega_chains():
+                args = []
+                for axis, _fwd, _inv, mode in segments:
+                    n, lines = (nr, na) if axis == 1 else (na, nr)
+                    if mode in ("shared", "shared_outer"):
+                        args += [rand(n), rand(n)]
+                    if mode == "full":
+                        args += [rand(na, nr), rand(na, nr)]
+                    if mode in ("outer", "shared_outer"):
+                        args += [rand(lines, 2), rand(n, 2)]
+                kw = dict(segments=segments, residency="staged",
+                          fft_impl=fft_impl, precision=precision,
+                          karatsuba=kara)
+                b = ops.MEGA_LAUNCHES["mega_staged"]
+                got = ops.mega_spectral_op(*x, *args, **kw)
+                want = ops.mega_spectral_op_plain(*x, *args, **kw)
+                torch.cuda.synchronize()
+                where = f"mega_staged {fft_impl} {precision} K={kara} " \
+                    f"{segments} {na}x{nr}"
+                check(ops.MEGA_LAUNCHES["mega_staged"] == b + 1,
+                      f"{where}: one launch")
+                _, rel, masks = finite_err(torch, got, want)
+                check(masks, f"{where}: non-finite masks differ")
+                equal = all(torch.equal(g, w) for g, w in zip(got, want))
+                check(equal if fft_impl == "stockham" else rel <= tol,
+                      f"{where} vs plain: {rel:.3e}")
+                rec["mega_equal_cases"] += int(equal)
+                rec["mega_max_rel_err"] = max(rec["mega_max_rel_err"], rel)
+                rec["mega_cases"] += 1
+                del got, want
+            del x
+        key = precision + ("+K" if kara else "")
+        out[key] = rec
+        emit("long_form_kernel", fft_impl=fft_impl, precision=precision,
+             karatsuba=kara, tol=tol, sizes=list(LONG_FORM_SIZES),
+             splits=[list(s) for s in LONG_FORM_SPLITS]
+             if fft_impl == "matmul" else [],
+             mega_shapes=[list(s) for s in LONG_MEGA_SHAPES],
+             seconds=time.perf_counter() - t0, **rec)
+    return out
+
+
+def long_form_scene(torch, smi_line, cfg, raw, score, replay_plain):
+    """Phase 20.2: the 8192 x 16384 scene at each of
+    ``LONG_FORM_SCENE_PRECISIONS`` through fused3 / fused1, csa_fused /
+    csa_fused1 and omegak / omegak_fused1 on both routes: 3 spectral
+    launches and 1 ``mega_staged``, every ``*fused1`` bit for bit equal to
+    its three launches, the non-finite points those of the plain replay,
+    and where the image is finite the five targets at their pixels within
+    0.1 dB of the plain replay. Returns {(fft_impl, precision, variant):
+    (launches, max abs error against the plain replay, finite)}."""
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.kernels import ops
+    out = {}
+    for fft_impl in ops.FFT_IMPLS:
+        for precision in LONG_FORM_SCENE_PRECISIONS:
+            for three, one in LONG_FAMILIES:
+                kw = dict(fft_impl=fft_impl, precision=precision)
+                p3 = build_pipeline(cfg, three, **kw)
+                p1 = build_pipeline(cfg, one, **kw)
+                check(p1.steps[0].kernel_kw["residency"] == "staged",
+                      f"{one}: staged")
+                reset_launch_counts()
+                img3 = p3.run(raw)
+                torch.cuda.synchronize()
+                c3, want = launch_counts(spectral=3)
+                check(c3 == want, f"{three} {precision} ({fft_impl}): {c3}")
+                reset_launch_counts()
+                img1 = p1.run(raw)
+                torch.cuda.synchronize()
+                c1, want = launch_counts(mega_staged=1)
+                check(c1 == want, f"{one} {precision} ({fft_impl}): {c1}")
+                check(bit_equal(torch, img1, img3),
+                      f"{one} != {three} at {precision} ({fft_impl})")
+                del img1
+                plain = replay_plain(p3, raw)
+                torch.cuda.synchronize()
+                fin = torch.isfinite(plain)
+                check(torch.equal(torch.isfinite(img3), fin),
+                      f"{three} {precision} ({fft_impl}): non-finite points "
+                      f"differ from the plain replay's")
+                finite = bool(fin.all())
+                err = rel = 0.0
+                if bool(fin.any()):
+                    g, w = img3[fin], plain[fin]
+                    err, rel = rel_err((g.real, g.imag), (w.real, w.imag))
+                    del g, w
+                check(rel <= FORM_TOL[precision],
+                      f"{three} {precision} ({fft_impl}) vs plain: {rel:.3e}")
+                rec = dict(variant=three, twin=one, fft_impl=fft_impl,
+                           precision=precision, scene=[cfg.na, cfg.nr],
+                           launches=c3, twin_launches=c1, twin_equal=True,
+                           finite=finite, rel_err_vs_plain=rel,
+                           max_abs_err_vs_plain=err)
+                if finite:
+                    rep = score(img3)
+                    rec.update(targets=rep, snr_delta_db_vs_plain=check_focus(
+                        f"{three} {precision} ({fft_impl}) vs plain", rep,
+                        score(plain)))
+                else:
+                    rec.update(nonfinite_points=int((~fin).sum()))
+                emit("long_form_main", **rec)
+                out[(fft_impl, precision, three)] = (c3, c1, err, finite)
+                del img3, plain, fin
+    return out
+
+
+def long_form_service(torch, smi_line, cfg, raw):
+    """Phase 20.3: a ``FocusService`` at its defaults (the bs16 tier,
+    fused3, the fused1 twin) serving ``LONG_FORM_REQUESTS`` requests for
+    the 8192 x 16384 scene that name no precision: the tier and route
+    that served them (a non-finite bs16 image is the sentinel's to catch
+    and the tier fallback's to serve at f32), the gate's dB, the launches
+    of one request, the host-clock p50, and the reply equal to the
+    pipeline of that tier."""
+    import asyncio
+
+    import numpy as np
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.service import FocusService, ServiceConfig
+    raw_host = raw.cpu().numpy()
+
+    async def main_service():
+        svc = FocusService(ServiceConfig(), device=None)
+        await svc.start()
+        await svc._ensure_gate_measured("bs16")
+        imgs, ms, counts = [], [], []
+        for _ in range(LONG_FORM_REQUESTS):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            imgs.append(await svc.focus(raw_host, cfg))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            counts.append(launch_counts()[0])
+        snap = svc.metrics.snapshot()
+        await svc.stop()
+        return svc, imgs, ms, counts, snap
+
+    svc, imgs, ms, counts, snap = asyncio.run(main_service())
+    deviation = svc._gate_cache["bs16"]
+    fell = snap["tier_fallbacks"]
+    tier = "bs16" if fell == 0 else "f32"
+    routes = dict(svc.backend.fallbacks)
+    route = "fused3" if not routes else f"fallbacks {routes}"
+    want = build_pipeline(cfg, "fused3", precision=tier).run(raw)
+    check(np.array_equal(imgs[0], want.cpu().numpy()),
+          f"served image != fused3 at {tier}")
+    check(all(bool(np.isfinite(i).all()) for i in imgs),
+          "served a non-finite image")
+    rec = dict(scene=[cfg.na, cfg.nr], requests=LONG_FORM_REQUESTS,
+               served_tier=tier, tier_fallbacks=fell, route=route,
+               gate_snr_delta_db=deviation, gate_n=256,
+               launches=counts, p50_ms=percentiles(ms)["p50_ms"],
+               ms=ms, corrupted=snap.get("corrupted"), nvidia_smi=smi_line)
+    emit("long_form_service", **rec)
+    return rec
+
+
+def long_form_tuning(torch, smi_line):
+    """Phase 20.4: the SNR gate at n = ``LONG_FORM_GATE_N`` for bf16, f16
+    and bs16 on both routes (``inf`` where the image is not finite), and
+    ``search_kernel`` at N = 8192 over f32, bf16 and bs16 with its cache
+    in a temporary directory: timed / space, the winner and whether its
+    operands are narrow."""
+    import tempfile
+    from repro_torch import tuning
+    from repro_torch.kernels import ops
+    from repro_torch.tuning import quality
+    gates = {}
+    t0 = time.perf_counter()
+    for fft_impl in ops.FFT_IMPLS:
+        for precision in ("bf16", "f16", "bs16"):
+            d = quality.precision_snr_deviation(
+                precision, n=LONG_FORM_GATE_N, fft_impl=fft_impl)
+            gates[f"{fft_impl}:{precision}"] = None if d == float("inf") \
+                else d
+    gate_s = time.perf_counter() - t0
+    emit("long_form_gate", n=LONG_FORM_GATE_N, snr_delta_db=gates,
+         seconds=gate_s, nvidia_smi=smi_line)
+    outer = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+            tmp, "autotune_cache.json")
+        tuning.clear_memory_cache()
+        found = {}
+
+        def log(what, t, r):
+            if isinstance(what, str):
+                found[what[5:]] = dict(
+                    snr_delta_db=t if t != float("inf") else None,
+                    admitted=r)
+
+        t0 = time.perf_counter()
+        key = tuning.TuneKey.kernel(8192, lines=16)
+        space = tuning.candidates(8192, precisions=("f32", "bf16", "bs16"))
+        narrow_space = sum(1 for c in space
+                           if (c.precision or "f32") != "f32")
+        check(narrow_space > 0, "no narrow config at 8192")
+        res = tuning.search_kernel(key, precisions=("f32", "bf16", "bs16"),
+                                   log=log)
+        search_s = time.perf_counter() - t0
+        check(all(t is not None for _, t in res.trace),
+              "search_kernel candidates raised at launch")
+        timed_narrow = len({json.dumps(c.to_dict(), sort_keys=True)
+                            for c, _ in res.trace
+                            if (c.precision or "f32") != "f32"})
+        rec = dict(n=8192, space=res.space, narrow_in_space=narrow_space,
+                   timed=res.measured, timed_narrow=timed_narrow,
+                   winner=res.config.to_dict(),
+                   winner_narrow=(res.config.precision or "f32") != "f32",
+                   gates=found, seconds=search_s, nvidia_smi=smi_line)
+        emit("long_form_search", **rec)
+    if outer is None:
+        os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+    else:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = outer
+    tuning.clear_memory_cache()
+    return gates, rec
+
+
+def long_form_record(name, variant, fft_impl, launches, err, timed, scene):
+    """A ``kernels`` entry of phase 20's paths (the forms' libraries)."""
+    rec = kernel_record(name, f"{variant} {scene[0]}x{scene[1]}", fft_impl,
+                        launches, err, timed,
+                        source="mega_long_forms.cu" if name == "mega_staged"
+                        else "spectral_long_forms.cu")
+    rec.update(scene=list(scene))
+    return rec
+
+
+def long_form_times(torch, smi_line, cfg, raw):
+    """Phase 20.5: each form of ``LONG_FORM_TIMED`` at 8192 x 16384: fused3
+    (3 launches) and fused1 (one ``mega_staged``, bit for bit equal) run
+    with the counts reset, each launch held to its plain version, then
+    timed queued — Σ fused3 and ``mega_staged`` beside their plain
+    versions, ``library_ms`` and bounds. Returns the ``kernels``
+    records."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.kernels import ops
+    records = []
+    for fft_impl, forms in LONG_FORM_TIMED.items():
+        for precision, kara in forms:
+            kw = form_kw(precision, kara)
+            kw["fft_impl"] = fft_impl
+            p3 = build_pipeline(cfg, "fused3", **kw)
+            p1 = build_pipeline(cfg, "fused1", **kw)
+            reset_launch_counts()
+            img3 = p3.run(raw)
+            torch.cuda.synchronize()
+            c3, _ = launch_counts(spectral=3)
+            reset_launch_counts()
+            img1 = p1.run(raw)
+            torch.cuda.synchronize()
+            c1, _ = launch_counts(mega_staged=1)
+            check(c3["spectral"] == 3 and c1["mega_staged"] == 1,
+                  f"timed form {precision} K={kara}: {c3} {c1}")
+            check(bit_equal(torch, img1, img3),
+                  f"fused1 != fused3 at {precision} K={kara} ({fft_impl})")
+            del img1, img3
+            timed, err = [], 0.0
+            for s, x in step_inputs(p3, raw)[0]:
+                xr, xi = planlib.split(x)
+                got = ops.spectral_op(xr, xi, **s.filter_kw, **s.kernel_kw)
+                want = ops.spectral_op_plain(xr, xi, **s.filter_kw,
+                                             **s.kernel_kw)
+                torch.cuda.synchronize()
+                e, rel, masks = finite_err(torch, got, want)
+                check(masks and (rel <= FORM_TOL[precision] if fft_impl ==
+                                 "matmul" else all(torch.equal(g, w) for g, w
+                                                   in zip(got, want))),
+                      f"timed launch {s.name} {precision} K={kara}: {rel}")
+                err = max(err, e)
+                del got, want
+                timed.append(time_spectral_launch(
+                    smi_line, s, xr, xi, x,
+                    variant=f"fused3 {cfg.na}x{cfg.nr} {precision}"
+                    f"{'+K' if kara else ''}"))
+            t1 = time_mega_kernel(torch, smi_line, "mega_staged", p1.steps[0],
+                                  raw, cfg, variant="fused1")
+            scene = [cfg.na, cfg.nr]
+            variant = f"fused3 {precision}{'+K' if kara else ''}"
+            emit("long_form_time", fft_impl=fft_impl, precision=precision,
+                 karatsuba=kara, scene=scene,
+                 fused3_ms=sum(r["ms"] for r in timed),
+                 fused3_plain_ms=sum(r["plain_ms"] for r in timed),
+                 fused3_library_ms=sum(r["library_ms"] for r in timed),
+                 fused3_bound_ms=sum(r["bound_ms"] for r in timed),
+                 mega_staged_ms=t1["ms"], mega_staged_plain_ms=t1["plain_ms"],
+                 mega_staged_library_ms=t1["library_ms"],
+                 mega_staged_bound_ms=t1["bound_ms"], nvidia_smi=smi_line)
+            records.append(long_form_record("spectral", variant, fft_impl,
+                                            c3["spectral"], err, timed,
+                                            scene))
+            records.append(long_form_record(
+                "mega_staged", variant.replace("fused3", "fused1"), fft_impl,
+                c1["mega_staged"], err, [t1], scene))
+    return records
+
+
+def long_forms_phase(torch, smi_line, replay_plain):
+    """Phase 20: every precision past one block. The kernel sweeps of
+    each form on both routes (20.1); the 8192 x 16384 scene at bs16 and
+    bf16 through every variant on both routes (20.2); a default-tier
+    service request for that scene (20.3); the SNR gate at 8192^2 and
+    ``search_kernel`` at N = 8192 (20.4); each form's times there (20.5).
+    Returns the ``kernels`` records."""
+    from repro_torch.core.sar import paper_scene, paper_targets, simulate
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    for i, fft_impl in enumerate(ops.FFT_IMPLS):
+        long_form_sweep(torch, ops, seeded_randn(torch, dev, 200 + i),
+                        fft_impl)
+    sweep_s = time.perf_counter() - t0
+    cfg = paper_scene(*LONG_SCENE)
+    targets = paper_targets(cfg)
+    raw = simulate(cfg, targets)
+    torch.cuda.synchronize()
+    score = card_scorer(torch, cfg, targets)
+    t0 = time.perf_counter()
+    long_form_scene(torch, smi_line, cfg, raw, score, replay_plain)
+    scene_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    long_form_service(torch, smi_line, cfg, raw)
+    service_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    long_form_tuning(torch, smi_line)
+    tuning_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records = long_form_times(torch, smi_line, cfg, raw)
+    emit("long_form_seconds", sweep=sweep_s, scene=scene_s,
+         service=service_s, tuning=tuning_s,
+         times=time.perf_counter() - t0)
+    del raw
+    torch.cuda.empty_cache()
+    return records
+
+
+def replay_plain(pipe, x):
+    """The compiled steps through the plain versions, on the card: a
+    spectral step through ``spectral_op_plain``, a transpose through
+    ``transpose_plain``, the sinc RCMC (plain PyTorch already) through its
+    own ``fn``."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.kernels import ops, transpose
+    for s in pipe.steps:
+        if s.kind == "spectral":
+            xr, xi = planlib.split(x)
+            x = planlib.unsplit(*ops.spectral_op_plain(
+                xr, xi, **s.filter_kw, **s.kernel_kw))
+        elif s.kind == "transpose":
+            x = transpose.transpose_plain(x)
+        else:
+            x = s.fn(x)
+    return x
+
+
 def main() -> int:
     import tempfile
 
@@ -3234,7 +3764,7 @@ def main() -> int:
 
 
 def run(torch) -> int:
-    """Phases 1-19 on the card (``main`` has found it)."""
+    """Phases 1-20 on the card (``main`` has found it)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
                                       paper_targets, simulate)
@@ -3265,7 +3795,8 @@ def run(torch) -> int:
     t0 = time.perf_counter()
     logs = _build.build_all(verbose=True, force=True)
     build_s = time.perf_counter() - t0
-    check(set(logs) >= {"spectral", "mega", "mega_forms", "mega_long",
+    check(set(logs) >= {"spectral", "spectral_long_forms", "mega",
+                        "mega_forms", "mega_long", "mega_long_forms",
                         "transpose"},
           f"built {sorted(logs)}")
     ptxas = {}
@@ -3281,8 +3812,18 @@ def run(torch) -> int:
     for kernel in forms:
         check(hmma[kernel][hmma_wanted(kernel)] > 0,
               f"{kernel}: no HMMA {hmma_wanted(kernel)} in its SASS")
+    # the forms past one block: their libraries run every operand type on
+    # the tensor cores (the stages are out-of-line functions)
+    long_hmma = {}
+    for name in ("spectral_long_forms", "mega_long_forms"):
+        per = sass_hmma(_build.lib_path(name))
+        long_hmma[name] = {t: sum(v[t] for v in per.values())
+                           for t in ("tf32", "bf16", "f16")}
+        check(all(long_hmma[name].values()),
+              f"{name}: HMMA by operand type {long_hmma[name]}")
     emit("build", seconds=build_s, source_seconds=_build.BUILD_SECONDS,
          sources=sorted(_build.sources()), ptxas=ptxas, hmma=hmma,
+         long_forms_hmma=long_hmma,
          operand_form_instantiations=len(forms), operand_forms=forms)
 
     # ---- 3. kernel vs plain version on the card ----------------------------
@@ -3298,22 +3839,6 @@ def run(torch) -> int:
     torch.cuda.synchronize()
     check(raw.shape == (cfg.na, cfg.nr) and raw.device.type == "cuda",
           "simulated scene shape/device")
-
-    def replay_plain(pipe, x):
-        """The compiled steps through the plain versions, on the card: a
-        spectral step through ``spectral_op_plain``, a transpose through
-        ``transpose_plain``, the sinc RCMC (plain PyTorch already) through
-        its own ``fn``."""
-        for s in pipe.steps:
-            if s.kind == "spectral":
-                xr, xi = planlib.split(x)
-                x = planlib.unsplit(*ops.spectral_op_plain(
-                    xr, xi, **s.filter_kw, **s.kernel_kw))
-            elif s.kind == "transpose":
-                x = transpose.transpose_plain(x)
-            else:
-                x = s.fn(x)
-        return x
 
     score = scorer(cfg, targets)
 
@@ -3457,6 +3982,13 @@ def run(torch) -> int:
     # ---- 19. lines past one block: 8192 x 16384, three factors ------------
     kernels += long_lines_phase(torch, smi_line, cfg, raw, score,
                                 replay_plain)
+    del raw
+    torch.cuda.empty_cache()
+
+    # ---- 20. every precision past one block --------------------------------
+    t0 = time.perf_counter()
+    kernels += long_forms_phase(torch, smi_line, replay_plain)
+    emit("phase_seconds", number=20, seconds=time.perf_counter() - t0)
     for k in kernels:
         k.setdefault("precisions", kernel_precisions(k["name"]))
         k.setdefault("karatsuba_by_route", kernel_karatsuba(k["name"]))

@@ -804,8 +804,9 @@ def _make_mega_step(group, seg_payloads, *, cfg, backend, opts) -> Step:
 
     Residency: the explicit compile option, else the tuned cache entry or
     schedule, else the shared-memory cut ``ops.mega_residency`` (128^2
-    resident, larger scenes staged). A schedule's per-segment split and
-    Karatsuba ride in 8-field segment records."""
+    resident, larger scenes — and a line past 4096 points or a
+    three-factor split at any size — staged). A schedule's per-segment
+    split and Karatsuba ride in 8-field segment records."""
     segs = _split_segments(group)
     name = "+".join(dict.fromkeys(a.stage.name for a in group))
     segments = []
@@ -831,14 +832,19 @@ def _make_mega_step(group, seg_payloads, *, cfg, backend, opts) -> Step:
     precision = resolve_precision(
         opts["precision"] or stage_prec or tuned.precision).name
     batch_block = opts["batch_block"]
-    residency = opts["residency"] or tuned.residency or ops.mega_residency(
-        cfg.na, cfg.nr, batch_block or 1, precision)
     # per-segment schedule decisions ride as extended 8-field segment
     # records (axis, fwd, inv, mode, n1, n2, n3, karatsuba) — the kernel
     # resolves each against the launch-global factorization/karatsuba
     if any(sc != SegmentConfig() for sc in seg_cfgs):
         segments = tuple(rec + (sc.n1, sc.n2, sc.n3, sc.karatsuba)
                          for rec, sc in zip(segments, seg_cfgs))
+    # the cut sees each segment's resolved split: a line past one block or
+    # three factors run staged
+    residency = opts["residency"] or tuned.residency or ops.mega_residency(
+        cfg.na, cfg.nr, batch_block or 1, precision,
+        splits=ops.mega_splits(cfg.na, cfg.nr, segments, n1=tuned.n1,
+                               n2=tuned.n2, n3=tuned.n3,
+                               fft_impl=opts["fft_impl"]))
     kernel_kw = dict(
         segments=segments, residency=residency, batch_block=batch_block,
         phase_block=opts["phase_block"] or tuned.phase_block or 8,

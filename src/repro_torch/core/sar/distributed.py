@@ -457,7 +457,11 @@ def _group_mega_kw(src: dict, recs, stream_axis: int, lines_local: int,
     if residency is None:
         residency = ops.mega_residency(
             na_local, nr_local, precision=src.get("precision"),
-            filter_bytes=filter_bytes)
+            filter_bytes=filter_bytes,
+            splits=ops.mega_splits(na_local, nr_local, kw["segments"],
+                                   n1=kw.get("n1"), n2=kw.get("n2"),
+                                   n3=kw.get("n3"),
+                                   fft_impl=kw.get("fft_impl", "matmul")))
     kw["residency"] = residency
     return kw
 

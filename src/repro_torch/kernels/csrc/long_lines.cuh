@@ -6,8 +6,9 @@
 // Replaces, past the N <= 4096 two-factor lines of spectral_common.cuh's
 // tile_op: src/repro/kernels/fft4step.py:598 `_spectral_kernel` at every N
 // and split its `default_factorization` (:166) and explicit n1/n2/n3 take
-// (2 or 3 factors up to 128, N up to 128^3 = 2^21), f32, both layouts, all
-// five filter modes; with fft_impl="stockham" its `_fft_stockham` (:422) at
+// (2 or 3 factors up to 128, N up to 128^3 = 2^21), every precision, both
+// layouts, all five filter modes; with fft_impl="stockham" its
+// `_fft_stockham` (:422) at
 // every power of two up to 2^21; and, inside mega_staged, those segments of
 // `_mega_kernel_staged` (:1002).
 //
@@ -58,6 +59,27 @@
 // the tail's forward and inverse; the plain version
 // (fft4step._fft_stockham_long) runs the same operations, so the kernels
 // equal it bit for bit.
+//
+// Every precision. The Stockham route has no matrix operand, so
+// bf16 and f16 run its f32 passes. bs16 is the per-line exponent codec of
+// spectral_common.cuh across a line that spans many tiles: a reduction
+// phase in the same launch (each (scene, line)'s largest |re| or |im| by an
+// atomicMax on its bits in device memory, a grid barrier), the line scaled
+// by 2^-e on the op's first load and by 2^e on its last store, e built from
+// the exponent bits as the plain version builds it. The matmul route's
+// 16-bit forms (bf16, f16, bs16's f16) round each operand once where the
+// plain version's _cdot rounds it and contract all f terms with f32
+// accumulation, so a digit or a one-factor tail is ONE dense
+// mma.sync.m16n8k16 stage of up to 128 terms (never the f32 form's two
+// stages, which would round an intermediate the plain version does not),
+// and the inverse runs what the plain version runs: conj, the forward's
+// passes on natural order, conj x 1/N (the "natural" schedule: the forward's
+// tail stores natural order through the scratch slab, so a fwd + inv op is
+// 2D + 2 passes). Karatsuba runs on every form, 3xTF32 (9 mma a k-step) at
+// f32, 3 passes at 16 bits. Each form is an instantiation of its own
+// (long_op_form<kStockham, kOp, kKara, kBs>, spectral_long_form), with the
+// codec's words and the Karatsuba flag beside the op (LongForm), so the f32
+// forms (long_op, spectral_long) keep their code.
 //
 // What bounds it: bytes. Each pass reads and writes the slab once (16 B a
 // point), a forward-only or inverse-only op 16 B more for its scratch: the
@@ -133,10 +155,11 @@ inline bool is_pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 // n, n1, n2, tile, f1r, f1i, f2r, f2i, twr, twi, hr, hi, h_line, h_k, u, v,
 // u_line, u_k, v_n, v_k, stw, kara, then on, ndev, tail_tile, sr, si and,
 // per digit, f, tile, fb, fr, fi, fbr, fbi, itwr, itwi, stw, twr, twi).
-// n_line: the length of the segment's lines in the scene. Checks what the
-// kernels rely on.
+// n_line: the length of the segment's lines in the scene; op: the launch's
+// operand form (the matmul route's 16-bit forms take one stage a digit and
+// a scratch slab in every direction). Checks what the kernels rely on.
 inline cudaError_t unpack_segment(const long long* r, int n_line,
-                                  Segment& g) {
+                                  Segment& g, int op = kTf32x3) {
   g.axis = (int)r[0]; g.fwd = (int)r[1]; g.inv = (int)r[2];
   g.f.mode = (int)r[3]; g.f.rank = (int)r[4];
   g.d.n = (int)r[5]; g.d.n1 = (int)r[6]; g.d.n2 = (int)r[7];
@@ -178,14 +201,14 @@ inline cudaError_t unpack_segment(const long long* r, int n_line,
     }
     return cudaSuccess;
   }
-  // a long segment: f32, no Karatsuba
-  if (g.kara) return cudaErrorInvalidValue;
+  // a long segment
   if (!any_fft) return lg.ndev == 0 ? cudaSuccess : cudaErrorInvalidValue;
+  const bool stockham = g.d.stw != nullptr;
+  const bool nat = !stockham && op != kTf32x3;   // the 16-bit forms
   if (lg.ndev < 1 || lg.ndev > kMaxDigits || lg.tail_tile < 1 ||
-      (g.fwd != g.inv) != (lg.sr != nullptr && lg.si != nullptr)) {
+      (nat || g.fwd != g.inv) != (lg.sr != nullptr && lg.si != nullptr)) {
     return cudaErrorInvalidValue;
   }
-  const bool stockham = g.d.stw != nullptr;
   long long prod = g.d.n;
   for (int i = 0; i < lg.ndev; ++i) {
     const Digit& dg = lg.dig[i];
@@ -221,8 +244,9 @@ inline cudaError_t unpack_segment(const long long* r, int n_line,
       const Digit& dg = lg.dig[i];
       const int fa = dg.fb >= 1 ? dg.f / dg.fb : 0;
       if (dg.fb < 1 || !is_pow2(dg.fb) || fa * dg.fb != dg.f ||
+          (nat && dg.fb != 1) ||
           (dg.fb == 1
-               ? dg.f > 16 || !is_pow2(dg.tile) ||
+               ? dg.f > (nat ? 128 : 16) || !is_pow2(dg.tile) ||
                      !mma_fits(kLongThreads, dg.f, dg.tile)
                : dg.fbr == nullptr || dg.itwr == nullptr ||
                      !(mma_fits(kLongThreads, fa, dg.fb) &&
@@ -311,6 +335,74 @@ __host__ __device__ inline Pass long_pass(const LongOp& op, int k) {
               i == 0};
 }
 
+// The forms other than f32 take beside the op: bs16's words (one a (scene,
+// line): the largest |re| or |im| of its line on the op's load) and the
+// matmul route's Karatsuba flag.
+struct LongForm {
+  unsigned* ex;
+  int kara;
+};
+
+// What a pass of the forms does besides the f32 pass of its kind: the
+// natural schedule's tail the filter after its forward (its tails all run
+// the forward and store natural order); a digit pass's load the inverse's
+// opening conjugate or an inverse-only op's filter; bs16's 2^-e on the
+// op's first load and 2^e on its last store.
+struct PassForm {
+  bool filt, conj_in, filt_in, enc, dec;
+};
+
+// Passes of the natural schedule (the 16-bit forms): fwd + inv runs the
+// forward's D + 1 passes twice.
+__host__ __device__ inline int long_pass_count_natural(const LongOp& op) {
+  if (!(op.fwd || op.inv)) return 1;
+  return op.fwd && op.inv ? 2 * op.lg.ndev + 2 : op.lg.ndev + 1;
+}
+
+// Pass k of the natural schedule, the inverse as conj, the forward on
+// natural order, conj x 1/N: digits forward into the scratch (the first
+// from the input, the inverse's first from the output), the tail out of
+// the scratch to natural order in the output (the inverse's with its
+// closing conjugate and 1/N: `last`).
+__host__ __device__ inline Pass long_pass_natural(const LongOp& op, int k) {
+  const int D = op.lg.ndev;
+  if (!(op.fwd || op.inv)) {
+    return Pass{kFilterOnly, 0, op.xr, op.xi, op.yr, op.yi, false};
+  }
+  const bool second = op.fwd && op.inv && k > D;   // the inverse's passes
+  const int i = second ? k - D - 1 : k;
+  const bool inverse = second || !op.fwd;
+  if (i < D) {
+    return Pass{kDigitFwd, i, i > 0 ? op.lg.sr : second ? op.yr : op.xr,
+                i > 0 ? op.lg.si : second ? op.yi : op.xi, op.lg.sr,
+                op.lg.si, false};
+  }
+  return Pass{kTail, 0, op.lg.sr, op.lg.si, op.yr, op.yi, inverse};
+}
+
+// The PassForm of pass k: bs16's first and last pass and, kNat, the
+// natural schedule's (its tails forward, natural order out, the forward's
+// filtered; digit 0's load conjugated by the inverse, filtered by an
+// inverse-only op). The f32 schedule's tails take their transforms,
+// orders and filter from the op (tail_tile).
+template <bool kNat>
+__host__ __device__ inline PassForm pass_form(const LongOp& op, int k) {
+  PassForm f{};
+  const int np = kNat ? long_pass_count_natural(op) : long_pass_count(op);
+  f.enc = k == 0;
+  f.dec = k == np - 1;
+  if constexpr (kNat) {
+    const int D = op.lg.ndev;
+    const bool second = op.fwd && op.inv && k > D;
+    const int i = second ? k - D - 1 : k;
+    const bool inverse = second || !op.fwd;
+    f.filt = !inverse;
+    f.conj_in = i == 0 && inverse;
+    f.filt_in = i == 0 && !op.fwd && op.f.mode != kNone;
+  }
+  return f;
+}
+
 // The stride R_i of digit i (the points after it in a block).
 __host__ __device__ inline int digit_rest(const LongOp& op, int i) {
   int r = op.n;
@@ -348,10 +440,14 @@ __host__ __device__ inline long long long_pass_tiles(const LongOp& op,
   return scenes * ((sub + g.tile - 1) / g.tile);
 }
 
+// Words of shared memory the bs16 reduction phase takes (long_amax).
+constexpr int kAmaxWords = 32;
+
 // Shared memory of a long op's largest pass (mats: the matmul route's DFT
-// matrices past the tile).
-inline size_t long_smem(const LongOp& op, bool stockham) {
-  if (!(op.fwd || op.inv)) return 0;
+// matrices past the tile); with bs, at least the reduction's words.
+inline size_t long_smem(const LongOp& op, bool stockham, bool bs = false) {
+  const size_t least = bs ? kAmaxWords * sizeof(unsigned) : 0;
+  if (!(op.fwd || op.inv)) return least;
   auto bytes = [&](int points, int n1, int n2) {
     return stockham ? (size_t)stockham_points(points) * sizeof(float2)
                     : (size_t)points * sizeof(float2) +
@@ -365,10 +461,11 @@ inline size_t long_smem(const LongOp& op, bool stockham) {
     out = std::max(out, bytes(g.f * g.tile, fb ? g.f / fb : g.f,
                               fb ? fb : g.f));
   }
-  return out;
+  return std::max(out, least);
 }
 
-// The most tiles of any pass (the cooperative grid's useful size).
+// The most tiles of any pass (the cooperative grid's useful size; the
+// natural schedule runs the same kinds of pass).
 inline long long long_work(const LongOp& op) {
   long long w = 1;
   for (int k = 0; k < long_pass_count(op); ++k) {
@@ -436,6 +533,92 @@ __device__ __noinline__ void long_stage_cols(const Lines L, const StageMap g,
   run_stage<true>(L, g, fr, fi, fld, twr, twi, false);
 }
 
+// The other operand forms' stages (kOp: 16-bit operands; kKara:
+// Karatsuba), out of line as long_stage, one copy a form.
+template <int kOp, bool kKara>
+__device__ __noinline__ void long_stage_form(const Lines L, const StageMap g,
+                                             const float* fr,
+                                             const float* fi, int fld,
+                                             const float* twr,
+                                             const float* twi, bool conj_in) {
+  run_stage<false, kOp, kKara>(L, g, fr, fi, fld, twr, twi, conj_in);
+}
+
+// 3xTF32 Karatsuba on a digit tile's strided lines (the f32 form's two
+// stages; the 16-bit forms run one stage of lines side by side).
+__device__ __noinline__ void long_stage_cols_kara(const Lines L,
+                                                  const StageMap g,
+                                                  const float* fr,
+                                                  const float* fi, int fld,
+                                                  const float* twr,
+                                                  const float* twi) {
+  run_stage<true, kTf32x3, true>(L, g, fr, fi, fld, twr, twi, false);
+}
+
+// A stage of the op's form: kOp, and Karatsuba as kKara says (0 never, 2
+// as the op's `kara`).
+template <int kOp, int kKara>
+__device__ __forceinline__ void form_stage(bool kara, const Lines L,
+                                           const StageMap g,
+                                           const float* fr, const float* fi,
+                                           int fld, const float* twr,
+                                           const float* twi, bool conj_in) {
+  if constexpr (kKara == 2) {
+    if (kara) {
+      long_stage_form<kOp, true>(L, g, fr, fi, fld, twr, twi, conj_in);
+      return;
+    }
+  }
+  if constexpr (kOp == kTf32x3) {
+    long_stage(L, g, fr, fi, fld, twr, twi, conj_in);
+  } else {
+    long_stage_form<kOp, false>(L, g, fr, fi, fld, twr, twi, conj_in);
+  }
+}
+
+template <int kKara>
+__device__ __forceinline__ void form_stage_cols(bool kara, const Lines L,
+                                                const StageMap g,
+                                                const float* fr,
+                                                const float* fi, int fld,
+                                                const float* twr,
+                                                const float* twi) {
+  if constexpr (kKara == 2) {
+    if (kara) {
+      long_stage_cols_kara(L, g, fr, fi, fld, twr, twi);
+      return;
+    }
+  }
+  long_stage_cols(L, g, fr, fi, fld, twr, twi);
+}
+
+// The bs16 codec's exponent of (scene, line) bl, from the largest |re| or
+// |im| the reduction phase left in the form's words (other blocks wrote
+// them: L2).
+__device__ __forceinline__ int codec_exponent(const LongForm form,
+                                              long long bl) {
+  return line_exponent(__uint_as_float(__ldcg(form.ex + bl)));
+}
+
+// A point of digit 0's tile (the line's leading factor, one sub-scene a
+// line): its (scene, line) bl, its line in the scene and its natural
+// index, from the sub-scene `scene`, its position k and sub-line j.
+struct DigitPoint {
+  long long bl;
+  int line, k;
+};
+
+__device__ __forceinline__ DigitPoint digit0_point(const LongOp& op,
+                                                   long long scene, int k,
+                                                   long long j, int rest) {
+  if (op.axis == 1) {
+    return DigitPoint{scene, (int)(scene % op.lines), k * rest + (int)j};
+  }
+  const int l = (int)(j % op.lines);
+  return DigitPoint{scene * op.lines + l, l,
+                    k * rest + (int)(j / op.lines)};
+}
+
 // One digit pass's tile: sub-lines [j0, j0 + C) of the sub-scene at `off`,
 // point k of sub-line j at off + k * sub + j. Forward: the f-point
 // transforms, then the twiddle tw[k * rest + r] (r = j / ldiv: a columns
@@ -443,14 +626,20 @@ __device__ __noinline__ void long_stage_cols(const Lines L, const StageMap g,
 // transforms, and on the last pass (scale, iscale). Both directions run the
 // forward transform (the inverse's conjugates are the tail's and the last
 // store's). In shared memory: the matmul route's sub-lines side by side
-// (s[k * C + c]; one stage of f <= 16 takes them as one line of f x C, the
-// stage's C columns; two stages, fa then fb, leave point k at the
-// transposed position of k), the Stockham route's C rows of f points
-// (swizzled).
-template <bool kStockham>
+// (s[k * C + c]; one stage of f <= 16 — of any f in the 16-bit forms —
+// takes them as one line of f x C, the stage's C columns; two stages, fa
+// then fb, leave point k at the transposed position of k), the Stockham
+// route's C rows of f points (swizzled). Digit 0's load takes, as the
+// pass's form says, bs16's 2^-e, an inverse-only op's filter at the
+// point's natural index and the inverse's conjugate (the natural
+// schedule), in the plain version's order; its store bs16's 2^e after the
+// inverse's scale.
+template <bool kStockham, int kOp = kTf32x3, int kKara = 0, bool kBs = false>
 __device__ __forceinline__ void digit_tile(float2* s, const Mats& m,
                                            const LongOp& op, const Pass& p,
-                                           long long t) {
+                                           const PassForm pf,
+                                           const LongForm form, long long t) {
+  constexpr bool kNat = !kStockham && kOp != kTf32x3;
   const Digit& g = op.lg.dig[p.digit];
   const int f = g.f, C = g.tile;
   const int rest = digit_rest(op, p.digit);
@@ -471,6 +660,14 @@ __device__ __forceinline__ void digit_tile(float2* s, const Mats& m,
     if (j < sub) {
       const long long e = off + k * sub + j;
       v = make_float2(__ldcg(p.sr + e), __ldcg(p.si + e));
+      if constexpr (kBs || kNat) {
+        if ((kBs && pf.enc) || (kNat && pf.filt_in)) {
+          const DigitPoint q = digit0_point(op, scene, k, j, rest);
+          if (kBs && pf.enc) v = scale2(v, pow2(-codec_exponent(form, q.bl)));
+          if (kNat && pf.filt_in) v = apply_filter(v, op.f, q.line, q.k);
+        }
+        if (kNat && pf.conj_in) v.y = -v.y;   // exact
+      }
       if (inverse) {
         const int w = k * rest + (int)(j / ldiv);
         v = cmul(v, __ldg(twr + w), __ldg(twi + w));
@@ -484,14 +681,17 @@ __device__ __forceinline__ void digit_tile(float2* s, const Mats& m,
     stockham_lines(Lines{s, C, f, f, 1}, g.stw, true, false);
   } else if (fb == 1) {
     //                                            nf nq sk sq om oq twm twq
-    long_stage(Lines{s, 1, total, total, 1}, StageMap{f, C, C, 1, C, 1, 0, 0},
-               m.f1r, m.f1i, m.ld1, nullptr, nullptr, false);
-  } else {   // stages_n1n2's maps on the lines-fast tile
+    form_stage<kOp, kKara>(form.kara, Lines{s, 1, total, total, 1},
+                           StageMap{f, C, C, 1, C, 1, 0, 0}, m.f1r, m.f1i,
+                           m.ld1, nullptr, nullptr, false);
+  } else if constexpr (kOp == kTf32x3) {   // stages_n1n2's maps
     const Lines L{s, C, f, 1, C};
-    long_stage_cols(L, StageMap{fa, fb, fb, 1, 1, fa, fb, 1}, m.f1r, m.f1i,
-                    m.ld1, g.itwr, g.itwi);
-    long_stage_cols(L, StageMap{fb, fa, fa, 1, 1, fb, 0, 0}, m.f2r, m.f2i,
-                    m.ld2, nullptr, nullptr);
+    form_stage_cols<kKara>(form.kara, L, StageMap{fa, fb, fb, 1, 1, fa, fb, 1},
+                           m.f1r, m.f1i, m.ld1, g.itwr, g.itwi);
+    form_stage_cols<kKara>(form.kara, L, StageMap{fb, fa, fa, 1, 1, fb, 0, 0},
+                           m.f2r, m.f2i, m.ld2, nullptr, nullptr);
+  } else {
+    __trap();   // the 16-bit forms take one stage (unpack_segment)
   }
   const float scale = inverse_scale(p.last, op.n);
   const float iscale = -scale;
@@ -506,6 +706,12 @@ __device__ __forceinline__ void digit_tile(float2* s, const Mats& m,
       v = cmul(v, __ldg(twr + w), __ldg(twi + w));
     }
     if (p.last) v = make_float2(__fmul_rn(v.x, scale), __fmul_rn(v.y, iscale));
+    if constexpr (kBs) {
+      if (pf.dec) {
+        v = scale2(v, pow2(codec_exponent(
+                          form, digit0_point(op, scene, k, j, rest).bl)));
+      }
+    }
     const long long e = off + k * sub + j;
     p.dr[e] = v.x;
     p.di[e] = v.y;
@@ -556,6 +762,14 @@ __device__ __forceinline__ TailLine tail_line(const LongOp& op, long long t,
   return r;
 }
 
+// The (scene, line) of a tail tile's line (bs16's word).
+__device__ __forceinline__ long long tail_bl(const LongOp& op,
+                                            const TailLine& r) {
+  return op.axis == 1
+             ? r.nat / op.n
+             : r.nat / ((long long)op.n * op.lines) * op.lines + r.line;
+}
+
 // The natural index of a tail tile's point q (the matmul route's two-factor
 // tail leaves its runs in the transposed order).
 template <bool kStockham>
@@ -565,6 +779,268 @@ __device__ __forceinline__ int tail_k(const LongOp& op, const TailLine& r,
                                                              op.d.n2)
                                            : q;
   return r.klo + (op.n / op.d.n) * kb;
+}
+
+// The tail's B-point transform of every line of L (forward, or the
+// inverse's without its closing conjugate and 1/N). Two factors: the
+// stages of spectral_common.cuh's stages_n1n2 (forward, ending in the
+// transposed order) and stages_n2n1 (the inverse, from it), each through
+// form_stage (the op's operand form; the f32 form's is tail_transform).
+template <bool kStockham, int kOp, int kKara>
+__device__ __forceinline__ void tail_transform_form(const Lines& L,
+                                                    const Dft& d,
+                                                    const Mats& m,
+                                                    bool inverse, bool kara) {
+  if constexpr (kStockham) {
+    stockham_lines(L, d.stw, !inverse, inverse);
+  } else if (d.n2 == 1) {   // one factor: the lines as the stage's columns
+    const int total = L.lines * L.n;
+    form_stage<kOp, kKara>(kara, Lines{L.s, 1, total, total, 1},
+                           StageMap{L.n, L.lines, 1, L.n, 1, L.n, 0, 0},
+                           m.f1r, m.f1i, m.ld1, nullptr, nullptr, inverse);
+  } else if (!inverse) {
+    const int n1 = d.n1, n2 = d.n2;
+    //                   nf  nq  sk  sq  om  oq  twm twq
+    form_stage<kOp, kKara>(kara, L, StageMap{n1, n2, n2, 1, 1, n1, n2, 1},
+                           m.f1r, m.f1i, m.ld1, d.twr, d.twi, false);
+    form_stage<kOp, kKara>(kara, L, StageMap{n2, n1, n1, 1, 1, n2, 0, 0},
+                           m.f2r, m.f2i, m.ld2, nullptr, nullptr, false);
+  } else {
+    const int n1 = d.n1, n2 = d.n2;
+    form_stage<kOp, kKara>(kara, L, StageMap{n2, n1, 1, n2, 1, n2, 1, n2},
+                           m.f2r, m.f2i, m.ld2, d.twr, d.twi, true);
+    form_stage<kOp, kKara>(kara, L, StageMap{n1, n2, n2, 1, n2, 1, 0, 0},
+                           m.f1r, m.f1i, m.ld1, nullptr, nullptr, false);
+  }
+}
+
+// tail_tile (below, the f32 form's) at the other forms: the same loads,
+// transforms and stores through form_stage. The natural schedule (kNat)
+// runs the
+// forward and stores natural order, filtered where the pass's form says,
+// its last pass with the inverse's closing conjugate and 1/N on the
+// store; bs16 scales by 2^-e on the op's first load, before the filter,
+// and by 2^e on its last store.
+template <bool kStockham, int kOp, int kKara, bool kBs>
+__device__ __forceinline__ void tail_tile_form(float2* s, const Mats& m,
+                                               const LongOp& op,
+                                               const Pass& p,
+                                               const PassForm pf,
+                                               const LongForm form,
+                                               long long t) {
+  constexpr bool kNat = !kStockham && kOp != kTf32x3;
+  const int B = op.d.n, C = op.lg.tail_tile;
+  const int total = C * B;
+  const long long stride = op.axis == 1 ? 1 : op.lines;
+  const bool tfwd = kNat || op.fwd;
+  const bool tinv = !kNat && op.inv;
+  const bool perm_in = !kNat && !op.fwd;
+  const bool perm_out = kNat || !op.inv;
+  const bool filt = (kNat ? pf.filt : true) && op.f.mode != kNone;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    int c, q;
+    if (op.axis == 0 || perm_in) { q = i / C; c = i - q * C; }
+    else { c = i / B; q = i - c * B; }
+    const TailLine r = tail_line(op, t, c);
+    float2 v = make_float2(0.0f, 0.0f);
+    if (r.valid) {
+      if (perm_in) {
+        const int k = tail_k<kStockham>(op, r, q);
+        const long long e = r.nat + k * stride;
+        v = make_float2(__ldcg(p.sr + e), __ldcg(p.si + e));
+        if constexpr (kBs) {
+          if (pf.enc) {
+            v = scale2(v, pow2(-codec_exponent(form, tail_bl(op, r))));
+          }
+        }
+        if (filt) v = apply_filter(v, op.f, r.line, k);
+      } else {
+        const long long e = r.pos + q * stride;
+        v = make_float2(__ldcg(p.sr + e), __ldcg(p.si + e));
+      }
+    }
+    s[kStockham ? swz(c * B + q) : c * B + q] = v;
+  }
+  __syncthreads();
+  const Lines L{s, C, B, B, 1};
+  if (tfwd) {
+    tail_transform_form<kStockham, kOp, kKara>(L, op.d, m, false,
+                                                 form.kara);
+    if (filt) {
+      for (int i = threadIdx.x; i < total; i += blockDim.x) {
+        const int c = i / B, q = i - c * B;
+        const TailLine r = tail_line(op, t, c);
+        if (!r.valid) continue;
+        float2* e = s + (kStockham ? swz(i) : i);
+        *e = apply_filter(*e, op.f, r.line, tail_k<kStockham>(op, r, q));
+      }
+      __syncthreads();
+    }
+  }
+  if constexpr (!kNat) {   // the natural schedule runs forwards alone
+    if (tinv) {
+      tail_transform_form<kStockham, kOp, kKara>(L, op.d, m, true,
+                                                 form.kara);
+    }
+  }
+  const float scale = inverse_scale(kNat && p.last, op.n);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    int c, q;
+    if (op.axis == 0 || perm_out) { q = i / C; c = i - q * C; }
+    else { c = i / B; q = i - c * B; }
+    const TailLine r = tail_line(op, t, c);
+    if (!r.valid) continue;
+    float2 v = s[kStockham ? swz(c * B + q) : c * B + q];
+    if constexpr (kNat) {
+      if (p.last) {
+        v = make_float2(__fmul_rn(v.x, scale), __fmul_rn(v.y, -scale));
+      }
+    }
+    if constexpr (kBs) {
+      if (pf.dec) v = scale2(v, pow2(codec_exponent(form, tail_bl(op, r))));
+    }
+    const long long e = perm_out
+                            ? r.nat + tail_k<kStockham>(op, r, q) * stride
+                            : r.pos + q * stride;
+    p.dr[e] = v.x;
+    p.di[e] = v.y;
+  }
+  __syncthreads();   // the next tile's load overwrites s
+}
+
+// A filter-only op past one block: elementwise, device memory to device
+// memory (bs16: 2^-e, the filter, 2^e, as the plain version orders them).
+template <bool kBs = false>
+__device__ __forceinline__ void filter_only(const LongOp& op, const Pass& p,
+                                            const LongForm form) {
+  const long long total = (long long)op.batch * op.lines * op.n;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += step) {
+    int line, k;
+    if (op.axis == 1) {
+      const long long l = e / op.n;
+      k = (int)(e - l * op.n);
+      line = (int)(l % op.lines);
+    } else {
+      const long long pl = e / op.lines;
+      line = (int)(e - pl * op.lines);
+      k = (int)(pl % op.n);
+    }
+    if constexpr (!kBs) {
+      const float2 v = apply_filter(make_float2(__ldcg(p.sr + e),
+                                                __ldcg(p.si + e)),
+                                    op.f, line, k);
+      p.dr[e] = v.x;
+      p.di[e] = v.y;
+    } else {
+      const long long bl = op.axis == 1
+                               ? e / op.n
+                               : e / ((long long)op.n * op.lines) * op.lines +
+                                     line;
+      const int ex = codec_exponent(form, bl);
+      float2 v = scale2(make_float2(__ldcg(p.sr + e), __ldcg(p.si + e)),
+                        pow2(-ex));
+      v = scale2(apply_filter(v, op.f, line, k), pow2(ex));
+      p.dr[e] = v.x;
+      p.di[e] = v.y;
+    }
+  }
+}
+
+// Points of a row a block reduces a turn, and rows of the columns layout
+// (32 lines side by side a tile).
+constexpr int kAmaxChunk = 4096;
+constexpr int kAmaxRows = 1024;
+
+// bs16's reduction phase (before the op's first pass): every (scene, line)'s
+// largest |re| or |im| of the op's input into ex, by an atomicMax on its
+// bits (non-negative floats order as their bits): the words zeroed, a grid
+// barrier, each tile's maximum reduced in the block (rows: a warp's lanes
+// share the line; columns: a lane a line, the warps' maxima in shared
+// memory), then one atomic a warp or a line. The caller's grid barrier
+// follows.
+__device__ __forceinline__ void long_amax(float2* s, const LongOp& op,
+                                          const LongForm form) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  unsigned* ex = form.ex;
+  const long long words = (long long)op.batch * op.lines;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < words; i += (long long)gridDim.x * blockDim.x) {
+    ex[i] = 0u;
+  }
+  grid.sync();
+  const float* __restrict__ xr = op.xr;
+  const float* __restrict__ xi = op.xi;
+  const int lane = threadIdx.x & 31;
+  if (op.axis == 1) {
+    const int chunk = min(op.n, kAmaxChunk);
+    const long long per = op.n / chunk;
+    const long long tiles = words * per;
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const long long row = t / per;
+      const long long base = row * op.n + (t - row * per) * chunk;
+      unsigned mx = 0u;
+      for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
+        const float2 v = make_float2(__ldcg(xr + base + i),
+                                     __ldcg(xi + base + i));
+        mx = max(mx, __float_as_uint(point_amax(v)));
+      }
+      mx = __reduce_max_sync(0xffffffffu, mx);
+      if (lane == 0 && mx != 0u) atomicMax(ex + row, mx);
+    }
+    return;
+  }
+  unsigned* red = reinterpret_cast<unsigned*>(s);
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const long long lt = (op.lines + 31) / 32;           // line tiles
+  const long long kt = (op.n + kAmaxRows - 1) / kAmaxRows;
+  const long long tiles = (long long)op.batch * kt * lt;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long b = t / (kt * lt);
+    const long long r = t - b * kt * lt;
+    const int k0 = (int)(r / lt) * kAmaxRows;
+    const int l = (int)(r % lt) * 32 + lane;
+    if (threadIdx.x < 32) red[threadIdx.x] = 0u;
+    __syncthreads();
+    unsigned mx = 0u;
+    if (l < op.lines) {
+      const int k1 = min(op.n, k0 + kAmaxRows);
+      for (int k = k0 + warp; k < k1; k += nwarps) {
+        const long long e = (b * op.n + k) * op.lines + l;
+        mx = max(mx, __float_as_uint(point_amax(
+                         make_float2(__ldcg(xr + e), __ldcg(xi + e)))));
+      }
+    }
+    if (mx != 0u) atomicMax(red + lane, mx);
+    __syncthreads();
+    if (threadIdx.x < 32 && l < op.lines && red[lane] != 0u) {
+      atomicMax(ex + b * op.lines + l, red[lane]);
+    }
+    __syncthreads();   // the next tile zeroes red
+  }
+}
+
+// The matmul route's DFT matrices of pass p in shared memory past its tile
+// (`at`): the digit's f x f matrix, or the tail's F1 and F2 (one F1 for a
+// one-factor tail). No barrier: the first tile's load barrier orders it.
+__device__ __forceinline__ Mats long_mats(float2* s, const LongOp& op,
+                                          const Pass& p) {
+  if (p.kind == kTail) {
+    const Dft& d = op.d;
+    float* at = reinterpret_cast<float*>(s + op.lg.tail_tile * d.n);
+    if (d.n2 > 1) return mats_to_shared(at, d);
+    return mats_to_shared(at, Dft{d.f1r, d.f1i, d.f1r, d.f1i, nullptr,
+                                  nullptr, nullptr, d.n, d.n, d.n});
+  }
+  const Digit& g = op.lg.dig[p.digit];
+  float* at = reinterpret_cast<float*>(s + g.f * g.tile);
+  if (g.fb > 1) {
+    return mats_to_shared(at, Dft{g.fr, g.fi, g.fbr, g.fbi, nullptr, nullptr,
+                                  nullptr, g.f, g.f / g.fb, g.fb});
+  }
+  return mats_to_shared(at, Dft{g.fr, g.fi, g.fr, g.fi, nullptr, nullptr,
+                                nullptr, g.f, g.f, g.f});
 }
 
 // The tail's B-point transform of every line of L (forward, or the
@@ -664,57 +1140,9 @@ __device__ __forceinline__ void tail_tile(float2* s, const Mats& m,
   __syncthreads();   // the next tile's load overwrites s
 }
 
-// A filter-only op past one block: elementwise, device memory to device
-// memory.
-__device__ __forceinline__ void filter_only(const LongOp& op,
-                                            const Pass& p) {
-  const long long total = (long long)op.batch * op.lines * op.n;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += step) {
-    int line, k;
-    if (op.axis == 1) {
-      const long long l = e / op.n;
-      k = (int)(e - l * op.n);
-      line = (int)(l % op.lines);
-    } else {
-      const long long pl = e / op.lines;
-      line = (int)(e - pl * op.lines);
-      k = (int)(pl % op.n);
-    }
-    const float2 v = apply_filter(make_float2(__ldcg(p.sr + e),
-                                              __ldcg(p.si + e)),
-                                  op.f, line, k);
-    p.dr[e] = v.x;
-    p.di[e] = v.y;
-  }
-}
-
-// The matmul route's DFT matrices of pass p in shared memory past its tile
-// (`at`): the digit's f x f matrix, or the tail's F1 and F2 (one F1 for a
-// one-factor tail). No barrier: the first tile's load barrier orders it.
-__device__ __forceinline__ Mats long_mats(float2* s, const LongOp& op,
-                                          const Pass& p) {
-  if (p.kind == kTail) {
-    const Dft& d = op.d;
-    float* at = reinterpret_cast<float*>(s + op.lg.tail_tile * d.n);
-    if (d.n2 > 1) return mats_to_shared(at, d);
-    return mats_to_shared(at, Dft{d.f1r, d.f1i, d.f1r, d.f1i, nullptr,
-                                  nullptr, nullptr, d.n, d.n, d.n});
-  }
-  const Digit& g = op.lg.dig[p.digit];
-  float* at = reinterpret_cast<float*>(s + g.f * g.tile);
-  if (g.fb > 1) {
-    return mats_to_shared(at, Dft{g.fr, g.fi, g.fbr, g.fbi, nullptr, nullptr,
-                                  nullptr, g.f, g.f / g.fb, g.fb});
-  }
-  return mats_to_shared(at, Dft{g.fr, g.fi, g.fr, g.fi, nullptr, nullptr,
-                                nullptr, g.f, g.f, g.f});
-}
-
-// Every pass of one long op, a grid barrier between two (the caller's grid
-// is cooperative). Out of line: its registers are its own, whatever the
-// kernel that calls it.
+// Every pass of one long op at f32, a grid barrier between two (the
+// caller's grid is cooperative). Out of line: its registers are its own,
+// whatever the kernel that calls it.
 template <bool kStockham>
 __device__ __noinline__ void long_op(float2* s, const LongOp& op) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
@@ -723,7 +1151,7 @@ __device__ __noinline__ void long_op(float2* s, const LongOp& op) {
     if (k) grid.sync();
     const Pass p = long_pass(op, k);
     if (p.kind == kFilterOnly) {
-      filter_only(op, p);
+      filter_only(op, p, LongForm{});
       continue;
     }
     Mats m{};
@@ -733,7 +1161,45 @@ __device__ __noinline__ void long_op(float2* s, const LongOp& op) {
       if (p.kind == kTail) {
         tail_tile<kStockham>(s, m, op, p, t);
       } else {
-        digit_tile<kStockham>(s, m, op, p, t);
+        digit_tile<kStockham>(s, m, op, p, PassForm{}, LongForm{}, t);
+      }
+    }
+  }
+}
+
+// long_op at the other forms: every pass of one long op, a grid barrier
+// between two, bs16's reduction phase first. kOp, kKara: the matmul
+// route's operand form (kKara 0 never, 2 as the form's kara); the 16-bit
+// forms run the natural schedule. kBs: the bs16 codec. Out of line
+// likewise.
+template <bool kStockham, int kOp, int kKara, bool kBs>
+__device__ __noinline__ void long_op_form(float2* s, const LongOp& op,
+                                          const LongForm form) {
+  static_assert(!kStockham || (kOp == kTf32x3 && kKara == 0),
+                "the Stockham route has no matrix operands");
+  constexpr bool kNat = !kStockham && kOp != kTf32x3;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  if constexpr (kBs) {
+    long_amax(s, op, form);
+    grid.sync();
+  }
+  const int np = kNat ? long_pass_count_natural(op) : long_pass_count(op);
+  for (int k = 0; k < np; ++k) {
+    if (k) grid.sync();
+    const Pass p = kNat ? long_pass_natural(op, k) : long_pass(op, k);
+    const PassForm pf = kNat || kBs ? pass_form<kNat>(op, k) : PassForm{};
+    if (p.kind == kFilterOnly) {
+      filter_only<kBs>(op, p, form);
+      continue;
+    }
+    Mats m{};
+    if constexpr (!kStockham) m = long_mats(s, op, p);
+    const long long tiles = long_pass_tiles(op, p);
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      if (p.kind == kTail) {
+        tail_tile_form<kStockham, kOp, kKara, kBs>(s, m, op, p, pf, form, t);
+      } else {
+        digit_tile<kStockham, kOp, kKara, kBs>(s, m, op, p, pf, form, t);
       }
     }
   }
@@ -748,6 +1214,17 @@ __device__ __noinline__ void long_segment(float2* s, const Segment& g,
                                           float* yr, float* yi, int batch,
                                           int na, int nr) {
   long_op<kStockham>(s, long_op_of(g, xr, xi, yr, yi, batch, na, nr));
+}
+
+// The same at another form (its words and the segment's Karatsuba).
+template <bool kStockham, int kOp, int kKara, bool kBs>
+__device__ __noinline__ void long_segment_form(float2* s, const Segment& g,
+                                               const float* xr,
+                                               const float* xi, float* yr,
+                                               float* yi, int batch, int na,
+                                               int nr, unsigned* ex) {
+  long_op_form<kStockham, kOp, kKara, kBs>(
+      s, long_op_of(g, xr, xi, yr, yi, batch, na, nr), LongForm{ex, g.kara});
 }
 
 // Launch `kernel` (one argument struct, kLongThreads threads) cooperatively

@@ -12,9 +12,10 @@
 // both wrapped by src/repro/kernels/ops.py:161 `mega_spectral_op`; at
 // every precision (f32, bf16, f16, bs16), Karatsuba per segment on the
 // matmul route, N <= 4096 on each transformed axis (mega_staged: any N
-// up to 2^21 and three-factor splits at f32, a segment past one block
-// running long_lines.cuh's device-memory passes as phases of its own,
-// through the same device functions as spectral.cu's), all
+// up to 2^21 and three-factor splits, a segment past one block running
+// long_lines.cuh's device-memory passes as phases of its own, through the
+// same device functions as spectral.cu's: f32 in mega_long.cu, the other
+// forms in mega_long_forms.cu), all
 // five filter modes on either axis (rank-K outer), fwd-only / inv-only /
 // fwd+inv / filter-only segments, at most kMaxSegments segments. Each FFT
 // runs on one of two routes: fft_impl="matmul" (the four-step stages, N a
@@ -135,7 +136,8 @@ namespace cg = cooperative_groups;
 #define MEGA_OPERAND_FORMS 0
 #endif
 // mega_long.cu includes it with MEGA_LONG_LINES set, to build mega_staged
-// for chains with a segment past one block (kLong) alone.
+// for chains with a segment past one block (kLong) alone at f32;
+// mega_long_forms.cu with both set, at the other forms.
 #ifndef MEGA_LONG_LINES
 #define MEGA_LONG_LINES 0
 #endif
@@ -164,7 +166,18 @@ struct MegaArgs {
   int bs;             // the bs16 codec in every segment (the route's choice)
   int op;             // the matmul route's operand form (Operand)
   Segment seg[kMaxSegments];
+#if MEGA_LONG_LINES && MEGA_OPERAND_FORMS
+  unsigned* ex;       // bs16's words for a segment past one block
+#endif
 };
+
+// bs16's words of a launch with a segment past one block (the field of
+// mega_long_forms.cu's MegaArgs alone, so that the other libraries'
+// kernels keep their code).
+template <class A>
+__device__ __forceinline__ unsigned* long_words(const A& a) {
+  return a.ex;
+}
 
 // One segment in place on the resident slab (lines in natural order on
 // entry and on exit). The Stockham route keeps the slab swizzled (swz) and
@@ -275,10 +288,10 @@ mega_resident(const __grid_constant__ MegaArgs a) {
 // path's 4096^2 scene takes kN = 4096: out of line they spilled 1-3 KB
 // each under this kernel's register budget). kOp, kKara: the matmul
 // route's operand form (tile_op's), each segment's Karatsuba its own.
-// kLong (f32, kN = 0): a chain with a segment past one block, which runs
+// kLong (kN = 0): a chain with a segment past one block, which runs
 // long_lines.cuh's device-memory passes as phases of its own (out of line,
-// long_segment); an instantiation of its own, so that the kernels without
-// such a segment keep their code and registers.
+// long_segment, in the kernel's form); an instantiation of its own, so that
+// the kernels without such a segment keep their code and registers.
 template <bool kStockham, int kN, bool kBs, int kOp = kTf32x3, int kKara = 0,
           bool kLong = false>
 __global__ void __launch_bounds__(kStockham ? kStockhamThreads : kMmaThreads,
@@ -291,9 +304,15 @@ mega_staged(const __grid_constant__ MegaArgs a) {
     const Segment& g = a.seg[k];
     if constexpr (kLong) {
       if (g.lg.on) {   // lines past one block: long_lines.cuh's passes
-        long_segment<kStockham>(s, g, k == 0 ? a.xr : a.yr,
-                                k == 0 ? a.xi : a.yi, a.yr, a.yi, a.batch,
-                                a.na, a.nr);
+        if constexpr (kOp == kTf32x3 && kKara == 0 && !kBs) {
+          long_segment<kStockham>(s, g, k == 0 ? a.xr : a.yr,
+                                  k == 0 ? a.xi : a.yi, a.yr, a.yi, a.batch,
+                                  a.na, a.nr);
+        } else {
+          long_segment_form<kStockham, kOp, kKara, kBs>(
+              s, g, k == 0 ? a.xr : a.yr, k == 0 ? a.xi : a.yi, a.yr, a.yi,
+              a.batch, a.na, a.nr, long_words(a));
+        }
         if (k + 1 < a.nseg) grid.sync();
         continue;
       }
@@ -325,11 +344,11 @@ mega_staged(const __grid_constant__ MegaArgs a) {
 // long_lines.cuh's unpack_segment). A non-null stw (the Stockham twiddle
 // table) puts the segment on the Stockham route; kara (the matmul route)
 // its stages on Karatsuba; a set `on` its lines past one block on
-// long_lines.cuh's device-memory passes (f32 alone: a call with such a
-// segment at another form is refused).
+// long_lines.cuh's device-memory passes (the f32 form's in mega_long.cu,
+// the others' in mega_long_forms.cu).
 cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
                    float* yi, int batch, int na, int nr, int nseg, int bs,
-                   int op, const long long* table) {
+                   int op, const long long* table, unsigned* ex = nullptr) {
   if (nseg < 1 || nseg > kMaxSegments || batch < 1 || na < 1 || nr < 1 ||
       op < kTf32x3 || op > kF16 || (bs && op != kF16)) {
     return cudaErrorInvalidValue;
@@ -337,17 +356,15 @@ cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
   a.xr = xr; a.xi = xi; a.yr = yr; a.yi = yi;
   a.batch = batch; a.na = na; a.nr = nr; a.nseg = nseg; a.bs = bs;
   a.op = op;
-  bool any_long = false, any_kara = false;
+#if MEGA_LONG_LINES && MEGA_OPERAND_FORMS
+  a.ex = ex;
+#endif
   for (int k = 0; k < nseg; ++k) {
     const long long* r = table + (long long)k * kSegFields;
-    const cudaError_t err =
-        unpack_segment(r, r[0] == 1 ? nr : na, a.seg[k]);
+    const cudaError_t err = unpack_segment(r, r[0] == 1 ? nr : na, a.seg[k],
+                                           op);
     if (err != cudaSuccess) return err;
-    any_long = any_long || a.seg[k].lg.on;
-    any_kara = any_kara || a.seg[k].kara;
-  }
-  if (any_long && (op != kTf32x3 || bs || any_kara)) {
-    return cudaErrorInvalidValue;
+    if (bs && a.seg[k].lg.on && ex == nullptr) return cudaErrorInvalidValue;
   }
   return cudaSuccess;
 }
@@ -514,7 +531,9 @@ extern "C" {
 // block_scaled: the bs16 codec in every segment. op: the matmul route's
 // operand form (0 f32 as 3xTF32, 1 bf16, 2 f16; 2 with block_scaled for
 // bs16), which the Stockham route ignores (its bf16 and f16 are its f32
-// passes); each segment's Karatsuba is its table record's.
+// passes); each segment's Karatsuba is its table record's. ex (staged):
+// bs16's words for a segment past one block, one int a (scene, line) of
+// the longer axis (each such segment zeroes them), null otherwise.
 
 int mega_resident_launch(const float* xr, const float* xi, float* yr,
                          float* yi, int batch, int na, int nr, int nseg,
@@ -586,11 +605,11 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
 int mega_staged_launch(const float* xr, const float* xi, float* yr,
                        float* yi, int batch, int na, int nr, int nseg,
                        int buffer_depth, int block_scaled, int op,
-                       const long long* table, void* stream) {
+                       const long long* table, unsigned* ex, void* stream) {
   if (buffer_depth < 1) return (int)cudaErrorInvalidValue;
   MegaArgs a;
   cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg,
-                           block_scaled, op, table);
+                           block_scaled, op, table, ex);
   if (err != cudaSuccess) return (int)err;
   const int r = route(a);
   if (r < 0) return (int)cudaErrorInvalidValue;
@@ -603,7 +622,7 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
     if (g.lg.on) {   // long_lines.cuh's passes, on this kernel's grid
       any_long = true;
       const LongOp op = long_op_of(g, xr, xi, yr, yi, batch, na, nr);
-      smem = std::max(smem, long_smem(op, r));
+      smem = std::max(smem, long_smem(op, r, block_scaled != 0));
       work = std::max(work, long_work(op));
       continue;
     }
@@ -623,11 +642,36 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
   const cudaStream_t st = (cudaStream_t)stream;
 #if MEGA_LONG_LINES
   if (!any_long) return (int)cudaErrorInvalidValue;   // mega.cu's
-  // unpack took it at f32 alone
+  // the f32 form (Stockham: bf16 and f16 too) here, the others in
+  // mega_long_forms.cu; each of those takes Karatsuba per segment
+  const bool form = block_scaled || (!r && (a.op != kTf32x3 || any_kara(a)));
+  if (form != (MEGA_OPERAND_FORMS != 0)) return (int)cudaErrorInvalidValue;
+#if !MEGA_OPERAND_FORMS
   return (int)(r ? launch_staged<true, 0, false, kTf32x3, 0, true>(
                        a, work, smem, st)
                  : launch_staged<false, 0, false, kTf32x3, 0, true>(
                        a, work, smem, st));
+#else
+  if (r) {   // the Stockham route's one other form: bs16
+    return (int)launch_staged<true, 0, true, kTf32x3, 0, true>(a, work, smem,
+                                                               st);
+  }
+  if (block_scaled) {
+    return (int)launch_staged<false, 0, true, kF16, 2, true>(a, work, smem,
+                                                             st);
+  }
+  switch (a.op) {
+    case kTf32x3:
+      return (int)launch_staged<false, 0, false, kTf32x3, 2, true>(
+          a, work, smem, st);
+    case kBf16:
+      return (int)launch_staged<false, 0, false, kBf16, 2, true>(
+          a, work, smem, st);
+    default:
+      return (int)launch_staged<false, 0, false, kF16, 2, true>(
+          a, work, smem, st);
+  }
+#endif
 #else
   if (any_long) return (int)cudaErrorInvalidValue;    // mega_long.cu's
   if (!r) {

@@ -1,10 +1,12 @@
 // mega_staged for chains with a segment past one block (a line over 4096
 // points, or a three-factor split; csrc/long_lines.cuh's device-memory
-// passes as phases of their own), at f32 on both FFT routes — built from
-// mega.cu into a library of its own (MEGA_LONG_LINES), so that it compiles
-// beside mega.cu's and mega_forms.cu's instantiations instead of after
-// them, and so that theirs keep their code. The same C entry points as
-// mega.cu's; each library refuses the calls the others take, and
-// src/repro_torch/kernels/ops.py picks the library by the call's segments.
+// passes as phases of their own), at f32 on both FFT routes (and the
+// Stockham route's bf16 and f16, its f32 passes; the other forms build
+// from mega_long_forms.cu) — built from mega.cu into a library of its own
+// (MEGA_LONG_LINES), so that it compiles beside mega.cu's and
+// mega_forms.cu's instantiations instead of after them, and so that theirs
+// keep their code. The same C entry points as mega.cu's; each library
+// refuses the calls the others take, and src/repro_torch/kernels/ops.py
+// picks the library by the call's form and segments.
 #define MEGA_LONG_LINES 1
 #include "mega.cu"

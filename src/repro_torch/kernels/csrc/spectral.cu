@@ -10,9 +10,12 @@
 // outer), fwd-only / inv-only / fwd+inv / filter-only; and, with
 // fft_impl="stockham", also src/repro/kernels/fft4step.py:422
 // `_fft_stockham` inside it (N any power of two from 2 to 4096). Lines
-// past 4096 points (up to 2^21) and three-factor splits run, at f32, as
-// the device-memory passes of long_lines.cuh in one cooperative launch
-// (spectral_long, entry point spectral_long_launch).
+// past 4096 points (up to 2^21) and three-factor splits run, at every
+// precision and with Karatsuba, as the device-memory passes of
+// long_lines.cuh in one cooperative launch (spectral_long, entry point
+// spectral_long_launch; the f32 form's here, the others' in
+// spectral_long_forms.cu, which builds this source with
+// SPECTRAL_LONG_FORMS set).
 //
 // What bounds it on an H100 SXM at the paper's 4096 x 4096 scene: each
 // launch reads re+im once and writes re+im once, 4 x 64 MiB = ~268 MB,
@@ -94,9 +97,18 @@
 
 #include "long_lines.cuh"
 
+// spectral_long_forms.cu includes this source with SPECTRAL_LONG_FORMS
+// set, to build spectral_long's forms other than f32 alone (no tile
+// kernel, no spectral_launch) into a library of their own.
+#ifndef SPECTRAL_LONG_FORMS
+#define SPECTRAL_LONG_FORMS 0
+#endif
+
 namespace {
 
 using namespace spectral;
+
+#if !SPECTRAL_LONG_FORMS
 
 struct Args {
   const float* xr;
@@ -195,6 +207,8 @@ cudaError_t launch_form(const Args& a, int op, bool bs, bool kara, int batch,
   }
 }
 
+#endif  // !SPECTRAL_LONG_FORMS
+
 // One op on lines past one block (or a three-factor split): every
 // device-memory pass of long_lines.cuh, a grid barrier between two, in one
 // cooperative launch on the co-resident blocks. Naming one block per SM
@@ -210,9 +224,25 @@ spectral_long(const __grid_constant__ LongArgs a) {
   long_op<kStockham>(s, a.op);
 }
 
+// The same at the other forms (kOp, kKara, kBs: long_op_form's), the
+// codec's words and the Karatsuba flag beside the op.
+struct LongFormArgs {
+  LongOp op;
+  LongForm form;
+};
+
+template <bool kStockham, int kOp, int kKara, bool kBs>
+__global__ void __launch_bounds__(kLongThreads, 1)
+spectral_long_form(const __grid_constant__ LongFormArgs a) {
+  extern __shared__ float2 s[];
+  long_op_form<kStockham, kOp, kKara, kBs>(s, a.op, a.form);
+}
+
 }  // namespace
 
 extern "C" {
+
+#if !SPECTRAL_LONG_FORMS
 
 // Launches one fused spectral op on `stream`; returns cudaGetLastError()
 // after the launch (0 on success). `stw` (the Stockham twiddle table, or
@@ -285,30 +315,65 @@ int spectral_launch(const float* xr, const float* xi, float* yr, float* yi,
                           smem, st);
 }
 
+#endif  // !SPECTRAL_LONG_FORMS
+
 // Launches one op on lines past one block — fwd / inv / fwd+inv, any
 // filter, or filter-only — on `stream` (returns the launch's error, 0 on
 // success): the (batch, na, nr) scene layout of mega.cu, rows (axis 1,
 // lines of nr points) or columns (axis 0, lines of na points), and one
-// segment record of long_lines.cuh (kSegFields int64) with its `on` set.
-// The Stockham table of the tail (non-null) selects the Stockham route.
+// segment record of long_lines.cuh (kSegFields int64) with its `on` set
+// (its kara field: Karatsuba on the matmul route). The Stockham table of
+// the tail (non-null) selects the Stockham route. block_scaled, op: as
+// spectral_launch's (a filter-only op runs no stage: the f32 form, or with
+// the codec the Stockham instantiation); ex: bs16's words, one int a
+// (scene, line) of the op's lines (the kernel zeroes them), null
+// otherwise. The f32 form (the Stockham route's bf16 and f16 too)
+// launches from spectral.cu's library, the others from
+// spectral_long_forms.cu's; each refuses the other's.
 int spectral_long_launch(const float* xr, const float* xi, float* yr,
                          float* yi, int batch, int na, int nr,
-                         const long long* rec, void* stream) {
-  if (batch < 1 || na < 1 || nr < 1) return (int)cudaErrorInvalidValue;
+                         const long long* rec, int block_scaled, int op,
+                         unsigned* ex, void* stream) {
+  if (batch < 1 || na < 1 || nr < 1 || op < kTf32x3 || op > kF16 ||
+      (block_scaled && (op != kF16 || ex == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool any_fft = rec[1] || rec[2];
+  if (!any_fft) op = kTf32x3;
   Segment g{};
-  const cudaError_t err =
-      unpack_segment(rec, rec[0] == 1 ? nr : na, g);
+  const cudaError_t err = unpack_segment(rec, rec[0] == 1 ? nr : na, g, op);
   if (err != cudaSuccess) return (int)err;
   if (!g.lg.on) return (int)cudaErrorInvalidValue;
-  LongArgs a{long_op_of(g, xr, xi, yr, yi, batch, na, nr)};
-  const bool stockham = g.d.stw != nullptr;
-  const size_t smem = long_smem(a.op, stockham);
-  const long long work = long_work(a.op);
+  const LongOp lop = long_op_of(g, xr, xi, yr, yi, batch, na, nr);
+  const bool stockham = g.d.stw != nullptr || (!any_fft && block_scaled);
+  const bool form =
+      block_scaled || (!stockham && (op != kTf32x3 || g.kara));
+  if (form != (SPECTRAL_LONG_FORMS != 0)) return (int)cudaErrorInvalidValue;
+  const size_t smem = long_smem(lop, stockham, block_scaled != 0);
+  const long long work = long_work(lop);
   const cudaStream_t st = (cudaStream_t)stream;
+#if !SPECTRAL_LONG_FORMS
+  LongArgs a{lop};
   return (int)(stockham ? launch_cooperative(spectral_long<true>, a,
                                              kLongThreads, smem, work, st)
                         : launch_cooperative(spectral_long<false>, a,
                                              kLongThreads, smem, work, st));
+#else
+  LongFormArgs a{lop, LongForm{ex, g.kara}};
+  auto go = [&](auto kernel) {
+    return (int)launch_cooperative(kernel, a, kLongThreads, smem, work, st);
+  };
+  if (stockham) return go(spectral_long_form<true, kTf32x3, 0, true>);
+  if (block_scaled) return go(spectral_long_form<false, kF16, 2, true>);
+  switch (op) {
+    case kTf32x3:
+      return go(spectral_long_form<false, kTf32x3, 2, false>);
+    case kBf16:
+      return go(spectral_long_form<false, kBf16, 2, false>);
+    default:
+      return go(spectral_long_form<false, kF16, 2, false>);
+  }
+#endif
 }
 
 const char* spectral_error_string(int code) {

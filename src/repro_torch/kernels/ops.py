@@ -10,8 +10,8 @@ Where it runs is decided by the tensors alone:
 
 * a CUDA tensor launches the hand-written kernel ``csrc/spectral.cu``
   (one launch per call, counted in ``SPECTRAL_LAUNCHES``; a line past one
-  block its cooperative ``spectral_long``), or raises — there is no
-  fallback;
+  block its cooperative ``spectral_long``, the forms other than f32 from
+  ``csrc/spectral_long_forms.cu``), or raises — there is no fallback;
 * a CPU tensor runs the plain PyTorch version
   (``fft4step.spectral_plain``).
 
@@ -79,7 +79,7 @@ KERNEL_NAME = "spectral"
 KERNEL_MAX_N = MAX_FACTOR ** 3
 FFT_IMPLS = ("matmul", "stockham")   # the FFT routes of the CUDA kernels
 _MODE_CODES = {m: i for i, m in enumerate(FILTER_MODES)}
-_ROADMAP = "ROADMAP.md Queue 2, item 1"
+_ROADMAP = "ROADMAP.md Queue 2, item"
 # Precisions the CUDA kernels take on each FFT route. The matmul route runs
 # its stages on 3xTF32 (f32), or one m16n8k16 pass of bf16 or f16 operands
 # (bs16: f16 behind the per-line exponent codec), each with or without
@@ -162,16 +162,24 @@ def _finish(yr, yi, axis, lines, batched):
 # The CUDA launch
 # ---------------------------------------------------------------------------
 
-def _bind():
-    lib = _build.load(KERNEL_NAME)
-    fn = lib.spectral_launch
+# The library of spectral_long's forms other than f32 (bf16, f16, bs16,
+# Karatsuba past one block): csrc/spectral_long_forms.cu, built from
+# spectral.cu beside it.
+SPECTRAL_LONG_FORMS_NAME = "spectral_long_forms"
+
+
+def _bind(name: str = KERNEL_NAME):
+    lib = _build.load(name)
+    fn = lib.spectral_long_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([p] * 4 + [i] * 9 + [p] * 11 + [i] + [ll] * 6
-                       + [i] * 5 + [p])
+        if name == KERNEL_NAME:    # the tile kernel's entry point
+            lib.spectral_launch.argtypes = (
+                [p] * 4 + [i] * 9 + [p] * 11 + [i] + [ll] * 6 + [i] * 5
+                + [p])
+            lib.spectral_launch.restype = ctypes.c_int
+        fn.argtypes = [p] * 4 + [i] * 3 + [p] + [i] * 2 + [p, p]
         fn.restype = ctypes.c_int
-        lib.spectral_long_launch.argtypes = [p] * 4 + [i] * 3 + [p, p]
-        lib.spectral_long_launch.restype = ctypes.c_int
         lib.spectral_error_string.argtypes = [ctypes.c_int]
         lib.spectral_error_string.restype = ctypes.c_char_p
     return lib
@@ -261,7 +269,10 @@ class LongGeometry:
     (fb = 1: one stage); the tail pass transforms B = prod(``tail``)
     points a line, ``tail_tile`` lines a tile (the matmul route's one or
     two factors, the Stockham route's ``TILE_MAX_N``). A filter-only op
-    has no digits and no tail: one elementwise pass."""
+    has no digits and no tail: one elementwise pass. ``natural``: the
+    matmul route's 16-bit forms, whose inverse runs the forward's passes on
+    natural order (conj, forward, conj x 1/N, as the plain version rounds
+    it), so a forward + inverse op runs the forward's passes twice."""
 
     digits: tuple[int, ...]
     tail: tuple[int, ...]
@@ -269,6 +280,7 @@ class LongGeometry:
     tail_tile: int
     fft_impl: str
     digit_splits: tuple[tuple[int, int], ...] = ()
+    natural: bool = False
 
     @property
     def tail_n(self) -> int:
@@ -276,11 +288,14 @@ class LongGeometry:
 
     def passes(self, fwd: bool, inv: bool) -> int:
         """Passes (grid barriers + 1) of an op: each digit once a
-        direction and the tail once; a filter-only op one."""
+        direction and the tail once (twice in a natural fwd + inv op); a
+        filter-only op one."""
         d = len(self.digits)
         if not (fwd or inv):
             return 1
-        return 2 * d + 1 if fwd and inv else d + 1
+        if fwd and inv:
+            return 2 * d + (2 if self.natural else 1)
+        return d + 1
 
     def smem_bytes(self) -> int:
         """Shared memory of the largest pass: its tile and, on the matmul
@@ -307,30 +322,43 @@ class LongGeometry:
 
 
 # The longest sum of products one tensor-core stage of the long passes
-# takes: a larger factor runs in two stages (``_stage_split``). The
+# takes at f32: a larger factor runs in two stages (``_stage_split``). The
 # tensor cores' accumulation truncates, so a long sum strays further (at
 # 128-term sums the 8192 x 16384 image missed complex128 by 1.04e-5,
-# PERF.md).
+# PERF.md). The 16-bit forms take every factor in one stage: the plain
+# version rounds a factor's operands once and sums all its terms in f32,
+# and a stage between would round an intermediate it never rounds.
 LONG_STAGE_MAX = 16
 
 
-def _stage_split(f: int) -> tuple[int, int]:
+def _narrow_operands(spec: SpectralSpec) -> bool:
+    """The matmul route's 16-bit forms (bf16, f16, bs16): one stage a
+    factor, and the natural schedule past one block."""
+    return spec.fft_impl == "matmul" and \
+        resolve_precision(spec.precision).dtype != "float32"
+
+
+def _stage_split(f: int, narrow: bool = False) -> tuple[int, int]:
     """(fa, fb) of an f-point transform in a long pass on the matmul
-    route: (f, 1), one stage, up to ``LONG_STAGE_MAX``; else the
-    two-factor split (32 = 8 x 4, 64 = 8 x 8, 128 = 16 x 8)."""
-    return (f, 1) if f <= LONG_STAGE_MAX else default_factorization(f)
+    route: (f, 1), one stage, up to ``LONG_STAGE_MAX`` (every f in the
+    16-bit forms, ``narrow``); else the two-factor split (32 = 8 x 4,
+    64 = 8 x 8, 128 = 16 x 8)."""
+    return (f, 1) if narrow or f <= LONG_STAGE_MAX \
+        else default_factorization(f)
 
 
-def _long_digit_tile(f: int, rest: int, fft_impl: str) -> int:
+def _long_digit_tile(f: int, rest: int, fft_impl: str,
+                     narrow: bool = False) -> int:
     """Sub-lines of one digit pass's tile: Stockham, what 512 threads hold
     at 16 points a thread; matmul, at most 16384 points beside the digit's
-    DFT matrices in shared memory, and in one stage (f <= 16) at most the
-    columns one round of it takes (the f x C tile is one line of C
-    columns). Never more than the ``rest`` sub-lines of a block."""
+    DFT matrices in shared memory, and in one stage (f <= 16, every f
+    when ``narrow``) at most the columns one round of it takes (the f x C
+    tile is one line of C columns). Never more than the ``rest``
+    sub-lines of a block."""
     if fft_impl == "stockham":
         c = max(1, 16 * STOCKHAM_THREADS // f)
     else:
-        fa, fb = _stage_split(f)
+        fa, fb = _stage_split(f, narrow)
         c = max(1, 16384 // f)
         if fb == 1:
             c = min(c, MMA_THREADS[1] // 32 // -(-f // 16) * 32)
@@ -363,11 +391,14 @@ def long_geometry(spec: SpectralSpec) -> Optional[LongGeometry]:
     two-factor split, or the Stockham route). The matmul route's leading
     factor is a pass, and the next too where the last two multiply past
     ``TILE_MAX_N`` (128^3); the Stockham route splits N into
-    N / ``TILE_MAX_N`` x ``TILE_MAX_N`` (``fft4step.stockham_split``)."""
+    N / ``TILE_MAX_N`` x ``TILE_MAX_N`` (``fft4step.stockham_split``).
+    The matmul route's 16-bit forms run each factor in one stage and the
+    natural schedule (``LongGeometry.natural``)."""
     if not (spec.fwd or spec.inv):
         if spec.n <= TILE_MAX_N:
             return None
         return LongGeometry((), (), (), 0, spec.fft_impl)
+    narrow = _narrow_operands(spec)
     if spec.fft_impl == "stockham":
         if spec.n <= TILE_MAX_N:
             return None
@@ -380,15 +411,15 @@ def long_geometry(spec: SpectralSpec) -> Optional[LongGeometry]:
         cut = 2 if len(fs) == 3 and fs[1] * fs[2] > TILE_MAX_N else 1
         digits, tail = fs[:cut], fs[cut:]
         if len(tail) == 1:          # its stages as a digit's
-            tail = tuple(f for f in _stage_split(tail[0]) if f > 1)
-        splits = tuple(_stage_split(f) for f in digits)
+            tail = tuple(f for f in _stage_split(tail[0], narrow) if f > 1)
+        splits = tuple(_stage_split(f, narrow) for f in digits)
     rest, tiles = spec.n, []
     for f in digits:
         rest //= f
-        tiles.append(_long_digit_tile(f, rest, spec.fft_impl))
+        tiles.append(_long_digit_tile(f, rest, spec.fft_impl, narrow))
     return LongGeometry(digits, tail, tuple(tiles),
                         _long_tail_tile(tail, spec.fft_impl), spec.fft_impl,
-                        splits)
+                        splits, narrow)
 
 
 def check_kernel_spec(spec: SpectralSpec) -> tuple[int, ...]:
@@ -396,10 +427,10 @@ def check_kernel_spec(spec: SpectralSpec) -> tuple[int, ...]:
     split (n1, n2[, n3]) of the four-step route (``fft_impl="matmul"``)
     and (n, 1) on the Stockham route, which splits nothing. Both routes
     take every power of two N up to ``KERNEL_MAX_N`` (2^21), the matmul
-    route every split of two or three factors up to 128; a line past
-    ``TILE_MAX_N`` or a three-factor split runs as passes over device
-    memory (``long_geometry``), at f32 alone: bf16, f16, bs16 and
-    Karatsuba take lines of one block (N <= 4096, two factors)."""
+    route every split of two or three factors up to 128, at every
+    precision, with or without Karatsuba; a line past ``TILE_MAX_N`` or a
+    three-factor split runs as passes over device memory
+    (``long_geometry``)."""
     if spec.fft_impl not in FFT_IMPLS:
         raise ValueError(f"unknown fft_impl {spec.fft_impl!r}: the CUDA "
                          f"kernels take {FFT_IMPLS} (ROADMAP.md Queue 2)")
@@ -412,13 +443,6 @@ def check_kernel_spec(spec: SpectralSpec) -> tuple[int, ...]:
         split = (spec.n, 1)
     else:
         split = spec.factors()
-    if long_geometry(spec) is not None and (
-            spec.precision != "f32" or spec.karatsuba):
-        raise ValueError(
-            f"precision={spec.precision!r}, karatsuba={spec.karatsuba} at "
-            f"n={spec.n} split {split}: the CUDA kernels' device-memory "
-            f"passes (N > {TILE_MAX_N} or three factors) run f32 without "
-            f"Karatsuba alone ({_ROADMAP}g)")
     return split
 
 
@@ -498,8 +522,8 @@ def _long_fields(spec: SpectralSpec, geom: LongGeometry, dev, scratch):
     Stockham table) of its tail's transform — the two-factor split's, one
     factor's as (B, 1), the Stockham route's (B, 1) with B's table — and
     the device-memory digits' fields (``_LONG_FIELDS``). ``scratch``: the
-    (re, im) buffer a forward-only or inverse-only op moves its permuted
-    lines through, or None."""
+    (re, im) buffer a forward-only or inverse-only op (a natural one in
+    every direction) moves its permuted lines through, or None."""
     keep, digits = [], []
     rest = spec.n
     for i, (f, c) in enumerate(zip(geom.digits, geom.digit_tiles)):
@@ -542,8 +566,35 @@ def _long_fields(spec: SpectralSpec, geom: LongGeometry, dev, scratch):
 
 def _needs_scratch(spec: SpectralSpec) -> bool:
     """A forward-only or inverse-only long op moves its lines between
-    the spectrum's order and the natural one through a scratch slab."""
-    return spec.fwd != spec.inv
+    the spectrum's order and the natural one through a scratch slab, and
+    so does every natural one (the 16-bit forms)."""
+    return spec.fwd != spec.inv or (
+        _narrow_operands(spec) and (spec.fwd or spec.inv))
+
+
+def _codec_words(spec: SpectralSpec, batch: int, lines: int, dev):
+    """bs16's words of a long op, one int32 a (scene, line) (the kernel
+    zeroes them before its reduction phase), or None."""
+    if not resolve_precision(spec.precision).block_scaled:
+        return None
+    return torch.empty(batch * lines, dtype=torch.int32, device=dev)
+
+
+def _launch_operand(spec: SpectralSpec) -> int:
+    """The launch's operand form: a filter-only op runs no stage, so f32
+    unless it carries bs16's codec (the launchers take the same rule)."""
+    if not (spec.fwd or spec.inv) and not _block_scaled(spec.precision):
+        return 0
+    return _OPERANDS[spec.precision]
+
+
+def _long_library(spec: SpectralSpec, kernel: str, forms: str) -> str:
+    """The library of a long op: the f32 form's (the Stockham route's bf16
+    and f16 run its f32 passes), or the other forms'."""
+    other = _block_scaled(spec.precision) or (
+        spec.fft_impl == "matmul" and (spec.fwd or spec.inv) and (
+            _OPERANDS[spec.precision] != 0 or bool(spec.karatsuba)))
+    return forms if other else kernel
 
 
 def _launch_long(spec: SpectralSpec, geom: LongGeometry, xr, xi,
@@ -562,19 +613,22 @@ def _launch_long(spec: SpectralSpec, geom: LongGeometry, xr, xi,
     dev = xr.device
     scratch = ((torch.empty_like(xr), torch.empty_like(xi))
                if _needs_scratch(spec) and geom.tail else None)
+    ex = _codec_words(spec, b, lines, dev)
     keep, filt = _filter_launch_args(spec.filter_mode, spec.axis,
                                      filter_args)
     head, fields, keep2 = _long_fields(spec, geom, dev, scratch)
     rec = _record(spec.axis, spec.fwd, spec.inv, spec.filter_mode, filt,
-                  head, 0, fields)
+                  head, _karatsuba(spec), fields)
     ctable = (ctypes.c_longlong * len(rec))(*rec)
     na, nr = (lines, n) if spec.axis == 1 else (n, lines)
-    lib = _bind()
+    lib = _bind(_long_library(spec, KERNEL_NAME, SPECTRAL_LONG_FORMS_NAME))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.spectral_long_launch(_ptr(xr), _ptr(xi), _ptr(yr),
-                                       _ptr(yi), b, na, nr, ctable, stream)
-    del keep, keep2, scratch
+        err = lib.spectral_long_launch(
+            _ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), b, na, nr, ctable,
+            _block_scaled(spec.precision), _launch_operand(spec), _ptr(ex),
+            stream)
+    del keep, keep2, scratch, ex
     if err != 0:
         msg = lib.spectral_error_string(err).decode()
         raise RuntimeError(f"spectral_long launch failed ({err}): {msg}")
@@ -612,7 +666,7 @@ def _launch_cuda(spec: SpectralSpec, xr, xi, filter_args):
     if geom is not None:
         return _launch_long(spec, geom, xr.contiguous(), xi.contiguous(),
                             filter_args)
-    n1, n2 = split
+    n1, n2 = split[:2]       # a filter-only op takes three factors too
     xr = xr.contiguous()
     xi = xi.contiguous()
     b = xr.shape[0]
@@ -684,12 +738,12 @@ def spectral_op(xr, xi, hr=None, hi=None, u=None, v=None, **kw):
     fft_impl ('matmul' | 'stockham'), karatsuba, precision (f32 | bf16 |
     f16 | bs16), n1/n2/n3 (factorization override). On a CUDA tensor this
     launches the CUDA kernel, which takes N up to 2^21 on both FFT routes
-    and every split of two or three factors on the matmul route — lines
-    past 4096 points and three-factor splits at f32 alone, as passes over
-    device memory in the one launch (``long_geometry``); a line of one
-    block at every precision, with Karatsuba on the matmul route — and
-    raises ValueError for anything else; on a CPU tensor it runs the plain
-    version, which takes all of them.
+    and every split of two or three factors on the matmul route, at every
+    precision, with Karatsuba on the matmul route — lines past 4096
+    points and three-factor splits as passes over device memory in the
+    one launch (``long_geometry``) — and raises ValueError for anything
+    else; on a CPU tensor it runs the plain version, which takes all of
+    them.
     """
     return _spectral(xr, xi, hr, hi, u, v, False, **kw)
 
@@ -761,9 +815,11 @@ MEGA_KERNEL_NAME = "mega"
 # The library of the matmul route's other operand forms (bf16, f16, bs16,
 # Karatsuba): csrc/mega_forms.cu, built from mega.cu beside it.
 MEGA_FORMS_NAME = "mega_forms"
-# The library of mega_staged for chains with a segment past one block:
-# csrc/mega_long.cu, built from mega.cu beside it.
+# The libraries of mega_staged for chains with a segment past one block:
+# csrc/mega_long.cu (the f32 form) and csrc/mega_long_forms.cu (the
+# others), built from mega.cu beside it.
 MEGA_LONG_NAME = "mega_long"
+MEGA_LONG_FORMS_NAME = "mega_long_forms"
 # Points the resident kernel's slab may hold besides the shared-memory
 # limit: what the Stockham route holds in registers at once (16 points a
 # thread of 1024 for 128^2); the matmul route stages them at 512 threads
@@ -774,13 +830,46 @@ _SEG_FIELDS = 27 + _LONG_FIELDS   # int64 fields per segment in the table
 _KARA_FIELD = 26                  # the record's Karatsuba flag (``_record``)
 
 
+def _resident_fits(na: int, nr: int, batch_block: int = 1) -> bool:
+    """A ``batch_block``-scene split f32 slab (8 B a point) fits one
+    block's opt-in shared memory and its register staging."""
+    points = (batch_block or 1) * na * nr
+    return points * 8 <= SMEM_OPTIN_BYTES and points <= RESIDENT_MAX_POINTS
+
+
+def mega_splits(na: int, nr: int, segments, *, n1=None, n2=None, n3=None,
+                fft_impl: str = "matmul") -> tuple:
+    """(n, split) of every segment of a chain — ``segments`` as
+    ``mega_spectral_op`` takes them, 4- or 8-field records, with the
+    launch's range-axis ``n1/n2/n3`` — the split resolved as the kernels
+    resolve it (``MegaSpec.seg_spec``); () for a filter-only segment and
+    on the Stockham route, which splits nothing."""
+    segs = tuple(SegmentSpec(axis=r[0], fwd=r[1], inv=r[2], filter_mode=r[3],
+                             **dict(zip(("n1", "n2", "n3", "karatsuba"),
+                                        r[4:])))
+                 for r in segments)
+    spec = MegaSpec(na=na, nr=nr, segments=segs, n1=n1, n2=n2, n3=n3,
+                    fft_impl=fft_impl)
+    return tuple(
+        (spec.seg_spec(g).n,
+         spec.seg_spec(g).factors() if (g.fwd or g.inv) and
+         fft_impl == "matmul" else ())
+        for g in segs)
+
+
 def mega_residency(na: int, nr: int, batch_block: int = 1,
                    precision: Optional[str] = None,
-                   filter_bytes: int = 0) -> str:
+                   filter_bytes: int = 0, splits=None) -> str:
     """The residency the compiler picks when none is pinned: ``"vmem"``
     iff a ``batch_block``-scene split f32 slab (8 B a point) fits one
-    block's opt-in shared memory and its register staging, else
-    ``"staged"`` (128^2 -> vmem; 256^2 and 4096^2 -> staged).
+    block's opt-in shared memory and its register staging and every
+    segment's line is one block's, else ``"staged"`` (128^2 -> vmem;
+    256^2 and 4096^2 -> staged; 2 x 8192, or 128^2 with the range split
+    (8, 4, 4) -> staged). ``splits``: the chain's (n, split) pairs
+    (``mega_splits``); a line past ``TILE_MAX_N`` or a three-factor split
+    among them runs ``mega_staged``, since ``mega_resident`` takes lines
+    of one block alone (ROADMAP.md Queue 2, item 2g). Without them, a
+    scene with an axis past ``TILE_MAX_N`` runs staged.
 
     The Hopper counterpart of the reference's VMEM cut. The slab is f32 at
     every precision (only DFT operands narrow), and the DFT constants and
@@ -788,8 +877,10 @@ def mega_residency(na: int, nr: int, batch_block: int = 1,
     validated and ``filter_bytes`` takes no shared memory."""
     resolve_precision(precision)
     del filter_bytes
-    points = (batch_block or 1) * na * nr
-    fits = points * 8 <= SMEM_OPTIN_BYTES and points <= RESIDENT_MAX_POINTS
+    if splits is None:
+        splits = ((max(na, nr), ()),)
+    one_block = all(n <= TILE_MAX_N and len(fs) <= 2 for n, fs in splits)
+    fits = _resident_fits(na, nr, batch_block) and one_block
     return RESIDENT_VMEM if fits else RESIDENT_STAGED
 
 
@@ -850,7 +941,7 @@ def _bind_mega(name: str = MEGA_KERNEL_NAME):
     if lib.mega_resident_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mega_resident_launch.argtypes = [p] * 4 + [i] * 6 + [p, p]
-        lib.mega_staged_launch.argtypes = [p] * 4 + [i] * 7 + [p, p]
+        lib.mega_staged_launch.argtypes = [p] * 4 + [i] * 7 + [p] * 3
         for fn in (lib.mega_resident_launch, lib.mega_staged_launch):
             fn.restype = ctypes.c_int
         if name == MEGA_KERNEL_NAME:   # the f32 and Stockham kernels'
@@ -885,7 +976,8 @@ def check_mega_kernel(spec: MegaSpec) -> None:
     """Raise ValueError for what the CUDA megakernels do not take yet:
     ``mega_staged`` takes what the spectral kernel takes in every segment
     (a segment past one block runs its device-memory passes as phases of
-    its own, at f32); ``mega_resident`` lines of one block alone."""
+    its own, at every precision); ``mega_resident`` lines of one block
+    alone."""
     if len(spec.segments) > MEGA_MAX_SEGMENTS:
         raise ValueError(f"the CUDA megakernels take at most "
                          f"{MEGA_MAX_SEGMENTS} segments, got "
@@ -894,23 +986,18 @@ def check_mega_kernel(spec: MegaSpec) -> None:
         sspec = spec.seg_spec(seg)
         if seg.fwd or seg.inv:
             check_kernel_spec(sspec)
-        elif sspec.n > TILE_MAX_N and sspec.precision != "f32":
-            raise ValueError(
-                f"precision={sspec.precision!r} on a filter-only segment of "
-                f"n={sspec.n} > {TILE_MAX_N}: the device-memory passes run "
-                f"f32 alone ({_ROADMAP}g)")
         if spec.residency == RESIDENT_VMEM and \
                 long_geometry(sspec) is not None:
             raise ValueError(
                 f"mega_resident takes lines of one block (N <= {TILE_MAX_N}, "
                 f"two factors), got n={sspec.n} split "
                 f"{sspec.factors() if seg.fwd or seg.inv else ()} "
-                f"(ROADMAP.md Queue 2, item 2g)")
+                f"({_ROADMAP} 2g)")
     if spec.residency == RESIDENT_VMEM:
         if (spec.batch_block or 1) != 1:
             raise ValueError("the CUDA mega_resident kernel holds one scene "
                              f"per block; batch_block={spec.batch_block}")
-        if mega_residency(spec.na, spec.nr) != RESIDENT_VMEM:
+        if not _resident_fits(spec.na, spec.nr):
             raise ValueError(
                 f"residency='vmem': a {spec.na}x{spec.nr} scene does not fit "
                 f"one block's shared memory ({SMEM_OPTIN_BYTES} B, "
@@ -936,13 +1023,24 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
     it = iter(filter_args)
     table = []
     keep = []            # tensors whose pointers the table holds
+    # the route the launcher picks: a chain of filter-only segments with
+    # bs16's codec runs the Stockham instantiation, and takes its tiles
+    tile_impl = spec.fft_impl
+    if not any(seg.fwd or seg.inv for seg in spec.segments) and \
+            _block_scaled(spec.precision):
+        tile_impl = "stockham"
     specs = [spec.seg_spec(seg) for seg in spec.segments]
     geoms = [long_geometry(sspec) for sspec in specs]
     # one scratch slab for every long forward-only or inverse-only segment
+    # (every natural one), one set of bs16's words for every long segment
+    # (each zeroes them before its reduction)
     scratch = None
     if any(g is not None and g.tail and _needs_scratch(sspec)
            for g, sspec in zip(geoms, specs)):
         scratch = (torch.empty_like(xr), torch.empty_like(xi))
+    ex = None
+    if any(g is not None for g in geoms):
+        ex = _codec_words(specs[0], b, max(spec.na, spec.nr), dev)
     for seg, sspec, geom in zip(spec.segments, specs, geoms):
         lines = spec.na if seg.axis == 1 else spec.nr
         fargs = [next(it)
@@ -954,14 +1052,15 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
                 sspec, geom, dev, scratch if _needs_scratch(sspec) else None)
             keep += consts
             table.append(_record(seg.axis, seg.fwd, seg.inv,
-                                 seg.filter_mode, filt, head, 0, fields))
+                                 seg.filter_mode, filt, head,
+                                 _karatsuba(sspec), fields))
             continue
         n1 = n2 = 1
         if seg.fwd or seg.inv:
             n1, n2 = check_kernel_spec(sspec)
         *consts, stw = _route_constants(sspec, n1, n2, dev)
         head = (sspec.n, n1, n2,
-                staged_tile(sspec.n, lines, sspec.fft_impl, n1, n2, seg.axis),
+                staged_tile(sspec.n, lines, tile_impl, n1, n2, seg.axis),
                 consts, stw)
         table.append(_record(seg.axis, seg.fwd, seg.inv, seg.filter_mode,
                              filt, head, _karatsuba(sspec),
@@ -973,14 +1072,19 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
     op = _OPERANDS[spec.precision]
     # a chain without a transform runs no stage: the f32 form (or, with
     # bs16, the Stockham route's codec), in mega.cu's library; the matmul
-    # route's other forms are mega_forms.cu's
+    # route's other forms are mega_forms.cu's; a chain with a segment past
+    # one block mega_long.cu's at f32 (the Stockham route's bf16 and f16
+    # too), else mega_long_forms.cu's
     has_fft = any(seg.fwd or seg.inv for seg in spec.segments)
     if not has_fft and not bs:
         op = 0
     forms = has_fft and spec.fft_impl == "matmul" and (
         op != 0 or any(rec[_KARA_FIELD] for rec in table))
-    lib = _bind_mega(MEGA_LONG_NAME if any(g is not None for g in geoms)
-                     else MEGA_FORMS_NAME if forms else MEGA_KERNEL_NAME)
+    if any(g is not None for g in geoms):
+        name = MEGA_LONG_FORMS_NAME if forms or bs else MEGA_LONG_NAME
+    else:
+        name = MEGA_FORMS_NAME if forms else MEGA_KERNEL_NAME
+    lib = _bind_mega(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         head = (_ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), b, spec.na, spec.nr,
@@ -991,8 +1095,8 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
         else:
             kernel = "mega_staged"
             err = lib.mega_staged_launch(*head, spec.buffer_depth, bs, op,
-                                         ctable, stream)
-    del keep, scratch
+                                         ctable, _ptr(ex), stream)
+    del keep, scratch, ex
     if err != 0:
         msg = lib.mega_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed ({err}): {msg}")
@@ -1071,8 +1175,9 @@ def mega_spectral_op(xr, xi, *filter_args, **kw):
     (at most 8 segments, both FFT routes at every precision — bs16 runs
     the codec in each segment — with a two-factor split and Karatsuba per
     segment on the matmul route; ``mega_staged`` also runs a segment past
-    4096 points or of three factors, at f32, as the spectral kernel's
-    device-memory passes) and raises ValueError for anything else —
+    4096 points or of three factors, at every precision, as the spectral
+    kernel's device-memory passes) and raises ValueError for anything
+    else —
     including a forced 'vmem' on a scene that does not fit, or one with
     such a segment; on a CPU tensor it runs
     ``fft4step.mega_plain``, which takes all of them.

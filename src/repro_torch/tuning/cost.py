@@ -35,8 +35,8 @@ measured rungs choose among them. Narrow operands do not shrink device
 memory traffic (the slab stays f32).
 
 **Feasibility.** A config is cut when the CUDA kernels refuse it
-(``ops.check_kernel_spec``, ``ops.check_mega_kernel``: a narrow precision
-or Karatsuba on a line past one block or a three-factor split) or its
+(``ops.check_kernel_spec``, ``ops.check_mega_kernel``: a split no route
+takes, a resident megakernel past one block) or its
 block's shared memory exceeds the 232,448 B a block may opt in to
 (``ops.SMEM_OPTIN_BYTES``; a long op's largest pass,
 ``LongGeometry.smem_bytes``), so nothing the cut admits raises at
@@ -140,15 +140,16 @@ def _kernel_split(spec: SpectralSpec) -> Optional[tuple]:
         return None
 
 
-def _long(n: int, factors: tuple):
-    """The device-memory passes of an f32 op of this split
-    (``ops.long_geometry``), or None for a line of one block or a split
-    no kernel takes."""
+def _long(n: int, factors: tuple, precision: Optional[str] = None):
+    """The device-memory passes of an op of this split and precision
+    (``ops.long_geometry``: the 16-bit forms take each factor in one
+    stage), or None for a line of one block or a split no kernel takes."""
     try:
         return ops.long_geometry(SpectralSpec(
             n=n, fwd=True, inv=True, filter_mode=FILTER_NONE,
             n1=factors[0], n2=factors[1] if len(factors) > 1 else None,
-            n3=factors[2] if len(factors) > 2 else None))
+            n3=factors[2] if len(factors) > 2 else None,
+            precision=resolve_precision(precision).name))
     except ValueError:
         return None
 
@@ -158,7 +159,7 @@ def vmem_bytes(config: KernelConfig, key: TuneKey) -> int:
     and a bs16 exponent a line; a long op's largest pass); a split the
     kernel refuses is priced at its tile and constants alone."""
     fs = _factors(config, key.n)
-    geom = _long(key.n, fs)
+    geom = _long(key.n, fs, config.precision)
     if geom is not None:
         return geom.smem_bytes()
     n1, n2 = fs[0], math.prod(fs[1:])
@@ -246,9 +247,9 @@ def _dispatch_terms(*, n: int, lines: int, batch: int, factors: tuple,
     slab = 2 * 2 * 4 * n * lines_total                 # x and y, re+im f32
     if slab_io:
         bytes_moved += slab
-    geom = _long(n, factors)
-    if geom is not None:   # one more read and write a digit and transform
-        bytes_moved += len(geom.digits) * transforms * slab
+    geom = _long(n, factors, prec)
+    if geom is not None and transforms:   # one more read and write a pass
+        bytes_moved += (geom.passes(transforms == 2, True) - 1) * slab
     if filtered:
         bytes_moved += 2 * 4 * n                       # shared filter
     memory = bytes_moved / PEAK_HBM_BYTES
@@ -303,7 +304,8 @@ def cost_breakdown(config: KernelConfig, key: TuneKey,
 # ---------------------------------------------------------------------------
 #
 # One cut, the kernels' own: a scene whose split f32 slab fits one block's
-# shared memory (128^2 and smaller) runs mega_resident, every larger one
+# shared memory (128^2 and smaller) runs mega_resident, every larger one —
+# and one with a line past 4096 points or a three-factor split —
 # mega_staged (ops.mega_residency).
 
 mega_residency = ops.mega_residency
@@ -327,7 +329,7 @@ def _staged_phase_bytes(n: int, lines: int, axis: int, factors: tuple,
                         precision: Optional[str] = None) -> int:
     """Shared memory of one mega_staged phase on the matmul route (a long
     segment's largest pass)."""
-    geom = _long(n, factors)
+    geom = _long(n, factors, precision)
     if geom is not None:
         return geom.smem_bytes()
     n1, n2 = factors[0], math.prod(factors[1:])
@@ -468,8 +470,11 @@ def _mega_specs(schedule: Schedule, problem: ScheduleProblem) -> list:
     for axis, segs in groups:
         na = problem.na // p if p > 1 and axis == 1 else problem.na
         nr = problem.nr // p if p > 1 and axis == 0 else problem.nr
+        recs = [(g.axis, g.fwd, g.inv, g.filter_mode, g.n1, g.n2, g.n3,
+                 g.karatsuba) for g in segs]
         residency = schedule.residency or mega_residency(
-            na, nr, precision=precision)
+            na, nr, precision=precision,
+            splits=ops.mega_splits(na, nr, recs))
         specs.append(MegaSpec(
             na=na, nr=nr, segments=tuple(segs), residency=residency,
             phase_block=schedule.phase_block or 8,

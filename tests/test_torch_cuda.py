@@ -238,19 +238,20 @@ def test_cuda_kernel_refuses_and_never_falls_back(cuda_device):
     with pytest.raises(ValueError, match="ROADMAP"):
         ops.fft_rows(*x, fft_impl="bluestein")
     big = make_case(cuda_device, 5, "none", 1, 8192, 1, lines=2)[0]
-    for kw in (dict(precision="bf16"), dict(precision="bs16"),
-               dict(karatsuba=True),
-               dict(fft_impl="stockham", precision="bf16")):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            ops.fft_rows(*big, **kw)
     assert ops.SPECTRAL_LAUNCHES == before
-    # N = 8192 at f32, refused before, now launches on both routes
-    for i, kw in enumerate((dict(), dict(fft_impl="stockham"))):
+    # N = 8192 at f32, refused before, now launches on both routes, and so
+    # do bf16, bs16 and Karatsuba there (the Stockham route's bf16 is its
+    # f32 passes)
+    for i, kw in enumerate((dict(), dict(fft_impl="stockham"),
+                            dict(precision="bf16"), dict(precision="bs16"),
+                            dict(karatsuba=True),
+                            dict(fft_impl="stockham", precision="bf16"))):
         got = ops.fft_rows(*big, **kw)
         torch.cuda.synchronize()
         assert ops.SPECTRAL_LAUNCHES == before + i + 1
         assert_close(got, ops.spectral_op_plain(*big, fwd=True, inv=False,
-                                                **kw))
+                                                **kw),
+                     FORM_TOL[kw.get("precision", "f32")])
     before = ops.SPECTRAL_LAUNCHES
     # the Stockham route and the matmul route's bf16, bs16 and Karatsuba,
     # refused before, now launch
@@ -348,6 +349,102 @@ def test_cuda_staged_long_segments_equal_three_launches(cuda_device, shape,
     want = ops.mega_spectral_op_plain(*x, *args, segments=segs,
                                       residency="staged", fft_impl=fft_impl)
     assert_close(got, want)
+
+
+# every form past one block besides plain f32: (precision, karatsuba)
+LONG_FORMS = [("bf16", False), ("f16", False), ("bs16", False),
+              ("f32", True), ("bs16", True)]
+
+
+def assert_close_finite(got, want, tol):
+    """Equal non-finite masks (f16's range overflows alike in the kernel
+    and the plain version), and within ``tol`` x max|want| elsewhere."""
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+    fin = [torch.isfinite(w) for w in want]
+    assert_close([g[f] for g, f in zip(got, fin)],
+                 [w[f] for w, f in zip(want, fin)], tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fft_impl,split", [
+    ("matmul", None), ("stockham", None), ("matmul", (32, 16, 16)),
+    ("matmul", (16, 16, 16))])
+@pytest.mark.parametrize("n", [8192, 16384])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("precision,karatsuba", LONG_FORMS)
+def test_cuda_long_forms_match_plain(cuda_device, precision, karatsuba, axis,
+                                     n, fft_impl, split):
+    """Every form past one block in one launch against the plain version:
+    the matmul route within FORM_TOL, the Stockham route bit for bit (bs16
+    with odd lines subnormal)."""
+    if split is not None and n != 8192:
+        pytest.skip("a split of its own length")
+    if fft_impl == "stockham" and karatsuba:
+        pytest.skip("no matrix operand on the Stockham route")
+    nn = split[0] * split[1] * split[2] if split else n
+    kw = dict(zip(("n1", "n2", "n3"), split)) if split else {}
+    for mode, fwd, inv in (("shared_outer", True, True), ("none", True, False),
+                           ("full", False, True), ("full", False, False)):
+        x, filt = make_case(cuda_device, nn + axis, mode, axis, nn, 2,
+                            lines=5)
+        if precision == "bs16":
+            x = subnormal_lines(x, axis)
+        args = dict(axis=axis, fwd=fwd, inv=inv, filter_mode=mode, block=1,
+                    fft_impl=fft_impl, precision=precision,
+                    karatsuba=karatsuba, **kw)
+        before = ops.SPECTRAL_LAUNCHES
+        got = ops.spectral_op(*x, **filt, **args)
+        torch.cuda.synchronize()
+        assert ops.SPECTRAL_LAUNCHES == before + 1
+        want = ops.spectral_op_plain(*x, **filt, **args)
+        if fft_impl == "stockham":
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        else:
+            assert_close_finite(got, want, FORM_TOL[precision])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
+@pytest.mark.parametrize("shape", [(8192, 64), (64, 8192)])
+@pytest.mark.parametrize("precision,karatsuba", LONG_FORMS)
+def test_cuda_staged_long_forms_equal_three_launches(cuda_device, shape,
+                                                    fft_impl, precision,
+                                                    karatsuba):
+    """mega_staged with segments past one block at every form: bit for bit
+    its three spectral launches (the same passes), within FORM_TOL of the
+    plain version."""
+    if fft_impl == "stockham" and karatsuba:
+        pytest.skip("no matrix operand on the Stockham route")
+    na, nr = shape
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(13)
+
+    def rand(*s):
+        return torch.randn(s, generator=gen, device=cuda_device)
+
+    x = (rand(1, na, nr), rand(1, na, nr))
+    args = [rand(nr), rand(nr), rand(na, nr), rand(na, nr)]
+    segs = ((0, True, False, "none"), (1, True, True, "shared"),
+            (0, False, True, "full"))
+    kw = dict(fft_impl=fft_impl, precision=precision, karatsuba=karatsuba)
+    before = ops.MEGA_LAUNCHES["mega_staged"]
+    got = ops.mega_spectral_op(*x, *args, segments=segs, residency="staged",
+                               **kw)
+    torch.cuda.synchronize()
+    assert ops.MEGA_LAUNCHES["mega_staged"] == before + 1
+    y = ops.spectral_op(*x, axis=0, fwd=True, inv=False, **kw)
+    y = ops.spectral_op(*y, hr=args[0], hi=args[1], axis=1, fwd=True,
+                        inv=True, filter_mode="shared", **kw)
+    y = ops.spectral_op(*y, hr=args[2], hi=args[3], axis=0, fwd=False,
+                        inv=True, filter_mode="full", **kw)
+    # bit for bit, NaN payloads included (each launch re-takes bs16's
+    # exponents, as each segment does)
+    assert all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, y))
+    want = ops.mega_spectral_op_plain(*x, *args, segments=segs,
+                                      residency="staged", **kw)
+    assert_close_finite(got, want, FORM_TOL[precision])
 
 
 # ---------------------------------------------------------------------------

@@ -307,14 +307,13 @@ def test_bs16_codec_matches_reference(mag, axis):
     (dict(karatsuba=True), (64, 64)),
     (dict(fft_impl="bluestein"), None),
     (dict(n=8192), (128, 64)), (dict(n=32768), (32, 32, 32)),
-    (dict(n=8192, precision="bf16"), None),
-    (dict(n=8192, karatsuba=True), None)])
+    (dict(n=8192, precision="bf16"), (128, 64)),
+    (dict(n=8192, karatsuba=True), (128, 64))])
 def test_kernel_refuses_what_it_does_not_take(kw, split):
     """The matmul route takes bf16, bs16 and Karatsuba at N = 4096 and
-    every f32 split past it (the split it returns is the four-step's:
-    two factors at 8192, three at 32768); an unknown route, and a narrow
-    precision or Karatsuba on lines past one block, stay refused, naming
-    their ROADMAP item."""
+    past it (the split it returns is the four-step's: two factors at
+    8192, three at 32768); an unknown route stays refused, naming its
+    ROADMAP queue."""
     spec = dict(n=4096, fwd=True, filter_mode="none", inv=False)
     spec.update(kw)
     if split is None:

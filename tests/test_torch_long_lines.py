@@ -163,36 +163,57 @@ def test_lines_of_one_block_keep_their_single_pass(n, fft_impl, kw):
     (8192, "stockham", {}, (8192, 1)),
     (2 ** 21, "stockham", {}, (2 ** 21, 1)),
 ])
-def test_kernel_checks_take_long_f32_and_refuse_narrow(n, fft_impl, kw,
-                                                       split):
+def test_kernel_checks_take_long_lines_at_every_form(n, fft_impl, kw,
+                                                     split):
+    """Every precision and Karatsuba past one block: the split the
+    kernels take, the 16-bit forms on the matmul route one stage a factor
+    and the natural schedule (2D + 2 passes fwd + inv); n = 2^22 is taken
+    by no route."""
     spec = tfft.SpectralSpec(n=n, fwd=True, inv=False, filter_mode="none",
                              fft_impl=fft_impl, **kw)
     assert tops.check_kernel_spec(spec) == split
-    for narrow in (dict(precision="bf16"), dict(precision="f16"),
-                   dict(precision="bs16"), dict(karatsuba=True)):
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 2, item 1g"):
-            tops.check_kernel_spec(dataclasses.replace(spec, **narrow))
+    for form in (dict(precision="bf16"), dict(precision="f16"),
+                 dict(precision="bs16"), dict(karatsuba=True),
+                 dict(precision="bs16", karatsuba=True)):
+        narrow = dataclasses.replace(spec, **form)
+        assert tops.check_kernel_spec(narrow) == split
+        g = tops.long_geometry(narrow)
+        sixteen = fft_impl == "matmul" and narrow.precision != "f32"
+        assert g.natural == sixteen
+        if sixteen:
+            assert all(sp == (f, 1)
+                       for f, sp in zip(g.digits, g.digit_splits))
+            assert g.passes(True, True) == 2 * len(g.digits) + 2
+            assert 0 < g.smem_bytes() <= tops.SMEM_OPTIN_BYTES
+        else:
+            assert g == tops.long_geometry(spec)
     with pytest.raises(ValueError):
         tops.check_kernel_spec(dataclasses.replace(spec, n=2 ** 22, n1=None,
                                                    n2=None, n3=None))
 
 
-def test_mega_check_takes_long_staged_segments_alone():
+def test_mega_check_takes_long_staged_segments_at_every_form():
     segs = (tfft.SegmentSpec(axis=0, fwd=True),
             tfft.SegmentSpec(axis=1, fwd=True, inv=True,
                              filter_mode="shared"),
             tfft.SegmentSpec(axis=0, inv=True, filter_mode="full"))
     for impl in ("matmul", "stockham"):
-        tops.check_mega_kernel(tfft.MegaSpec(8192, 16384, segs,
-                                             residency="staged",
-                                             fft_impl=impl))
-    with pytest.raises(ValueError, match="item 1g"):
-        tops.check_mega_kernel(tfft.MegaSpec(8192, 64, segs,
-                                             residency="staged",
-                                             precision="bs16"))
+        for prec in ("f32", "bf16", "f16", "bs16"):
+            tops.check_mega_kernel(tfft.MegaSpec(8192, 16384, segs,
+                                                 residency="staged",
+                                                 fft_impl=impl,
+                                                 precision=prec))
+    tops.check_mega_kernel(tfft.MegaSpec(8192, 64, segs, residency="staged",
+                                         precision="bs16", karatsuba=True))
+    filt = (tfft.SegmentSpec(axis=1, filter_mode="full"),)
+    tops.check_mega_kernel(tfft.MegaSpec(8, 8192, filt, residency="staged",
+                                         precision="bs16"))
     with pytest.raises(ValueError, match="item 2g"):
         tops.check_mega_kernel(tfft.MegaSpec(
             8, 512, segs[1:2], residency="vmem", n1=8, n2=8, n3=8))
+    with pytest.raises(ValueError, match="item 2g"):
+        tops.check_mega_kernel(tfft.MegaSpec(
+            2, 8192, segs[1:2], residency="vmem", precision="bs16"))
 
 
 # ---------------------------------------------------------------------------

@@ -702,20 +702,31 @@ def test_search_times_strictly_fewer_candidates_and_finds_best(tmp_path):
 
 
 def test_search_space_at_8192_is_not_empty(tmp_path):
-    """Past one block the f32 split enters the space, as in the
-    reference's search at N = 8192, and the winner is one the kernels
-    take; narrow precisions and Karatsuba there are cut."""
+    """Past one block the whole space enters, as in the reference's search
+    at N = 8192: every split at f32 and bs16, with and without Karatsuba
+    (the kernels' device-memory passes take every form); the winner is
+    one the kernels take, and a narrow winner passed the gate."""
     key = tt.TuneKey.kernel(8192, 1, **CPU)
     space = tt.candidates(8192, precisions=("f32", "bs16"))
     ranked = cost.rank(space, key)
-    assert ranked and all(c.precision in (None, "f32") and not c.karatsuba
-                          for c in ranked)
+    assert ranked and len(ranked) == len(space)
+    assert {(c.precision, bool(c.karatsuba)) for c in ranked} == {
+        ("f32", False), ("f32", True), ("bs16", False), ("bs16", True)}
     assert len(ranked) == len([c for c in space if cost.feasible(c, key)])
     measure, calls = _fake_measure({c: 1.0 + i * 0.01
                                     for i, c in enumerate(ranked)})
-    res = tt.search_kernel(key, precisions=("f32",), measure=measure,
+    gates = []
+
+    def gate(p):
+        gates.append(p)
+        return 0.01
+
+    res = tt.search_kernel(key, precisions=("f32", "bs16"), measure=measure,
+                           gate=gate,
                            cache=tt.TuneCache(str(tmp_path / "c.json")))
-    assert 0 < res.measured < res.space
+    assert gates == ["bs16"]
+    assert 0 < res.measured < res.space == len(space)
+    assert any(c.precision == "bs16" for c in calls)
     spec = res.config.apply(tfft.SpectralSpec(n=8192, fwd=True, inv=True,
                                               filter_mode="shared"))
     assert tops.check_kernel_spec(spec) == res.config.factors()
