@@ -3325,6 +3325,52 @@ def long_form_cases(n, fft_impl):
     return jobs
 
 
+def long_form_cut(torch):
+    """Phase 20.0: the compiler's residency cut on the card. A 128^2 scene
+    with the range split (8, 4, 4) and a 2 x 8192 scene (random echoes:
+    its geometry does not validate) fit one block's shared memory, but
+    ``mega_resident`` holds lines of one block alone: with no residency
+    pinned fused1 compiles to ``mega_staged`` and runs in one launch,
+    bit for bit fused3's image; a pinned ``vmem`` raises naming 2g."""
+    import dataclasses
+
+    from repro_torch.core.sar import build_pipeline, paper_targets, simulate
+    from repro_torch.core.sar.geometry import test_scene
+    out = []
+    small = test_scene(128)
+    for cfg, kw in ((small, dict(fft_kw=dict(n1=8, n2=4, n3=4))),
+                    (dataclasses.replace(small, na=2, nr=8192), {})):
+        if kw:
+            raw = simulate(cfg, paper_targets(cfg))
+        else:
+            rand = seeded_randn(torch, torch.device("cuda", 0), 7)
+            raw = torch.complex(rand(cfg.na, cfg.nr), rand(cfg.na, cfg.nr))
+        p1 = build_pipeline(cfg, "fused1", **kw)
+        residency = p1.steps[0].kernel_kw["residency"]
+        check(residency == "staged", f"fused1 {cfg.na}x{cfg.nr} {kw}: "
+              f"{residency}")
+        three = build_pipeline(cfg, "fused3", **kw).run(raw)
+        reset_launch_counts()
+        one = p1.run(raw)
+        torch.cuda.synchronize()
+        counts, want = launch_counts(mega_staged=1)
+        check(counts == want, f"fused1 {cfg.na}x{cfg.nr}: {counts}")
+        check(bit_equal(torch, one, three),
+              f"fused1 != fused3 at {cfg.na}x{cfg.nr} {kw}")
+        try:
+            build_pipeline(cfg, "fused1", residency="vmem", **kw).run(raw)
+        except ValueError as e:
+            check("2g" in str(e), f"pinned vmem refused, not naming 2g: {e}")
+        else:
+            raise RuntimeError("check failed: a pinned vmem ran a line "
+                               "past one block")
+        out.append(dict(scene=[cfg.na, cfg.nr], fft_kw=kw.get("fft_kw"),
+                        residency=residency, launches=counts,
+                        fused1_equals_fused3=True, pinned_vmem="refused"))
+    emit("long_form_cut", scenes=out)
+    return out
+
+
 def long_form_sweep(torch, ops, rand, fft_impl):
     """Phase 20.1: the spectral kernel past one block at each form of
     ``LONG_FORMS[fft_impl]``, against its plain version — the matmul
@@ -3690,8 +3736,9 @@ def long_form_times(torch, smi_line, cfg, raw):
 
 
 def long_forms_phase(torch, smi_line, replay_plain):
-    """Phase 20: every precision past one block. The kernel sweeps of
-    each form on both routes (20.1); the 8192 x 16384 scene at bs16 and
+    """Phase 20: every precision past one block. The residency cut for
+    such lines (20.0); the kernel sweeps of each form on both routes
+    (20.1); the 8192 x 16384 scene at bs16 and
     bf16 through every variant on both routes (20.2); a default-tier
     service request for that scene (20.3); the SNR gate at 8192^2 and
     ``search_kernel`` at N = 8192 (20.4); each form's times there (20.5).
@@ -3699,6 +3746,7 @@ def long_forms_phase(torch, smi_line, replay_plain):
     from repro_torch.core.sar import paper_scene, paper_targets, simulate
     from repro_torch.kernels import ops
     dev = torch.device("cuda", 0)
+    long_form_cut(torch)
     t0 = time.perf_counter()
     for i, fft_impl in enumerate(ops.FFT_IMPLS):
         long_form_sweep(torch, ops, seeded_randn(torch, dev, 200 + i),

@@ -447,6 +447,38 @@ def test_cuda_staged_long_forms_equal_three_launches(cuda_device, shape,
     assert_close_finite(got, want, FORM_TOL[precision])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,fft_kw", [((128, 128), dict(n1=8, n2=4, n3=4)),
+                                          ((2, 8192), None)])
+def test_cuda_residency_cut_runs_long_lines_staged(cuda_device, shape,
+                                                   fft_kw):
+    """A scene that fits one block's shared memory but holds a line past
+    one block (a three-factor split, or 8192 points) compiles fused1 to
+    mega_staged with no residency pinned and runs it in one launch, bit
+    for bit fused3's image; a pinned vmem raises naming 2g."""
+    import dataclasses
+
+    from repro_torch.core.sar import build_pipeline
+    from repro_torch.core.sar.geometry import test_scene
+    cfg = dataclasses.replace(test_scene(128), na=shape[0], nr=shape[1])
+    kw = dict(fft_kw=fft_kw) if fft_kw else {}
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(8)
+    raw = torch.complex(
+        torch.randn(shape, generator=gen, device=cuda_device),
+        torch.randn(shape, generator=gen, device=cuda_device))
+    one = build_pipeline(cfg, "fused1", **kw)
+    assert one.steps[0].kernel_kw["residency"] == "staged"
+    before = dict(ops.MEGA_LAUNCHES)
+    got = one.run(raw)
+    torch.cuda.synchronize()
+    assert ops.MEGA_LAUNCHES["mega_staged"] == before["mega_staged"] + 1
+    want = build_pipeline(cfg, "fused3", **kw).run(raw)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="2g"):
+        build_pipeline(cfg, "fused1", residency="vmem", **kw).run(raw)
+
+
 # ---------------------------------------------------------------------------
 # The megakernels (csrc/mega.cu)
 # ---------------------------------------------------------------------------
