@@ -17,8 +17,9 @@ each printing one JSON line (any failed check raises and exits non-zero):
              and each source's seconds (all compile at once; the matmul
              route's operand forms of the megakernels build from
              ``mega.cu`` into a library of their own, ``mega_forms.cu``,
-             and ``mega_staged`` for chains with a line past one block
-             into another, ``mega_long.cu``);
+             and both megakernels for chains with a line past one
+             block into others, ``mega_long.cu`` and
+             ``mega_long_forms.cu``);
              ``cuobjdump -sass`` must show HMMA TF32 instructions in the
              matmul instantiations of ``spectral_kernel``,
              ``mega_resident`` and ``mega_staged`` (the tensor-core
@@ -223,9 +224,24 @@ each printing one JSON line (any failed check raises and exits non-zero):
              ``fft_kw=(16, 16, 16)`` on the 4096^2 scene (five targets,
              1e-5 of complex128); the 4096^2 fused3 launches timed again
              on both routes.
+20. long forms — every precision past one block: the residency cut
+             (128^2 at (8, 4, 4) and 2 x 8192 compile fused1 to one
+             ``mega_resident`` launch, equal to fused3 and to a pinned
+             staged fused1), each form's kernel sweeps, the 8192 x 16384
+             scene at bs16 and bf16, a default-tier service request, the
+             SNR gate and ``search_kernel`` at 8192, the forms' times.
+21. resident long — ``mega_resident`` past one block: lines of 8192 and
+             16384 points on either axis, 128^2 at (8, 4, 4), batch_block
+             2, at every form on both routes, one launch a case, bit for
+             bit ``mega_staged``, the spectral launches and (batch_block
+             2) one scene a block, the plain version (Stockham bit for
+             bit, matmul within FORM_TOL), f32 within 1e-5 of
+             complex128; then 132-scene batches of 2 x 8192 and of 128^2
+             at (8, 4, 4) timed beside ``mega_staged``, plain and the
+             library chain.
 
 The line before the last lists each kernel — on the main path and on each
-path of phases 14 to 19, with the precisions and Karatsuba flags it runs
+path of phases 14 to 21, with the precisions and Karatsuba flags it runs
 on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -262,11 +278,13 @@ MMA_KERNELS = ("spectral_kernel<matmul>", "mega_resident<matmul>",
                "mega_staged<matmul>")
 _KERNEL_NAMES = ("spectral_kernel", "spectral_long_form", "spectral_long",
                  "mega_resident", "mega_staged", "transpose_kernel")
-# the out-of-line device functions of csrc/long_lines.cuh (ptxas reports
-# each under its kernel, as it does the Stockham ops)
+# the out-of-line device functions of csrc/long_lines.cuh and of
+# mega_resident's long chains (ptxas reports each under its kernel, as it
+# does the Stockham ops)
 _LONG_FUNCTIONS = (r"(long_stage_cols_kara|long_stage_cols|long_stage_form|"
                    r"long_stage|long_segment_form|long_segment|long_op_form|"
-                   r"long_op)")
+                   r"resident_long_op|resident_segment_apart|"
+                   r"slab_tail_transform|slab_move|long_op)")
 
 
 _OPERAND_NAMES = {1: "bf16", 2: "f16"}
@@ -301,7 +319,10 @@ def instantiation(mangled):
         if not targs:
             return fn
         stockham, op, kara, bs = (targs + [0, 0, 0])[:4]
-        return f"{fn}<{','.join(form_tags(stockham, 0, bs, op, kara))}>"
+        tags = form_tags(stockham, 0, bs, op, kara)
+        if fn == "resident_segment_apart":   # <..., kLineFast>
+            tags.append("cols" if targs[4] else "rows")
+        return f"{fn}<{','.join(tags)}>"
     for name in _KERNEL_NAMES:
         i = mangled.find(name)
         if i < 0:
@@ -749,7 +770,7 @@ def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg,
         SegmentSpec(*s[:4], **dict(zip(("n1", "n2", "n3", "karatsuba"),
                                        s[4:])))
         for s in kk["segments"]), karatsuba=kk.get("karatsuba", False),
-        n1=kk.get("n1"), n2=kk.get("n2"))
+        n1=kk.get("n1"), n2=kk.get("n2"), n3=kk.get("n3"))
     nbytes = 16 * xr.numel() + sum(4 * t.numel() for t in args)
     flops = _mega_flops(spec) * batch
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3328,10 +3349,11 @@ def long_form_cases(n, fft_impl):
 def long_form_cut(torch):
     """Phase 20.0: the compiler's residency cut on the card. A 128^2 scene
     with the range split (8, 4, 4) and a 2 x 8192 scene (random echoes:
-    its geometry does not validate) fit one block's shared memory, but
-    ``mega_resident`` holds lines of one block alone: with no residency
-    pinned fused1 compiles to ``mega_staged`` and runs in one launch,
-    bit for bit fused3's image; a pinned ``vmem`` raises naming 2g."""
+    its geometry does not validate) fit one block's shared memory, and
+    ``mega_resident`` runs their long lines on its slab: with no residency
+    pinned fused1 compiles to ``vmem`` and runs in one ``mega_resident``
+    launch, bit for bit fused3's image and a pinned ``staged`` fused1's
+    (one ``mega_staged`` launch)."""
     import dataclasses
 
     from repro_torch.core.sar import build_pipeline, paper_targets, simulate
@@ -3347,26 +3369,30 @@ def long_form_cut(torch):
             raw = torch.complex(rand(cfg.na, cfg.nr), rand(cfg.na, cfg.nr))
         p1 = build_pipeline(cfg, "fused1", **kw)
         residency = p1.steps[0].kernel_kw["residency"]
-        check(residency == "staged", f"fused1 {cfg.na}x{cfg.nr} {kw}: "
+        check(residency == "vmem", f"fused1 {cfg.na}x{cfg.nr} {kw}: "
               f"{residency}")
         three = build_pipeline(cfg, "fused3", **kw).run(raw)
         reset_launch_counts()
         one = p1.run(raw)
         torch.cuda.synchronize()
-        counts, want = launch_counts(mega_staged=1)
+        counts, want = launch_counts(mega_resident=1)
         check(counts == want, f"fused1 {cfg.na}x{cfg.nr}: {counts}")
         check(bit_equal(torch, one, three),
               f"fused1 != fused3 at {cfg.na}x{cfg.nr} {kw}")
-        try:
-            build_pipeline(cfg, "fused1", residency="vmem", **kw).run(raw)
-        except ValueError as e:
-            check("2g" in str(e), f"pinned vmem refused, not naming 2g: {e}")
-        else:
-            raise RuntimeError("check failed: a pinned vmem ran a line "
-                               "past one block")
+        reset_launch_counts()
+        staged = build_pipeline(cfg, "fused1", residency="staged",
+                                **kw).run(raw)
+        torch.cuda.synchronize()
+        staged_counts, want = launch_counts(mega_staged=1)
+        check(staged_counts == want,
+              f"pinned staged {cfg.na}x{cfg.nr}: {staged_counts}")
+        check(bit_equal(torch, one, staged),
+              f"resident != pinned staged at {cfg.na}x{cfg.nr} {kw}")
         out.append(dict(scene=[cfg.na, cfg.nr], fft_kw=kw.get("fft_kw"),
                         residency=residency, launches=counts,
-                        fused1_equals_fused3=True, pinned_vmem="refused"))
+                        fused1_equals_fused3=True,
+                        pinned_staged_launches=staged_counts,
+                        fused1_equals_pinned_staged=True))
     emit("long_form_cut", scenes=out)
     return out
 
@@ -3776,6 +3802,250 @@ def long_forms_phase(torch, smi_line, replay_plain):
     return records
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: mega_resident past one block
+# ---------------------------------------------------------------------------
+
+# (batch, na, nr, batch_block, range split): lines of 8192 and 16384
+# points on either axis, a three-factor split, batch_block scenes a block
+RESIDENT_LONG = ((1, 2, 8192, None, None), (1, 8192, 2, None, None),
+                 (1, 1, 16384, None, None), (1, 16384, 1, None, None),
+                 (1, 128, 128, None, (8, 4, 4)), (4, 64, 64, 2, None),
+                 (2, 2, 8192, None, None), (2, 1, 8192, 2, None))
+# fused1's chain and one with one-direction segments: every filter mode
+# across them (tests/test_torch_cuda.py holds the same cases)
+RESIDENT_CHAINS = (((0, True, False, "none"), (1, True, True, "shared_outer"),
+                    (0, False, True, "outer")),
+                   ((1, True, False, "outer"), (0, True, True, "full"),
+                    (1, False, True, "none")))
+# every form mega_resident takes past one block, by route
+RESIDENT_FORMS = {r: (("f32", False),) + LONG_FORMS[r] for r in LONG_FORMS}
+# phase 21.2's batches, one scene a block: (name, scene, range split, route)
+RESIDENT_TIMED = (("2x8192", (2, 8192), None, "matmul"),
+                  ("2x8192", (2, 8192), None, "stockham"),
+                  ("128^2 (8,4,4)", (128, 128), dict(n1=8, n2=4, n3=4),
+                   "matmul"))
+
+
+def resident_chains(na, nr, fft_impl):
+    """RESIDENT_CHAINS; on the Stockham route, which transforms no 1-point
+    line (nor does its plain version), a 1-point axis only filtered."""
+    out = []
+    for chain in RESIDENT_CHAINS:
+        if fft_impl == "stockham":
+            chain = tuple(
+                (a, False, False, m if m != "none" else "full")
+                if (nr if a == 1 else na) == 1 else (a, f, i, m)
+                for a, f, i, m in chain)
+        out.append(chain)
+    return out
+
+
+def chain_payload(rand, segments, na, nr, rank=2):
+    """Each segment's filter operands in scene coordinates."""
+    args = []
+    for axis, _fwd, _inv, mode in segments:
+        n, lines = (nr, na) if axis == 1 else (na, nr)
+        if mode in ("shared", "shared_outer"):
+            args += [rand(n), rand(n)]
+        if mode == "full":
+            args += [rand(na, nr), rand(na, nr)]
+        if mode in ("outer", "shared_outer"):
+            args += [0.1 * rand(lines, rank), rand(n, rank)]
+    return args
+
+
+def chain_launches(ops, x, segments, args, **kw):
+    """The chain as one spectral launch a segment (fused3's form)."""
+    it = iter(args)
+    y = x
+    for axis, fwd, inv, mode in segments:
+        filt = {}
+        if mode in ("shared", "full", "shared_outer"):
+            filt.update(hr=next(it), hi=next(it))
+        if mode in ("outer", "shared_outer"):
+            filt.update(u=next(it), v=next(it))
+        # the split is the range axis's (fft_kw's); a filter-only launch
+        # has no route (the spectral launcher's Stockham check refuses a
+        # 1-point line it would not transform)
+        seg = {k: v for k, v in kw.items()
+               if axis == 1 or k not in ("n1", "n2", "n3")}
+        if not (fwd or inv):
+            seg["fft_impl"] = "matmul"
+        y = ops.spectral_op(*y, **filt, axis=axis, fwd=fwd, inv=inv,
+                            filter_mode=mode, **seg)
+    return y
+
+
+def split_bit_equal(torch, a, b):
+    """Split (re, im) results equal bit for bit, NaN payloads included."""
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(a, b))
+
+
+def resident_long_sweep(torch, ops, rand, fft_impl):
+    """Phase 21.1: ``mega_resident`` past one block at every form of
+    ``RESIDENT_FORMS[fft_impl]`` over ``RESIDENT_LONG`` x the chains: one
+    launch a case, bit for bit ``mega_staged``, the chain's spectral
+    launches and (batch_block > 1) the one-scene blocks; against the plain
+    version ``torch.equal`` on the Stockham route, within ``FORM_TOL`` on
+    the matmul route (equal non-finite masks); f32 against complex128
+    (``ORACLE_TOL``)."""
+    out = dict(cases=0, staged_equal=0, launches_equal=0, batch_block_equal=0,
+               max_rel_err={}, oracle_cases=0, max_oracle_err=0.0)
+    for precision, kara in RESIDENT_FORMS[fft_impl]:
+        tag = precision + ("+K" if kara else "")
+        kw = dict(fft_impl=fft_impl, precision=precision, karatsuba=kara)
+        for batch, na, nr, bb, split in RESIDENT_LONG:
+            ckw = dict(kw, **dict(zip(("n1", "n2", "n3"), split or ())))
+            for segs in resident_chains(na, nr, fft_impl):
+                x = (rand(batch, na, nr), rand(batch, na, nr))
+                args = chain_payload(rand, segs, na, nr)
+                where = f"{tag} ({fft_impl}) {batch}x{na}x{nr} bb={bb} {segs}"
+                reset_launch_counts()
+                got = ops.mega_spectral_op(*x, *args, segments=segs,
+                                           residency="vmem", batch_block=bb,
+                                           **ckw)
+                torch.cuda.synchronize()
+                counts, want = launch_counts(mega_resident=1)
+                check(counts == want, f"{where}: {counts}")
+                staged = ops.mega_spectral_op(*x, *args, segments=segs,
+                                              residency="staged", **ckw)
+                check(split_bit_equal(torch, got, staged),
+                      f"{where}: resident != staged")
+                check(split_bit_equal(torch, got, chain_launches(
+                    ops, x, segs, args, **ckw)),
+                      f"{where}: resident != its spectral launches")
+                if bb:
+                    check(split_bit_equal(torch, got, ops.mega_spectral_op(
+                        *x, *args, segments=segs, residency="vmem",
+                        **ckw)), f"{where}: batch_block != 1 scene a block")
+                    out["batch_block_equal"] += 1
+                plain = ops.mega_spectral_op_plain(
+                    *x, *args, segments=segs, residency="vmem",
+                    batch_block=bb, **ckw)
+                _, rel, masks = finite_err(torch, got, plain)
+                if fft_impl == "stockham":
+                    check(split_bit_equal(torch, got, plain),
+                          f"{where}: != plain (rel {rel:.3e})")
+                else:
+                    check(masks and rel <= FORM_TOL[precision],
+                          f"{where}: vs plain {rel:.3e}, masks {masks}")
+                out["max_rel_err"][tag] = max(out["max_rel_err"].get(tag, 0.0),
+                                              rel)
+                if precision == "f32" and not kara:
+                    o = oracle_err(torch, got, oracle_chain(
+                        torch, torch.complex(*x), segs, args))
+                    check(o <= ORACLE_TOL, f"{where}: vs complex128 {o:.3e}")
+                    out["max_oracle_err"] = max(out["max_oracle_err"], o)
+                    out["oracle_cases"] += 1
+                out["cases"] += 1
+                out["staged_equal"] += 1
+                out["launches_equal"] += 1
+                del x, args, got, staged, plain
+    emit("resident_long_kernel", fft_impl=fft_impl, **out,
+         form_tol=FORM_TOL, oracle_tol=ORACLE_TOL)
+    return out
+
+
+def resident_long_times(torch, smi_line):
+    """Phase 21.2: ``RESIDENT_TIMED``, each a batch of ``MEGA_BATCH``
+    scenes (one a block): fused1 compiled with no residency pinned (vmem)
+    run with the counts reset — one ``mega_resident`` launch, bit for bit
+    fused3's and a pinned staged fused1's images, within TOL of the plain
+    version — then ``mega_resident`` and, on the same batch,
+    ``mega_staged`` timed queued beside their plain versions, the library
+    chain (torch.fft and torch multiplies) and the bound (one read and
+    write of the slab and the filters). Returns the ``kernels``
+    records."""
+    import dataclasses
+
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline, paper_targets, simulate
+    from repro_torch.core.sar.geometry import test_scene
+    from repro_torch.kernels import ops
+    small = test_scene(128)
+    records = []
+    for name, (na, nr), fft_kw, fft_impl in RESIDENT_TIMED:   # 21.2
+        cfg = dataclasses.replace(small, na=na, nr=nr)
+        kw = dict(fft_impl=fft_impl)
+        if fft_kw:
+            kw["fft_kw"] = fft_kw
+        if (na, nr) == (small.na, small.nr):
+            one = simulate(small, paper_targets(small))
+        else:   # random echoes: the 2 x 8192 geometry does not validate
+            rand = seeded_randn(torch, torch.device("cuda", 0), 21)
+            one = torch.complex(rand(na, nr), rand(na, nr))
+        raw = one.expand(MEGA_BATCH, na, nr).contiguous()
+        p1 = build_pipeline(cfg, "fused1", **kw)
+        step = p1.steps[0]
+        check(step.kernel_kw["residency"] == "vmem", f"{name}: resident")
+        reset_launch_counts()
+        img = p1.run(raw)
+        torch.cuda.synchronize()
+        counts, want = launch_counts(mega_resident=1)
+        check(counts == want, f"{name} x{MEGA_BATCH} ({fft_impl}): {counts}")
+        p1s = build_pipeline(cfg, "fused1", residency="staged", **kw)
+        reset_launch_counts()
+        staged = p1s.run(raw)
+        torch.cuda.synchronize()
+        staged_counts, want = launch_counts(mega_staged=1)
+        check(staged_counts == want,
+              f"{name} x{MEGA_BATCH} staged ({fft_impl}): {staged_counts}")
+        check(torch.equal(img, staged),
+              f"{name} ({fft_impl}): resident != staged")
+        del staged
+        check(torch.equal(img, build_pipeline(cfg, "fused3", **kw).run(raw)),
+              f"{name} ({fft_impl}): fused1 != fused3")
+        args = [t for a in step.seg_filter_args for t in a]
+        plain = ops.mega_spectral_op_plain(*planlib.split(raw), *args,
+                                           **step.kernel_kw)
+        err, rel = rel_err((img.real, img.imag), plain)
+        check(rel <= TOL, f"{name} ({fft_impl}) vs plain: {rel:.3e}")
+        del img, plain
+        t_res = time_mega_kernel(torch, smi_line, "mega_resident", step, raw,
+                                 cfg)
+        t_stg = time_mega_kernel(torch, smi_line, "mega_staged",
+                                 p1s.steps[0], raw, cfg)
+        emit("resident_long_time", scene=[na, nr], split=fft_kw,
+             fft_impl=fft_impl, batch=MEGA_BATCH,
+             mega_resident_ms=t_res["ms"], mega_staged_ms=t_stg["ms"],
+             plain_ms=t_res["plain_ms"], library_ms=t_res["library_ms"],
+             bound_ms=t_res["bound_ms"],
+             slab_bound_ms=MEGA_BATCH * na * nr * 16 / HBM_BYTES_PER_S * 1e3,
+             nvidia_smi=smi_line)
+        for kname, t, launches in (("mega_resident", t_res,
+                                    counts["mega_resident"]),
+                                   ("mega_staged", t_stg,
+                                    staged_counts["mega_staged"])):
+            rec = kernel_record(kname, f"fused1 {name} x{MEGA_BATCH}",
+                                fft_impl, launches, err, [t],
+                                source="mega_long.cu")
+            rec.update(scene=[na, nr], batch=MEGA_BATCH)
+            records.append(rec)
+        del raw
+    return records
+
+
+def resident_long_phase(torch, smi_line):
+    """Phase 21: ``mega_resident`` past one block — the sweep on both
+    routes (21.1) and the batches' times (21.2). Returns the ``kernels``
+    records."""
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    for i, fft_impl in enumerate(ops.FFT_IMPLS):
+        resident_long_sweep(torch, ops, seeded_randn(torch, dev, 210 + i),
+                            fft_impl)
+    sweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records = resident_long_times(torch, smi_line)
+    emit("resident_long_seconds", sweep=sweep_s,
+         times=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return records
+
+
 def replay_plain(pipe, x):
     """The compiled steps through the plain versions, on the card: a
     spectral step through ``spectral_op_plain``, a transpose through
@@ -3812,7 +4082,7 @@ def main() -> int:
 
 
 def run(torch) -> int:
-    """Phases 1-20 on the card (``main`` has found it)."""
+    """Phases 1-21 on the card (``main`` has found it)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
                                       paper_targets, simulate)
@@ -4037,6 +4307,11 @@ def run(torch) -> int:
     t0 = time.perf_counter()
     kernels += long_forms_phase(torch, smi_line, replay_plain)
     emit("phase_seconds", number=20, seconds=time.perf_counter() - t0)
+
+    # ---- 21. mega_resident past one block ----------------------------------
+    t0 = time.perf_counter()
+    kernels += resident_long_phase(torch, smi_line)
+    emit("phase_seconds", number=21, seconds=time.perf_counter() - t0)
     for k in kernels:
         k.setdefault("precisions", kernel_precisions(k["name"]))
         k.setdefault("karatsuba_by_route", kernel_karatsuba(k["name"]))

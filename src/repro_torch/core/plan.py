@@ -803,10 +803,10 @@ def _make_mega_step(group, seg_payloads, *, cfg, backend, opts) -> Step:
     per-segment torch.fft oracle chain in the torch backend).
 
     Residency: the explicit compile option, else the tuned cache entry or
-    schedule, else the shared-memory cut ``ops.mega_residency`` (128^2
-    resident, larger scenes — and a line past 4096 points or a
-    three-factor split at any size — staged). A schedule's per-segment
-    split and Karatsuba ride in 8-field segment records."""
+    schedule, else the shared-memory cut ``ops.mega_residency`` (a slab of
+    16384 points or fewer resident — 128^2, 2 x 8192, at any split —
+    larger scenes staged). A schedule's per-segment split and Karatsuba
+    ride in 8-field segment records."""
     segs = _split_segments(group)
     name = "+".join(dict.fromkeys(a.stage.name for a in group))
     segments = []
@@ -838,8 +838,9 @@ def _make_mega_step(group, seg_payloads, *, cfg, backend, opts) -> Step:
     if any(sc != SegmentConfig() for sc in seg_cfgs):
         segments = tuple(rec + (sc.n1, sc.n2, sc.n3, sc.karatsuba)
                          for rec, sc in zip(segments, seg_cfgs))
-    # the cut sees each segment's resolved split: a line past one block or
-    # three factors run staged
+    # the cut is handed each segment's resolved split; mega_resident runs
+    # a line past one block or three factors on its slab, so the slab's
+    # fit alone decides
     residency = opts["residency"] or tuned.residency or ops.mega_residency(
         cfg.na, cfg.nr, batch_block or 1, precision,
         splits=ops.mega_splits(cfg.na, cfg.nr, segments, n1=tuned.n1,

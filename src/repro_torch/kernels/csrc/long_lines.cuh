@@ -157,9 +157,12 @@ inline bool is_pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 // per digit, f, tile, fb, fr, fi, fbr, fbi, itwr, itwi, stw, twr, twi).
 // n_line: the length of the segment's lines in the scene; op: the launch's
 // operand form (the matmul route's 16-bit forms take one stage a digit and
-// a scratch slab in every direction). Checks what the kernels rely on.
+// a scratch slab in every direction); resident: mega_resident's record,
+// whose long passes run on its slab and take no scratch slab. Checks what
+// the kernels rely on.
 inline cudaError_t unpack_segment(const long long* r, int n_line,
-                                  Segment& g, int op = kTf32x3) {
+                                  Segment& g, int op = kTf32x3,
+                                  bool resident = false) {
   g.axis = (int)r[0]; g.fwd = (int)r[1]; g.inv = (int)r[2];
   g.f.mode = (int)r[3]; g.f.rank = (int)r[4];
   g.d.n = (int)r[5]; g.d.n1 = (int)r[6]; g.d.n2 = (int)r[7];
@@ -205,8 +208,9 @@ inline cudaError_t unpack_segment(const long long* r, int n_line,
   if (!any_fft) return lg.ndev == 0 ? cudaSuccess : cudaErrorInvalidValue;
   const bool stockham = g.d.stw != nullptr;
   const bool nat = !stockham && op != kTf32x3;   // the 16-bit forms
+  const bool scratch = lg.sr != nullptr && lg.si != nullptr;
   if (lg.ndev < 1 || lg.ndev > kMaxDigits || lg.tail_tile < 1 ||
-      (nat || g.fwd != g.inv) != (lg.sr != nullptr && lg.si != nullptr)) {
+      (resident ? scratch : (nat || g.fwd != g.inv) != scratch)) {
     return cudaErrorInvalidValue;
   }
   long long prod = g.d.n;
@@ -1256,6 +1260,415 @@ cudaError_t launch_cooperative(void (*kernel)(A), A& a, int threads,
                                     dim3(threads), params, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// The passes on a resident slab (mega_resident past one block)
+// ---------------------------------------------------------------------------
+//
+// mega_resident's segments past one block (a line of 8192 or 16384 points,
+// or a three-factor split, on a slab of at most 16384 points): the passes
+// above, in place on the slab in shared memory. The slab of `batch` scenes
+// is the op's device-memory layout itself ((batch, lines, n) rows,
+// (batch, n, lines) columns; the Stockham route's swizzled, element e at
+// swz(e)), so every pass reads and writes the places it would in device
+// memory, through the same decomposition (long_geometry's digits, their
+// tiles' sub-lines, the tail's runs) and, point for point, the operations
+// of its tile function (digit_tile, tail_tile_form) in the same order:
+//   - each transform runs the same stage (long_stage, long_stage_form: a
+//     digit's f-point stage with the slab's sub-lines as its columns, the
+//     tail's stages with its runs as the lines, the slab's strides in the
+//     StageMap) or Stockham op (stockham_op on the slab's strided lines),
+//     and reads its DFT matrices and twiddle tables from device memory in
+//     place, as mega_resident always has;
+//   - what a tile function does on a load or a store besides moving a
+//     point (a twiddle, the filter, the inverse's conjugate and 1/N) is a
+//     pass over the slab's points in place (slab_points), and a move that
+//     crosses the places of one tile (the two-stage digit's transposed
+//     order back to the natural one; the tail's turns between the runs'
+//     order and the natural one, which one-direction ops and the natural
+//     schedule take through device memory's scratch slab) goes through
+//     registers between two barriers, up to 32 points a thread
+//     (slab_move);
+//   - bs16 codes the op's lines once on entry, each (scene, line)'s
+//     exponent from its amax inside the block (lines_encode, no grid
+//     barrier), and decodes them once on exit: point for point, the
+//     reduction phase's 2^-e on the op's first load and 2^e on its last
+//     store.
+// So a long op on the slab equals spectral_long and mega_staged's long
+// phases bit for bit; no scratch slab and no grid barrier.
+
+// Points a thread holds in a slab move: 16384 points at 512 threads.
+constexpr int kSlabPerThread = 32;
+
+// slab_points' kinds: digit_tile's load besides the move (the natural
+// schedule's filter and conjugate on digit 0, the inverse's twiddle),
+// its store (the forward's twiddle, the inverse's closing conjugate and
+// 1/N on the last pass), the tail's filter at each point's natural index,
+// and the natural schedule's closing conjugate and 1/N on the tail.
+enum SlabPoints { kPtsDigitIn = 0, kPtsDigitOut = 1, kPtsTailFilter = 2,
+                  kPtsTailScale = 3 };
+// slab_move's kinds: the two-stage digit's transposed order to the natural
+// one in each sub-line; the tail's load from natural order into the runs'
+// order (an inverse-only op); its store from the runs' order to natural
+// order (a forward-only op, the natural schedule).
+enum SlabMove { kMoveDigit = 0, kMoveTailIn = 1, kMoveTailOut = 2 };
+
+// Element e of the slab (the Stockham route's swizzled).
+template <bool kSwz>
+__device__ __forceinline__ float2* slab_at(float2* s, int e) {
+  return s + (kSwz ? swz(e) : e);
+}
+
+// Points of the op's slab.
+__device__ __forceinline__ int slab_total(const LongOp& op) {
+  return op.batch * op.lines * op.n;
+}
+
+// Point o of a digit pass: its sub-scene, its position q in the sub-line
+// (points sub apart) and its sub-line j (the tile function's e = scene *
+// f * sub + q * sub + j is o itself).
+__device__ __forceinline__ void digit_point(const LongOp& op, int digit,
+                                            int o, int& scene, int& q,
+                                            int& j) {
+  const int f = op.lg.dig[digit].f;
+  const int sub = digit_rest(op, digit) * (op.axis == 1 ? 1 : op.lines);
+  scene = o / (f * sub);
+  const int rem = o - scene * f * sub;
+  q = rem / sub;
+  j = rem - q * sub;
+}
+
+// Point o of a tail pass: its run (tail_line, as the tail tile that holds
+// it numbers it) and its position q in the run (o = r.pos + q * stride).
+__device__ __forceinline__ TailLine slab_tail_line(const LongOp& op, int o,
+                                                   int& q) {
+  const int B = op.d.n, C = op.lg.tail_tile;
+  if (op.axis == 1) {
+    const int run = o / B;
+    q = o - run * B;
+    return tail_line(op, run / C, run % C);
+  }
+  const int span = B * op.lines;
+  const int sc = o / span;
+  const int rem = o - sc * span;
+  q = rem / op.lines;
+  const int l = rem - q * op.lines;
+  const long long tps = (op.lines + C - 1) / C;
+  return tail_line(op, sc * tps + l / C, l % C);
+}
+
+// The natural element of tail point o (its run's natural index of q).
+template <bool kStockham>
+__device__ __forceinline__ int tail_natural(const LongOp& op, int o) {
+  int q;
+  const TailLine r = slab_tail_line(op, o, q);
+  return (int)(r.nat +
+               (long long)tail_k<kStockham>(op, r, q) *
+                   (op.axis == 1 ? 1 : op.lines));
+}
+
+// One pass over the slab's points in place (kind: SlabPoints), each with
+// its tile function's operations, then a barrier.
+template <bool kStockham, bool kNat>
+__device__ __noinline__ void slab_points(float2* s, const LongOp& op,
+                                         const Pass& p, const PassForm& pf,
+                                         int kind) {
+  const int total = slab_total(op);
+  const bool inverse = p.kind == kDigitInv;
+  const float scale = inverse_scale(p.last, op.n);
+  const int ldiv = op.axis == 1 ? 1 : op.lines;
+  const bool digit = kind == kPtsDigitIn || kind == kPtsDigitOut;
+  const Digit& g = op.lg.dig[digit ? p.digit : 0];
+  const int rest = digit ? digit_rest(op, p.digit) : 1;
+  for (int o = threadIdx.x; o < total; o += blockDim.x) {
+    float2* e = slab_at<kStockham>(s, o);
+    float2 v = *e;
+    if (digit) {   // k: the point's natural position in its sub-line
+      int scene, k, j;
+      digit_point(op, p.digit, o, scene, k, j);
+      const int w = k * rest + j / ldiv;
+      if (kind == kPtsDigitIn) {
+        if constexpr (kNat) {
+          if (pf.filt_in) {
+            const DigitPoint dp = digit0_point(op, scene, k, j, rest);
+            v = apply_filter(v, op.f, dp.line, dp.k);
+          }
+          if (pf.conj_in) v.y = -v.y;   // exact
+        }
+        if (inverse) v = cmul(v, __ldg(g.twr + w), __ldg(g.twi + w));
+      } else {
+        if (!inverse) v = cmul(v, __ldg(g.twr + w), __ldg(g.twi + w));
+        if (p.last) {
+          v = make_float2(__fmul_rn(v.x, scale), __fmul_rn(v.y, -scale));
+        }
+      }
+    } else if (kind == kPtsTailFilter) {
+      int q;
+      const TailLine r = slab_tail_line(op, o, q);
+      v = apply_filter(v, op.f, r.line, tail_k<kStockham>(op, r, q));
+    } else {
+      v = make_float2(__fmul_rn(v.x, scale), __fmul_rn(v.y, -scale));
+    }
+    *e = v;
+  }
+  __syncthreads();
+}
+
+// Where slab_move takes point o from (kMoveTailIn, a gather) or puts it
+// (the others, a scatter).
+template <bool kStockham>
+__device__ __forceinline__ int move_index(const LongOp& op, int digit,
+                                          int kind, int o) {
+  if (kind != kMoveDigit) return tail_natural<kStockham>(op, o);
+  const Digit& g = op.lg.dig[digit];
+  int scene, q, j;
+  digit_point(op, digit, o, scene, q, j);
+  const int sub = digit_rest(op, digit) * (op.axis == 1 ? 1 : op.lines);
+  return scene * g.f * sub + from_transposed(q, g.f / g.fb, g.fb) * sub + j;
+}
+
+// One move of the slab's points (kind: SlabMove) through registers: every
+// point read, a barrier, every point written, a barrier. Moves are exact.
+template <bool kStockham>
+__device__ __noinline__ void slab_move(float2* s, const LongOp& op,
+                                       int digit, int kind) {
+  const int total = slab_total(op);
+  const bool gather = kind == kMoveTailIn;
+  float2 v[kSlabPerThread];
+#pragma unroll
+  for (int i = 0; i < kSlabPerThread; ++i) {
+    const int o = threadIdx.x + i * blockDim.x;
+    if (o < total) {
+      v[i] = *slab_at<kStockham>(
+          s, gather ? move_index<kStockham>(op, digit, kind, o) : o);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kSlabPerThread; ++i) {
+    const int o = threadIdx.x + i * blockDim.x;
+    if (o < total) {
+      *slab_at<kStockham>(
+          s, gather ? o : move_index<kStockham>(op, digit, kind, o)) = v[i];
+    }
+  }
+  __syncthreads();
+}
+
+// Forward (fwd) or, conjugated on the read and not after, the inverse's
+// (inv) Stockham transform of every line of L in place on the slab (the
+// tail's and a digit's, as stockham_lines runs them on a tile), no filter,
+// 16 points a thread in rounds of the lines the block holds (the ops of
+// 32 points a thread are not built for the long chains' kernel).
+template <bool kLineFast>
+__device__ __forceinline__ void slab_stockham(const Lines& L,
+                                              const float2* stw, bool fwd,
+                                              bool inv) {
+  const Filter none{};
+  const int units = L.n / kPerThread;
+  const int round = units > 0 ? (int)blockDim.x / units
+                              : (int)blockDim.x * kPerThread / L.n;
+  for (int line0 = 0; line0 < L.lines; line0 += round) {
+    stockham_op<kLineFast, false, 0, false, false>(
+        L, Io{}, stw, fwd, inv, none, 0, L.lines, 1.0f, 1.0f,
+        LineSync{0, 0}, line0, kPerThread);
+  }
+}
+
+// Digit pass p on the slab: digit_tile's load besides the move, the f-point
+// transforms of every sub-line in place (the Stockham route's forward; the
+// matmul route's one stage — with the sub-lines of all sub-scenes as its
+// columns where one round of the stage takes a sub-scene's, else a
+// sub-scene at a time — or, f32 past 16 points, two stages on each
+// sub-scene's sub-lines and the move back to natural order), its store.
+template <bool kStockham, int kOp, int kKara>
+__device__ __forceinline__ void slab_digit(float2* s, const LongOp& op,
+                                           const Pass& p, const PassForm& pf,
+                                           bool kara) {
+  constexpr bool kNat = !kStockham && kOp != kTf32x3;
+  const Digit& g = op.lg.dig[p.digit];
+  const int f = g.f, fb = kStockham ? 1 : g.fb, fa = f / fb;
+  const int sub = digit_rest(op, p.digit) * (op.axis == 1 ? 1 : op.lines);
+  const int scenes = slab_total(op) / (f * sub);
+  const bool inverse = p.kind == kDigitInv;
+  if (inverse || (kNat && (pf.filt_in || pf.conj_in))) {
+    slab_points<kStockham, kNat>(s, op, p, pf, kPtsDigitIn);
+  }
+  if constexpr (kStockham) {
+    for (int sc = 0; sc < scenes; ++sc) {
+      slab_stockham<true>(Lines{s + sc * f * sub, sub, f, 1, sub}, g.stw,
+                          true, false);
+    }
+  } else if (fb == 1) {
+    const int cap = ((int)blockDim.x / 32 / ((f + 15) / 16)) * kGroupCols;
+    if (sub <= cap) {
+      //                                              nf nq  sk  sq om  oq
+      form_stage<kOp, kKara>(kara, Lines{s, scenes, f * sub, f * sub, 1},
+                             StageMap{f, sub, sub, 1, sub, 1, 0, 0}, g.fr,
+                             g.fi, f, nullptr, nullptr, false);
+    } else {
+      for (int sc = 0; sc < scenes; ++sc) {
+        form_stage<kOp, kKara>(kara,
+                               Lines{s + sc * f * sub, sub / cap, cap, cap,
+                                     1},
+                               StageMap{f, cap, sub, 1, sub, 1, 0, 0}, g.fr,
+                               g.fi, f, nullptr, nullptr, false);
+      }
+    }
+  } else if constexpr (kOp == kTf32x3) {   // stages_n1n2's maps
+    for (int sc = 0; sc < scenes; ++sc) {
+      const Lines L{s + sc * f * sub, sub, f, 1, 1};
+      form_stage<kOp, kKara>(
+          kara, L, StageMap{fa, fb, fb * sub, sub, sub, fa * sub, fb, 1},
+          g.fr, g.fi, fa, g.itwr, g.itwi, false);
+      form_stage<kOp, kKara>(
+          kara, L, StageMap{fb, fa, fa * sub, sub, sub, fb * sub, 0, 0},
+          g.fbr, g.fbi, fb, nullptr, nullptr, false);
+    }
+    slab_move<false>(s, op, p.digit, kMoveDigit);
+  } else {
+    __trap();   // the 16-bit forms take one stage (unpack_segment)
+  }
+  if (!inverse || p.last) {
+    slab_points<kStockham, kNat>(s, op, p, pf, kPtsDigitOut);
+  }
+}
+
+// The tail's B-point transform of every run on the slab (tail_transform's,
+// forward or the inverse's without its closing conjugate and 1/N): rows
+// all runs at once (B apart), columns the runs of one (scene, run
+// position) at a time (lines adjacent, points `lines` apart, the stages'
+// maps scaled by that stride).
+template <bool kStockham, int kOp, int kKara>
+__device__ __noinline__ void slab_tail_transform(float2* s, const LongOp& op,
+                                                 bool inverse, bool kara) {
+  const Dft& d = op.d;
+  const int B = d.n;
+  const bool rows = op.axis == 1;
+  const int views = rows ? 1 : op.batch * (op.n / B);
+  const int lines = rows ? slab_total(op) / B : op.lines;
+  const int es = rows ? 1 : op.lines;
+  for (int v = 0; v < views; ++v) {
+    float2* base = s + v * B * op.lines;
+    if constexpr (kStockham) {
+      if (rows) {
+        slab_stockham<false>(Lines{base, lines, B, B, 1}, d.stw, !inverse,
+                             inverse);
+      } else {
+        slab_stockham<true>(Lines{base, lines, B, 1, es}, d.stw, !inverse,
+                            inverse);
+      }
+    } else {
+      const Lines L{base, lines, B, rows ? B : 1, 1};
+      const int n1 = d.n1, n2 = d.n2;
+      if (n2 == 1) {   // one factor: a line a column
+        form_stage<kOp, kKara>(kara, L, StageMap{B, 1, es, 0, es, 0, 0, 0},
+                               d.f1r, d.f1i, B, nullptr, nullptr, inverse);
+      } else if (!inverse) {
+        //                      nf  nq  sk       sq  om  oq       twm twq
+        form_stage<kOp, kKara>(kara, L,
+                               StageMap{n1, n2, n2 * es, es, es, n1 * es,
+                                        n2, 1},
+                               d.f1r, d.f1i, n1, d.twr, d.twi, false);
+        form_stage<kOp, kKara>(kara, L,
+                               StageMap{n2, n1, n1 * es, es, es, n2 * es, 0,
+                                        0},
+                               d.f2r, d.f2i, n2, nullptr, nullptr, false);
+      } else {
+        form_stage<kOp, kKara>(kara, L,
+                               StageMap{n2, n1, es, n2 * es, es, n2 * es, 1,
+                                        n2},
+                               d.f2r, d.f2i, n2, d.twr, d.twi, true);
+        form_stage<kOp, kKara>(kara, L,
+                               StageMap{n1, n2, n2 * es, es, n2 * es, es, 0,
+                                        0},
+                               d.f1r, d.f1i, n1, nullptr, nullptr, false);
+      }
+    }
+  }
+}
+
+// Tail pass p on the slab (tail_tile_form's): an inverse-only op's move
+// from natural order and its filter there, the forward and the filter at
+// natural indices, the inverse, and the move to natural order where the
+// op or the natural schedule stores it there (the inverse's last with its
+// closing conjugate and 1/N).
+template <bool kStockham, int kOp, int kKara>
+__device__ __forceinline__ void slab_tail(float2* s, const LongOp& op,
+                                          const Pass& p, const PassForm& pf,
+                                          bool kara) {
+  constexpr bool kNat = !kStockham && kOp != kTf32x3;
+  const bool tfwd = kNat || op.fwd;
+  const bool tinv = !kNat && op.inv;
+  const bool perm_in = !kNat && !op.fwd;
+  const bool perm_out = kNat || !op.inv;
+  const bool filt = (kNat ? pf.filt : true) && op.f.mode != kNone;
+  if (perm_in) {
+    slab_move<kStockham>(s, op, 0, kMoveTailIn);
+    if (filt) slab_points<kStockham, kNat>(s, op, p, pf, kPtsTailFilter);
+  }
+  if (tfwd) {
+    slab_tail_transform<kStockham, kOp, kKara>(s, op, false, kara);
+    if (filt) slab_points<kStockham, kNat>(s, op, p, pf, kPtsTailFilter);
+  }
+  if (tinv) slab_tail_transform<kStockham, kOp, kKara>(s, op, true, kara);
+  if (perm_out) {
+    if (kNat && p.last) {
+      slab_points<kStockham, kNat>(s, op, p, pf, kPtsTailScale);
+    }
+    slab_move<kStockham>(s, op, 0, kMoveTailOut);
+  }
+}
+
+// bs16's codec on the op's lines of the slab: encode (each line's
+// exponent into ex, the line scaled by 2^-e) or decode (by 2^e).
+template <bool kStockham>
+__device__ __noinline__ void slab_codec(float2* s, const LongOp& op, int* ex,
+                                        bool encode) {
+  if (op.axis == 1) {
+    const Lines L{s, op.batch * op.lines, op.n, op.n, 1};
+    if (encode) {
+      lines_encode<false, kStockham>(L, ex);
+    } else {
+      lines_decode<false, kStockham>(L, ex);
+    }
+    return;
+  }
+  for (int b = 0; b < op.batch; ++b) {
+    const Lines L{s + b * op.n * op.lines, op.lines, op.n, 1, op.lines};
+    if (encode) {
+      lines_encode<true, kStockham>(L, ex + b * op.lines);
+    } else {
+      lines_decode<true, kStockham>(L, ex + b * op.lines);
+    }
+  }
+}
+
+// Every pass of one long op on the resident slab, in long_op's (f32) or
+// the natural schedule's (the matmul route's 16-bit forms) order, bs16's
+// codec around them (ex: a word a (scene, line)). kOp, kKara: as
+// long_op_form's, `kara` the segment's. Out of line, so that mega_resident's
+// one-block segments keep their register allocation.
+template <bool kStockham, int kOp, int kKara, bool kBs>
+__device__ __noinline__ void resident_long_op(float2* s, const LongOp& op,
+                                              bool kara, int* ex) {
+  static_assert(!kStockham || (kOp == kTf32x3 && kKara == 0),
+                "the Stockham route has no matrix operands");
+  constexpr bool kNat = !kStockham && kOp != kTf32x3;
+  if constexpr (kBs) slab_codec<kStockham>(s, op, ex, true);
+  const int np = kNat ? long_pass_count_natural(op) : long_pass_count(op);
+  for (int k = 0; k < np; ++k) {
+    const Pass p = kNat ? long_pass_natural(op, k) : long_pass(op, k);
+    const PassForm pf = kNat ? pass_form<true>(op, k) : PassForm{};
+    if (p.kind == kTail) {
+      slab_tail<kStockham, kOp, kKara>(s, op, p, pf, kara);
+    } else {
+      slab_digit<kStockham, kOp, kKara>(s, op, p, pf, kara);
+    }
+  }
+  if constexpr (kBs) slab_codec<kStockham>(s, op, ex, false);
 }
 
 }  // namespace spectral

@@ -11,11 +11,12 @@
 //   (pallas_call at fft4step.py:1288, residency="staged"),
 // both wrapped by src/repro/kernels/ops.py:161 `mega_spectral_op`; at
 // every precision (f32, bf16, f16, bs16), Karatsuba per segment on the
-// matmul route, N <= 4096 on each transformed axis (mega_staged: any N
-// up to 2^21 and three-factor splits, a segment past one block running
-// long_lines.cuh's device-memory passes as phases of its own, through the
-// same device functions as spectral.cu's: f32 in mega_long.cu, the other
-// forms in mega_long_forms.cu), all
+// matmul route, every N and split the spectral kernel takes (a segment
+// past one block — N > 4096 or three factors — runs long_lines.cuh's
+// passes through the same device functions as spectral.cu's: in
+// mega_staged over device memory as phases of its own, in mega_resident
+// on its slab in shared memory, which then holds N <= 16384; f32 in
+// mega_long.cu, the other forms in mega_long_forms.cu), all
 // five filter modes on either axis (rank-K outer), fwd-only / inv-only /
 // fwd+inv / filter-only segments, at most kMaxSegments segments. Each FFT
 // runs on one of two routes: fft_impl="matmul" (the four-step stages, N a
@@ -30,7 +31,15 @@
 //
 // mega_resident — one CTA holds one scene's whole split slab in shared
 // memory: na * nr * 8 bytes, at most the 232,448 B a Hopper block may opt
-// in to and 16384 points, i.e. up to 128 x 128 (128 KiB). Grid = batch.
+// in to and 16384 points, i.e. up to 128 x 128, 2 x 8192 or 1 x 16384
+// (128 KiB). Grid = batch; or batch_block scenes a CTA, grid = batch /
+// batch_block (the long chain's instantiation, resident_long_chain). A
+// segment past one block runs long_lines.cuh's passes in place on the
+// slab (resident_long_op: the same stages and Stockham ops as the
+// device-memory passes, the crossings of a tile as turns of the slab
+// through registers, 32 points a thread at 512 threads), so it equals
+// mega_staged and spectral.cu's launches bit for bit and nothing of the
+// scene leaves the block.
 // Each segment runs in place on the slab through the strided stages of
 // spectral_common.cuh: a row segment contracts along the slab's rows, a
 // column segment along its columns, so the corner turn is purely logical,
@@ -135,9 +144,10 @@ namespace cg = cooperative_groups;
 #ifndef MEGA_OPERAND_FORMS
 #define MEGA_OPERAND_FORMS 0
 #endif
-// mega_long.cu includes it with MEGA_LONG_LINES set, to build mega_staged
-// for chains with a segment past one block (kLong) alone at f32;
-// mega_long_forms.cu with both set, at the other forms.
+// mega_long.cu includes it with MEGA_LONG_LINES set, to build both
+// kernels for chains with a segment past one block (kLong; mega_resident's
+// also for batch_block > 1) alone at f32; mega_long_forms.cu with both
+// set, at the other forms.
 #ifndef MEGA_LONG_LINES
 #define MEGA_LONG_LINES 0
 #endif
@@ -169,6 +179,9 @@ struct MegaArgs {
 #if MEGA_LONG_LINES && MEGA_OPERAND_FORMS
   unsigned* ex;       // bs16's words for a segment past one block
 #endif
+#if MEGA_LONG_LINES
+  int bb;             // mega_resident: scenes a CTA (batch_block)
+#endif
 };
 
 // bs16's words of a launch with a segment past one block (the field of
@@ -179,6 +192,69 @@ __device__ __forceinline__ unsigned* long_words(const A& a) {
   return a.ex;
 }
 
+#if MEGA_LONG_LINES
+// One stage of transform()'s maps through the long passes' out-of-line
+// stage (form_stage) on L's lines as rows, their points es apart (a
+// line-fast slab's columns: es = L.es, lines adjacent): the same addresses
+// and fragment arithmetic as run_stage on L, no stage body of its own.
+template <int kOp, int kKara>
+__device__ __forceinline__ void apart_stage(bool kara, const Lines& L, int es,
+                                            StageMap g, const float* fr,
+                                            const float* fi, int fld,
+                                            const float* twr,
+                                            const float* twi, bool conj_in) {
+  g.sk *= es;
+  g.sq *= es;
+  g.om *= es;
+  g.oq *= es;
+  form_stage<kOp, kKara>(kara, L, g, fr, fi, fld, twr, twi, conj_in);
+}
+
+// transform_k's transform (transform() in spectral_common.cuh: the same
+// stages, maps, conjugates and the 16-bit inverse's turns to natural
+// order) through apart_stage.
+template <bool kLineFast, int kOp, int kKara>
+__device__ __forceinline__ void transform_apart(const Lines& L, const Dft& d,
+                                                const Mats& m, bool inverse,
+                                                bool kara) {
+  const Lines R = kLineFast ? Lines{L.s, L.lines, L.n, 1, 1} : L;
+  const int es = kLineFast ? L.es : 1;
+  const int n1 = d.n1, n2 = d.n2;
+  const bool natural = kOp != kTf32x3 && inverse && n1 != n2;
+  if (natural) reorder<kLineFast>(L, kToNatural, n1, n2, 1.0f, 1.0f);
+  if (!inverse || natural) {   // stages_n1n2
+    //                                         nf  nq  sk  sq  om  oq  tw
+    apart_stage<kOp, kKara>(kara, R, es, StageMap{n1, n2, n2, 1, 1, n1, n2, 1},
+                            m.f1r, m.f1i, m.ld1, d.twr, d.twi, inverse);
+    apart_stage<kOp, kKara>(kara, R, es, StageMap{n2, n1, n1, 1, 1, n2, 0, 0},
+                            m.f2r, m.f2i, m.ld2, nullptr, nullptr, false);
+  } else {                     // stages_n2n1
+    apart_stage<kOp, kKara>(kara, R, es, StageMap{n2, n1, 1, n2, 1, n2, 1, n2},
+                            m.f2r, m.f2i, m.ld2, d.twr, d.twi, true);
+    apart_stage<kOp, kKara>(kara, R, es, StageMap{n1, n2, n2, 1, n2, 1, 0, 0},
+                            m.f1r, m.f1i, m.ld1, nullptr, nullptr, false);
+  }
+  if (natural) reorder<kLineFast>(L, kToNatural, n1, n2, 1.0f, 1.0f);
+}
+#endif
+
+// The matmul route's transform of a resident segment: transform_k inline
+// (mega.cu's and mega_forms.cu's kernels), or transform_apart (kApart: the
+// long chains' kernel, whose stages are the long passes' out-of-line ones).
+template <bool kLineFast, int kOp, int kKara, bool kApart>
+__device__ __forceinline__ void resident_transform(const Lines& L,
+                                                   const Dft& d,
+                                                   const Mats& m,
+                                                   bool inverse, bool kara) {
+#if MEGA_LONG_LINES
+  if constexpr (kApart) {
+    transform_apart<kLineFast, kOp, kKara>(L, d, m, inverse, kara);
+    return;
+  }
+#endif
+  transform_k<kLineFast, kOp, kKara>(L, d, m, inverse, kara);
+}
+
 // One segment in place on the resident slab (lines in natural order on
 // entry and on exit). The Stockham route keeps the slab swizzled (swz) and
 // runs stockham_op in place, its inverse's 1/N and conjugate on the last
@@ -187,9 +263,9 @@ __device__ __forceinline__ unsigned* long_words(const A& a) {
 // (Stockham route): the slab's lines coded before the segment and decoded
 // after it, their exponents in ex — on the matmul route too, whose stages
 // run the operand form (kOp; kKara as transform_k's, the segment's own
-// g.kara where kKara == 2).
+// g.kara where kKara == 2; kApart: resident_transform's).
 template <bool kLineFast, bool kStockham, int kN, bool kBs, int kOp,
-          int kKara>
+          int kKara, bool kApart = false>
 __device__ __forceinline__ void resident_segment(const Lines& L,
                                                  const Segment& g, int* ex) {
   const Dft& d = g.d;
@@ -199,17 +275,20 @@ __device__ __forceinline__ void resident_segment(const Lines& L,
     if (fwd || inv) {
       // 32 points a thread where 16 do not cover the slab (one round of
       // 512 threads for 128^2); else 16, in rounds of the lines the block
-      // holds at once where even that does not cover it (N < 32)
+      // holds at once where even that does not cover it (N < 32); kApart
+      // (the long chains' kernel) 16 always, so that it builds no 32-point
+      // ops
       const float scale = inverse_scale(inv, d.n);
-      const int points = stockham_per_thread(L.lines * d.n, d.n, blockDim.x);
+      const int points =
+          kApart ? kPerThread
+                 : stockham_per_thread(L.lines * d.n, d.n, blockDim.x);
       const int units = d.n / points;
       const int round = units > 0 ? (int)blockDim.x / units
                                   : (int)blockDim.x * points / d.n;
       for (int line0 = 0; line0 < L.lines; line0 += round) {
-        stockham_op<kLineFast, false, kN>(L, Io{}, d.stw, fwd, inv, g.f, 0,
-                                          L.lines, scale,
-                                          inv ? -scale : 1.0f,
-                                          LineSync{0, 0}, line0, points);
+        stockham_op<kLineFast, false, kN, false, !kApart>(
+            L, Io{}, d.stw, fwd, inv, g.f, 0, L.lines, scale,
+            inv ? -scale : 1.0f, LineSync{0, 0}, line0, points);
       }
     } else {
       filter_pass<kLineFast, true>(L, g.f, 0, L.lines, false, 1, 1);
@@ -222,12 +301,14 @@ __device__ __forceinline__ void resident_segment(const Lines& L,
   if (!fwd && inv) {
     reorder<kLineFast>(L, kToTransposed, d.n1, d.n2, 1.0f, 1.0f);
   }
-  if (fwd) transform_k<kLineFast, kOp, kKara>(L, d, m, false, g.kara);
+  if (fwd) {
+    resident_transform<kLineFast, kOp, kKara, kApart>(L, d, m, false, g.kara);
+  }
   if (g.f.mode != kNone) {
     filter_pass<kLineFast>(L, g.f, 0, L.lines, fwd || inv, d.n1, d.n2);
   }
   if (inv) {
-    transform_k<kLineFast, kOp, kKara>(L, d, m, true, g.kara);
+    resident_transform<kLineFast, kOp, kKara, kApart>(L, d, m, true, g.kara);
     const float scale = inverse_scale(true, d.n);
     reorder<kLineFast>(L, kKeep, d.n1, d.n2, scale, -scale);
   } else if (fwd) {
@@ -238,6 +319,79 @@ __device__ __forceinline__ void resident_segment(const Lines& L,
   if constexpr (kBs) lines_decode<kLineFast, false>(L, ex);
 }
 
+#if MEGA_LONG_LINES
+// resident_segment out of line, one copy a form and layout, its matmul
+// stages the long passes' (kApart), for the long chains' kernel: inlined
+// there beside the long passes, the matmul route's f32 kernel spilled
+// 5,072 B on the H100, and out of line with stages of its own each 16-bit
+// form's spilled 19 KB.
+template <bool kStockham, int kOp, int kKara, bool kBs, bool kLineFast>
+__device__ __noinline__ void resident_segment_apart(const Lines L,
+                                                    const Segment& g,
+                                                    int* ex) {
+  resident_segment<kLineFast, kStockham, 0, kBs, kOp, kKara, true>(L, g, ex);
+}
+
+// mega_resident's chains with a segment past one block, or with bb > 1
+// scenes a CTA (kLong): the bb slabs side by side, s[b * na * nr + a * nr
+// + r] (the Stockham route's each swizzled from its own start, swz(a * nr
+// + r), which is the whole slab's swizzle whenever a scene is a multiple
+// of 256 points), the codec's words past them, a (scene, line) each. A
+// segment past one block runs long_lines.cuh's passes on the slab
+// (resident_long_op, over all bb scenes); any other runs resident_segment
+// out of line (resident_segment_apart): rows over all bb * na lines where
+// the filter does not depend on the line (none or a shared vector) and
+// the Stockham route's swizzle is the whole slab's, else scene by scene,
+// and columns scene by scene.
+template <bool kStockham, bool kBs, int kOp, int kKara>
+__device__ __forceinline__ void resident_long_chain(float2* s,
+                                                    const MegaArgs& a) {
+  const int na = a.na, nr = a.nr, bb = a.bb;
+  const int total = na * nr;
+  const long long base = (long long)blockIdx.x * bb * total;
+  int* ex = reinterpret_cast<int*>(
+      s + (kStockham ? stockham_points(bb * total) : bb * total));
+  for (int i = threadIdx.x; i < bb * total; i += blockDim.x) {
+    const int b = i / total, e = i - b * total;
+    s[b * total + (kStockham ? swz(e) : e)] =
+        make_float2(a.xr[base + i], a.xi[base + i]);
+  }
+  __syncthreads();
+  const bool whole = !kStockham || total % 256 == 0;
+  for (int k = 0; k < a.nseg; ++k) {
+    const Segment& g = a.seg[k];
+    if (g.lg.on && (g.fwd || g.inv)) {
+      resident_long_op<kStockham, kOp, kKara, kBs>(
+          s, long_op_of(g, nullptr, nullptr, nullptr, nullptr, bb, na, nr),
+          g.kara, ex);
+      continue;
+    }
+    if (g.axis == 1 && (bb == 1 || (whole && (g.f.mode == kNone ||
+                                              g.f.mode == kShared)))) {
+      resident_segment_apart<kStockham, kOp, kKara, kBs, false>(
+          Lines{s, bb * na, nr, nr, 1}, g, ex);
+      continue;
+    }
+    for (int b = 0; b < bb; ++b) {
+      float2* sb = s + b * total;
+      if (g.axis == 1) {
+        resident_segment_apart<kStockham, kOp, kKara, kBs, false>(
+            Lines{sb, na, nr, nr, 1}, g, ex + b * na);
+      } else {
+        resident_segment_apart<kStockham, kOp, kKara, kBs, true>(
+            Lines{sb, nr, na, 1, nr}, g, ex + b * nr);
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < bb * total; i += blockDim.x) {
+    const int b = i / total, e = i - b * total;
+    const float2 v = s[b * total + (kStockham ? swz(e) : e)];
+    a.yr[base + i] = v.x;
+    a.yi[base + i] = v.y;
+  }
+}
+#endif
+
 // grid = batch; one scene per CTA, its (na, nr) slab at s[a * nr + r]
 // (s[swz(a * nr + r)] on the Stockham route), the codec's exponents past it.
 // Naming one block per SM gives ptxas the whole register file of the
@@ -246,33 +400,45 @@ __device__ __forceinline__ void resident_segment(const Lines& L,
 // slab takes one SM's shared memory anyway. kN: as resident_segment's
 // (the Stockham route's 128^2 slabs, the main path's, take kN = 128);
 // kOp, kKara: the matmul route's operand form (resident_segment's).
-template <bool kStockham, int kN, bool kBs, int kOp = kTf32x3, int kKara = 0>
+// kLong (kN = 0; mega_long.cu and mega_long_forms.cu alone): a chain with
+// a segment past one block or batch_block > 1 scenes a CTA
+// (resident_long_chain, grid = batch / batch_block); an instantiation of
+// its own, so that the kernels without such a chain keep their code.
+template <bool kStockham, int kN, bool kBs, int kOp = kTf32x3, int kKara = 0,
+          bool kLong = false>
 __global__ void __launch_bounds__(resident_threads(kStockham, kN), 1)
 mega_resident(const __grid_constant__ MegaArgs a) {
   extern __shared__ float2 s[];
-  const int na = a.na, nr = a.nr;
-  const int total = na * nr;
-  const long long scene = (long long)blockIdx.x * total;
-  int* ex = reinterpret_cast<int*>(s + (kStockham ? stockham_points(total)
-                                                  : total));
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    s[kStockham ? swz(i) : i] = make_float2(a.xr[scene + i], a.xi[scene + i]);
-  }
-  __syncthreads();
-  for (int k = 0; k < a.nseg; ++k) {
-    const Segment& g = a.seg[k];
-    if (g.axis == 1) {   // rows
-      resident_segment<false, kStockham, kN, kBs, kOp, kKara>(
-          Lines{s, na, nr, nr, 1}, g, ex);
-    } else {             // columns
-      resident_segment<true, kStockham, kN, kBs, kOp, kKara>(
-          Lines{s, nr, na, 1, nr}, g, ex);
+  if constexpr (kLong) {
+#if MEGA_LONG_LINES
+    resident_long_chain<kStockham, kBs, kOp, kKara>(s, a);
+#endif
+  } else {
+    const int na = a.na, nr = a.nr;
+    const int total = na * nr;
+    const long long scene = (long long)blockIdx.x * total;
+    int* ex = reinterpret_cast<int*>(s + (kStockham ? stockham_points(total)
+                                                    : total));
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      s[kStockham ? swz(i) : i] =
+          make_float2(a.xr[scene + i], a.xi[scene + i]);
     }
-  }
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const float2 v = s[kStockham ? swz(i) : i];
-    a.yr[scene + i] = v.x;
-    a.yi[scene + i] = v.y;
+    __syncthreads();
+    for (int k = 0; k < a.nseg; ++k) {
+      const Segment& g = a.seg[k];
+      if (g.axis == 1) {   // rows
+        resident_segment<false, kStockham, kN, kBs, kOp, kKara>(
+            Lines{s, na, nr, nr, 1}, g, ex);
+      } else {             // columns
+        resident_segment<true, kStockham, kN, kBs, kOp, kKara>(
+            Lines{s, nr, na, 1, nr}, g, ex);
+      }
+    }
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const float2 v = s[kStockham ? swz(i) : i];
+      a.yr[scene + i] = v.x;
+      a.yi[scene + i] = v.y;
+    }
   }
 }
 
@@ -348,7 +514,8 @@ mega_staged(const __grid_constant__ MegaArgs a) {
 // the others' in mega_long_forms.cu).
 cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
                    float* yi, int batch, int na, int nr, int nseg, int bs,
-                   int op, const long long* table, unsigned* ex = nullptr) {
+                   int op, const long long* table, unsigned* ex = nullptr,
+                   bool resident = false) {
   if (nseg < 1 || nseg > kMaxSegments || batch < 1 || na < 1 || nr < 1 ||
       op < kTf32x3 || op > kF16 || (bs && op != kF16)) {
     return cudaErrorInvalidValue;
@@ -362,9 +529,11 @@ cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
   for (int k = 0; k < nseg; ++k) {
     const long long* r = table + (long long)k * kSegFields;
     const cudaError_t err = unpack_segment(r, r[0] == 1 ? nr : na, a.seg[k],
-                                           op);
+                                           op, resident);
     if (err != cudaSuccess) return err;
-    if (bs && a.seg[k].lg.on && ex == nullptr) return cudaErrorInvalidValue;
+    if (bs && a.seg[k].lg.on && !resident && ex == nullptr) {
+      return cudaErrorInvalidValue;
+    }
   }
   return cudaSuccess;
 }
@@ -464,15 +633,15 @@ cudaError_t with_form(int op, bool bs, bool kara, F&& f) {
 }
 
 template <bool kStockham, int kN, bool kBs = false, int kOp = kTf32x3,
-          int kKara = 0>
-cudaError_t launch_resident(const MegaArgs& a, int threads, size_t smem,
-                            cudaStream_t stream) {
+          int kKara = 0, bool kLong = false>
+cudaError_t launch_resident(const MegaArgs& a, int grid, int threads,
+                            size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      mega_resident<kStockham, kN, kBs, kOp, kKara>,
+      mega_resident<kStockham, kN, kBs, kOp, kKara, kLong>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  mega_resident<kStockham, kN, kBs, kOp, kKara>
-      <<<a.batch, threads, smem, stream>>>(a);
+  mega_resident<kStockham, kN, kBs, kOp, kKara, kLong>
+      <<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -528,6 +697,8 @@ extern "C" {
 // (cudaGetLastError() after it; 0 on success). The caller has checked
 // shapes, types, devices and contiguity.
 
+// batch_block (resident): scenes a block, dividing batch (more than one:
+// the long chain's instantiation, mega_long.cu and mega_long_forms.cu).
 // block_scaled: the bs16 codec in every segment. op: the matmul route's
 // operand form (0 f32 as 3xTF32, 1 bf16, 2 f16; 2 with block_scaled for
 // bs16), which the Stockham route ignores (its bf16 and f16 are its f32
@@ -537,20 +708,79 @@ extern "C" {
 
 int mega_resident_launch(const float* xr, const float* xi, float* yr,
                          float* yi, int batch, int na, int nr, int nseg,
-                         int block_scaled, int op, const long long* table,
-                         void* stream) {
-#if MEGA_LONG_LINES
-  return (int)cudaErrorInvalidValue;    // mega.cu's and mega_forms.cu's
-#else
+                         int batch_block, int block_scaled, int op,
+                         const long long* table, void* stream) {
   MegaArgs a;
   cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg,
-                           block_scaled, op, table);
+                           block_scaled, op, table, nullptr, true);
   if (err != cudaSuccess) return (int)err;
   const int r = route(a);
-  if (r < 0) return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < nseg; ++k) {   // lines of one block alone
-    if (a.seg[k].lg.on) return (int)cudaErrorInvalidValue;
+  if (r < 0 || batch_block < 1 || batch % batch_block) {
+    return (int)cudaErrorInvalidValue;
   }
+  bool any_long = false;
+  for (int k = 0; k < nseg; ++k) any_long = any_long || a.seg[k].lg.on;
+  const cudaStream_t st = (cudaStream_t)stream;
+#if MEGA_LONG_LINES
+  // a segment past one block or batch_block > 1: the long chain's
+  // instantiation; the f32 form (Stockham: bf16 and f16 too) here, the
+  // others in mega_long_forms.cu, as mega_staged_launch picks them
+  if (!any_long && batch_block == 1) return (int)cudaErrorInvalidValue;
+  const bool form = block_scaled || (!r && (a.op != kTf32x3 || any_kara(a)));
+  if (form != (MEGA_OPERAND_FORMS != 0)) return (int)cudaErrorInvalidValue;
+  a.bb = batch_block;
+  const int total = batch_block * na * nr;
+  const int need = ((total + kPerThread - 1) / kPerThread + 31) / 32 * 32;
+  const int threads = r ? std::min(kStockhamThreads, need)
+                        : std::min(kMmaThreads, std::max(256, need));
+  // the slab moves hold every point in registers
+  if (any_long && total > kSlabPerThread * threads) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  for (int k = 0; k < nseg; ++k) {
+    const Segment& g = a.seg[k];
+    if (!(g.fwd || g.inv)) continue;
+    const int n = g.d.n;   // a long segment's: its tail's B
+    if (r ? n / kPerThread > threads   // 16 points a thread, rounds
+          : !(mma_fits(threads, g.d.n1, g.d.n2) &&
+              mma_fits(threads, g.d.n2, g.d.n1))) {
+      return (int)cudaErrorInvalidConfiguration;
+    }
+  }
+  const size_t smem =
+      (size_t)(r ? stockham_points(total) : total) * sizeof(float2) +
+      (block_scaled ? (size_t)batch_block * std::max(na, nr) * sizeof(int)
+                    : 0);
+  const int grid = batch / batch_block;
+#if !MEGA_OPERAND_FORMS
+  return (int)(r ? launch_resident<true, 0, false, kTf32x3, 0, true>(
+                       a, grid, threads, smem, st)
+                 : launch_resident<false, 0, false, kTf32x3, 0, true>(
+                       a, grid, threads, smem, st));
+#else
+  if (r) {   // the Stockham route's one other form: bs16
+    return (int)launch_resident<true, 0, true, kTf32x3, 0, true>(
+        a, grid, threads, smem, st);
+  }
+  if (block_scaled) {
+    return (int)launch_resident<false, 0, true, kF16, 2, true>(
+        a, grid, threads, smem, st);
+  }
+  switch (a.op) {
+    case kTf32x3:
+      return (int)launch_resident<false, 0, false, kTf32x3, 2, true>(
+          a, grid, threads, smem, st);
+    case kBf16:
+      return (int)launch_resident<false, 0, false, kBf16, 2, true>(
+          a, grid, threads, smem, st);
+    default:
+      return (int)launch_resident<false, 0, false, kF16, 2, true>(
+          a, grid, threads, smem, st);
+  }
+#endif
+#else
+  // one scene a block, lines of one block alone (mega_long.cu's others)
+  if (any_long || batch_block != 1) return (int)cudaErrorInvalidValue;
   const int total = na * nr;
   const int need = ((total + kPerThread - 1) / kPerThread + 31) / 32 * 32;
   // Stockham: up to 512 threads, 16 points a thread, rounds of lines;
@@ -579,25 +809,26 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
   const size_t smem =
       (size_t)(r ? stockham_points(total) : total) * sizeof(float2) +
       (block_scaled ? (size_t)std::max(na, nr) * sizeof(int) : 0);
-  const cudaStream_t st = (cudaStream_t)stream;
   if (!r) {
     return (int)with_form(a.op, block_scaled, any_kara(a),
                           [&](auto op, auto bs, auto kara) {
       return launch_resident<false, 0, decltype(bs)::value,
                              decltype(op)::value,
-                             decltype(kara)::value ? 2 : 0>(a, threads, smem,
-                                                            st);
+                             decltype(kara)::value ? 2 : 0>(a, batch, threads,
+                                                            smem, st);
     });
   }
 #if MEGA_OPERAND_FORMS
   return (int)cudaErrorInvalidValue;    // the Stockham route: mega.cu's
 #else
   if (block_scaled) {
-    return (int)(n128 ? launch_resident<true, 128, true>(a, threads, smem, st)
-                      : launch_resident<true, 0, true>(a, threads, smem, st));
+    return (int)(n128 ? launch_resident<true, 128, true>(a, batch, threads,
+                                                         smem, st)
+                      : launch_resident<true, 0, true>(a, batch, threads,
+                                                       smem, st));
   }
-  return (int)(n128 ? launch_resident<true, 128>(a, threads, smem, st)
-                   : launch_resident<true, 0>(a, threads, smem, st));
+  return (int)(n128 ? launch_resident<true, 128>(a, batch, threads, smem, st)
+                   : launch_resident<true, 0>(a, batch, threads, smem, st));
 #endif
 #endif  // MEGA_LONG_LINES
 }

@@ -1618,8 +1618,11 @@ __device__ __noinline__ void stockham_n(const Lines L, const Io io,
 // scene, whose out-of-line ops spilled 1-3 KB each under its register
 // budget and ran slower, PERF.md): 32 points a thread in a 4-column tile
 // at N = 4096, else 16, `points` unused; kN == 0: by L.n, out of line. A
-// shape no op is built for traps (the launchers refuse it first).
-template <bool kLineFast, bool kIo, int kN = 0, bool kBs = false>
+// shape no op is built for traps (the launchers refuse it first). kWide:
+// the 32-point ops are built (without them a caller passes 16 a thread,
+// in rounds of lines).
+template <bool kLineFast, bool kIo, int kN = 0, bool kBs = false,
+          bool kWide = true>
 __device__ __forceinline__ void stockham_op(const Lines& L, const Io& io,
                                             const float2* __restrict__ tw,
                                             bool fwd, bool inv,
@@ -1645,7 +1648,9 @@ __device__ __forceinline__ void stockham_op(const Lines& L, const Io& io,
                                             valid, scale, iscale, bar,       \
                                             line_base);                      \
     return;
-  if (points == kWidePerThread) {
+  if constexpr (!kWide) {
+    if (points == kWidePerThread) __trap();
+  } else if (points == kWidePerThread) {
     if constexpr (kIo) {   // columns at N = 4096
       if constexpr (kLineFast) {
         if (L.n == 4096) {

@@ -79,7 +79,6 @@ KERNEL_NAME = "spectral"
 KERNEL_MAX_N = MAX_FACTOR ** 3
 FFT_IMPLS = ("matmul", "stockham")   # the FFT routes of the CUDA kernels
 _MODE_CODES = {m: i for i, m in enumerate(FILTER_MODES)}
-_ROADMAP = "ROADMAP.md Queue 2, item"
 # Precisions the CUDA kernels take on each FFT route. The matmul route runs
 # its stages on 3xTF32 (f32), or one m16n8k16 pass of bf16 or f16 operands
 # (bs16: f16 behind the per-line exponent codec), each with or without
@@ -822,8 +821,9 @@ MEGA_LONG_NAME = "mega_long"
 MEGA_LONG_FORMS_NAME = "mega_long_forms"
 # Points the resident kernel's slab may hold besides the shared-memory
 # limit: what the Stockham route holds in registers at once (16 points a
-# thread of 1024 for 128^2); the matmul route stages them at 512 threads
-# in rounds of lines, so the cut is the same on both routes.
+# thread of 1024 for 128^2), and what the long passes' turns of the slab
+# hold (32 points a thread of 512); the matmul route stages them at 512
+# threads in rounds of lines, so the cut is the same on both routes.
 RESIDENT_MAX_POINTS = 16384
 MEGA_MAX_SEGMENTS = 8
 _SEG_FIELDS = 27 + _LONG_FIELDS   # int64 fields per segment in the table
@@ -862,25 +862,24 @@ def mega_residency(na: int, nr: int, batch_block: int = 1,
                    filter_bytes: int = 0, splits=None) -> str:
     """The residency the compiler picks when none is pinned: ``"vmem"``
     iff a ``batch_block``-scene split f32 slab (8 B a point) fits one
-    block's opt-in shared memory and its register staging and every
-    segment's line is one block's, else ``"staged"`` (128^2 -> vmem;
-    256^2 and 4096^2 -> staged; 2 x 8192, or 128^2 with the range split
-    (8, 4, 4) -> staged). ``splits``: the chain's (n, split) pairs
-    (``mega_splits``); a line past ``TILE_MAX_N`` or a three-factor split
-    among them runs ``mega_staged``, since ``mega_resident`` takes lines
-    of one block alone (ROADMAP.md Queue 2, item 2g). Without them, a
-    scene with an axis past ``TILE_MAX_N`` runs staged.
+    block's opt-in shared memory and its register staging, else
+    ``"staged"`` (128^2, 2 x 8192, 1 x 16384 and 128^2 at the range split
+    (8, 4, 4) -> vmem; 256^2 and 4096^2 -> staged), whatever the splits,
+    as the reference's cut (``repro.tuning.cost.mega_residency``) is:
+    ``mega_resident`` runs a line past ``TILE_MAX_N`` or a three-factor
+    split as ``long_lines.cuh``'s passes on its slab. ``splits`` (the
+    chain's (n, split) pairs, ``mega_splits``) is accepted and changes
+    nothing.
 
     The Hopper counterpart of the reference's VMEM cut. The slab is f32 at
     every precision (only DFT operands narrow), and the DFT constants and
     filters are read from global memory in place, so ``precision`` is only
-    validated and ``filter_bytes`` takes no shared memory."""
+    validated and ``filter_bytes`` takes no shared memory; bs16's words (4
+    B a (scene, line), at most 64 KiB beside a 128 KiB slab) always fit
+    beside the slab."""
     resolve_precision(precision)
-    del filter_bytes
-    if splits is None:
-        splits = ((max(na, nr), ()),)
-    one_block = all(n <= TILE_MAX_N and len(fs) <= 2 for n, fs in splits)
-    fits = _resident_fits(na, nr, batch_block) and one_block
+    del filter_bytes, splits
+    fits = _resident_fits(na, nr, batch_block)
     return RESIDENT_VMEM if fits else RESIDENT_STAGED
 
 
@@ -940,7 +939,7 @@ def _bind_mega(name: str = MEGA_KERNEL_NAME):
     lib = _build.load(name)
     if lib.mega_resident_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mega_resident_launch.argtypes = [p] * 4 + [i] * 6 + [p, p]
+        lib.mega_resident_launch.argtypes = [p] * 4 + [i] * 7 + [p, p]
         lib.mega_staged_launch.argtypes = [p] * 4 + [i] * 7 + [p] * 3
         for fn in (lib.mega_resident_launch, lib.mega_staged_launch):
             fn.restype = ctypes.c_int
@@ -973,35 +972,26 @@ def staged_tile(n: int, lines: int, fft_impl: str, n1: int,
 
 
 def check_mega_kernel(spec: MegaSpec) -> None:
-    """Raise ValueError for what the CUDA megakernels do not take yet:
-    ``mega_staged`` takes what the spectral kernel takes in every segment
-    (a segment past one block runs its device-memory passes as phases of
-    its own, at every precision); ``mega_resident`` lines of one block
-    alone."""
+    """Raise ValueError for what the CUDA megakernels do not take: both
+    take what the spectral kernel takes in every segment (a segment past
+    one block runs its passes over device memory as phases of its own in
+    ``mega_staged``, on the slab in ``mega_resident``, at every
+    precision); ``mega_resident`` a ``batch_block``-scene slab that fits
+    one block (``_resident_fits``)."""
     if len(spec.segments) > MEGA_MAX_SEGMENTS:
         raise ValueError(f"the CUDA megakernels take at most "
                          f"{MEGA_MAX_SEGMENTS} segments, got "
                          f"{len(spec.segments)}")
     for seg in spec.segments:
-        sspec = spec.seg_spec(seg)
         if seg.fwd or seg.inv:
-            check_kernel_spec(sspec)
-        if spec.residency == RESIDENT_VMEM and \
-                long_geometry(sspec) is not None:
-            raise ValueError(
-                f"mega_resident takes lines of one block (N <= {TILE_MAX_N}, "
-                f"two factors), got n={sspec.n} split "
-                f"{sspec.factors() if seg.fwd or seg.inv else ()} "
-                f"({_ROADMAP} 2g)")
-    if spec.residency == RESIDENT_VMEM:
-        if (spec.batch_block or 1) != 1:
-            raise ValueError("the CUDA mega_resident kernel holds one scene "
-                             f"per block; batch_block={spec.batch_block}")
-        if not _resident_fits(spec.na, spec.nr):
-            raise ValueError(
-                f"residency='vmem': a {spec.na}x{spec.nr} scene does not fit "
-                f"one block's shared memory ({SMEM_OPTIN_BYTES} B, "
-                f"{RESIDENT_MAX_POINTS} points); use residency='staged'")
+            check_kernel_spec(spec.seg_spec(seg))
+    if spec.residency == RESIDENT_VMEM and \
+            not _resident_fits(spec.na, spec.nr, spec.batch_block):
+        raise ValueError(
+            f"residency='vmem': a slab of {spec.batch_block or 1} "
+            f"{spec.na}x{spec.nr} scene(s) does not fit one block's shared "
+            f"memory ({SMEM_OPTIN_BYTES} B, {RESIDENT_MAX_POINTS} points); "
+            f"use residency='staged'")
 
 
 def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
@@ -1031,15 +1021,18 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
         tile_impl = "stockham"
     specs = [spec.seg_spec(seg) for seg in spec.segments]
     geoms = [long_geometry(sspec) for sspec in specs]
-    # one scratch slab for every long forward-only or inverse-only segment
-    # (every natural one), one set of bs16's words for every long segment
-    # (each zeroes them before its reduction)
+    # mega_staged: one scratch slab for every long forward-only or
+    # inverse-only segment (every natural one), one set of bs16's words
+    # for every long segment (each zeroes them before its reduction);
+    # mega_resident runs its long passes on its slab and takes neither
+    resident = spec.residency == RESIDENT_VMEM
     scratch = None
-    if any(g is not None and g.tail and _needs_scratch(sspec)
-           for g, sspec in zip(geoms, specs)):
+    if not resident and any(g is not None and g.tail and
+                            _needs_scratch(sspec)
+                            for g, sspec in zip(geoms, specs)):
         scratch = (torch.empty_like(xr), torch.empty_like(xi))
     ex = None
-    if any(g is not None for g in geoms):
+    if not resident and any(g is not None for g in geoms):
         ex = _codec_words(specs[0], b, max(spec.na, spec.nr), dev)
     for seg, sspec, geom in zip(spec.segments, specs, geoms):
         lines = spec.na if seg.axis == 1 else spec.nr
@@ -1049,7 +1042,9 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
         keep += tensors
         if geom is not None:
             head, fields, consts = _long_fields(
-                sspec, geom, dev, scratch if _needs_scratch(sspec) else None)
+                sspec, geom, dev,
+                scratch if scratch is not None and _needs_scratch(sspec)
+                else None)
             keep += consts
             table.append(_record(seg.axis, seg.fwd, seg.inv,
                                  seg.filter_mode, filt, head,
@@ -1073,14 +1068,16 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
     # a chain without a transform runs no stage: the f32 form (or, with
     # bs16, the Stockham route's codec), in mega.cu's library; the matmul
     # route's other forms are mega_forms.cu's; a chain with a segment past
-    # one block mega_long.cu's at f32 (the Stockham route's bf16 and f16
-    # too), else mega_long_forms.cu's
+    # one block (and a resident one of batch_block > 1 scenes a block)
+    # mega_long.cu's at f32 (the Stockham route's bf16 and f16 too), else
+    # mega_long_forms.cu's
     has_fft = any(seg.fwd or seg.inv for seg in spec.segments)
     if not has_fft and not bs:
         op = 0
     forms = has_fft and spec.fft_impl == "matmul" and (
         op != 0 or any(rec[_KARA_FIELD] for rec in table))
-    if any(g is not None for g in geoms):
+    bb = (spec.batch_block or 1) if resident else 1
+    if bb > 1 or any(g is not None for g in geoms):
         name = MEGA_LONG_FORMS_NAME if forms or bs else MEGA_LONG_NAME
     else:
         name = MEGA_FORMS_NAME if forms else MEGA_KERNEL_NAME
@@ -1089,9 +1086,9 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
         stream = torch.cuda.current_stream(dev).cuda_stream
         head = (_ptr(xr), _ptr(xi), _ptr(yr), _ptr(yi), b, spec.na, spec.nr,
                 len(table))
-        if spec.residency == RESIDENT_VMEM:
+        if resident:
             kernel = "mega_resident"
-            err = lib.mega_resident_launch(*head, bs, op, ctable, stream)
+            err = lib.mega_resident_launch(*head, bb, bs, op, ctable, stream)
         else:
             kernel = "mega_staged"
             err = lib.mega_staged_launch(*head, spec.buffer_depth, bs, op,
@@ -1173,14 +1170,13 @@ def mega_spectral_op(xr, xi, *filter_args, **kw):
 
     On a CUDA tensor this launches ``mega_resident`` or ``mega_staged``
     (at most 8 segments, both FFT routes at every precision — bs16 runs
-    the codec in each segment — with a two-factor split and Karatsuba per
-    segment on the matmul route; ``mega_staged`` also runs a segment past
-    4096 points or of three factors, at every precision, as the spectral
-    kernel's device-memory passes) and raises ValueError for anything
-    else —
-    including a forced 'vmem' on a scene that does not fit, or one with
-    such a segment; on a CPU tensor it runs
-    ``fft4step.mega_plain``, which takes all of them.
+    the codec in each segment — with Karatsuba per segment on the matmul
+    route; a segment past 4096 points or of three factors runs the
+    spectral kernel's long passes, over device memory in ``mega_staged``
+    and on the slab in ``mega_resident``, which holds ``batch_block``
+    scenes a block) and raises ValueError for anything else — including
+    a forced 'vmem' on a slab that does not fit one block; on a CPU
+    tensor it runs ``fft4step.mega_plain``, which takes all of them.
     """
     return _mega(xr, xi, filter_args, False, **kw)
 

@@ -9,12 +9,13 @@ is ported:
              cache (`core.plan.cached_pipeline`): per BatchKey, ONE
              Pipeline whose filter payloads and tuned configs persist
              across requests. Scenes whose whole slab fits one block's
-             shared memory (``ops.mega_residency`` says 'vmem': 128^2)
-             are transparently routed from their per-axis variant to its
-             single-launch megakernel twin (FUSED1_TWINS; bit-identical
-             at every precision, `fused1="off"` opts out), so a 128^2
-             default request is one ``mega_resident`` launch and a
-             4096^2 one is fused3's three spectral launches. `warm()`
+             shared memory (``ops.mega_residency`` says 'vmem': 128^2,
+             2 x 8192, 1 x 16384, at any split) are transparently routed
+             from their per-axis variant to its single-launch megakernel
+             twin (FUSED1_TWINS; bit-identical at every precision,
+             `fused1="off"` opts out), so a 128^2 or 2 x 8192 default
+             request is one ``mega_resident`` launch and a 4096^2 one is
+             fused3's three spectral launches. `warm()`
              optionally sweeps a few (block, col_block) line-block
              configs on the real batched pipeline, each timed between two
              device synchronisations, and pins the winner; the sweep runs
@@ -75,8 +76,10 @@ _bucket = tuning.bucket_batch
 
 # Per-axis variants with a single-launch megakernel twin: when the
 # scene's whole slab fits one block (repro_torch.tuning.cost.mega_residency
-# says 'vmem'), the local backend transparently serves these through the
-# fused1 pipeline — the same math bit for bit at EVERY precision (bs16
+# says 'vmem': 16384 points, lines past 4096 points and three-factor splits
+# included, as the reference's cut), the local backend transparently
+# serves these through the fused1 pipeline — the same math bit for bit at
+# EVERY precision (bs16
 # carries per-line block exponents through the in-kernel corner turns,
 # so the one launch quantizes exactly like the per-axis chain), one
 # launch and no device-memory intermediates instead of three round trips.

@@ -28,7 +28,9 @@ every block copies F1 and F2 and reads the twiddles (``_const_bytes``), one
 block a tile of ``ops.kernel_tile``'s lines. A line past one block (N >
 4096) or a three-factor split runs as passes over device memory
 (``ops.long_geometry``): each device-memory digit adds one more read and
-write of the slab a transform. ``block`` only pads lines
+write of the slab a transform; in a resident megakernel the same passes
+run over the slab in shared memory (``SMEM_BYTES_PER_S``). ``block`` only
+pads lines
 (``ops.spectral_op``); the tile does not depend on it, so configs that
 launch the same kernel on the same padded slab are priced alike, and the
 measured rungs choose among them. Narrow operands do not shrink device
@@ -36,7 +38,7 @@ memory traffic (the slab stays f32).
 
 **Feasibility.** A config is cut when the CUDA kernels refuse it
 (``ops.check_kernel_spec``, ``ops.check_mega_kernel``: a split no route
-takes, a resident megakernel past one block) or its
+takes, a resident slab that does not fit one block) or its
 block's shared memory exceeds the 232,448 B a block may opt in to
 (``ops.SMEM_OPTIN_BYTES``; a long op's largest pass,
 ``LongGeometry.smem_bytes``), so nothing the cut admits raises at
@@ -82,6 +84,9 @@ BF16_DENSE_FLOPS = 989e12          # dense BF16 and FP16 (spec sheet)
 # (PERF.md §3): the matmul route's stages issue mma.sync, not wgmma.
 MMA_SYNC_TF32_FLOPS = 319.87e12
 TF32_PASSES = 3                    # f32 as 3xTF32 (csrc/tf32_mma.cuh)
+# Shared memory's rate over the card, derived: 32 banks of 4 B a clock an
+# SM x 132 SMs x the 1.98 GHz boost clock (spec sheet).
+SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 # One card's NVLink 4 egress: the spec sheet's 900 GB/s is both directions
 # together, and a corner turn's all_to_all is priced by what each device
 # sends, so half of it.
@@ -212,7 +217,7 @@ def _stage_seconds(n: int, lines_total: int, factors: tuple, karatsuba,
 def _dispatch_terms(*, n: int, lines: int, batch: int, factors: tuple,
                     karatsuba, precision, transforms: int, filtered: bool,
                     block: Optional[int], tile: Optional[int] = None,
-                    slab_io: bool = True) -> dict:
+                    slab_io: bool = True, resident: bool = False) -> dict:
     """The cost ingredients of one launch (or one megakernel phase),
     itemized: ``predicted_seconds`` (flat configs), the schedule-graph
     edge weights (``segment_seconds``) and ``cost_breakdown`` all price
@@ -222,7 +227,11 @@ def _dispatch_terms(*, n: int, lines: int, batch: int, factors: tuple,
     block holds (one constants read each; None: ``ops.kernel_tile``'s);
     ``slab_io``: the launch reads and writes its slab (a megakernel's
     segment does not: its scene crosses device memory at the entry, the
-    exit and each turn, priced by the schedule)."""
+    exit and each turn, priced by the schedule); ``resident``: a resident
+    megakernel's segment, whose long passes (``ops.long_geometry``) run
+    over the slab in shared memory, each its stages' sweep and one turn
+    of the slab through registers (``smem_seconds``), not through device
+    memory."""
     prec = resolve_precision(precision).name
     padded = lines if block is None else math.ceil(lines / block) * block
     lines_total = batch * padded
@@ -248,17 +257,23 @@ def _dispatch_terms(*, n: int, lines: int, batch: int, factors: tuple,
     if slab_io:
         bytes_moved += slab
     geom = _long(n, factors, prec)
+    smem_bytes = 0
     if geom is not None and transforms:   # one more read and write a pass
-        bytes_moved += (geom.passes(transforms == 2, True) - 1) * slab
+        passes = geom.passes(transforms == 2, True)
+        if resident:
+            smem_bytes = 2 * passes * slab
+        else:
+            bytes_moved += (passes - 1) * slab
     if filtered:
         bytes_moved += 2 * 4 * n                       # shared filter
-    memory = bytes_moved / PEAK_HBM_BYTES
+    memory = bytes_moved / PEAK_HBM_BYTES + smem_bytes / SMEM_BYTES_PER_S
 
     return {
         "matmul_seconds": matmul,
         "vpu_seconds": vpu,
         "compute_seconds": compute,
         "bytes_moved": bytes_moved,
+        "smem_bytes": smem_bytes,
         "memory_seconds": memory,
         "predicted_seconds": compute + memory,
     }
@@ -303,10 +318,12 @@ def cost_breakdown(config: KernelConfig, key: TuneKey,
 # Megakernel (fused1) residency
 # ---------------------------------------------------------------------------
 #
-# One cut, the kernels' own: a scene whose split f32 slab fits one block's
-# shared memory (128^2 and smaller) runs mega_resident, every larger one —
-# and one with a line past 4096 points or a three-factor split —
-# mega_staged (ops.mega_residency).
+# One cut, the kernels' own and the reference's where the slab fits: a
+# batch_block-scene split f32 slab that fits one block's shared memory
+# (16384 points: 128^2, 2 x 8192, 1 x 16384, at any split) runs
+# mega_resident — a line past 4096 points or a three-factor split as the
+# long passes on its slab — and every larger one mega_staged
+# (ops.mega_residency).
 
 mega_residency = ops.mega_residency
 
@@ -314,14 +331,17 @@ mega_residency = ops.mega_residency
 def mega_vmem_bytes(na: int, nr: int, batch_block: int = 1,
                     precision: Optional[str] = None,
                     filter_bytes: int = 0) -> int:
-    """Shared memory of one mega_resident block: the split f32 slab (8 B a
-    point, at every precision) and, for bs16, an exponent a line. The DFT
-    constants and the filters are read in place from device memory, so
-    ``filter_bytes`` takes none."""
+    """Shared memory of one mega_resident block: the ``batch_block``
+    scenes' split f32 slab (8 B a point, at every precision) and, for
+    bs16, an exponent a (scene, line) of the longer axis (4 B each). The
+    DFT constants and the filters are read in place from device memory,
+    so ``filter_bytes`` takes none; the long passes run in place on the
+    slab."""
     del filter_bytes
-    smem = 8 * (batch_block or 1) * na * nr
+    bb = batch_block or 1
+    smem = 8 * bb * na * nr
     if resolve_precision(precision).block_scaled:
-        smem += 4 * max(na, nr)
+        smem += 4 * bb * max(na, nr)
     return smem
 
 
@@ -392,6 +412,7 @@ def segment_seconds(problem: ScheduleProblem, shape: SegmentShape,
         tile = ops.staged_tile(n, lines, "matmul", fs[0],
                                math.prod(fs[1:]), shape.axis)
     return _dispatch_terms(block=None, tile=tile, slab_io=False,
+                           resident=residency == RESIDENT_VMEM,
                            **kw)["predicted_seconds"]
 
 

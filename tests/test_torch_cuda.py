@@ -450,12 +450,13 @@ def test_cuda_staged_long_forms_equal_three_launches(cuda_device, shape,
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,fft_kw", [((128, 128), dict(n1=8, n2=4, n3=4)),
                                           ((2, 8192), None)])
-def test_cuda_residency_cut_runs_long_lines_staged(cuda_device, shape,
-                                                   fft_kw):
+def test_cuda_residency_cut_runs_long_lines_resident(cuda_device, shape,
+                                                     fft_kw):
     """A scene that fits one block's shared memory but holds a line past
     one block (a three-factor split, or 8192 points) compiles fused1 to
-    mega_staged with no residency pinned and runs it in one launch, bit
-    for bit fused3's image; a pinned vmem raises naming 2g."""
+    mega_resident with no residency pinned and runs it in one launch, bit
+    for bit fused3's image and a pinned staged fused1's (one
+    mega_staged launch)."""
     import dataclasses
 
     from repro_torch.core.sar import build_pipeline
@@ -468,15 +469,137 @@ def test_cuda_residency_cut_runs_long_lines_staged(cuda_device, shape,
         torch.randn(shape, generator=gen, device=cuda_device),
         torch.randn(shape, generator=gen, device=cuda_device))
     one = build_pipeline(cfg, "fused1", **kw)
-    assert one.steps[0].kernel_kw["residency"] == "staged"
+    assert one.steps[0].kernel_kw["residency"] == "vmem"
     before = dict(ops.MEGA_LAUNCHES)
     got = one.run(raw)
     torch.cuda.synchronize()
-    assert ops.MEGA_LAUNCHES["mega_staged"] == before["mega_staged"] + 1
+    assert ops.MEGA_LAUNCHES["mega_resident"] == \
+        before["mega_resident"] + 1
     want = build_pipeline(cfg, "fused3", **kw).run(raw)
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="2g"):
-        build_pipeline(cfg, "fused1", residency="vmem", **kw).run(raw)
+    staged = build_pipeline(cfg, "fused1", residency="staged", **kw)
+    before = dict(ops.MEGA_LAUNCHES)
+    assert torch.equal(staged.run(raw), got)
+    torch.cuda.synchronize()
+    assert ops.MEGA_LAUNCHES["mega_staged"] == before["mega_staged"] + 1
+
+
+# mega_resident past one block: (batch, na, nr, batch_block, range split)
+RESIDENT_LONG = [(1, 2, 8192, None, None), (1, 8192, 2, None, None),
+                 (1, 1, 16384, None, None), (1, 16384, 1, None, None),
+                 (1, 128, 128, None, (8, 4, 4)), (4, 64, 64, 2, None),
+                 (2, 2, 8192, None, None), (2, 1, 8192, 2, None)]
+# fused1's chain and one with one-direction segments, every filter mode
+# across them
+RESIDENT_CHAINS = (((0, True, False, "none"), (1, True, True, "shared_outer"),
+                    (0, False, True, "outer")),
+                   ((1, True, False, "outer"), (0, True, True, "full"),
+                    (1, False, True, "none")))
+
+
+def resident_chains(na, nr, fft_impl):
+    """RESIDENT_CHAINS; on the Stockham route, which transforms no 1-point
+    line (nor does its plain version), a 1-point axis only filtered."""
+    out = []
+    for chain in RESIDENT_CHAINS:
+        if fft_impl == "stockham":
+            chain = tuple(
+                (a, False, False, m if m != "none" else "full")
+                if (nr if a == 1 else na) == 1 else (a, f, i, m)
+                for a, f, i, m in chain)
+        out.append(chain)
+    return out
+
+
+def oracle_mega(x, segments, args):
+    """A chain in complex128: torch.fft and the filters' definitions."""
+    z = torch.complex(x[0].double(), x[1].double())
+    it = iter(a.double() for a in args)
+    for axis, fwd, inv, mode in segments:
+        dim = -1 if axis == 1 else -2
+        if fwd:
+            z = torch.fft.fft(z, dim=dim)
+        if mode in ("shared", "full", "shared_outer"):
+            h = torch.complex(next(it), next(it))
+            if mode != "full":
+                h = h[None, :] if axis == 1 else h[:, None]
+            z = z * h
+        if mode in ("outer", "shared_outer"):
+            u, v = next(it), next(it)
+            ph = u @ v.T if axis == 1 else v @ u.T   # (na, nr)
+            z = z * torch.polar(torch.ones_like(ph), ph)
+        if inv:
+            z = torch.fft.ifft(z, dim=dim)
+    return z
+
+
+def three_launches(x, segments, args, **kw):
+    """The chain as one spectral launch a segment (fused3's form)."""
+    it = iter(args)
+    y = x
+    for axis, fwd, inv, mode in segments:
+        filt = {}
+        if mode in ("shared", "full", "shared_outer"):
+            filt.update(hr=next(it), hi=next(it))
+        if mode in ("outer", "shared_outer"):
+            filt.update(u=next(it), v=next(it))
+        # the split is the range axis's (fft_kw's); a filter-only launch
+        # has no route (the spectral launcher's Stockham check refuses a
+        # 1-point line it would not transform)
+        seg = {k: v for k, v in kw.items()
+               if axis == 1 or k not in ("n1", "n2", "n3")}
+        if not (fwd or inv):
+            seg["fft_impl"] = "matmul"
+        y = ops.spectral_op(*y, **filt, axis=axis, fwd=fwd, inv=inv,
+                            filter_mode=mode, **seg)
+    return y
+
+
+def bits_equal(a, b):
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
+@pytest.mark.parametrize("precision,karatsuba",
+                         [("f32", False)] + LONG_FORMS)
+@pytest.mark.parametrize("case", RESIDENT_LONG)
+def test_cuda_resident_long_equals_staged_and_three_launches(
+        cuda_device, case, precision, karatsuba, fft_impl):
+    """mega_resident past one block (lines of 8192 and 16384 points, a
+    three-factor split, batch_block scenes a block) in one launch at every
+    form: bit for bit mega_staged and the three spectral launches (and,
+    batch_block > 1, the one-scene blocks), within FORM_TOL of the plain
+    version (the Stockham route bit for bit), f32 within ORACLE_TOL of
+    complex128."""
+    if fft_impl == "stockham" and karatsuba:
+        pytest.skip("no matrix operand on the Stockham route")
+    batch, na, nr, bb, split = case
+    kw = dict(fft_impl=fft_impl, precision=precision, karatsuba=karatsuba)
+    if split:
+        kw.update(zip(("n1", "n2", "n3"), split))
+    for k, segs in enumerate(resident_chains(na, nr, fft_impl)):
+        x, args = make_mega_case(cuda_device, 17 + k, segs, batch, na, nr)
+        before = ops.MEGA_LAUNCHES["mega_resident"]
+        got = ops.mega_spectral_op(*x, *args, segments=segs,
+                                   residency="vmem", batch_block=bb, **kw)
+        torch.cuda.synchronize()
+        assert ops.MEGA_LAUNCHES["mega_resident"] == before + 1
+        assert bits_equal(got, ops.mega_spectral_op(
+            *x, *args, segments=segs, residency="staged", **kw))
+        assert bits_equal(got, three_launches(x, segs, args, **kw))
+        if bb:
+            assert bits_equal(got, ops.mega_spectral_op(
+                *x, *args, segments=segs, residency="vmem", **kw))
+        want = ops.mega_spectral_op_plain(*x, *args, segments=segs,
+                                          residency="vmem", **kw)
+        if fft_impl == "stockham":
+            assert bits_equal(got, want)
+        else:
+            assert_close_finite(got, want, FORM_TOL[precision])
+        if precision == "f32" and not karatsuba:
+            assert_oracle(got, oracle_mega(x, segs, args))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Every precision past one block of the CUDA kernels (N > 4096, or a
 three-factor split): bf16, f16, bs16 and Karatsuba on the port's plain
 versions against the JAX reference, where the f16 range overflows in both
-packages (open check B), the compiler's residency cut for lines that
-``mega_resident`` does not hold, and the tuner's space past 4096.
+packages (open check B), the compiler's residency cut for scenes with
+such lines, and the tuner's space past 4096.
 
 Inputs come from ``np.random.default_rng(seed)`` (or the reference's
 simulator) and go to both packages as numpy arrays; the reference's
@@ -261,58 +261,61 @@ def test_reduced_long_scene_bs16_matches_live_reference(fft_impl):
 
 
 # ---------------------------------------------------------------------------
-# The residency cut: a line mega_resident does not hold runs staged
+# The residency cut: every slab that fits one block runs resident
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("shape,fft_kw", [((128, 128), dict(n1=8, n2=4,
                                                             n3=4)),
                                           ((2, 8192), None)])
-def test_residency_cut_sends_long_lines_to_staged(shape, fft_kw):
-    """A scene whose slab fits one block but whose range line is three
-    factors (128^2 at (8, 4, 4)) or past 4096 points (2 x 8192) compiles
-    fused1 to ``staged`` (ROADMAP.md Queue 2, 2g: mega_resident holds
-    lines of one block alone); the kernels' check takes the compiled
-    launch, its image equals fused3's, and a pinned ``vmem`` still
-    raises naming 2g."""
+def test_residency_cut_keeps_long_lines_resident(shape, fft_kw):
+    """A scene whose slab fits one block, with a range line of three
+    factors (128^2 at (8, 4, 4)) or past 4096 points (2 x 8192), compiles
+    fused1 to ``vmem`` as the reference's cut does (mega_resident runs the
+    long passes on its slab); the kernels' check takes the compiled
+    launch and a pinned ``staged``, and the image equals fused3's and the
+    pinned staged fused1's."""
     na, nr = shape
     cfg = dataclasses.replace(tscene(128), na=na, nr=nr)
     kw = dict(device="cpu", fft_kw=fft_kw) if fft_kw else dict(device="cpu")
     one = P.build_pipeline(cfg, "fused1", **kw)
     kk = one.steps[0].kernel_kw
-    assert kk["residency"] == "staged"
-    assert tops.mega_residency(na, nr) == (
-        "vmem" if fft_kw else "staged")      # the scene alone fits
+    assert kk["residency"] == "vmem"
+    assert tops.mega_residency(na, nr) == "vmem"
 
     segs = tuple(tfft.SegmentSpec(axis=r[0], fwd=r[1], inv=r[2],
                                   filter_mode=r[3],
                                   outer_rank=1) for r in kk["segments"])
     mk = dict(n1=kk["n1"], n2=kk["n2"], n3=kk["n3"],
               fft_impl=kk["fft_impl"], precision=kk["precision"])
-    tops.check_mega_kernel(tfft.MegaSpec(na, nr, segs, residency="staged",
-                                         **mk))
-    with pytest.raises(ValueError, match="item 2g"):
-        tops.check_mega_kernel(tfft.MegaSpec(na, nr, segs, residency="vmem",
-                                             **mk))
+    for residency in ("vmem", "staged"):
+        tops.check_mega_kernel(tfft.MegaSpec(na, nr, segs,
+                                             residency=residency, **mk))
     g = torch.Generator().manual_seed(5)
     raw = torch.complex(torch.randn(na, nr, generator=g),
                         torch.randn(na, nr, generator=g))
     three = P.build_pipeline(cfg, "fused3", **kw).run(raw)
-    assert torch.equal(one.run(raw), three)
+    got = one.run(raw)
+    assert torch.equal(got, three)
+    staged = P.build_pipeline(cfg, "fused1", residency="staged", **kw)
+    assert staged.steps[0].kernel_kw["residency"] == "staged"
+    assert torch.equal(staged.run(raw), got)
 
 
-def test_residency_cut_keeps_one_block_scenes_resident():
-    """The splits the cut reads (``ops.mega_splits``) leave 128^2 at its
-    default split resident, and the cost model prices the same cut."""
+def test_residency_cut_keeps_fitting_scenes_resident_whatever_the_split():
+    """The splits the cut reads (``ops.mega_splits``) no longer change it:
+    128^2 at its default split and at (8, 4, 4) both run resident, and the
+    cost model prices the same cut; a slab past one block stays staged."""
     segs = ((0, True, False, "none"), (1, True, True, "shared"),
             (0, False, True, "full"))
     assert tops.mega_residency(
         128, 128, splits=tops.mega_splits(128, 128, segs)) == "vmem"
     three = tops.mega_splits(128, 128, segs, n1=8, n2=4, n3=4)
     assert [fs for _, fs in three] == [(16, 8), (8, 4, 4), (16, 8)]
-    assert tops.mega_residency(128, 128, splits=three) == "staged"
+    assert tops.mega_residency(128, 128, splits=three) == "vmem"
     assert tops.mega_splits(128, 128, segs, n1=8, n2=4, n3=4,
                             fft_impl="stockham")[1] == (128, ())
-    assert cost.mega_residency(2, 8192) == "staged"
+    assert cost.mega_residency(2, 8192) == "vmem"
+    assert cost.mega_residency(4, 8192) == "staged"
     assert cost.serve_batch_seconds(2, 8192) > 0
 
 

@@ -192,7 +192,7 @@ def test_kernel_checks_take_long_lines_at_every_form(n, fft_impl, kw,
                                                    n2=None, n3=None))
 
 
-def test_mega_check_takes_long_staged_segments_at_every_form():
+def test_mega_check_takes_long_segments_staged_and_resident_at_every_form():
     segs = (tfft.SegmentSpec(axis=0, fwd=True),
             tfft.SegmentSpec(axis=1, fwd=True, inv=True,
                              filter_mode="shared"),
@@ -208,12 +208,14 @@ def test_mega_check_takes_long_staged_segments_at_every_form():
     filt = (tfft.SegmentSpec(axis=1, filter_mode="full"),)
     tops.check_mega_kernel(tfft.MegaSpec(8, 8192, filt, residency="staged",
                                          precision="bs16"))
-    with pytest.raises(ValueError, match="item 2g"):
+    # mega_resident runs the long passes on its slab
+    tops.check_mega_kernel(tfft.MegaSpec(
+        8, 512, segs[1:2], residency="vmem", n1=8, n2=8, n3=8))
+    tops.check_mega_kernel(tfft.MegaSpec(
+        2, 8192, segs[1:2], residency="vmem", precision="bs16"))
+    with pytest.raises(ValueError, match="does not fit one block"):
         tops.check_mega_kernel(tfft.MegaSpec(
-            8, 512, segs[1:2], residency="vmem", n1=8, n2=8, n3=8))
-    with pytest.raises(ValueError, match="item 2g"):
-        tops.check_mega_kernel(tfft.MegaSpec(
-            2, 8192, segs[1:2], residency="vmem", precision="bs16"))
+            4, 8192, segs[1:2], residency="vmem", precision="bs16"))
 
 
 # ---------------------------------------------------------------------------
