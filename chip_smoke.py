@@ -240,8 +240,33 @@ each printing one JSON line (any failed check raises and exits non-zero):
              at (8, 4, 4) timed beside ``mega_staged``, plain and the
              library chain.
 
+22. lm — ``core.fusion`` and the LM stack's serving path: (1)
+             ``SpectralPipeline`` on the kernel backend, every filter mode
+             on rows and columns on both FFT routes at f32 (N = 4096, 37
+             lines; one spectral launch each, within 2e-4 of the plain
+             version and of the torch backend, 1e-5 of complex128), one
+             bs16 case through the ``compute_dtype`` alias, ``fft_conv`` in
+             one launch; (2) the FFTConvMixer at stablelm-1.6b's width (D =
+             2048, B = 4, S = 2048 and 4096: 8192 lines of 4096 and 8192
+             points) — ``fftconv_forward`` in one launch within 2e-4 of its
+             plain version and ``fftconv_reference``, the gradients of
+             sum(y^2) through its autograd.Function within 2e-4 of autograd
+             through the reference, the launch timed beside its plain
+             version, the torch.fft chain and its bytes bound; (3)
+             stablelm-1.6b at full width and depth, weights from seed 0:
+             ``generate`` (batch 4, prompt 32, 32 new tokens) at its bf16
+             compute — prefill ms, decode ms a token beside the bound of
+             reading the bf16 weights once, tokens/s — then at f32 every
+             decode step within 1e-4 x max|want| of a full forward over the
+             same prefix (greedy tokens equal the forward's argmax where its
+             top two differ by more), and the card's f32 forward at 2
+             layers within 1e-4 of the CPU's; (4) every other architecture
+             at full width, one pattern period deep, f32, MoE dropless:
+             prefill 16 tokens and 4 decode steps, each against a full
+             forward at the same bar. The LM runs launch no spectral kernel.
+
 The line before the last lists each kernel — on the main path and on each
-path of phases 14 to 21, with the precisions and Karatsuba flags it runs
+path of phases 14 to 22, with the precisions and Karatsuba flags it runs
 on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -4046,6 +4071,429 @@ def resident_long_phase(torch, smi_line):
     return records
 
 
+LM_TOL = 1e-4                  # x max|want|: decode vs forward, card vs CPU
+FUSION_N = 4096                # phase 22.1's line length
+FUSION_LINES = 37              # ragged against every tile
+MIXER_D, MIXER_BATCH = 2048, 4           # stablelm-1.6b's width, B = 4
+MIXER_SEQS = (2048, 4096)      # S: lines of 4096 (one block), 8192 (passes)
+SERVE_ARCH = "stablelm-1.6b"
+SERVE = dict(batch=4, prompt=32, new=32)  # the LM serving cell
+SWEEP = dict(batch=2, prompt=16, steps=4)  # one period of every other arch
+CPU_LAYERS = 2                 # stablelm's depth cut for the card-vs-CPU check
+
+
+def fusion_phase(torch, smi_line, dev):
+    """22.1: ``SpectralPipeline`` on the kernel backend, every filter mode
+    on rows and columns on both FFT routes at f32 (one launch each, against
+    the plain version, complex128 and the torch backend), one bs16 case
+    (through the deprecated ``compute_dtype`` alias), and ``fft_conv``."""
+    import dataclasses
+    from repro_torch.core import SpectralPipeline, fft_conv
+    from repro_torch.kernels import ops
+    rand = seeded_randn(torch, dev, 220)
+    n, lines = FUSION_N, FUSION_LINES
+    worst = dict(plain=0.0, oracle=0.0, torch_backend=0.0)
+    cases = 0
+    for fft_impl in ops.FFT_IMPLS:
+        for axis in (1, 0):
+            for mode in MEGA_MODES:
+                scene = (lines, n) if axis == 1 else (n, lines)
+                x = (rand(*scene), rand(*scene))
+                filt = filter_payload(rand, mode, n, scene, lines)
+                pipe = SpectralPipeline(filter_mode=mode, axis=axis,
+                                        fft_impl=fft_impl)
+                before = ops.SPECTRAL_LAUNCHES
+                got = pipe(*x, **filt)
+                torch.cuda.synchronize()
+                check(ops.SPECTRAL_LAUNCHES == before + 1,
+                      f"SpectralPipeline {fft_impl} {mode} axis {axis}: "
+                      f"{ops.SPECTRAL_LAUNCHES - before} launches")
+                want = ops.spectral_op_plain(
+                    *x, **filt, axis=axis, filter_mode=mode,
+                    fft_impl=fft_impl)
+                _, rel = rel_err(got, want)
+                z = oracle_op(torch, torch.complex(*x), axis, True, True,
+                              mode, **filt)
+                orc = oracle_err(torch, got, z)
+                tb = dataclasses.replace(pipe, backend="torch")(*x, **filt)
+                _, rel_t = rel_err(got, tb)
+                check(rel <= TOL and orc <= ORACLE_TOL and rel_t <= TOL,
+                      f"SpectralPipeline {fft_impl} {mode} axis {axis}: "
+                      f"plain {rel:.3e} oracle {orc:.3e} torch {rel_t:.3e}")
+                worst = dict(plain=max(worst["plain"], rel),
+                             oracle=max(worst["oracle"], orc),
+                             torch_backend=max(worst["torch_backend"],
+                                               rel_t))
+                cases += 1
+    # bs16 on the Stockham route, named through the deprecated alias
+    x = (rand(lines, n), rand(lines, n))
+    filt = filter_payload(rand, "shared", n, (lines, n), lines)
+    before = ops.SPECTRAL_LAUNCHES
+    got = SpectralPipeline(filter_mode="shared", fft_impl="stockham",
+                           compute_dtype="bs16")(*x, **filt)
+    torch.cuda.synchronize()
+    check(ops.SPECTRAL_LAUNCHES == before + 1, "bs16 SpectralPipeline")
+    same = SpectralPipeline(filter_mode="shared", fft_impl="stockham",
+                            precision="bs16")(*x, **filt)
+    want = ops.spectral_op_plain(*x, **filt, filter_mode="shared",
+                                 fft_impl="stockham", precision="bs16")
+    _, bs16_rel = rel_err(got, want)
+    check(split_bit_equal(torch, got, same) and bs16_rel <= FORM_TOL["bs16"],
+          f"bs16 SpectralPipeline: {bs16_rel:.3e}")
+    # fft_conv: a real circular convolution in one launch
+    xr = rand(lines, n)
+    kf = torch.fft.fft(rand(n))
+    kr, ki = kf.real.contiguous(), kf.imag.contiguous()
+    before = ops.SPECTRAL_LAUNCHES
+    y = fft_conv(xr, kr, ki)
+    torch.cuda.synchronize()
+    conv_launches = ops.SPECTRAL_LAUNCHES - before
+    y_plain = ops.spectral_op_plain(xr, torch.zeros_like(xr), hr=kr, hi=ki,
+                                    filter_mode="shared")[0]
+    y_torch = fft_conv(xr, kr, ki, backend="torch")
+    _, conv_rel = rel_err((y,), (y_plain,))
+    _, conv_rel_t = rel_err((y,), (y_torch,))
+    check(conv_launches == 1 and conv_rel <= TOL and conv_rel_t <= TOL,
+          f"fft_conv: {conv_launches} launches, plain {conv_rel:.3e}, "
+          f"torch {conv_rel_t:.3e}")
+    emit("lm_fusion", nvidia_smi=smi_line, n=n, lines=lines, cases=cases,
+         max_rel_err_vs_plain=worst["plain"], tol=TOL,
+         max_oracle_err=worst["oracle"], oracle_tol=ORACLE_TOL,
+         max_rel_err_vs_torch_backend=worst["torch_backend"],
+         bs16_rel_err=bs16_rel, bs16_tol=FORM_TOL["bs16"],
+         fft_conv_launches=conv_launches, fft_conv_rel_err=conv_rel,
+         fft_conv_rel_err_vs_torch=conv_rel_t)
+
+
+def rel_to(got, want):
+    """max|got - want| / max|want| of two tensors."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def mixer_phase(torch, smi_line, dev, d=MIXER_D, batch=MIXER_BATCH,
+                seqs=MIXER_SEQS):
+    """22.2: the FFTConvMixer at stablelm-1.6b's width — ``fftconv_forward``
+    in one spectral launch against its plain version and
+    ``fftconv_reference``, the gradients through the autograd.Function
+    against autograd through the reference, and the launch timed beside
+    its plain version, the torch.fft chain and its bound. Returns the
+    ``kernels`` records."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fft4step import SpectralSpec, flops_nominal
+    from repro_torch.models import fftconv
+    records = []
+    for s in seqs:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(222 + s)
+        mixer = fftconv.init_fftconv(gen, d, s)
+        x = torch.randn((batch, s, d), generator=gen, device=dev)
+        with torch.no_grad():
+            reset_launch_counts()
+            y = mixer(x)
+            torch.cuda.synchronize()
+            got_counts, want_counts = launch_counts(spectral=1)
+            check(got_counts == want_counts,
+                  f"fftconv S={s}: launches {got_counts}")
+            launches = got_counts["spectral"]
+            y_plain = fftconv.fftconv_forward(mixer, x, backend="plain")
+            y_ref = fftconv.fftconv_reference(mixer, x)
+        err_plain, err_ref = rel_to(y, y_plain), rel_to(y, y_ref)
+        check(err_plain <= TOL and err_ref <= TOL,
+              f"fftconv S={s}: plain {err_plain:.3e} reference "
+              f"{err_ref:.3e}")
+        params = list(mixer.parameters())
+        xg = x.clone().requires_grad_()
+        before = ops.SPECTRAL_LAUNCHES
+        grads = torch.autograd.grad((mixer(xg) ** 2).sum(), params + [xg])
+        check(ops.SPECTRAL_LAUNCHES == before + 1,
+              f"fftconv S={s}: forward and backward in one launch")
+        want = torch.autograd.grad(
+            (fftconv.fftconv_reference(mixer, xg) ** 2).sum(), params + [xg])
+        grad_err = max(rel_to(g, w) for g, w in zip(grads, want))
+        check(grad_err <= TOL, f"fftconv S={s} gradients: {grad_err:.3e}")
+        del grads, want, xg
+        with torch.no_grad():
+            lines, hr, hi, _ = fftconv.mixer_lines(mixer, x)
+            zeros = torch.zeros_like(lines)
+            kw = dict(hr=hr, hi=hi, fwd=True, inv=True, axis=1,
+                      filter_mode="full", block=8)
+            max_abs = float((ops.spectral_op(lines, zeros, **kw)[0]
+                             - ops.spectral_op_plain(lines, zeros, **kw)[0]
+                             ).abs().max())
+            h = torch.complex(hr, hi)
+            spec = SpectralSpec(n=2 * s, fwd=True, filter_mode="full",
+                                inv=True, axis=1)
+            nbytes = 6 * 4 * lines.numel()    # x re/im, H re/im in; y out
+            flops = flops_nominal(spec, lines.shape[0])
+            t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / FP32_FLOP_PER_S * 1e3
+            rec = dict(
+                name="spectral", route="cuda",
+                source="src/repro_torch/kernels/csrc/spectral.cu",
+                replaces="src/repro/kernels/fft4step.py:598",
+                path=f"fftconv_forward d={d} B={batch} S={s} "
+                     "(src/repro/models/fftconv.py:44)",
+                fft_impl="matmul", precision="f32", karatsuba=False,
+                lines=lines.shape[0], n=2 * s, launches=launches,
+                max_abs_err=max_abs,
+                ms=cuda_median_ms(lambda: ops.spectral_op(lines, zeros, **kw),
+                                  queued=True),
+                plain_ms=cuda_median_ms(
+                    lambda: ops.spectral_op_plain(lines, zeros, **kw),
+                    queued=True),
+                library_ms=cuda_median_ms(lambda: torch.fft.ifft(
+                    torch.fft.fft(torch.complex(lines, zeros), dim=1) * h,
+                    dim=1), queued=True),
+                bytes=nbytes, flops_nominal=flops, bound_ms=max(t_mem, t_ops),
+                bound_by="bytes" if t_mem >= t_ops else "operations")
+            rec["vs_library"] = rec["ms"] / rec["library_ms"]
+            rec["vs_bound"] = rec["ms"] / rec["bound_ms"]
+            # the same lines on the Stockham route (SpectralPipeline's
+            # fft_impl="stockham"; the mixer itself takes the default)
+            sk = dict(kw, fft_impl="stockham")
+            got_s = ops.spectral_op(lines, zeros, **sk)[0]
+            plain_s = ops.spectral_op_plain(lines, zeros, **sk)[0]
+            check(torch.equal(got_s, plain_s),
+                  f"fftconv S={s}: the Stockham route differs from plain")
+            rec.update(
+                stockham_ms=cuda_median_ms(
+                    lambda: ops.spectral_op(lines, zeros, **sk), queued=True),
+                stockham_plain_ms=cuda_median_ms(
+                    lambda: ops.spectral_op_plain(lines, zeros, **sk),
+                    queued=True))
+            del got_s, plain_s
+        emit("lm_mixer", nvidia_smi=smi_line, d=d, batch=batch, seq=s,
+             rel_err_vs_plain=err_plain, rel_err_vs_reference=err_ref,
+             grad_rel_err=grad_err, tol=TOL, **rec)
+        records.append(rec)
+        del mixer, x, y, y_plain, y_ref, lines, hr, hi, zeros, h
+        torch.cuda.empty_cache()
+    return records
+
+
+def lm_batch(torch, cfg, tokens, gen):
+    """The prompt batch of ``cfg``: tokens, and the stub frontends' inputs
+    (patch embeddings on the first 4 positions, encoder frames)."""
+    batch = {"tokens": tokens}
+    b = tokens.shape[0]
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = torch.randn(
+            (b, 4, cfg.d_model), generator=gen, device=tokens.device)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn(
+            (b, cfg.encoder.n_frames, cfg.d_model), generator=gen,
+            device=tokens.device)
+    return batch
+
+
+def decode_vs_forward(torch, model, batch, prompt, steps):
+    """Prefill ``prompt`` tokens of ``batch``, then ``steps`` greedy decode
+    steps; each step's logits (and the prefill's) against a full
+    ``forward`` over the same prefix. Returns the worst relative error,
+    the greedy tokens' agreement with the forward's argmax where its top
+    two differ by more than ``LM_TOL`` x max|want|, and the tokens."""
+    from repro_torch.models.layers import logits_last
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    max_len = prompt + steps
+    table = (model.embed.table if model.cfg.tie_embeddings
+             else model.lm_head.table)
+    worst, decided, agree = 0.0, 0, 0
+    with torch.no_grad():
+        cache, logits = model.prefill(dict(batch, tokens=tokens[:, :prompt]),
+                                      max_len)
+        seq = tokens[:, :prompt]
+        for step in range(steps + 1):
+            x, _, _ = model.forward(dict(batch, tokens=seq), train=False)
+            want = logits_last(x[:, -1], table)
+            worst = max(worst, rel_to(logits, want))
+            top2 = torch.topk(want, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > LM_TOL * float(
+                want.abs().max())
+            tok = torch.argmax(logits, dim=-1)
+            decided += int(clear.sum())
+            agree += int((clear & (tok == torch.argmax(want, dim=-1))).sum())
+            if step == steps:
+                break
+            seq = torch.cat([seq, tok[:, None]], dim=1)
+            logits, cache = model.decode_step(cache, tok[:, None])
+    check(seq.shape == (b, max_len), f"decoded {tuple(seq.shape)}")
+    return worst, decided, agree
+
+
+def serve_phase(torch, smi_line, dev):
+    """22.3: stablelm-1.6b at full width and depth on the card — served at
+    its bf16 compute (prefill, decode a token, tokens/s, the decode step's
+    bound), then at f32 every decode step against a full forward, then the
+    card's f32 forward at 2 layers against the CPU's."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    cfg = registry.get(SERVE_ARCH)
+    b, prompt, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    max_len = prompt + new
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = Model(cfg, device=dev).init(gen)
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                            device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spectral0 = ops.SPECTRAL_LAUNCHES
+    toks = generate(model, prompts, new, max_len)          # first call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks2 = generate(model, prompts, new, max_len)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(toks.shape == (b, new) and torch.equal(toks, toks2),
+          f"generate: {tuple(toks.shape)}, repeatable "
+          f"{bool(torch.equal(toks, toks2))}")
+    batch = {"tokens": prompts}
+    with torch.inference_mode(), model.compute_cast():
+        prefill_ms = cuda_median_ms(lambda: model.prefill(batch, max_len),
+                                    warm=1, reps=5)
+        cache, logits = model.prefill(batch, max_len)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        step_ms = []
+        for _ in range(new - 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = model.decode_step(cache, tok)
+            end.record()
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        del cache
+    check(ops.SPECTRAL_LAUNCHES == spectral0, "the LM path launched the "
+          "spectral kernel")
+    weight_bytes = 2 * cfg.param_count()           # bf16 weights, read once
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    step_ms.sort()
+    emit("lm_serve", nvidia_smi=smi_line, arch=cfg.name,
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+         params=cfg.param_count(), dtype=cfg.dtype, batch=b, prompt=prompt,
+         new_tokens=new, init_seconds=init_s, generate_ms=gen_s * 1e3,
+         tokens_per_s=b * new / gen_s, prefill_ms=prefill_ms,
+         decode_ms_p50=step_ms[len(step_ms) // 2],
+         decode_ms_mean=sum(step_ms) / len(step_ms),
+         decode_ms_min=step_ms[0], decode_ms_max=step_ms[-1],
+         decode_bound_ms=bound_ms, bound_by="bytes",
+         bound_bytes=weight_bytes,
+         decode_vs_bound=step_ms[len(step_ms) // 2] / bound_ms,
+         sample=toks[0, :8].tolist())
+
+    # f32 compute, the same weights: decode == forward at every step
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = Model(cfg32, device=dev)
+    model32.load_state_dict(model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    worst, decided, agree = decode_vs_forward(
+        torch, model32, batch, prompt, new)
+    check(worst <= LM_TOL and agree == decided,
+          f"{cfg.name} f32 decode vs forward: {worst:.3e}, greedy "
+          f"{agree}/{decided}")
+    emit("lm_decode_vs_forward", nvidia_smi=smi_line, arch=cfg.name,
+         layers=cfg.n_layers, dtype="float32", batch=b, prompt=prompt,
+         steps=new, max_rel_err=worst, tol=LM_TOL, greedy_decided=decided,
+         greedy_agree=agree)
+    del model32
+    torch.cuda.empty_cache()
+
+    # the card's f32 forward against the CPU's, same weights, 2 layers
+    cfg2 = dataclasses.replace(cfg32, n_layers=CPU_LAYERS)
+    gen.manual_seed(2)
+    card = Model(cfg2, device=dev).init(gen)
+    host = Model(cfg2, device="cpu")
+    host.load_state_dict(card.state_dict())
+    with torch.no_grad():
+        x_card, _, _ = card.forward(batch, train=False)
+        x_host, _, _ = host.forward({"tokens": prompts.cpu()}, train=False)
+    cpu_err = rel_to(x_card.cpu(), x_host)
+    check(cpu_err <= LM_TOL, f"{cfg.name} 2 layers card vs CPU: "
+          f"{cpu_err:.3e}")
+    emit("lm_card_vs_cpu", nvidia_smi=smi_line, arch=cfg.name,
+         layers=CPU_LAYERS, dtype="float32", rel_err=cpu_err, tol=LM_TOL)
+    del card, host
+    torch.cuda.empty_cache()
+
+
+def arch_sweep(torch, smi_line, dev):
+    """22.4: every other architecture at full width, one pattern period
+    deep, f32 (MoE dropless at capacity_factor = n_experts): prefill, then
+    decode steps, each against a full forward."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    b, prompt, steps = SWEEP["batch"], SWEEP["prompt"], SWEEP["steps"]
+    spectral0 = ops.SPECTRAL_LAUNCHES
+    for arch in registry.ARCHS:
+        if arch == SERVE_ARCH:
+            continue
+        t0 = time.perf_counter()
+        cfg = registry.get(arch)
+        moe = cfg.moe and dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts))
+        cfg = dataclasses.replace(cfg, n_layers=len(cfg.pattern),
+                                  dtype="float32", moe=moe)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        model = Model(cfg, device=dev).init(gen)
+        tokens = torch.randint(0, cfg.vocab_size, (b, prompt + steps),
+                               generator=gen, device=dev)
+        batch = lm_batch(torch, cfg, tokens, gen)
+        worst, decided, agree = decode_vs_forward(torch, model, batch,
+                                                  prompt, steps)
+        check(worst <= LM_TOL and agree == decided,
+              f"{arch} one period f32 decode vs forward: {worst:.3e}, "
+              f"greedy {agree}/{decided}")
+        emit("lm_arch", nvidia_smi=smi_line, arch=arch,
+             layers=cfg.n_layers, pattern=list(cfg.pattern),
+             params=cfg.param_count(), d_model=cfg.d_model, batch=b,
+             prompt=prompt, steps=steps, max_rel_err=worst, tol=LM_TOL,
+             greedy_decided=decided, greedy_agree=agree,
+             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             seconds=time.perf_counter() - t0)
+        del model, batch, tokens
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    check(ops.SPECTRAL_LAUNCHES == spectral0,
+          "the LM path launched the spectral kernel")
+
+
+def lm_phase(torch, smi_line):
+    """Phase 22: ``core.fusion``, the FFTConvMixer and the LM serving path.
+    Returns the ``kernels`` records."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32, "f32 matmuls")
+    seconds = {}
+    t0 = time.perf_counter()
+    fusion_phase(torch, smi_line, dev)
+    seconds["fusion"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records = mixer_phase(torch, smi_line, dev)
+    seconds["mixer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_phase(torch, smi_line, dev)
+    seconds["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arch_sweep(torch, smi_line, dev)
+    seconds["arch_sweep"] = time.perf_counter() - t0
+    emit("lm_seconds", nvidia_smi=smi_line, **seconds)
+    return records
+
+
 def replay_plain(pipe, x):
     """The compiled steps through the plain versions, on the card: a
     spectral step through ``spectral_op_plain``, a transpose through
@@ -4082,7 +4530,7 @@ def main() -> int:
 
 
 def run(torch) -> int:
-    """Phases 1-21 on the card (``main`` has found it)."""
+    """Phases 1-22 on the card (``main`` has found it)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
                                       paper_targets, simulate)
@@ -4312,6 +4760,11 @@ def run(torch) -> int:
     t0 = time.perf_counter()
     kernels += resident_long_phase(torch, smi_line)
     emit("phase_seconds", number=21, seconds=time.perf_counter() - t0)
+
+    # ---- 22. core.fusion, the FFTConvMixer and the LM serving path ---------
+    t0 = time.perf_counter()
+    kernels += lm_phase(torch, smi_line)
+    emit("phase_seconds", number=22, seconds=time.perf_counter() - t0)
     for k in kernels:
         k.setdefault("precisions", kernel_precisions(k["name"]))
         k.setdefault("karatsuba_by_route", kernel_karatsuba(k["name"]))

@@ -75,9 +75,11 @@ def _stale(name: str, src: str) -> bool:
                for f in os.listdir(CSRC))
 
 
-def build_all(verbose: bool = False, force: bool = False) -> dict[str, str]:
-    """Compile every stale source (every source with ``force``), all
-    ``nvcc`` processes at once. Returns name -> compiler output of each
+def build_all(verbose: bool = False, force: bool = False,
+              names=None) -> dict[str, str]:
+    """Compile every stale source (every source with ``force``; only those
+    of ``names`` when given), all ``nvcc`` processes at once. Returns
+    name -> compiler output of each
     source compiled (``-Xptxas -v`` register and shared memory report when
     ``verbose``). Raises on any failed build."""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -85,6 +87,8 @@ def build_all(verbose: bool = False, force: bool = False) -> dict[str, str]:
     procs = {}
     t0 = time.perf_counter()
     for name, src in sources().items():
+        if names is not None and name not in names:
+            continue
         if not (force or _stale(name, src)):
             continue
         tmp = lib_path(name) + f".tmp{os.getpid()}"

@@ -52,3 +52,8 @@ def spectral_ref(xr, xi, *, axis: int, fwd: bool, inv: bool,
     if inv:
         x = torch.fft.ifft(x, dim=axis)
     return from_complex(x)
+
+
+def transpose_ref(x):
+    """Oracle of the tiled transpose: the last two axes swapped."""
+    return torch.as_tensor(x).transpose(-2, -1)

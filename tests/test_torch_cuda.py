@@ -1133,3 +1133,76 @@ def test_cuda_lowered_bs16_equals_local_bs16(cuda_device, n, fft_impl):
     img = pipe.lower_sharded(make_sar_mesh(devices=[dev] * 2))(raw)
     assert torch.isfinite(img).all()
     assert torch.equal(img, pipe.run(raw))
+
+
+# ---- core.fusion, the FFTConvMixer and the LM serving path -----------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [256, 4096, 8192])
+def test_cuda_fft_conv_matches_plain(cuda_device, n):
+    from repro_torch.core import fft_conv
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(n)
+    x = torch.randn((12, n), generator=gen, device=cuda_device)
+    k = torch.fft.fft(torch.randn(n, generator=gen, device=cuda_device))
+    kr, ki = k.real.contiguous(), k.imag.contiguous()
+    before = ops.SPECTRAL_LAUNCHES
+    got = fft_conv(x, kr, ki)
+    torch.cuda.synchronize()
+    assert ops.SPECTRAL_LAUNCHES == before + 1
+    want = ops.spectral_op_plain(x, torch.zeros_like(x), hr=kr, hi=ki,
+                                 filter_mode="shared")[0]
+    assert_close([got], [want])
+    assert_close([got], [fft_conv(x, kr, ki, backend="torch")])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [64, 2048])
+def test_cuda_fftconv_forward_matches_plain(cuda_device, s):
+    """The mixer's (B*D, 2S) lines in one launch, within 2e-4 of its plain
+    version and of the torch.fft reference; the backward through the
+    oracle's VJP launches nothing."""
+    from repro_torch.models import fftconv
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(s)
+    mixer = fftconv.init_fftconv(gen, 64, s)
+    x = torch.randn((2, s, 64), generator=gen, device=cuda_device,
+                    requires_grad=True)
+    before = ops.SPECTRAL_LAUNCHES
+    y = mixer(x)
+    (y ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert ops.SPECTRAL_LAUNCHES == before + 1
+    with torch.no_grad():
+        assert_close([y], [fftconv.fftconv_forward(mixer, x, "plain")])
+        assert_close([y], [fftconv.fftconv_reference(mixer, x)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "recurrentgemma-9b",
+                                  "llama4-scout-17b-a16e", "whisper-tiny"])
+def test_cuda_generate_matches_cpu(cuda_device, arch):
+    """A smoke config served on the card: the same greedy tokens as on the
+    CPU with the same weights, the logits within 1e-4 x max|want|, and no
+    spectral launch."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    torch.set_float32_matmul_precision("highest")
+    cfg = registry.smoke(arch)
+    card = Model(cfg, device=cuda_device)
+    card.init(torch.Generator(device=cuda_device).manual_seed(0))
+    host = Model(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16),
+                            generator=torch.Generator().manual_seed(1))
+    before = ops.SPECTRAL_LAUNCHES
+    got = generate(card, prompts, 8, 32)
+    assert ops.SPECTRAL_LAUNCHES == before
+    assert torch.equal(got.cpu(), generate(host, prompts, 8, 32))
+    batch = {"tokens": prompts}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.zeros((2, cfg.encoder.n_frames, cfg.d_model))
+    _, want = host.prefill(batch, 32)
+    _, logits = card.prefill(batch, 32)
+    assert_close([logits.cpu()], [want], tol=1e-4)
