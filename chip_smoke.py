@@ -264,9 +264,33 @@ each printing one JSON line (any failed check raises and exits non-zero):
              at full width, one pattern period deep, f32, MoE dropless:
              prefill 16 tokens and 4 decode steps, each against a full
              forward at the same bar. The LM runs launch no spectral kernel.
+23. train — the LM stack's training path: (a) stablelm-1.6b at full
+             width and depth trained through ``launch/train.py`` (f32
+             weights, bf16 compute, AdamW, ``TokenStream``; batch 8, seq
+             128, 30 steps): every loss finite, the last 5 below the first
+             5; the step's ms (CUDA events, median of the last 20),
+             tokens/s, peak memory beside 18 B a parameter, the step's
+             bound and its two terms (FLOP over dense bf16, the optimizer's
+             and the cast's bytes over HBM); then 3 steps at seq 2048 with
+             remat on and off, remat's peak lower; (b) 2 layers at f32:
+             the token stream's batch on the card equal to the CPU's, every
+             gradient and one AdamW step within 1e-4 x max|want| of the
+             CPU's, remat on vs off within 1e-6; (c) in a child process
+             under deterministic algorithms (``--train-restart-child``),
+             2 layers at bf16: a run that fails at step 5 and restarts
+             from its checkpoints (every 2 steps) ends ``torch.equal`` to
+             an uninterrupted run, and a preemption stops with a
+             checkpoint of its step (the child runs beside (b) and (d));
+             (d) every other architecture at one
+             pattern period, one train step (finite, every parameter a
+             gradient, peak memory; llama4 skipped: 196 GB at 18 B a
+             parameter), and one AdamW step of the FFTConvMixer at D =
+             2048, B = 4, S = 2048 (one spectral launch, gradients within
+             2e-4 of the plain version's); (e) the parts' seconds. The
+             model's loss launches no kernel.
 
 The line before the last lists each kernel — on the main path and on each
-path of phases 14 to 22, with the precisions and Karatsuba flags it runs
+path of phases 14 to 23, with the precisions and Karatsuba flags it runs
 on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -4170,6 +4194,69 @@ def rel_to(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+def mixer_record(torch, mixer, x, launches, path, stockham=True):
+    """The ``kernels`` record of the FFTConvMixer's launch on ``x``: the
+    kernel against its plain version, timed beside the plain version,
+    the torch.fft chain and its bound; with ``stockham`` the same lines
+    on the Stockham route too (held bit for bit to its plain version)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fft4step import SpectralSpec, flops_nominal
+    from repro_torch.models import fftconv
+    s = x.shape[1]
+    with torch.no_grad():
+        lines, hr, hi, _ = fftconv.mixer_lines(mixer, x)
+        zeros = torch.zeros_like(lines)
+        kw = dict(hr=hr, hi=hi, fwd=True, inv=True, axis=1,
+                  filter_mode="full", block=8)
+        max_abs = float((ops.spectral_op(lines, zeros, **kw)[0]
+                         - ops.spectral_op_plain(lines, zeros, **kw)[0]
+                         ).abs().max())
+        h = torch.complex(hr, hi)
+        spec = SpectralSpec(n=2 * s, fwd=True, filter_mode="full",
+                            inv=True, axis=1)
+        nbytes = 6 * 4 * lines.numel()    # x re/im, H re/im in; y out
+        flops = flops_nominal(spec, lines.shape[0])
+        t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        rec = dict(
+            name="spectral", route="cuda",
+            source="src/repro_torch/kernels/csrc/spectral.cu",
+            replaces="src/repro/kernels/fft4step.py:598",
+            path=path,
+            fft_impl="matmul", precision="f32", karatsuba=False,
+            lines=lines.shape[0], n=2 * s, launches=launches,
+            max_abs_err=max_abs,
+            ms=cuda_median_ms(lambda: ops.spectral_op(lines, zeros, **kw),
+                              queued=True),
+            plain_ms=cuda_median_ms(
+                lambda: ops.spectral_op_plain(lines, zeros, **kw),
+                queued=True),
+            library_ms=cuda_median_ms(lambda: torch.fft.ifft(
+                torch.fft.fft(torch.complex(lines, zeros), dim=1) * h,
+                dim=1), queued=True),
+            bytes=nbytes, flops_nominal=flops, bound_ms=max(t_mem, t_ops),
+            bound_by="bytes" if t_mem >= t_ops else "operations")
+        rec["vs_library"] = rec["ms"] / rec["library_ms"]
+        rec["vs_bound"] = rec["ms"] / rec["bound_ms"]
+        if not stockham:
+            return rec
+        # the same lines on the Stockham route (SpectralPipeline's
+        # fft_impl="stockham"; the mixer itself takes the default)
+        sk = dict(kw, fft_impl="stockham")
+        got_s = ops.spectral_op(lines, zeros, **sk)[0]
+        plain_s = ops.spectral_op_plain(lines, zeros, **sk)[0]
+        check(torch.equal(got_s, plain_s),
+              f"fftconv S={s}: the Stockham route differs from plain")
+        rec.update(
+            stockham_ms=cuda_median_ms(
+                lambda: ops.spectral_op(lines, zeros, **sk), queued=True),
+            stockham_plain_ms=cuda_median_ms(
+                lambda: ops.spectral_op_plain(lines, zeros, **sk),
+                queued=True))
+        del got_s, plain_s
+    return rec
+
+
 def mixer_phase(torch, smi_line, dev, d=MIXER_D, batch=MIXER_BATCH,
                 seqs=MIXER_SEQS):
     """22.2: the FFTConvMixer at stablelm-1.6b's width — ``fftconv_forward``
@@ -4179,7 +4266,6 @@ def mixer_phase(torch, smi_line, dev, d=MIXER_D, batch=MIXER_BATCH,
     its plain version, the torch.fft chain and its bound. Returns the
     ``kernels`` records."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fft4step import SpectralSpec, flops_nominal
     from repro_torch.models import fftconv
     records = []
     for s in seqs:
@@ -4212,61 +4298,14 @@ def mixer_phase(torch, smi_line, dev, d=MIXER_D, batch=MIXER_BATCH,
         grad_err = max(rel_to(g, w) for g, w in zip(grads, want))
         check(grad_err <= TOL, f"fftconv S={s} gradients: {grad_err:.3e}")
         del grads, want, xg
-        with torch.no_grad():
-            lines, hr, hi, _ = fftconv.mixer_lines(mixer, x)
-            zeros = torch.zeros_like(lines)
-            kw = dict(hr=hr, hi=hi, fwd=True, inv=True, axis=1,
-                      filter_mode="full", block=8)
-            max_abs = float((ops.spectral_op(lines, zeros, **kw)[0]
-                             - ops.spectral_op_plain(lines, zeros, **kw)[0]
-                             ).abs().max())
-            h = torch.complex(hr, hi)
-            spec = SpectralSpec(n=2 * s, fwd=True, filter_mode="full",
-                                inv=True, axis=1)
-            nbytes = 6 * 4 * lines.numel()    # x re/im, H re/im in; y out
-            flops = flops_nominal(spec, lines.shape[0])
-            t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOP_PER_S * 1e3
-            rec = dict(
-                name="spectral", route="cuda",
-                source="src/repro_torch/kernels/csrc/spectral.cu",
-                replaces="src/repro/kernels/fft4step.py:598",
-                path=f"fftconv_forward d={d} B={batch} S={s} "
-                     "(src/repro/models/fftconv.py:44)",
-                fft_impl="matmul", precision="f32", karatsuba=False,
-                lines=lines.shape[0], n=2 * s, launches=launches,
-                max_abs_err=max_abs,
-                ms=cuda_median_ms(lambda: ops.spectral_op(lines, zeros, **kw),
-                                  queued=True),
-                plain_ms=cuda_median_ms(
-                    lambda: ops.spectral_op_plain(lines, zeros, **kw),
-                    queued=True),
-                library_ms=cuda_median_ms(lambda: torch.fft.ifft(
-                    torch.fft.fft(torch.complex(lines, zeros), dim=1) * h,
-                    dim=1), queued=True),
-                bytes=nbytes, flops_nominal=flops, bound_ms=max(t_mem, t_ops),
-                bound_by="bytes" if t_mem >= t_ops else "operations")
-            rec["vs_library"] = rec["ms"] / rec["library_ms"]
-            rec["vs_bound"] = rec["ms"] / rec["bound_ms"]
-            # the same lines on the Stockham route (SpectralPipeline's
-            # fft_impl="stockham"; the mixer itself takes the default)
-            sk = dict(kw, fft_impl="stockham")
-            got_s = ops.spectral_op(lines, zeros, **sk)[0]
-            plain_s = ops.spectral_op_plain(lines, zeros, **sk)[0]
-            check(torch.equal(got_s, plain_s),
-                  f"fftconv S={s}: the Stockham route differs from plain")
-            rec.update(
-                stockham_ms=cuda_median_ms(
-                    lambda: ops.spectral_op(lines, zeros, **sk), queued=True),
-                stockham_plain_ms=cuda_median_ms(
-                    lambda: ops.spectral_op_plain(lines, zeros, **sk),
-                    queued=True))
-            del got_s, plain_s
+        rec = mixer_record(torch, mixer, x, launches,
+                           f"fftconv_forward d={d} B={batch} S={s} "
+                           "(src/repro/models/fftconv.py:44)")
         emit("lm_mixer", nvidia_smi=smi_line, d=d, batch=batch, seq=s,
              rel_err_vs_plain=err_plain, rel_err_vs_reference=err_ref,
              grad_rel_err=grad_err, tol=TOL, **rec)
         records.append(rec)
-        del mixer, x, y, y_plain, y_ref, lines, hr, hi, zeros, h
+        del mixer, x, y, y_plain, y_ref
         torch.cuda.empty_cache()
     return records
 
@@ -4494,6 +4533,539 @@ def lm_phase(torch, smi_line):
     return records
 
 
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN = dict(batch=8, seq=128, steps=30)       # launch/train.py's defaults
+TRAIN_LONG = dict(batch=2, seq=2048, steps=3)  # remat on against off
+TRAIN_CPU = dict(layers=2, batch=2, seq=64)    # the card against the CPU
+RESTART = dict(layers=2, batch=8, seq=128, steps=8, ckpt_every=2, fail_at=5)
+TRAIN_SWEEP = dict(batch=2, seq=64)            # one step of every other arch
+TRAIN_SKIP = {"llama4-scout-17b-a16e":
+              "10.88 B parameters at 18 B each (f32 weights, gradients, mu "
+              "and nu, a bf16 compute copy): 196 GB, over one 80 GB card"}
+REMAT_TOL = 1e-6               # x max|want|: the card's remat on vs off
+RESTART_FLAG = "--train-restart-child"
+
+
+def train_bound(cfg, batch, seq):
+    """A train step's least time on the card, its two terms from the
+    code: (1) the FLOP over dense bf16 — 6 N T for the matmuls (forward
+    2 N T, backward 4 N T; N the parameters, the tied table counted once,
+    as the logits' matmul) plus the attention scores the code forms in
+    full, QK^T and AV at 4 S H Dh a token and attention layer forward, x 3
+    with the backward; (2) the bytes over HBM that the optimizer and the
+    compute cast move — AdamW reads p, g, mu, nu and writes p, mu, nu
+    (28 B a parameter), the cast reads f32 and writes bf16 (6 B)."""
+    n = cfg.param_count()
+    tokens = batch * seq
+    attn = sum(k in ("global", "local") for k in cfg.layer_kinds)
+    flops = 6 * n * tokens + 3 * 4 * seq * cfg.n_heads * \
+        cfg.resolved_head_dim * attn * tokens
+    nbytes = 34 * n
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_flops=flops, bound_bytes=nbytes, bound_flops_ms=t_ops,
+                bound_bytes_ms=t_mem, bound_ms=max(t_ops, t_mem),
+                bound_by="operations" if t_ops >= t_mem else "bytes")
+
+
+def timed_step(torch, step_fn, events):
+    """``step_fn`` with CUDA events around each call, appended to
+    ``events``: the card's time from the step's first launch being
+    issued to its last finishing, the host's gaps included."""
+    def step(opt_state, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn(opt_state, batch)
+        end.record()
+        events.append((start, end))
+        return out
+    return step
+
+
+def step_parts(torch, model, run, batch):
+    """One more train step with its parts apart (CUDA events): the
+    forward (``Model.loss``), the backward, the AdamW update (the same
+    schedule as ``launch/train.py``'s ``build``), and the step's wall
+    time with the loss read back; in ms."""
+    from repro_torch.optim import AdamWConfig, adamw
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for p in run.params.values():
+        p.grad = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    loss = model.loss(batch)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    grads = {k: p.grad for k, p in run.params.items()}
+    adamw.update(run.params, grads, run.opt_state,
+                 AdamWConfig(warmup_steps=10, decay_steps=1000))
+    ev[3].record()
+    float(loss.detach())
+    wall = (time.perf_counter() - t0) * 1e3
+    for p in run.params.values():
+        p.grad = None
+    return dict(part_forward_ms=ev[0].elapsed_time(ev[1]),
+                part_backward_ms=ev[1].elapsed_time(ev[2]),
+                part_update_ms=ev[2].elapsed_time(ev[3]),
+                part_wall_ms=wall)
+
+
+def train_full(torch, smi_line, dev):
+    """23 (a): stablelm-1.6b at full width and depth trained through
+    ``launch/train.py`` (f32 weights, bf16 compute, AdamW, the token
+    stream; batch 8, seq 128, 30 steps) and one more step timed in parts,
+    then 3 steps at seq 2048 with remat on and off."""
+    import dataclasses
+    import statistics
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch import train as T
+    b, s, n = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, cfg, step_fn, data = T.build(TRAIN_ARCH, False, b, s, device=dev)
+    run = T.init_state(model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    events = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run, losses, watchdog = T.train_loop(
+        run, timed_step(torch, step_fn, events), data, n, log_every=10)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    got_counts, want_counts = launch_counts()
+    check(got_counts == want_counts, f"Model.loss launched {got_counts}")
+    ms = [a.elapsed_time(e) for a, e in events]
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(len(losses) == n and all(math.isfinite(v) for v in losses),
+          f"{cfg.name}: losses {losses}")
+    check(last5 < first5, f"{cfg.name}: loss did not fall, first 5 "
+          f"{first5:.4f}, last 5 {last5:.4f}")
+    step_ms = statistics.median(ms[-20:])
+    peak = torch.cuda.max_memory_allocated()
+    params = cfg.param_count()
+    bound = train_bound(cfg, b, s)
+    parts = step_parts(torch, model, run, data.batch(n))
+    emit("train", nvidia_smi=smi_line, arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, params=params,
+         dtype=cfg.dtype, remat=cfg.remat, batch=b, seq=s, steps=n,
+         init_seconds=init_s, loop_seconds=loop_s, losses=losses,
+         loss_first5=first5, loss_last5=last5, step_ms_median_last20=step_ms,
+         step_ms_first=ms[0], step_ms_min=min(ms[1:]),
+         step_ms_max=max(ms[1:]), tokens_per_s=b * s / step_ms * 1e3,
+         peak_gib=peak / 2 ** 30, peak_bytes_per_param=peak / params,
+         reckoned_gib_at_18_b=18 * params / 2 ** 30, **bound,
+         vs_bound=step_ms / bound["bound_ms"], **parts,
+         stragglers=len(watchdog.flagged), launches=got_counts)
+
+    # seq 2048: the same model and optimizer, remat on, then off
+    bl, sl = TRAIN_LONG["batch"], TRAIN_LONG["seq"]
+    data_l = TokenStream(DataConfig(cfg.vocab_size, sl, bl), device=dev)
+    opt_state = run.opt_state
+    long = {}
+    for remat in (True, False):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        events, ls = [], []
+        step = timed_step(torch, step_fn, events)
+        for i in range(TRAIN_LONG["steps"]):
+            opt_state, stats = step(opt_state, data_l.batch(i))
+            ls.append(float(stats["loss"]))
+        torch.cuda.synchronize()
+        check(all(math.isfinite(v) for v in ls),
+              f"seq {sl} remat={remat}: losses {ls}")
+        long[remat] = dict(peak_gib=torch.cuda.max_memory_allocated()
+                           / 2 ** 30,
+                           step_ms=[a.elapsed_time(e) for a, e in events],
+                           losses=ls)
+    model.cfg = cfg
+    run.opt_state = opt_state
+    check(long[True]["peak_gib"] < long[False]["peak_gib"],
+          f"seq {sl}: remat peak {long[True]['peak_gib']:.2f} GiB, without "
+          f"{long[False]['peak_gib']:.2f}")
+    bound_l = train_bound(cfg, bl, sl)
+    emit("train_remat", nvidia_smi=smi_line, arch=cfg.name, batch=bl,
+         seq=sl, steps=TRAIN_LONG["steps"],
+         remat_on=long[True], remat_off=long[False],
+         remat_on_step_ms=long[True]["step_ms"][-1],
+         remat_off_step_ms=long[False]["step_ms"][-1],
+         peak_ratio=long[True]["peak_gib"] / long[False]["peak_gib"],
+         **bound_l)
+    del model, run, opt_state, step_fn, data, data_l
+    torch.cuda.empty_cache()
+
+
+def conditioned_state(torch, grads, step):
+    """AdamW moments as a run holds them, drawn on the CPU from a seed:
+    per leaf mu ~ N(0, sigma^2) and nu = mu^2 + sigma^2 z^2 (nu >= mu^2),
+    sigma the gradient's RMS. From zero moments the first step is
+    lr * g / |g|, whose sign flips where g is rounding noise on either
+    side; these make the step depend smoothly on g."""
+    gen = torch.Generator()
+    gen.manual_seed(6)
+    mu, nu = {}, {}
+    for name, g in grads.items():
+        sig = float(g.pow(2).mean().sqrt()) + 1e-12
+        m = torch.randn(g.shape, generator=gen) * sig
+        mu[name] = m
+        nu[name] = m * m + (torch.randn(g.shape, generator=gen) * sig) ** 2
+    return {"mu": mu, "nu": nu, "step": torch.tensor(step, dtype=torch.int32)}
+
+
+def train_vs_cpu(torch, smi_line, dev):
+    """23 (b): stablelm-1.6b at full width, 2 layers deep, f32 compute:
+    the token stream's batch on the card equal to the CPU's; every
+    parameter's gradient and one AdamW step's new weights and moments on
+    the card within 1e-4 x max|want| of the CPU's; the card's gradients
+    with remat on and off within 1e-6."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get(TRAIN_ARCH),
+                              n_layers=TRAIN_CPU["layers"], dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    card = Model(cfg, device=dev).init(gen)
+    host = Model(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    dc = DataConfig(cfg.vocab_size, TRAIN_CPU["seq"], TRAIN_CPU["batch"],
+                    seed=5)
+    batch_c = TokenStream(dc, dev).batch(3)
+    batch_h = TokenStream(dc, "cpu").batch(3)
+    check(all(batch_c[k].device.type == dev.type
+              and torch.equal(batch_c[k].cpu(), batch_h[k])
+              for k in batch_h), "TokenStream: the card's batch differs")
+
+    def grads(model, batch):
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(batch)
+        loss.backward()
+        out = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), out
+
+    loss_c, g_c = grads(card, batch_c)                 # remat on
+    loss_h, g_h = grads(host, batch_h)
+    grad_err = max(rel_to(g_c[n].cpu(), g_h[n]) for n in g_h)
+    check(grad_err <= LM_TOL, f"{cfg.name} 2 layers gradients card vs CPU: "
+          f"{grad_err:.3e}")
+    card.cfg = dataclasses.replace(cfg, remat=False)
+    _, g_off = grads(card, batch_c)
+    card.cfg = cfg
+    remat_err = max(rel_to(g_off[n], g_c[n]) for n in g_c)
+    check(remat_err <= REMAT_TOL, f"remat on vs off on the card: "
+          f"{remat_err:.3e}")
+    del g_off
+    opt = AdamWConfig(warmup_steps=10, decay_steps=1000)
+    state_h = conditioned_state(torch, g_h, 10)
+    state_c = {k: {n: t.to(dev, copy=True) for n, t in state_h[k].items()}
+               for k in ("mu", "nu")}
+    state_c["step"] = state_h["step"].to(dev, copy=True)
+    p_c, p_h = dict(card.named_parameters()), dict(host.named_parameters())
+    _, _, stats_c = adamw.update(p_c, g_c, state_c, opt)
+    _, _, stats_h = adamw.update(p_h, g_h, state_h, opt)
+    step_err = max(max(rel_to(p_c[n].detach().cpu(), p_h[n].detach()),
+                       rel_to(state_c["mu"][n].cpu(), state_h["mu"][n]),
+                       rel_to(state_c["nu"][n].cpu(), state_h["nu"][n]))
+                   for n in p_h)
+    gnorm_err = abs(float(stats_c["grad_norm"]) - float(stats_h["grad_norm"])
+                    ) / float(stats_h["grad_norm"])
+    check(step_err <= LM_TOL and gnorm_err <= LM_TOL,
+          f"one AdamW step card vs CPU: {step_err:.3e}, grad norm "
+          f"{gnorm_err:.3e}")
+    emit("train_card_vs_cpu", nvidia_smi=smi_line, arch=cfg.name,
+         layers=cfg.n_layers, dtype=cfg.dtype, batch=TRAIN_CPU["batch"],
+         seq=TRAIN_CPU["seq"], loss_card=loss_c, loss_cpu=loss_h,
+         grad_rel_err=grad_err, step_rel_err=step_err,
+         grad_norm_rel_err=gnorm_err, tol=LM_TOL,
+         remat_rel_err=remat_err, remat_tol=REMAT_TOL,
+         stream_equal=True, seconds=time.perf_counter() - t0)
+    del card, host, g_c, g_h, state_c, state_h, p_c, p_h
+    torch.cuda.empty_cache()
+
+
+def restart_child(dev=None) -> int:
+    """23 (c), in a process of its own (``chip_smoke.py --train-restart-
+    child``, with ``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS starts):
+    under deterministic algorithms, stablelm-1.6b at full width, 2 layers,
+    bf16, trains 8 steps uninterrupted from step 0; then, from the same
+    step 0, checkpointing every 2 steps, fails at step 5 and restarts from
+    its step-4 checkpoint (``run_with_restarts``): every final weight and
+    moment ``torch.equal`` to the uninterrupted run's. Then a preemption: one
+    more step, a blocking checkpoint of it, a stop. Prints one JSON line;
+    exit 0 when every check holds."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.distributed import (FailureInjector, PreemptionHandler,
+                                         run_with_restarts)
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as T
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    dev = dev or torch.device("cuda", 0)
+    r = RESTART
+    cfg = dataclasses.replace(registry.get(TRAIN_ARCH), n_layers=r["layers"])
+    model = Model(cfg, device=dev)
+    step_fn = steps.build_train_step(
+        model, AdamWConfig(warmup_steps=10, decay_steps=1000))
+    data = TokenStream(DataConfig(cfg.vocab_size, r["seq"], r["batch"]),
+                       device=dev)
+    run0 = T.init_state(model)
+    n = r["steps"]
+    # the step-0 state held in host memory, not written: each checkpoint
+    # of 2 full-width layers is 3.6 GB to write and to read back
+    initial = {k: t.detach().to("cpu", copy=True)
+               for k, t in run0.params.items()}
+    initial_opt = {o: {k: t.to("cpu", copy=True)
+                       for k, t in run0.opt_state[o].items()}
+                   for o in ("mu", "nu")}
+    initial_opt["step"] = run0.opt_state["step"].to("cpu", copy=True)
+
+    def from_start():
+        with torch.no_grad():
+            for k, p in run0.params.items():
+                p.copy_(initial[k])
+            for o in ("mu", "nu"):
+                for k, t in run0.opt_state[o].items():
+                    t.copy_(initial_opt[o][k])
+        run0.opt_state["step"] = initial_opt["step"].to(dev, copy=True)
+        run0.step = 0
+        return run0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=2)
+        ref, losses, _ = T.train_loop(from_start(), step_fn, data, n,
+                                      log_every=0)
+        want = {k: p.detach().clone() for k, p in ref.params.items()}
+        want_opt = {k: {m: t.clone() for m, t in ref.opt_state[k].items()}
+                    for k in ("mu", "nu")}
+        injector = FailureInjector(at_steps=(r["fail_at"],))
+        seen = []
+
+        def train(state):
+            seen.append(state.step)
+            out, _, _ = T.train_loop(state, step_fn, data, n, ckpt=mgr,
+                                     ckpt_every=r["ckpt_every"],
+                                     injector=injector, log_every=0,
+                                     async_ckpt=False)
+            return out
+
+        def restore():
+            """The latest checkpoint, or step 0 before the first."""
+            if mgr.latest_step() is None:
+                return from_start()
+            return T.restore(mgr, run0)
+
+        final, restarts = run_with_restarts(train, restore)
+        unequal = [k for k, p in final.params.items()
+                   if not torch.equal(p.detach(), want[k])]
+        unequal += [f"{o}/{k}" for o in ("mu", "nu")
+                    for k, t in final.opt_state[o].items()
+                    if not torch.equal(t, want_opt[o][k])]
+        preempt = PreemptionHandler(install=False)
+        preempt.trigger()
+        final, more, _ = T.train_loop(final, step_fn, data, n + 3, ckpt=mgr,
+                                      ckpt_every=100, preempt=preempt,
+                                      log_every=0)
+        tree, saved = mgr.restore(T.checkpoint_tree(final), device="cpu")
+        preempt_equal = saved == n + 1 and all(
+            torch.equal(tree["params"][k], p.detach().cpu())
+            for k, p in final.params.items())
+    ok = (restarts == 1 and seen == [0, 4] and not unequal
+          and final.step == n + 1 and len(more) == 1 and preempt_equal
+          and all(math.isfinite(v) for v in losses))
+    print(json.dumps({
+        "ok": ok, "arch": cfg.name, "layers": cfg.n_layers,
+        "dtype": cfg.dtype, "batch": r["batch"], "seq": r["seq"],
+        "steps": n, "ckpt_every": r["ckpt_every"], "fail_at": r["fail_at"],
+        "restarts": restarts, "started_at": seen, "losses": losses,
+        "unequal": unequal[:10], "n_unequal": len(unequal),
+        "preempt_step": final.step, "preempt_checkpoint_equal": preempt_equal,
+        "deterministic": torch.are_deterministic_algorithms_enabled(),
+        "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+        "seconds": time.perf_counter() - t0}), flush=True)
+    return 0 if ok else 1
+
+
+def start_restart(torch):
+    """23 (c): start the child process (its checkpoints' disk traffic
+    overlaps parts (b) and (d); it needs ~10 GB of the card)."""
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             RESTART_FLAG], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def train_restart(torch, smi_line, proc):
+    """23 (c) in the parent: wait for the child and read its line."""
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = out.strip().splitlines()
+    check(proc.returncode in (0, 1) and lines,
+          f"restart child rc {proc.returncode}: {err[-3000:]}")
+    result = json.loads(lines[-1])
+    emit("train_restart", nvidia_smi=smi_line, rc=proc.returncode, **result)
+    check(proc.returncode == 0 and result["ok"],
+          f"restart != uninterrupted: {result}")
+
+
+def train_sweep(torch, smi_line, dev):
+    """23 (d): every other architecture at full width, one pattern period
+    deep, f32 weights at its config's compute dtype: every parameter's
+    gradient from ``Model.loss`` finite, then one ``build_train_step``
+    step (loss, gradient norm, new weights finite), its peak memory."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    b, s = TRAIN_SWEEP["batch"], TRAIN_SWEEP["seq"]
+    reset_launch_counts()
+    for arch in registry.ARCHS:
+        if arch == TRAIN_ARCH:
+            continue
+        cfg = registry.get(arch)
+        cfg = dataclasses.replace(cfg, n_layers=len(cfg.pattern))
+        if arch in TRAIN_SKIP:
+            emit("train_arch", nvidia_smi=smi_line, arch=arch,
+                 skipped=TRAIN_SKIP[arch], params=cfg.param_count())
+            continue
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        model = Model(cfg, device=dev).init(gen)
+        stream = TokenStream(DataConfig(cfg.vocab_size, s, b, seed=8),
+                             device=dev).batch(0)
+        batch = dict(lm_batch(torch, cfg, stream["tokens"], gen),
+                     labels=stream["labels"])
+        model.loss(batch).backward()
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        check(not bad, f"{arch}: no finite gradient for {bad[:5]}")
+        model.zero_grad(set_to_none=True)
+        params = dict(model.named_parameters())
+        state, stats = steps.build_train_step(model)(adamw.init(params),
+                                                     batch)
+        torch.cuda.synchronize()
+        loss, gnorm = float(stats["loss"]), float(stats["grad_norm"])
+        finite = all(bool(torch.isfinite(p).all()) for p in params.values())
+        check(math.isfinite(loss) and math.isfinite(gnorm) and finite,
+              f"{arch}: loss {loss}, grad norm {gnorm}, weights finite "
+              f"{finite}")
+        emit("train_arch", nvidia_smi=smi_line, arch=arch,
+             layers=cfg.n_layers, pattern=list(cfg.pattern),
+             params=cfg.param_count(), d_model=cfg.d_model, dtype=cfg.dtype,
+             batch=b, seq=s, loss=loss, grad_norm=gnorm,
+             lr=float(stats["lr"]), n_params=len(params),
+             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             seconds=time.perf_counter() - t0)
+        del model, params, state, stats, batch, stream
+    got_counts, want_counts = launch_counts()
+    check(got_counts == want_counts, f"the LM train steps launched "
+          f"{got_counts}")
+    torch.cuda.empty_cache()
+
+
+def mixer_train(torch, smi_line, dev, d=MIXER_D, batch=MIXER_BATCH,
+                s=MIXER_SEQS[0]):
+    """23 (d): one AdamW step of the FFTConvMixer at stablelm-1.6b's width
+    (D = 2048, B = 4, S = 2048) on a regression loss: its forward one
+    spectral launch, its backward the oracle's VJP; the gradients within
+    2e-4 x max|want| of the plain version's. Returns the ``kernels``
+    record of the launch on this path."""
+    from repro_torch.models import fftconv
+    from repro_torch.optim import AdamWConfig, adamw
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(230)
+    mixer = fftconv.init_fftconv(gen, d, s)
+    data = {"x": torch.randn((batch, s, d), generator=gen, device=dev),
+            "y": 0.1 * torch.randn((batch, s, d), generator=gen, device=dev)}
+    params = dict(mixer.named_parameters())
+
+    def loss_fn(backend):
+        def loss(b):
+            y = fftconv.fftconv_forward(mixer, b["x"], backend=backend)
+            return torch.mean((y - b["y"]) ** 2)
+        return loss
+
+    got = torch.autograd.grad(loss_fn("kernel")(data), list(params.values()))
+    want = torch.autograd.grad(loss_fn("plain")(data), list(params.values()))
+    grad_err = max(rel_to(g, w) for g, w in zip(got, want))
+    check(grad_err <= TOL, f"FFTConvMixer gradients vs plain: {grad_err:.3e}")
+    del got, want
+    step = adamw.make_train_step(loss_fn("kernel"), params,
+                                 AdamWConfig(warmup_steps=0))
+    reset_launch_counts()
+    state, stats = step(adamw.init(params), data)
+    torch.cuda.synchronize()
+    got_counts, want_counts = launch_counts(spectral=1)
+    check(got_counts == want_counts, f"FFTConvMixer AdamW step: launches "
+          f"{got_counts}")
+    loss = float(stats["loss"])
+    check(math.isfinite(loss), f"FFTConvMixer AdamW step: loss {loss}")
+    rec = mixer_record(torch, mixer, data["x"], got_counts["spectral"],
+                       f"FFTConvMixer AdamW step d={d} B={batch} S={s} "
+                       "(src/repro/models/fftconv.py:44)", stockham=False)
+    emit("train_mixer", nvidia_smi=smi_line, d=d, batch=batch, seq=s,
+         loss=loss, grad_norm=float(stats["grad_norm"]),
+         grad_rel_err_vs_plain=grad_err, tol=TOL, **rec)
+    del mixer, data, params, state, stats
+    torch.cuda.empty_cache()
+    return [rec]
+
+
+def train_phase(torch, smi_line):
+    """Phase 23: the LM stack's training path. Returns the ``kernels``
+    records (the mixer's launch on its training step)."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    seconds = {}
+    t0 = time.perf_counter()
+    train_full(torch, smi_line, dev)
+    seconds["a_full"] = time.perf_counter() - t0
+    child = start_restart(torch)
+    try:
+        t0 = time.perf_counter()
+        train_vs_cpu(torch, smi_line, dev)
+        seconds["b_card_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_sweep(torch, smi_line, dev)
+        records = mixer_train(torch, smi_line, dev)
+        seconds["d_sweep"] = time.perf_counter() - t0
+    finally:
+        t0 = time.perf_counter()
+        train_restart(torch, smi_line, child)
+        seconds["c_restart_wait"] = time.perf_counter() - t0
+    emit("train_seconds", nvidia_smi=smi_line, **seconds)
+    return records
+
+
 def replay_plain(pipe, x):
     """The compiled steps through the plain versions, on the card: a
     spectral step through ``spectral_op_plain``, a transpose through
@@ -4530,7 +5102,7 @@ def main() -> int:
 
 
 def run(torch) -> int:
-    """Phases 1-22 on the card (``main`` has found it)."""
+    """Phases 1-23 on the card (``main`` has found it)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
                                       paper_targets, simulate)
@@ -4765,6 +5337,11 @@ def run(torch) -> int:
     t0 = time.perf_counter()
     kernels += lm_phase(torch, smi_line)
     emit("phase_seconds", number=22, seconds=time.perf_counter() - t0)
+
+    # ---- 23. the LM training path -------------------------------------------
+    t0 = time.perf_counter()
+    kernels += train_phase(torch, smi_line)
+    emit("phase_seconds", number=23, seconds=time.perf_counter() - t0)
     for k in kernels:
         k.setdefault("precisions", kernel_precisions(k["name"]))
         k.setdefault("karatsuba_by_route", kernel_karatsuba(k["name"]))
@@ -4776,4 +5353,6 @@ def run(torch) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [RESTART_FLAG]:
+        sys.exit(restart_child())
     sys.exit(main())

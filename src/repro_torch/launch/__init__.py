@@ -1,1 +1,1 @@
-"""Launch layer: serving and its lowered entry points."""
+"""Launch layer: training and serving, and their entry points."""

@@ -61,3 +61,12 @@ def params_from_reference(tree) -> dict:
     if any(k in tree for k in ("scan", "layers", "rem")):
         _flatten(reference_layers(tree), "layers.", out)
     return out
+
+
+def opt_state_from_reference(state) -> dict:
+    """The port's AdamW state of a reference AdamW state (``mu`` and
+    ``nu`` parameter-shaped trees of numpy arrays, ``step`` a scalar)."""
+    return {"mu": params_from_reference(state["mu"]),
+            "nu": params_from_reference(state["nu"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32)}

@@ -17,6 +17,7 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.sharding import gather_for_compute, shard
 
@@ -215,16 +216,41 @@ def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(t), torch.cos(t)], dim=1)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=float32)`` on 16-bit operands, with the
+    backward PyTorch does not define for it: ``g @ b^T`` and ``a^T @ g``
+    with the cotangent at the operands' dtype, products on the tensor
+    cores and float32 sums, each cast to its operand's dtype — the
+    transpose of the reference's ``dot_general(...,
+    preferred_element_type=float32)`` at the TPU's default precision,
+    whose passes take 16-bit operands."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g16 = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g16, b.T, out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.mm(a.T, g16, out_dtype=torch.float32).to(b.dtype)
+        return ga, gb
+
+
 def matmul_f32(a, b):
     """``a @ b`` with float32 products, sums and result, whatever the
     operands' dtype (``preferred_element_type=float32``): 16-bit operands
-    go through ``torch.mm(..., out_dtype=float32)`` on the card and are
-    widened first elsewhere (a product of two 16-bit values is exact in
-    float32 either way)."""
+    go through ``torch.mm(..., out_dtype=float32)`` on the card (its
+    gradient by ``_MatmulF32``) and are widened first elsewhere (a product
+    of two 16-bit values is exact in float32 either way)."""
     if a.dtype != torch.float32 and a.device.type == "cuda":
         lead = a.shape[:-1]
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b.to(a.dtype),
-                       out_dtype=torch.float32)
+        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b.to(a.dtype))
         return out.reshape(*lead, b.shape[-1])
     return a.to(torch.float32) @ b.to(torch.float32)
 
@@ -235,10 +261,14 @@ def lm_loss_chunked(x, table, labels, mask=None, chunk: int = 512,
 
     x: (B, S, D) final hidden states; table: (V, D) (tied) output
     embedding; labels: (B, S) int; mask: (B, S) 0/1. Logits are formed one
-    sequence chunk at a time. Forward only in this slice (the training
-    slice adds the rematerialized backward)."""
+    sequence chunk at a time: ``s // chunk`` full chunks, then the
+    remainder, as the reference splits them. With gradients enabled each
+    chunk is recomputed in backward (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``), so only one chunk's (B, c, V)
+    float32 logits is ever alive."""
     b, s, d = x.shape
     chunk = min(chunk, s)
+    n_chunks = s // chunk
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
     mask = mask.to(torch.float32)
@@ -253,11 +283,17 @@ def lm_loss_chunked(x, table, labels, mask=None, chunk: int = 512,
             nll = nll + z_loss * (lse ** 2) * mc
         return nll.sum()
 
+    def one(lo, hi):
+        args = (x[:, lo:hi], labels[:, lo:hi], mask[:, lo:hi])
+        if torch.is_grad_enabled():
+            return checkpoint(chunk_nll, *args, use_reentrant=False)
+        return chunk_nll(*args)
+
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lo in range(0, s, chunk):
-        hi = min(lo + chunk, s)
-        total = total + chunk_nll(x[:, lo:hi], labels[:, lo:hi],
-                                  mask[:, lo:hi])
+    for i in range(n_chunks):
+        total = total + one(i * chunk, (i + 1) * chunk)
+    if s > n_chunks * chunk:
+        total = total + one(n_chunks * chunk, s)
     return total / torch.clamp(mask.sum(), min=1.0)
 
 

@@ -18,6 +18,10 @@ the dt bias stay float32). ``forward`` / ``prefill`` / ``decode_step`` make
 it on every call, as the reference does, unless the caller holds one
 across calls with ``Model.compute_cast()`` — ``launch.serve.generate``
 does, so a prompt batch is cast once and not once a token.
+
+Training: ``loss`` is differentiable through the compute copy to the
+float32 parameters; with ``cfg.remat`` the layers are rematerialised in
+groups as the reference's ``jax.checkpoint`` does (``_layer_groups``).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import attention as attn
@@ -66,7 +71,10 @@ def _keep_f32(path: tuple) -> bool:
 def cast_params_for_compute(params, dtype: str):
     """The compute copy: a module's (or a parameter tree's) weights as a
     tree of tensors, float32 leaves cast to ``dtype`` but for ``_NO_CAST``
-    and the dt bias. At float32 the tree holds the parameters themselves."""
+    and the dt bias. At float32 the tree holds the parameters themselves.
+    With gradients enabled each cast leaf stays on the autograd graph, so
+    ``Model.loss`` reaches every float32 parameter through it, as
+    ``jax.grad`` reaches every leaf through ``astype``."""
     if isinstance(params, nn.Module):
         params = param_tree(params)
     if as_dtype(dtype) == torch.float32:
@@ -80,7 +88,7 @@ def cast_params_for_compute(params, dtype: str):
             return [walk(v, path) for v in node]
         if _keep_f32(path) or node.dtype != torch.float32:
             return node
-        return node.detach().to(dt)
+        return node.to(dt)
 
     return walk(params, ())
 
@@ -355,17 +363,55 @@ class Model(nn.Module):
             enc_out = self._encode(params, batch["frames"])
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         entries = []
-        for p, kind in zip(params["layers"], cfg.layer_kinds):
-            x, e, ce, aux = layer_forward(p, cfg, kind, x, positions,
-                                          q_chunk, enc_out, train)
-            aux_total = aux_total + aux
+
+        def run_group(x, group):
+            aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
+            out = []
+            for p, kind in group:
+                x, e, ce, aux = layer_forward(p, cfg, kind, x, positions,
+                                              q_chunk, enc_out, train)
+                aux_g = aux_g + aux
+                out.append((e, ce))
+            return x, aux_g, out
+
+        remat = cfg.remat and torch.is_grad_enabled()
+        for group, body in self._layer_groups(params["layers"]):
+            if body and remat:
+                x, aux_g = checkpoint(lambda x, g=group: run_group(x, g)[:2],
+                                      x, use_reentrant=False)
+                out = []
+            else:
+                x, aux_g, out = run_group(x, group)
+            aux_total = aux_total + aux_g
             if collect_cache:
-                entries.append((e, ce))
+                entries += out
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return x, aux_total, entries
 
+    def _layer_groups(self, layers):
+        """The flat layer list as the reference runs it: ``(group, body)``
+        pairs in order, ``group`` a list of (params, kind). With
+        ``scan_layers`` and more than one full period, each full pattern
+        period is one group (the reference's scanned, rematerialised
+        body); otherwise each of those layers is a group of its own (the
+        reference's per-layer ``jax.checkpoint``). The remainder layers
+        come last, one a group, with ``body`` False: never
+        rematerialised."""
+        cfg = self.cfg
+        pairs = list(zip(layers, cfg.layer_kinds))
+        n_body = cfg.n_periods * len(cfg.pattern)
+        span = (len(cfg.pattern) if cfg.scan_layers and cfg.n_periods > 1
+                else 1)
+        groups = [(pairs[i:i + span], True) for i in range(0, n_body, span)]
+        return groups + [([pr], False) for pr in pairs[n_body:]]
+
     # ---- training loss ------------------------------------------------------
     def loss(self, batch):
+        """Mean next-token cross-entropy plus the MoE aux loss: a 0-d
+        float32 tensor on the autograd graph of the float32 parameters
+        (through the compute copy). With ``cfg.remat`` and gradients
+        enabled, each full pattern period (or layer, ``_layer_groups``) is
+        recomputed in backward, and so is each loss chunk."""
         cfg = self.cfg
         params = self._params()
         x, aux, _ = self._forward(params, batch, False, True)

@@ -1206,3 +1206,113 @@ def test_cuda_generate_matches_cpu(cuda_device, arch):
     _, want = host.prefill(batch, 32)
     _, logits = card.prefill(batch, 32)
     assert_close([logits.cpu()], [want], tol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_token_stream_equals_cpu(cuda_device):
+    """The stream draws on a CPU generator and moves the batch: the card
+    and the CPU see the same batches."""
+    from repro_torch.data import DataConfig, TokenStream
+    cfg = DataConfig(vocab_size=1000, seq_len=64, global_batch=4, seed=2)
+    for step in (0, 7):
+        got = TokenStream(cfg, cuda_device).batch(step)
+        want = TokenStream(cfg, "cpu").batch(step)
+        for k in want:
+            assert got[k].device.type == "cuda"
+            assert torch.equal(got[k].cpu(), want[k])
+
+
+def smoke_pair(arch, cuda_device, **changes):
+    """A smoke model on the card and the same weights on the CPU, and a
+    batch with labels drawn apart from the tokens."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(registry.smoke(arch), remat=True, **changes)
+    card = Model(cfg, device=cuda_device)
+    card.init(torch.Generator(device=cuda_device).manual_seed(0))
+    host = Model(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64),
+                                     generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 64),
+                                     generator=gen)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((2, cfg.encoder.n_frames,
+                                       cfg.d_model), generator=gen)
+    return card, host, batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "recurrentgemma-9b",
+                                  "granite-moe-3b-a800m", "whisper-tiny"])
+def test_cuda_train_step_matches_cpu(cuda_device, arch):
+    """One ``build_train_step`` step of a smoke config at f32, remat on:
+    the loss and every parameter's gradient within 1e-4 x max|want| of
+    the CPU's, no spectral launch."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    torch.set_float32_matmul_precision("highest")
+    card, host, batch = smoke_pair(arch, cuda_device)
+    grads = []
+    for model in (card, host):
+        model.zero_grad(set_to_none=True)
+        model.loss({k: v.to(model.device) for k, v in batch.items()}
+                   ).backward()
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    assert_close(list(grads[0].values()), list(grads[1].values()), tol=1e-4)
+    before = ops.SPECTRAL_LAUNCHES
+    stats = []
+    for model in (card, host):
+        step = steps.build_train_step(model)
+        _, s = step(adamw.init(dict(model.named_parameters())),
+                    {k: v.to(model.device) for k, v in batch.items()})
+        stats.append(s)
+    assert ops.SPECTRAL_LAUNCHES == before
+    for k in ("loss", "grad_norm"):
+        assert_close([stats[0][k].cpu()], [stats[1][k]], tol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_grads_match_cpu(cuda_device):
+    """stablelm's smoke config at bf16: on the card the logits go through
+    ``torch.mm(..., out_dtype=float32)`` and its gradient through
+    ``_MatmulF32``; on the CPU through widened operands. Every parameter
+    gets a finite gradient, within the CPU tests' bf16 bar (2e-2 x
+    max|want|) of the CPU's."""
+    card, host, batch = smoke_pair("stablelm-1.6b", cuda_device,
+                                   dtype="bfloat16")
+    grads = []
+    for model in (card, host):
+        model.loss({k: v.to(model.device) for k, v in batch.items()}
+                   ).backward()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    assert all(g is not None and bool(torch.isfinite(g).all())
+               for g in grads[0].values())
+    assert_close([g.cpu() for g in grads[0].values()],
+                 list(grads[1].values()), tol=2e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_matmul_f32_gradient(cuda_device):
+    """``_MatmulF32``'s backward: the cotangent at the operands' bf16,
+    products and sums in f32, each gradient cast to bf16 — against the
+    same recipe through widened operands (1e-2: bf16 rounds the outputs,
+    the sums run in another order)."""
+    from repro_torch.models.layers import matmul_f32
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    a = torch.randn((96, 64), generator=gen, device=cuda_device).to(
+        torch.bfloat16).requires_grad_()
+    b = torch.randn((64, 200), generator=gen, device=cuda_device).to(
+        torch.bfloat16).requires_grad_()
+    g = torch.randn((96, 200), generator=gen, device=cuda_device)
+    out = matmul_f32(a, b)
+    assert out.dtype == torch.float32
+    assert_close([out], [a.float() @ b.float()], tol=1e-5)
+    out.backward(g)
+    g16 = g.to(torch.bfloat16).float()
+    assert a.grad.dtype == b.grad.dtype == torch.bfloat16
+    assert_close([a.grad.float(), b.grad.float()],
+                 [(g16 @ b.float().T).to(torch.bfloat16).float(),
+                  (a.float().T @ g16).to(torch.bfloat16).float()], tol=1e-2)
