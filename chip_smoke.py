@@ -288,9 +288,21 @@ each printing one JSON line (any failed check raises and exits non-zero):
              2048, B = 4, S = 2048 (one spectral launch, gradients within
              2e-4 of the plain version's); (e) the parts' seconds. The
              model's loss launches no kernel.
+24. sharded — the LM stack over meshes of slabs of the one card: (a)
+             stablelm-1.6b at full width and depth, one AdamW step on
+             (4, 2) against one device from the same weights and non-zero
+             moments: the loss and every weight within 5e-3, the update
+             p - p0 within 1e-2 x its largest, every slab exactly its
+             shard; (b) at f32, 2 layers: stablelm's gradients on (4, 2)
+             and (2, 2, 2), granite's with remat and routing groups
+             spanning positions on (4, 1), within 1e-5 x max|want|; (c)
+             gemma3-12b's batch-1 decode with the KV sequence over "data"
+             and stablelm's ``generate`` under (4, 1); (d) the
+             FFTConvMixer's sharded AdamW step, 4 spectral launches; (e)
+             the phase under 120 s.
 
 The line before the last lists each kernel — on the main path and on each
-path of phases 14 to 23, with the precisions and Karatsuba flags it runs
+path of phases 14 to 24, with the precisions and Karatsuba flags it runs
 on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -4700,21 +4712,23 @@ def train_full(torch, smi_line, dev):
     torch.cuda.empty_cache()
 
 
-def conditioned_state(torch, grads, step):
-    """AdamW moments as a run holds them, drawn on the CPU from a seed:
-    per leaf mu ~ N(0, sigma^2) and nu = mu^2 + sigma^2 z^2 (nu >= mu^2),
-    sigma the gradient's RMS. From zero moments the first step is
-    lr * g / |g|, whose sign flips where g is rounding noise on either
-    side; these make the step depend smoothly on g."""
-    gen = torch.Generator()
+def conditioned_state(torch, grads, step, device="cpu"):
+    """AdamW moments as a run holds them, drawn on ``device`` (the CPU
+    unless named) from a seed: per leaf mu ~ N(0, sigma^2) and nu = mu^2 +
+    sigma^2 z^2 (nu >= mu^2), sigma the gradient's RMS. From zero moments
+    the first step is lr * g / |g|, whose sign flips where g is rounding
+    noise on either side; these make the step depend smoothly on g."""
+    gen = torch.Generator(device=device)
     gen.manual_seed(6)
     mu, nu = {}, {}
     for name, g in grads.items():
         sig = float(g.pow(2).mean().sqrt()) + 1e-12
-        m = torch.randn(g.shape, generator=gen) * sig
+        m = torch.randn(g.shape, generator=gen, device=device) * sig
         mu[name] = m
-        nu[name] = m * m + (torch.randn(g.shape, generator=gen) * sig) ** 2
-    return {"mu": mu, "nu": nu, "step": torch.tensor(step, dtype=torch.int32)}
+        nu[name] = m * m + (torch.randn(g.shape, generator=gen,
+                                        device=device) * sig) ** 2
+    return {"mu": mu, "nu": nu,
+            "step": torch.tensor(step, dtype=torch.int32, device=device)}
 
 
 def train_vs_cpu(torch, smi_line, dev):
@@ -5066,6 +5080,479 @@ def train_phase(torch, smi_line):
     return records
 
 
+SHARD_ARCH = "stablelm-1.6b"
+SHARD_TRAIN = dict(batch=8, seq=128, step0=4, reps=5)  # 24 (a)
+SHARD_F32 = dict(layers=2, batch=8, seq=128)           # 24 (b)
+SHARD_MOE = dict(arch="granite-moe-3b-a800m", layers=2, batch=4, seq=128,
+                 mesh=(4, 1))   # 24 (b): groups of 256 over positions of 128
+SHARD_SERVE = dict(arch="gemma3-12b", prompt=1500, max_len=2048, steps=2)
+SHARD_GEN = dict(batch=4, prompt=32, new=16)            # 24 (c) generate
+SHARD_TOL = 5e-3       # the reference's sharded-vs-single bars
+SHARD_BF16_TOL = 2e-2  # x max|want|: bf16 logits of a batch cut otherwise
+                       # (tests/test_torch_train_dense.py's bf16 bar)
+SHARD_F32_TOL = 1e-5   # x max|want|: sharded vs single at f32
+SHARD_UPDATE_TOL = 1e-2  # x max|p - p0|: a step's update, sharded vs single
+SHARD_SECONDS = 120    # the phase's time limit (e)
+
+
+def slab_mesh(torch, dev, shape):
+    """A mesh of slabs of the one card: (data, model), or (pod, data,
+    model) for a 3-tuple."""
+    import numpy as np
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.launch import mesh as lm
+    if len(shape) == 2:
+        return lm.make_host_mesh(shape[1], [dev] * (shape[0] * shape[1]))
+    devs = np.empty(shape, dtype=object)
+    devs[...] = dev
+    return Mesh(devs, ("pod", "data", "model"))
+
+
+def shard_values(values, cfg, mesh):
+    """``{name: tensor}`` laid out by ``param_shardings`` under the mesh's
+    activation rules: (params, rules)."""
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    rules = lm.activation_rules(mesh)
+    return steps.shard_params(values, shd.param_shardings(
+        values, cfg, mesh, rules)), rules
+
+
+def tree_bytes(torch, tree) -> int:
+    """The bytes of every tensor in a tree of dicts."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(torch, v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def timed_steps(torch, step, state, batches):
+    """CUDA-event ms of each call of ``step`` over ``batches``, the loss
+    read back after each; returns (state, ms, losses)."""
+    ms, losses = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, stats = step(state, batch)
+        end.record()
+        losses.append(float(stats["loss"]))
+        ms.append(start.elapsed_time(end))
+    return state, ms, losses
+
+
+def sharded_full(torch, smi_line, dev):
+    """24 (a): stablelm-1.6b at full width and depth (bf16 compute,
+    remat), batch 8, seq 128: one AdamW step from the same weights and
+    non-zero moments on one device, then over a (4, 2) mesh of slabs of
+    the card; the loss within 5e-3 (relative: it reads ~500 at init) and
+    every parameter within 5e-3; each slab's resident parameters and
+    moments exactly ``shard_shape``'s; the step ms (median of 5 more) and
+    peak GiB both ways. The single-device run goes first; the weights and
+    moments it starts from and the weights it ends at stay on the card as
+    the comparison's snapshots, and the peaks are given without them."""
+    import statistics
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.distributed import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    t0 = time.perf_counter()
+    cfg = registry.get(SHARD_ARCH)
+    b, s, reps = SHARD_TRAIN["batch"], SHARD_TRAIN["seq"], SHARD_TRAIN["reps"]
+    data = TokenStream(DataConfig(cfg.vocab_size, s, b, seed=24), dev)
+    batches = [data.batch(i) for i in range(reps + 1)]
+    opt = AdamWConfig(warmup_steps=10, decay_steps=1000)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    model = Model(cfg, device=dev).init(gen)
+    snap = {"p0": {n: p.detach().clone()
+                   for n, p in model.named_parameters()}}
+    loss = model.loss(batches[0])
+    loss.backward()
+    snap["state0"] = conditioned_state(
+        torch, {n: p.grad for n, p in model.named_parameters()},
+        SHARD_TRAIN["step0"], dev)
+    model.zero_grad(set_to_none=True)
+    del loss
+
+    def held():
+        return tree_bytes(torch, snap)
+
+    step = steps.build_train_step(model, opt)
+    state = {k: {n: t.clone() for n, t in snap["state0"][k].items()}
+             for k in ("mu", "nu")}
+    state["step"] = snap["state0"]["step"].clone()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    state, ms_one, (loss_single,) = timed_steps(torch, step, state,
+                                                batches[:1])
+    got_counts, want_counts = launch_counts()
+    check(got_counts == want_counts, f"single-device step launched "
+          f"{got_counts}")
+    snap["want"] = {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+    moved = max(float((w - snap["p0"][n]).abs().max())
+                for n, w in snap["want"].items())
+    state, ms_single, _ = timed_steps(torch, step, state, batches[1:])
+    peak_single = (torch.cuda.max_memory_allocated() - held()) / 2 ** 30
+    del model, step, state
+    torch.cuda.empty_cache()
+
+    mesh = slab_mesh(torch, dev, (4, 2))
+    params, rules = shard_values(snap.pop("p0"), cfg, mesh)
+    state0 = snap.pop("state0")
+    opt_state = {k: {n: M.distribute(t, params[n].sharding)
+                     for n, t in state0[k].items()} for k in ("mu", "nu")}
+    opt_state["step"] = state0["step"].clone()
+    del state0
+    torch.cuda.empty_cache()
+    resident = {}
+    for n, st in params.items():
+        sub = M.shard_shape(st.shape, st.sharding)
+        resident[n] = all(tuple(x.shape) == sub and x.numel() * 4
+                          == x.untyped_storage().nbytes()
+                          for tree in (params, opt_state["mu"],
+                                       opt_state["nu"])
+                          for _, x in tree[n].items())
+    check(all(resident.values()), "slabs holding other than their shard: "
+          f"{[n for n, ok in resident.items() if not ok]}")
+    sstep = steps.build_train_step(Model(cfg, device="meta"), opt,
+                                   mesh=mesh, rules=rules, params=params)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    opt_state, ms_first, (loss_sharded,) = timed_steps(
+        torch, sstep, opt_state, batches[:1])
+    got_counts, want_counts = launch_counts()
+    check(got_counts == want_counts, f"sharded step launched {got_counts}")
+    param_err = max(float((params[n].gather(dev) - w).abs().max())
+                    for n, w in snap["want"].items())
+    opt_state, ms_sharded, _ = timed_steps(torch, sstep, opt_state,
+                                           batches[1:])
+    peak_sharded = (torch.cuda.max_memory_allocated() - held()) / 2 ** 30
+    slab_bytes = sum(st.nbytes() for tree in (
+        params, opt_state["mu"], opt_state["nu"]) for st in tree.values())
+    loss_err = abs(loss_sharded - loss_single) / abs(loss_single)
+    emit("sharded_train", nvidia_smi=smi_line, arch=cfg.name,
+         layers=cfg.n_layers, params=cfg.param_count(), dtype=cfg.dtype,
+         remat=cfg.remat, batch=b, seq=s, mesh=dict(mesh.shape),
+         loss_single=loss_single, loss_sharded=loss_sharded,
+         loss_rel_err=loss_err, param_max_abs_err=param_err,
+         tol=SHARD_TOL, update_max_abs=moved,
+         update_rel_err=param_err / moved, update_tol=SHARD_UPDATE_TOL,
+         slabs_exact=True, slab_gib=slab_bytes / 2 ** 30,
+         step_ms_single_first=ms_one[0], step_ms_sharded_first=ms_first[0],
+         step_ms_single_median=statistics.median(ms_single),
+         step_ms_sharded_median=statistics.median(ms_sharded),
+         step_ms_single=ms_single, step_ms_sharded=ms_sharded,
+         peak_gib_single=peak_single, peak_gib_sharded=peak_sharded,
+         launches=got_counts, seconds=time.perf_counter() - t0)
+    check(param_err <= SHARD_TOL and loss_err <= SHARD_TOL,
+          f"sharded step vs single: parameters {param_err:.3e}, loss "
+          f"{loss_err:.3e}")
+    # the update itself, far under 5e-3: max|Δgot - Δwant| = max|got -
+    # want| against the single-device step's largest move
+    check(param_err <= SHARD_UPDATE_TOL * moved, f"sharded step's update "
+          f"vs single: {param_err:.3e} of a largest move {moved:.3e}")
+    del params, opt_state, sstep, batches, snap
+    torch.cuda.empty_cache()
+
+
+def sharded_f32(torch, smi_line, dev):
+    """24 (b): stablelm-1.6b at full width, 2 layers, f32 compute: the
+    gradients over (4, 2) and (2, 2, 2) meshes of slabs within 1e-5 x
+    max|want| of the single-device gradients, leaf by leaf; then
+    granite's (``sharded_moe``)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(registry.get(SHARD_ARCH),
+                              n_layers=SHARD_F32["layers"], dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    model = Model(cfg, device=dev).init(gen)
+    batch = TokenStream(DataConfig(cfg.vocab_size, SHARD_F32["seq"],
+                                   SHARD_F32["batch"], seed=25), dev).batch(0)
+    loss = model.loss(batch)
+    loss.backward()
+    want = {n: p.grad for n, p in model.named_parameters()}
+    values = {n: p.detach() for n, p in model.named_parameters()}
+    out = {}
+    for shape in ((4, 2), (2, 2, 2)):
+        mesh = slab_mesh(torch, dev, shape)
+        params, rules = shard_values(values, cfg, mesh)
+        got_loss, grads = steps.lm_value_and_grad(
+            Model(cfg, device="meta"), params, batch, mesh, rules)
+        err = max(rel_to(grads[n].gather(), w) for n, w in want.items())
+        loss_err = abs(float(got_loss) - float(loss.detach())) / abs(
+            float(loss.detach()))
+        out["x".join(map(str, shape))] = dict(grad_rel_err=err,
+                                              loss_rel_err=loss_err)
+        check(err <= SHARD_F32_TOL and loss_err <= SHARD_F32_TOL,
+              f"f32 sharded gradients on {shape}: {err:.3e}, loss "
+              f"{loss_err:.3e}")
+        del params, grads
+    emit("sharded_f32", nvidia_smi=smi_line, arch=cfg.name,
+         layers=cfg.n_layers, batch=SHARD_F32["batch"],
+         seq=SHARD_F32["seq"], tol=SHARD_F32_TOL, meshes=out)
+    del model, want, values
+    torch.cuda.empty_cache()
+    sharded_moe(torch, smi_line, dev)
+
+
+def sharded_moe(torch, smi_line, dev):
+    """24 (b): granite-moe-3b at full width, 2 layers, f32, every layer
+    rematerialised, on (4, 1): routing groups of 256 tokens over
+    positions of 128, so the positions run in lockstep and the backward's
+    recomputation (on autograd's own thread for the card) must route the
+    forward's groups. Gradients and loss within 1e-5 x max|want| of one
+    device."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    from repro_torch.models.moe import spans_positions
+    from repro_torch.models.sharding import Position
+    cfg = dataclasses.replace(registry.get(SHARD_MOE["arch"]),
+                              n_layers=SHARD_MOE["layers"], dtype="float32",
+                              remat=True)
+    b, s = SHARD_MOE["batch"], SHARD_MOE["seq"]
+    count = SHARD_MOE["mesh"][0]
+    check(spans_positions(cfg.moe, b * s // count, Position(0, count)),
+          "granite's groups do not span the positions")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    model = Model(cfg, device=dev).init(gen)
+    batch = TokenStream(DataConfig(cfg.vocab_size, s, b, seed=29),
+                        dev).batch(0)
+    loss = model.loss(batch)
+    loss.backward()
+    want = {n: p.grad for n, p in model.named_parameters()}
+    mesh = slab_mesh(torch, dev, SHARD_MOE["mesh"])
+    params, rules = shard_values(
+        {n: p.detach() for n, p in model.named_parameters()}, cfg, mesh)
+    got_loss, grads = steps.lm_value_and_grad(
+        Model(cfg, device="meta"), params, batch, mesh, rules)
+    err = max(float((grads[n].gather() - w).abs().max()
+                    / w.abs().max().clamp(min=1e-30))
+              for n, w in want.items())
+    loss_err = abs(float(got_loss) - float(loss.detach())) / abs(
+        float(loss.detach()))
+    emit("sharded_moe", nvidia_smi=smi_line, arch=cfg.name,
+         layers=cfg.n_layers, remat=cfg.remat, batch=b, seq=s,
+         group_size=cfg.moe.group_size, mesh=dict(mesh.shape),
+         grad_rel_err=err, loss_rel_err=loss_err, tol=SHARD_F32_TOL)
+    check(err <= SHARD_F32_TOL and loss_err <= SHARD_F32_TOL,
+          f"f32 sharded granite gradients, remat, spanning groups: "
+          f"{err:.3e}, loss {loss_err:.3e}")
+    del model, want, params, grads
+    torch.cuda.empty_cache()
+
+
+def sharded_serve(torch, smi_line, dev):
+    """24 (c): gemma3-12b, one pattern period (5 local + 1 global) at full
+    width, bf16: a batch-1 prompt past the window, then decode steps with
+    every KV cache's sequence over "data" on (4, 2) (each slab attends
+    its part, merged by log-sum-exp), the logits within 5e-3 x max|want|
+    of the single-device decode. stablelm-1.6b ``generate`` under (4, 1)
+    against one device: at full depth, bf16, the prefill logits within
+    2e-2 x max|want| (cuBLAS rounds a 1-row and a 4-row bf16 product
+    differently) and the share of equal tokens; at 2 layers, f32, the
+    same tokens."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.distributed.mesh import ShardedTensor
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    full = registry.get(SHARD_SERVE["arch"])
+    cfg = dataclasses.replace(full, n_layers=len(full.pattern))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    model = Model(cfg, device=dev).init(gen)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (1, SHARD_SERVE["prompt"] + SHARD_SERVE["steps"]),
+                         generator=torch.Generator().manual_seed(26))
+    toks = toks.to(dev)
+    n, max_len = SHARD_SERVE["prompt"], SHARD_SERVE["max_len"]
+    mesh = slab_mesh(torch, dev, (4, 2))
+    params, rules = shard_values(
+        {k: p.detach() for k, p in model.named_parameters()}, cfg, mesh)
+    with torch.no_grad(), model.compute_cast():
+        cache, pre = model.prefill({"tokens": toks[:, :n]}, max_len)
+        want = []
+        for i in range(SHARD_SERVE["steps"]):
+            logits, cache = model.decode_step(cache, toks[:, n + i:n + i + 1])
+            want.append(logits)
+    del cache
+    scache, spre = steps.build_prefill(model, max_len, mesh, rules,
+                                       params)({"tokens": toks[:, :n]})
+    check(all(isinstance(e["k"], ShardedTensor)
+              and tuple(e["k"].spec)[:2] == (None, "data")
+              for e in scache["layers"]),
+          "the batch-1 KV caches are not cut along their sequence")
+    decode = steps.build_decode(model, mesh, rules, params)
+    errs = [rel_to(spre, pre)]
+    for i in range(SHARD_SERVE["steps"]):
+        logits, scache = decode(scache, toks[:, n + i:n + i + 1])
+        errs.append(rel_to(logits, want[i]))
+    check(max(errs) <= SHARD_TOL, f"{cfg.name} sequence-parallel decode vs "
+          f"one device: {errs}")
+    del model, params, scache, want
+    torch.cuda.empty_cache()
+
+    lm_cfg = registry.get(SHARD_ARCH)
+    gen.manual_seed(27)
+    lm = Model(lm_cfg, device=dev).init(gen)
+    b, p, new = SHARD_GEN["batch"], SHARD_GEN["prompt"], SHARD_GEN["new"]
+    prompts = torch.randint(0, lm_cfg.vocab_size, (b, p),
+                            generator=torch.Generator().manual_seed(27))
+    gmesh = slab_mesh(torch, dev, (4, 1))
+    t1 = time.perf_counter()
+    single = serve.generate(lm, prompts, new, p + new)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    shard = serve.generate(lm, prompts, new, p + new, mesh=gmesh)
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t1
+    same = float((single == shard).to(torch.float32).mean())
+    # the prefill logits both ways (the tokens' first choice)
+    gparams, grules = shard_values(
+        {k: v.detach() for k, v in lm.named_parameters()}, lm_cfg, gmesh)
+    with torch.no_grad(), lm.compute_cast():
+        _, want_pre = lm.prefill({"tokens": prompts.to(dev)}, p + new)
+    _, got_pre = steps.build_prefill(lm, p + new, gmesh, grules, gparams)(
+        {"tokens": prompts.to(dev)})
+    pre_err = rel_to(got_pre, want_pre)
+    check(pre_err <= SHARD_BF16_TOL, f"stablelm generate under (4, 1): "
+          f"bf16 prefill logits {pre_err:.3e}")
+    del lm, gparams
+    cfg32 = dataclasses.replace(lm_cfg, n_layers=2, dtype="float32")
+    gen.manual_seed(28)
+    lm32 = Model(cfg32, device=dev).init(gen)
+    toks32 = serve.generate(lm32, prompts, new, p + new)
+    same32 = torch.equal(toks32, serve.generate(lm32, prompts, new, p + new,
+                                                mesh=gmesh))
+    check(same32, "stablelm 2 layers f32 generate under (4, 1): tokens "
+          "differ from one device")
+    del lm32
+    emit("sharded_serve", nvidia_smi=smi_line, arch=cfg.name,
+         layers=cfg.n_layers, d_model=cfg.d_model, dtype=cfg.dtype,
+         prompt=n, max_len=max_len, mesh=dict(mesh.shape),
+         logits_rel_err=errs, tol=SHARD_TOL, generate_arch=lm_cfg.name,
+         generate_mesh=dict(gmesh.shape), generate_batch=b,
+         generate_new=new, generate_tokens_equal_share=same,
+         generate_prefill_rel_err=pre_err, generate_tol=SHARD_BF16_TOL,
+         generate_s_single=t_single, generate_s_sharded=t_shard,
+         generate_f32_2_layers_tokens_equal=same32,
+         seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+
+def sharded_mixer(torch, smi_line, dev, d=MIXER_D, batch=MIXER_BATCH,
+                  s=MIXER_SEQS[0]):
+    """24 (d): the FFTConvMixer's sharded AdamW step at stablelm-1.6b's
+    width (D = 2048, B = 4, S = 2048) on (4, 2): one spectral launch a
+    data position (4), the gradients within 2e-4 x max|want| of the same
+    sharded step through the plain version. Returns the ``kernels``
+    record: the four positions' launches, each timed on its own lines."""
+    from repro_torch.launch import steps
+    from repro_torch.models import fftconv
+    from repro_torch.optim import AdamWConfig
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(240)
+    mixer = fftconv.init_fftconv(gen, d, s)
+    data = {"x": torch.randn((batch, s, d), generator=gen, device=dev),
+            "y": 0.1 * torch.randn((batch, s, d), generator=gen, device=dev)}
+    mesh = slab_mesh(torch, dev, (4, 2))
+    params, rules = shard_values(
+        {n: p.detach() for n, p in mixer.named_parameters()}, None, mesh)
+    denom = torch.tensor(float(data["x"].numel()))
+
+    def share(backend):
+        def loss(local, leaves, denom):
+            y = fftconv.fftconv_forward(leaves, local["x"], backend=backend)
+            return ((y - local["y"]) ** 2).sum() / denom
+        return loss
+
+    _, got = steps.sharded_value_and_grad(share("kernel"), params, data,
+                                          mesh, rules, denom)
+    _, want = steps.sharded_value_and_grad(share("plain"), params, data,
+                                           mesh, rules, denom)
+    grad_err = max(rel_to(got[n].gather(), w.gather())
+                   for n, w in want.items())
+    check(grad_err <= TOL, f"sharded FFTConvMixer gradients vs plain: "
+          f"{grad_err:.3e}")
+    del got, want
+    step = steps.make_sharded_train_step(
+        share("kernel"), params, AdamWConfig(warmup_steps=0), mesh, rules,
+        denom_fn=lambda b: torch.tensor(float(b["x"].numel())))
+    reset_launch_counts()
+    state, stats = step(steps.init_sharded_opt(params), data)
+    torch.cuda.synchronize()
+    got_counts, want_counts = launch_counts(spectral=4)
+    check(got_counts == want_counts, f"sharded FFTConvMixer AdamW step: "
+          f"launches {got_counts}")
+    loss = float(stats["loss"])
+    check(math.isfinite(loss), f"sharded FFTConvMixer step: loss {loss}")
+    weights = {n: st.gather() for n, st in params.items()}
+    path = (f"FFTConvMixer sharded AdamW step d={d} B={batch} S={s} on "
+            "(4, 2) slabs, one launch a data position "
+            "(src/repro/models/fftconv.py:44)")
+    parts = [mixer_record(torch, weights, data["x"][i:i + 1], 1, path,
+                          stockham=False) for i in range(4)]
+    rec = dict(parts[0], launches=got_counts["spectral"],
+               lines=sum(r["lines"] for r in parts),
+               max_abs_err=max(r["max_abs_err"] for r in parts),
+               **{k: sum(r[k] for r in parts)
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "bytes", "flops_nominal")})
+    rec["vs_library"] = rec["ms"] / rec["library_ms"]
+    rec["vs_bound"] = rec["ms"] / rec["bound_ms"]
+    emit("sharded_mixer", nvidia_smi=smi_line, d=d, batch=batch, seq=s,
+         mesh=dict(mesh.shape), loss=loss,
+         grad_norm=float(stats["grad_norm"]), grad_rel_err_vs_plain=grad_err,
+         tol=TOL, **rec)
+    del mixer, data, params, state, weights
+    torch.cuda.empty_cache()
+    return [rec]
+
+
+def sharded_lm_phase(torch, smi_line):
+    """Phase 24: the LM stack over a mesh of slabs of the one card.
+    Returns the ``kernels`` records (the mixer's sharded step)."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    seconds = {}
+    t0 = time.perf_counter()
+    sharded_full(torch, smi_line, dev)
+    seconds["a_full"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded_f32(torch, smi_line, dev)
+    seconds["b_f32"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded_serve(torch, smi_line, dev)
+    seconds["c_serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records = sharded_mixer(torch, smi_line, dev)
+    seconds["d_mixer"] = time.perf_counter() - t0
+    total = sum(seconds.values())
+    emit("sharded_seconds", nvidia_smi=smi_line, total=total,
+         limit=SHARD_SECONDS, **seconds)
+    check(total <= SHARD_SECONDS, f"phase 24 took {total:.1f} s")
+    return records
+
+
 def replay_plain(pipe, x):
     """The compiled steps through the plain versions, on the card: a
     spectral step through ``spectral_op_plain``, a transpose through
@@ -5101,8 +5588,20 @@ def main() -> int:
         return run(torch)
 
 
+def phase_clock():
+    """``lap(number)``: emits the seconds since the clock started or since
+    the last lap as that phase's ``phase_seconds`` line."""
+    last = [time.perf_counter()]
+
+    def lap(number):
+        now = time.perf_counter()
+        emit("phase_seconds", number=number, seconds=now - last[0])
+        last[0] = now
+    return lap
+
+
 def run(torch) -> int:
-    """Phases 1-23 on the card (``main`` has found it)."""
+    """Phases 1-24 on the card (``main`` has found it)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
                                       paper_targets, simulate)
@@ -5165,6 +5664,7 @@ def run(torch) -> int:
          operand_form_instantiations=len(forms), operand_forms=forms)
 
     # ---- 3. kernel vs plain version on the card ----------------------------
+    lap = phase_clock()
     sw = spectral_sweep(torch, ops, seeded_randn(torch, dev, 0), "matmul")
     emit("kernel", cases=sw["cases"], max_rel_err=sw["max_rel_err"], tol=TOL,
          oracle_cases=sw["oracle_cases"],
@@ -5284,11 +5784,13 @@ def run(torch) -> int:
     kernels += baseline_phases(torch, dev, smi_line, cfg, raw, score,
                                replay_plain, small, small_raw, fused3_pipe,
                                main_inputs, images.pop("fused3"))
+    lap("3-13")
 
     # ---- 14. CSA and omega-K ------------------------------------------------
     records, f32_images, _ = family_phases(
         torch, smi_line, cfg, raw, score, replay_plain, small, small_raw)
     kernels += records
+    lap(14)
 
     # ---- 15. bf16 / f16 / bs16 on the Stockham route ------------------------
     precision_sweeps(torch, ops, dev)
@@ -5300,6 +5802,7 @@ def run(torch) -> int:
     kernels += precision_phases(torch, smi_line, cfg, raw, score,
                                 replay_plain, small, small_raw, f32_images)
     del f32_images
+    lap(15)
 
     # ---- 16. tuning: the matmul route's operand forms and the tuner --------
     form_sweeps(torch, ops, dev)
@@ -5309,19 +5812,23 @@ def run(torch) -> int:
                 small_raw)
     kernels += form_times(torch, smi_line, cfg, raw, small, small_raw,
                           images)
+    lap(16)
 
     # ---- 17. the focusing service -------------------------------------------
     kernels += service_phase(torch, smi_line, cfg, raw, score, small,
                              small_raw)
+    lap(17)
 
     # ---- 18. the multi-device lowering, P slabs on one card ----------------
     kernels += sharded_phase(torch, smi_line, cfg, raw, score)
+    lap(18)
 
     # ---- 19. lines past one block: 8192 x 16384, three factors ------------
     kernels += long_lines_phase(torch, smi_line, cfg, raw, score,
                                 replay_plain)
     del raw
     torch.cuda.empty_cache()
+    lap(19)
 
     # ---- 20. every precision past one block --------------------------------
     t0 = time.perf_counter()
@@ -5342,6 +5849,11 @@ def run(torch) -> int:
     t0 = time.perf_counter()
     kernels += train_phase(torch, smi_line)
     emit("phase_seconds", number=23, seconds=time.perf_counter() - t0)
+
+    # ---- 24. the LM stack over a mesh of slabs of the card ------------------
+    t0 = time.perf_counter()
+    kernels += sharded_lm_phase(torch, smi_line)
+    emit("phase_seconds", number=24, seconds=time.perf_counter() - t0)
     for k in kernels:
         k.setdefault("precisions", kernel_precisions(k["name"]))
         k.setdefault("karatsuba_by_route", kernel_karatsuba(k["name"]))

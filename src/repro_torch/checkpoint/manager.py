@@ -16,9 +16,11 @@ stored as its uint16 bits and the manifest says ``"bfloat16"``.
 
 ``save`` copies every leaf to host memory before it returns, so an async
 save holds the values of the moment it was called even when training
-goes on to update the tensors in place. ``restore`` puts the leaves on
-one device or on a tree of devices matching ``like``; resharding across
-a multi-device mesh comes with the multi-device launch.
+goes on to update the tensors in place; a ``ShardedTensor`` leaf is
+gathered whole first, so a checkpoint is layout-free, as the
+reference's. ``restore`` puts the leaves on one device or on a tree of
+devices matching ``like`` (the caller writes them into a sharded run's
+slabs: ``launch.train.restore``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.mesh import ShardedTensor
 
 _SHARD_BYTES = 512 * 1024 * 1024
 
@@ -59,6 +63,8 @@ def _unflatten(like, leaves):
 
 def _to_host(x) -> np.ndarray:
     """A host copy of ``x`` that no later in-place write reaches."""
+    if isinstance(x, ShardedTensor):
+        x = x.gather("cpu")
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:

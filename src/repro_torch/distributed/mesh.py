@@ -8,6 +8,15 @@ mesh position, in mesh order), and a collective is a set of copies
 between those slabs — ``Tensor.to`` / ``narrow`` / ``torch.cat``, peer
 copies over NVLink between cards, plain copies on one device.
 
+A layout that keeps copies (``NamedSharding``, below) is the port's
+counterpart of ``jax.sharding.NamedSharding`` / ``PartitionSpec``: a
+spec gives each dimension of a tensor None (whole), a mesh axis, or a
+tuple of axes (major to minor), and every mesh position holds the slab
+its coordinates select, so positions that differ only along axes the
+spec does not name hold copies. ``distribute`` takes a tensor to its
+``ShardedTensor`` of slabs, ``ShardedTensor.gather`` takes it back by
+placing the slabs (exact, whatever the dtype).
+
 A mesh may name one device more than once: ``Mesh([cuda:0] * 8)`` runs the
 eight slabs of a P = 8 lowering on one card (each slab its own launches,
 each turn on-card copies), and ``Mesh([cpu] * 8)`` runs them on the CPU,
@@ -23,7 +32,8 @@ mesh from a side stream must hold one such stream per card.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+import math
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -69,9 +79,9 @@ class Mesh:
 
     def device_list(self, axes: AxisNames = None) -> list:
         """The devices one slab each, in mesh order, for a tensor sharded
-        along ``axes``. Every mesh axis of more than one device must be
-        among them: a slab replicated over an unnamed axis is not
-        supported."""
+        along ``axes`` (the collectives below take one slab a device).
+        Every mesh axis of more than one device must be among them: a
+        layout with slabs replicated over an axis is a ``NamedSharding``."""
         if axes is not None:
             named = set(_as_axes(axes))
             unknown = named - set(self.axis_names)
@@ -83,7 +93,7 @@ class Mesh:
             if spare:
                 raise ValueError(
                     f"mesh axes {spare} are not sharded over; slabs "
-                    "replicated over a mesh axis are not supported")
+                    "replicated over a mesh axis take a NamedSharding")
             order = [self.axis_names.index(a) for a in _as_axes(axes)]
             rest = [i for i in range(self.devices.ndim) if i not in order]
             devs = np.transpose(self.devices, order + rest)
@@ -151,3 +161,269 @@ def all_gather(slabs: Sequence[torch.Tensor], axis: int) -> list:
     """The tiled all-gather: every device gets every slab, concatenated
     in mesh order along ``axis``, on its own device."""
     return [unshard(slabs, axis, s.device) for s in slabs]
+
+
+# ---------------------------------------------------------------------------
+# Layouts with copies: PartitionSpec, NamedSharding, ShardedTensor
+# ---------------------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """One entry a dimension: None (whole), a mesh axis name, or a tuple
+    of axis names (the dimension cut over their product, the first axis
+    major). Trailing dimensions past the entries are whole."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(tuple(self))
+
+
+P = PartitionSpec
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class NamedSharding:
+    """A tensor's layout on ``mesh``: ``spec`` names the mesh axes each
+    dimension is cut over."""
+
+    def __init__(self, mesh: Mesh, spec: PartitionSpec):
+        spec = spec if isinstance(spec, PartitionSpec) else P(*spec)
+        named = [a for e in spec for a in _entry_axes(e)]
+        unknown = set(named) - set(mesh.axis_names)
+        if unknown:
+            raise ValueError(f"spec {spec!r} names axes {sorted(unknown)} "
+                             f"not on the mesh {mesh.axis_names!r}")
+        if len(set(named)) != len(named):
+            raise ValueError(f"spec {spec!r} names an axis twice")
+        self.mesh = mesh
+        self.spec = spec
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
+                and tuple(other.spec) == tuple(self.spec))
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh.shape}, {self.spec!r})"
+
+    def _entries(self, ndim: int) -> list:
+        if len(self.spec) > ndim:
+            raise ValueError(f"spec {self.spec!r} for a tensor of {ndim} "
+                             "dimensions")
+        return list(self.spec) + [None] * (ndim - len(self.spec))
+
+    def parts(self, ndim: int) -> list:
+        """The number of slabs along each dimension."""
+        return [self.mesh.size(_entry_axes(e)) if e is not None else 1
+                for e in self._entries(ndim)]
+
+    def shard_shape(self, shape) -> tuple:
+        """The shape of every slab; raises where a dimension does not
+        divide its axes."""
+        out = []
+        for d, n in zip(shape, self.parts(len(shape))):
+            if d % n:
+                raise ValueError(f"dimension of {d} does not divide over "
+                                 f"{n} devices ({self.spec!r})")
+            out.append(d // n)
+        return tuple(out)
+
+    def block_index(self, coords: tuple, ndim: int) -> tuple:
+        """The slab's index along each dimension at mesh ``coords``."""
+        pos = dict(zip(self.mesh.axis_names, coords))
+        out = []
+        for e in self._entries(ndim):
+            i = 0
+            for a in _entry_axes(e):
+                i = i * self.mesh.shape[a] + pos[a]
+            out.append(i)
+        return tuple(out)
+
+    def slices(self, coords: tuple, shape) -> tuple:
+        """The slab at mesh ``coords`` as slices of the whole tensor."""
+        sub = self.shard_shape(shape)
+        return tuple(slice(i * s, (i + 1) * s) for i, s in
+                     zip(self.block_index(coords, len(shape)), sub))
+
+
+def shard_shape(shape, sharding: NamedSharding) -> tuple:
+    """The shape each device holds of a tensor of ``shape``."""
+    return sharding.shard_shape(shape)
+
+
+class ShardedTensor:
+    """A tensor laid out by a ``NamedSharding``: ``slabs`` is a numpy
+    object array shaped as the mesh's devices, the slab at each position
+    on that position's device. Positions whose coordinates differ only
+    along axes the spec does not name hold copies of one slab."""
+
+    def __init__(self, slabs: np.ndarray, sharding: NamedSharding, shape):
+        self.slabs = slabs
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.dtype = slabs.flat[0].dtype
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.sharding.mesh
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self.sharding.spec
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor({list(self.shape)}, {self.dtype}, "
+                f"{self.sharding!r})")
+
+    def items(self):
+        """(mesh coords, slab) for every position, in mesh order."""
+        return np.ndenumerate(self.slabs)
+
+    def nbytes(self) -> int:
+        """The bytes the slabs hold, copies included."""
+        return sum(t.numel() * t.element_size() for _, t in self.items())
+
+    def _block(self, where: Optional[dict]) -> tuple:
+        """The part of the tensor the positions at ``where`` (axis ->
+        index) cover, as slices; a dimension cut over some of ``where``'s
+        axes must be cut over all of its axes among them or none."""
+        where = where or {}
+        out = []
+        for dim, e in zip(self.shape, self.sharding._entries(len(
+                self.shape))):
+            axes = _entry_axes(e)
+            pinned = [a for a in axes if a in where]
+            if not pinned:
+                out.append(slice(0, dim))
+                continue
+            if pinned != list(axes[:len(pinned)]):
+                raise ValueError(f"axes {pinned} pin a dimension cut over "
+                                 f"{axes}: pin its major axes first")
+            i = 0
+            for a in pinned:
+                i = i * self.mesh.shape[a] + where[a]
+            n = self.mesh.size(pinned)
+            out.append(slice(i * dim // n, (i + 1) * dim // n))
+        return tuple(out)
+
+    def _overlaps(self, block: tuple, copies: bool):
+        """(slab, slices of the slab, slices of ``block``) for each slab
+        overlapping ``block``: every copy, or (``copies`` False) the first
+        position in mesh order holding each slab."""
+        seen = set()
+        for coords, slab in self.items():
+            if not copies:
+                idx = self.sharding.block_index(coords, len(self.shape))
+                if idx in seen:
+                    continue
+                seen.add(idx)
+            inner, local = [], []
+            for s, b in zip(self.sharding.slices(coords, self.shape), block):
+                lo, hi = max(s.start, b.start), min(s.stop, b.stop)
+                if lo >= hi:
+                    break
+                inner.append(slice(lo - s.start, hi - s.start))
+                local.append(slice(lo - b.start, hi - b.start))
+            else:
+                yield slab, tuple(inner), tuple(local)
+
+    def gather(self, device=None, where: Optional[dict] = None
+               ) -> torch.Tensor:
+        """The whole tensor (or the block the positions at ``where``
+        cover) on ``device`` (the first slab's when None), placed from
+        one copy of each slab: exact. A block that is one slab on
+        ``device`` is that slab itself, not a copy."""
+        block = self._block(where)
+        dev = self.slabs.flat[0].device if device is None else \
+            torch.device(device)
+        parts = list(self._overlaps(block, copies=False))
+        shape = tuple(b.stop - b.start for b in block)
+        if len(parts) == 1:
+            slab = parts[0][0]
+            if slab.device == dev and tuple(slab.shape) == shape:
+                return slab
+        out = torch.empty(shape, dtype=self.dtype, device=dev)
+        for slab, inner, local in parts:
+            out[local] = slab[inner].to(dev)
+        return out
+
+    def sq_sum(self) -> torch.Tensor:
+        """The float32 sum of squares of the whole tensor: one copy of
+        each slab, each slab's sum on its device, added on the first
+        slab's."""
+        dev = self.slabs.flat[0].device
+        total = None
+        for slab, _, _ in self._overlaps(self._block(None), copies=False):
+            part = torch.sum(torch.square(slab.to(torch.float32))).to(dev)
+            total = part if total is None else total + part
+        return total
+
+    def write(self, value: torch.Tensor, start: Sequence[int] = None):
+        """Copy ``value`` into every slab (each copy) at the whole
+        tensor's offsets ``start`` (0 along every dimension when None)."""
+        start = [0] * len(self.shape) if start is None else list(start)
+        block = tuple(slice(s, s + n) for s, n in zip(start, value.shape))
+        for slab, inner, local in self._overlaps(block, copies=True):
+            src, dst = value[local], slab[inner]
+            if dst.data_ptr() != src.data_ptr() or dst.device != src.device:
+                dst.copy_(src)
+
+    def write_block(self, value: torch.Tensor, where: dict):
+        """Copy ``value``, the block the positions at ``where`` cover, into
+        every slab holding part of it."""
+        self.write(value, [b.start for b in self._block(where)])
+
+
+
+def distribute(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
+    """``x`` laid out by ``sharding``: every position gets its own copy of
+    its slab, contiguous on its device."""
+    mesh = sharding.mesh
+    sharding.shard_shape(x.shape)
+    slabs = np.empty(mesh.devices.shape, dtype=object)
+    for coords, dev in np.ndenumerate(mesh.devices):
+        part = x[sharding.slices(coords, x.shape)]
+        slabs[coords] = part.to(dev, copy=True).contiguous()
+    return ShardedTensor(slabs, sharding, x.shape)
+
+
+def sharded_empty(shape, sharding: NamedSharding, dtype=torch.float32,
+                  fill=torch.empty) -> ShardedTensor:
+    """A tensor laid out by ``sharding``, allocated slab by slab with
+    ``fill`` (``torch.empty``, or ``torch.zeros``: ``sharded_zeros``)."""
+    sub = sharding.shard_shape(shape)
+    slabs = np.empty(sharding.mesh.devices.shape, dtype=object)
+    for coords, dev in np.ndenumerate(sharding.mesh.devices):
+        slabs[coords] = fill(sub, dtype=dtype, device=dev)
+    return ShardedTensor(slabs, sharding, shape)
+
+
+def sharded_zeros(shape, sharding: NamedSharding,
+                  dtype=torch.float32) -> ShardedTensor:
+    return sharded_empty(shape, sharding, dtype, torch.zeros)
+
+
+def axis_positions(mesh: Mesh, axes: Sequence[str]) -> list:
+    """Every combination of indices along ``axes`` (``{axis: index}``),
+    the first axis major: the mesh order of positions cut over them."""
+    axes = [a for a in axes if a in mesh.axis_names]
+    sizes = [mesh.shape[a] for a in axes]
+    out = []
+    for flat in range(math.prod(sizes)):
+        idx, rest = {}, flat
+        for a, n in reversed(list(zip(axes, sizes))):
+            idx[a] = rest % n
+            rest //= n
+        out.append({a: idx[a] for a in axes})
+    return out
+
+
+def position_device(mesh: Mesh, where: dict) -> torch.device:
+    """The device of the first mesh position at ``where``."""
+    idx = tuple(where.get(a, 0) for a in mesh.axis_names)
+    return mesh.devices[idx]

@@ -1,5 +1,5 @@
-"""Training: config -> model on one device -> fault-tolerant loop
-(the port's counterpart of ``repro.launch.train``).
+"""Training: config -> model on one device or a mesh -> fault-tolerant
+loop (the port's counterpart of ``repro.launch.train``).
 
 Integrates every substrate: the deterministic data stream (exact resume),
 AdamW, the checkpoint manager (async, keep-k, atomic), the preemption
@@ -7,14 +7,19 @@ handler, the straggler watchdog and failure injection for tests. The
 parameters live in the ``Model`` and the train step updates them and the
 optimizer's moments in place; a restore writes every one of them back.
 
-On one device: the reference's mesh, activation rules and parameter
-shardings (``launch/mesh.py``, ``launch/sharding.py``) wait for the
-multi-device launch slice.
+Over a mesh (``build(..., mesh=...)``): the parameters and AdamW's
+moments are ``ShardedTensor``s laid out by ``launch/sharding.py``'s
+``param_shardings`` under ``launch/mesh.py``'s ``activation_rules``, and
+the step is ``launch/steps.py``'s sharded one. Checkpoints hold the
+gathered, layout-free leaves, as the reference's do: a single-device
+checkpoint restores into a sharded run and back.
 
 Usage (the CUDA card unless ``--device`` names another):
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
       --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --mesh 4x2     # a (data, model) mesh of 8 slabs of that device
 """
 from __future__ import annotations
 
@@ -34,7 +39,10 @@ from repro_torch.distributed import (
     SimulatedFailure,
     StragglerWatchdog,
 )
+from repro_torch.distributed.mesh import ShardedTensor, sharded_empty
+from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import activation_rules, make_host_mesh
 from repro_torch.models import Model
 from repro_torch.optim import AdamWConfig, adamw
 
@@ -42,37 +50,71 @@ from repro_torch.optim import AdamWConfig, adamw
 @dataclasses.dataclass
 class TrainRun:
     """Everything a (re)start needs: the live parameters (``{name:
-    Parameter}``, the model's own), the optimizer state and the steps
-    taken."""
+    Parameter}``, the model's own; over a mesh ``{name:
+    ShardedTensor}``), the optimizer state and the steps taken."""
     params: dict
     opt_state: dict
     step: int
 
 
 def build(arch: str, smoke: bool, batch: int, seq: int, device=None,
-          opt_cfg: Optional[AdamWConfig] = None, accum: int = 1):
+          opt_cfg: Optional[AdamWConfig] = None, accum: int = 1,
+          mesh=None):
     """The model of ``arch`` (its weights allocated, not drawn), its train
     step and the token stream, on ``device`` (None: the CUDA card, raising
-    without one). The reference's ``mesh`` argument, activation rules and
-    parameter shardings are left out until the multi-device launch slice.
-    Returns (model, cfg, train_step, data)."""
+    without one). Returns (model, cfg, train_step, data).
+
+    Over ``mesh``: ``model`` is the structure alone (on ``"meta"``), the
+    weights are allocated slab by slab in ``param_shardings``' layout
+    (``activation_rules(mesh)``) and the train step is the sharded one;
+    its ``params`` attribute holds the weights (``{name:
+    ShardedTensor}``). The stream's batches come to the mesh's first
+    device."""
     cfg = registry.smoke(arch, seq=seq) if smoke else registry.get(arch)
-    model = Model(cfg, device=device)
     opt_cfg = opt_cfg or AdamWConfig(warmup_steps=10, decay_steps=1000)
-    train_step = steps_mod.build_train_step(model, opt_cfg, accum)
+    if mesh is None:
+        model = Model(cfg, device=device)
+        train_step = steps_mod.build_train_step(model, opt_cfg, accum)
+        first = model.device
+    else:
+        model = Model(cfg, device="meta")
+        rules = activation_rules(mesh)
+        shapes = dict(model.named_parameters())
+        shardings = shd.param_shardings(shapes, cfg, mesh, rules)
+        params = {n: sharded_empty(t.shape, shardings[n])
+                  for n, t in shapes.items()}
+        train_step = steps_mod.build_train_step(
+            model, opt_cfg, accum, mesh=mesh, rules=rules, params=params)
+        train_step.params = params
+        first = mesh.devices.flat[0]
     data = TokenStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                  global_batch=batch), device=model.device)
+                                  global_batch=batch), device=first)
     return model, cfg, train_step, data
 
 
-def init_state(model: Model, seed: int = 0) -> TrainRun:
+def init_state(model: Model, seed: int = 0,
+               params: Optional[dict] = None) -> TrainRun:
     """Draw the weights from ``seed`` on the model's device; zero AdamW
-    state."""
-    gen = torch.Generator(device=model.device)
+    state. ``params`` (``{name: ShardedTensor}``, a sharded build's
+    ``train_step.params``): draw the same weights as a whole model on the
+    mesh's first device, write each into its slabs, then free the model;
+    zero moments in the same layouts."""
+    if params is None:
+        gen = torch.Generator(device=model.device)
+        gen.manual_seed(seed)
+        model.init(gen)
+        params = dict(model.named_parameters())
+        return TrainRun(params, adamw.init(params), 0)
+    first = next(iter(params.values())).slabs.flat[0].device
+    full = Model(model.cfg, device=first)
+    gen = torch.Generator(device=first)
     gen.manual_seed(seed)
-    model.init(gen)
-    params = dict(model.named_parameters())
-    return TrainRun(params, adamw.init(params), 0)
+    full.init(gen)
+    with torch.no_grad():
+        for name, p in full.named_parameters():
+            params[name].write(p)
+    del full
+    return TrainRun(params, steps_mod.init_sharded_opt(params), 0)
 
 
 def checkpoint_tree(run: TrainRun) -> dict:
@@ -87,12 +129,19 @@ def restore(ckpt: CheckpointManager, run: TrainRun,
     a stale optimizer step would shift the lr schedule. The checkpoint is
     read to host memory first, so the card never holds two copies."""
     tree, step = ckpt.restore(checkpoint_tree(run), step, device="cpu")
+
+    def put(live, value):
+        if isinstance(live, ShardedTensor):
+            live.write(value)
+        else:
+            live.copy_(value)
+
     with torch.no_grad():
         for name, p in run.params.items():
-            p.copy_(tree["params"][name])
+            put(p, tree["params"][name])
         for k in ("mu", "nu"):
             for name, t in run.opt_state[k].items():
-                t.copy_(tree["opt"][k][name])
+                put(t, tree["opt"][k][name])
         run.opt_state["step"] = tree["opt"]["step"].to(
             run.opt_state["step"].device)
     run.step = step
@@ -160,18 +209,28 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device; the CUDA card when not given")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL: train over a mesh of that many slabs "
+                    "of the device")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     """Returns (run, losses)."""
     args = parse_args(argv)
+    mesh = None
+    if args.mesh:
+        data_n, model_n = (int(v) for v in args.mesh.split("x"))
+        dev = args.device if args.device is not None else (
+            make_host_mesh().devices.flat[0])
+        mesh = make_host_mesh(model_n, [dev] * (data_n * model_n))
     model, cfg, train_step, data = build(
         args.arch, args.smoke, args.batch, args.seq, device=args.device,
-        accum=args.accum)
-    print(f"arch={cfg.name} params~{cfg.param_count():,} "
-          f"device={model.device}")
-    run = init_state(model)
+        accum=args.accum, mesh=mesh)
+    where = f"mesh={mesh.shape}" if mesh is not None else \
+        f"device={model.device}"
+    print(f"arch={cfg.name} params~{cfg.param_count():,} {where}")
+    run = init_state(model, params=getattr(train_step, "params", None))
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     if args.resume and ckpt is not None and ckpt.latest_step() is not None:
         run = restore(ckpt, run)

@@ -9,7 +9,12 @@ slot stays finite. Memory: optional query chunking keeps the (Sq, Skv)
 score matrix bounded at Sq_chunk * Skv.
 
 Decode writes the new key and value into the cache in place and returns
-the same cache dict.
+the same cache dict. A cache cut along its sequence (batch-1 decode under
+a mesh: ``kv_seq`` over "data") comes as ``{"parts": [KVPart, ...]}``,
+the parts in sequence order: the new key and value are written into the
+part holding the slot, and each part is attended apart, the parts merged
+by log-sum-exp (``sdpa_parts``), its mask on the part's absolute
+positions.
 """
 from __future__ import annotations
 
@@ -122,6 +127,55 @@ def sdpa(q, k, v, mask, q_chunk: Optional[int] = None):
                       for lo in range(0, sq, q_chunk)], dim=1)
 
 
+def sdpa_parts(q, parts):
+    """Decode attention over a sequence in parts: q (B, 1, H, Dh), parts a
+    list of (k, v, mask), k / v (B, S_j, K, Dh) and mask (B, 1, S_j).
+    Each part's float32 logits give its max m_j and sum l_j of
+    exp(logit - m_j); the parts merge by log-sum-exp (M = max m_j, L =
+    sum exp(m_j - M) l_j), each part's weights exp(logit - m_j) exp(m_j -
+    M) / L are cast to q's dtype as ``sdpa``'s softmax is, and the parts'
+    products with v are summed in float32."""
+    b, sq, h, dh = q.shape
+    kheads = parts[0][0].shape[2]
+    g = h // kheads
+    scale = dh ** -0.5
+    qg = q.reshape(b, sq, kheads, g, dh).to(torch.float32)
+    stats = []
+    for k, _, mask in parts:
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                              k.to(torch.float32)) * scale
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
+        m = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp(logits - m)
+        stats.append((m, e, e.sum(dim=-1, keepdim=True)))
+    big = torch.stack([m for m, _, _ in stats]).amax(dim=0)
+    total = sum(torch.exp(m - big) * s for m, _, s in stats)
+    o = None
+    for (m, e, _), (_, v, _) in zip(stats, parts):
+        w = (e * (torch.exp(m - big) / total)).to(q.dtype)
+        oj = torch.einsum("bkgqs,bskd->bqkgd", w.to(torch.float32),
+                          v.to(torch.float32))
+        o = oj if o is None else o + oj
+    return o.to(q.dtype).reshape(b, sq, h, dh)
+
+
+@dataclasses.dataclass
+class KVPart:
+    """One part of a KV cache cut along its sequence: ``k`` / ``v`` (B,
+    S_j, K, Dh) the cache's slots [lo, lo + S_j), and for a ring cache
+    ``pos`` (B, S_j) those slots' positions (-1: empty)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    lo: int
+    pos: Optional[torch.Tensor] = None
+
+
+def decode_slot(pos: int, length: int, ring: bool) -> int:
+    """The cache slot a decode step at ``pos`` writes: ``pos`` in a full
+    cache, ``pos % length`` in a ring."""
+    return pos % length if ring else pos
+
+
 # ---------------------------------------------------------------------------
 # KV caches
 # ---------------------------------------------------------------------------
@@ -210,9 +264,12 @@ def attn_decode(p, spec: AttnSpec, x, cache: dict, pos: int):
         ang = rope_angles(positions, spec.head_dim, spec.theta, spec.sections)
         q, k = apply_rope(q, ang), apply_rope(k, ang)
 
+    if "parts" in cache:
+        o = _decode_parts(spec, q, k, v, cache["parts"], pos, positions)
+        return o.reshape(b, 1, -1) @ cast(p["wo"], dt), cache
     ring = "pos" in cache
     ck, cv = cache["k"], cache["v"]
-    slot = (pos % ck.shape[1]) if ring else pos
+    slot = decode_slot(pos, ck.shape[1], ring)
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)
     if ring:
@@ -238,12 +295,50 @@ def attn_decode(p, spec: AttnSpec, x, cache: dict, pos: int):
     return out, cache
 
 
+def _decode_parts(spec: AttnSpec, q, k, v, parts: list, pos: int,
+                  positions):
+    """``attn_decode``'s attention on a cache cut along its sequence: the
+    new key and value written into the part holding slot ``pos`` (ring:
+    ``pos % W``), then each part attended on its own absolute positions
+    (ring: its slots' ``pos`` entries) and the parts merged
+    (``sdpa_parts``)."""
+    dt, dev = q.dtype, q.device
+    b = q.shape[0]
+    ring = parts[0].pos is not None
+    slot = decode_slot(pos, sum(pt.k.shape[1] for pt in parts), ring)
+    qpos2 = positions if positions.ndim == 2 else positions[..., 0]
+    att = []
+    for pt in parts:
+        n = pt.k.shape[1]
+        if pt.lo <= slot < pt.lo + n:
+            pt.k[:, slot - pt.lo] = k[:, 0].to(pt.k.dtype)
+            pt.v[:, slot - pt.lo] = v[:, 0].to(pt.v.dtype)
+            if ring:
+                pt.pos[:, slot - pt.lo] = pos
+        if ring:
+            k_pos = pt.pos
+            k_valid = k_pos >= 0
+        else:
+            k_pos = torch.arange(pt.lo, pt.lo + n, dtype=torch.int32,
+                                 device=dev).expand(b, n)
+            k_valid = k_pos <= pos
+        mask = _score_mask(qpos2, k_pos, spec.causal, spec.window, k_valid)
+        att.append((pt.k.to(dt), pt.v.to(dt), mask))
+    return sdpa_parts(q, att)
+
+
 def cross_decode(p, spec: AttnSpec, x, cache: dict):
     """Decoder cross-attention against a fixed encoder cache {k, v}."""
     dt = x.dtype
     b = x.shape[0]
     q = _split_heads(x @ cast(p["wq"], dt, None, "heads"), spec.n_heads,
                      spec.head_dim)
+    if "parts" in cache:
+        o = sdpa_parts(q, [(pt.k.to(dt), pt.v.to(dt),
+                            torch.ones((b, 1, pt.k.shape[1]),
+                                       dtype=torch.bool, device=x.device))
+                           for pt in cache["parts"]])
+        return o.reshape(b, 1, -1) @ cast(p["wo"], dt)
     k, v = cache["k"].to(dt), cache["v"].to(dt)
     mask = torch.ones((b, 1, k.shape[1]), dtype=torch.bool, device=x.device)
     o = sdpa(q, k, v, mask)

@@ -78,13 +78,19 @@ class ParamModule(nn.Module):
             getattr(self, name).copy_(value)
 
 
-def param_tree(module: nn.Module):
+def param_tree(module: nn.Module, values: Optional[dict] = None,
+               prefix: str = ""):
     """The reference's parameter pytree of a module: nested dicts (lists
-    for ``nn.ModuleList``) of its parameters, no copies."""
+    for ``nn.ModuleList``) of its parameters, no copies — or, given
+    ``values`` (``{state_dict name: tensor}``), of those tensors in the
+    module's structure."""
     if isinstance(module, nn.ModuleList):
-        return [param_tree(m) for m in module]
-    out = {k: v for k, v in module._parameters.items() if v is not None}
-    out.update({k: param_tree(m) for k, m in module._modules.items()})
+        return [param_tree(m, values, f"{prefix}{i}.")
+                for i, m in enumerate(module)]
+    out = {k: v if values is None else values[prefix + k]
+           for k, v in module._parameters.items() if v is not None}
+    out.update({k: param_tree(m, values, f"{prefix}{k}.")
+                for k, m in module._modules.items()})
     return out
 
 
@@ -256,7 +262,7 @@ def matmul_f32(a, b):
 
 
 def lm_loss_chunked(x, table, labels, mask=None, chunk: int = 512,
-                    z_loss: float = 0.0):
+                    z_loss: float = 0.0, denom=None):
     """Mean next-token CE without materializing (B, S, V) logits.
 
     x: (B, S, D) final hidden states; table: (V, D) (tied) output
@@ -265,7 +271,9 @@ def lm_loss_chunked(x, table, labels, mask=None, chunk: int = 512,
     remainder, as the reference splits them. With gradients enabled each
     chunk is recomputed in backward (``torch.utils.checkpoint``, the
     reference's ``jax.checkpoint``), so only one chunk's (B, c, V)
-    float32 logits is ever alive."""
+    float32 logits is ever alive. ``denom``: the count to divide the
+    summed NLL by (a data position's share of a global batch divides by
+    the global batch's mask sum); the mask's own sum when None."""
     b, s, d = x.shape
     chunk = min(chunk, s)
     n_chunks = s // chunk
@@ -294,7 +302,9 @@ def lm_loss_chunked(x, table, labels, mask=None, chunk: int = 512,
         total = total + one(i * chunk, (i + 1) * chunk)
     if s > n_chunks * chunk:
         total = total + one(n_chunks * chunk, s)
-    return total / torch.clamp(mask.sum(), min=1.0)
+    if denom is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+    return total / denom
 
 
 def logits_last(x_last, table):

@@ -53,7 +53,7 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
 )
 from repro_torch.models.moe import MoE, moe_ffn
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import carry_context, shard
 
 KINDS_ATTN = ("global", "local")
 KINDS_REC = ("mamba", "rglru")
@@ -293,22 +293,33 @@ class Model(nn.Module):
         finally:
             self._pinned = prev
 
-    def _params(self):
+    def _params(self, params=None):
+        if params is not None:
+            return params
         if self._pinned is not None:
             return self._pinned
         return cast_params_for_compute(self, self.cfg.dtype)
+
+    def compute_params(self, values: dict):
+        """The compute copy of other weights than the model's own:
+        ``values`` is ``{state_dict name: tensor}`` (a data position's
+        gathered weights); on the autograd graph of those tensors when
+        gradients are enabled. The ``params`` argument of ``loss``,
+        ``forward``, ``prefill`` and ``decode_step`` takes it."""
+        return cast_params_for_compute(param_tree(self, values),
+                                       self.cfg.dtype)
 
     def _table(self, params):
         return (params["embed"]["table"] if self.cfg.tie_embeddings
                 else params["lm_head"]["table"])
 
     # ---- encoder (whisper; frames are precomputed stub embeddings) ----------
-    def encode(self, frames):
-        return self._encode(self._params(), frames)
+    def encode(self, frames, params=None):
+        return self._encode(self._params(params), frames)
 
     def _encode(self, params, frames):
         cfg = self.cfg
-        x = frames.to(self.device, as_dtype(cfg.dtype))
+        x = frames.to(_device_of(params), as_dtype(cfg.dtype))
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device).to(x.dtype)
         pos = torch.arange(x.shape[1], dtype=torch.int32,
@@ -327,17 +338,18 @@ class Model(nn.Module):
         """tokens (+ stub frontend embeddings) -> initial hidden states."""
         cfg = self.cfg
         dt = as_dtype(cfg.dtype)
-        tokens = batch["tokens"].to(self.device)
+        dev = _device_of(params)
+        tokens = batch["tokens"].to(dev)
         x = embed(params["embed"], tokens, dt)
         if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
-            pe = batch["patch_embeds"].to(self.device, dt)
+            pe = batch["patch_embeds"].to(dev, dt)
             n = pe.shape[1]
             x = torch.cat([x[:, :n] + pe, x[:, n:]], dim=1)
         if cfg.is_encoder_decoder:
             x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                          x.device).to(x.dtype)
         if "positions" in batch:
-            positions = batch["positions"].to(self.device)
+            positions = batch["positions"].to(dev)
         else:
             positions = torch.arange(x.shape[1], dtype=torch.int32,
                                      device=x.device)[None].expand(
@@ -348,10 +360,12 @@ class Model(nn.Module):
         return x, positions
 
     def forward(self, batch, collect_cache: bool = False,
-                train: bool = True):
+                train: bool = True, params=None):
         """Returns (final hidden states, aux_loss, cache entries): one
-        (entry, cross entry) a layer when ``collect_cache``."""
-        return self._forward(self._params(), batch, collect_cache, train)
+        (entry, cross entry) a layer when ``collect_cache``. ``params``:
+        a compute copy (``compute_params``) instead of the model's own."""
+        return self._forward(self._params(params), batch, collect_cache,
+                             train)
 
     def _forward(self, params, batch, collect_cache, train):
         cfg = self.cfg
@@ -375,10 +389,16 @@ class Model(nn.Module):
             return x, aux_g, out
 
         remat = cfg.remat and torch.is_grad_enabled()
+        enter = carry_context()     # the recomputation's thread
+
+        def remat_group(x, group):
+            with enter():
+                return run_group(x, group)[:2]
+
         for group, body in self._layer_groups(params["layers"]):
             if body and remat:
-                x, aux_g = checkpoint(lambda x, g=group: run_group(x, g)[:2],
-                                      x, use_reentrant=False)
+                x, aux_g = checkpoint(remat_group, x, group,
+                                      use_reentrant=False)
                 out = []
             else:
                 x, aux_g, out = run_group(x, group)
@@ -406,18 +426,25 @@ class Model(nn.Module):
         return groups + [([pr], False) for pr in pairs[n_body:]]
 
     # ---- training loss ------------------------------------------------------
-    def loss(self, batch):
+    def loss(self, batch, params=None, denom=None):
         """Mean next-token cross-entropy plus the MoE aux loss: a 0-d
         float32 tensor on the autograd graph of the float32 parameters
         (through the compute copy). With ``cfg.remat`` and gradients
         enabled, each full pattern period (or layer, ``_layer_groups``) is
-        recomputed in backward, and so is each loss chunk."""
+        recomputed in backward, and so is each loss chunk.
+
+        ``params``: a compute copy (``compute_params``) instead of the
+        model's own; ``denom``: the count the summed NLL is divided by
+        (``lm_loss_chunked``) — a data position's share of a global batch
+        passes the global mask's sum."""
         cfg = self.cfg
-        params = self._params()
+        params = self._params(params)
         x, aux, _ = self._forward(params, batch, False, True)
+        mask = batch.get("loss_mask")
         nll = lm_loss_chunked(x, self._table(params),
-                              batch["labels"].to(self.device),
-                              batch.get("loss_mask"), cfg.loss_chunk)
+                              batch["labels"].to(x.device),
+                              None if mask is None else mask.to(x.device),
+                              cfg.loss_chunk, denom=denom)
         return nll + aux
 
     # ---- serving ------------------------------------------------------------
@@ -457,10 +484,10 @@ class Model(nn.Module):
         return {"k": kk, "v": vv}
 
     @torch.no_grad()
-    def prefill(self, batch, max_len: int):
+    def prefill(self, batch, max_len: int, params=None):
         """Run the prompt; return (cache, last-position logits)."""
         cfg = self.cfg
-        params = self._params()
+        params = self._params(params)
         x, _, entries = self._forward(params, batch, True, False)
         cdt = as_dtype(cfg.dtype)
         cache: dict[str, Any] = {"step": int(batch["tokens"].shape[1])}
@@ -472,12 +499,14 @@ class Model(nn.Module):
         return cache, logits_last(x[:, -1], self._table(params))
 
     @torch.no_grad()
-    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
-        """Empty decode cache."""
+    def init_cache(self, batch: int, max_len: int, dtype=None,
+                   device=None) -> dict:
+        """Empty decode cache on ``device`` (the model's when None;
+        ``"meta"`` lays out its shapes without allocating)."""
         cfg = self.cfg
         cdt = as_dtype(dtype or cfg.dtype)
         hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
-        dev = self.device
+        dev = self.device if device is None else torch.device(device)
 
         def one(kind):
             if kind == "global":
@@ -500,14 +529,16 @@ class Model(nn.Module):
         return cache
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens, pos: Optional[int] = None):
+    def decode_step(self, cache, tokens, pos: Optional[int] = None,
+                    params=None):
         """One token for the whole batch. tokens: (B, 1). Returns
         (logits (B, V) float32, new cache); the KV caches are written in
         place."""
         cfg = self.cfg
         pos = int(cache["step"] if pos is None else pos)
-        params = self._params()
-        x = embed(params["embed"], tokens.to(self.device), as_dtype(cfg.dtype))
+        params = self._params(params)
+        x = embed(params["embed"], tokens.to(_device_of(params)),
+                  as_dtype(cfg.dtype))
         if cfg.is_encoder_decoder:
             # absolute sinusoid at the runtime position
             x = x + _sinusoid_at(pos, cfg.d_model, x.device).to(x.dtype)
@@ -520,6 +551,11 @@ class Model(nn.Module):
         new_cache = dict(cache, step=pos + 1, layers=layers)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return logits_last(x[:, 0], self._table(params)), new_cache
+
+
+def _device_of(params) -> torch.device:
+    """The device a compute copy lives on (its embedding table's)."""
+    return params["embed"]["table"].device
 
 
 def _sinusoid_at(pos: int, d: int, device=None):

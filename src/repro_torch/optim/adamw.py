@@ -85,12 +85,19 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
+def update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
+           gnorm: Optional[torch.Tensor] = None):
     """One AdamW step: writes ``params`` and ``state``'s moments in place
     and sets its step. Returns (params, state, stats); stats are 0-d
-    tensors ``grad_norm`` (before clipping) and ``lr``."""
+    tensors ``grad_norm`` (before clipping) and ``lr``.
+
+    ``gnorm``: the global norm when ``grads`` is not the whole gradient
+    (the slabs of a sharded one, copies included); ``global_norm(grads)``
+    when None. Leaves may lie on several devices: the step's scalars are
+    copied to each."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -99,17 +106,22 @@ def update(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
     sf = step.to(torch.float32)
     b1c = 1.0 - torch.pow(cfg.b1, sf)
     b2c = 1.0 - torch.pow(cfg.b2, sf)
+    here = {lr.device: (lr, scale, b1c, b2c)}
     for name, p in params.items():
+        if p.device not in here:
+            here[p.device] = tuple(None if v is None else v.to(p.device)
+                                   for v in (lr, scale, b1c, b2c))
+        lr_, scale_, b1c_, b2c_ = here[p.device]
         for ps, gs, ms, vs in _slices(p, grads[name], state["mu"][name],
                                       state["nu"][name]):
             g = gs.to(torch.float32)
-            if scale is not None:
-                g = g * scale
+            if scale_ is not None:
+                g = g * scale_
             ms.copy_(cfg.b1 * ms + (1 - cfg.b1) * g)
             vs.copy_(cfg.b2 * vs + (1 - cfg.b2) * g * g)
-            upd = (ms / b1c) / (torch.sqrt(vs / b2c) + cfg.eps) \
+            upd = (ms / b1c_) / (torch.sqrt(vs / b2c_) + cfg.eps) \
                 + cfg.weight_decay * ps
-            ps.copy_(ps - lr * upd)
+            ps.copy_(ps - lr_ * upd)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
 

@@ -213,10 +213,15 @@ def test_sharding_is_identity_on_one_device():
 
 
 def test_sharding_refuses_a_mesh_of_more_than_one_device():
+    """A mesh of more than one device is taken (``launch/steps.py`` runs
+    it), but only with rules naming its own axes: DEFAULT_RULES name
+    "pod" and "data", which a ("model",) mesh lacks."""
     mesh = Mesh([torch.device("cpu")] * 2, ("model",))
-    with pytest.raises(NotImplementedError, match="launch/mesh.py"):
+    with pytest.raises(ValueError, match="lacks"):
         with sharding.use_mesh_rules(mesh, sharding.DEFAULT_RULES):
             pass
+    with sharding.use_mesh_rules(mesh, {"heads": "model"}):
+        assert sharding.axis_size("heads") == 2
 
 
 def test_steps_are_the_model_entry_points():

@@ -1316,3 +1316,109 @@ def test_cuda_matmul_f32_gradient(cuda_device):
     assert_close([a.grad.float(), b.grad.float()],
                  [(g16 @ b.float().T).to(torch.bfloat16).float(),
                   (a.float().T @ g16).to(torch.bfloat16).float()], tol=1e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_step_on_slabs_of_the_card(cuda_device):
+    """A (2, 2) mesh of slabs of the card: the FFTConvMixer's sharded
+    gradients launch the spectral kernel once a data position and equal
+    the single-device kernel step's within 1e-5 x max|want|; an LM's
+    sharded gradients (minitron smoke, f32) likewise."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import Model, fftconv
+    torch.set_float32_matmul_precision("highest")
+    mesh = lm.make_host_mesh(2, [cuda_device] * 4)
+    rules = lm.activation_rules(mesh)
+
+    def rel(got, want):
+        return float((got.double() - want.double()).abs().max()
+                     / want.double().abs().max())
+
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+    mixer = fftconv.init_fftconv(gen, 64, 256)
+    data = {"x": torch.randn((4, 256, 64), generator=gen,
+                             device=cuda_device),
+            "y": torch.randn((4, 256, 64), generator=gen,
+                             device=cuda_device)}
+    values = {n: p.detach() for n, p in mixer.named_parameters()}
+    params = steps.shard_params(values, shd.param_shardings(
+        values, None, mesh, rules))
+
+    def share(local, leaves, denom):
+        y = fftconv.fftconv_forward(leaves, local["x"])
+        return ((y - local["y"]) ** 2).sum() / denom
+
+    before = ops.SPECTRAL_LAUNCHES
+    loss, grads = steps.sharded_value_and_grad(
+        share, params, data, mesh, rules,
+        torch.tensor(float(data["x"].numel())))
+    torch.cuda.synchronize()
+    assert ops.SPECTRAL_LAUNCHES == before + 2
+    want_loss = torch.mean((mixer(data["x"]) - data["y"]) ** 2)
+    want = torch.autograd.grad(want_loss, list(mixer.parameters()))
+    assert rel(loss, want_loss.detach()) <= 1e-5
+    for (n, _), w in zip(mixer.named_parameters(), want):
+        assert rel(grads[n].gather(), w) <= 1e-5, n
+
+    cfg = registry.smoke("minitron-4b", seq=32)
+    model = Model(cfg, device=cuda_device)
+    model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens.to(cuda_device),
+             "labels": tokens.roll(1, 1).to(cuda_device)}
+    single = model.loss(batch)
+    single.backward()
+    values = {n: p.detach() for n, p in model.named_parameters()}
+    params = steps.shard_params(values, shd.param_shardings(
+        values, cfg, mesh, rules))
+    loss, grads = steps.lm_value_and_grad(Model(cfg, device="meta"), params,
+                                          batch, mesh, rules)
+    assert rel(loss, single.detach()) <= 1e-5
+    for n, p in model.named_parameters():
+        assert rel(grads[n].gather(), p.grad) <= 1e-5, n
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_moe_remat_groups_spanning_positions(cuda_device):
+    """granite smoke at f32 with every layer rematerialised, on a (4, 1)
+    mesh of slabs of the card, routing groups of 96 tokens over positions
+    of 64: the recomputation, which autograd runs on its own thread for
+    the card, routes the forward's groups, and the gradients equal one
+    device's within 1e-5 x max|want|."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    torch.set_float32_matmul_precision("highest")
+    cfg = registry.smoke("granite-moe-3b-a800m", seq=32)
+    cfg = dataclasses.replace(cfg, remat=True, moe=dataclasses.replace(
+        cfg.moe, group_size=96, capacity_factor=1.0))
+    mesh = lm.make_host_mesh(1, [cuda_device] * 4)
+    rules = lm.activation_rules(mesh)
+    model = Model(cfg, device=cuda_device)
+    model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (8, 32),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens.to(cuda_device),
+             "labels": tokens.roll(1, 1).to(cuda_device)}
+    single = model.loss(batch)
+    single.backward()
+    values = {n: p.detach() for n, p in model.named_parameters()}
+    params = steps.shard_params(values, shd.param_shardings(
+        values, cfg, mesh, rules))
+    loss, grads = steps.lm_value_and_grad(Model(cfg, device="meta"), params,
+                                          batch, mesh, rules)
+
+    def rel(got, want):
+        return float((got.double() - want.double()).abs().max()
+                     / want.double().abs().max().clamp(min=1e-30))
+
+    assert rel(loss, single.detach()) <= 1e-5
+    for n, p in model.named_parameters():
+        assert rel(grads[n].gather(), p.grad) <= 1e-5, n
