@@ -306,6 +306,7 @@ path of phases 14 to 24, with the precisions and Karatsuba flags it runs
 on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
+import concurrent.futures
 import json
 import math
 import os
@@ -314,6 +315,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
@@ -572,6 +574,12 @@ def oracle_err(torch, got, want):
     return float((g - want).abs().max() / want.abs().max())
 
 
+# the plain versions at 8192 x 16384 are timed once, with no warm-up:
+# their correctness comparisons all stay, but at ~0.1 s a call they are no
+# yardstick, and 9 calls each took a sixth of phases 19 and 20
+PLAIN_ONCE = dict(warm=0, reps=1)
+
+
 def cuda_median_ms(fn, warm=2, reps=7, queued=False):
     """Median of ``reps`` CUDA-event timings of ``fn``. ``queued``: each
     timing waits behind a spin on the card, so the events bracket the
@@ -813,11 +821,13 @@ def mma_floor(n, n1, n2, lines, transforms, precision="f32",
 
 
 def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg,
-                     variant="fused1"):
+                     variant="fused1", plain_timing=None):
     """One megakernel alone on the main path's split input, beside its
     bound, its plain version, ``variant``'s chain through torch.fft and
     torch multiplies by the same payloads (``library_ms``) and, on the
-    matmul route, the tensor-core floor of its stages."""
+    matmul route, the tensor-core floor of its stages. ``plain_timing``:
+    ``cuda_median_ms``' warm-up and runs for the plain version
+    (``PLAIN_ONCE`` past one block, where it is no yardstick)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import build_pipeline
     from repro_torch.kernels import ops
@@ -845,7 +855,7 @@ def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg,
         ms=cuda_median_ms(lambda: ops.mega_spectral_op(xr, xi, *args, **kk),
                           queued=True),
         plain_ms=cuda_median_ms(lambda: ops.mega_spectral_op_plain(
-            xr, xi, *args, **kk), queued=True),
+            xr, xi, *args, **kk), queued=True, **(plain_timing or {})),
         library_ms=cuda_median_ms(lambda: oracle.run(x), queued=True),
         bytes=nbytes, flops_nominal=flops,
         bound_ms=max(t_mem, t_ops),
@@ -865,12 +875,14 @@ def time_mega_kernel(torch, smi_line, name, step, x, segments_cfg,
     return rec
 
 
-def time_spectral_launch(smi_line, step, xr, xi, x, variant="fused3"):
+def time_spectral_launch(smi_line, step, xr, xi, x, variant="fused3",
+                         plain_timing=None):
     """One spectral-kernel launch of ``variant``'s compiled plan on its own
     inputs,
     beside its bound (bytes over 3.35 TB/s vs nominal 5 N log2 N FLOP over
     67 TFLOP/s), its plain version and ``library_ms`` (torch.fft ->
-    multiply -> torch.fft, timed only as a yardstick)."""
+    multiply -> torch.fft, timed only as a yardstick). ``plain_timing``:
+    as ``time_mega_kernel``'s."""
     from repro_torch.core import plan as planlib
     from repro_torch.kernels import ops
     from repro_torch.kernels.fft4step import SpectralSpec, flops_nominal
@@ -896,7 +908,8 @@ def time_spectral_launch(smi_line, step, xr, xi, x, variant="fused3"):
         ms=cuda_median_ms(lambda: ops.spectral_op(xr, xi, **fk, **kk),
                           queued=True),
         plain_ms=cuda_median_ms(
-            lambda: ops.spectral_op_plain(xr, xi, **fk, **kk), queued=True),
+            lambda: ops.spectral_op_plain(xr, xi, **fk, **kk), queued=True,
+            **(plain_timing or {})),
         library_ms=cuda_median_ms(lambda: planlib._torch_apply(
             x, kk["fwd"], kk["inv"], kk["filter_mode"], fk, kk["axis"]),
             queued=True),
@@ -933,7 +946,7 @@ def mega_phases(torch, dev, smi_line, cfg, raw, fused3_img, score, small,
         return rel_err((a.real, a.imag), (b.real, b.imag))
 
     # ---- 6. each megakernel vs its plain version on the card --------------
-    lib = ops._bind_mega()
+    lib = ops._bind_mega(ops.MEGA_STAGED_NAMES[ops.MEGA_KERNEL_NAME])
     optin = lib.mega_smem_optin(dev.index or 0)
     check(optin == ops.SMEM_OPTIN_BYTES,
           f"shared-memory opt-in {optin} B, the cut assumes "
@@ -3185,10 +3198,10 @@ def long_lines_phase(torch, smi_line, cfg4096, raw4096, score4096,
                                       paper_targets, simulate)
     from repro_torch.kernels import ops
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
+    lap = part_clock(19)
     for i, fft_impl in enumerate(ops.FFT_IMPLS):
         long_sweep(torch, ops, seeded_randn(torch, dev, 190 + i), fft_impl)
-    sweep_s = time.perf_counter() - t0
+    sweep_s = lap("sweep")
 
     cfg = paper_scene(*LONG_SCENE)
     targets = paper_targets(cfg)
@@ -3208,6 +3221,7 @@ def long_lines_phase(torch, smi_line, cfg4096, raw4096, score4096,
     emit("long_main", variant="csa", backend="torch", scene=scene,
          launches=counts, targets=rep_base)
     del img
+    lap("scene and csa baseline")
 
     records = []
     run_ms = {}
@@ -3274,10 +3288,12 @@ def long_lines_phase(torch, smi_line, cfg4096, raw4096, score4096,
                 launch_err = max(launch_err, err)
                 del got, want_p
                 rec = time_spectral_launch(smi_line, s, xr, xi, x,
-                                           variant=f"{three} {scene}")
+                                           variant=f"{three} {scene}",
+                                           plain_timing=PLAIN_ONCE)
                 timed.append(rec)
             t1 = time_mega_kernel(torch, smi_line, "mega_staged",
-                                  p1.steps[0], raw, cfg, variant=one)
+                                  p1.steps[0], raw, cfg, variant=one,
+                                  plain_timing=PLAIN_ONCE)
             if three == "fused3":
                 run_ms[fft_impl] = cuda_median_ms(lambda: p3.run(raw))
                 emit("long_time_run", variant="fused3", fft_impl=fft_impl,
@@ -3302,6 +3318,7 @@ def long_lines_phase(torch, smi_line, cfg4096, raw4096, score4096,
             records.append(long_record("mega_staged", one, fft_impl,
                                        counts1["mega_staged"], err1, [t1],
                                        scene))
+        lap(f"variants {fft_impl}")
     del raw
     torch.cuda.empty_cache()
 
@@ -3340,6 +3357,7 @@ def long_lines_phase(torch, smi_line, cfg4096, raw4096, score4096,
         "spectral", "fused3 n1,n2,n3=" + ",".join(map(str, split.values())),
         "matmul", counts["spectral"], err3, timed3,
         [cfg4096.na, cfg4096.nr]))
+    lap("three factors at 4096^2")
 
     # the 4096^2 fused3 launches again on both routes: the N <= 4096 code
     sums = {}
@@ -3353,6 +3371,7 @@ def long_lines_phase(torch, smi_line, cfg4096, raw4096, score4096,
     emit("long_time_4096", scene=[cfg4096.na, cfg4096.nr], sums=sums,
          long_fused3_run_ms=run_ms, sweep_seconds=sweep_s,
          nvidia_smi=smi_line)
+    lap("4096^2 launches")
     return records
 
 
@@ -3799,9 +3818,10 @@ def long_form_times(torch, smi_line, cfg, raw):
                 timed.append(time_spectral_launch(
                     smi_line, s, xr, xi, x,
                     variant=f"fused3 {cfg.na}x{cfg.nr} {precision}"
-                    f"{'+K' if kara else ''}"))
+                    f"{'+K' if kara else ''}", plain_timing=PLAIN_ONCE))
             t1 = time_mega_kernel(torch, smi_line, "mega_staged", p1.steps[0],
-                                  raw, cfg, variant="fused1")
+                                  raw, cfg, variant="fused1",
+                                  plain_timing=PLAIN_ONCE)
             scene = [cfg.na, cfg.nr]
             variant = f"fused3 {precision}{'+K' if kara else ''}"
             emit("long_form_time", fft_impl=fft_impl, precision=precision,
@@ -3833,31 +3853,29 @@ def long_forms_phase(torch, smi_line, replay_plain):
     from repro_torch.core.sar import paper_scene, paper_targets, simulate
     from repro_torch.kernels import ops
     dev = torch.device("cuda", 0)
+    lap = part_clock(20)
     long_form_cut(torch)
+    lap("cut")
     t0 = time.perf_counter()
     for i, fft_impl in enumerate(ops.FFT_IMPLS):
         long_form_sweep(torch, ops, seeded_randn(torch, dev, 200 + i),
                         fft_impl)
-    sweep_s = time.perf_counter() - t0
+    sweep_s = lap("sweep")
     cfg = paper_scene(*LONG_SCENE)
     targets = paper_targets(cfg)
     raw = simulate(cfg, targets)
     torch.cuda.synchronize()
     score = card_scorer(torch, cfg, targets)
-    t0 = time.perf_counter()
+    lap("simulate")
     long_form_scene(torch, smi_line, cfg, raw, score, replay_plain)
-    scene_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    scene_s = lap("scene")
     long_form_service(torch, smi_line, cfg, raw)
-    service_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    service_s = lap("service")
     long_form_tuning(torch, smi_line)
-    tuning_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    tuning_s = lap("tuning")
     records = long_form_times(torch, smi_line, cfg, raw)
     emit("long_form_seconds", sweep=sweep_s, scene=scene_s,
-         service=service_s, tuning=tuning_s,
-         times=time.perf_counter() - t0)
+         service=service_s, tuning=tuning_s, times=lap("times"))
     del raw
     torch.cuda.empty_cache()
     return records
@@ -4637,6 +4655,8 @@ def train_full(torch, smi_line, dev):
     b, s, n = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold on the card (cached pipelines' filters)
+    other = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model, cfg, step_fn, data = T.build(TRAIN_ARCH, False, b, s, device=dev)
     run = T.init_state(model)
@@ -4679,10 +4699,14 @@ def train_full(torch, smi_line, dev):
     data_l = TokenStream(DataConfig(cfg.vocab_size, sl, bl), device=dev)
     opt_state = run.opt_state
     long = {}
+    state = sum(t.numel() * t.element_size() for t in
+                [*run.params.values(), *opt_state["mu"].values(),
+                 *opt_state["nu"].values(), opt_state["step"]])
     for remat in (True, False):
         model.cfg = dataclasses.replace(cfg, remat=remat)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        other_l = torch.cuda.memory_allocated() - state
         events, ls = [], []
         step = timed_step(torch, step_fn, events)
         for i in range(TRAIN_LONG["steps"]):
@@ -4693,10 +4717,16 @@ def train_full(torch, smi_line, dev):
               f"seq {sl} remat={remat}: losses {ls}")
         long[remat] = dict(peak_gib=torch.cuda.max_memory_allocated()
                            / 2 ** 30,
+                           peak_bytes=torch.cuda.max_memory_allocated(),
+                           other_bytes=other_l,
                            step_ms=[a.elapsed_time(e) for a, e in events],
                            losses=ls)
     model.cfg = cfg
     run.opt_state = opt_state
+    measured = {(b, s, cfg.remat): (peak, other, step_ms)}
+    measured.update({(bl, sl, r): (long[r]["peak_bytes"],
+                                   long[r]["other_bytes"],
+                                   long[r]["step_ms"][-1]) for r in long})
     check(long[True]["peak_gib"] < long[False]["peak_gib"],
           f"seq {sl}: remat peak {long[True]['peak_gib']:.2f} GiB, without "
           f"{long[False]['peak_gib']:.2f}")
@@ -4710,6 +4740,59 @@ def train_full(torch, smi_line, dev):
          **bound_l)
     del model, run, opt_state, step_fn, data, data_l
     torch.cuda.empty_cache()
+    return measured
+
+
+DRYRUN_PEAK_TOL = 0.10     # predicted peak vs max_memory_allocated
+
+
+def dryrun_checks(torch, smi_line, measured):
+    """23 (e): the dry run's counting context (``launch/dryrun.py``) over
+    23 (a)'s three step calls, on meta: ``launch/train.py``'s step on one
+    device at the same configuration, its arguments (the f32 weights,
+    AdamW's moments and step, the batch) and the high-water mark of what
+    the step makes; the predicted peak against ``max_memory_allocated``
+    less what earlier phases held on the card when its count started
+    (within 10 %; both raw numbers on the line), the roofline's terms
+    beside the measured step and ``train_bound``'s two terms."""
+    import dataclasses
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as T
+    from repro_torch.optim import adamw
+    for (b, s, remat), (raw_peak, other, step_ms) in measured.items():
+        peak = raw_peak - other
+        model, cfg, step_fn, data = T.build(TRAIN_ARCH, False, b, s,
+                                            device="meta")
+        model.cfg = cfg = dataclasses.replace(cfg, remat=remat)
+        params = dict(model.named_parameters())
+        args = (adamw.init(params), data.batch(0))
+        held = sum(t.numel() * t.element_size() for t in
+                   [*params.values(), *args[0]["mu"].values(),
+                    *args[0]["nu"].values(), args[0]["step"],
+                    *args[1].values()])
+        counter, _, secs = dryrun.count_step(step_fn, args, placed=params)
+        dev = counter.devices[()]
+        roof = dev.roofline()
+        bound = train_bound(cfg, b, s)
+        predicted = held + dev.peak
+        err = (predicted - peak) / peak
+        emit("dryrun_check", nvidia_smi=smi_line, arch=cfg.name, batch=b,
+             seq=s, remat=remat, argument_bytes=held, temp_bytes=dev.peak,
+             predicted_peak_bytes=predicted, measured_peak_bytes=peak,
+             max_memory_allocated=raw_peak, other_phases_bytes=other,
+             predicted_peak_gib=predicted / 2 ** 30,
+             measured_peak_gib=peak / 2 ** 30, peak_rel_err=err,
+             tol=DRYRUN_PEAK_TOL, flops=dev.flops, hbm_bytes=dev.hbm_bytes,
+             t_compute_ms=roof.t_compute * 1e3,
+             t_memory_ms=roof.t_memory * 1e3, bottleneck=roof.bottleneck,
+             roofline_bound_ms=roof.bound * 1e3, measured_step_ms=step_ms,
+             train_bound_flops_ms=bound["bound_flops_ms"],
+             train_bound_bytes_ms=bound["bound_bytes_ms"],
+             trace_seconds=secs)
+        check(abs(err) <= DRYRUN_PEAK_TOL,
+              f"dry run: {cfg.name} batch {b} seq {s} remat={remat}: "
+              f"predicted peak {predicted / 2 ** 30:.4f} GiB, measured "
+              f"{peak / 2 ** 30:.4f}")
 
 
 def conditioned_state(torch, grads, step, device="cpu"):
@@ -5061,8 +5144,11 @@ def train_phase(torch, smi_line):
     torch.set_float32_matmul_precision("highest")
     seconds = {}
     t0 = time.perf_counter()
-    train_full(torch, smi_line, dev)
+    measured = train_full(torch, smi_line, dev)
     seconds["a_full"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dryrun_checks(torch, smi_line, measured)
+    seconds["e_dryrun"] = time.perf_counter() - t0
     child = start_restart(torch)
     try:
         t0 = time.perf_counter()
@@ -5434,7 +5520,22 @@ def sharded_serve(torch, smi_line, dev):
     pre_err = rel_to(got_pre, want_pre)
     check(pre_err <= SHARD_BF16_TOL, f"stablelm generate under (4, 1): "
           f"bf16 prefill logits {pre_err:.3e}")
-    del lm, gparams
+    # open check C: on one device, the batch of 4 against its 4 rows one
+    # at a time, which is what each data position of (4, 1) runs; a gap of
+    # the sharded one's size (within 2x) clears the sharded layout
+    with torch.no_grad(), lm.compute_cast():
+        rows = torch.cat([lm.prefill({"tokens": prompts[i:i + 1].to(dev)},
+                                     p + new)[1] for i in range(b)])
+    rows_err = rel_to(rows, want_pre)
+    rows_equal = torch.equal(got_pre.to(rows.device), rows)
+    emit("check_c", nvidia_smi=smi_line, arch=lm_cfg.name, dtype=lm_cfg.dtype,
+         batch=b, prompt=p, sharded_vs_batch_rel_err=pre_err,
+         rows_vs_batch_rel_err=rows_err, ratio=rows_err / pre_err,
+         sharded_equals_rows=rows_equal)
+    check(pre_err / 2 <= rows_err <= 2 * pre_err,
+          f"one device's batch-1 rows {rows_err:.3e} from the batch of "
+          f"{b}, the sharded prefill {pre_err:.3e}: not within 2x")
+    del lm, gparams, rows
     cfg32 = dataclasses.replace(lm_cfg, n_layers=2, dtype="float32")
     gen.manual_seed(28)
     lm32 = Model(cfg32, device=dev).init(gen)
@@ -5588,6 +5689,21 @@ def main() -> int:
         return run(torch)
 
 
+def part_clock(number):
+    """``lap(part)``: emits the seconds since the clock started or since
+    the last lap as a ``phase_seconds`` line of phase ``number``'s
+    ``part``, and returns them."""
+    last = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        seconds = now - last[0]
+        emit("phase_seconds", number=number, part=part, seconds=seconds)
+        last[0] = now
+        return seconds
+    return lap
+
+
 def phase_clock():
     """``lap(number)``: emits the seconds since the clock started or since
     the last lap as that phase's ``phase_seconds`` line."""
@@ -5623,8 +5739,11 @@ def run(torch) -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda,
          capability=list(torch.cuda.get_device_capability(0)),
+         total_memory=torch.cuda.get_device_properties(0).total_memory,
          allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
+    # start-up: the interpreter, torch, the card's context, nvidia-smi
+    emit("phase_seconds", number=1, seconds=time.perf_counter() - T_START)
 
     # ---- 2. build ----------------------------------------------------------
     # forced: every source compiles again, so the ptxas report is there on
@@ -5634,13 +5753,19 @@ def run(torch) -> int:
     build_s = time.perf_counter() - t0
     check(set(logs) >= {"spectral", "spectral_long_forms", "mega",
                         "mega_forms", "mega_long", "mega_long_forms",
-                        "transpose"},
+                        "staged", "staged_forms", "staged_long_forms",
+                        "resident_bs16", "transpose"},
           f"built {sorted(logs)}")
+    emit("phase_seconds", number=2, seconds=build_s)
+    t0 = time.perf_counter()
     ptxas = {}
     hmma = {}
+    with concurrent.futures.ThreadPoolExecutor(len(logs)) as pool:
+        sass = dict(zip(logs, pool.map(
+            lambda name: sass_hmma(_build.lib_path(name)), logs)))
     for name, log in logs.items():
         ptxas.update(ptxas_report(log))
-        hmma.update(sass_hmma(_build.lib_path(name)))
+        hmma.update(sass[name])
     for kernel in MMA_KERNELS:
         check(hmma.get(kernel, {}).get("tf32", 0) > 0,
               f"{kernel}: no HMMA TF32 in its SASS")
@@ -5652,9 +5777,9 @@ def run(torch) -> int:
     # the forms past one block: their libraries run every operand type on
     # the tensor cores (the stages are out-of-line functions)
     long_hmma = {}
-    for name in ("spectral_long_forms", "mega_long_forms"):
-        per = sass_hmma(_build.lib_path(name))
-        long_hmma[name] = {t: sum(v[t] for v in per.values())
+    for name in ("spectral_long_forms", "mega_long_forms",
+                 "staged_long_forms"):
+        long_hmma[name] = {t: sum(v[t] for v in sass[name].values())
                            for t in ("tf32", "bf16", "f16")}
         check(all(long_hmma[name].values()),
               f"{name}: HMMA by operand type {long_hmma[name]}")
@@ -5662,6 +5787,8 @@ def run(torch) -> int:
          sources=sorted(_build.sources()), ptxas=ptxas, hmma=hmma,
          long_forms_hmma=long_hmma,
          operand_form_instantiations=len(forms), operand_forms=forms)
+    # the SASS and ptxas checks of every library (cuobjdump, in parallel)
+    emit("phase_seconds", number="2b", seconds=time.perf_counter() - t0)
 
     # ---- 3. kernel vs plain version on the card ----------------------------
     lap = phase_clock()

@@ -27,6 +27,7 @@ compile options of every variant, as for the RDA.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -90,15 +91,20 @@ def csa_phases(cfg: SceneConfig, r_ref: Optional[float] = None):
     return h1, h2, h3
 
 
+# The three screens are computed together and each filter takes its own:
+# the last scene's three are kept (the same arrays the plan's filter
+# cache holds), so building all three costs one csa_phases, not three.
+_last_phases = functools.lru_cache(maxsize=1)(csa_phases)
+
 planlib.register_filter(
     "csa_h1", FILTER_FULL,
-    lambda cfg, p: csa_phases(cfg, p.get("r_ref"))[0])
+    lambda cfg, p: _last_phases(cfg, p.get("r_ref"))[0])
 planlib.register_filter(
     "csa_h2", FILTER_FULL,
-    lambda cfg, p: csa_phases(cfg, p.get("r_ref"))[1])
+    lambda cfg, p: _last_phases(cfg, p.get("r_ref"))[1])
 planlib.register_filter(
     "csa_h3", FILTER_FULL,
-    lambda cfg, p: csa_phases(cfg, p.get("r_ref"))[2])
+    lambda cfg, p: _last_phases(cfg, p.get("r_ref"))[2])
 
 
 def plan_csa(r_ref: Optional[float] = None) -> SpectralPlan:

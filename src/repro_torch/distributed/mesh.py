@@ -32,7 +32,9 @@ mesh from a side stream must hold one such stream per card.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -105,6 +107,69 @@ class Mesh:
         return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
 
 
+# ---------------------------------------------------------------------------
+# What a dry run (``launch/dryrun.py``) reads off the mesh: a record of
+# every copy between mesh positions, the position each slab's work runs
+# at, and a view that holds one position's slabs. Outside a dry run no
+# listener is registered and no view is set, and they change nothing.
+# ---------------------------------------------------------------------------
+
+_LISTENERS: list = []
+_here = threading.local()
+_VIEW: list = [None]
+
+
+def note_collective(op: str, nbytes: int, group: int, coords=None):
+    """Tell the listeners of one device's part in a collective: ``op`` in
+    the reference's HLO names, ``nbytes`` its output on that device,
+    ``group`` the devices taking part, ``coords`` the device (its mesh
+    coordinates, or its index in a slab list; None: where the work runs
+    now)."""
+    for fn in _LISTENERS:
+        fn(op, int(nbytes), int(group), coords)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+@contextlib.contextmanager
+def placed(coords):
+    """The work inside runs on the device at ``coords`` (mesh coordinates,
+    or an index into a slab list)."""
+    prev = getattr(_here, "coords", None)
+    _here.coords = coords
+    try:
+        yield
+    finally:
+        _here.coords = prev
+
+
+def current_placement():
+    return getattr(_here, "coords", None)
+
+
+@contextlib.contextmanager
+def view(coords: tuple):
+    """Within it, every ``ShardedTensor``'s slab-by-slab work (``items``,
+    ``write``, ``sq_sum``) visits the slabs at mesh ``coords`` alone, a
+    new one (``sharded_empty``) is made there alone (its other slabs are
+    None), and the data positions whose device is not at ``coords`` are
+    not run: their results are the first held position's (same code, same
+    shapes; ``models.sharding.run_positions``). Gathers still read every
+    slab. A dry run counts one device's work so, on meta tensors."""
+    prev = _VIEW[0]
+    _VIEW[0] = tuple(coords)
+    try:
+        yield
+    finally:
+        _VIEW[0] = prev
+
+
+def current_view() -> Optional[tuple]:
+    return _VIEW[0]
+
+
 def shard(x: torch.Tensor, axis: int, devices: Sequence) -> list:
     """``x`` cut into ``len(devices)`` equal slabs along ``axis``, slab i
     contiguous on ``devices[i]``."""
@@ -114,8 +179,11 @@ def shard(x: torch.Tensor, axis: int, devices: Sequence) -> list:
         raise ValueError(f"{n} lines along axis {axis} not divisible by "
                          f"{p} devices")
     c = n // p
-    return [x.narrow(axis, i * c, c).contiguous().to(d)
-            for i, d in enumerate(devices)]
+    out = []
+    for i, d in enumerate(devices):
+        with placed(i):
+            out.append(x.narrow(axis, i * c, c).contiguous().to(d))
+    return out
 
 
 def unshard(slabs: Sequence[torch.Tensor], axis: int,
@@ -138,8 +206,10 @@ def all_to_all(slabs: Sequence[torch.Tensor], split_axis: int,
     c = n // p
     out = []
     for j, dst in enumerate(s.device for s in slabs):
-        out.append(torch.cat([s.narrow(split_axis, j * c, c).to(dst)
-                              for s in slabs], dim=concat_axis))
+        with placed(j):
+            out.append(torch.cat([s.narrow(split_axis, j * c, c).to(dst)
+                                  for s in slabs], dim=concat_axis))
+        note_collective("all-to-all", _nbytes(out[-1]), p, j)
     return out
 
 
@@ -147,20 +217,31 @@ def ppermute(slabs: Sequence[torch.Tensor], perm) -> list:
     """``perm`` is a list of ``(source, destination)`` pairs: destination
     d gets source s's slab on its own device; a device no pair names as a
     destination gets zeros, as ``jax.lax.ppermute`` gives it."""
-    out = [torch.zeros_like(s) for s in slabs]
+    out = []
+    for j, s in enumerate(slabs):
+        with placed(j):
+            out.append(torch.zeros_like(s))
     dests = set()
     for src, dst in perm:
         if dst in dests:
             raise ValueError(f"device {dst} is the destination of two pairs")
         dests.add(dst)
-        out[dst] = slabs[src].to(slabs[dst].device)
+        with placed(dst):
+            out[dst] = slabs[src].to(slabs[dst].device)
+        note_collective("collective-permute", _nbytes(out[dst]),
+                        len(slabs), dst)
     return out
 
 
 def all_gather(slabs: Sequence[torch.Tensor], axis: int) -> list:
     """The tiled all-gather: every device gets every slab, concatenated
     in mesh order along ``axis``, on its own device."""
-    return [unshard(slabs, axis, s.device) for s in slabs]
+    out = []
+    for j, s in enumerate(slabs):
+        with placed(j):
+            out.append(unshard(slabs, axis, s.device))
+        note_collective("all-gather", _nbytes(out[-1]), len(slabs), j)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +347,7 @@ class ShardedTensor:
         self.slabs = slabs
         self.sharding = sharding
         self.shape = torch.Size(shape)
-        self.dtype = slabs.flat[0].dtype
+        self.dtype = next(t for t in slabs.flat if t is not None).dtype
 
     @property
     def mesh(self) -> Mesh:
@@ -281,8 +362,12 @@ class ShardedTensor:
                 f"{self.sharding!r})")
 
     def items(self):
-        """(mesh coords, slab) for every position, in mesh order."""
-        return np.ndenumerate(self.slabs)
+        """(mesh coords, slab) for every position, in mesh order (the
+        view's position alone within ``view``)."""
+        held = current_view()
+        if held is None:
+            return np.ndenumerate(self.slabs)
+        return iter([(held, self.slabs[held])])
 
     def nbytes(self) -> int:
         """The bytes the slabs hold, copies included."""
@@ -311,23 +396,27 @@ class ShardedTensor:
             out.append(slice(i * dim // n, (i + 1) * dim // n))
         return tuple(out)
 
-    def _overlaps(self, block: tuple, copies: bool):
+    def _overlaps(self, block: tuple, copies: bool, every: bool = False):
         """(slab, slices of the slab, slices of ``block``) for each slab
         overlapping ``block``: every copy, or (``copies`` False) the first
-        position in mesh order holding each slab."""
+        position in mesh order holding each slab; among ``items``' slabs,
+        or (``every``) among all of them whatever the view."""
         seen = set()
-        for coords, slab in self.items():
+        ndim = len(self.shape)
+        sub = self.sharding.shard_shape(self.shape)
+        slabs = np.ndenumerate(self.slabs) if every else self.items()
+        for coords, slab in slabs:
+            idx = self.sharding.block_index(coords, ndim)
             if not copies:
-                idx = self.sharding.block_index(coords, len(self.shape))
                 if idx in seen:
                     continue
                 seen.add(idx)
             inner, local = [], []
-            for s, b in zip(self.sharding.slices(coords, self.shape), block):
-                lo, hi = max(s.start, b.start), min(s.stop, b.stop)
+            for i, n, b in zip(idx, sub, block):
+                lo, hi = max(i * n, b.start), min((i + 1) * n, b.stop)
                 if lo >= hi:
                     break
-                inner.append(slice(lo - s.start, hi - s.start))
+                inner.append(slice(lo - i * n, hi - i * n))
                 local.append(slice(lo - b.start, hi - b.start))
             else:
                 yield slab, tuple(inner), tuple(local)
@@ -341,7 +430,7 @@ class ShardedTensor:
         block = self._block(where)
         dev = self.slabs.flat[0].device if device is None else \
             torch.device(device)
-        parts = list(self._overlaps(block, copies=False))
+        parts = list(self._overlaps(block, copies=False, every=True))
         shape = tuple(b.stop - b.start for b in block)
         if len(parts) == 1:
             slab = parts[0][0]
@@ -349,7 +438,11 @@ class ShardedTensor:
                 return slab
         out = torch.empty(shape, dtype=self.dtype, device=dev)
         for slab, inner, local in parts:
-            out[local] = slab[inner].to(dev)
+            whole = all(s.start == 0 and s.stop == n
+                        for s, n in zip(inner, slab.shape))
+            out[local] = (slab if whole else slab[inner]).to(dev)
+        if len(parts) > 1:
+            note_collective("all-gather", _nbytes(out), len(parts))
         return out
 
     def sq_sum(self) -> torch.Tensor:
@@ -370,7 +463,7 @@ class ShardedTensor:
         block = tuple(slice(s, s + n) for s, n in zip(start, value.shape))
         for slab, inner, local in self._overlaps(block, copies=True):
             src, dst = value[local], slab[inner]
-            if dst.data_ptr() != src.data_ptr() or dst.device != src.device:
+            if not _same_memory(src, dst):
                 dst.copy_(src)
 
     def write_block(self, value: torch.Tensor, where: dict):
@@ -380,6 +473,17 @@ class ShardedTensor:
 
 
 
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` start at the same memory (on meta, where
+    every storage starts at address 0: the same storage and offset)."""
+    if a.device != b.device:
+        return False
+    if a.device.type == "meta":
+        return (a.untyped_storage() is b.untyped_storage()
+                and a.storage_offset() == b.storage_offset())
+    return a.data_ptr() == b.data_ptr()
+
+
 def distribute(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
     """``x`` laid out by ``sharding``: every position gets its own copy of
     its slab, contiguous on its device."""
@@ -387,8 +491,9 @@ def distribute(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
     sharding.shard_shape(x.shape)
     slabs = np.empty(mesh.devices.shape, dtype=object)
     for coords, dev in np.ndenumerate(mesh.devices):
-        part = x[sharding.slices(coords, x.shape)]
-        slabs[coords] = part.to(dev, copy=True).contiguous()
+        with placed(coords):
+            part = x[sharding.slices(coords, x.shape)]
+            slabs[coords] = part.to(dev, copy=True).contiguous()
     return ShardedTensor(slabs, sharding, x.shape)
 
 
@@ -398,8 +503,12 @@ def sharded_empty(shape, sharding: NamedSharding, dtype=torch.float32,
     ``fill`` (``torch.empty``, or ``torch.zeros``: ``sharded_zeros``)."""
     sub = sharding.shard_shape(shape)
     slabs = np.empty(sharding.mesh.devices.shape, dtype=object)
+    held = current_view()
     for coords, dev in np.ndenumerate(sharding.mesh.devices):
-        slabs[coords] = fill(sub, dtype=dtype, device=dev)
+        if held is not None and coords != held:
+            continue    # within a view, a slab it does not hold stays None
+        with placed(coords):
+            slabs[coords] = fill(sub, dtype=dtype, device=dev)
     return ShardedTensor(slabs, sharding, shape)
 
 

@@ -2,8 +2,9 @@
 
 Every ``csrc/*.cu`` source compiles, at first use, into its own shared
 library with a plain C interface under ``kernels/_build/`` (listed in
-.gitignore); nothing prebuilt ships with the repository. All sources
-build at once, one ``nvcc`` process each. A library is rebuilt when any
+.gitignore); nothing prebuilt ships with the repository. The sources
+build side by side, one ``nvcc`` process a core, the longest first
+(``LONGEST_FIRST``). A library is rebuilt when any
 file of ``csrc/`` is newer than it.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
@@ -33,8 +34,8 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
-# Seconds each source took to compile in the last build_all (its nvcc
-# process from start to exit; all run at once).
+# Seconds from the start of the last build_all to each source's nvcc
+# exiting (a source may wait for a core first).
 BUILD_SECONDS: dict[str, float] = {}
 
 
@@ -78,14 +79,13 @@ def _stale(name: str, src: str) -> bool:
 def build_all(verbose: bool = False, force: bool = False,
               names=None) -> dict[str, str]:
     """Compile every stale source (every source with ``force``; only those
-    of ``names`` when given), all ``nvcc`` processes at once. Returns
+    of ``names`` when given), one ``nvcc`` process a core. Returns
     name -> compiler output of each
     source compiled (``-Xptxas -v`` register and shared memory report when
     ``verbose``). Raises on any failed build."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
-    t0 = time.perf_counter()
+    todo = []
     for name, src in sources().items():
         if names is not None and name not in names:
             continue
@@ -95,24 +95,26 @@ def build_all(verbose: bool = False, force: bool = False,
         cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, src]
         if verbose:
             cmd[1:1] = ["-Xptxas", "-v"]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+        todo.append((name, tmp, cmd))
+    todo.sort(key=lambda job: _rank(job[0]))
     logs = {}
     failed = []
     BUILD_SECONDS.clear()
-    outs = {name: [] for name in procs}
-    readers = [threading.Thread(target=_drain, args=(proc, outs[name]))
-               for name, (_, proc) in procs.items()]
-    for r in readers:
-        r.start()
-    for r in readers:
-        r.join()
-    for name, (tmp, proc) in procs.items():
-        BUILD_SECONDS[name] = outs[name][1] - t0
-        logs[name] = out = outs[name][0]
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+    outs = {name: [] for name, _, _ in todo}
+    t0 = time.perf_counter()
+    queue = list(todo)
+    workers = [threading.Thread(target=_compile, args=(queue, outs))
+               for _ in range(min(len(todo), os.cpu_count() or 1))]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    for name, tmp, _ in todo:
+        out, end, code = outs[name]
+        BUILD_SECONDS[name] = end - t0
+        logs[name] = out
+        if code != 0:
+            failed.append(f"{name}: nvcc exited {code}\n{out}")
         else:
             os.replace(tmp, lib_path(name))
     if failed:
@@ -120,10 +122,32 @@ def build_all(verbose: bool = False, force: bool = False,
     return logs
 
 
-def _drain(proc: subprocess.Popen, out: list) -> None:
-    """Read one nvcc process's output to its end: [output, exit time]."""
-    text, _ = proc.communicate()
-    out[:] = [text, time.perf_counter()]
+# The sources by their compile time on the H100 machine's 8 cores, the
+# longest first: build_all runs one nvcc a core, these in this order (a
+# source not named here first), so that the longest ones never wait for
+# a core and the shortest fill the cores the long ones leave.
+LONGEST_FIRST = ("mega_forms", "mega_long", "mega_long_forms",
+                 "staged_long_forms", "spectral", "mega", "resident_bs16",
+                 "staged", "staged_forms", "spectral_long_forms",
+                 "transpose")
+
+
+def _rank(name: str) -> int:
+    return LONGEST_FIRST.index(name) + 1 if name in LONGEST_FIRST else 0
+
+
+def _compile(queue: list, outs: dict) -> None:
+    """Run the queue's nvcc commands one after another, as long as it has
+    any: outs[name] = [output, exit time, exit code]."""
+    while True:
+        try:
+            name, _, cmd = queue.pop(0)
+        except IndexError:
+            return
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        text, _ = proc.communicate()
+        outs[name][:] = [text, time.perf_counter(), proc.returncode]
 
 
 def load(name: str) -> ctypes.CDLL:

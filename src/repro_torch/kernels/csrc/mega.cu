@@ -151,6 +151,17 @@ namespace cg = cooperative_groups;
 #ifndef MEGA_LONG_LINES
 #define MEGA_LONG_LINES 0
 #endif
+// Which instantiations a library holds, a sum of: 1 mega_resident (but
+// for 4's), 2 mega_staged, 4 mega_resident's Stockham route at bs16 on
+// lines of one block. Built alone, this source and mega_forms.cu /
+// mega_long_forms.cu hold 1; resident_bs16.cu holds this source's 4, and
+// staged.cu, staged_forms.cu and staged_long_forms.cu the three sources'
+// 2, so that the longest compiles run side by side; mega_long.cu holds 1
+// and 2. A library refuses every call of an instantiation it does not
+// hold.
+#ifndef MEGA_KERNELS
+#define MEGA_KERNELS 1
+#endif
 
 namespace {
 
@@ -710,6 +721,9 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
                          float* yi, int batch, int na, int nr, int nseg,
                          int batch_block, int block_scaled, int op,
                          const long long* table, void* stream) {
+#if !(MEGA_KERNELS & 5)
+  return (int)cudaErrorInvalidValue;   // a mega_resident library's call
+#else
   MegaArgs a;
   cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg,
                            block_scaled, op, table, nullptr, true);
@@ -810,6 +824,7 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
       (size_t)(r ? stockham_points(total) : total) * sizeof(float2) +
       (block_scaled ? (size_t)std::max(na, nr) * sizeof(int) : 0);
   if (!r) {
+#if MEGA_KERNELS & 1
     return (int)with_form(a.op, block_scaled, any_kara(a),
                           [&](auto op, auto bs, auto kara) {
       return launch_resident<false, 0, decltype(bs)::value,
@@ -817,26 +832,41 @@ int mega_resident_launch(const float* xr, const float* xi, float* yr,
                              decltype(kara)::value ? 2 : 0>(a, batch, threads,
                                                             smem, st);
     });
+#else
+    return (int)cudaErrorInvalidValue;
+#endif
   }
 #if MEGA_OPERAND_FORMS
   return (int)cudaErrorInvalidValue;    // the Stockham route: mega.cu's
 #else
   if (block_scaled) {
+#if MEGA_KERNELS & 4
     return (int)(n128 ? launch_resident<true, 128, true>(a, batch, threads,
                                                          smem, st)
                       : launch_resident<true, 0, true>(a, batch, threads,
                                                        smem, st));
+#else
+    return (int)cudaErrorInvalidValue;  // resident_bs16.cu's
+#endif
   }
+#if MEGA_KERNELS & 1
   return (int)(n128 ? launch_resident<true, 128>(a, batch, threads, smem, st)
                    : launch_resident<true, 0>(a, batch, threads, smem, st));
+#else
+  return (int)cudaErrorInvalidValue;
+#endif
 #endif
 #endif  // MEGA_LONG_LINES
+#endif  // MEGA_KERNELS & 5
 }
 
 int mega_staged_launch(const float* xr, const float* xi, float* yr,
                        float* yi, int batch, int na, int nr, int nseg,
                        int buffer_depth, int block_scaled, int op,
                        const long long* table, unsigned* ex, void* stream) {
+#if !(MEGA_KERNELS & 2)
+  return (int)cudaErrorInvalidValue;   // the mega_staged library's call
+#else
   if (buffer_depth < 1) return (int)cudaErrorInvalidValue;
   MegaArgs a;
   cudaError_t err = unpack(a, xr, xi, yr, yi, batch, na, nr, nseg,
@@ -925,9 +955,10 @@ int mega_staged_launch(const float* xr, const float* xi, float* yr,
                      : launch_staged<true, 0>(a, work, smem, st));
 #endif
 #endif  // MEGA_LONG_LINES
+#endif  // MEGA_KERNELS & 2
 }
 
-#if !MEGA_OPERAND_FORMS && !MEGA_LONG_LINES
+#if !MEGA_OPERAND_FORMS && !MEGA_LONG_LINES && (MEGA_KERNELS & 2)
 // Blocks of mega_staged on the given route (stockham != 0) one SM holds
 // with `smem` bytes of dynamic shared memory (-1 on error): its persistent
 // grid is this times the SM count.

@@ -1,8 +1,8 @@
-// mega_staged and mega_resident for chains with a segment past one block
-// (a line over 4096 points, or a three-factor split; csrc/long_lines.cuh's
-// passes, over device memory as phases of their own in mega_staged, on the
-// slab in mega_resident, which here also holds batch_block > 1 scenes a
-// block), at f32 on both FFT routes (and the
+// mega_staged and mega_resident, both here, for chains with a segment
+// past one block (a line over 4096 points, or a three-factor split;
+// csrc/long_lines.cuh's passes, over device memory as phases of their own
+// in mega_staged, on the slab in mega_resident, which here also holds
+// batch_block > 1 scenes a block), at f32 on both FFT routes (and the
 // Stockham route's bf16 and f16, its f32 passes; the other forms build
 // from mega_long_forms.cu) — built from mega.cu into a library of its own
 // (MEGA_LONG_LINES), so that it compiles beside mega.cu's and
@@ -11,4 +11,5 @@
 // refuses the calls the others take, and src/repro_torch/kernels/ops.py
 // picks the library by the call's form and segments.
 #define MEGA_LONG_LINES 1
+#define MEGA_KERNELS 3
 #include "mega.cu"

@@ -1,6 +1,7 @@
-// mega_staged and mega_resident for chains with a segment past one block
-// (a line over 4096 points, or a three-factor split; mega_resident's also
-// with batch_block > 1 scenes a block) at the forms other than f32:
+// mega_resident for chains with a segment past one block (a line over
+// 4096 points, or a three-factor split; also with batch_block > 1 scenes a
+// block) at the forms other than f32 (mega_staged's:
+// staged_long_forms.cu):
 // csrc/long_lines.cuh's passes at bf16, f16 and bs16 with
 // Karatsuba per segment on the matmul route (and f32 with Karatsuba), and
 // bs16 on the Stockham route — built from mega.cu into a library of its own

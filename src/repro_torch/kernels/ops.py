@@ -699,6 +699,22 @@ def _launch_cuda(spec: SpectralSpec, xr, xi, filter_args):
     return yr, yi
 
 
+# A dry run's record of the launches it reaches on meta tensors
+# (``launch/dryrun.py``): each listener is called with (kernel name, spec,
+# input plane, batch) and prices the launch; the wrappers take meta
+# tensors only while one listens, and never count such a launch in
+# ``SPECTRAL_LAUNCHES`` / ``MEGA_LAUNCHES``.
+META_LISTENERS: list = []
+
+
+def _launch_meta(kernel: str, spec, xr, xi):
+    """Meta outputs of the kernel's shape, the launch told to the
+    listeners; nothing runs."""
+    for fn in META_LISTENERS:
+        fn(kernel, spec, xr, xr.shape[0])
+    return torch.empty_like(xr), torch.empty_like(xi)
+
+
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
@@ -717,6 +733,9 @@ def _spectral(xr, xi, hr, hi, u, v, plain: bool, *, axis: int = 1,
         yr, yi = spectral_plain(spec, xr, xi, *filter_args)
     elif xr.device.type == "cuda":
         yr, yi = _launch_cuda(spec, xr, xi, filter_args)
+    elif xr.device.type == "meta" and META_LISTENERS:
+        check_kernel_spec(spec)
+        yr, yi = _launch_meta("spectral", spec, xr, xi)
     else:
         raise ValueError(f"no spectral kernel for device {xr.device}")
     return _finish(yr, yi, axis, lines, batched)
@@ -819,6 +838,15 @@ MEGA_FORMS_NAME = "mega_forms"
 # others), built from mega.cu beside it.
 MEGA_LONG_NAME = "mega_long"
 MEGA_LONG_FORMS_NAME = "mega_long_forms"
+# mega.cu, mega_forms.cu and mega_long_forms.cu hold mega_resident; their
+# mega_staged builds into a library of its own beside each (compiled side
+# by side): staged.cu, staged_forms.cu, staged_long_forms.cu; and mega.cu's
+# resident Stockham route at bs16 into resident_bs16.cu's. mega_long.cu
+# holds both kernels.
+MEGA_STAGED_NAMES = {MEGA_KERNEL_NAME: "staged",
+                     MEGA_FORMS_NAME: "staged_forms",
+                     MEGA_LONG_FORMS_NAME: "staged_long_forms"}
+MEGA_RESIDENT_BS16_NAME = "resident_bs16"
 # Points the resident kernel's slab may hold besides the shared-memory
 # limit: what the Stockham route holds in registers at once (16 points a
 # thread of 1024 for 128^2), and what the long passes' turns of the slab
@@ -943,7 +971,7 @@ def _bind_mega(name: str = MEGA_KERNEL_NAME):
         lib.mega_staged_launch.argtypes = [p] * 4 + [i] * 7 + [p] * 3
         for fn in (lib.mega_resident_launch, lib.mega_staged_launch):
             fn.restype = ctypes.c_int
-        if name == MEGA_KERNEL_NAME:   # the f32 and Stockham kernels'
+        if name == MEGA_STAGED_NAMES[MEGA_KERNEL_NAME]:
             lib.mega_staged_blocks_per_sm.argtypes = [ctypes.c_longlong, i]
             lib.mega_staged_blocks_per_sm.restype = ctypes.c_int
         lib.mega_smem_optin.argtypes = [i]
@@ -1066,11 +1094,12 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
     bs = _block_scaled(spec.precision)
     op = _OPERANDS[spec.precision]
     # a chain without a transform runs no stage: the f32 form (or, with
-    # bs16, the Stockham route's codec), in mega.cu's library; the matmul
-    # route's other forms are mega_forms.cu's; a chain with a segment past
-    # one block (and a resident one of batch_block > 1 scenes a block)
-    # mega_long.cu's at f32 (the Stockham route's bf16 and f16 too), else
-    # mega_long_forms.cu's
+    # bs16, the Stockham route's codec: resident_bs16.cu's), in mega.cu's
+    # library (mega_staged: staged.cu's); the matmul route's other forms
+    # are mega_forms.cu's (mega_staged: staged_forms.cu's); a chain with a
+    # segment past one block (and a resident one of batch_block > 1 scenes
+    # a block) mega_long.cu's at f32 (the Stockham route's bf16 and f16
+    # too), else mega_long_forms.cu's (staged_long_forms.cu's)
     has_fft = any(seg.fwd or seg.inv for seg in spec.segments)
     if not has_fft and not bs:
         op = 0
@@ -1081,6 +1110,10 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
         name = MEGA_LONG_FORMS_NAME if forms or bs else MEGA_LONG_NAME
     else:
         name = MEGA_FORMS_NAME if forms else MEGA_KERNEL_NAME
+    if not resident:
+        name = MEGA_STAGED_NAMES.get(name, name)
+    elif name == MEGA_KERNEL_NAME and bs:
+        name = MEGA_RESIDENT_BS16_NAME
     lib = _bind_mega(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1129,6 +1162,12 @@ def _mega(xr, xi, filter_args, plain: bool, *, segments,
     elif xr.device.type == "cuda":
         check_mega(spec, xr.shape[0])
         yr, yi = _launch_mega(spec, xr, xi, prepared)
+    elif xr.device.type == "meta" and META_LISTENERS:
+        check_mega(spec, xr.shape[0])
+        check_mega_kernel(spec)
+        kernel = ("mega_resident" if spec.residency == RESIDENT_VMEM
+                  else "mega_staged")
+        yr, yi = _launch_meta(kernel, spec, xr, xi)
     else:
         raise ValueError(f"no megakernel for device {xr.device}")
     if return_exp:

@@ -29,18 +29,22 @@ positions: then one thread a position, in lockstep (``run_positions``).
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.distributed.mesh import (ShardedTensor, axis_positions,
-                                          distribute, position_device,
-                                          sharded_empty, sharded_zeros)
+                                          current_view, distribute,
+                                          note_collective, placed,
+                                          position_device, sharded_empty,
+                                          sharded_zeros)
 from repro_torch.launch import sharding as shd
 from repro_torch.models import Model
 from repro_torch.models import attention as attn
 from repro_torch.models.moe import spans_positions
-from repro_torch.models.sharding import Position, run_positions
+from repro_torch.models.sharding import (Position, held_positions,
+                                        run_positions)
 from repro_torch.optim import AdamWConfig, adamw
 
 
@@ -83,11 +87,14 @@ def init_sharded_opt(params: dict) -> dict:
                                 device=first.slabs.flat[0].device)}
 
 
+def _batch_axes(rules) -> tuple:
+    baxes = rules.get("batch") or ()
+    return (baxes,) if isinstance(baxes, str) else tuple(baxes)
+
+
 def _batch_positions(mesh, rules):
     """The data positions (``{axis: index}``) and their devices."""
-    baxes = rules.get("batch") or ()
-    baxes = (baxes,) if isinstance(baxes, str) else tuple(baxes)
-    where = axis_positions(mesh, baxes)
+    where = axis_positions(mesh, _batch_axes(rules))
     return where, [position_device(mesh, w) for w in where]
 
 
@@ -123,6 +130,20 @@ def _reduce(acc: dict, grads: dict):
             slab.add_(part.to(slab.device, torch.float32))
 
 
+def _note_reduction(acc: dict, count: int, rules: dict):
+    """Record the positions' reduction into each slab: in the reference's
+    terms a reduce-scatter where the slab is cut over a batch axis, an
+    all-reduce where the batch axes hold copies of it."""
+    baxes = set(_batch_axes(rules))
+    for st in acc.values():
+        named = {a for e in st.spec if e is not None
+                 for a in ((e,) if isinstance(e, str) else e)}
+        op = "reduce-scatter" if named & baxes else "all-reduce"
+        for coords, slab in st.items():
+            note_collective(op, slab.numel() * slab.element_size(), count,
+                            coords)
+
+
 def sharded_value_and_grad(loss_fn: Callable, params: dict, batch: dict,
                            mesh, rules: dict, denom: torch.Tensor,
                            lockstep: bool = False,
@@ -150,11 +171,13 @@ def sharded_value_and_grad(loss_fn: Callable, params: dict, batch: dict,
         loss = loss_fn(_rows(batch, i, count, dev), leaves, denom.to(dev))
         loss.backward()
         grads = {n: t.grad for n, t in leaves.items()}
-        if lockstep:        # reduced in position order below
+        if keep:            # reduced in position order below
             return loss.detach(), grads
         _reduce(acc, grads)
         return loss.detach(), None
 
+    # a dry run's view runs one position for all: each adds its gradients
+    keep = lockstep or current_view() is not None
     outs = run_positions(one, count, lockstep, mesh, rules)
     total = None
     for loss, grads in outs:
@@ -162,6 +185,8 @@ def sharded_value_and_grad(loss_fn: Callable, params: dict, batch: dict,
             _reduce(acc, grads)
         loss = loss.to(devices[0])
         total = loss if total is None else total + loss
+    if count > 1:
+        _note_reduction(acc, count, rules)
     return total, acc
 
 
@@ -296,13 +321,28 @@ class ShardedServing:
         self.params = params
         self.where, self.devices = _batch_positions(mesh, rules)
         self._copies = {}
+        self._lock = threading.Lock()
 
-    def compute(self, device):
-        if device not in self._copies:
-            with torch.no_grad():
-                self._copies[device] = self.model.compute_params(
-                    {n: st.gather(device) for n, st in self.params.items()})
-        return self._copies[device]
+    def compute(self, i: int, count: int = 1):
+        """The compute copy on position ``i``'s device (of ``count``
+        positions), made there. On a meta mesh, where every position's
+        device reads "meta", one a position; within a dry run's view
+        (``distributed.mesh.view``) the positions it does not hold, run
+        only for an MoE exchange, share the held one's."""
+        device = self.devices[i]
+        key = device
+        if device.type == "meta":
+            held = held_positions(count, self.mesh, self.rules)
+            key = i = held[0] if held and i not in held else i
+        with self._lock:
+            if key not in self._copies:
+                at = tuple(self.where[i].get(a, 0)
+                           for a in self.mesh.axis_names)
+                with torch.no_grad(), placed(at):
+                    self._copies[key] = self.model.compute_params(
+                        {n: st.gather(device)
+                         for n, st in self.params.items()})
+            return self._copies[key]
 
     def count(self, batch: int) -> int:
         """Positions the batch is cut over: as ``cache_shardings``, a batch
@@ -322,7 +362,7 @@ class ShardedServing:
         def one(i):
             dev = self.devices[i]
             return self.model.prefill(_rows(batch, i, count, dev), max_len,
-                                      params=self.compute(dev))
+                                      params=self.compute(i, count))
 
         outs = self._run(one, count, (b // count) * s)
         caches = [c for c, _ in outs]
@@ -367,7 +407,7 @@ class ShardedServing:
             local = local_cache(cache, where, dev)
             logits, new = self.model.decode_step(
                 local, _rows({"t": tokens}, i, count, dev)["t"],
-                params=self.compute(dev))
+                params=self.compute(i, count))
             write_back(cache, new, where, pos)
             return logits, new["step"]
 

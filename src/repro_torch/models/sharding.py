@@ -47,6 +47,9 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed.mesh import (axis_positions, current_view,
+                                          note_collective)
+
 _state = threading.local()
 
 
@@ -141,19 +144,35 @@ DEFAULT_RULES = {
 class Exchange:
     """The all-gather of data positions running in lockstep threads: each
     position hands in its tensor and gets every position's, in position
-    order. A position that fails aborts the others' waits."""
+    order. A position that fails aborts the others' waits. ``turns``: a
+    lock each position holds while it runs, given up while it waits (the
+    positions then take turns between exchanges)."""
 
-    def __init__(self, count: int):
+    def __init__(self, count: int, turns: Optional[threading.Lock] = None):
         self.count = count
         self._slots = [None] * count
         self._barrier = threading.Barrier(count)
+        self._turns = turns
 
     def all_gather(self, index: int, x) -> list:
         self._slots[index] = x
-        self._barrier.wait()
+        self._wait()
         out = list(self._slots)
-        self._barrier.wait()
+        self._wait()
+        note_collective("all-gather", sum(t.numel() * t.element_size()
+                                          for t in out), self.count)
         return out
+
+    def _wait(self):
+        """Wait for every position, giving up the turn meanwhile."""
+        if self._turns is None:
+            self._barrier.wait()
+            return
+        self._turns.release()
+        try:
+            self._barrier.wait()
+        finally:
+            self._turns.acquire()
 
     def abort(self):
         self._barrier.abort()
@@ -221,15 +240,24 @@ def run_positions(fn: Callable, count: int, lockstep: bool,
             return fn(i)
 
     if not lockstep or count == 1:
-        return [one(i, None) for i in range(count)]
-    exchange = Exchange(count)
+        held = held_positions(count, mesh, rules)
+        if held is None:
+            return [one(i, None) for i in range(count)]
+        # a dry run's view: the positions it does not hold are alike
+        ran = {i: one(i, None) for i in held}
+        return [ran.get(i, ran[held[0]]) for i in range(count)]
+    # within a dry run's view the positions take turns between exchanges:
+    # sixteen threads contending for the GIL op by op run ~5x slower
+    turns = threading.Lock() if current_view() is not None else None
+    exchange = Exchange(count, turns)
     out: list = [None] * count
     errors: list = []
     grad = torch_grad_mode()
+    modes = _dispatch_modes()
 
     def body(i):
         try:
-            with grad():
+            with grad(), modes(), turns or contextlib.nullcontext():
                 out[i] = one(i, exchange)
         except BaseException as e:  # noqa: BLE001 - re-raised below
             errors.append((i, e))
@@ -247,6 +275,40 @@ def run_positions(fn: Callable, count: int, lockstep: bool,
             isinstance(ie[1], threading.BrokenBarrierError), ie[0]))
         raise first[1]
     return out
+
+
+def held_positions(count: int, mesh, rules) -> Optional[list]:
+    """Within ``distributed.mesh.view``: the positions (of ``count``)
+    whose device is at the view's coordinates; None outside a view."""
+    held = current_view()
+    if held is None or mesh is None or count == 1:
+        return None
+    where = axis_positions(mesh, _axes((rules or {}).get("batch")))
+    coords = [tuple(w.get(a, 0) for a in mesh.axis_names) for w in where]
+    out = [i for i in range(count) if coords[i] == held]
+    if not out:
+        raise ValueError(f"the view {held} holds no data position")
+    return out
+
+
+def _dispatch_modes() -> Callable:
+    """A context factory entering, in another thread, the dispatch modes
+    active on this thread (PyTorch keeps them per thread): a dry run's
+    counter sees the lockstep positions' work."""
+    from torch.utils._python_dispatch import (
+        _get_current_dispatch_mode_stack, _pop_mode, _push_mode)
+    stack = _get_current_dispatch_mode_stack()
+
+    @contextlib.contextmanager
+    def modes():
+        for m in stack:
+            _push_mode(m)
+        try:
+            yield
+        finally:
+            for _ in stack:
+                _pop_mode()
+    return modes
 
 
 def torch_grad_mode() -> Callable:

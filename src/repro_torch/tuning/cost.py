@@ -214,6 +214,15 @@ def _stage_seconds(n: int, lines_total: int, factors: tuple, karatsuba,
     return t
 
 
+def _stage_flops(n: int, lines_total: int, factors: tuple, karatsuba,
+                 transforms: int) -> float:
+    """The tensor-core stages' FLOPs of ``transforms`` transforms of
+    every line (``_stage_seconds``' numerator)."""
+    mac_flops = 6.0 if karatsuba else 8.0
+    return sum(transforms * lines_total * mac_flops * n * f
+               for f in factors)
+
+
 def _dispatch_terms(*, n: int, lines: int, batch: int, factors: tuple,
                     karatsuba, precision, transforms: int, filtered: bool,
                     block: Optional[int], tile: Optional[int] = None,
@@ -269,6 +278,8 @@ def _dispatch_terms(*, n: int, lines: int, batch: int, factors: tuple,
     memory = bytes_moved / PEAK_HBM_BYTES + smem_bytes / SMEM_BYTES_PER_S
 
     return {
+        "flops": _stage_flops(n, lines_total, factors, karatsuba,
+                              transforms) + pointwise,
         "matmul_seconds": matmul,
         "vpu_seconds": vpu,
         "compute_seconds": compute,
@@ -678,6 +689,39 @@ def serve_batch_seconds(na: int, nr: int, batch: int = 1,
         segments=(SegmentConfig(),) * len(_MEGA_SEGMENTS_2D),
         precision=precision, residency=res, phase_block=8, buffer_depth=2)
     return schedule_seconds(sched, problem)
+
+
+def launch_counts(spec: SpectralSpec, batch: int, lines: int) -> dict:
+    """The FLOPs and device-memory bytes ``_dispatch_terms`` prices one
+    spectral launch of ``spec`` at (``batch`` x ``lines`` lines, padded
+    already): what a dry run counts for a launch on meta tensors."""
+    terms = _dispatch_terms(
+        n=spec.n, lines=lines, batch=batch, factors=spec.factors(),
+        karatsuba=spec.karatsuba, precision=spec.precision,
+        transforms=int(spec.fwd) + int(spec.inv),
+        filtered=spec.filter_mode != FILTER_NONE, block=None)
+    return {"flops": terms["flops"], "bytes": terms["bytes_moved"]}
+
+
+def mega_launch_counts(spec: MegaSpec, batch: int) -> dict:
+    """``launch_counts`` of one megakernel launch: each segment's terms
+    without slab I/O, the scene read once and written once."""
+    flops = 0.0
+    nbytes = 2 * 2 * 4 * spec.na * spec.nr * batch
+    for seg in spec.segments:
+        n, lines = ((spec.na, spec.nr) if seg.axis == 0
+                    else (spec.nr, spec.na))
+        fs = tuple(f for f in (seg.n1, seg.n2, seg.n3) if f) or \
+            default_factorization(n)
+        terms = _dispatch_terms(
+            n=n, lines=lines, batch=batch, factors=fs,
+            karatsuba=bool(seg.karatsuba), precision=spec.precision,
+            transforms=int(seg.fwd) + int(seg.inv),
+            filtered=seg.filter_mode != FILTER_NONE, block=None,
+            slab_io=False, resident=spec.residency == RESIDENT_VMEM)
+        flops += terms["flops"]
+        nbytes += terms["bytes_moved"]
+    return {"flops": flops, "bytes": nbytes}
 
 
 def nominal_flops(key: TuneKey, fwd: bool = True, inv: bool = True,

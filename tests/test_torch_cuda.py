@@ -1422,3 +1422,42 @@ def test_cuda_sharded_moe_remat_groups_spanning_positions(cuda_device):
     assert rel(loss, single.detach()) <= 1e-5
     for n, p in model.named_parameters():
         assert rel(grads[n].gather(), p.grad) <= 1e-5, n
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_prefill_rows_round_as_the_sharded_layout(cuda_device):
+    """stablelm-1.6b at full width, bf16, on one device: a batch of 4
+    prompts' prefill logits against the same 4 prompts one at a time,
+    which is what each data position of a (4, 1) mesh runs. The gap is
+    the size of the sharded prefill's own (within 2x): a 4-row and a
+    1-row bf16 product round apart, and the sharded layout adds nothing."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    cfg = registry.get("stablelm-1.6b")
+    assert cfg.dtype == "bfloat16"
+    model = Model(cfg, device=cuda_device)
+    model.init(torch.Generator(device=cuda_device).manual_seed(27))
+    prompts = torch.randint(0, cfg.vocab_size, (4, 32),
+                            generator=torch.Generator().manual_seed(27)
+                            ).to(cuda_device)
+
+    def rel(got, want):
+        return float((got.double() - want.double()).abs().max()
+                     / want.double().abs().max())
+
+    with torch.no_grad(), model.compute_cast():
+        _, batch = model.prefill({"tokens": prompts}, 48)
+        rows = torch.cat([model.prefill({"tokens": prompts[i:i + 1]}, 48)[1]
+                          for i in range(4)])
+    mesh = lm.make_host_mesh(1, [cuda_device] * 4)
+    rules = lm.activation_rules(mesh)
+    values = {n: p.detach() for n, p in model.named_parameters()}
+    params = steps.shard_params(values, shd.param_shardings(
+        values, cfg, mesh, rules))
+    _, sharded = steps.build_prefill(model, 48, mesh, rules, params)(
+        {"tokens": prompts})
+    one, cut = rel(rows, batch), rel(sharded, batch)
+    assert cut > 0 and cut / 2 <= one <= 2 * cut, (one, cut)
