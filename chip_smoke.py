@@ -2,9 +2,12 @@
 """Chip smoke test of the PyTorch / CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --long-passes [ops,ring,mixer,mega]
 
 Needs one CUDA card (Hopper, sm_90a) and ``nvcc``; exits non-zero, with
-no result line, when there is no card or the port is missing. Phases,
+no result line, when there is no card or the port is missing. The second
+form times the long-line passes op by op (``long_passes_main``) and
+prints no result line. Phases,
 each printing one JSON line (any failed check raises and exits non-zero):
 
 1. device  — the card's name and power limit (the raw nvidia-smi line is
@@ -18,8 +21,8 @@ each printing one JSON line (any failed check raises and exits non-zero):
              route's operand forms of the megakernels build from
              ``mega.cu`` into a library of their own, ``mega_forms.cu``,
              and both megakernels for chains with a line past one
-             block into others, ``mega_long.cu`` and
-             ``mega_long_forms.cu``);
+             block into others, ``mega_long.cu``, ``staged_long.cu``
+             and ``mega_long_forms.cu``);
              ``cuobjdump -sass`` must show HMMA TF32 instructions in the
              matmul instantiations of ``spectral_kernel``,
              ``mega_resident`` and ``mega_staged`` (the tensor-core
@@ -346,6 +349,7 @@ _KERNEL_NAMES = ("spectral_kernel", "spectral_long_form", "spectral_long",
 # does the Stockham ops)
 _LONG_FUNCTIONS = (r"(long_stage_cols_kara|long_stage_cols|long_stage_form|"
                    r"long_stage|long_segment_form|long_segment|long_op_form|"
+                   r"long_lines_whole|"
                    r"resident_long_op|resident_segment_apart|"
                    r"slab_tail_transform|slab_move|long_op)")
 
@@ -3156,26 +3160,384 @@ def long_sweep(torch, ops, rand, fft_impl):
          tol=TOL, oracle_tol=ORACLE_TOL, **mega)
 
 
-def step_passes(cfg, step):
-    """The device-memory passes of one spectral step (1: a line of one
-    block)."""
+# mega_staged's Stockham fused1 at 8192 x 16384 against the sum of its
+# three spectral launches, timed in the same run: the same device
+# functions, so no slower than those launches beyond noise
+STAGED_VS_LAUNCHES = 1.15
+
+
+def filter_only_time(torch, smi_line, cfg, p3, raw):
+    """The long passes' streaming I/O alone: fused3's range launch as a
+    filter-only op (no transform: one elementwise pass over device
+    memory) on its input and filter, beside its bound (the slab read and
+    written once, the filter read once)."""
+    from repro_torch.core import plan as planlib
     from repro_torch.kernels import ops
+    x = raw
+    for s in p3.steps:
+        if s.kernel_kw["axis"] == 1:
+            break
+        x = s.fn(x)
+    xr, xi = planlib.split(x)
+    kk = dict(s.kernel_kw, fwd=False, inv=False)
+    fk = s.filter_kw
+    got = ops.spectral_op(xr, xi, **fk, **kk)
+    want = ops.spectral_op_plain(xr, xi, **fk, **kk)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "filter-only pass != plain")
+    del got, want
+    nbytes = 16 * xr.numel() + sum(4 * t.numel() for t in fk.values())
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = cuda_median_ms(lambda: ops.spectral_op(xr, xi, **fk, **kk),
+                        queued=True)
+    emit("long_filter_only", launch=s.name, fft_impl=kk["fft_impl"],
+         mode=kk["filter_mode"], scene=[cfg.na, cfg.nr], ms=ms,
+         bound_ms=bound, vs_bound=ms / bound, nvidia_smi=smi_line)
+
+
+def kernel_spec(kk, n):
+    """The ``SpectralSpec`` of a spectral op's kernel keywords on lines of
+    n points."""
     from repro_torch.kernels.fft4step import SpectralSpec
+    return SpectralSpec(
+        n=n, fwd=kk["fwd"], inv=kk["inv"], filter_mode=kk["filter_mode"],
+        axis=kk["axis"], fft_impl=kk["fft_impl"],
+        precision=kk.get("precision", "f32"), n1=kk.get("n1"),
+        n2=kk.get("n2"), n3=kk.get("n3"))
+
+
+def step_spec(cfg, step):
+    """The ``SpectralSpec`` of one spectral step of a pipeline on cfg."""
     kk = step.kernel_kw
-    geom = ops.long_geometry(SpectralSpec(
-        n=cfg.nr if kk["axis"] == 1 else cfg.na, fwd=kk["fwd"],
-        inv=kk["inv"], filter_mode=kk["filter_mode"], axis=kk["axis"],
-        fft_impl=kk["fft_impl"], n1=kk.get("n1"), n2=kk.get("n2"),
-        n3=kk.get("n3")))
-    return 1 if geom is None else geom.passes(kk["fwd"], kk["inv"])
+    return kernel_spec(kk, cfg.nr if kk["axis"] == 1 else cfg.na)
+
+
+def spec_passes(spec):
+    """The device-memory passes of one op (1: a line of one block)."""
+    from repro_torch.kernels import ops
+    geom = ops.long_geometry(spec)
+    return 1 if geom is None else geom.passes(spec.fwd, spec.inv)
+
+
+def long_grid(torch, kernel, specs):
+    """Blocks per SM and the cooperative grid of a long launch (the f32
+    form's) at its largest shared memory: ``spectral_long`` for one op,
+    ``mega_staged``'s long chains' instantiation for a chain's ops."""
+    from repro_torch.kernels import ops
+    geoms = [ops.long_geometry(sp) for sp in specs]
+    smem = max((g.smem_bytes() for g in geoms if g is not None), default=0)
+    per_sm = ops.long_blocks_per_sm(kernel, specs[0].fft_impl, smem)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(smem=smem, blocks_per_sm=per_sm, sms=sms,
+                grid=per_sm * sms)
+
+
+def long_pass_record(torch, smi_line, cfg, name, rec, specs, kernel):
+    """Phase 19's pass accounting of one timed long launch (``rec``: a
+    ``time_launch`` / ``time_kernel`` record): each op's device-memory
+    passes, the one-pass bound (the slab read and written once, the
+    filters read once), the design floor (passes x each op's one-pass
+    bytes) and the MMA floor, beside the time; the grid."""
+    slab = 16 * cfg.na * cfg.nr
+    passes = [spec_passes(sp) for sp in specs]
+    one = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    floor = (sum(passes) * slab + rec["bytes"] - slab) \
+        / HBM_BYTES_PER_S * 1e3
+    out = dict(launch=name, fft_impl=specs[0].fft_impl, passes=passes,
+               ms=rec["ms"], one_pass_ms=one, pass_floor_ms=floor,
+               mma_floor_ms=rec.get("mma_floor_ms"),
+               vs_one_pass=rec["ms"] / one, vs_pass_floor=rec["ms"] / floor,
+               **long_grid(torch, kernel, specs))
+    emit("long_pass", nvidia_smi=smi_line, **out)
+    return out
+
+
+# ``--long-passes``: the libraries the long ops run from, its parts, the
+# FFTConvMixer's lines at S = 4096 (stablelm-1.6b: 8192 rows of 8192
+# points) and rows past a whole-line tile (the ring's rows passes)
+LONG_PASS_LIBS = ("spectral", "staged_long", "spectral_long_forms")
+LONG_PASS_PARTS = ("ops", "ring", "mixer", "mega")
+MIXER_LINES = (8192, 8192)
+RING_ROWS = (2048, 32768)
+
+
+def long_op_time(torch, xr, xi, fk, kk, n):
+    """One long op on the card: its device-memory passes, its time
+    (queued, median of 7), the one-pass bound (the slab read and written
+    once, the filter read once, over 3.35 TB/s), the pass floor (passes
+    x that bound), its tiles, shared memory and ``spectral_long``'s grid
+    there."""
+    from repro_torch.kernels import ops
+    spec = kernel_spec(kk, n)
+    g = ops.long_geometry(spec)
+    one = (16 * xr.numel() + sum(4 * t.numel() for t in fk.values())) \
+        / HBM_BYTES_PER_S * 1e3
+    passes = spec_passes(spec)
+    ms = cuda_median_ms(lambda: ops.spectral_op(xr, xi, **fk, **kk),
+                        queued=True)
+    out = dict(fft_impl=spec.fft_impl, precision=spec.precision,
+               axis=spec.axis, fwd=spec.fwd, inv=spec.inv,
+               mode=spec.filter_mode, n=n, lines=xr.numel() // n,
+               passes=passes, ms=ms, one_pass_ms=one,
+               pass_floor_ms=passes * one, vs_one_pass=ms / one)
+    if g is not None:
+        out.update(digit_tiles=list(g.digit_tiles), tail_tile=g.tail_tile,
+                   whole_line=g.whole_line, ring=g.ring,
+                   **long_grid(torch, "spectral", [spec]))
+    return out
+
+
+def long_scene_ops(torch, fft_impl):
+    """The 8192 x 16384 paper scene's fused3 launches on one route, each
+    on its own input: (name, xr, xi, filter kw, kernel kw, n)."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline, paper_scene, \
+        paper_targets, simulate
+    cfg = paper_scene(*LONG_SCENE)
+    x = simulate(cfg, paper_targets(cfg))
+    for s in build_pipeline(cfg, "fused3", fft_impl=fft_impl).steps:
+        kk = s.kernel_kw
+        yield (s.name, *planlib.split(x), s.filter_kw, kk,
+               cfg.nr if kk["axis"] == 1 else cfg.na)
+        x = s.fn(x)
+
+
+def long_ops_part(torch, smi_line):
+    """Each fused3 launch as the pipeline has it and as a fwd-only,
+    inv-only, fwd * H * inv and filter-only op on the same input and
+    filter, and the range launch at bs16."""
+    for fft_impl in ("matmul", "stockham"):
+        for name, xr, xi, fk, kk, n in long_scene_ops(torch, fft_impl):
+            for tag, f, i in ((None, kk["fwd"], kk["inv"]),
+                              ("fwd", True, False), ("inv", False, True),
+                              ("fwd_inv", True, True),
+                              ("filter_only", False, False)):
+                if tag and (f, i) == (kk["fwd"], kk["inv"]):
+                    continue
+                emit("long_op", op=name + (f":{tag}" if tag else ""),
+                     nvidia_smi=smi_line, **long_op_time(
+                         torch, xr, xi, fk, dict(kk, fwd=f, inv=i), n))
+            if kk["axis"] == 1 and kk["fwd"] and kk["inv"]:
+                emit("long_op", op=f"{name}:bs16", nvidia_smi=smi_line,
+                     **long_op_time(torch, xr, xi, fk,
+                                    dict(kk, precision="bs16"), n))
+        torch.cuda.empty_cache()
+
+
+# long_ring_part's settings: (name, ops.LONG_RING, the record's ring flag
+# cleared): the ring; the loads without it on today's tiles; and on the
+# ring's tiles (halved to fit its slots), which splits the ring's cost
+# into its tiles' and its own
+RING_SETTINGS = (("ring", True, False), ("none", False, False),
+                 ("ring_tiles", True, True))
+
+
+def ring_setting(ops, ring, clear):
+    """Applies one of ``RING_SETTINGS`` (the ring flag of every long
+    record cleared through ``ops._long_fields`` where ``clear``); returns
+    the undo."""
+    fields = ops._long_fields
+
+    def cleared(*a, **kw):
+        head, f, keep = fields(*a, **kw)
+        f[3] = 0
+        return head, f, keep
+    ops.LONG_RING = ring
+    if clear:
+        ops._long_fields = cleared
+
+    def undo():
+        ops.LONG_RING = False
+        ops._long_fields = fields
+    return undo
+
+
+def ring_check(torch, smi_line, p3, raw):
+    """Phase 19: fused3's first column launch with the tile passes' ring
+    (``ops.LONG_RING``) bit for bit the launch without it, both timed."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.kernels import ops
+    x = raw
+    for s in p3.steps:
+        if s.kernel_kw["axis"] == 0:
+            break
+        x = s.fn(x)
+    xr, xi = planlib.split(x)
+    run = lambda: ops.spectral_op(xr, xi, **s.filter_kw, **s.kernel_kw)
+    want = run()
+    ms = cuda_median_ms(run, queued=True)
+    undo = ring_setting(ops, True, False)
+    try:
+        got = run()
+        ring_ms = cuda_median_ms(run, queued=True)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    emit("long_ring_check", launch=s.name,
+         fft_impl=s.kernel_kw["fft_impl"], equal=equal, ms=ms,
+         ring_ms=ring_ms, nvidia_smi=smi_line)
+    check(equal, f"{s.name}: the ring's output differs")
+
+
+def long_ring_part(torch, smi_line):
+    """The tile passes' asynchronous ring against their loads without it
+    (``RING_SETTINGS``), in turns ring, none, ring_tiles, ring_tiles,
+    none, ring on the same input: the scene's column launches one
+    direction at a time and together, and rows past a whole-line tile,
+    at f32 and bs16. Every output must be equal bit for bit."""
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(271)
+    lines, n = RING_ROWS
+    rows = torch.randn(2, lines, n, generator=gen, device=dev)
+    hr = torch.randn(n, generator=gen, device=dev)
+    for fft_impl in ("matmul", "stockham"):
+        cases = []
+        for name, xr, xi, fk, kk, nn in long_scene_ops(torch, fft_impl):
+            if kk["axis"] == 0:
+                for f, i in ((True, False), (False, True), (True, True)):
+                    cases.append((f"{name}:{'fwd' * f}{'_' * (f and i)}"
+                                  f"{'inv' * i}", xr, xi, fk,
+                                  dict(kk, fwd=f, inv=i), nn))
+        rk = dict(fwd=True, inv=True, axis=1, filter_mode="shared",
+                  fft_impl=fft_impl)
+        cases.append((f"rows {lines} x {n}", rows[0], rows[1],
+                       dict(hr=hr, hi=hr), rk, n))
+        cases += [(f"{c[0]}:bs16", *c[1:4], dict(c[4], precision="bs16"),
+                   c[5]) for c in (cases[-2], cases[-1])]
+        turns = RING_SETTINGS + RING_SETTINGS[::-1]
+        for name, xr, xi, fk, kk, nn in cases:
+            recs = {s[0]: [] for s in RING_SETTINGS}
+            outs = {}
+            for setting, ring, clear in turns:
+                undo = ring_setting(ops, ring, clear)
+                try:
+                    outs[setting] = ops.spectral_op(xr, xi, **fk, **kk)
+                    recs[setting].append(
+                        long_op_time(torch, xr, xi, fk, kk, nn))
+                finally:
+                    undo()
+            equal = all(torch.equal(a, b) for o in outs.values()
+                        for a, b in zip(o, outs["none"]))
+            emit("long_ring", op=name, equal=equal,
+                 **{f"{k}_ms": [r["ms"] for r in v]
+                    for k, v in recs.items()},
+                 **{k: v[0] for k, v in recs.items()},
+                 nvidia_smi=smi_line)
+            check(equal, f"{name} ({fft_impl}): the ring's output differs")
+            del outs
+        torch.cuda.empty_cache()
+
+
+def long_mixer_part(torch, smi_line):
+    """The FFTConvMixer's launch at S = 4096: 8192 lines of 8192 points,
+    FULL filter, fwd * H * inv, on both routes."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    lines, n = MIXER_LINES
+    xr = torch.randn(1, lines, n, generator=gen, device=dev)
+    xi = torch.zeros_like(xr)
+    fk = dict(hr=torch.randn(lines, n, generator=gen, device=dev),
+              hi=torch.randn(lines, n, generator=gen, device=dev))
+    for fft_impl in ("matmul", "stockham"):
+        kk = dict(fwd=True, inv=True, axis=1, filter_mode="full",
+                  fft_impl=fft_impl)
+        emit("long_op", op="lm_mixer S=4096", nvidia_smi=smi_line,
+             **long_op_time(torch, xr, xi, fk, kk, n))
+
+
+def long_mega_part(torch, smi_line):
+    """fused1's ``mega_staged`` at the paper scene on both routes beside
+    the sum of its three launches, and each of its segments alone as a
+    one-segment ``mega_staged`` chain beside its ``spectral_long``
+    launch."""
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.sar import build_pipeline, paper_scene, \
+        paper_targets, simulate
+    from repro_torch.kernels import ops
+    for fft_impl in ("matmul", "stockham"):
+        cfg = paper_scene(*LONG_SCENE)
+        raw = simulate(cfg, paper_targets(cfg))
+        p3 = build_pipeline(cfg, "fused3", fft_impl=fft_impl)
+        s1 = build_pipeline(cfg, "fused1", fft_impl=fft_impl).steps[0]
+        kk = s1.kernel_kw
+        args = [t for a in s1.seg_filter_args for t in a]
+        xr, xi = planlib.split(raw)
+        mega_ms = cuda_median_ms(lambda: ops.mega_spectral_op(
+            xr, xi, *args, **kk), queued=True)
+        launch_ms, x = [], raw
+        for s in p3.steps:
+            sr, si = planlib.split(x)
+            launch_ms.append(cuda_median_ms(lambda: ops.spectral_op(
+                sr, si, **s.filter_kw, **s.kernel_kw), queued=True))
+            x = s.fn(x)
+        emit("long_mega", chain="fused1", fft_impl=fft_impl, ms=mega_ms,
+             launch_ms=launch_ms, launch_ms_sum=sum(launch_ms),
+             ratio=mega_ms / sum(launch_ms), nvidia_smi=smi_line)
+        x = raw
+        for k, (seg, sa, s) in enumerate(zip(kk["segments"],
+                                              s1.seg_filter_args,
+                                              p3.steps)):
+            sr, si = planlib.split(x)
+            one = dict(kk, segments=(seg,))
+            ms = cuda_median_ms(lambda: ops.mega_spectral_op(
+                sr, si, *sa, **one), queued=True)
+            emit("long_mega", chain=f"segment {k}", segment=list(seg),
+                 fft_impl=fft_impl, ms=ms, launch_ms=launch_ms[k],
+                 ratio=ms / launch_ms[k], nvidia_smi=smi_line)
+            x = s.fn(x)
+        del raw, x, xr, xi, args
+        torch.cuda.empty_cache()
+
+
+def long_passes_main(parts) -> int:
+    """``--long-passes [PARTS]``: the long-line passes op by op (what
+    phase 19 times a launch at a time) — builds ``LONG_PASS_LIBS`` where
+    stale, prints the card's name and power limit, the long kernels'
+    ptxas report where it compiled them, then the JSON lines of each part
+    (``LONG_PASS_PARTS``: ``long_op``, ``long_ring``, ``long_mega``)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(smi_line, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    logs = _build.build_all(verbose=True, names=LONG_PASS_LIBS)
+    ptxas = {k: v for log in logs.values()
+             for k, v in ptxas_report(log).items()
+             if "long" in k.split("/")[0]}
+    emit("long_build", seconds=time.perf_counter() - t0,
+         source_seconds=dict(_build.BUILD_SECONDS), ptxas=ptxas,
+         nvidia_smi=smi_line)
+    bad = set(parts) - set(LONG_PASS_PARTS)
+    check(not bad, f"unknown parts {sorted(bad)}")
+    run = dict(ops=long_ops_part, ring=long_ring_part,
+               mixer=long_mixer_part, mega=long_mega_part)
+    for part in parts:
+        t0 = time.perf_counter()
+        run[part](torch, smi_line)
+        emit("long_part_seconds", part=part,
+             seconds=time.perf_counter() - t0)
+    return 0
 
 
 def long_record(name, variant, fft_impl, launches, err, timed, scene):
     """A ``kernels`` entry of phase 19's paths: f32 alone, no Karatsuba
-    (``mega_staged`` for such chains builds from ``mega_long.cu``)."""
+    (``mega_staged`` for such chains builds from ``staged_long.cu``)."""
     rec = kernel_record(name, f"{variant} {scene[0]}x{scene[1]}", fft_impl,
                         launches, err, timed,
-                        source="mega_long.cu" if name == "mega_staged"
+                        source="staged_long.cu" if name == "mega_staged"
                         else None)
     rec.update(scene=list(scene), precisions=LONG_PRECISIONS,
                karatsuba_by_route=LONG_KARATSUBA)
@@ -3294,6 +3656,25 @@ def long_lines_phase(torch, smi_line, cfg4096, raw4096, score4096,
             t1 = time_mega_kernel(torch, smi_line, "mega_staged",
                                   p1.steps[0], raw, cfg, variant=one,
                                   plain_timing=PLAIN_ONCE)
+            specs = [step_spec(cfg, s) for s in p3.steps]
+            for s, sp, rec in zip(p3.steps, specs, timed):
+                long_pass_record(torch, smi_line, cfg, f"{three} {s.name}",
+                                 rec, [sp], "spectral")
+            long_pass_record(torch, smi_line, cfg, f"{one} mega_staged",
+                             t1, specs, "mega_staged")
+            launch_sum = sum(r["ms"] for r in timed)
+            emit("long_staged_vs_launches", variant=one, twin=three,
+                 fft_impl=fft_impl, ms=t1["ms"], launch_ms_sum=launch_sum,
+                 ratio=t1["ms"] / launch_sum, limit=STAGED_VS_LAUNCHES,
+                 nvidia_smi=smi_line)
+            if fft_impl == "stockham" and one == "fused1":
+                check(t1["ms"] <= STAGED_VS_LAUNCHES * launch_sum,
+                      f"mega_staged Stockham fused1 {scene}: {t1['ms']:.4f}"
+                      f" ms over {STAGED_VS_LAUNCHES} x its three "
+                      f"launches' {launch_sum:.4f} ms")
+            if three == "fused3":
+                filter_only_time(torch, smi_line, cfg, p3, raw)
+                ring_check(torch, smi_line, p3, raw)
             if three == "fused3":
                 run_ms[fft_impl] = cuda_median_ms(lambda: p3.run(raw))
                 emit("long_time_run", variant="fused3", fft_impl=fft_impl,
@@ -3311,7 +3692,7 @@ def long_lines_phase(torch, smi_line, cfg4096, raw4096, score4096,
                  snr_delta_db_vs_csa=dsnr_b, oracle_rel_err=oracle,
                  twin_equal=True, twin_rel_err_vs_plain=rel1,
                  max_abs_err_launches=launch_err,
-                 passes=[step_passes(cfg, s) for s in p3.steps])
+                 passes=[spec_passes(step_spec(cfg, s)) for s in p3.steps])
             records.append(long_record("spectral", three, fft_impl,
                                        counts3["spectral"], launch_err,
                                        timed, scene))
@@ -4099,7 +4480,9 @@ def resident_long_times(torch, smi_line):
                                     staged_counts["mega_staged"])):
             rec = kernel_record(kname, f"fused1 {name} x{MEGA_BATCH}",
                                 fft_impl, launches, err, [t],
-                                source="mega_long.cu")
+                                source="mega_long.cu"
+                                if kname == "mega_resident"
+                                else "staged_long.cu")
             rec.update(scene=[na, nr], batch=MEGA_BATCH)
             records.append(rec)
         del raw
@@ -5994,4 +6377,7 @@ def run(torch) -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == [RESTART_FLAG]:
         sys.exit(restart_child())
+    if sys.argv[1:2] == ["--long-passes"]:
+        sys.exit(long_passes_main(sys.argv[2].split(",") if sys.argv[2:]
+                                  else LONG_PASS_PARTS))
     sys.exit(main())

@@ -126,9 +126,9 @@ def build_all(verbose: bool = False, force: bool = False,
 # longest first: build_all runs one nvcc a core, these in this order (a
 # source not named here first), so that the longest ones never wait for
 # a core and the shortest fill the cores the long ones leave.
-LONGEST_FIRST = ("mega_forms", "mega_long", "mega_long_forms",
-                 "staged_long_forms", "spectral", "mega", "resident_bs16",
-                 "staged", "staged_forms", "spectral_long_forms",
+LONGEST_FIRST = ("staged_long_forms", "staged_long", "mega_forms",
+                 "spectral", "mega_long", "staged_forms", "mega_long_forms",
+                 "mega", "resident_bs16", "staged", "spectral_long_forms",
                  "transpose")
 
 

@@ -157,8 +157,8 @@ namespace cg = cooperative_groups;
 // mega_long_forms.cu hold 1; resident_bs16.cu holds this source's 4, and
 // staged.cu, staged_forms.cu and staged_long_forms.cu the three sources'
 // 2, so that the longest compiles run side by side; mega_long.cu holds 1
-// and 2. A library refuses every call of an instantiation it does not
-// hold.
+// for chains past one block at f32, staged_long.cu their 2. A library
+// refuses every call of an instantiation it does not hold.
 #ifndef MEGA_KERNELS
 #define MEGA_KERNELS 1
 #endif
@@ -192,6 +192,12 @@ struct MegaArgs {
 #endif
 #if MEGA_LONG_LINES
   int bb;             // mega_resident: scenes a CTA (batch_block)
+  // mega_staged: each segment past one block as its long op (its source
+  // the input for the first segment, else the output), in the launch's
+  // parameters as spectral_long's op is: long_op_form reads its fields
+  // there (from a copy on the stack the fused1 chain at 8192 x 16384 ran
+  // 6-9 % slower a segment, PERF.md).
+  LongOp lop[kMaxSegments];
 #endif
 };
 
@@ -453,22 +459,51 @@ mega_resident(const __grid_constant__ MegaArgs a) {
   }
 }
 
+// One phase of mega_staged on lines of one block: each block walks the
+// phase's (scene, tile) pairs. The matmul route copies the phase's F1 and
+// F2 into shared memory past the tile once per phase: the last phase's
+// final barrier and grid.sync() order the copy after every read of the
+// previous one, and the first tile's load barrier before every read of
+// this one. Phase 0 reads the input, later phases the intermediate in the
+// output.
+template <bool kStockham, int kN, bool kBs, int kOp, int kKara>
+__device__ __forceinline__ void staged_phase(float2* s, const MegaArgs& a,
+                                             int k) {
+  const Segment& g = a.seg[k];
+  const long long scene_points = (long long)a.na * a.nr;
+  const int lines = g.axis == 1 ? a.na : a.nr;
+  const int C = g.tile;
+  const int tiles = (lines + C - 1) / C;
+  Mats m{};
+  if constexpr (!kStockham) {
+    if (g.fwd || g.inv) {
+      m = mats_to_shared(reinterpret_cast<float*>(s + C * g.d.n), g.d);
+    }
+  }
+  const float* xr = k == 0 ? a.xr : a.yr;
+  const float* xi = k == 0 ? a.xi : a.yi;
+  for (int t = blockIdx.x; t < a.batch * tiles; t += gridDim.x) {
+    const int b = t / tiles;
+    tile_op<kStockham, kN, kBs, kOp, kKara>(
+        s, xr, xi, a.yr, a.yi, b * scene_points, lines, (t - b * tiles) * C,
+        C, g.axis, g.fwd, g.inv, g.d, m, g.f, g.kara);
+    __syncthreads();   // the next tile's load overwrites s
+  }
+}
+
 // Persistent: each block walks the (scene, tile) pairs of every phase.
 // grid.sync() compiles to a call, and with the thread bound alone ptxas
 // then holds the whole kernel to 32 registers (3.9 KB of spills); naming
 // the one block per SM it runs at gives it the whole register file of the
-// thread bound. The matmul route copies the phase's F1 and F2 into shared
-// memory past the tile once per phase: the last phase's final barrier and
-// grid.sync() order the copy after every read of the previous one, and
-// the first tile's load barrier before every read of this one. kN > 0:
-// every transform has N = kN and its Stockham ops are inlined (the main
-// path's 4096^2 scene takes kN = 4096: out of line they spilled 1-3 KB
-// each under this kernel's register budget). kOp, kKara: the matmul
-// route's operand form (tile_op's), each segment's Karatsuba its own.
-// kLong (kN = 0): a chain with a segment past one block, which runs
-// long_lines.cuh's device-memory passes as phases of its own (out of line,
-// long_segment, in the kernel's form); an instantiation of its own, so that
-// the kernels without such a segment keep their code and registers.
+// thread bound. kN > 0: every transform has N = kN and its Stockham ops
+// are inlined (the main path's 4096^2 scene takes kN = 4096: out of line
+// they spilled 1-3 KB each under this kernel's register budget). kOp,
+// kKara: the matmul route's operand form (tile_op's), each segment's
+// Karatsuba its own. kLong (kN = 0): a chain with a segment past one
+// block, which runs long_lines.cuh's device-memory passes as phases of
+// their own (out of line, long_op_form, in the kernel's form, on its
+// LongOp in the launch's parameters); an instantiation of its own, so
+// that the kernels without such a segment keep their code and registers.
 template <bool kStockham, int kN, bool kBs, int kOp = kTf32x3, int kKara = 0,
           bool kLong = false>
 __global__ void __launch_bounds__(kStockham ? kStockhamThreads : kMmaThreads,
@@ -476,42 +511,21 @@ __global__ void __launch_bounds__(kStockham ? kStockhamThreads : kMmaThreads,
 mega_staged(const __grid_constant__ MegaArgs a) {
   extern __shared__ float2 s[];
   cg::grid_group grid = cg::this_grid();
-  const long long scene_points = (long long)a.na * a.nr;
   for (int k = 0; k < a.nseg; ++k) {
-    const Segment& g = a.seg[k];
     if constexpr (kLong) {
-      if (g.lg.on) {   // lines past one block: long_lines.cuh's passes
-        if constexpr (kOp == kTf32x3 && kKara == 0 && !kBs) {
-          long_segment<kStockham>(s, g, k == 0 ? a.xr : a.yr,
-                                  k == 0 ? a.xi : a.yi, a.yr, a.yi, a.batch,
-                                  a.na, a.nr);
-        } else {
-          long_segment_form<kStockham, kOp, kKara, kBs>(
-              s, g, k == 0 ? a.xr : a.yr, k == 0 ? a.xi : a.yi, a.yr, a.yi,
-              a.batch, a.na, a.nr, long_words(a));
-        }
-        if (k + 1 < a.nseg) grid.sync();
-        continue;
+      const Segment& g = a.seg[k];
+      if (!g.lg.on) {
+        staged_phase<kStockham, kN, kBs, kOp, kKara>(s, a, k);
+      } else {   // lines past one block: long_lines.cuh's passes
+        unsigned* ex = nullptr;   // bs16's words (the forms' MegaArgs)
+        if constexpr (kBs) ex = long_words(a);
+#if MEGA_LONG_LINES
+        long_op_form<kStockham, kOp, kKara, kBs>(s, a.lop[k],
+                                                 LongForm{ex, g.kara});
+#endif
       }
-    }
-    const int lines = g.axis == 1 ? a.na : a.nr;
-    const int C = g.tile;
-    const int tiles = (lines + C - 1) / C;
-    Mats m{};
-    if constexpr (!kStockham) {
-      if (g.fwd || g.inv) {
-        m = mats_to_shared(reinterpret_cast<float*>(s + C * g.d.n), g.d);
-      }
-    }
-    // phase 0 reads the input; later phases the intermediate in the output
-    const float* xr = k == 0 ? a.xr : a.yr;
-    const float* xi = k == 0 ? a.xi : a.yi;
-    for (int t = blockIdx.x; t < a.batch * tiles; t += gridDim.x) {
-      const int b = t / tiles;
-      tile_op<kStockham, kN, kBs, kOp, kKara>(
-          s, xr, xi, a.yr, a.yi, b * scene_points, lines, (t - b * tiles) * C,
-          C, g.axis, g.fwd, g.inv, g.d, m, g.f, g.kara);
-      __syncthreads();   // the next tile's load overwrites s
+    } else {
+      staged_phase<kStockham, kN, kBs, kOp, kKara>(s, a, k);
     }
     if (k + 1 < a.nseg) grid.sync();
   }
@@ -540,8 +554,12 @@ cudaError_t unpack(MegaArgs& a, const float* xr, const float* xi, float* yr,
   for (int k = 0; k < nseg; ++k) {
     const long long* r = table + (long long)k * kSegFields;
     const cudaError_t err = unpack_segment(r, r[0] == 1 ? nr : na, a.seg[k],
-                                           op, resident);
+                                           op, bs != 0, resident);
     if (err != cudaSuccess) return err;
+#if MEGA_LONG_LINES
+    a.lop[k] = long_op_of(a.seg[k], k == 0 ? xr : yr, k == 0 ? xi : yi, yr,
+                          yi, batch, na, nr);
+#endif
     if (bs && a.seg[k].lg.on && !resident && ex == nullptr) {
       return cudaErrorInvalidValue;
     }
@@ -967,6 +985,21 @@ int mega_staged_blocks_per_sm(long long smem, int stockham) {
   const cudaError_t err =
       stockham ? staged_per_sm<true, 0>((size_t)smem, per_sm)
                : staged_per_sm<false, 0>((size_t)smem, per_sm);
+  return err == cudaSuccess ? per_sm : -1;
+}
+#endif
+
+#if !MEGA_OPERAND_FORMS && MEGA_LONG_LINES && (MEGA_KERNELS & 2)
+// The same for the f32 instantiation of mega_staged that runs chains with
+// a segment past one block (mega_long.cu's).
+int mega_staged_long_blocks_per_sm(long long smem, int stockham) {
+  int per_sm = 0;
+  const cudaError_t err =
+      stockham
+          ? staged_per_sm<true, 0, false, kTf32x3, 0, true>((size_t)smem,
+                                                            per_sm)
+          : staged_per_sm<false, 0, false, kTf32x3, 0, true>((size_t)smem,
+                                                             per_sm);
   return err == cudaSuccess ? per_sm : -1;
 }
 #endif

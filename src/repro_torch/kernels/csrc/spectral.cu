@@ -221,7 +221,7 @@ template <bool kStockham>
 __global__ void __launch_bounds__(kLongThreads, 1)
 spectral_long(const __grid_constant__ LongArgs a) {
   extern __shared__ float2 s[];
-  long_op<kStockham>(s, a.op);
+  long_op_form<kStockham, kTf32x3, 0, false>(s, a.op, LongForm{});
 }
 
 // The same at the other forms (kOp, kKara, kBs: long_op_form's), the
@@ -341,7 +341,8 @@ int spectral_long_launch(const float* xr, const float* xi, float* yr,
   const bool any_fft = rec[1] || rec[2];
   if (!any_fft) op = kTf32x3;
   Segment g{};
-  const cudaError_t err = unpack_segment(rec, rec[0] == 1 ? nr : na, g, op);
+  const cudaError_t err = unpack_segment(rec, rec[0] == 1 ? nr : na, g, op,
+                                         block_scaled != 0);
   if (err != cudaSuccess) return (int)err;
   if (!g.lg.on) return (int)cudaErrorInvalidValue;
   const LongOp lop = long_op_of(g, xr, xi, yr, yi, batch, na, nr);
@@ -375,6 +376,27 @@ int spectral_long_launch(const float* xr, const float* xi, float* yr,
   }
 #endif
 }
+
+#if !SPECTRAL_LONG_FORMS
+// Blocks of spectral_long (stockham != 0: the Stockham route's) one SM
+// holds with `smem` bytes of dynamic shared memory, after setting the
+// attribute (-1 on error): its cooperative grid is this times the SM
+// count, at most the op's tiles.
+int spectral_long_blocks_per_sm(long long smem, int stockham) {
+  auto per = [&](auto kernel) {
+    int per_sm = 0;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, kLongThreads, (size_t)smem) != cudaSuccess) {
+      return -1;
+    }
+    return per_sm;
+  };
+  return stockham ? per(spectral_long<true>) : per(spectral_long<false>);
+}
+#endif
 
 const char* spectral_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

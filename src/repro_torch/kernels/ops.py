@@ -179,6 +179,9 @@ def _bind(name: str = KERNEL_NAME):
             lib.spectral_launch.restype = ctypes.c_int
         fn.argtypes = [p] * 4 + [i] * 3 + [p] + [i] * 2 + [p, p]
         fn.restype = ctypes.c_int
+        if name == KERNEL_NAME:
+            lib.spectral_long_blocks_per_sm.argtypes = [ll, i]
+            lib.spectral_long_blocks_per_sm.restype = ctypes.c_int
         lib.spectral_error_string.argtypes = [ctypes.c_int]
         lib.spectral_error_string.restype = ctypes.c_char_p
     return lib
@@ -271,7 +274,13 @@ class LongGeometry:
     has no digits and no tail: one elementwise pass. ``natural``: the
     matmul route's 16-bit forms, whose inverse runs the forward's passes on
     natural order (conj, forward, conj x 1/N, as the plain version rounds
-    it), so a forward + inverse op runs the forward's passes twice."""
+    it), so a forward + inverse op runs the forward's passes twice.
+    ``whole_line``: the rows layout with one digit and ``LINE_MIN_N`` <=
+    N <= ``LINE_MAX_N``, where a digit tile is a whole line: every pass runs
+    in one tile a line, in shared memory, and the op reads and writes
+    device memory once (``csrc/long_lines.cuh``'s ``line_plan``).
+    ``ring``: the tile passes load their tiles through the asynchronous
+    ring (``LONG_RING``; ``ring_bytes``), the tiles sized for it."""
 
     digits: tuple[int, ...]
     tail: tuple[int, ...]
@@ -280,15 +289,18 @@ class LongGeometry:
     fft_impl: str
     digit_splits: tuple[tuple[int, int], ...] = ()
     natural: bool = False
+    whole_line: bool = False
+    ring: bool = False
 
     @property
     def tail_n(self) -> int:
         return math.prod(self.tail) if self.tail else 0
 
-    def passes(self, fwd: bool, inv: bool) -> int:
-        """Passes (grid barriers + 1) of an op: each digit once a
+    def tile_passes(self, fwd: bool, inv: bool) -> int:
+        """Passes of the four-step's schedule: each digit once a
         direction and the tail once (twice in a natural fwd + inv op); a
-        filter-only op one."""
+        filter-only op one. A whole-line tile (and ``mega_resident``'s
+        slab) runs them in shared memory."""
         d = len(self.digits)
         if not (fwd or inv):
             return 1
@@ -296,10 +308,20 @@ class LongGeometry:
             return 2 * d + (2 if self.natural else 1)
         return d + 1
 
+    def passes(self, fwd: bool, inv: bool) -> int:
+        """Passes over device memory (grid barriers + 1) of an op: one
+        for a whole-line op, else ``tile_passes``."""
+        if self.whole_line and (fwd or inv):
+            return 1
+        return self.tile_passes(fwd, inv)
+
     def smem_bytes(self) -> int:
         """Shared memory of the largest pass: its tile and, on the matmul
         route, the DFT matrix (or the tail's pair) past it; the Stockham
-        route rounds a tile up to whole runs of 16 points."""
+        route rounds a tile up to whole runs of 16 points; then the ring
+        where the pass takes one (``ring_bytes``). A whole-line op: the
+        line, then the digit's matrices and the tail's where each fits
+        beside it (else the stages read them from device memory)."""
         if not self.tail:
             return 0
         stockham = self.fft_impl == "stockham"
@@ -309,15 +331,65 @@ class LongGeometry:
                 return 8 * ((points + 15) // 16 * 16)
             return 8 * points + mats
 
-        out = [tile_bytes(f * c, dft_smem_bytes(*(
-                   sp if sp[1] > 1 else (f, f))))
-               for f, c, sp in zip(self.digits, self.digit_tiles,
-                                   self.digit_splits or
-                                   [(f, 1) for f in self.digits])]
+        splits = self.digit_splits or [(f, 1) for f in self.digits]
+        dig = [dft_smem_bytes(*(sp if sp[1] > 1 else (f, f)))
+               for f, sp in zip(self.digits, splits)]
+        pads = [_digit_pad(sp[1], self.fft_impl) for sp in splits]
         t = self.tail if len(self.tail) == 2 else self.tail * 2
-        out.append(tile_bytes(self.tail_n * self.tail_tile,
-                              dft_smem_bytes(*t)))
-        return max(out)
+        if self.whole_line:   # the line, its rows pads[0] points apart
+            out = tile_bytes(self.digits[0] * (self.tail_n + pads[0]), 0)
+            for mats in (dig[0], dft_smem_bytes(*t)):
+                if not stockham and out + mats <= SMEM_OPTIN_BYTES:
+                    out += mats
+            return out
+        tiles = [(f * c, tile_bytes(f * (c + pad), m)) for f, c, m, pad in
+                 zip(self.digits, self.digit_tiles, dig, pads)]
+        tiles.append((self.tail_n * self.tail_tile,
+                      tile_bytes(self.tail_n * self.tail_tile,
+                                 dft_smem_bytes(*t))))
+        return max(b + ring_bytes(self.ring, b, pts) for pts, b in tiles)
+
+
+# The tile passes' asynchronous ring (``csrc/long_lines.cuh``'s
+# ``pass_ring``): ``RING_SLOTS`` slots past a pass's tile, each a tile's
+# points as device memory holds them (8 bytes a point), where its tiles
+# reach ``TILE_VEC_POINTS`` points (the 16-byte groups) and the slots fit
+# beside the tile; the tiles are sized for it while ``LONG_RING`` is set
+# (``long_geometry``). Off: on the H100 every long op measured took
+# 5-62 % longer with it (its tiles halved, its slots in L1's place;
+# PERF.md); ``chip_smoke.py --long-passes ring`` times both, and
+# the tests hold the two bit for bit equal.
+LONG_RING = False
+RING_SLOTS = 2
+TILE_VEC_POINTS = 2048
+
+
+def ring_bytes(ring: bool, tile_bytes: int, points: int) -> int:
+    """Bytes the ring adds past a tile of ``points`` points that takes
+    ``tile_bytes`` of shared memory (its slots start 16-byte aligned), or
+    0 where the pass takes none (``csrc/long_lines.cuh``'s
+    ``ring_bytes``)."""
+    if not ring or points < TILE_VEC_POINTS:
+        return 0
+    end = -(-tile_bytes // 16) * 16 + RING_SLOTS * 8 * points
+    return end - tile_bytes if end <= SMEM_OPTIN_BYTES else 0
+
+
+def _fit_ring(c: int, points, tile_bytes) -> int:
+    """The largest of c, c / 2, ... whose tile of ``points(c)`` points and
+    ``tile_bytes(c)`` bytes takes the ring, else ``c`` (no ring fits a
+    tile of the 16-byte groups' size)."""
+    r = c
+    while r > 1 and not ring_bytes(True, tile_bytes(r), points(r)):
+        r //= 2
+    return r if ring_bytes(True, tile_bytes(r), points(r)) else c
+
+
+# The lines a whole-line tile holds (``LongGeometry.whole_line``): at most
+# 128 KiB of f32 points in one block's shared memory, at least a block's
+# worth (a shorter line leaves most of a tile a line idle).
+LINE_MAX_N = 16384
+LINE_MIN_N = 4096
 
 
 # The longest sum of products one tensor-core stage of the long passes
@@ -346,41 +418,64 @@ def _stage_split(f: int, narrow: bool = False) -> tuple[int, int]:
         else default_factorization(f)
 
 
+def _digit_pad(fb: int, fft_impl: str) -> int:
+    """Points between the matmul route's digit rows in shared memory past
+    their sub-lines (``csrc/long_lines.cuh``'s ``digit_pad``): 1 for a
+    two-stage digit (fb > 1), 4 for one stage, none on the Stockham route
+    (it swizzles): rows of 64 or 128 points put the stages' reads down the
+    sub-lines on one bank pair."""
+    if fft_impl == "stockham":
+        return 0
+    return 1 if fb > 1 else 4
+
+
 def _long_digit_tile(f: int, rest: int, fft_impl: str,
-                     narrow: bool = False) -> int:
+                     narrow: bool = False, ring: bool = False) -> int:
     """Sub-lines of one digit pass's tile: Stockham, what 512 threads hold
     at 16 points a thread; matmul, at most 16384 points beside the digit's
     DFT matrices in shared memory, and in one stage (f <= 16, every f
     when ``narrow``) at most the columns one round of it takes (the f x C
-    tile is one line of C columns). Never more than the ``rest``
+    tile is one line of C columns); with ``ring``, halved until the ring
+    fits beside it (``_fit_ring``). Never more than the ``rest``
     sub-lines of a block."""
     if fft_impl == "stockham":
         c = max(1, 16 * STOCKHAM_THREADS // f)
-    else:
-        fa, fb = _stage_split(f, narrow)
-        c = max(1, 16384 // f)
-        if fb == 1:
-            c = min(c, MMA_THREADS[1] // 32 // -(-f // 16) * 32)
-        mats = dft_smem_bytes(fa, fb) if fb > 1 else dft_smem_bytes(f, f)
-        while c > 1 and 8 * c * f + mats > SMEM_OPTIN_BYTES:
-            c //= 2
+        return min(c, rest)
+    fa, fb = _stage_split(f, narrow)
+    c = max(1, 16384 // f)
+    if fb == 1:
+        c = min(c, MMA_THREADS[1] // 32 // -(-f // 16) * 32)
+    mats = dft_smem_bytes(fa, fb) if fb > 1 else dft_smem_bytes(f, f)
+    pad = _digit_pad(fb, fft_impl)
+    while c > 1 and 8 * (c + pad) * f + mats > SMEM_OPTIN_BYTES:
+        c //= 2
+    if ring:
+        c = _fit_ring(c, lambda r: f * r,
+                      lambda r: 8 * (r + pad) * f + mats)
     return min(c, rest)
 
 
-def _long_tail_tile(tail: tuple[int, ...], fft_impl: str) -> int:
+def _long_tail_tile(tail: tuple[int, ...], fft_impl: str,
+                    axis: int = 1, ring: bool = False) -> int:
     """Lines of one tail tile: Stockham, what 512 threads hold at 16
-    points a thread; matmul, 16384 points, beside the tail's DFT
-    matrices, and with one factor at most one round of the stage's
-    columns (the lines are its columns)."""
+    points a thread, on the columns layout at least 4 (a 16-byte run of
+    each row: 2 lines of 4096 points left 8 bytes a row and plane, a
+    quarter of each 32-byte sector), in rounds; matmul, 16384 points,
+    beside the tail's DFT matrices, and with one factor at most one round
+    of the stage's columns (the lines are its columns), with ``ring``
+    halved until the ring fits beside them (``_fit_ring``)."""
     b = math.prod(tail)
     if fft_impl == "stockham":
-        return max(1, 16 * STOCKHAM_THREADS // b)
+        c = max(1, 16 * STOCKHAM_THREADS // b)
+        return max(c, 4) if axis == 0 and 4 * b <= LINE_MAX_N else c
     c = max(1, 16384 // b)
     if len(tail) == 1:
         c = min(c, MMA_THREADS[1] // 32 // -(-b // 16) * 32)
     mats = dft_smem_bytes(*(tail if len(tail) == 2 else tail * 2))
     while c > 1 and 8 * c * b + mats > SMEM_OPTIN_BYTES:
         c //= 2
+    if ring:
+        c = _fit_ring(c, lambda r: r * b, lambda r: 8 * r * b + mats)
     return c
 
 
@@ -392,7 +487,8 @@ def long_geometry(spec: SpectralSpec) -> Optional[LongGeometry]:
     ``TILE_MAX_N`` (128^3); the Stockham route splits N into
     N / ``TILE_MAX_N`` x ``TILE_MAX_N`` (``fft4step.stockham_split``).
     The matmul route's 16-bit forms run each factor in one stage and the
-    natural schedule (``LongGeometry.natural``)."""
+    natural schedule (``LongGeometry.natural``); the tile passes take the
+    ring as ``LONG_RING`` says (``LongGeometry.ring``)."""
     if not (spec.fwd or spec.inv):
         if spec.n <= TILE_MAX_N:
             return None
@@ -415,10 +511,15 @@ def long_geometry(spec: SpectralSpec) -> Optional[LongGeometry]:
     rest, tiles = spec.n, []
     for f in digits:
         rest //= f
-        tiles.append(_long_digit_tile(f, rest, spec.fft_impl, narrow))
+        tiles.append(_long_digit_tile(f, rest, spec.fft_impl, narrow,
+                                      LONG_RING))
+    whole = spec.axis == 1 and len(digits) == 1 and \
+        LINE_MIN_N <= spec.n <= LINE_MAX_N
     return LongGeometry(digits, tail, tuple(tiles),
-                        _long_tail_tile(tail, spec.fft_impl), spec.fft_impl,
-                        splits, narrow)
+                        _long_tail_tile(tail, spec.fft_impl, spec.axis,
+                                        LONG_RING),
+                        spec.fft_impl,
+                        splits, narrow, whole, LONG_RING)
 
 
 def check_kernel_spec(spec: SpectralSpec) -> tuple[int, ...]:
@@ -443,6 +544,21 @@ def check_kernel_spec(spec: SpectralSpec) -> tuple[int, ...]:
     else:
         split = spec.factors()
     return split
+
+
+def long_blocks_per_sm(kernel: str, fft_impl: str, smem: int) -> int:
+    """Blocks of a long op's f32 cooperative launch one SM of the card
+    holds at ``smem`` bytes of dynamic shared memory: ``spectral_long``
+    (``kernel="spectral"``) or ``mega_staged``'s instantiation for chains
+    with a segment past one block (``kernel="mega_staged"``); its grid is
+    this times the SM count, at most the op's tiles (a whole-line op's:
+    its lines). -1 where the card refuses the size."""
+    stockham = int(fft_impl == "stockham")
+    if kernel == "spectral":
+        return _bind(KERNEL_NAME).spectral_long_blocks_per_sm(smem,
+                                                              stockham)
+    return _bind_mega(MEGA_STAGED_NAMES[MEGA_LONG_NAME]) \
+        .mega_staged_long_blocks_per_sm(smem, stockham)
 
 
 def _ptr(t):
@@ -508,11 +624,12 @@ def _filter_launch_args(mode: str, axis: int, filter_args):
 
 
 # The long fields of a segment record (after the 27 of every segment): on,
-# digits, tail tile, scratch re / im, then per digit (factor, tile, fb,
+# digits, tail tile, the ring, scratch re / im, then per digit (factor,
+# tile, fb,
 # F_fa re, F_fa im, F_fb re, F_fb im, (fa, fb) twiddle re, im, Stockham
 # table, four-step twiddle re, im), csrc/long_lines.cuh.
 _DIGIT_FIELDS = 12
-_LONG_FIELDS = 5 + _DIGIT_FIELDS * 2
+_LONG_FIELDS = 6 + _DIGIT_FIELDS * 2
 
 
 def _long_fields(spec: SpectralSpec, geom: LongGeometry, dev, scratch):
@@ -551,7 +668,8 @@ def _long_fields(spec: SpectralSpec, geom: LongGeometry, dev, scratch):
         head = (geom.tail_n, *split, geom.tail_tile,
                 (*tconsts, *(None,) * (6 - len(tconsts))), None)
     sr, si = scratch if scratch is not None else (None, None)
-    fields = [1, len(digits), geom.tail_tile, _ptr(sr) or 0, _ptr(si) or 0]
+    fields = [1, len(digits), geom.tail_tile, int(geom.ring), _ptr(sr) or 0,
+              _ptr(si) or 0]
     for i in range(2):
         if i < len(digits):
             f, c, fb, stages, stw, twr, twi = digits[i]
@@ -563,10 +681,13 @@ def _long_fields(spec: SpectralSpec, geom: LongGeometry, dev, scratch):
     return head, fields, keep
 
 
-def _needs_scratch(spec: SpectralSpec) -> bool:
+def _needs_scratch(spec: SpectralSpec, geom: LongGeometry) -> bool:
     """A forward-only or inverse-only long op moves its lines between
     the spectrum's order and the natural one through a scratch slab, and
-    so does every natural one (the 16-bit forms)."""
+    so does every natural one (the 16-bit forms); a whole-line op moves
+    them in its tile, and a filter-only op has no such move."""
+    if not geom.tail or geom.whole_line:
+        return False
     return spec.fwd != spec.inv or (
         _narrow_operands(spec) and (spec.fwd or spec.inv))
 
@@ -611,7 +732,7 @@ def _launch_long(spec: SpectralSpec, geom: LongGeometry, xr, xi,
         return yr, yi
     dev = xr.device
     scratch = ((torch.empty_like(xr), torch.empty_like(xi))
-               if _needs_scratch(spec) and geom.tail else None)
+               if _needs_scratch(spec, geom) else None)
     ex = _codec_words(spec, b, lines, dev)
     keep, filt = _filter_launch_args(spec.filter_mode, spec.axis,
                                      filter_args)
@@ -833,18 +954,19 @@ MEGA_KERNEL_NAME = "mega"
 # The library of the matmul route's other operand forms (bf16, f16, bs16,
 # Karatsuba): csrc/mega_forms.cu, built from mega.cu beside it.
 MEGA_FORMS_NAME = "mega_forms"
-# The libraries of mega_staged for chains with a segment past one block:
-# csrc/mega_long.cu (the f32 form) and csrc/mega_long_forms.cu (the
+# The libraries of the megakernels for chains with a segment past one
+# block: csrc/mega_long.cu (the f32 form) and csrc/mega_long_forms.cu (the
 # others), built from mega.cu beside it.
 MEGA_LONG_NAME = "mega_long"
 MEGA_LONG_FORMS_NAME = "mega_long_forms"
-# mega.cu, mega_forms.cu and mega_long_forms.cu hold mega_resident; their
-# mega_staged builds into a library of its own beside each (compiled side
-# by side): staged.cu, staged_forms.cu, staged_long_forms.cu; and mega.cu's
-# resident Stockham route at bs16 into resident_bs16.cu's. mega_long.cu
-# holds both kernels.
+# mega.cu, mega_forms.cu, mega_long.cu and mega_long_forms.cu hold
+# mega_resident; their mega_staged builds into a library of its own beside
+# each (compiled side by side): staged.cu, staged_forms.cu, staged_long.cu,
+# staged_long_forms.cu; and mega.cu's resident Stockham route at bs16 into
+# resident_bs16.cu's.
 MEGA_STAGED_NAMES = {MEGA_KERNEL_NAME: "staged",
                      MEGA_FORMS_NAME: "staged_forms",
+                     MEGA_LONG_NAME: "staged_long",
                      MEGA_LONG_FORMS_NAME: "staged_long_forms"}
 MEGA_RESIDENT_BS16_NAME = "resident_bs16"
 # Points the resident kernel's slab may hold besides the shared-memory
@@ -974,6 +1096,10 @@ def _bind_mega(name: str = MEGA_KERNEL_NAME):
         if name == MEGA_STAGED_NAMES[MEGA_KERNEL_NAME]:
             lib.mega_staged_blocks_per_sm.argtypes = [ctypes.c_longlong, i]
             lib.mega_staged_blocks_per_sm.restype = ctypes.c_int
+        if name == MEGA_STAGED_NAMES[MEGA_LONG_NAME]:
+            lib.mega_staged_long_blocks_per_sm.argtypes = [
+                ctypes.c_longlong, i]
+            lib.mega_staged_long_blocks_per_sm.restype = ctypes.c_int
         lib.mega_smem_optin.argtypes = [i]
         lib.mega_smem_optin.restype = ctypes.c_int
         lib.mega_error_string.argtypes = [i]
@@ -1055,8 +1181,7 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
     # mega_resident runs its long passes on its slab and takes neither
     resident = spec.residency == RESIDENT_VMEM
     scratch = None
-    if not resident and any(g is not None and g.tail and
-                            _needs_scratch(sspec)
+    if not resident and any(g is not None and _needs_scratch(sspec, g)
                             for g, sspec in zip(geoms, specs)):
         scratch = (torch.empty_like(xr), torch.empty_like(xi))
     ex = None
@@ -1071,7 +1196,7 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
         if geom is not None:
             head, fields, consts = _long_fields(
                 sspec, geom, dev,
-                scratch if scratch is not None and _needs_scratch(sspec)
+                scratch if scratch is not None and _needs_scratch(sspec, geom)
                 else None)
             keep += consts
             table.append(_record(seg.axis, seg.fwd, seg.inv,
@@ -1099,7 +1224,8 @@ def _launch_mega(spec: MegaSpec, xr, xi, filter_args):
     # are mega_forms.cu's (mega_staged: staged_forms.cu's); a chain with a
     # segment past one block (and a resident one of batch_block > 1 scenes
     # a block) mega_long.cu's at f32 (the Stockham route's bf16 and f16
-    # too), else mega_long_forms.cu's (staged_long_forms.cu's)
+    # too; mega_staged: staged_long.cu's), else mega_long_forms.cu's
+    # (staged_long_forms.cu's)
     has_fft = any(seg.fwd or seg.inv for seg in spec.segments)
     if not has_fft and not bs:
         op = 0

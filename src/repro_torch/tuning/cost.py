@@ -28,8 +28,11 @@ every block copies F1 and F2 and reads the twiddles (``_const_bytes``), one
 block a tile of ``ops.kernel_tile``'s lines. A line past one block (N >
 4096) or a three-factor split runs as passes over device memory
 (``ops.long_geometry``): each device-memory digit adds one more read and
-write of the slab a transform; in a resident megakernel the same passes
-run over the slab in shared memory (``SMEM_BYTES_PER_S``). ``block`` only
+write of the slab a transform, except on the rows layout with one digit
+and N <= 16384, where the passes run in a whole-line tile and the slab
+is read and written once (``LongGeometry.whole_line``); in a resident
+megakernel the same passes run over the slab in shared memory
+(``SMEM_BYTES_PER_S``). ``block`` only
 pads lines
 (``ops.spectral_op``); the tile does not depend on it, so configs that
 launch the same kernel on the same padded slab are priced alike, and the
@@ -145,13 +148,15 @@ def _kernel_split(spec: SpectralSpec) -> Optional[tuple]:
         return None
 
 
-def _long(n: int, factors: tuple, precision: Optional[str] = None):
-    """The device-memory passes of an op of this split and precision
-    (``ops.long_geometry``: the 16-bit forms take each factor in one
-    stage), or None for a line of one block or a split no kernel takes."""
+def _long(n: int, factors: tuple, precision: Optional[str] = None,
+          axis: int = 1):
+    """The device-memory passes of an op of this split, precision and
+    layout (``ops.long_geometry``: the 16-bit forms take each factor in
+    one stage; the rows layout with one digit runs whole-line tiles), or
+    None for a line of one block or a split no kernel takes."""
     try:
         return ops.long_geometry(SpectralSpec(
-            n=n, fwd=True, inv=True, filter_mode=FILTER_NONE,
+            n=n, fwd=True, inv=True, filter_mode=FILTER_NONE, axis=axis,
             n1=factors[0], n2=factors[1] if len(factors) > 1 else None,
             n3=factors[2] if len(factors) > 2 else None,
             precision=resolve_precision(precision).name))
@@ -226,7 +231,8 @@ def _stage_flops(n: int, lines_total: int, factors: tuple, karatsuba,
 def _dispatch_terms(*, n: int, lines: int, batch: int, factors: tuple,
                     karatsuba, precision, transforms: int, filtered: bool,
                     block: Optional[int], tile: Optional[int] = None,
-                    slab_io: bool = True, resident: bool = False) -> dict:
+                    slab_io: bool = True, resident: bool = False,
+                    axis: int = 1) -> dict:
     """The cost ingredients of one launch (or one megakernel phase),
     itemized: ``predicted_seconds`` (flat configs), the schedule-graph
     edge weights (``segment_seconds``) and ``cost_breakdown`` all price
@@ -240,7 +246,8 @@ def _dispatch_terms(*, n: int, lines: int, batch: int, factors: tuple,
     megakernel's segment, whose long passes (``ops.long_geometry``) run
     over the slab in shared memory, each its stages' sweep and one turn
     of the slab through registers (``smem_seconds``), not through device
-    memory."""
+    memory; ``axis``: the launch's layout (a long op of one digit on the
+    rows layout runs whole-line tiles, ``LongGeometry.whole_line``)."""
     prec = resolve_precision(precision).name
     padded = lines if block is None else math.ceil(lines / block) * block
     lines_total = batch * padded
@@ -265,14 +272,13 @@ def _dispatch_terms(*, n: int, lines: int, batch: int, factors: tuple,
     slab = 2 * 2 * 4 * n * lines_total                 # x and y, re+im f32
     if slab_io:
         bytes_moved += slab
-    geom = _long(n, factors, prec)
+    geom = _long(n, factors, prec, axis)
     smem_bytes = 0
     if geom is not None and transforms:   # one more read and write a pass
-        passes = geom.passes(transforms == 2, True)
         if resident:
-            smem_bytes = 2 * passes * slab
+            smem_bytes = 2 * geom.tile_passes(transforms == 2, True) * slab
         else:
-            bytes_moved += (passes - 1) * slab
+            bytes_moved += (geom.passes(transforms == 2, True) - 1) * slab
     if filtered:
         bytes_moved += 2 * 4 * n                       # shared filter
     memory = bytes_moved / PEAK_HBM_BYTES + smem_bytes / SMEM_BYTES_PER_S
@@ -360,7 +366,7 @@ def _staged_phase_bytes(n: int, lines: int, axis: int, factors: tuple,
                         precision: Optional[str] = None) -> int:
     """Shared memory of one mega_staged phase on the matmul route (a long
     segment's largest pass)."""
-    geom = _long(n, factors, precision)
+    geom = _long(n, factors, precision, axis)
     if geom is not None:
         return geom.smem_bytes()
     n1, n2 = factors[0], math.prod(factors[1:])
@@ -412,7 +418,7 @@ def segment_seconds(problem: ScheduleProblem, shape: SegmentShape,
     transforms = (1 if shape.fwd else 0) + (1 if shape.inv else 0)
     kw = dict(n=n, lines=lines, batch=problem.batch, factors=fs,
               karatsuba=kara, precision=precision, transforms=transforms,
-              filtered=shape.filtered)
+              filtered=shape.filtered, axis=shape.axis)
     if not problem.mega:
         return _dispatch_terms(block=block or 8,
                                **kw)["predicted_seconds"]
@@ -699,7 +705,7 @@ def launch_counts(spec: SpectralSpec, batch: int, lines: int) -> dict:
         n=spec.n, lines=lines, batch=batch, factors=spec.factors(),
         karatsuba=spec.karatsuba, precision=spec.precision,
         transforms=int(spec.fwd) + int(spec.inv),
-        filtered=spec.filter_mode != FILTER_NONE, block=None)
+        filtered=spec.filter_mode != FILTER_NONE, block=None, axis=spec.axis)
     return {"flops": terms["flops"], "bytes": terms["bytes_moved"]}
 
 
@@ -718,7 +724,8 @@ def mega_launch_counts(spec: MegaSpec, batch: int) -> dict:
             karatsuba=bool(seg.karatsuba), precision=spec.precision,
             transforms=int(seg.fwd) + int(seg.inv),
             filtered=seg.filter_mode != FILTER_NONE, block=None,
-            slab_io=False, resident=spec.residency == RESIDENT_VMEM)
+            slab_io=False, resident=spec.residency == RESIDENT_VMEM,
+            axis=seg.axis)
         flops += terms["flops"]
         nbytes += terms["bytes_moved"]
     return {"flops": flops, "bytes": nbytes}

@@ -603,6 +603,125 @@ def test_cuda_resident_long_equals_staged_and_three_launches(
 
 
 # ---------------------------------------------------------------------------
+# Whole-line tiles (rows, one device-memory digit, N <= 16384) and the
+# passes' 16-byte tile I/O (csrc/long_lines.cuh)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["f32", "bs16"])
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
+@pytest.mark.parametrize("n,axis,lines", [(8192, 1, 5), (16384, 1, 5),
+                                          (8192, 0, 8), (8192, 0, 5)])
+def test_cuda_whole_lines_match_plain_and_complex128(cuda_device, n, axis,
+                                                     lines, fft_impl,
+                                                     precision):
+    """Rows of 8192 and 16384 points in whole-line tiles (one pass over
+    device memory), columns of 8192 through the passes (16-byte tile
+    I/O where the lines come in fours, 8; the one-point loop, 5): every
+    direction and the filter-only pass against the plain version, the
+    Stockham route bit for bit (bs16 with odd lines subnormal), the
+    matmul route within FORM_TOL; f32 within ORACLE_TOL of complex128."""
+    from repro_torch.kernels.fft4step import SpectralSpec
+    g = ops.long_geometry(SpectralSpec(n=n, fwd=True, inv=True,
+                                       filter_mode="full", axis=axis,
+                                       fft_impl=fft_impl,
+                                       precision=precision))
+    assert g.whole_line == (axis == 1) and g.passes(True, True) == (
+        1 if axis == 1 else g.tile_passes(True, True))
+    for mode, fwd, inv in (("shared_outer", True, True), ("full", True, False),
+                           ("outer", False, True), ("full", False, False)):
+        x, filt = make_case(cuda_device, n + 7 * axis + lines, mode, axis,
+                            n, 2, lines=lines)
+        if precision == "bs16":
+            x = subnormal_lines(x, axis)
+        args = dict(axis=axis, fwd=fwd, inv=inv, filter_mode=mode, block=1,
+                    fft_impl=fft_impl, precision=precision)
+        before = ops.SPECTRAL_LAUNCHES
+        got = ops.spectral_op(*x, **filt, **args)
+        torch.cuda.synchronize()
+        assert ops.SPECTRAL_LAUNCHES == before + 1
+        want = ops.spectral_op_plain(*x, **filt, **args)
+        if fft_impl == "stockham":
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        else:
+            assert_close_finite(got, want, FORM_TOL[precision])
+    if precision == "f32":
+        x, filt = make_case(cuda_device, 3, "shared", axis, n, 1,
+                            lines=lines)
+        got = ops.spectral_op(*x, **filt, axis=axis, fwd=True, inv=True,
+                              filter_mode="shared", fft_impl=fft_impl)
+        dim = -1 if axis == 1 else -2
+        z = torch.complex(x[0].double(), x[1].double())
+        h = torch.complex(filt["hr"].double(), filt["hi"].double())
+        h = h[None, :] if axis == 1 else h[:, None]
+        want = torch.fft.ifft(torch.fft.fft(z, dim=dim) * h, dim=dim)
+        zg = torch.complex(got[0].double(), got[1].double())
+        assert float((zg - want).abs().max()) <= ORACLE_TOL * float(
+            want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["f32", "bs16"])
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
+@pytest.mark.parametrize("shape", [(4, 8192), (2, 16384), (8192, 4),
+                                   (2, 8192), (1, 16384)])
+def test_cuda_whole_line_chains_equal_three_launches_and_resident(
+        cuda_device, shape, fft_impl, precision):
+    """mega_staged's long segments (rows in whole-line tiles, columns
+    through the passes) bit for bit their three spectral launches, and,
+    where the scene fits one block (2 x 8192, 1 x 16384), mega_resident's
+    slab passes bit for bit mega_staged: fused1's chain and one with
+    one-direction segments."""
+    na, nr = shape
+    kw = dict(fft_impl=fft_impl, precision=precision)
+    for k, segs in enumerate(resident_chains(na, nr, fft_impl)):
+        x, args = make_mega_case(cuda_device, 31 + k, segs, 1, na, nr)
+        before = ops.MEGA_LAUNCHES["mega_staged"]
+        staged = ops.mega_spectral_op(*x, *args, segments=segs,
+                                      residency="staged", **kw)
+        torch.cuda.synchronize()
+        assert ops.MEGA_LAUNCHES["mega_staged"] == before + 1
+        assert bits_equal(staged, three_launches(x, segs, args, **kw))
+        if na * nr <= ops.RESIDENT_MAX_POINTS:
+            assert bits_equal(ops.mega_spectral_op(
+                *x, *args, segments=segs, residency="vmem", **kw), staged)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["f32", "bs16"])
+@pytest.mark.parametrize("fft_impl", ["matmul", "stockham"])
+@pytest.mark.parametrize("n,axis,lines", [(8192, 0, 8), (8192, 0, 5),
+                                          (32768, 1, 3)])
+def test_cuda_ring_equals_loads_without_it(cuda_device, monkeypatch, n,
+                                           axis, lines, fft_impl,
+                                           precision):
+    """The tile passes' asynchronous ring (``ops.LONG_RING``, its tiles
+    sized for it) and their loads without it give the same bits, in every
+    direction and in mega_staged's long segments."""
+    outs = {}
+    for ring in (True, False):
+        monkeypatch.setattr(ops, "LONG_RING", ring)
+        got = []
+        for mode, fwd, inv in (("shared", True, True), ("full", True, False),
+                               ("outer", False, True)):
+            x, filt = make_case(cuda_device, n + lines, mode, axis, n, 2,
+                                lines=lines)
+            got += ops.spectral_op(*x, **filt, axis=axis, fwd=fwd, inv=inv,
+                                   filter_mode=mode, fft_impl=fft_impl,
+                                   precision=precision)
+        if axis == 0 and lines == 8:
+            segs = resident_chains(n, lines, fft_impl)[0]
+            x, args = make_mega_case(cuda_device, 41, segs, 1, n, lines)
+            got += ops.mega_spectral_op(*x, *args, segments=segs,
+                                        residency="staged",
+                                        fft_impl=fft_impl,
+                                        precision=precision)
+        torch.cuda.synchronize()
+        outs[ring] = got
+    assert bits_equal(outs[True], outs[False])
+
+
+# ---------------------------------------------------------------------------
 # The megakernels (csrc/mega.cu)
 # ---------------------------------------------------------------------------
 

@@ -73,26 +73,35 @@ def both(x, filt, **kw):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize(
-    "n,fft_impl,split,digits,stages,tail,tiles,tail_tile", [
-        (8192, "matmul", None, (128,), ((16, 8),), (8, 8), (64,), 256),
-        (16384, "matmul", None, (128,), ((16, 8),), (16, 8), (128,), 128),
-        (32768, "matmul", None, (32,), ((8, 4),), (32, 32), (512,), 16),
+    "n,fft_impl,split,digits,stages,tail,tiles,tail_tile,passes", [
+        (8192, "matmul", None, (128,), ((16, 8),), (8, 8), (64,), 256,
+         (1, 1, 1, 1)),
+        (16384, "matmul", None, (128,), ((16, 8),), (16, 8), (128,), 128,
+         (1, 1, 1, 1)),
+        (32768, "matmul", None, (32,), ((8, 4),), (32, 32), (512,), 16,
+         (3, 2, 2, 1)),
         (2 ** 21, "matmul", None, (128, 128), ((16, 8), (16, 8)), (16, 8),
-         (128, 128), 128),
-        (512, "matmul", (8, 8, 8), (8,), ((8, 1),), (8, 8), (64,), 256),
-        (512, "matmul", (16, 8, 4), (16,), ((16, 1),), (8, 4), (32,), 512),
+         (128, 128), 128, (5, 3, 3, 1)),
+        (512, "matmul", (8, 8, 8), (8,), ((8, 1),), (8, 8), (64,), 256,
+         (3, 2, 2, 1)),
+        (512, "matmul", (16, 8, 4), (16,), ((16, 1),), (8, 4), (32,), 512,
+         (3, 2, 2, 1)),
         (4096, "matmul", (16, 16, 16), (16,), ((16, 1),), (16, 16), (256,),
-         64),
-        (8192, "stockham", None, (2,), (), (4096,), (4096,), 2),
-        (2 ** 21, "stockham", None, (512,), (), (4096,), (16,), 2),
+         64, (1, 1, 1, 1)),
+        (8192, "stockham", None, (2,), (), (4096,), (4096,), 2,
+         (1, 1, 1, 1)),
+        (2 ** 21, "stockham", None, (512,), (), (4096,), (16,), 2,
+         (3, 2, 2, 1)),
     ])
 def test_long_geometry_lengths_tiles_and_passes(n, fft_impl, split, digits,
                                                 stages, tail, tiles,
-                                                tail_tile):
+                                                tail_tile, passes):
     """The leading factor(s) run as device-memory passes (the next one too
     where the last two multiply past 4096), the rest in a tile; on the
     matmul route a factor past 16 in two tensor-core stages (a one-factor
-    tail too); a pass a digit and direction plus the tail; every tile fits
+    tail too); a pass a digit and direction plus the tail over device
+    memory (``tile_passes``), all of them in one whole-line pass on the
+    rows layout with one digit and 4096 <= N <= 16384; every tile fits
     one block."""
     kw = dict(zip(("n1", "n2", "n3"), split)) if split else {}
     spec = tfft.SpectralSpec(n=n, fwd=True, inv=True, filter_mode="shared",
@@ -104,9 +113,92 @@ def test_long_geometry_lengths_tiles_and_passes(n, fft_impl, split, digits,
     assert np.prod(g.digits) * g.tail_n == n
     d = len(digits)
     assert (g.passes(True, True), g.passes(True, False),
-            g.passes(False, True), g.passes(False, False)) == \
+            g.passes(False, True), g.passes(False, False)) == passes
+    assert (g.tile_passes(True, True), g.tile_passes(True, False),
+            g.tile_passes(False, True), g.tile_passes(False, False)) == \
         (2 * d + 1, d + 1, d + 1, 1)
+    assert g.whole_line == (passes[0] == 1)
     assert 0 < g.smem_bytes() <= tops.SMEM_OPTIN_BYTES
+
+
+@pytest.mark.parametrize("n,axis,fft_impl,split,precision,fits", [
+    (8192, 0, "matmul", None, "f32", (True, True)),
+    (16384, 0, "matmul", None, "bs16", (True, True)),
+    (32768, 1, "matmul", None, "f32", (True, True)),
+    (2 ** 21, 0, "matmul", None, "f32", (True, True, True)),
+    (4096, 0, "matmul", (16, 16, 16), "f32", (True, True)),
+    (8192, 0, "stockham", None, "f32", (True, False)),
+    (32768, 1, "stockham", None, "bs16", (True, True)),
+])
+def test_ring_slots_fit_beside_each_tile(monkeypatch, n, axis, fft_impl,
+                                         split, precision, fits):
+    """With ``LONG_RING`` each tile pass's tiles are sized so that the
+    ring's two slots (8 bytes a point each) fit beside the tile and its
+    DFT matrices in one block's opt-in; the Stockham route's column tail
+    (4 lines of 4096 points: 131,072 B, its slots 262,144 B more) takes
+    none. Without it the tiles are today's, at least as large, and the
+    shared memory has no slots. ``fits``: each digit's pass, then the
+    tail's."""
+    monkeypatch.setattr(tops, "LONG_RING", True)
+    kw = dict(zip(("n1", "n2", "n3"), split)) if split else {}
+    spec = tfft.SpectralSpec(n=n, fwd=True, inv=True, filter_mode="full",
+                             axis=axis, fft_impl=fft_impl,
+                             precision=precision, **kw)
+    g = tops.long_geometry(spec)
+    assert g.ring and not g.whole_line
+    tiles = [(f * c, f * (c + tops._digit_pad(sp[1], fft_impl)),
+              tops.dft_smem_bytes(*(sp if sp[1] > 1 else (f, f))))
+             for f, c, sp in zip(g.digits, g.digit_tiles,
+                                 g.digit_splits or [(f, 1)
+                                                    for f in g.digits])]
+    tail = g.tail if len(g.tail) == 2 else g.tail * 2
+    tiles.append((g.tail_n * g.tail_tile, g.tail_n * g.tail_tile,
+                  tops.dft_smem_bytes(*tail)))
+    got = []
+    for pts, slots, mats in tiles:
+        before = 8 * (-(-slots // 16) * 16 if fft_impl == "stockham"
+                      else slots) + (0 if fft_impl == "stockham" else mats)
+        extra = tops.ring_bytes(True, before, pts)
+        got.append(extra > 0)
+        assert before + extra <= g.smem_bytes() <= tops.SMEM_OPTIN_BYTES
+        if extra:
+            assert extra >= tops.RING_SLOTS * 8 * pts
+    assert tuple(got) == fits
+    monkeypatch.setattr(tops, "LONG_RING", False)
+    s = tops.long_geometry(spec)
+    assert not s.ring
+    assert all(a >= b for a, b in zip(s.digit_tiles, g.digit_tiles))
+    assert s.tail_tile >= g.tail_tile
+    assert s.smem_bytes() <= tops.SMEM_OPTIN_BYTES
+
+
+_HEADER = (__import__("pathlib").Path(tops.__file__).parent / "csrc"
+           / "long_lines.cuh")
+
+
+@pytest.mark.parametrize("name,value", [
+    ("kLineMinN", tops.LINE_MIN_N), ("kLineMaxN", tops.LINE_MAX_N),
+    ("kSmemOptin", tops.SMEM_OPTIN_BYTES),
+    ("kTileVecPoints", tops.TILE_VEC_POINTS),
+    ("kRingSlots", tops.RING_SLOTS),
+    ("kDigitFields", tops._DIGIT_FIELDS),
+    ("kSegFields", tops._SEG_FIELDS),
+])
+def test_host_constants_are_the_kernels(name, value):
+    """The host's copies of csrc/long_lines.cuh's constants: which ops
+    take the whole-line form, the opt-in, the ring's sizes and the
+    segment record's length (its fields before the digits plus
+    kMaxDigits digits)."""
+    import re
+    text = _HEADER.read_text()
+    m = re.search(rf"constexpr (?:int|long long) {name} = ([^;]+);", text)
+    assert m, name
+    expr = m.group(1)
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kMaxDigits|kDigitFields) = (\d+);", text)}
+    for k, v in consts.items():
+        expr = expr.replace(k, str(v))
+    assert eval(expr) == value
 
 
 @pytest.mark.parametrize("n,fft_impl", [(32768, "matmul"),
@@ -115,8 +207,8 @@ def test_long_geometry_lengths_tiles_and_passes(n, fft_impl, split, digits,
 def test_long_segment_record_layout(n, fft_impl):
     """The int64 record the kernels unpack (csrc/long_lines.cuh
     unpack_segment): its length, the Karatsuba field where the megakernel
-    wrapper picks its library by it, the long fields' digits, factors and
-    tiles, and a scratch slab for one direction alone."""
+    wrapper picks its library by it, the long fields' digits, factors,
+    tiles and ring, and a scratch slab for one direction alone."""
     spec = tfft.SpectralSpec(n=n, fwd=True, inv=False, filter_mode="none",
                              fft_impl=fft_impl)
     g = tops.long_geometry(spec)
@@ -128,10 +220,10 @@ def test_long_segment_record_layout(n, fft_impl):
         assert len(rec) == tops._SEG_FIELDS == 27 + tops._LONG_FIELDS
         assert rec[tops._KARA_FIELD] == kara
     assert rec[5] == g.tail_n and rec[8] == g.tail_tile
-    assert rec[27:30] == [1, len(g.digits), g.tail_tile]
-    assert rec[30] == pair[0].data_ptr() and rec[31] == pair[1].data_ptr()
+    assert rec[27:31] == [1, len(g.digits), g.tail_tile, int(g.ring)]
+    assert rec[31] == pair[0].data_ptr() and rec[32] == pair[1].data_ptr()
     for i, (f, c) in enumerate(zip(g.digits, g.digit_tiles)):
-        d = rec[32 + tops._DIGIT_FIELDS * i:][:tops._DIGIT_FIELDS]
+        d = rec[33 + tops._DIGIT_FIELDS * i:][:tops._DIGIT_FIELDS]
         fb = g.digit_splits[i][1] if fft_impl == "matmul" else 0
         assert d[:3] == [f, c, fb] and d[-2] != 0    # the twiddle
         assert (d[9] != 0) == (fft_impl == "stockham")
@@ -147,6 +239,93 @@ def test_lines_of_one_block_keep_their_single_pass(n, fft_impl, kw):
     filt = tfft.SpectralSpec(n=8192, fwd=False, inv=False,
                              filter_mode="full", fft_impl=fft_impl)
     assert tops.long_geometry(filt).tail == ()    # one elementwise pass
+
+
+@pytest.mark.parametrize("n,axis,fft_impl,split,precision,whole", [
+    (8192, 1, "matmul", None, "f32", True),
+    (16384, 1, "matmul", None, "f32", True),
+    (8192, 1, "matmul", None, "bs16", True),
+    (16384, 1, "matmul", None, "bf16", True),
+    (8192, 1, "matmul", (32, 16, 16), "f32", True),
+    (8192, 1, "stockham", None, "f32", True),
+    (16384, 1, "stockham", None, "bs16", True),
+    (4096, 1, "matmul", (16, 16, 16), "f32", True),
+    (512, 1, "matmul", (8, 8, 8), "bs16", False),
+    (512, 1, "matmul", (16, 8, 4), "f32", False),
+    (8192, 0, "matmul", None, "f32", False),
+    (16384, 0, "stockham", None, "f32", False),
+    (4096, 0, "matmul", (16, 16, 16), "f32", False),
+    (32768, 1, "matmul", None, "f32", False),
+    (32768, 1, "stockham", None, "f32", False),
+    (2 ** 21, 1, "matmul", None, "f32", False),
+])
+def test_whole_line_form_takes_rows_of_one_digit(n, axis, fft_impl, split,
+                                                 precision, whole):
+    """The rows layout with one device-memory digit and 4096 <= N <=
+    16384 runs every pass in one whole-line tile: one device-memory pass
+    whatever the direction, no scratch slab (a one-direction op's moves
+    and the natural schedule's stay in the tile), the line's bytes and the
+    DFT matrices that fit beside it; columns, shorter lines, lines past
+    16384 and two digits keep the passes (a one-direction op its
+    scratch)."""
+    kw = dict(zip(("n1", "n2", "n3"), split)) if split else {}
+    for fwd, inv in ((True, True), (True, False), (False, True)):
+        spec = tfft.SpectralSpec(n=n, fwd=fwd, inv=inv, filter_mode="full",
+                                 axis=axis, fft_impl=fft_impl,
+                                 precision=precision, **kw)
+        g = tops.long_geometry(spec)
+        assert g.whole_line == whole
+        passes = g.passes(fwd, inv)
+        assert passes == (1 if whole else g.tile_passes(fwd, inv)) and \
+            (whole or passes > 1)
+        needs = tops._needs_scratch(spec, g)
+        assert needs == (not whole and (fwd != inv or g.natural))
+        if whole:
+            line = 8 * n
+            assert line <= g.smem_bytes() <= tops.SMEM_OPTIN_BYTES
+            if fft_impl == "stockham":
+                assert g.smem_bytes() == line
+    filt = tfft.SpectralSpec(n=n, fwd=False, inv=False, filter_mode="full",
+                             axis=axis, fft_impl=fft_impl)
+    if n > 4096:   # filter-only past one block: one elementwise pass
+        g = tops.long_geometry(filt)
+        assert not g.whole_line and g.passes(False, False) == 1
+        assert not tops._needs_scratch(filt, g)
+
+
+@pytest.mark.parametrize("n,split,whole", [(8192, None, True),
+                                           (16384, None, True),
+                                           ((4096), (16, 16, 16), True),
+                                           (32768, None, False),
+                                           (2 ** 21, None, False)])
+def test_cost_prices_a_whole_line_op_as_one_slab_read_and_write(n, split,
+                                                               whole):
+    """tuning/cost.py's bytes term follows ``LongGeometry.passes``: a
+    whole-line op reads and writes its slab once (its DFT constants
+    besides), an op of device-memory passes once a pass; a resident
+    megakernel's segment prices the passes' sweeps over shared memory
+    (``tile_passes``) and no device memory."""
+    from repro_torch.tuning import cost
+    fs = split or tfft.default_factorization(n)
+    lines, slab = 64, 2 * 2 * 4 * n * 64
+    geom = cost._long(n, fs)
+    assert geom.whole_line == whole
+    for transforms in (1, 2):
+        t = cost._dispatch_terms(n=n, lines=lines, batch=1, factors=fs,
+                                 karatsuba=False, precision="f32",
+                                 transforms=transforms, filtered=False,
+                                 block=None, tile=lines)
+        extra = t["bytes_moved"] - slab - cost._const_bytes(fs)
+        passes = geom.passes(transforms == 2, True)
+        assert extra == (passes - 1) * slab
+        assert (extra == 0) == whole
+        r = cost._dispatch_terms(n=n, lines=lines, batch=1, factors=fs,
+                                 karatsuba=False, precision="f32",
+                                 transforms=transforms, filtered=False,
+                                 block=None, tile=lines, slab_io=False,
+                                 resident=True)
+        assert r["smem_bytes"] == 2 * geom.tile_passes(
+            transforms == 2, True) * slab
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +362,9 @@ def test_kernel_checks_take_long_lines_at_every_form(n, fft_impl, kw,
         if sixteen:
             assert all(sp == (f, 1)
                        for f, sp in zip(g.digits, g.digit_splits))
-            assert g.passes(True, True) == 2 * len(g.digits) + 2
+            assert g.tile_passes(True, True) == 2 * len(g.digits) + 2
+            assert g.passes(True, True) == (
+                1 if g.whole_line else 2 * len(g.digits) + 2)
             assert 0 < g.smem_bytes() <= tops.SMEM_OPTIN_BYTES
         else:
             assert g == tops.long_geometry(spec)

@@ -289,4 +289,12 @@ def test_tuner_prices_both_residencies_of_a_long_fused1():
         precision="f32", transforms=2, filtered=True, block=None, tile=2,
         slab_io=False)
     assert terms["smem_bytes"] > 0 and staged["smem_bytes"] == 0
-    assert terms["bytes_moved"] < staged["bytes_moved"]
+    # a rows segment of one digit runs whole-line tiles staged too: one
+    # read and write of its lines, the resident slab's device bytes; a
+    # column segment's passes go through device memory staged
+    assert terms["bytes_moved"] == staged["bytes_moved"]
+    col = dict(n=8192, lines=2, batch=1, factors=(128, 64),
+               karatsuba=False, precision="f32", transforms=1,
+               filtered=True, block=None, tile=2, slab_io=False, axis=0)
+    assert cost._dispatch_terms(resident=True, **col)["bytes_moved"] < \
+        cost._dispatch_terms(**col)["bytes_moved"]
