@@ -291,18 +291,34 @@ each printing one JSON line (any failed check raises and exits non-zero):
              2048, B = 4, S = 2048 (one spectral launch, gradients within
              2e-4 of the plain version's); (e) the parts' seconds. The
              model's loss launches no kernel.
-24. sharded — the LM stack over meshes of slabs of the one card: (a)
+24. sharded — the LM stack over meshes of slabs of the one card, a data
+             position's "model" row computing split (its ranks: heads,
+             ``ff`` and vocabulary, the sequence-parallel residual): (a)
              stablelm-1.6b at full width and depth, one AdamW step on
              (4, 2) against one device from the same weights and non-zero
              moments: the loss and every weight within 5e-3, the update
-             p - p0 within 1e-2 x its largest, every slab exactly its
-             shard; (b) at f32, 2 layers: stablelm's gradients on (4, 2)
-             and (2, 2, 2), granite's with remat and routing groups
-             spanning positions on (4, 1), within 1e-5 x max|want|; (c)
-             gemma3-12b's batch-1 decode with the KV sequence over "data"
-             and stablelm's ``generate`` under (4, 1); (d) the
-             FFTConvMixer's sharded AdamW step, 4 spectral launches; (e)
-             the phase under 120 s.
+             p - p0 within 1e-2 x its largest of one device's step
+             summing every split contraction as the ranks sum it, and
+             the split with its partial sums rounded to bf16 before
+             their reduction outside that bar; every slab exactly its
+             shard; its step ms and
+             peak GiB beside the whole-weights layout's (each position
+             gathering every weight, ``PERF.md`` §5); then at f32, the
+             update within 1e-2 x its largest; (b) at f32, 2 layers:
+             stablelm's gradients on (4, 2) and (2, 2, 2), granite's
+             with remat and
+             routing groups spanning positions on (4, 1), within 1e-5 x
+             max|want|; (c) gemma3-12b's batch-1 decode with the KV
+             sequence over "data" and stablelm's ``generate`` under (4,
+             1); (d) the FFTConvMixer's sharded AdamW step, 4 spectral
+             launches; (e) the phase under 180 s; (f) stablelm-1.6b at
+             full width on (1, 4): bf16 prefill and 8 decode tokens
+             within 1e-2 x max|want| of one device, each rank's KV cache
+             its own slab; at f32, 2 layers, every logit within 1e-5 x
+             max|want| and ``generate``'s tokens equal; one bf16 train
+             step's ms and peak; (g) the dry run's per-device peak of
+             that step (on a (1, 4) meta mesh) beside the card's peak /
+             4.
 
 The line before the last lists each kernel — on the main path and on each
 path of phases 14 to 24, with the precisions and Karatsuba flags it runs
@@ -310,6 +326,7 @@ on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -5561,7 +5578,14 @@ SHARD_BF16_TOL = 2e-2  # x max|want|: bf16 logits of a batch cut otherwise
                        # (tests/test_torch_train_dense.py's bf16 bar)
 SHARD_F32_TOL = 1e-5   # x max|want|: sharded vs single at f32
 SHARD_UPDATE_TOL = 1e-2  # x max|p - p0|: a step's update, sharded vs single
-SHARD_SECONDS = 120    # the phase's time limit (e)
+SHARD_SECONDS = 180    # the phase's time limit (e)
+SHARD_TP = dict(mesh=(1, 4), batch=4, prompt=32, new=8, layers32=2,
+                train_batch=8, train_seq=128)                   # 24 (f)
+SHARD_TP_TOL = 1e-2    # x max|want|: bf16 logits, split vs one device
+# (4, 2) with every weight gathered whole a position, the layout before
+# the split (PERF.md §5)
+SHARD_WHOLE_WEIGHTS = dict(step_ms=1660.41, peak_gib=34.74)
+SHARD_DRYRUN_TOL = 0.10  # 24 (g): the dry run's peak vs the card's / 4
 
 
 def slab_mesh(torch, dev, shape):
@@ -5615,13 +5639,22 @@ def timed_steps(torch, step, state, batches):
 def sharded_full(torch, smi_line, dev):
     """24 (a): stablelm-1.6b at full width and depth (bf16 compute,
     remat), batch 8, seq 128: one AdamW step from the same weights and
-    non-zero moments on one device, then over a (4, 2) mesh of slabs of
-    the card; the loss within 5e-3 (relative: it reads ~500 at init) and
-    every parameter within 5e-3; each slab's resident parameters and
-    moments exactly ``shard_shape``'s; the step ms (median of 5 more) and
-    peak GiB both ways. The single-device run goes first; the weights and
-    moments it starts from and the weights it ends at stay on the card as
-    the comparison's snapshots, and the peaks are given without them."""
+    non-zero moments on one device, then split over a (4, 2) mesh of
+    slabs of the card; the loss within 5e-3 (relative: it reads ~500 at
+    init) and every parameter within 5e-3; each slab's resident
+    parameters and moments exactly ``shard_shape``'s; the step ms (median
+    of 5 more) and peak GiB both ways.
+
+    The update p - p0 within 1e-2 x its largest, against the step of one
+    device that sums as the (4, 2) ranks sum (``same_association``: at
+    bf16 any other order of a split contraction moves a full-depth step's
+    update by ~8 % of its largest, one device's own halves included); and
+    the control: the split with its row-parallel partial sums rounded to
+    bf16 before their reduction (``partial_sums_in_bf16``) must miss that
+    bar. The update against one device's plain step is printed. The
+    single-device runs go first; the weights and moments they start from
+    and the weights they end at stay on the card as the comparison's
+    snapshots, and the peaks are given without them."""
     import statistics
     from repro_torch.configs import registry
     from repro_torch.data import DataConfig, TokenStream
@@ -5652,10 +5685,25 @@ def sharded_full(torch, smi_line, dev):
     def held():
         return tree_bytes(torch, snap)
 
+    def fresh_state():
+        state = {k: {n: t.clone() for n, t in snap["state0"][k].items()}
+                 for k in ("mu", "nu")}
+        state["step"] = snap["state0"]["step"].clone()
+        return state
+
+    def restart():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(snap["p0"][n])
+
+    def update_err(params, want):
+        errs = {n: float((params[n].gather(dev) - w).abs().max())
+                for n, w in want.items()}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
     step = steps.build_train_step(model, opt)
-    state = {k: {n: t.clone() for n, t in snap["state0"][k].items()}
-             for k in ("mu", "nu")}
-    state["step"] = snap["state0"]["step"].clone()
+    state = fresh_state()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     state, ms_one, (loss_single,) = timed_steps(torch, step, state,
@@ -5669,16 +5717,24 @@ def sharded_full(torch, smi_line, dev):
                 for n, w in snap["want"].items())
     state, ms_single, _ = timed_steps(torch, step, state, batches[1:])
     peak_single = (torch.cuda.max_memory_allocated() - held()) / 2 ** 30
-    del model, step, state
+    del step, state
+    mesh = slab_mesh(torch, dev, (4, 2))
+    restart()
+    with patched(same_association(torch, mesh.shape["model"])):
+        steps.build_train_step(model, opt, accum_steps=mesh.shape["data"])(
+            fresh_state(), batches[0])
+    snap["same"] = {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+    same_moved = max(float((w - snap["p0"][n]).abs().max())
+                     for n, w in snap["same"].items())
+    del model
     torch.cuda.empty_cache()
 
-    mesh = slab_mesh(torch, dev, (4, 2))
-    params, rules = shard_values(snap.pop("p0"), cfg, mesh)
-    state0 = snap.pop("state0")
+    params, rules = shard_values(snap["p0"], cfg, mesh)
     opt_state = {k: {n: M.distribute(t, params[n].sharding)
-                     for n, t in state0[k].items()} for k in ("mu", "nu")}
-    opt_state["step"] = state0["step"].clone()
-    del state0
+                     for n, t in snap["state0"][k].items()}
+                 for k in ("mu", "nu")}
+    opt_state["step"] = snap["state0"]["step"].clone()
     torch.cuda.empty_cache()
     resident = {}
     for n, st in params.items():
@@ -5698,36 +5754,265 @@ def sharded_full(torch, smi_line, dev):
         torch, sstep, opt_state, batches[:1])
     got_counts, want_counts = launch_counts()
     check(got_counts == want_counts, f"sharded step launched {got_counts}")
-    param_err = max(float((params[n].gather(dev) - w).abs().max())
-                    for n, w in snap["want"].items())
+    param_err, worst = update_err(params, snap["want"])
+    same_err, same_worst = update_err(params, snap["same"])
     opt_state, ms_sharded, _ = timed_steps(torch, sstep, opt_state,
                                            batches[1:])
     peak_sharded = (torch.cuda.max_memory_allocated() - held()) / 2 ** 30
     slab_bytes = sum(st.nbytes() for tree in (
         params, opt_state["mu"], opt_state["nu"]) for st in tree.values())
+    del params, opt_state, sstep
+    torch.cuda.empty_cache()
+
+    # the control: the same split step with the fault the bar must catch
+    params, rules = shard_values(snap["p0"], cfg, mesh)
+    opt_state = {k: {n: M.distribute(t, params[n].sharding)
+                     for n, t in snap["state0"][k].items()}
+                 for k in ("mu", "nu")}
+    opt_state["step"] = snap["state0"]["step"].clone()
+    with patched(partial_sums_in_bf16(torch)):
+        steps.build_train_step(Model(cfg, device="meta"), opt, mesh=mesh,
+                               rules=rules, params=params)(opt_state,
+                                                           batches[0])
+    control_err, control_worst = update_err(params, snap["same"])
+    del params, opt_state
     loss_err = abs(loss_sharded - loss_single) / abs(loss_single)
     emit("sharded_train", nvidia_smi=smi_line, arch=cfg.name,
          layers=cfg.n_layers, params=cfg.param_count(), dtype=cfg.dtype,
          remat=cfg.remat, batch=b, seq=s, mesh=dict(mesh.shape),
          loss_single=loss_single, loss_sharded=loss_sharded,
          loss_rel_err=loss_err, param_max_abs_err=param_err,
-         tol=SHARD_TOL, update_max_abs=moved,
-         update_rel_err=param_err / moved, update_tol=SHARD_UPDATE_TOL,
+         param_worst=worst, tol=SHARD_TOL, update_max_abs=moved,
+         update_rel_err=param_err / moved,
+         same_association_update_max_abs=same_moved,
+         same_association_rel_err=same_err / moved,
+         same_association_worst=same_worst,
+         control_bf16_partials_rel_err=control_err / moved,
+         control_worst=control_worst, update_tol=SHARD_UPDATE_TOL,
          slabs_exact=True, slab_gib=slab_bytes / 2 ** 30,
          step_ms_single_first=ms_one[0], step_ms_sharded_first=ms_first[0],
          step_ms_single_median=statistics.median(ms_single),
          step_ms_sharded_median=statistics.median(ms_sharded),
          step_ms_single=ms_single, step_ms_sharded=ms_sharded,
          peak_gib_single=peak_single, peak_gib_sharded=peak_sharded,
+         ranks_a_position=mesh.shape["model"],
+         whole_weights_step_ms=SHARD_WHOLE_WEIGHTS["step_ms"],
+         whole_weights_peak_gib=SHARD_WHOLE_WEIGHTS["peak_gib"],
          launches=got_counts, seconds=time.perf_counter() - t0)
+    del batches, snap
+    torch.cuda.empty_cache()
     check(param_err <= SHARD_TOL and loss_err <= SHARD_TOL,
           f"sharded step vs single: parameters {param_err:.3e}, loss "
           f"{loss_err:.3e}")
     # the update itself, far under 5e-3: max|Δgot - Δwant| = max|got -
-    # want| against the single-device step's largest move
-    check(param_err <= SHARD_UPDATE_TOL * moved, f"sharded step's update "
-          f"vs single: {param_err:.3e} of a largest move {moved:.3e}")
-    del params, opt_state, sstep, batches, snap
+    # want| against the largest move, the split against one device
+    # summing as its ranks do; and the bar sees the fault
+    check(same_err <= SHARD_UPDATE_TOL * moved,
+          f"sharded step's update vs the same association on one device: "
+          f"{same_err:.3e} of a largest move {moved:.3e}")
+    check(control_err > SHARD_UPDATE_TOL * moved,
+          f"the update bar misses partial sums rounded to bf16: "
+          f"{control_err:.3e} of a largest move {moved:.3e}")
+    sharded_full_f32(torch, smi_line, dev)
+
+
+def same_association(torch, m):
+    """Patches (``(module, name, function)``) that make one device sum
+    every contraction a (., ``m``) mesh's ranks split as the ranks sum it,
+    each rank's slice of heads, hidden columns and vocabulary rows taken
+    on its own: the query, key and value products and the MLP's gate and
+    up products of each rank's columns; the attention of each rank's
+    heads; the output projections' partial sums in float32, added in rank
+    order and rounded once; the loss's logits of each rank's vocabulary
+    rows, their log-sum-exps combined and their label logits added; and
+    in the backward each rank's input gradient of those products summed
+    over the ranks in float32 in rank order and rounded once
+    (``distributed.mesh.Group``)."""
+    from repro_torch.models import attention, layers
+    from repro_torch.models import model as model_mod
+
+    class Fork(torch.autograd.Function):
+        """``x`` once a rank; the ranks' gradients summed as the group's
+        all-gather transposes them."""
+
+        @staticmethod
+        def forward(ctx, x):
+            return tuple(x.view_as(x) for _ in range(m))
+
+        @staticmethod
+        def backward(ctx, *gs):
+            total = gs[0].float()
+            for g in gs[1:]:
+                total = total + g.float()
+            return total.to(gs[0].dtype)
+
+    def cols(w, r):
+        n = w.shape[1] // m
+        return w[:, r * n:(r + 1) * n].contiguous()
+
+    def rows(w, r):
+        n = w.shape[0] // m
+        return w[r * n:(r + 1) * n]
+
+    def reduce(parts, dt):
+        total = parts[0]
+        for y in parts[1:]:
+            total = total + y
+        return total.to(dt)
+
+    def qkv(p, spec, x, src):
+        assert src is x and spec.n_kv % m == 0
+        dt = x.dtype
+        xs = Fork.apply(x)
+        out = []
+        for name, n in (("wq", spec.n_heads), ("wk", spec.n_kv),
+                        ("wv", spec.n_kv)):
+            w = layers.cast(p[name], dt)
+            out.append(torch.cat([attention._split_heads(
+                xs[r] @ cols(w, r), n // m, spec.head_dim)
+                for r in range(m)], dim=2))
+        return out
+
+    def sdpa(q, k, v, mask, q_chunk=None):
+        hq, hk = q.shape[2] // m, k.shape[2] // m
+        return torch.cat([attention_sdpa(
+            q[:, :, r * hq:(r + 1) * hq], k[:, :, r * hk:(r + 1) * hk],
+            v[:, :, r * hk:(r + 1) * hk], mask, q_chunk)
+            for r in range(m)], dim=2)
+
+    def out(p, o, dt):
+        w = layers.cast(p["wo"], dt)
+        n = o.shape[-1] // m
+        return reduce([layers.matmul_f32(o[..., r * n:(r + 1) * n],
+                                         rows(w, r)) for r in range(m)], dt)
+
+    def mlp(p, x, act="silu"):
+        dt = x.dtype
+        xs = Fork.apply(x)
+        gate, up, wo = (layers.cast(p[k], dt)
+                        for k in ("wi_gate", "wi_up", "wo"))
+        return reduce([layers.matmul_f32(
+            layers.ACTS[act](xs[r] @ cols(gate, r)) * (xs[r] @ cols(up, r)),
+            rows(wo, r)) for r in range(m)], dt)
+
+    def loss(x, table, labels, mask=None, chunk=512, z_loss=0.0,
+             denom=None):
+        assert mask is None and not z_loss
+        dt = x.dtype
+        b, s, _ = x.shape
+        wt = layers.cast(table, dt)
+        n = wt.shape[0] // m
+        xs = Fork.apply(x)
+        chunk = min(chunk, s)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lo in range(0, s, chunk):
+            hi = min(lo + chunk, s)
+            yc = labels[:, lo:hi].long()
+            lses, lls = [], []
+            for r in range(m):
+                logits = layers.matmul_f32(xs[r][:, lo:hi], rows(wt, r).T)
+                local = yc - r * n
+                hit = (local >= 0) & (local < n)
+                ll = torch.gather(logits, -1,
+                                  torch.where(hit, local, 0)[..., None])
+                lses.append(torch.logsumexp(logits, dim=-1))
+                lls.append(ll[..., 0] * hit)
+            lse = torch.logsumexp(torch.stack(lses), dim=0)
+            total = total + (lse - reduce(lls, torch.float32)).sum()
+        return total / (b * s if denom is None else denom)
+
+    attention_sdpa = attention.sdpa
+    return [(attention, "_qkv", qkv), (attention, "sdpa", sdpa),
+            (attention, "_out", out), (model_mod, "mlp", mlp),
+            (model_mod, "lm_loss_chunked", loss)]
+
+
+def partial_sums_in_bf16(torch):
+    """Patches that round each row-parallel product's partial sums to bf16
+    before the ranks' reduction: the fault a split step's update check
+    must catch (``sharded_full``'s control)."""
+    from repro_torch.models import attention, layers
+    from repro_torch.models import sharding
+
+    def reduce_to(x, *logical):
+        return sharding.reduce_to(x.to(torch.bfloat16), *logical)
+    return [(attention, "reduce_to", reduce_to),
+            (layers, "reduce_to", reduce_to)]
+
+
+@contextlib.contextmanager
+def patched(patches):
+    """``patches`` (``(module, name, value)``) applied inside."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, value in patches:
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+
+
+def sharded_full_f32(torch, smi_line, dev):
+    """24 (a), at f32: stablelm-1.6b at full width and depth, one AdamW
+    step on (4, 2) against one device from the same weights and non-zero
+    moments, the update p - p0 within 1e-2 x its largest (no allowance:
+    at f32 the rounding of a re-associated sum does not reach it)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.distributed import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get(SHARD_ARCH), dtype="float32")
+    b, s = SHARD_TRAIN["batch"], SHARD_TRAIN["seq"]
+    batch = TokenStream(DataConfig(cfg.vocab_size, s, b, seed=33),
+                        dev).batch(0)
+    opt = AdamWConfig(warmup_steps=10, decay_steps=1000)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    model = Model(cfg, device=dev).init(gen)
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss = model.loss(batch)
+    loss.backward()
+    state0 = conditioned_state(torch, {n: p.grad for n, p in
+                                       model.named_parameters()},
+                               SHARD_TRAIN["step0"], dev)
+    model.zero_grad(set_to_none=True)
+    del loss
+    state = {k: {n: t.clone() for n, t in state0[k].items()}
+             for k in ("mu", "nu")}
+    state["step"] = state0["step"].clone()
+    _, stats = steps.build_train_step(model, opt)(state, batch)
+    loss_single = float(stats["loss"])
+    want = {n: p.detach() for n, p in model.named_parameters()}
+    moved = max(float((w - p0[n]).abs().max()) for n, w in want.items())
+    del state
+    mesh = slab_mesh(torch, dev, (4, 2))
+    params, rules = shard_values(p0, cfg, mesh)
+    del p0
+    opt_state = {k: {n: M.distribute(t, params[n].sharding)
+                     for n, t in state0[k].items()} for k in ("mu", "nu")}
+    opt_state["step"] = state0["step"].clone()
+    del state0
+    sstep = steps.build_train_step(Model(cfg, device="meta"), opt,
+                                   mesh=mesh, rules=rules, params=params)
+    _, sstats = sstep(opt_state, batch)
+    err = max(float((params[n].gather(dev) - w).abs().max())
+              for n, w in want.items())
+    loss_err = abs(float(sstats["loss"]) - loss_single) / abs(loss_single)
+    emit("sharded_train_f32", nvidia_smi=smi_line, arch=cfg.name,
+         layers=cfg.n_layers, dtype=cfg.dtype, batch=b, seq=s,
+         mesh=dict(mesh.shape), loss_single=loss_single,
+         loss_rel_err=loss_err, update_max_abs=moved,
+         param_max_abs_err=err, update_rel_err=err / moved,
+         update_tol=SHARD_UPDATE_TOL, seconds=time.perf_counter() - t0)
+    check(err <= SHARD_UPDATE_TOL * moved and loss_err <= SHARD_F32_TOL,
+          f"f32 sharded step vs single: update {err:.3e} of {moved:.3e}, "
+          f"loss {loss_err:.3e}")
+    del model, want, params, opt_state, sstep
     torch.cuda.empty_cache()
 
 
@@ -6010,6 +6295,159 @@ def sharded_mixer(torch, smi_line, dev, d=MIXER_D, batch=MIXER_BATCH,
     return [rec]
 
 
+def decode_logits(torch, prefill, decode, tokens, steps_):
+    """Prefill ``tokens`` (B, P) then decode ``steps_`` tokens fed from
+    ``steps_`` (B, N) one at a time: every step's logits."""
+    cache, logits = prefill({"tokens": tokens})
+    out = [logits]
+    for i in range(steps_.shape[1]):
+        logits, cache = decode(cache, steps_[:, i:i + 1])
+        out.append(logits)
+    return out, cache
+
+
+def sharded_tp(torch, smi_line, dev):
+    """24 (f): stablelm-1.6b at full width on (1, 4) slabs of the card, its
+    one data position computing as 4 ranks. bf16 at full depth: the
+    prefill and 8 decode tokens (fed one device's greedy tokens) within
+    1e-2 x max|want| of one device, each rank's KV cache its own slab (a
+    quarter of the 32 kv heads); at f32, 2 layers, every logit within 1e-5 x
+    max|want| and ``generate``'s tokens equal; one bf16 AdamW step (batch
+    8, seq 128) timed, its peak. Returns (the step's configuration, its
+    peak bytes on the card) for (g)."""
+    import dataclasses
+    import statistics
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    t0 = time.perf_counter()
+    tp = SHARD_TP
+    b, p, new = tp["batch"], tp["prompt"], tp["new"]
+    cfg = registry.get(SHARD_ARCH)
+    mesh = slab_mesh(torch, dev, tp["mesh"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30)
+    model = Model(cfg, device=dev).init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p),
+                            generator=torch.Generator().manual_seed(30))
+    prompts = prompts.to(dev)
+    with torch.no_grad(), model.compute_cast():
+        toks = serve.generate(model, prompts, new, p + new)
+        want, _ = decode_logits(
+            torch, lambda bt: model.prefill(bt, p + new),
+            model.decode_step, prompts, toks[:, :new])
+    params, rules = shard_values(
+        {k: v.detach() for k, v in model.named_parameters()}, cfg, mesh)
+    t1 = time.perf_counter()
+    got, cache = decode_logits(
+        torch, steps.build_prefill(model, p + new, mesh, rules, params),
+        steps.build_decode(model, mesh, rules, params), prompts,
+        toks[:, :new])
+    t_split = time.perf_counter() - t1
+    errs = [rel_to(g, w) for g, w in zip(got, want)]
+    k = cache["layers"][0]["k"]
+    slab_heads = [s.shape[2] for _, s in k.items()]
+    check(tuple(k.spec)[2] == "model" and slab_heads == [
+        cfg.n_kv_heads // 4] * 4, f"the KV cache's slabs: {k.spec}, "
+          f"{slab_heads}")
+    del model, params, cache, got, want
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, n_layers=tp["layers32"],
+                                dtype="float32")
+    gen.manual_seed(31)
+    m32 = Model(cfg32, device=dev).init(gen)
+    with torch.no_grad():
+        want32 = serve.generate(m32, prompts, new, p + new)
+        w32, _ = decode_logits(
+            torch, lambda bt: m32.prefill(bt, p + new), m32.decode_step,
+            prompts, want32[:, :new])
+    p32, r32 = shard_values({k: v.detach() for k, v in
+                             m32.named_parameters()}, cfg32, mesh)
+    g32, _ = decode_logits(
+        torch, steps.build_prefill(m32, p + new, mesh, r32, p32),
+        steps.build_decode(m32, mesh, r32, p32), prompts, want32[:, :new])
+    errs32 = [rel_to(g, w) for g, w in zip(g32, w32)]
+    same32 = torch.equal(serve.generate(m32, prompts, new, p + new,
+                                        mesh=mesh), want32)
+    del m32, p32, g32, w32
+    torch.cuda.empty_cache()
+
+    bt, st = tp["train_batch"], tp["train_seq"]
+    data = TokenStream(DataConfig(cfg.vocab_size, st, bt, seed=32), dev)
+    batches = [data.batch(i) for i in range(3)]
+    gen.manual_seed(32)
+    model = Model(cfg, device=dev).init(gen)
+    params, rules = shard_values(
+        {k: v.detach() for k, v in model.named_parameters()}, cfg, mesh)
+    del model
+    torch.cuda.empty_cache()
+    # what the card holds besides the step's slabs (earlier phases' own)
+    base = torch.cuda.memory_allocated() - sum(
+        st_.nbytes() for st_ in params.values())
+    opt_state = steps.init_sharded_opt(params)
+    sstep = steps.build_train_step(Model(cfg, device="meta"),
+                                   AdamWConfig(warmup_steps=10,
+                                               decay_steps=1000),
+                                   mesh=mesh, rules=rules, params=params)
+    torch.cuda.reset_peak_memory_stats()
+    opt_state, ms, losses = timed_steps(torch, sstep, opt_state, batches)
+    peak = torch.cuda.max_memory_allocated() - base
+    emit("sharded_tp", nvidia_smi=smi_line, arch=cfg.name,
+         layers=cfg.n_layers, dtype=cfg.dtype, mesh=dict(mesh.shape),
+         batch=b, prompt=p, new=new, logits_rel_err=errs,
+         logits_rel_err_max=max(errs), tol=SHARD_TP_TOL,
+         err_over_tol=max(errs) / SHARD_TP_TOL, split_decode_s=t_split,
+         kv_slab_heads=slab_heads, f32_layers=cfg32.n_layers,
+         f32_logits_rel_err_max=max(errs32), f32_tol=SHARD_F32_TOL,
+         f32_generate_tokens_equal=same32, train_batch=bt, train_seq=st,
+         train_step_ms_first=ms[0], train_step_ms=ms[1:],
+         train_step_ms_median=statistics.median(ms[1:]), losses=losses,
+         train_peak_gib=peak / 2 ** 30,
+         train_peak_gib_a_rank=peak / 4 / 2 ** 30,
+         seconds=time.perf_counter() - t0)
+    check(max(errs) <= SHARD_TP_TOL, f"stablelm (1, 4) bf16 logits vs one "
+          f"device: {errs}")
+    check(max(errs32) <= SHARD_F32_TOL and same32, f"stablelm (1, 4) f32 "
+          f"2 layers: logits {max(errs32):.3e}, tokens equal {same32}")
+    check(all(math.isfinite(x) for x in losses), f"(1, 4) step: {losses}")
+    del params, opt_state, sstep, batches
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, batch=bt, seq=st), peak
+
+
+def sharded_dryrun_check(torch, smi_line, step, measured):
+    """24 (g): the dry run's count of (f)'s train step on a (1, 4) meta
+    mesh (the view of the first rank's device): its argument and temp
+    bytes, beside the card's peak / 4 (the four ranks' slabs and work on
+    one card)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as lm
+    mesh = lm.make_host_mesh(4, [torch.device("meta")] * 4)
+    rules = lm.activation_rules(mesh)
+    shape = registry.ShapeSpec("train", step["seq"], step["batch"], "train")
+    fn, args, held, params = dryrun._cell(step["cfg"], shape, mesh, rules)
+    counter, _, secs = dryrun.count_step(fn, args, mesh, rules, params)
+    dev = counter.devices[counter.home]
+    predicted = held + dev.peak
+    per_device = measured / 4
+    err = (predicted - per_device) / per_device
+    emit("sharded_dryrun_check", nvidia_smi=smi_line,
+         arch=step["cfg"].name, mesh={"data": 1, "model": 4},
+         batch=step["batch"], seq=step["seq"], argument_bytes=held,
+         temp_bytes=dev.peak, predicted_peak_bytes=predicted,
+         measured_card_peak_bytes=measured,
+         measured_peak_bytes_a_device=per_device,
+         predicted_peak_gib=predicted / 2 ** 30,
+         measured_peak_gib_a_device=per_device / 2 ** 30,
+         peak_rel_err=err, tol=SHARD_DRYRUN_TOL,
+         flops_a_device=dev.flops, trace_seconds=secs)
+    return err
+
+
 def sharded_lm_phase(torch, smi_line):
     """Phase 24: the LM stack over a mesh of slabs of the one card.
     Returns the ``kernels`` records (the mixer's sharded step)."""
@@ -6030,6 +6468,12 @@ def sharded_lm_phase(torch, smi_line):
     t0 = time.perf_counter()
     records = sharded_mixer(torch, smi_line, dev)
     seconds["d_mixer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, peak = sharded_tp(torch, smi_line, dev)
+    seconds["f_tp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded_dryrun_check(torch, smi_line, step, peak)
+    seconds["g_dryrun"] = time.perf_counter() - t0
     total = sum(seconds.values())
     emit("sharded_seconds", nvidia_smi=smi_line, total=total,
          limit=SHARD_SECONDS, **seconds)

@@ -6,11 +6,10 @@
 One row a cell, in ``registry.cells()`` order and then the SAR scene, its
 single-pod and multi-pod records side by side (s / m): the busiest
 device's peak GiB (starred where it exceeds ``--total-memory`` bytes, a
-card's ``torch.cuda.get_device_properties(0).total_memory``), the
-roofline's three terms in ms and its bottleneck, and the compute term a
-device would have if each data position's work were split over the
-"model" axis (16 on both meshes), as the reference's tensor-parallel
-layout splits it.
+card's ``torch.cuda.get_device_properties(0).total_memory``), and the
+roofline's three terms in ms and its bottleneck. The step splits each
+data position's compute over its "model" row (16 ranks on both meshes),
+so the terms are one rank's.
 """
 import argparse
 import json
@@ -18,7 +17,6 @@ import os
 
 from repro_torch.configs import registry
 
-MODEL_AXIS = 16        # "model" of both production meshes
 _BOUND = {"compute": "C", "memory": "M", "collective": "L"}
 
 
@@ -43,9 +41,8 @@ def main():
     cells = [(a, s) for a, s, skip in registry.cells() if skip is None]
     cells.append(("sar-rda-4k", "n/a"))
     print("| Cell | Peak GiB s / m | Compute ms s / m | Memory ms s / m | "
-          "Collective ms s / m | Bound | Compute ms split over \"model\" "
-          "s / m |")
-    print("|---|---:|---:|---:|---:|---|---:|")
+          "Collective ms s / m | Bound |")
+    print("|---|---:|---:|---:|---:|---|")
     over, n, seconds = 0, 0, 0.0
     for arch, shape in cells:
         recs = [load(args.directory, arch, shape, t)
@@ -53,7 +50,7 @@ def main():
         if None in recs:
             print(f"| {arch} {shape} | missing |")
             continue
-        cols = {k: [] for k in ("peak", "c", "m", "l", "b", "split")}
+        cols = {k: [] for k in ("peak", "c", "m", "l", "b")}
         for rec in recs:
             r = rec["roofline"]
             peak = rec["memory"]["peak_bytes_per_device"]
@@ -66,7 +63,6 @@ def main():
             cols["m"].append(fmt(r["t_memory_s"] * 1e3))
             cols["l"].append(fmt(r["t_collective_s"] * 1e3))
             cols["b"].append(_BOUND[r["bottleneck"]])
-            cols["split"].append(fmt(r["t_compute_s"] * 1e3 / MODEL_AXIS))
         print(f"| {arch} {shape} | " + " | ".join(
             " / ".join(cols[k]) for k in cols) + " |")
     print(f"\n{n} records, {over} over {args.total_memory} B (*); "

@@ -3,9 +3,11 @@
 mesh of slabs of the one card (stablelm-1.6b's sharded train step at full
 width and depth against one device, two layers at f32 on (4, 2) and
 (2, 2, 2), gemma3-12b's sequence-parallel decode and stablelm's
-``generate`` under (4, 1), the FFTConvMixer's sharded AdamW step).
+``generate`` under (4, 1), the FFTConvMixer's sharded AdamW step, and
+stablelm-1.6b split over (1, 4) ranks with the dry run's count of its
+step beside the card's).
 
-    python3 scripts/sharded_smoke.py [--parts full,f32,serve,mixer]
+    python3 scripts/sharded_smoke.py [--parts full,f32,serve,mixer,tp]
 
 Builds only ``csrc/spectral.cu`` when the mixer part runs (the one kernel
 the phase launches), prints the card's name and power limit, each part's
@@ -26,7 +28,14 @@ sys.path.insert(0, HERE)
 
 import chip_smoke  # noqa: E402
 
-PARTS = ("full", "f32", "serve", "mixer")
+PARTS = ("full", "f32", "serve", "mixer", "tp")
+
+
+def tp(torch, smi_line, dev):
+    """Phase 24 (f) and (g); no ``kernels`` record."""
+    step, peak = chip_smoke.sharded_tp(torch, smi_line, dev)
+    chip_smoke.sharded_dryrun_check(torch, smi_line, step, peak)
+    return []
 
 
 def main() -> int:
@@ -59,7 +68,8 @@ def main() -> int:
     runs = {"full": lambda: chip_smoke.sharded_full(torch, smi_line, dev),
             "f32": lambda: chip_smoke.sharded_f32(torch, smi_line, dev),
             "serve": lambda: chip_smoke.sharded_serve(torch, smi_line, dev),
-            "mixer": lambda: chip_smoke.sharded_mixer(torch, smi_line, dev)}
+            "mixer": lambda: chip_smoke.sharded_mixer(torch, smi_line, dev),
+            "tp": lambda: tp(torch, smi_line, dev)}
     records, failed = [], []
     for part in parts:
         t0 = time.perf_counter()

@@ -156,7 +156,7 @@ def view(coords: tuple):
     new one (``sharded_empty``) is made there alone (its other slabs are
     None), and the data positions whose device is not at ``coords`` are
     not run: their results are the first held position's (same code, same
-    shapes; ``models.sharding.run_positions``). Gathers still read every
+    shapes; ``models.sharding.run_ranks``). Gathers still read every
     slab. A dry run counts one device's work so, on meta tensors."""
     prev = _VIEW[0]
     _VIEW[0] = tuple(coords)
@@ -396,16 +396,21 @@ class ShardedTensor:
             out.append(slice(i * dim // n, (i + 1) * dim // n))
         return tuple(out)
 
-    def _overlaps(self, block: tuple, copies: bool, every: bool = False):
+    def _overlaps(self, block: tuple, copies: bool, every: bool = False,
+                  at: Optional[dict] = None):
         """(slab, slices of the slab, slices of ``block``) for each slab
         overlapping ``block``: every copy, or (``copies`` False) the first
         position in mesh order holding each slab; among ``items``' slabs,
-        or (``every``) among all of them whatever the view."""
+        or (``every``) among all of them whatever the view; and only at
+        the positions whose coordinates ``at`` (axis -> index) names."""
         seen = set()
         ndim = len(self.shape)
         sub = self.sharding.shard_shape(self.shape)
         slabs = np.ndenumerate(self.slabs) if every else self.items()
+        axis = {a: i for i, a in enumerate(self.mesh.axis_names)}
         for coords, slab in slabs:
+            if at and any(coords[axis[a]] != v for a, v in at.items()):
+                continue
             idx = self.sharding.block_index(coords, ndim)
             if not copies:
                 if idx in seen:
@@ -456,12 +461,14 @@ class ShardedTensor:
             total = part if total is None else total + part
         return total
 
-    def write(self, value: torch.Tensor, start: Sequence[int] = None):
-        """Copy ``value`` into every slab (each copy) at the whole
-        tensor's offsets ``start`` (0 along every dimension when None)."""
+    def write(self, value: torch.Tensor, start: Sequence[int] = None,
+              at: Optional[dict] = None):
+        """Copy ``value`` into every slab (each copy; only those at the
+        coordinates ``at`` names, when given) at the whole tensor's offsets
+        ``start`` (0 along every dimension when None)."""
         start = [0] * len(self.shape) if start is None else list(start)
         block = tuple(slice(s, s + n) for s, n in zip(start, value.shape))
-        for slab, inner, local in self._overlaps(block, copies=True):
+        for slab, inner, local in self._overlaps(block, copies=True, at=at):
             src, dst = value[local], slab[inner]
             if not _same_memory(src, dst):
                 dst.copy_(src)
@@ -536,3 +543,256 @@ def position_device(mesh: Mesh, where: dict) -> torch.device:
     """The device of the first mesh position at ``where``."""
     idx = tuple(where.get(a, 0) for a in mesh.axis_names)
     return mesh.devices[idx]
+
+
+# ---------------------------------------------------------------------------
+# A data position's model group: its ranks and their collectives
+# ---------------------------------------------------------------------------
+
+class Group:
+    """The ranks of one data position along the mesh's "model" axis: rank
+    ``r`` computes on ``devices[r]`` (mesh position ``coords[r]``), each
+    in a thread of its own, and meets the others in the collectives below
+    (``group_all_gather``, ``group_reduce_scatter``, ``group_all_reduce``):
+    every rank hands in its tensor, rank 0 applies the collective to all
+    of them as one ``autograd.Function``, and each takes its own result.
+    So the group's ranks make one autograd graph, whose backward (one
+    ``backward()`` of the sum of their losses) runs every collective's
+    transpose as one node and never waits for a peer. Always rank 0: the
+    Function's node takes its autograd sequence number from the thread
+    that applies it, and the backward orders the nodes by those numbers,
+    so a race for the application would make the order in which a
+    tensor's gradients are summed differ from run to run.
+
+    ``solo``: within a dry run's view (``view``) only rank ``solo`` runs;
+    a collective then gives that rank's result alone, of the shape its
+    peers would make (their inputs taken to be alike), and records its
+    bytes. A rank that fails aborts its peers' waits (``abort``)."""
+
+    def __init__(self, devices: Sequence, coords: Sequence,
+                 solo: Optional[int] = None):
+        self.devices = [torch.device(d) for d in devices]
+        self.coords = list(coords)
+        self.size = len(self.devices)
+        self.solo = solo
+        self._slots: list = [None] * self.size
+        self._out: list = []
+        self._error: Optional[BaseException] = None
+        self._barrier = threading.Barrier(self.size)
+
+    def ranks(self) -> list:
+        """The ranks whose work runs (all of them, or the view's one)."""
+        return list(range(self.size)) if self.solo is None else [self.solo]
+
+    def abort(self):
+        self._barrier.abort()
+
+    def meet(self, r: int, x: torch.Tensor, apply) -> torch.Tensor:
+        """Rank ``r``'s part in one collective: ``apply(xs)`` of every
+        rank's tensor (a list, None at ranks that do not run), applied
+        once, returns each rank's result in a list."""
+        if self.solo is not None:
+            xs = [None] * self.size
+            xs[r] = x
+            return apply(xs)[r]
+        self._slots[r] = x
+        self._barrier.wait()
+        if r == 0:
+            try:
+                self._out = apply(list(self._slots))
+            except BaseException as e:  # noqa: BLE001 - raised in every rank
+                self._error = e
+            self._slots = [None] * self.size
+        self._barrier.wait()
+        if self._error is not None:
+            raise self._error
+        out, self._out[r] = self._out[r], None
+        if r != 0 and torch.is_grad_enabled():
+            out = _aligned(out)
+        return out
+
+    # ---- per-rank results, each made at its rank's position ---------------
+    def _each(self, fn) -> list:
+        out = [None] * self.size
+        for j in self.ranks():
+            with placed(self.coords[j]):
+                out[j] = fn(j)
+        return out
+
+    def _like(self, xs: Sequence) -> list:
+        """Every rank's tensor; in a view, the absent peers' taken to be
+        the running rank's."""
+        x0 = next(x for x in xs if x is not None)
+        return [x0 if x is None else x for x in xs]
+
+    def gather_all(self, xs: Sequence, dim: int) -> list:
+        xs = self._like(xs)
+        out = self._each(lambda j: torch.cat(
+            [x.to(self.devices[j]) for x in xs], dim=dim))
+        self._note("all-gather", out)
+        return out
+
+    def scatter_sum(self, xs: Sequence, dim: int, sizes: Sequence) -> list:
+        """The sum of every rank's tensor, rank j keeping part j (of
+        ``sizes`` along ``dim``), summed in rank order."""
+        xs = self._like(xs)
+        starts = [sum(sizes[:j]) for j in range(self.size)]
+
+        def part(j):
+            return _sum([x.narrow(dim, starts[j], sizes[j]).to(
+                self.devices[j]) for x in xs])
+        out = self._each(part)
+        self._note("reduce-scatter", out)
+        return out
+
+    def sum_all(self, xs: Sequence) -> list:
+        """The sum of every rank's tensor on every rank, in rank order."""
+        xs = self._like(xs)
+
+        out = self._each(lambda j: _sum([x.to(self.devices[j])
+                                         for x in xs]))
+        self._note("all-reduce", out)
+        return out
+
+    def _note(self, op: str, out: list):
+        for j in self.ranks():
+            note_collective(op, _nbytes(out[j]), self.size, self.coords[j])
+
+
+def _sum(xs: Sequence) -> torch.Tensor:
+    """The sum of ``xs`` in order; 16-bit tensors summed in float32 and
+    rounded once, as one device rounds a product over the whole
+    contraction once (``models/layers.py``)."""
+    dt = xs[0].dtype
+    wide = dt in (torch.bfloat16, torch.float16)
+    total = None
+    for x in xs:
+        x = x.to(torch.float32) if wide else x
+        total = x if total is None else total + x
+    return total.to(dt) if wide else total
+
+
+def _aligned(out: torch.Tensor) -> torch.Tensor:
+    """``out`` through ``_Align``, where it requires grad."""
+    return _Align.apply(out) if out.requires_grad else out
+
+
+class _Align(torch.autograd.Function):
+    """The identity, as one autograd node of the rank that did not apply a
+    collective: every rank then takes one sequence number a collective,
+    so the ranks' nodes keep equal numbers, the backward runs them in
+    step, and each rank's own nodes run in the order they would alone (as
+    a dry run's view runs one)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _GroupAllGather(torch.autograd.Function):
+    """Every rank's tensor concatenated along ``dim`` on every rank; the
+    transpose sums the ranks' cotangents and gives rank j its part
+    (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, group, dim, *xs):
+        ctx.group, ctx.dim = group, dim
+        ctx.sizes = [group._like(xs)[j].shape[dim]
+                     for j in range(group.size)]
+        return tuple(group.gather_all(xs, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *ctx.group.scatter_sum(gs, ctx.dim, ctx.sizes))
+
+
+class _GroupReduceScatter(torch.autograd.Function):
+    """The ranks' tensors summed, rank j keeping its part along ``dim``;
+    the transpose gives every rank every part's cotangent (all-gather)."""
+
+    @staticmethod
+    def forward(ctx, group, dim, *xs):
+        ctx.group, ctx.dim = group, dim
+        n = group._like(xs)[0].shape[dim]
+        sizes = [(j + 1) * n // group.size - j * n // group.size
+                 for j in range(group.size)]
+        return tuple(group.scatter_sum(xs, dim, sizes))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *ctx.group.gather_all(gs, ctx.dim))
+
+
+class _GroupAllReduce(torch.autograd.Function):
+    """The ranks' tensors summed on every rank; the transpose is itself."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(group.sum_all(xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *ctx.group.sum_all(gs))
+
+
+class _GroupCopy(torch.autograd.Function):
+    """One tensor on every rank (the identity, no bytes move where the
+    ranks share a device); the transpose sums the ranks' cotangents
+    (all-reduce): a weight replicated over the group gets the gradient of
+    every rank's use."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group, ctx.device = group, x.device
+        return tuple(group._each(lambda j: x.view_as(x) if group.devices[j]
+                                 == x.device else x.to(group.devices[j])))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        present = [g if j in ctx.group.ranks() else None
+                   for j, g in enumerate(gs)]
+        total = ctx.group.sum_all(present)[ctx.group.ranks()[0]]
+        return None, total.to(ctx.device)
+
+
+def group_all_gather(group: Group, xs: Sequence, dim: int) -> list:
+    """``_GroupAllGather`` of the ranks' tensors (None at ranks that do not
+    run)."""
+    return _apply(_GroupAllGather, group, dim, xs)
+
+
+def group_reduce_scatter(group: Group, xs: Sequence, dim: int) -> list:
+    """``_GroupReduceScatter``: rank j's part has ``(j + 1) n // P - j n //
+    P`` of the ``n`` lines along ``dim``."""
+    return _apply(_GroupReduceScatter, group, dim, xs)
+
+
+def group_all_reduce(group: Group, xs: Sequence) -> list:
+    return _apply(_GroupAllReduce, group, None, xs)
+
+
+def group_copy(group: Group, x: torch.Tensor) -> list:
+    """``x`` on every rank's device, its gradient all-reduced over the
+    group (``_GroupCopy``); None at ranks that do not run."""
+    return list(_GroupCopy.apply(group, x))
+
+
+def _apply(fn, group: Group, dim, xs: Sequence) -> list:
+    """``fn`` over the ranks that run: absent ranks' inputs (a view's
+    peers) are stand-ins of the running rank's shape, and their results
+    None. ``dim``: ``fn``'s argument after the group (None: none)."""
+    ranks = group.ranks()
+    if len(ranks) < group.size:
+        x0 = xs[ranks[0]]
+        stand = x0.detach()
+        args = [xs[j] if j in ranks else stand for j in range(group.size)]
+    else:
+        args = list(xs)
+    lead = (group,) if dim is None else (group, dim)
+    out = list(fn.apply(*lead, *args))
+    return [out[j] if j in ranks else None for j in range(group.size)]

@@ -24,10 +24,11 @@ whose every device reads ``torch.device("meta")``. For each device:
 
 Which device an op runs on: the slab work's position
 (``distributed.mesh.placed``), else the tensor it writes in place, else
-the data position whose compute runs (``models.sharding``), else the
-first input whose storage the counter knows (one of more than one
-element first), else ``home`` (the first position's device). Arguments
-are made known with ``place``.
+the rank or the data position whose compute runs (``models.sharding``),
+else the first input whose storage the counter knows (one whose storage
+holds more than one element first), else ``home`` (the first position's
+device).
+Arguments are made known with ``place``.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ from repro_torch.distributed import mesh as meshlib
 from repro_torch.distributed.mesh import ShardedTensor, axis_positions
 from repro_torch.kernels import ops
 from repro_torch.launch import roofline as rf
-from repro_torch.models.sharding import current_position
+from repro_torch.models.sharding import current_position, current_rank
 from repro_torch.tuning import cost
 
 _aten = torch.ops.aten
@@ -200,12 +201,17 @@ class MetaCounter(TorchDispatchMode):
             tag = self._tag(t)
             if tag is not None:
                 return tag
+        rank = current_rank()
+        if rank is not None and rank.group is not None:
+            return self._norm(rank.group.coords[rank.index])
         pos = current_position()
         if pos is not None:
             return self._positions[pos.index]
-        # a scalar (a learning rate, a norm) lives on one device and
-        # goes to every other: an operand of more elements decides
-        for t in sorted(inputs, key=lambda t: t.numel() <= 1):
+        # a scalar (a learning rate, a norm, a loss's gradient, expanded
+        # or not) lives on one device and goes to every other: an operand
+        # whose storage holds more elements decides
+        for t in sorted(inputs, key=lambda t: t.untyped_storage().nbytes()
+                        <= t.element_size()):
             tag = self._tag(t)
             if tag is not None:
                 return tag

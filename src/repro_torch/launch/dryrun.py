@@ -18,16 +18,18 @@ through its normal entry points (``launch/steps.py`` over
   bytes and collectives, at the H100's rates.
 
 The terms are the busiest device's, named in the record (``device``).
-Each data position runs its whole forward and backward on its one device
-(the port's "model" axis shards storage only), so the compute term is a
-position's, not split over "model" as the reference's is.
+Each data position runs as ranks, one a device of its "model" row,
+splitting its compute as the reference's layout does
+(``models/sharding.py``), so the compute term is one rank's.
 
-Data positions run the same code on same-shaped rows, so a step is
-traced once: under ``distributed.mesh.view`` of the first position's
-device, that position runs (the others' results are its results), and the
-gathers, the reductions of every position's gradients into the device's
-slabs and AdamW over them are counted in full. An MoE group spanning
-positions still runs every position, in lockstep.
+Data positions run the same code on same-shaped rows, and a position's
+ranks alike, so a step is traced once: under ``distributed.mesh.view``
+of the first position's device, that position's rank there runs (the
+others' results are its results; a collective has no peers and makes
+the shape its group would, counted from its shapes), and the gathers,
+the reductions of every position's gradients into the device's slabs
+and AdamW over them are counted in full. An MoE group spanning positions
+still runs every position's rank, in lockstep.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k --mesh single

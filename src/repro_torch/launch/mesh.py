@@ -4,8 +4,9 @@
 Single pod: (16, 16) = 256 devices, axes ("data", "model").
 Multi pod:  (2, 16, 16) = 512 devices, axes ("pod", "data", "model") —
 the batch is cut over ("pod", "data"); parameters are FSDP over "data"
-and replicated across pods; "model" shards storage (tensor-parallel
-compute over it is not part of this port yet).
+and replicated across pods; "model" splits the heads, the MLP's hidden
+dim, the vocabulary and the residual stream's sequence across a data
+position's ranks (``models/sharding.py``).
 
 A production mesh is made of ``torch.device("meta")``: it lays out
 shapes and allocates nothing. A host mesh is the CUDA cards this host

@@ -5,27 +5,37 @@ Over a mesh (the port's counterpart of the reference's jitted steps
 under ``jax.sharding``): the parameters, AdamW's moments and the decode
 caches are ``ShardedTensor``s in ``launch/sharding.py``'s layout, and
 the batch is cut over the batch axes ("pod", "data"). Each data position
-runs the model on its rows with every weight gathered whole and exact on
-its device (``models/sharding.py``); the results are the single-device
-run's up to reduction order. A batch that does not divide over the batch
-axes (as ``batch_shardings`` leaves it whole) runs once, on the first
-position's device.
+runs the model on its rows as M ranks, one a device of its "model" row
+(``models/sharding.py``): rank r holds its model slab of every weight,
+its FSDP dims gathered whole and exact on its device, and computes its
+part; the results are the single-device run's up to reduction order.
+Where "model" has one device (M = 1) a position runs whole, its weights
+gathered whole. A batch that does not divide over the batch axes (as
+``batch_shardings`` leaves it whole) runs once, on the first position's
+devices.
 
 - Train: each position's loss is its summed NLL over the global batch's
   mask sum, plus its share of the MoE aux loss, so the positions' losses
-  and gradients add up to the global ones. The gradients are reduced in
-  float32 into every device's slab, the global norm is taken once over
-  one copy of each slab, and AdamW updates every slab in place.
+  and gradients add up to the global ones. A position's ranks' losses
+  are summed and its backward is one ``backward()``. A weight's gradient
+  is reduced in float32 over "data" only, into its rank's model slab; a
+  weight whole over "model" (norms) has one leaf a position, copied to
+  its ranks (``distributed.mesh.group_copy``), whose gradient is the
+  all-reduce of theirs. The global norm is taken once over one copy of
+  each slab, and AdamW updates every slab in place.
 - Serve: prefill and decode run a position's rows against its cache
-  rows, the model seeing plain local tensors (``local_cache``) that are
-  written back into the slabs after the step (``write_back``). A batch-1
-  decode leaves the cache cut along its sequence over "data": the step
-  runs once, the model gets each slab's part of the sequence
-  (``attention.KVPart``) and attends over each apart
-  (``attention.sdpa_parts``).
+  rows, each rank seeing plain local tensors (``local_cache``): its slab
+  of the KV caches where their kv heads are cut over "model", else the
+  caches whole over "model" (their slabs gathered); it writes back its
+  own slab alone (``write_back``). A batch-1 decode leaves the cache cut
+  along its sequence over "data": the step runs once, the model gets
+  each slab's part of the sequence (``attention.KVPart``) and attends
+  over each apart (``attention.sdpa_parts``).
 
-Positions run one after another, except where an MoE routing group spans
-positions: then one thread a position, in lockstep (``run_positions``).
+Positions run one after another, their ranks in lockstep threads, except
+where an MoE routing group spans positions: then every position's ranks
+at once (``models.sharding.run_ranks``; one rank a position where M = 1,
+or where the loss is not an LM's, which runs a position whole).
 """
 from __future__ import annotations
 
@@ -34,17 +44,20 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.distributed.mesh import (ShardedTensor, axis_positions,
-                                          current_view, distribute,
+from repro_torch.distributed.mesh import (Group, ShardedTensor,
+                                          axis_positions, current_view,
+                                          distribute, group_copy,
                                           note_collective, placed,
                                           position_device, sharded_empty,
                                           sharded_zeros)
 from repro_torch.launch import sharding as shd
 from repro_torch.models import Model
 from repro_torch.models import attention as attn
+from repro_torch.models.layers import param_tree
 from repro_torch.models.moe import spans_positions
-from repro_torch.models.sharding import (Position, held_positions,
-                                        run_positions)
+from repro_torch.models.sharding import (Position, current_rank,
+                                        held_positions, run_ranks,
+                                        split_table)
 from repro_torch.optim import AdamWConfig, adamw
 
 
@@ -130,6 +143,52 @@ def _reduce(acc: dict, grads: dict):
             slab.add_(part.to(slab.device, torch.float32))
 
 
+def _model_ranks(mesh, rules: dict) -> int:
+    """M: the devices of a data position's "model" row (the mesh size
+    behind the "heads" rule)."""
+    axes = rules.get("heads") or ()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    n = 1
+    for a in axes:
+        n *= mesh.shape.get(a, 1)
+    return n
+
+
+def _model_cut(st: ShardedTensor) -> Optional[int]:
+    """The dim of ``st`` cut over "model" (None: whole over it)."""
+    for d, e in enumerate(st.spec):
+        if e is not None and "model" in ((e,) if isinstance(e, str) else e):
+            return d
+    return None
+
+
+def _groups(mesh, where: list, m: int) -> list:
+    """A ``Group`` of M ranks for each data position at ``where``; within
+    a dry run's view, running the view's rank alone."""
+    view = current_view()
+    solo = None if view is None else view[mesh.axis_names.index("model")]
+    out = []
+    for w in where:
+        coords = [tuple({**w, "model": r}.get(a, 0)
+                        for a in mesh.axis_names) for r in range(m)]
+        out.append(Group([mesh.devices[c] for c in coords], coords, solo))
+    return out
+
+
+def _reduce_rank(st: ShardedTensor, g: torch.Tensor, r: int):
+    """Add rank ``r``'s float32 gradient of its model slab (whole over the
+    other axes) into that slab's copies."""
+    block = st._block({"model": r})
+    axis = st.mesh.axis_names.index("model")
+    for coords, slab in st.items():
+        if coords[axis] != r:
+            continue
+        sl = st.sharding.slices(coords, st.shape)
+        part = g[tuple(slice(a.start - b.start, a.stop - b.start)
+                       for a, b in zip(sl, block))]
+        slab.add_(part.to(slab.device, torch.float32))
+
+
 def _note_reduction(acc: dict, count: int, rules: dict):
     """Record the positions' reduction into each slab: in the reference's
     terms a reduce-scatter where the slab is cut over a batch axis, an
@@ -151,43 +210,115 @@ def sharded_value_and_grad(loss_fn: Callable, params: dict, batch: dict,
     """The loss and the gradients of a global batch over ``mesh``.
 
     ``loss_fn(local_batch, leaves, denom)`` is one data position's share
-    of the loss: ``leaves`` its weights gathered whole on its device
-    (``{name: tensor}`` requiring grad), ``denom`` the global batch's
-    normaliser on that device. Each position's float32 gradients are
-    added into every slab of ``acc`` (``{name: ShardedTensor}`` zeros in
-    the parameters' layouts, made when None) in position order. Returns
-    (loss, acc): the positions' shares summed on the first one's device.
-    """
+    of the loss: ``leaves`` its weights on its device (``{name: tensor}``
+    requiring grad), ``denom`` the global batch's normaliser on that
+    device. An LM's share (``LMShare``) splits its compute over "model"
+    where that axis has M > 1 devices: the position runs as M ranks
+    (``models/sharding.py``), rank r's leaves its model slabs gathered
+    over "data" on its device and one leaf a position of each weight
+    whole over "model" (``group_copy``: its gradient is the all-reduce of
+    the ranks'). Any other ``loss_fn`` (the FFTConvMixer's, which the
+    reference splits over the batch alone) runs a position whole on its
+    weights gathered whole. A position's ranks' losses are summed and go through one
+    ``backward()``, and its float32 gradients are added into the slabs of
+    ``acc`` (``{name: ShardedTensor}`` zeros in the parameters' layouts,
+    made when None), each rank's into its model slab, before the next
+    position runs. Returns (loss, acc): the positions' shares summed on
+    the first one's device."""
     where, devices = _batch_positions(mesh, rules)
     count = _count(where, next(iter(batch.values())).shape[0])
+    where = where[:count]
     if acc is None:
         acc = {n: sharded_zeros(st.shape, st.sharding)
                for n, st in params.items()}
+    m = _model_ranks(mesh, rules)
+    cuts = {n: _model_cut(st) for n, st in params.items()}
+    split = m > 1 and isinstance(loss_fn, LMShare)
+    if not split:
+        cuts = dict.fromkeys(params)
+    groups = _groups(mesh, where, m) if split else None
+    shared, made, kept = {}, {}, {}
 
-    def one(i):
-        dev = devices[i]
-        leaves = {n: st.gather(dev).detach().requires_grad_()
-                  for n, st in params.items()}
-        loss = loss_fn(_rows(batch, i, count, dev), leaves, denom.to(dev))
-        loss.backward()
-        grads = {n: t.grad for n, t in leaves.items()}
-        if keep:            # reduced in position order below
-            return loss.detach(), grads
-        _reduce(acc, grads)
-        return loss.detach(), None
+    def setup(i, r, rank):
+        if not split:
+            with placed(_coords(mesh, where[i])):
+                leaves = {n: st.gather(devices[i]).detach().requires_grad_()
+                          for n, st in params.items()}
+            made[i, r] = leaves
+            return leaves
+        g = groups[i]
+        if i not in shared:
+            with placed(g.coords[0]):
+                whole = {n: st.gather(g.devices[0]).detach()
+                         .requires_grad_() for n, st in params.items()
+                         if cuts[n] is None}
+                shared[i] = whole, {n: group_copy(g, t)
+                                    for n, t in whole.items()}
+        whole, copies = shared[i]
+        with placed(g.coords[r]):
+            made[i, r] = {n: st.gather(g.devices[r], {"model": r}).detach()
+                          .requires_grad_() for n, st in params.items()
+                          if cuts[n] is not None}
+        return {n: made[i, r][n] if cuts[n] is not None else copies[n][r]
+                for n in params}
 
-    # a dry run's view runs one position for all: each adds its gradients
-    keep = lockstep or current_view() is not None
-    outs = run_positions(one, count, lockstep, mesh, rules)
+    def one(i, r, leaves):
+        dev = devices[i] if not split else groups[i].devices[r]
+        local, den = _rows(batch, i, count, dev), denom.to(dev)
+        if split:
+            return loss_fn(local, leaves, den, cuts)
+        return loss_fn(local, leaves, den)
+
+    def finish(i, losses):
+        # the position's one backward, and its gradients reduced into the
+        # slabs, before the next position runs
+        ranks = [0] if not split else groups[i].ranks()
+        total = losses[0]
+        if split:
+            g = groups[i]
+            with placed(g.coords[0]):
+                total = torch.stack([losses[r].to(g.devices[0])
+                                     for r in ranks]).sum()
+        total.backward()
+        grads = [(r, n, t.grad) for r in ranks
+                 for n, t in made.pop((i, r)).items()]
+        if split:
+            grads += [(0, n, t.grad) for n, t in shared.pop(i)[0].items()]
+        _reduce_grads(acc, cuts, grads)
+        if current_view() is not None:
+            kept[i] = grads
+        return [total.detach()] * len(losses)
+
+    outs = run_ranks(one, count, groups, lockstep, mesh, rules, setup,
+                     finish)
     total = None
-    for loss, grads in outs:
-        if grads is not None:
-            _reduce(acc, grads)
-        loss = loss.to(devices[0])
+    for i in range(count):
+        # a dry run's view runs one position for all: each adds its
+        # gradients
+        if kept and i not in kept:
+            _reduce_grads(acc, cuts, kept[next(iter(kept))])
+        loss = outs[i][0].to(devices[0])
         total = loss if total is None else total + loss
     if count > 1:
         _note_reduction(acc, count, rules)
     return total, acc
+
+
+def _coords(mesh, where: dict) -> tuple:
+    """The mesh coordinates of a data position's first device."""
+    return tuple(where.get(a, 0) for a in mesh.axis_names)
+
+
+def _reduce_grads(acc: dict, cuts: dict, grads: list):
+    """Add a position's ``(rank, name, gradient)`` into the slabs: a
+    weight cut over "model" into rank's own, any other into every slab."""
+    for r, n, g in grads:
+        if g is None:
+            continue
+        if cuts[n] is None:
+            _reduce(acc, {n: g})
+        else:
+            _reduce_rank(acc[n], g, r)
 
 
 def make_sharded_train_step(loss_fn: Callable, params: dict,
@@ -240,13 +371,26 @@ def make_sharded_train_step(loss_fn: Callable, params: dict,
     return train_step
 
 
-def lm_share(model: Model) -> Callable:
+class LMShare:
     """A data position's share of ``Model.loss`` (``sharded_value_and_grad``'s
-    ``loss_fn``)."""
-    def share(local, leaves, denom):
-        return model.loss(local, params=model.compute_params(leaves),
-                          denom=denom)
-    return share
+    ``loss_fn``). Called with ``cuts`` (``{name: dim cut over "model"}``)
+    it runs as a rank that splits the compute: its ``split`` table names
+    the compute copies of the slabs it was given."""
+
+    def __init__(self, model: Model):
+        self.model = model
+
+    def __call__(self, local, leaves, denom, cuts: Optional[dict] = None):
+        tree = self.model.compute_params(leaves)
+        if cuts is not None:
+            current_rank().split = split_table(
+                param_tree(self.model, {n: n for n in leaves}), tree, cuts)
+        return self.model.loss(local, params=tree, denom=denom)
+
+
+def lm_share(model: Model) -> LMShare:
+    """``LMShare(model)``."""
+    return LMShare(model)
 
 
 def lm_denom(batch: dict) -> torch.Tensor:
@@ -311,8 +455,9 @@ def build_decode(model: Model, mesh=None, rules: Optional[dict] = None,
 
 class ShardedServing:
     """Prefill and decode over ``mesh``: one compute copy of the weights
-    on each position's device (made on first use and kept for the
-    object's life, as ``Model.compute_cast`` keeps one a call)."""
+    on each position's device — on each rank's, its model slabs, where
+    "model" has more than one device — made on first use and kept for the
+    object's life, as ``Model.compute_cast`` keeps one a call."""
 
     def __init__(self, model: Model, mesh, rules: dict, params: dict):
         self.model = model
@@ -320,28 +465,43 @@ class ShardedServing:
         self.rules = rules
         self.params = params
         self.where, self.devices = _batch_positions(mesh, rules)
+        self.m = _model_ranks(mesh, rules)
+        self._cuts = {n: _model_cut(st) for n, st in params.items()}
+        self._names = param_tree(model, {n: n for n in params})
         self._copies = {}
         self._lock = threading.Lock()
 
-    def compute(self, i: int, count: int = 1):
+    def compute(self, i: int, count: int = 1, r: Optional[int] = None,
+                group: Optional[Group] = None):
         """The compute copy on position ``i``'s device (of ``count``
-        positions), made there. On a meta mesh, where every position's
-        device reads "meta", one a position; within a dry run's view
-        (``distributed.mesh.view``) the positions it does not hold, run
-        only for an MoE exchange, share the held one's."""
-        device = self.devices[i]
+        positions), made there; with ``r``, rank r's (its model slabs, on
+        ``group``'s device r) and its ``split`` table. On a meta mesh,
+        where every position's device reads "meta", one a position; within
+        a dry run's view (``distributed.mesh.view``) the positions it does
+        not hold, run only for an MoE exchange, share the held one's."""
+        device = self.devices[i] if r is None else group.devices[r]
         key = device
         if device.type == "meta":
             held = held_positions(count, self.mesh, self.rules)
             key = i = held[0] if held and i not in held else i
+        if r is not None:
+            key = (key, r)
         with self._lock:
             if key not in self._copies:
-                at = tuple(self.where[i].get(a, 0)
-                           for a in self.mesh.axis_names)
-                with torch.no_grad(), placed(at):
-                    self._copies[key] = self.model.compute_params(
-                        {n: st.gather(device)
-                         for n, st in self.params.items()})
+                if r is None:
+                    at = tuple(self.where[i].get(a, 0)
+                               for a in self.mesh.axis_names)
+                    with torch.no_grad(), placed(at):
+                        self._copies[key] = self.model.compute_params(
+                            {n: st.gather(device)
+                             for n, st in self.params.items()})
+                else:
+                    with torch.no_grad(), placed(group.coords[r]):
+                        tree = self.model.compute_params(
+                            {n: st.gather(device, {"model": r})
+                             for n, st in self.params.items()})
+                    self._copies[key] = tree, split_table(
+                        self._names, tree, self._cuts)
             return self._copies[key]
 
     def count(self, batch: int) -> int:
@@ -350,49 +510,74 @@ class ShardedServing:
         return _count(self.where, batch) if batch > 1 else 1
 
     def _run(self, fn, count: int, local_tokens: int) -> list:
-        return run_positions(fn, count,
-                             _lockstep(self.model, local_tokens, count),
-                             self.mesh, self.rules)
+        """``fn(i, r, device, compute copy)`` of every data position's
+        ranks (r None where M = 1), as ``[[result of each rank] of each
+        position]``."""
+        lockstep = _lockstep(self.model, local_tokens, count)
+        if self.m == 1:
+            return run_ranks(lambda i, r, _: fn(
+                i, None, self.devices[i], self.compute(i, count)), count,
+                None, lockstep, self.mesh, self.rules)
+        where = self.where[:count] if count > 1 else [{}]
+        groups = _groups(self.mesh, where, self.m)
+
+        def setup(i, r, rank):
+            tree, rank.split = self.compute(i, count, r, groups[i])
+            return groups[i].devices[r], tree
+        return run_ranks(lambda i, r, arg: fn(i, r, *arg), count, groups,
+                         lockstep, self.mesh, self.rules, setup)
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int):
         b, s = batch["tokens"].shape[:2]
         count = self.count(b)
 
-        def one(i):
-            dev = self.devices[i]
+        def one(i, r, dev, tree):
             return self.model.prefill(_rows(batch, i, count, dev), max_len,
-                                      params=self.compute(i, count))
+                                      params=tree)
 
         outs = self._run(one, count, (b // count) * s)
-        caches = [c for c, _ in outs]
+        ranks = list(range(len(outs[0])))
+        caches = [[c for c, _ in row] for row in outs]
+        cfg = self.model.cfg
 
-        def global_shape(t):
+        def global_shape(path, t):
             if not isinstance(t, torch.Tensor):
                 return t
-            return torch.empty((t.shape[0] * count, *t.shape[1:]),
-                               dtype=t.dtype, device="meta")
+            shape = [t.shape[0] * count, *t.shape[1:]]
+            if self.m > 1 and path.endswith(("['k']", "['v']")) and \
+                    t.ndim == 4:
+                shape[2] = cfg.n_kv_heads     # a rank's part: all of them
+            return torch.empty(shape, dtype=t.dtype, device="meta")
 
-        shape = shd.tree_map(global_shape, caches[0])
-        layout = shd.cache_shardings(shape, self.model.cfg, self.mesh,
-                                     self.rules, b)
-        per_leaf = list(zip(*[shd.tree_leaves(c) for c in caches]))
+        flat = shd._flatten(caches[0][0])
+        shape = shd._unflatten(caches[0][0], iter(
+            [global_shape(pth, t) for pth, t in flat]))
+        layout = shd.cache_shardings(shape, cfg, self.mesh, self.rules, b)
+        per_leaf = list(zip(*[shd.tree_leaves(c) for row in caches
+                              for c in row]))
         out = []
         for parts, lay, meta in zip(per_leaf, shd.tree_leaves(layout),
                                     shd.tree_leaves(shape)):
             if not isinstance(parts[0], torch.Tensor):
                 out.append(parts[0])
                 continue
-            if count == 1:
+            if count == 1 and self.m == 1:
                 out.append(distribute(parts[0], lay))
                 continue
             st = sharded_empty(meta.shape, lay, meta.dtype)
-            for i, part in enumerate(parts):
-                st.write(part, (i * part.shape[0],) + (0,) * (part.ndim - 1))
+            for k, part in enumerate(parts):
+                i, r = divmod(k, len(ranks))
+                where = self.where[i] if count > 1 else {}
+                if self.m == 1:
+                    st.write(part, (i * part.shape[0],)
+                             + (0,) * (part.ndim - 1))
+                else:       # within a view, the view's slab alone
+                    _write_rank(st, part, where, r)
             out.append(st)
         it = iter(out)
         cache = shd.tree_map(lambda _: next(it), shape)
-        logits = torch.cat([lg.to(self.devices[0]) for _, lg in outs])
+        logits = torch.cat([row[0][1].to(self.devices[0]) for row in outs])
         return cache, logits
 
     @torch.no_grad()
@@ -401,19 +586,40 @@ class ShardedServing:
         count = self.count(b)
         pos = int(cache["step"])
 
-        def one(i):
-            dev = self.devices[i]
+        def one(i, r, dev, tree):
             where = self.where[i] if count > 1 else {}
-            local = local_cache(cache, where, dev)
+            local = local_cache(cache, where, dev, r)
             logits, new = self.model.decode_step(
                 local, _rows({"t": tokens}, i, count, dev)["t"],
-                params=self.compute(i, count))
-            write_back(cache, new, where, pos)
+                params=tree)
+            write_back(cache, new, where, pos, r)
             return logits, new["step"]
 
         outs = self._run(one, count, b // count)
-        logits = torch.cat([lg.to(self.devices[0]) for lg, _ in outs])
-        return logits, dict(cache, step=outs[0][1])
+        logits = torch.cat([row[0][0].to(self.devices[0]) for row in outs])
+        return logits, dict(cache, step=outs[0][0][1])
+
+
+def _write_rank(st: ShardedTensor, value: torch.Tensor, where: dict,
+                r: Optional[int], start=None):
+    """Write ``value`` — rank ``r``'s part of the block of ``st`` at the
+    data position ``where`` (its model slab, or that block whole over
+    "model", which is cut to the slab), placed at offsets ``start``
+    within the block — into the slabs of model index ``r`` alone (every
+    slab holding the block where ``r`` is None)."""
+    at = None
+    if r is not None:
+        d = _model_cut(st)
+        if d is not None:
+            base, block = st._block(where), st._block({**where, "model": r})
+            n = block[d].stop - block[d].start
+            if value.shape[d] != n:
+                value = value.narrow(d, block[d].start - base[d].start, n)
+        where = {**where, "model": r}
+        at = {"model": r}
+    block = st._block(where)
+    start = start or [0] * len(st.shape)
+    st.write(value, [b.start + o for b, o in zip(block, start)], at)
 
 
 def _seq_cut(entry) -> bool:
@@ -424,11 +630,21 @@ def _seq_cut(entry) -> bool:
             and k.spec[1] is not None)
 
 
-def _kv_parts(entry: dict, dev) -> list:
+def _rank_block(st: ShardedTensor, where: dict, r: Optional[int]) -> dict:
+    """Where rank ``r`` reads ``st``: its model slab where ``st``'s kv
+    heads are cut over "model" (its own heads), else the block whole over
+    "model" (its slabs gathered)."""
+    if r is None or _model_cut(st) != 2:
+        return where
+    return {**where, "model": r}
+
+
+def _kv_parts(entry: dict, dev, r: Optional[int] = None) -> list:
     """An attention cache entry cut along its sequence as ``KVPart``s on
     ``dev``, one a slab of the sequence in order (the slab itself where it
     is one slab on ``dev``); a ring's slot positions gathered whole and
-    cut to the parts' bounds."""
+    cut to the parts' bounds. Under rank ``r``, its part of each
+    (``_rank_block``)."""
     ck, cv = entry["k"], entry["v"]
     e = ck.spec[1]
     where = axis_positions(ck.mesh, (e,) if isinstance(e, str) else e)
@@ -438,46 +654,59 @@ def _kv_parts(entry: dict, dev) -> list:
     parts = []
     for j, w in enumerate(where):
         lo, hi = j * s // n, (j + 1) * s // n
+        w = _rank_block(ck, w, r)
         parts.append(attn.KVPart(ck.gather(dev, w), cv.gather(dev, w), lo,
                                  None if ring is None else ring[:, lo:hi]))
     return parts
 
 
-def local_cache(cache: dict, where: dict, dev) -> dict:
+def local_cache(cache: dict, where: dict, dev, r: Optional[int] = None
+                ) -> dict:
     """The model's view of a sharded decode cache at the data position
     ``where`` (``{}``: the whole batch): every ``ShardedTensor`` gathered
-    to that position's block on ``dev``, an attention cache cut along its
-    sequence as ``{"parts": [KVPart, ...]}``."""
-    def view(entry):
+    to that position's block on ``dev`` (rank ``r``'s part of it,
+    ``_rank_block``), an attention cache cut along its sequence as
+    ``{"parts": [KVPart, ...]}``. The cross caches are read whole over
+    "model" (cross-attention runs whole on every rank)."""
+    def view(entry, rank):
         if _seq_cut(entry):
-            return {"parts": _kv_parts(entry, dev)}
-        return shd.tree_map(lambda t: t.gather(dev, where)
-                            if isinstance(t, ShardedTensor) else t, entry)
+            return {"parts": _kv_parts(entry, dev, rank)}
+        return shd.tree_map(lambda t: t.gather(dev, _rank_block(
+            t, where, rank)) if isinstance(t, ShardedTensor) else t, entry)
 
-    out = dict(cache, layers=[view(e) for e in cache["layers"]])
+    out = dict(cache, layers=[view(e, r) for e in cache["layers"]])
     if "cross" in cache:
-        out["cross"] = [view(e) for e in cache["cross"]]
+        out["cross"] = [view(e, None) for e in cache["cross"]]
     return out
 
 
-def write_back(cache: dict, new: dict, where: dict, pos: int):
+def write_back(cache: dict, new: dict, where: dict, pos: int,
+               r: Optional[int] = None):
     """Write a decode step at ``pos`` on ``local_cache``'s view into the
     slabs of ``cache``: a sequence-cut attention cache's new slot, every
     other entry's block at ``where`` (the cross caches are never
-    written)."""
+    written); under rank ``r`` into its own slabs alone."""
     for st, t in zip(cache["layers"], new["layers"]):
         if not _seq_cut(st):
             for a, b in zip(shd.tree_leaves(st), shd.tree_leaves(t)):
                 if isinstance(a, ShardedTensor):
-                    a.write_block(b, where)
+                    if r is None:
+                        a.write_block(b, where)
+                    else:
+                        _write_rank(a, b, where, r)
             continue
         ring = "pos" in st
         slot = attn.decode_slot(pos, st["k"].shape[1], ring)
         pt = next(p for p in t["parts"]
                   if p.lo <= slot < p.lo + p.k.shape[1])
         i = slot - pt.lo
-        st["k"].write(pt.k[:, i:i + 1], (0, slot, 0, 0))
-        st["v"].write(pt.v[:, i:i + 1], (0, slot, 0, 0))
+        if r is None:
+            st["k"].write(pt.k[:, i:i + 1], (0, slot, 0, 0))
+            st["v"].write(pt.v[:, i:i + 1], (0, slot, 0, 0))
+            if ring:
+                st["pos"].write(pt.pos[:, i:i + 1], (0, slot))
+            continue
+        _write_rank(st["k"], pt.k[:, i:i + 1], {}, r, (0, slot, 0, 0))
+        _write_rank(st["v"], pt.v[:, i:i + 1], {}, r, (0, slot, 0, 0))
         if ring:
-            st["pos"].write(pt.pos[:, i:i + 1], (0, slot))
-
+            _write_rank(st["pos"], pt.pos[:, i:i + 1], {}, r, (0, slot))

@@ -15,6 +15,25 @@ the parts in sequence order: the new key and value are written into the
 part holding the slot, and each part is attended apart, the parts merged
 by log-sum-exp (``sdpa_parts``), its mask on the part's absolute
 positions.
+
+Under a rank that splits the compute over "model"
+(``models.sharding.Rank``, M ranks): the input, in the residual stream's
+layout, is all-gathered (``sharding.unshard``), and each rank computes its
+``n_heads / M`` query heads from its columns of ``wq``, attends, and
+multiplies by its rows of ``wo``; the partial sums are reduced in
+float32 into the residual stream's layout. Keys and
+values take ``_kv_spec``'s layout: where the kv heads divide M a rank
+projects its own kv heads (and its KV cache slab holds them); otherwise
+its column slab of ``wk`` / ``wv`` is projected and the products are
+all-gathered whole (a collective of the activations, not the weights),
+and the rank reads the kv heads its query heads use (``_kv_select``);
+its cache slab is then its part of head_dim, and the serving layer
+hands it the cache whole over "model" to read, writing back its slab
+alone. Where ``n_heads % M != 0`` (minitron-4b, yi-34b, granite and
+llama4 at M = 16) every rank computes the attention whole, on weights
+all-gathered whole (``whole_params``, a collective counted as such),
+and keeps its slice of the output: the simpler of the two ways the
+reference's GSPMD padding allows, at M times the attention's compute.
 """
 from __future__ import annotations
 
@@ -24,8 +43,11 @@ from typing import Optional
 import torch
 
 from repro_torch.models.layers import (ParamModule, apply_rope, cast,
-                                       rope_angles, truncated_normal)
-from repro_torch.models.sharding import axis_size, shard
+                                       matmul_f32, rope_angles,
+                                       truncated_normal)
+from repro_torch.models.sharding import (axis_size, model_dim, reduce_to,
+                                         shard, tp_index, tp_size, unshard,
+                                         whole, whole_params)
 
 
 def _kv_spec(n_kv: int, head_dim: int) -> tuple:
@@ -37,6 +59,66 @@ def _kv_spec(n_kv: int, head_dim: int) -> tuple:
     if m > 1 and head_dim % m == 0:
         return (None, None, "heads")
     return (None, None, None)
+
+
+def _heads_split(p, spec) -> bool:
+    """Whether a rank computes its own heads (the query heads divide the
+    ranks and ``wq``'s columns are cut over them)."""
+    m = tp_size()
+    return m > 1 and spec.n_heads % m == 0 and model_dim(p["wq"]) == 1
+
+
+def _kv_local(spec) -> bool:
+    """Under a head-split rank: whether it holds its own kv heads."""
+    return _kv_spec(spec.n_kv, spec.head_dim)[1] == "heads"
+
+
+def _qkv(p, spec, x, src):
+    """q of ``x`` and k, v of ``src``, split into heads: all of them, or
+    under a head-split rank its query heads, and its kv heads or (where
+    they do not divide the ranks) all of them."""
+    dt = x.dtype
+    hq = spec.n_heads // tp_size()
+    q = _split_heads(x @ cast(p["wq"], dt, None, "heads"), hq, spec.head_dim)
+    out = [q]
+    for name in ("wk", "wv"):
+        y = src @ cast(p[name], dt, None, "heads")
+        n = spec.n_kv
+        if tp_size() > 1:
+            if _kv_local(spec):
+                n //= tp_size()
+            elif model_dim(p[name]) == 1:
+                y = unshard(y, None, None, "heads")
+        out.append(_split_heads(y, n, spec.head_dim))
+    return out
+
+
+def _kv_select(spec):
+    """Under a head-split rank whose kv heads are whole: the kv heads its
+    query heads read, in order (a contiguous run where each is read by
+    equally many of them, else one a query head); the identity
+    otherwise."""
+    m = tp_size()
+    if m == 1 or _kv_local(spec):
+        return lambda t: t
+    hq = spec.n_heads // m
+    g = spec.n_heads // spec.n_kv
+    idx = [(tp_index() * hq + j) // g for j in range(hq)]
+    run = sorted(set(idx))
+    if hq % len(run) == 0 and idx == [h for h in run
+                                      for _ in range(hq // len(run))]:
+        return lambda t: t[:, :, run[0]:run[-1] + 1]
+    return lambda t: t[:, :, idx]
+
+
+def _out(p, o, dt):
+    """The output projection of ``o`` (B, S, heads x Dh): under a rank, its
+    rows of ``wo``, the partial sums reduced in float32 into the residual
+    stream's layout."""
+    if tp_size() > 1:
+        y = matmul_f32(o, cast(p["wo"], dt, "heads", None))
+        return reduce_to(y, "batch", "seq", None).to(dt)
+    return o @ cast(p["wo"], dt)
 
 
 NEG_INF = -1e30
@@ -108,15 +190,12 @@ def sdpa(q, k, v, mask, q_chunk: Optional[int] = None):
 
     kf = torch.repeat_interleave(k, g, dim=2) if g > 1 else k   # (B,Skv,H,Dh)
     vf = torch.repeat_interleave(v, g, dim=2) if g > 1 else v
-    kf = shard(kf, "batch", None, "heads", None)
-    vf = shard(vf, "batch", None, "heads", None)
     kf32 = kf.to(torch.float32)
 
     def block(qc, mc):
         # qc: (B,c,H,Dh), mc: (B,c,Skv)
         logits = torch.einsum("bqhd,bshd->bhqs", qc.to(torch.float32),
                               kf32) * scale
-        logits = shard(logits, "batch", "heads", None, None)
         logits = torch.where(mc[:, None], logits, NEG_INF)
         w = torch.softmax(logits, dim=-1).to(q.dtype)
         return torch.einsum("bhqs,bshd->bqhd", w, vf)
@@ -215,58 +294,57 @@ class AttnSpec:
 
 def attn_forward(p, spec: AttnSpec, x, positions, k_pos=None, xkv=None):
     """Training/prefill forward. x: (B,S,D). Returns (out, (k, v)) with k/v
-    rotated (ready for caching)."""
-    dt = x.dtype
-    q = _split_heads(x @ cast(p["wq"], dt, None, "heads"), spec.n_heads,
-                     spec.head_dim)
-    src = x if xkv is None else xkv
-    k = _split_heads(src @ cast(p["wk"], dt, None, "heads"), spec.n_kv,
-                     spec.head_dim)
-    v = _split_heads(src @ cast(p["wv"], dt, None, "heads"), spec.n_kv,
-                     spec.head_dim)
+    rotated (ready for caching). Under a rank ``x`` and ``out`` are in the
+    residual stream's layout (``xkv``, cross-attention's, runs whole)."""
+    if tp_size() > 1 and not _heads_split(p, spec):
+        x = unshard(x, "batch", "seq", None)
+        pw = whole_params(p)
+        with whole():
+            out, kv = attn_forward(pw, spec, x, positions, k_pos, xkv)
+        return shard(out, "batch", "seq", None), kv
+    x = unshard(x, "batch", "seq", None)
+    q, k, v = _qkv(p, spec, x, x if xkv is None else xkv)
+    dt = q.dtype
     kp = positions if k_pos is None else k_pos
     if spec.use_rope:
         q = apply_rope(q, rope_angles(positions, spec.head_dim, spec.theta,
                                       spec.sections))
         k = apply_rope(k, rope_angles(kp, spec.head_dim, spec.theta,
                                       spec.sections))
-    q = shard(q, "batch", None, "heads", None)
-    kvs = _kv_spec(spec.n_kv, spec.head_dim)
-    k = shard(k, "batch", *kvs)
-    v = shard(v, "batch", *kvs)
     mask = _score_mask(positions if positions.ndim == 2 else positions[..., 0],
                        kp if kp.ndim == 2 else kp[..., 0],
                        spec.causal, spec.window)
-    o = sdpa(q, k, v, mask, spec.q_chunk)
-    o = shard(o, "batch", None, "heads", None)
-    out = o.reshape(*x.shape[:2], -1) @ cast(p["wo"], dt)
-    return out, (k, v)
+    sel = _kv_select(spec)
+    o = sdpa(q, sel(k), sel(v), mask, spec.q_chunk)
+    return _out(p, o.reshape(*q.shape[:2], -1), dt), (k, v)
 
 
 def attn_decode(p, spec: AttnSpec, x, cache: dict, pos: int):
     """One-token decode. x: (B,1,D); pos: int (uniform batch).
 
     Full cache: k/v written at index pos; ring cache: at pos % window,
-    both in place. Returns (out, cache)."""
-    dt = x.dtype
+    both in place. Returns (out, cache). Under a head-split rank the cache
+    holds its kv heads, or (``_kv_select``) all of them."""
+    if tp_size() > 1 and not _heads_split(p, spec):
+        pw = whole_params(p)
+        with whole():
+            out, cache = attn_decode(pw, spec, x, cache, pos)
+        return shard(out, "batch", "seq", None), cache
     b = x.shape[0]
     dev = x.device
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
     if spec.sections is not None:
         positions = positions[..., None].repeat(1, 1, len(spec.sections))
-    q = _split_heads(x @ cast(p["wq"], dt, None, "heads"), spec.n_heads,
-                     spec.head_dim)
-    k = _split_heads(x @ cast(p["wk"], dt, None, "heads"), spec.n_kv,
-                     spec.head_dim)
-    v = _split_heads(x @ cast(p["wv"], dt, None, "heads"), spec.n_kv,
-                     spec.head_dim)
+    q, k, v = _qkv(p, spec, x, x)
+    dt = q.dtype
     if spec.use_rope:
         ang = rope_angles(positions, spec.head_dim, spec.theta, spec.sections)
         q, k = apply_rope(q, ang), apply_rope(k, ang)
+    sel = _kv_select(spec)
 
     if "parts" in cache:
-        o = _decode_parts(spec, q, k, v, cache["parts"], pos, positions)
-        return o.reshape(b, 1, -1) @ cast(p["wo"], dt), cache
+        o = _decode_parts(spec, q, k, v, cache["parts"], pos, positions, sel)
+        return _out(p, o.reshape(b, 1, -1), dt), cache
     ring = "pos" in cache
     ck, cv = cache["k"], cache["v"]
     slot = decode_slot(pos, ck.shape[1], ring)
@@ -282,21 +360,12 @@ def attn_decode(p, spec: AttnSpec, x, cache: dict, pos: int):
         k_valid = k_pos <= pos
     qpos2 = positions if positions.ndim == 2 else positions[..., 0]
     mask = _score_mask(qpos2, k_pos, spec.causal, spec.window, k_valid)
-    kvs = _kv_spec(spec.n_kv, spec.head_dim)
-    if b == 1:
-        # batch-1 long-context decode: sequence-parallel KV
-        ck_s = shard(ck.to(dt), None, "kv_seq", *kvs[1:])
-        cv_s = shard(cv.to(dt), None, "kv_seq", *kvs[1:])
-    else:
-        ck_s = shard(ck.to(dt), "batch", *kvs)
-        cv_s = shard(cv.to(dt), "batch", *kvs)
-    o = sdpa(q, ck_s, cv_s, mask)
-    out = o.reshape(b, 1, -1) @ cast(p["wo"], dt)
-    return out, cache
+    o = sdpa(q, sel(ck.to(dt)), sel(cv.to(dt)), mask)
+    return _out(p, o.reshape(b, 1, -1), dt), cache
 
 
 def _decode_parts(spec: AttnSpec, q, k, v, parts: list, pos: int,
-                  positions):
+                  positions, sel=lambda t: t):
     """``attn_decode``'s attention on a cache cut along its sequence: the
     new key and value written into the part holding slot ``pos`` (ring:
     ``pos % W``), then each part attended on its own absolute positions
@@ -323,12 +392,19 @@ def _decode_parts(spec: AttnSpec, q, k, v, parts: list, pos: int,
                                  device=dev).expand(b, n)
             k_valid = k_pos <= pos
         mask = _score_mask(qpos2, k_pos, spec.causal, spec.window, k_valid)
-        att.append((pt.k.to(dt), pt.v.to(dt), mask))
+        att.append((sel(pt.k.to(dt)), sel(pt.v.to(dt)), mask))
     return sdpa_parts(q, att)
 
 
 def cross_decode(p, spec: AttnSpec, x, cache: dict):
-    """Decoder cross-attention against a fixed encoder cache {k, v}."""
+    """Decoder cross-attention against a fixed encoder cache {k, v}. Under
+    a rank it runs whole (its cache whole over "model"), on whole
+    weights."""
+    if tp_size() > 1:
+        pw = whole_params(p)
+        with whole():
+            out = cross_decode(pw, spec, x, cache)
+        return shard(out, "batch", "seq", None)
     dt = x.dtype
     b = x.shape[0]
     q = _split_heads(x @ cast(p["wq"], dt, None, "heads"), spec.n_heads,

@@ -5,8 +5,30 @@ parameters keep the reference's names, so the functional code reads them
 as ``p["name"]`` from a module or from a plain dict of tensors alike (the
 compute copy of ``model.cast_params_for_compute`` is such a dict).
 Parameters are float32; activations are cast to the config's compute
-dtype at use. Sharding is expressed through ``models.sharding.shard``
-logical-axis constraints (identity on one device).
+dtype at use. Sharding is expressed through ``models.sharding``'s
+logical-axis layout changes (the identity on one device).
+
+Under a rank that splits the compute over "model"
+(``models.sharding.Rank``): ``mlp`` is column-parallel in ``wi_gate`` /
+``wi_up`` and row-parallel in ``wo``; ``embed`` and the loss are
+vocab-parallel. A row-parallel product's partial sums are formed and
+reduced in float32 (``matmul_f32`` then ``reduce_to``) and cast to the
+compute dtype once after the sum: one device's bf16 product sums in
+float32 and rounds once, and rounding each rank's partial sum to bf16
+before the reduction would round M times — the drift the reference's
+``gather_for_compute`` docstring measures in whole units of the loss.
+The embedding's partial lookups are reduced in the compute dtype: one
+rank holds each token's row and the others add zeros, which is exact. In
+the backward the column-parallel products' input gradients are partial
+sums the same way (over the rank's heads, hidden columns or vocabulary
+rows): each rank's is its product's, rounded to the compute dtype as one
+device's product rounds and as the reference's transposed ``dot`` rounds
+its shard, and the ranks' are summed in float32 and rounded once
+(``distributed.mesh.Group``). At bf16 neither order is one device's
+(its product sums the whole contraction before rounding once): a split
+step's update moves as far from one device's as one device's own step
+with its output projections summed in two halves (``chip_smoke.py``
+phase 24 (a) holds the split to the step that sums as the ranks do).
 """
 from __future__ import annotations
 
@@ -19,7 +41,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.sharding import gather_for_compute, shard
+from repro_torch.models.sharding import (carry_context, gather_for_compute,
+                                         gather_ranks,
+                                         model_dim, own, reduce_to, shard,
+                                         sum_ranks, tp_index, tp_size,
+                                         unshard, whole, whole_params)
 
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 
@@ -147,11 +173,29 @@ class MLP(ParamModule):
 
 
 def mlp(p, x, act: str = "silu"):
+    """The gated MLP of ``x`` (B, S, D). Under a rank, ``x`` and the result
+    are in the residual stream's layout (its slice of the sequence where
+    that is cut): ``x`` is gathered for the rank's columns of the hidden
+    dim, its rows of ``wo`` take them, the partial sums reduced in
+    float32; where the hidden dim does not divide the ranks, the MLP runs
+    whole."""
+    if tp_size() > 1:
+        dt = x.dtype
+        if model_dim(p["wi_gate"]) != 1:
+            x = unshard(x, "batch", "seq", None)
+            pw = whole_params(p)
+            with whole():
+                y = mlp(pw, x, act)
+            return shard(y, "batch", "seq", None)
+        x = unshard(x, "batch", "seq", None)
+        gate = ACTS[act](x @ cast(p["wi_gate"], dt, None, "ff"))
+        h = gate * (x @ cast(p["wi_up"], dt, None, "ff"))
+        y = matmul_f32(h, cast(p["wo"], dt, "ff", None))
+        return reduce_to(y, "batch", "seq", None).to(dt)
     dt = x.dtype
     gate = ACTS[act](x @ cast(p["wi_gate"], dt, None, "ff"))
     up = x @ cast(p["wi_up"], dt, None, "ff")
-    h = shard(gate * up, "batch", None, "ff")
-    return h @ cast(p["wo"], dt)
+    return (gate * up) @ cast(p["wo"], dt)
 
 
 # ---------------------------------------------------------------------------
@@ -207,8 +251,21 @@ class Embedding(ParamModule):
 
 
 def embed(p, tokens, dtype):
+    """The rows of ``tokens`` (B, S), cast to ``dtype``, in the residual
+    stream's layout. Under a rank holding rows [lo, lo + V / M) of the
+    table (vocab-parallel) it looks up the tokens in its rows, zeros for
+    the rest, and the ranks' lookups are summed (exactly) into it."""
+    table = p["table"]
+    if tp_size() > 1 and model_dim(table) == 0:
+        n = table.shape[0]
+        local = tokens - tp_index() * n
+        hit = (local >= 0) & (local < n)
+        y = table[torch.where(hit, local, 0)] * hit[..., None]
+        return reduce_to(cast(y, dtype), "batch", "seq", None)
+    if tp_size() > 1:
+        table = whole_params(table)
     # the rows first, then the cast: the same values as casting the table
-    y = cast(p["table"][tokens], dtype)
+    y = cast(table[tokens], dtype)
     return shard(y, "batch", "seq", None)
 
 
@@ -273,15 +330,32 @@ def lm_loss_chunked(x, table, labels, mask=None, chunk: int = 512,
     reference's ``jax.checkpoint``), so only one chunk's (B, c, V)
     float32 logits is ever alive. ``denom``: the count to divide the
     summed NLL by (a data position's share of a global batch divides by
-    the global batch's mask sum); the mask's own sum when None."""
-    b, s, d = x.shape
-    chunk = min(chunk, s)
-    n_chunks = s // chunk
-    if mask is None:
-        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
-    mask = mask.to(torch.float32)
-    wt = cast(table, x.dtype, "vocab", None)
+    the global batch's mask sum); the mask's own sum when None.
 
+    Under a rank (``x`` in the residual stream's layout): vocab-parallel
+    when the table's rows are cut over the ranks — each rank forms its (B,
+    c, V / M) logits of the whole chunk, its log-sum-exp and label logit
+    are combined across the ranks, and it sums the NLL of its own tokens
+    (``own``); otherwise it forms the whole vocabulary's logits of its
+    own tokens alone. The ranks' sums add up to the position's."""
+    if mask is None:
+        mask = torch.ones(labels.shape[:2], dtype=torch.float32,
+                          device=x.device)
+    mask = mask.to(torch.float32)
+    if denom is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+    if tp_size() > 1:
+        total = _rank_loss_sum(x, table, labels, mask, chunk, z_loss)
+        return total / denom
+    s = x.shape[1]
+    nll = _nll_sum(cast(table, x.dtype, "vocab", None), z_loss)
+    return _chunked(nll, s, chunk, x.device,
+                    lambda lo, hi: (x[:, lo:hi], labels[:, lo:hi],
+                                    mask[:, lo:hi])) / denom
+
+
+def _nll_sum(wt, z_loss: float):
+    """A chunk's summed NLL against the whole vocabulary's table ``wt``."""
     def chunk_nll(xc, yc, mc):
         logits = matmul_f32(xc, wt.T)                  # (B, c, V) float32
         lse = torch.logsumexp(logits, dim=-1)
@@ -290,23 +364,99 @@ def lm_loss_chunked(x, table, labels, mask=None, chunk: int = 512,
         if z_loss:
             nll = nll + z_loss * (lse ** 2) * mc
         return nll.sum()
+    return chunk_nll
+
+
+def _chunked(fn, s: int, chunk: int, device, args) -> torch.Tensor:
+    """The sum of ``fn(*args(lo, hi))`` over the sequence's chunks
+    (``s // chunk`` full ones, then the remainder), each recomputed in the
+    backward when gradients are enabled (under the rank and data position
+    of its forward, ``_recomputed``)."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    if s == 0:
+        return total
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    again = _recomputed(fn)
 
     def one(lo, hi):
-        args = (x[:, lo:hi], labels[:, lo:hi], mask[:, lo:hi])
         if torch.is_grad_enabled():
-            return checkpoint(chunk_nll, *args, use_reentrant=False)
-        return chunk_nll(*args)
+            return checkpoint(again, *args(lo, hi), use_reentrant=False)
+        return fn(*args(lo, hi))
 
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
         total = total + one(i * chunk, (i + 1) * chunk)
     if s > n_chunks * chunk:
         total = total + one(n_chunks * chunk, s)
-    if denom is None:
-        denom = torch.clamp(mask.sum(), min=1.0)
-    return total / denom
+    return total
+
+
+def _recomputed(fn):
+    """``fn`` run under the mesh rules, data position and rank active now,
+    on whichever thread autograd recomputes it."""
+    enter = carry_context()
+
+    def run(*args):
+        with enter():
+            return fn(*args)
+    return run
+
+
+def _rank_loss_sum(x, table, labels, mask, chunk: int, z_loss: float):
+    """``lm_loss_chunked``'s summed NLL of a rank's own tokens."""
+    dt = x.dtype
+    x = unshard(x, "batch", "seq", None)
+    b, s, d = x.shape
+    mine = own(s)
+    if model_dim(table) != 0:
+        nll = _nll_sum(cast(whole_params(table), dt), z_loss)
+        lo0 = mine.start
+        return _chunked(nll, mine.stop - lo0, chunk, x.device,
+                        lambda lo, hi: (x[:, lo0 + lo:lo0 + hi],
+                                        labels[:, lo0 + lo:lo0 + hi],
+                                        mask[:, lo0 + lo:lo0 + hi]))
+    wt = cast(table, dt, "vocab", None)                 # (V / M, D)
+    n = wt.shape[0]
+    first = tp_index() * n
+
+    def stats(xc, yc):
+        logits = matmul_f32(xc, wt.T)                   # (B, c, V / M)
+        local = yc.long() - first
+        hit = (local >= 0) & (local < n)
+        ll = torch.gather(logits, -1, torch.where(hit, local, 0)[..., None])
+        return torch.logsumexp(logits, dim=-1), ll[..., 0] * hit
+
+    chunk = min(chunk, s)
+    bounds = [(lo, min(lo + chunk, s)) for lo in range(0, s // chunk * chunk,
+                                                       chunk)]
+    if s % chunk:
+        bounds.append((s // chunk * chunk, s))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    again = _recomputed(stats)
+    for lo, hi in bounds:
+        args = (x[:, lo:hi], labels[:, lo:hi])
+        if torch.is_grad_enabled():
+            lse, ll = checkpoint(again, *args, use_reentrant=False)
+        else:
+            lse, ll = stats(*args)
+        lse = torch.logsumexp(gather_ranks(lse[None], 0), dim=0)
+        ll = sum_ranks(ll)
+        keep = torch.zeros((hi - lo,), dtype=torch.float32, device=x.device)
+        keep[max(mine.start - lo, 0):max(mine.stop - lo, 0)] = 1.0
+        mc = mask[:, lo:hi] * keep
+        nll = (lse - ll) * mc
+        if z_loss:
+            nll = nll + z_loss * (lse ** 2) * mc
+        total = total + nll.sum()
+    return total
 
 
 def logits_last(x_last, table):
-    """Decode-step logits: (B, D) @ (V, D)^T -> (B, V) float32."""
+    """Decode-step logits: (B, D) @ (V, D)^T -> (B, V) float32. Under a
+    rank holding rows of the table, its (B, V / M) logits all-gathered
+    whole on every rank."""
+    if tp_size() > 1:
+        if model_dim(table) == 0:
+            return gather_ranks(matmul_f32(x_last, table.T), 1)
+        table = whole_params(table)
     return matmul_f32(x_last, table.T)

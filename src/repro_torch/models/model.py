@@ -22,6 +22,16 @@ does, so a prompt batch is cast once and not once a token.
 Training: ``loss`` is differentiable through the compute copy to the
 float32 parameters; with ``cfg.remat`` the layers are rematerialised in
 groups as the reference's ``jax.checkpoint`` does (``_layer_groups``).
+
+Under a rank that splits the compute over "model"
+(``models.sharding.Rank``) the residual stream between layers holds the
+rank's slice of the sequence (whole where the sequence does not divide
+the ranks): attention and the MLP take a layer's normed input in that
+layout, all-gather it (``unshard``) and return their reduced output in
+it; the recurrent mixers, MoE and whisper's cross-attention run
+``whole()`` on the gathered input and whole weights, and the rank keeps
+its slice of their output (``_whole``). A rematerialised group's recomputation takes its
+collectives' results from the forward (``remat_scope``).
 """
 from __future__ import annotations
 
@@ -53,7 +63,10 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
 )
 from repro_torch.models.moe import MoE, moe_ffn
-from repro_torch.models.sharding import carry_context, shard
+from repro_torch.models.sharding import (carry_context, gather_ranks,
+                                         remat_scope, seq_cut, sequence,
+                                         shard, tp_index, tp_size, unshard,
+                                         whole, whole_params)
 
 KINDS_ATTN = ("global", "local")
 KINDS_REC = ("mamba", "rglru")
@@ -157,6 +170,20 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
 # Per-layer forward (training / prefill): returns (x, cache_entry, aux)
 # ---------------------------------------------------------------------------
 
+def _whole(fn, p, x, *args):
+    """``fn(p, x, *args)`` -> (y, ...) as one device runs it: under a rank,
+    on ``x`` gathered whole and ``p``'s weights all-gathered whole, its
+    ``y`` cut to the residual stream's layout (the reference's
+    ``shard(y, "batch", "seq", None)``)."""
+    if tp_size() == 1:
+        return fn(p, x, *args)
+    x = unshard(x, "batch", "seq", None)
+    pw = whole_params(p)
+    with whole():
+        y, *rest = fn(pw, x, *args)
+    return (shard(y, "batch", "seq", None), *rest)
+
+
 def layer_forward(p, cfg: ModelConfig, kind: str, x, positions,
                   q_chunk=None, enc_out=None, train: bool = True):
     spec = _attn_spec(cfg, kind, q_chunk)
@@ -165,10 +192,11 @@ def layer_forward(p, cfg: ModelConfig, kind: str, x, positions,
     if kind in KINDS_ATTN:
         y, entry = attn.attn_forward(p["mixer"], spec, h, positions)
     elif kind == "mamba":
-        y, entry = rec.mamba_forward(p["mixer"], h, cfg.ssm or SSMConfig())
+        y, entry = _whole(rec.mamba_forward, p["mixer"], h,
+                          cfg.ssm or SSMConfig())
     else:  # rglru
-        y, entry = rec.rglru_forward(p["mixer"], h, cfg.rglru or RGLRUConfig())
-    y = shard(y, "batch", "seq", None)
+        y, entry = _whole(rec.rglru_forward, p["mixer"], h,
+                          cfg.rglru or RGLRUConfig())
     x = x + y
 
     if "cross" in p and enc_out is not None:
@@ -178,8 +206,10 @@ def layer_forward(p, cfg: ModelConfig, kind: str, x, positions,
                                    *enc_out.shape[:2])
         cspec = dataclasses.replace(spec, causal=False, window=None,
                                     use_rope=False)
-        yx, centry = attn.attn_forward(p["cross"], cspec, hq,
-                                       positions, k_pos=enc_pos, xkv=enc_out)
+        yx, centry = _whole(
+            lambda pc, hq: attn.attn_forward(pc, cspec, hq, positions,
+                                             k_pos=enc_pos, xkv=enc_out),
+            p["cross"], hq)
         x = x + yx
     else:
         centry = None
@@ -187,10 +217,9 @@ def layer_forward(p, cfg: ModelConfig, kind: str, x, positions,
     if kind != "mamba":
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
         if cfg.ffn == "moe":
-            y2, aux = moe_ffn(p["ffn"], h2, cfg.moe, cfg.act, train)
+            y2, aux = _whole(moe_ffn, p["ffn"], h2, cfg.moe, cfg.act, train)
         else:
             y2 = mlp(p["ffn"], h2, cfg.act)
-        y2 = shard(y2, "batch", "seq", None)
         x = x + y2
     return x, entry, centry, aux
 
@@ -206,11 +235,11 @@ def layer_decode(p, cfg: ModelConfig, kind: str, x, cache_entry, pos: int,
     if kind in KINDS_ATTN:
         y, new_entry = attn.attn_decode(p["mixer"], spec, h, cache_entry, pos)
     elif kind == "mamba":
-        y, new_entry = rec.mamba_step(p["mixer"], h, cfg.ssm or SSMConfig(),
-                                      cache_entry)
+        y, new_entry = _whole(rec.mamba_step, p["mixer"], h,
+                              cfg.ssm or SSMConfig(), cache_entry)
     else:
-        y, new_entry = rec.rglru_step(p["mixer"], h,
-                                      cfg.rglru or RGLRUConfig(), cache_entry)
+        y, new_entry = _whole(rec.rglru_step, p["mixer"], h,
+                              cfg.rglru or RGLRUConfig(), cache_entry)
     x = x + y
     if "cross" in p and cross_cache is not None:
         hq = rmsnorm(p["norm_x"], x, cfg.norm_eps)
@@ -220,7 +249,7 @@ def layer_decode(p, cfg: ModelConfig, kind: str, x, cache_entry, pos: int,
     if kind != "mamba":
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
         if cfg.ffn == "moe":
-            y2, _ = moe_ffn(p["ffn"], h2, cfg.moe, cfg.act, train=False)
+            y2, _ = _whole(moe_ffn, p["ffn"], h2, cfg.moe, cfg.act, False)
         else:
             y2 = mlp(p["ffn"], h2, cfg.act)
         x = x + y2
@@ -325,13 +354,16 @@ class Model(nn.Module):
         pos = torch.arange(x.shape[1], dtype=torch.int32,
                            device=x.device)[None].expand(*x.shape[:2])
         spec = _attn_spec(cfg, "global", encoder=True)
-        for p in params["encoder"]["layers"]:
-            h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-            y, _ = attn.attn_forward(p["mixer"], spec, h, pos)
-            x = x + y
-            h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-            x = x + mlp(p["ffn"], h2, cfg.act)
-        return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+        with sequence(x.shape[1]):
+            x = shard(x, "batch", "seq", None)
+            for p in params["encoder"]["layers"]:
+                h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+                y, _ = attn.attn_forward(p["mixer"], spec, h, pos)
+                x = x + y
+                x = x + mlp(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps),
+                            cfg.act)
+            x = rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+            return unshard(x, "batch", "seq", None)
 
     # ---- backbone forward ---------------------------------------------------
     def _inputs_to_x(self, params, batch):
@@ -340,20 +372,24 @@ class Model(nn.Module):
         dt = as_dtype(cfg.dtype)
         dev = _device_of(params)
         tokens = batch["tokens"].to(dev)
-        x = embed(params["embed"], tokens, dt)
+        b, s = tokens.shape[:2]
+        x = embed(params["embed"], tokens, dt)      # the stream's layout
         if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
             pe = batch["patch_embeds"].to(dev, dt)
             n = pe.shape[1]
-            x = torch.cat([x[:, :n] + pe, x[:, n:]], dim=1)
+            if tp_size() > 1:
+                pe = torch.nn.functional.pad(pe, (0, 0, 0, s - n))
+                x = x + shard(pe, "batch", "seq", None)
+            else:
+                x = torch.cat([x[:, :n] + pe, x[:, n:]], dim=1)
         if cfg.is_encoder_decoder:
-            x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
-                                         x.device).to(x.dtype)
+            x = x + shard(sinusoidal_positions(s, cfg.d_model, x.device),
+                          "seq", None).to(x.dtype)
         if "positions" in batch:
             positions = batch["positions"].to(dev)
         else:
-            positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                     device=x.device)[None].expand(
-                                         *x.shape[:2])
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=x.device)[None].expand(b, s)
             if cfg.mrope_sections is not None:
                 positions = positions[..., None].repeat(
                     1, 1, len(cfg.mrope_sections))
@@ -368,9 +404,13 @@ class Model(nn.Module):
                              train)
 
     def _forward(self, params, batch, collect_cache, train):
+        with sequence(batch["tokens"].shape[1]):
+            return self._forward_seq(params, batch, collect_cache, train)
+
+    def _forward_seq(self, params, batch, collect_cache, train):
         cfg = self.cfg
         x, positions = self._inputs_to_x(params, batch)
-        s = x.shape[1]
+        s = positions.shape[1]
         q_chunk = cfg.attn_q_chunk or (1024 if s >= 4096 else None)
         enc_out = None
         if cfg.is_encoder_decoder:
@@ -391,13 +431,14 @@ class Model(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         enter = carry_context()     # the recomputation's thread
 
-        def remat_group(x, group):
-            with enter():
+        def remat_group(x, group, key):
+            with enter(), sequence(s), remat_scope(key):
                 return run_group(x, group)[:2]
 
-        for group, body in self._layer_groups(params["layers"]):
+        for g, (group, body) in enumerate(self._layer_groups(
+                params["layers"])):
             if body and remat:
-                x, aux_g = checkpoint(remat_group, x, group,
+                x, aux_g = checkpoint(remat_group, x, group, g,
                                       use_reentrant=False)
                 out = []
             else:
@@ -441,10 +482,14 @@ class Model(nn.Module):
         params = self._params(params)
         x, aux, _ = self._forward(params, batch, False, True)
         mask = batch.get("loss_mask")
-        nll = lm_loss_chunked(x, self._table(params),
-                              batch["labels"].to(x.device),
-                              None if mask is None else mask.to(x.device),
-                              cfg.loss_chunk, denom=denom)
+        with sequence(batch["tokens"].shape[1]):
+            nll = lm_loss_chunked(x, self._table(params),
+                                  batch["labels"].to(x.device),
+                                  None if mask is None else
+                                  mask.to(x.device), cfg.loss_chunk,
+                                  denom=denom)
+        if tp_index() != 0:
+            return nll      # every rank computes the aux loss whole
         return nll + aux
 
     # ---- serving ------------------------------------------------------------
@@ -496,7 +541,11 @@ class Model(nn.Module):
             for kind, (e, _) in zip(cfg.layer_kinds, entries)]
         if cfg.is_encoder_decoder:
             cache["cross"] = [{"k": ce[0], "v": ce[1]} for _, ce in entries]
-        return cache, logits_last(x[:, -1], self._table(params))
+        last = x[:, -1]
+        if seq_cut(batch["tokens"].shape[1]):
+            # the last rank's last position, gathered to every rank
+            last = gather_ranks(x[:, -1:], 1)[:, -1]
+        return cache, logits_last(last, self._table(params))
 
     @torch.no_grad()
     def init_cache(self, batch: int, max_len: int, dtype=None,
@@ -546,7 +595,9 @@ class Model(nn.Module):
         layers = []
         for i, (p, kind) in enumerate(zip(params["layers"], cfg.layer_kinds)):
             cc = cross[i] if cross is not None else None
-            x, ne = layer_decode(p, cfg, kind, x, cache["layers"][i], pos, cc)
+            with sequence(1):
+                x, ne = layer_decode(p, cfg, kind, x, cache["layers"][i],
+                                     pos, cc)
             layers.append(ne)
         new_cache = dict(cache, step=pos + 1, layers=layers)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -89,6 +89,17 @@ def slots(topi, cfg: MoEConfig, c: int):
     return pos_k, within_k, onehot
 
 
+def _gates(topv):
+    """The top-k probabilities renormalised to sum to 1. A top-1 gate is
+    identically 1 (``t / t``, exact in float32): it is taken as 1, so its
+    gradient is the exact zero, not the rounding residue of ``g / t - g t
+    / t^2``, which is all the main loss gives the router and differs
+    between any two summation orders of the same gradient."""
+    if topv.shape[-1] == 1:
+        return torch.ones_like(topv)
+    return topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+
+
 def spans_positions(cfg: MoEConfig, local_tokens: int, position) -> bool:
     """Whether a routing group of the global batch (``local_tokens`` a
     position, ``position.count`` positions) spans data positions."""
@@ -123,7 +134,7 @@ def moe_ffn(p, x, cfg: MoEConfig, act: str = "silu", train: bool = True):
 
     e, c = cfg.n_experts, _capacity(sg, cfg)
     topv, topi, pos_k, within_k, onehot = route(probs, cfg, c)
-    gates = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    gates = _gates(topv)
 
     ep = cfg.n_experts % max(axis_size("experts"), 1) == 0
     e_ax = "experts" if ep else None
@@ -246,7 +257,7 @@ def _moe_ffn_spanning(p, x, cfg: MoEConfig, act: str, position):
     mine = slice(start, start + n)
     pos_k = [v.reshape(-1)[mine] for v in pos_all]             # (n,)
     within_k = [v.reshape(-1)[mine] for v in within_all]
-    gates = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    gates = _gates(topv)
 
     g0 = start // sg                                # first group touched
     ng = (start + n - 1) // sg - g0 + 1

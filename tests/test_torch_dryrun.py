@@ -208,7 +208,10 @@ def test_every_data_position_counts_alike(arch, kind, mesh):
 
 
 def test_collective_bytes_are_the_slabs_the_step_moves():
-    mesh = host_mesh()
+    """On an (8, 1) mesh, where a position runs whole, the collectives are
+    the weights' gathers and the gradients' reductions alone (the split
+    over "model": ``tests/test_torch_tensor_parallel.py``)."""
+    mesh = lm.make_host_mesh(1, [META] * 8)
     fn, args, _, params, rules = smoke_cell("stablelm-1.6b", "train", mesh)
     counter, _, _ = dryrun.count_step(fn, args, mesh, rules, params)
     want = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
