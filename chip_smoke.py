@@ -319,10 +319,35 @@ each printing one JSON line (any failed check raises and exits non-zero):
              step's ms and peak; (g) the dry run's per-device peak of
              that step (on a (1, 4) meta mesh) beside the card's peak /
              4.
+25. tp mixers — MoE, the recurrent mixers and cross-attention split over
+             a data position's "model" row (slabs of the one card): (a)
+             granite-moe-3b, one pattern period, on (1, 16), where 40
+             experts do not divide 16 (each rank its ``ff`` columns of
+             every expert): one f32 train step's loss and gradients
+             within 1e-5 x max|want| of one device; one bf16 AdamW step's
+             update within 1e-2 x its largest move of one device summing
+             every split contraction as the ranks sum it
+             (``split_association``), the control (partial sums rounded to
+             bf16 first) outside that bar; bf16 prefill (batch 4, prompt
+             32) and 8 decode tokens within 1e-2 x max|want|; (b)
+             llama4-scout, 2 layers (what the card holds twice, with its
+             bf16 compute copies), on (1, 8): 16 experts 2 a rank, 40
+             heads 5 a rank, with the shared expert; at f32 the prefill of
+             16 tokens and 4 decode steps, every logit within 1e-5 and the
+             greedy tokens equal; whether the bf16 prefill's logits equal
+             one device's bit for bit (reported); (c) falcon-mamba-7b and
+             recurrentgemma-9b, one pattern period each, on (1, 4): (a)'s
+             f32 gradients and bf16 update bar and control, and the f32
+             prefill and decode (each rank's recurrent state its channel
+             slice of its own copy); (d) whisper-tiny on (1, 2): f32
+             decode gives one device's tokens, each rank reading its own
+             3 heads of the cross cache; (e) each split step's ms and peak
+             GiB beside one device's, and the rank threads; (f) the phase
+             under 150 s.
 
 The line before the last lists each kernel — on the main path and on each
-path of phases 14 to 24, with the precisions and Karatsuba flags it runs
-on each route; the last line is
+path of phases 14 to 24 (phase 25 launches none), with the precisions
+and Karatsuba flags it runs on each route; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import concurrent.futures
@@ -5929,15 +5954,23 @@ def same_association(torch, m):
 
 def partial_sums_in_bf16(torch):
     """Patches that round each row-parallel product's partial sums to bf16
-    before the ranks' reduction: the fault a split step's update check
-    must catch (``sharded_full``'s control)."""
-    from repro_torch.models import attention, layers
+    before the ranks' reduction (attention's and the MLP's ``wo``, Mamba's
+    ``x_proj``, the mixers' ``out_proj``, the ``ff``-parallel experts'
+    ``wo``): the fault a split step's update check must catch
+    (``sharded_full``'s and ``tp_mixers_update``'s control)."""
+    from repro_torch.models import attention, layers, moe, recurrent
     from repro_torch.models import sharding
 
     def reduce_to(x, *logical):
         return sharding.reduce_to(x.to(torch.bfloat16), *logical)
+
+    def sum_ranks(x, dim=None):
+        return sharding.sum_ranks(x.to(torch.bfloat16), dim)
     return [(attention, "reduce_to", reduce_to),
-            (layers, "reduce_to", reduce_to)]
+            (layers, "reduce_to", reduce_to),
+            (recurrent, "reduce_to", reduce_to),
+            (recurrent, "sum_ranks", sum_ranks),
+            (moe, "sum_ranks", sum_ranks)]
 
 
 @contextlib.contextmanager
@@ -6481,6 +6514,710 @@ def sharded_lm_phase(torch, smi_line):
     return records
 
 
+TP_MIX_SECONDS = 150   # phase 25's time limit (f)
+# 25 (a): granite's 40 experts on 16 ranks: the ``ff`` route. The bf16
+# update's check runs 2 periods deep (``update_periods``), (c)'s 8 and 1:
+# at one period partial sums rounded to bf16 move granite's update by
+# 0.96 % of its largest move and falcon's by 0.50 %, inside the 1e-2 bar
+# the control must miss; at 2 / 8 periods by 21.64 % / 3.88 % (falcon at
+# 2, 4: 0.68, 1.26 %); recurrentgemma's by 1.39 % at one period, the most
+# the card holds of its step's snapshots (scripts/tp_update_probe.py, H100
+# 80GB HBM3, 700.00 W).
+TP_MIX_MOE = dict(arch="granite-moe-3b-a800m", mesh=(1, 16), batch=4,
+                  seq=128, prompt=32, new=8, update_periods=2)
+# 25 (b): llama4's 16 experts on 8 ranks: expert parallel. Two layers:
+# 2 x 2.20e9 + 2 x 1.03e9 (embedding, head) parameters, 25.8 GB at f32,
+# held once as one device's weights and once as the ranks' slabs (51.7
+# GB), plus 12.9 GB of bf16 compute copies; a third layer (+8.8 GB twice)
+# does not fit the card's 79.2 GiB beside them
+TP_MIX_EP = dict(arch="llama4-scout-17b-a16e", mesh=(1, 8), layers=2,
+                 batch=4, prompt=16, new=4)
+# 25 (c): the recurrent mixers' channels on 4 ranks
+TP_MIX_REC = dict(archs=("falcon-mamba-7b", "recurrentgemma-9b"),
+                  mesh=(1, 4), batch=4, seq=128, prompt=16, new=4,
+                  update_periods={"falcon-mamba-7b": 8,
+                                  "recurrentgemma-9b": 1})
+# 25 (d): whisper's 6 heads on 2 ranks
+TP_MIX_CROSS = dict(arch="whisper-tiny", mesh=(1, 2), batch=4, prompt=16,
+                    new=8)
+
+
+def period_cfg(arch, periods=1, **changes):
+    """``arch``'s full configuration cut to ``periods`` pattern periods."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = registry.get(arch)
+    return dataclasses.replace(cfg, n_layers=periods * len(cfg.pattern),
+                               **changes)
+
+
+class CudaClock:
+    """CUDA-event ms and the peak bytes allocated above what was allocated
+    at the start, of the work inside."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        torch = self.torch
+        torch.cuda.synchronize()
+        self.base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        torch = self.torch
+        self.end.record()
+        torch.cuda.synchronize()
+        self.ms = self.start.elapsed_time(self.end)
+        self.peak_gib = (torch.cuda.max_memory_allocated()
+                         - self.base) / 2 ** 30
+
+
+def split_association(torch, m, cfg):
+    """Patches that make one device compute as a (1, ``m``) mesh's ranks
+    do, rank by rank, and sum every contraction they split as they sum
+    it: each layer's input and each weight a rank gathers whole is copied
+    once a rank (``Fork``: the ranks' gradients of the copies summed in
+    float32 in rank order, rounded once, as the group's all-gather
+    transposes them); each rank's products take its slices (heads,
+    ``ff`` columns, channels, vocabulary rows) apart; the partial sums of
+    a row-parallel product are added in float32 in rank order and
+    rounded once; a rank keeps its slice of the sequence. Attention (its
+    heads, or, where they do not divide ``m``, whole on every rank),
+    the MLP and the vocabulary-parallel loss as ``same_association``
+    (or the loss of each rank's own tokens against the whole table);
+    the ``ff``-parallel experts (each rank routing the tokens whole, its
+    ``ff`` columns of every expert, the partial outputs summed and
+    rounded once, each rank combining its columns of D);
+    Mamba (its ``in_proj`` columns of both halves, its channels' conv and
+    scan, ``x_proj``'s partial sums all-reduced, ``out_proj``
+    row-parallel); RG-LRU (its channels, ``xc`` gathered for its ``wa``
+    / ``wx`` columns, ``out_proj`` row-parallel). A weight whole over
+    "model" that a rank casts to the compute dtype itself (the router, a
+    table whose vocabulary does not divide ``m``: the embedding looked up
+    whole, each rank keeping its slice) is kept float32 in the compute
+    copy and forked there, each copy cast once a rank (``copies``), as
+    the ranks sum its float32 gradients."""
+    from repro_torch.models import attention, layers, moe, recurrent
+    from repro_torch.models import model as model_mod
+    whole_table = cfg.vocab_size % m != 0
+    memo = {}
+
+    class Fork(torch.autograd.Function):
+        """``x`` once a rank; the ranks' gradients summed in float32 in
+        rank order, rounded once (the group's all-gather transposed)."""
+
+        @staticmethod
+        def forward(ctx, x):
+            return tuple(x.view_as(x) for _ in range(m))
+
+        @staticmethod
+        def backward(ctx, *gs):
+            total = gs[0].float()
+            for g in gs[1:]:
+                total = total + g.float()
+            return total.to(gs[0].dtype)
+
+    def cols(w, r):
+        n = w.shape[-1] // m
+        return w[..., r * n:(r + 1) * n].contiguous()
+
+    def rows(w, r, dim=0):
+        n = w.shape[dim] // m
+        return w.narrow(dim, r * n, n).contiguous()
+
+    def reduce(parts, dt=None):
+        total = parts[0]
+        for y in parts[1:]:
+            total = total + y
+        return total if dt is None else total.to(dt)
+
+    def copies(w, dt):
+        """A float32 weight's compute copy once a rank (made on first use,
+        kept for the step's other uses of it)."""
+        if w.dtype == dt:
+            return Fork.apply(w)
+        if id(w) not in memo:
+            memo[id(w)] = [c.to(dt) for c in Fork.apply(w)]
+        return memo[id(w)]
+
+    cast_params = model_mod.cast_params_for_compute
+
+    def cast_params_for_compute(params, dtype):
+        """The compute copy, the router and a whole table kept float32."""
+        tree = cast_params(params, dtype)
+        source = cast_params(params, "float32")
+
+        def keep(t, src, path):
+            if isinstance(t, dict):
+                return {k: keep(t[k], src[k], path + (k,)) for k in t}
+            if isinstance(t, (list, tuple)):
+                return [keep(a, b, path) for a, b in zip(t, src)]
+            if path[-1] == "router" or (whole_table and path[-1] == "table"):
+                return src
+            return t
+        return keep(tree, source, ())
+
+    def embed(p, tokens, dtype):
+        tables = copies(p["table"], dtype)
+        return seq_slices([tables[r][tokens] for r in range(m)])
+
+    def seq_slices(ys):
+        """Each rank's slice of the sequence of its whole ``ys[r]``."""
+        n = ys[0].shape[1] // m
+        return torch.cat([y[:, r * n:(r + 1) * n] for r, y in
+                          enumerate(ys)], 1)
+
+    same = {(mod, name): fn for mod, name, fn in same_association(torch, m)}
+    attention_forward = attention.attn_forward
+
+    def attn_forward(p, spec, x, positions, k_pos=None, xkv=None):
+        assert xkv is None and k_pos is None
+        dt = x.dtype
+        xs = Fork.apply(x)
+        if spec.n_heads % m:                 # whole on every rank
+            ws = {k: Fork.apply(layers.cast(p[k], dt))
+                  for k in ("wq", "wk", "wv", "wo")}
+            outs = [attention_forward({k: w[r] for k, w in ws.items()},
+                                      spec, xs[r], positions)
+                    for r in range(m)]
+            return seq_slices([y for y, _ in outs]), outs[0][1]
+        hq, dh = spec.n_heads // m, spec.head_dim
+        local = spec.n_kv % m == 0
+        assert local or dh % m == 0
+        w = {k: layers.cast(p[k], dt) for k in ("wq", "wk", "wv", "wo")}
+        q, kp, vp = [], [], []
+        for r in range(m):
+            q.append(attention._split_heads(xs[r] @ cols(w["wq"], r), hq,
+                                            dh))
+            kp.append(xs[r] @ cols(w["wk"], r))
+            vp.append(xs[r] @ cols(w["wv"], r))
+        if not local:
+            kp = Fork.apply(torch.cat(kp, -1))
+            vp = Fork.apply(torch.cat(vp, -1))
+        nk = spec.n_kv // m if local else spec.n_kv
+        pos = positions if positions.ndim == 2 else positions[..., 0]
+        mask = attention._score_mask(pos, pos, spec.causal, spec.window)
+        g = spec.n_heads // spec.n_kv
+        parts = []
+        for r in range(m):
+            k = attention._split_heads(kp[r], nk, dh)
+            v = attention._split_heads(vp[r], nk, dh)
+            qr = q[r]
+            if spec.use_rope:
+                qr = layers.apply_rope(qr, layers.rope_angles(
+                    positions, dh, spec.theta, spec.sections))
+                k = layers.apply_rope(k, layers.rope_angles(
+                    positions, dh, spec.theta, spec.sections))
+            if not local:              # attention._kv_select
+                idx = [(r * hq + j) // g for j in range(hq)]
+                run = sorted(set(idx))
+                if hq % len(run) == 0 and idx == [
+                        h for h in run for _ in range(hq // len(run))]:
+                    idx = slice(run[0], run[-1] + 1)
+                k, v = k[:, :, idx], v[:, :, idx]
+            o = attention.sdpa(qr, k, v, mask, spec.q_chunk)
+            parts.append(layers.matmul_f32(o.reshape(*o.shape[:2], -1),
+                                           rows(w["wo"], r)))
+        return reduce(parts, dt), (None, None)
+
+    def moe_ffn(p, x, mcfg, act="silu", train=True):
+        assert not mcfg.shared_expert
+        dt = x.dtype
+        xs = Fork.apply(x)
+        routers = copies(p["router"], dt)
+        routed = [moe._dispatch({**p, "router": routers[r]}, xs[r], mcfg,
+                                "ff", None) for r in range(m)]
+        wg, wu, wo = (layers.cast(p[k], dt)
+                      for k in ("wi_gate", "wi_up", "wo"))
+        partials = []
+        for r in range(m):
+            xe = routed[r]["xe"]
+            e, g, c, _ = xe.shape
+            h = layers.ACTS[act](torch.einsum("egcd,edf->egcf", xe,
+                                              cols(wg, r)))
+            h = h * torch.einsum("egcd,edf->egcf", xe, cols(wu, r))
+            partials.append(layers.matmul_f32(h.reshape(e, g * c, -1),
+                                              rows(wo, r, 1)))
+        ye = reduce(partials, dt).reshape(e, g, c, -1)
+        outs = [moe._combine(p, routed[r], cols(ye, r), mcfg, act, False)
+                for r in range(m)]
+        y = torch.cat([y for y, _ in outs], -1)
+        return seq_slices([y] * m), outs[0][1]
+
+    def lm_loss_chunked(x, table, labels, mask=None, chunk=512, z_loss=0.0,
+                        denom=None):
+        if cfg.vocab_size % m == 0:
+            return same[model_mod, "lm_loss_chunked"](
+                x, table, labels, mask, chunk, z_loss, denom)
+        assert mask is None
+        dt = x.dtype
+        b, s, _ = x.shape
+        denom = float(b * s) if denom is None else denom
+        xs = Fork.apply(x)
+        tables = copies(table, dt)
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+        totals = []
+        for r in range(m):
+            lo0, hi0 = r * s // m, (r + 1) * s // m
+            totals.append(layers._chunked(
+                layers._nll_sum(tables[r], z_loss), hi0 - lo0, chunk,
+                x.device, lambda lo, hi, r=r, lo0=lo0: (
+                    xs[r][:, lo0 + lo:lo0 + hi],
+                    labels[:, lo0 + lo:lo0 + hi],
+                    mask[:, lo0 + lo:lo0 + hi])) / denom)
+        return torch.stack(totals).sum()
+
+    def mamba_forward(p, x, scfg, chunk=128, h0=None):
+        assert h0 is None
+        dt = x.dtype
+        xs = Fork.apply(x)
+        w = layers.cast(p["in_proj"], dt)
+        di = w.shape[1] // 2
+        c = di // m
+        conv = {k: layers.cast(p["conv"][k], dt) for k in ("w", "b")}
+        xp = layers.cast(p["x_proj"], dt)
+        xin, z, xc, partials = [], [], [], []
+        for r in range(m):
+            both = torch.cat([w[:, r * c:(r + 1) * c],
+                              w[:, di + r * c:di + (r + 1) * c]], 1)
+            a, b = torch.chunk(xs[r] @ both, 2, dim=-1)
+            xin.append(a)
+            z.append(b)
+            xc.append(torch.nn.functional.silu(recurrent.conv1d(
+                {"w": cols(conv["w"], r), "b": rows(conv["b"], r)}, a)))
+            partials.append(layers.matmul_f32(xc[r], rows(xp, r)))
+        projs = Fork.apply(reduce(partials))
+        dtr = p["dt_proj"]["w"].shape[0]
+        n = scfg.state_dim
+        wd = layers.cast(p["dt_proj"]["w"], dt)
+        outs, hs = [], []
+        for r in range(m):
+            proj = projs[r].to(dt)
+            dt_in, b_in, c_out = torch.split(
+                proj, [dtr, n, proj.shape[-1] - dtr - n], dim=-1)
+            dtr_ = torch.nn.functional.softplus(
+                (dt_in @ cols(wd, r)).to(torch.float32)
+                + rows(p["dt_proj"]["b"], r))
+            y, h = recurrent._mamba_scan(
+                {"a_log": rows(p["a_log"], r),
+                 "d_skip": rows(p["d_skip"], r)}, xc[r], z[r], dtr_,
+                b_in.to(torch.float32), c_out.to(torch.float32), scfg, chunk)
+            outs.append(layers.matmul_f32(y, rows(layers.cast(
+                p["out_proj"], dt), r)))
+            hs.append(h)
+        buf = torch.cat([a[:, -(scfg.conv_width - 1):] for a in xin], -1)
+        return reduce(outs, dt), (torch.cat(hs, 1), buf.to(torch.float32))
+
+    def rglru_forward(p, x, rcfg, h0=None, chunk=512):
+        assert h0 is None
+        dt = x.dtype
+        xs = Fork.apply(x)
+        gp, rp, wa, wx, wo = (layers.cast(p[k], dt) for k in (
+            "gate_proj", "rec_proj", "wa", "wx", "out_proj"))
+        conv = {k: layers.cast(p["conv"][k], dt) for k in ("w", "b")}
+        gate, xr, xc = [], [], []
+        for r in range(m):
+            gate.append(recurrent._gelu(xs[r] @ cols(gp, r)))
+            xr.append(xs[r] @ cols(rp, r))
+            xc.append(recurrent.conv1d(
+                {"w": cols(conv["w"], r), "b": rows(conv["b"], r)}, xr[r]))
+        xw = Fork.apply(torch.cat(xc, -1))
+        outs, hs = [], []
+        for r in range(m):
+            a, b = recurrent._rglru_gates(
+                {"lambda": rows(p["lambda"], r)}, xc[r], xw[r] @ cols(wa, r),
+                xw[r] @ cols(wx, r), rcfg)
+            h0r = torch.zeros((x.shape[0], a.shape[-1]), dtype=torch.float32,
+                              device=x.device)
+            h, last = recurrent.chunked_linear_scan(a, b, chunk, h0r)
+            outs.append(layers.matmul_f32(h.to(dt) * gate[r], rows(wo, r)))
+            hs.append(last)
+        buf = torch.cat([t[:, -(rcfg.conv_width - 1):] for t in xr], -1)
+        return reduce(outs, dt), (torch.cat(hs, -1), buf.to(torch.float32))
+
+    out = [(attention, "attn_forward", attn_forward),
+           (model_mod, "lm_loss_chunked", lm_loss_chunked),
+           (model_mod, "cast_params_for_compute", cast_params_for_compute)]
+    if whole_table:
+        out.append((model_mod, "embed", embed))
+    if cfg.ffn == "mlp" and cfg.d_ff % m == 0:
+        out.append((model_mod, "mlp", same[model_mod, "mlp"]))
+    if cfg.moe is not None:
+        assert cfg.moe.n_experts % m and cfg.d_ff % m == 0
+        out.append((model_mod, "moe_ffn", moe_ffn))
+    if cfg.ssm is not None:
+        out.append((recurrent, "mamba_forward", mamba_forward))
+    if cfg.rglru is not None:
+        out.append((recurrent, "rglru_forward", rglru_forward))
+    return out
+
+
+def tp_mixers_grads(torch, dev, cfg, shape, b, s, seed):
+    """One f32 train step's loss and gradients over a (1, M) mesh of
+    slabs of the card against one device's, within 1e-5 x max|want|,
+    each with its ms and peak GiB."""
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = Model(cfg, device=dev).init(gen)
+    batch = TokenStream(DataConfig(cfg.vocab_size, s, b, seed=seed),
+                        dev).batch(0)
+    with CudaClock(torch) as one:
+        loss = model.loss(batch)
+        loss.backward()
+    want = {n: p.grad for n, p in model.named_parameters()}
+    mesh = slab_mesh(torch, dev, shape)
+    params, rules = shard_values(
+        {n: p.detach() for n, p in model.named_parameters()}, cfg, mesh)
+    with CudaClock(torch) as split:
+        got, grads = steps.lm_value_and_grad(
+            Model(cfg, device="meta"), params, batch, mesh, rules)
+    err = max(rel_to(grads[n].gather(), w) for n, w in want.items())
+    loss_err = abs(float(got) - float(loss.detach())) / abs(float(loss.detach()))
+    del model, want, params, grads
+    torch.cuda.empty_cache()
+    check(err <= SHARD_F32_TOL and loss_err <= SHARD_F32_TOL,
+          f"{cfg.name} f32 gradients on {shape}: {err:.3e}, loss "
+          f"{loss_err:.3e}")
+    return dict(grad_rel_err=err, loss_rel_err=loss_err, tol=SHARD_F32_TOL,
+                batch=b, seq=s, grad_ms_single=one.ms,
+                grad_ms_split=split.ms, grad_peak_gib_single=one.peak_gib,
+                grad_peak_gib_split=split.peak_gib)
+
+
+def tp_mixers_update(torch, dev, cfg, shape, b, s, seed):
+    """One bf16 AdamW step from non-zero moments over a (1, M) mesh of
+    slabs against one device summing every split contraction as the ranks
+    sum it (``split_association``): the update p - p0 within 1e-2 x its
+    largest, and the control (partial sums rounded to bf16 before their
+    reduction) outside that bar; the update against one device's own step
+    beside them, each step's ms and peak GiB."""
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.distributed import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = Model(cfg, device=dev).init(gen)
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batch = TokenStream(DataConfig(cfg.vocab_size, s, b, seed=seed),
+                        dev).batch(0)
+    loss = model.loss(batch)
+    loss.backward()
+    state0 = conditioned_state(torch, {n: p.grad for n, p in
+                                       model.named_parameters()}, 4, dev)
+    model.zero_grad(set_to_none=True)
+    del loss
+    opt = AdamWConfig(warmup_steps=10, decay_steps=1000)
+
+    def fresh():
+        state = {k: {n: t.clone() for n, t in state0[k].items()}
+                 for k in ("mu", "nu")}
+        state["step"] = state0["step"].clone()
+        return state
+
+    def sharded_state(params):
+        state = {k: {n: M.distribute(t, params[n].sharding)
+                     for n, t in state0[k].items()} for k in ("mu", "nu")}
+        state["step"] = state0["step"].clone()
+        return state
+
+    def err_to(params, want):
+        return max(float((params[n].gather(dev) - w).abs().max())
+                   for n, w in want.items())
+
+    m = shape[1]
+    with CudaClock(torch) as one:
+        steps.build_train_step(model, opt)(fresh(), batch)
+    want = {n: p.detach().clone() for n, p in model.named_parameters()}
+    moved = max(float((w - p0[n]).abs().max()) for n, w in want.items())
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(p0[n])
+    with patched(split_association(torch, m, cfg)):
+        steps.build_train_step(model, opt)(fresh(), batch)
+    same = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    mesh = slab_mesh(torch, dev, shape)
+    params, rules = shard_values(p0, cfg, mesh)
+    meta = Model(cfg, device="meta")
+    state = sharded_state(params)
+    with CudaClock(torch) as split:
+        steps.build_train_step(meta, opt, mesh=mesh, rules=rules,
+                               params=params)(state, batch)
+    same_err, plain_err = err_to(params, same), err_to(params, want)
+    del params, state
+    params, rules = shard_values(p0, cfg, mesh)
+    with patched(partial_sums_in_bf16(torch)):
+        steps.build_train_step(meta, opt, mesh=mesh, rules=rules,
+                               params=params)(sharded_state(params), batch)
+    control_err = err_to(params, same)
+    del params, p0, want, same, state0
+    torch.cuda.empty_cache()
+    rec = dict(update_max_abs=moved, update_rel_err_same=same_err / moved,
+               update_rel_err_single=plain_err / moved,
+               control_bf16_partials_rel_err=control_err / moved,
+               update_tol=SHARD_UPDATE_TOL, step_ms_single=one.ms,
+               step_ms_split=split.ms, step_peak_gib_single=one.peak_gib,
+               step_peak_gib_split=split.peak_gib)
+    emit("tp_mixers_update", arch=cfg.name, layers=cfg.n_layers,
+         mesh=list(shape), batch=b, seq=s, **rec)
+    check(same_err <= SHARD_UPDATE_TOL * moved,
+          f"{cfg.name} split update vs the same association: "
+          f"{same_err:.3e} of a largest move {moved:.3e}")
+    check(control_err > SHARD_UPDATE_TOL * moved,
+          f"{cfg.name}: the update bar misses partial sums rounded to "
+          f"bf16: {control_err:.3e} of a largest move {moved:.3e}")
+    return rec
+
+
+def tp_mixers_serve(torch, dev, cfg, shape, b, p, new, seed, tol):
+    """Prefill ``p`` tokens and ``new`` decode steps (fed one device's
+    greedy tokens) over a (1, M) mesh of slabs against one device: every
+    logit within ``tol`` x max|want|, the greedy tokens equal; and what
+    each rank reads after the prefill: its channel slice of each
+    recurrent state (of its own copy), its heads of each cross cache.
+    Returns (record, the split's cache)."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import Model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = Model(cfg, device=dev).init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p),
+                            generator=torch.Generator().manual_seed(seed))
+    prompts = prompts.to(dev)
+    max_len = p + new
+
+    def frames(fn):
+        if not cfg.is_encoder_decoder:
+            return fn
+        f = torch.zeros((b, cfg.encoder.n_frames, cfg.d_model),
+                        device=dev)
+        return lambda bt: fn(dict(bt, frames=f))
+
+    with torch.no_grad(), model.compute_cast():
+        toks = serve.generate(model, prompts, new, max_len)
+        with CudaClock(torch) as one:
+            want, _ = decode_logits(
+                torch, frames(lambda bt: model.prefill(bt, max_len)),
+                model.decode_step, prompts, toks[:, :new])
+    mesh = slab_mesh(torch, dev, shape)
+    params, rules = shard_values(
+        {k: v.detach() for k, v in model.named_parameters()}, cfg, mesh)
+    with CudaClock(torch) as split:
+        got, cache = decode_logits(
+            torch, frames(steps.build_prefill(model, max_len, mesh, rules,
+                                              params)),
+            steps.build_decode(model, mesh, rules, params), prompts,
+            toks[:, :new])
+    errs = [rel_to(g, w) for g, w in zip(got, want)]
+    greedy = torch.stack([g.argmax(-1) for g in got[:new]], 1)
+    views = rank_views(torch, cfg, cache, shape[1], dev)
+    del model, params, got, want
+    torch.cuda.empty_cache()
+    check(max(errs) <= tol and torch.equal(greedy, toks),
+          f"{cfg.name} on {shape}: logits {max(errs):.3e} (bar {tol}), "
+          f"greedy tokens equal {torch.equal(greedy, toks)}")
+    return dict(prompt=p, new=new, logits_rel_err_max=max(errs),
+                logits_tol=tol, greedy_tokens_equal=True,
+                decode_ms_single=one.ms, decode_ms_split=split.ms,
+                decode_peak_gib_single=one.peak_gib,
+                decode_peak_gib_split=split.peak_gib, rank_views=views)
+
+
+def rank_views(torch, cfg, cache, m, dev):
+    """Each rank's view of the cache (``launch.steps.local_cache``): a
+    recurrent state's channels are the rank's slice of its own copy, a
+    cross cache's kv heads the rank's slab where they divide; checked,
+    and returned as the channels / heads a rank reads."""
+    from repro_torch.launch import steps
+    from repro_torch.models import recurrent as rec
+    out = {}
+    for r in range(m):
+        view = steps.local_cache(cache, {}, dev, r)
+        for i, kind in enumerate(cfg.layer_kinds):
+            if kind not in ("mamba", "rglru"):
+                continue
+            for k, d in enumerate(rec.STATE_CHANNEL_DIMS):
+                st, part = cache["layers"][i][k], view["layers"][i][k]
+                n = st.shape[d] // m
+                own = st.slabs[0, r].narrow(d, r * n, n)
+                check(part.shape[d] == n and part.data_ptr()
+                      == own.data_ptr(), f"rank {r}'s view of layer {i}'s "
+                      f"state: {tuple(part.shape)}")
+                out["state_channels_a_rank"] = n
+        if cfg.is_encoder_decoder:
+            k = cache["cross"][0]["k"]
+            part = view["cross"][0]["k"]
+            check(cfg.n_kv_heads % m == 0 and part.shape[2]
+                  == cfg.n_kv_heads // m and part.data_ptr()
+                  == k.slabs[0, r].data_ptr(), f"rank {r}'s cross cache: "
+                  f"{tuple(part.shape)}")
+            out["cross_kv_heads_a_rank"] = part.shape[2]
+    return out
+
+
+def tp_mixers_moe(torch, smi_line, dev):
+    """25 (a): granite-moe-3b at full width, one pattern period, on (1,
+    16): 40 experts do not divide 16, so each rank holds its 32 ``ff``
+    columns of every expert."""
+    c = TP_MIX_MOE
+    cfg32 = period_cfg(c["arch"], dtype="float32")
+    check(cfg32.moe.n_experts % c["mesh"][1] != 0
+          and cfg32.d_ff % c["mesh"][1] == 0, "granite is not ff-parallel")
+    rec = tp_mixers_grads(torch, dev, cfg32, c["mesh"], c["batch"],
+                          c["seq"], 40)
+    rec.update(tp_mixers_update(
+        torch, dev, period_cfg(c["arch"], c["update_periods"]), c["mesh"],
+        c["batch"], c["seq"], 46))
+    cfg = period_cfg(c["arch"])
+    serve_rec = tp_mixers_serve(torch, dev, cfg, c["mesh"], c["batch"],
+                                c["prompt"], c["new"], 42, SHARD_TP_TOL)
+    emit("tp_mixers_moe", nvidia_smi=smi_line, arch=cfg.name,
+         layers=cfg.n_layers, mesh=dict(zip(("data", "model"), c["mesh"])),
+         route="ff", experts=cfg.moe.n_experts, ff_a_rank=cfg.d_ff // 16,
+         rank_threads=c["mesh"][1], **rec, serve=serve_rec)
+
+
+def tp_mixers_ep(torch, smi_line, dev):
+    """25 (b): llama4-scout at full width, 2 layers (local attention, each
+    with its MoE and shared expert), on (1, 8): 16 experts, 2 a rank, and
+    40 heads, 5 a rank. At f32 the prefill of 16 tokens and 4 decode
+    steps, every logit within 1e-5 x max|want| of one device and the
+    greedy tokens equal; whether the bf16 prefill's logits are one
+    device's bit for bit (reported)."""
+    import dataclasses
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import Model
+    c = TP_MIX_EP
+    full = period_cfg(c["arch"])
+    cfg32 = dataclasses.replace(full, n_layers=c["layers"],
+                                dtype="float32")
+    cfg16 = dataclasses.replace(cfg32, dtype=full.dtype)
+    m = c["mesh"][1]
+    check(cfg32.moe.n_experts % m == 0 and cfg32.n_heads % m == 0
+          and cfg32.moe.shared_expert and cfg32.ffn == "moe",
+          "llama4 is not expert parallel with its shared expert")
+    b, p, new = c["batch"], c["prompt"], c["new"]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(43)
+    model = Model(cfg32, device=dev).init(gen)
+    prompts = torch.randint(0, cfg32.vocab_size, (b, p),
+                            generator=torch.Generator().manual_seed(43))
+    prompts = prompts.to(dev)
+    with torch.no_grad():
+        toks = serve.generate(model, prompts, new, p + new)
+        with CudaClock(torch) as one:
+            want, _ = decode_logits(
+                torch, lambda bt: model.prefill(bt, p + new),
+                model.decode_step, prompts, toks[:, :new])
+        meta16 = Model(cfg16, device="meta")
+        tree = meta16.compute_params(dict(model.named_parameters()))
+        want16 = meta16.prefill({"tokens": prompts}, p + new,
+                                params=tree)[1]
+        del tree
+    torch.cuda.empty_cache()
+    mesh = slab_mesh(torch, dev, c["mesh"])
+    params, rules = shard_values(
+        {k: v.detach() for k, v in model.named_parameters()}, cfg32, mesh)
+    card_gib = torch.cuda.memory_allocated() / 2 ** 30
+    with CudaClock(torch) as split:
+        got, _ = decode_logits(
+            torch, steps.build_prefill(model, p + new, mesh, rules, params),
+            steps.build_decode(model, mesh, rules, params), prompts,
+            toks[:, :new])
+    errs = [rel_to(g, w) for g, w in zip(got, want)]
+    greedy = torch.stack([g.argmax(-1) for g in got[:new]], 1)
+    got16 = steps.build_prefill(meta16, p + new, mesh, rules, params)(
+        {"tokens": prompts})[1]
+    same16 = torch.equal(got16, want16)
+    err16 = rel_to(got16, want16)
+    del model, params, got, want, got16, want16
+    torch.cuda.empty_cache()
+    emit("tp_mixers_ep", nvidia_smi=smi_line, arch=cfg32.name,
+         layers=cfg32.n_layers, mesh=dict(zip(("data", "model"), c["mesh"])),
+         route="experts", experts_a_rank=cfg32.moe.n_experts // m,
+         heads_a_rank=cfg32.n_heads // m, batch=b, prompt=p, new=new,
+         logits_rel_err=errs, logits_rel_err_max=max(errs),
+         tol=SHARD_F32_TOL, greedy_tokens_equal=torch.equal(greedy, toks),
+         bf16_prefill_logits_equal=same16, bf16_prefill_rel_err=err16,
+         weights_and_slabs_gib=card_gib, decode_ms_single=one.ms,
+         decode_ms_split=split.ms, decode_peak_gib_single=one.peak_gib,
+         decode_peak_gib_split=split.peak_gib, rank_threads=m)
+    check(max(errs) <= SHARD_F32_TOL and torch.equal(greedy, toks),
+          f"llama4 (1, 8) f32: logits {max(errs):.3e}, greedy tokens "
+          f"equal {torch.equal(greedy, toks)}")
+
+
+def tp_mixers_rec(torch, smi_line, dev):
+    """25 (c): falcon-mamba-7b (1 layer) and recurrentgemma-9b (2 RG-LRU
+    layers and a local attention layer) at full width on (1, 4): the
+    gradients at f32, the prefill and decode at f32 (each rank's state its
+    channel slice), one bf16 AdamW step's update and its control."""
+    import dataclasses
+    c = TP_MIX_REC
+    for arch in c["archs"]:
+        cfg = period_cfg(arch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        rec = tp_mixers_grads(torch, dev, cfg32, c["mesh"], c["batch"],
+                              c["seq"], 44)
+        rec["serve"] = tp_mixers_serve(torch, dev, cfg32, c["mesh"],
+                                       c["batch"], c["prompt"], c["new"],
+                                       45, SHARD_F32_TOL)
+        rec.update(tp_mixers_update(
+            torch, dev, period_cfg(arch, c["update_periods"][arch]),
+            c["mesh"], c["batch"], c["seq"], 46))
+        emit("tp_mixers_rec", nvidia_smi=smi_line, arch=cfg.name,
+             layers=cfg.n_layers, mesh=dict(zip(("data", "model"),
+                                                c["mesh"])),
+             rank_threads=c["mesh"][1], **rec)
+
+
+def tp_mixers_cross(torch, smi_line, dev):
+    """25 (d): whisper-tiny at full depth on (1, 2), where its 6 heads
+    divide: ``generate`` at f32 gives one device's tokens, and each rank
+    reads its own 3 heads of the cross cache."""
+    import dataclasses
+    from repro_torch.configs import registry
+    c = TP_MIX_CROSS
+    cfg = dataclasses.replace(registry.get(c["arch"]), dtype="float32")
+    check(cfg.n_heads % c["mesh"][1] == 0, "whisper's heads do not divide")
+    rec = tp_mixers_serve(torch, dev, cfg, c["mesh"], c["batch"],
+                          c["prompt"], c["new"], 47, SHARD_F32_TOL)
+    emit("tp_mixers_cross", nvidia_smi=smi_line, arch=cfg.name,
+         layers=cfg.n_layers, mesh=dict(zip(("data", "model"), c["mesh"])),
+         rank_threads=c["mesh"][1], **rec)
+
+
+def sharded_mixers_phase(torch, smi_line):
+    """Phase 25: MoE, the recurrent mixers and cross-attention split over
+    "model" on meshes of slabs of the one card."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    seconds = {}
+    for part, fn in (("a_moe", tp_mixers_moe), ("b_ep", tp_mixers_ep),
+                     ("c_rec", tp_mixers_rec), ("d_cross", tp_mixers_cross)):
+        t0 = time.perf_counter()
+        fn(torch, smi_line, dev)
+        seconds[part] = time.perf_counter() - t0
+    total = sum(seconds.values())
+    emit("tp_mixers_seconds", nvidia_smi=smi_line, total=total,
+         limit=TP_MIX_SECONDS, **seconds)
+    check(total <= TP_MIX_SECONDS, f"phase 25 took {total:.1f} s")
+
+
 def replay_plain(pipe, x):
     """The compiled steps through the plain versions, on the card: a
     spectral step through ``spectral_op_plain``, a transpose through
@@ -6544,7 +7281,7 @@ def phase_clock():
 
 
 def run(torch) -> int:
-    """Phases 1-24 on the card (``main`` has found it)."""
+    """Phases 1-25 on the card (``main`` has found it)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core.sar import (build_pipeline, metrics, paper_scene,
                                       paper_targets, simulate)
@@ -6808,6 +7545,11 @@ def run(torch) -> int:
     t0 = time.perf_counter()
     kernels += sharded_lm_phase(torch, smi_line)
     emit("phase_seconds", number=24, seconds=time.perf_counter() - t0)
+
+    # ---- 25. MoE, the recurrent mixers and cross-attention split ----------
+    t0 = time.perf_counter()
+    sharded_mixers_phase(torch, smi_line)
+    emit("phase_seconds", number=25, seconds=time.perf_counter() - t0)
     for k in kernels:
         k.setdefault("precisions", kernel_precisions(k["name"]))
         k.setdefault("karatsuba_by_route", kernel_karatsuba(k["name"]))

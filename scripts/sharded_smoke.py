@@ -5,9 +5,14 @@ width and depth against one device, two layers at f32 on (4, 2) and
 (2, 2, 2), gemma3-12b's sequence-parallel decode and stablelm's
 ``generate`` under (4, 1), the FFTConvMixer's sharded AdamW step, and
 stablelm-1.6b split over (1, 4) ranks with the dry run's count of its
-step beside the card's).
+step beside the card's), and phase 25's parts: MoE, the recurrent
+mixers and cross-attention split over "model" (granite-moe-3b's ``ff``
+route on (1, 16), llama4-scout's expert parallel on (1, 8),
+falcon-mamba-7b's and recurrentgemma-9b's channels on (1, 4),
+whisper-tiny's cross-attention heads on (1, 2)).
 
-    python3 scripts/sharded_smoke.py [--parts full,f32,serve,mixer,tp]
+    python3 scripts/sharded_smoke.py \
+        [--parts full,f32,serve,mixer,tp,moe,ep,rec,cross]
 
 Builds only ``csrc/spectral.cu`` when the mixer part runs (the one kernel
 the phase launches), prints the card's name and power limit, each part's
@@ -28,7 +33,7 @@ sys.path.insert(0, HERE)
 
 import chip_smoke  # noqa: E402
 
-PARTS = ("full", "f32", "serve", "mixer", "tp")
+PARTS = ("full", "f32", "serve", "mixer", "tp", "moe", "ep", "rec", "cross")
 
 
 def tp(torch, smi_line, dev):
@@ -69,7 +74,12 @@ def main() -> int:
             "f32": lambda: chip_smoke.sharded_f32(torch, smi_line, dev),
             "serve": lambda: chip_smoke.sharded_serve(torch, smi_line, dev),
             "mixer": lambda: chip_smoke.sharded_mixer(torch, smi_line, dev),
-            "tp": lambda: tp(torch, smi_line, dev)}
+            "tp": lambda: tp(torch, smi_line, dev),
+            "moe": lambda: chip_smoke.tp_mixers_moe(torch, smi_line, dev),
+            "ep": lambda: chip_smoke.tp_mixers_ep(torch, smi_line, dev),
+            "rec": lambda: chip_smoke.tp_mixers_rec(torch, smi_line, dev),
+            "cross": lambda: chip_smoke.tp_mixers_cross(torch, smi_line,
+                                                        dev)}
     records, failed = [], []
     for part in parts:
         t0 = time.perf_counter()

@@ -426,16 +426,17 @@ class ShardedTensor:
             else:
                 yield slab, tuple(inner), tuple(local)
 
-    def gather(self, device=None, where: Optional[dict] = None
-               ) -> torch.Tensor:
+    def gather(self, device=None, where: Optional[dict] = None,
+               at: Optional[dict] = None) -> torch.Tensor:
         """The whole tensor (or the block the positions at ``where``
         cover) on ``device`` (the first slab's when None), placed from
-        one copy of each slab: exact. A block that is one slab on
-        ``device`` is that slab itself, not a copy."""
+        one copy of each slab (the copies at the coordinates ``at`` names,
+        when given): exact. A block that is one slab on ``device`` is that
+        slab itself, not a copy."""
         block = self._block(where)
         dev = self.slabs.flat[0].device if device is None else \
             torch.device(device)
-        parts = list(self._overlaps(block, copies=False, every=True))
+        parts = list(self._overlaps(block, copies=False, every=True, at=at))
         shape = tuple(b.stop - b.start for b in block)
         if len(parts) == 1:
             slab = parts[0][0]
@@ -553,7 +554,8 @@ class Group:
     """The ranks of one data position along the mesh's "model" axis: rank
     ``r`` computes on ``devices[r]`` (mesh position ``coords[r]``), each
     in a thread of its own, and meets the others in the collectives below
-    (``group_all_gather``, ``group_reduce_scatter``, ``group_all_reduce``):
+    (``group_all_gather``, ``group_reduce_scatter``, ``group_all_reduce``,
+    ``group_exchange``):
     every rank hands in its tensor, rank 0 applies the collective to all
     of them as one ``autograd.Function``, and each takes its own result.
     So the group's ranks make one autograd graph, whose backward (one
@@ -654,6 +656,19 @@ class Group:
         self._note("all-reduce", out)
         return out
 
+    def exchange(self, xs: Sequence, dim: int, plan: Sequence) -> list:
+        """Rank j's pieces of the ranks' tensors, concatenated along
+        ``dim`` in the order ``plan[j]`` lists them, each piece ``(src,
+        start, length)``: ``length`` lines of rank ``src``'s tensor from
+        ``start`` (an all-to-all; ``_returns`` checks that the plan takes
+        every line once)."""
+        xs = self._like(xs)
+        out = self._each(lambda j: torch.cat(
+            [xs[src].narrow(dim, start, n).to(self.devices[j])
+             for src, start, n in plan[j]], dim=dim))
+        self._note("all-to-all", out)
+        return out
+
     def _note(self, op: str, out: list):
         for j in self.ranks():
             note_collective(op, _nbytes(out[j]), self.size, self.coords[j])
@@ -740,6 +755,48 @@ class _GroupAllReduce(torch.autograd.Function):
         return (None, *ctx.group.sum_all(gs))
 
 
+def _returns(plan: Sequence, sizes: Sequence) -> list:
+    """The plan of the all-to-all that sends every piece ``plan`` takes
+    back to where it came from: rank i's pieces in the order of their
+    lines, each ``(j, where it lies in rank j's result, length)``.
+    ``plan`` must take every line of every rank's tensor (``sizes[i]``
+    lines) once, so that its transpose is this all-to-all."""
+    sent = [[] for _ in sizes]
+    for j, pieces in enumerate(plan):
+        off = 0
+        for src, start, n in pieces:
+            sent[src].append((start, (j, off, n)))
+            off += n
+    out = []
+    for i, pieces in enumerate(sent):
+        pieces.sort()
+        lines = [start for start, _ in pieces] + [sizes[i]]
+        if lines[0] != 0 or any(start + n != end for (start, (_, _, n)), end
+                                in zip(pieces, lines[1:])):
+            raise ValueError(f"an all-to-all's plan takes rank {i}'s lines "
+                             f"{[(a, p[2]) for a, p in pieces]}, not each of "
+                             f"its {sizes[i]} once")
+        out.append([piece for _, piece in pieces])
+    return out
+
+
+class _GroupExchange(torch.autograd.Function):
+    """Each rank's pieces of the ranks' tensors (``Group.exchange``); the
+    transpose sends each piece's cotangent back to where it came from,
+    the all-to-all of the plan's returns (``_returns``)."""
+
+    @staticmethod
+    def forward(ctx, group, spec, *xs):
+        dim, plan = spec
+        ctx.group, ctx.dim = group, dim
+        ctx.back = _returns(plan, [t.shape[dim] for t in group._like(xs)])
+        return tuple(group.exchange(xs, dim, plan))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *ctx.group.exchange(gs, ctx.dim, ctx.back))
+
+
 class _GroupCopy(torch.autograd.Function):
     """One tensor on every rank (the identity, no bytes move where the
     ranks share a device); the transpose sums the ranks' cotangents
@@ -774,6 +831,13 @@ def group_reduce_scatter(group: Group, xs: Sequence, dim: int) -> list:
 
 def group_all_reduce(group: Group, xs: Sequence) -> list:
     return _apply(_GroupAllReduce, group, None, xs)
+
+
+def group_exchange(group: Group, xs: Sequence, dim: int,
+                   plan: Sequence) -> list:
+    """``_GroupExchange``: rank j gets the pieces ``plan[j]`` lists
+    (``(src, start, length)`` along ``dim``), concatenated."""
+    return _apply(_GroupExchange, group, (dim, plan), xs)
 
 
 def group_copy(group: Group, x: torch.Tensor) -> list:

@@ -18,7 +18,14 @@ whose every device reads ``torch.device("meta")``. For each device:
   count and still alive, tracked by storage (a ``weakref.finalize`` on
   each new storage gives its bytes back).
 - **Collectives**: the records ``distributed.mesh.note_collective`` makes
-  at the port's copies between mesh positions, ``(op, bytes, group)``.
+  at the port's copies between mesh positions, ``(op, bytes, group)``:
+  the slabs' gathers and reductions, and each rank group's collectives
+  at their shapes (``distributed.mesh.Group``: all-gathers of the stream,
+  of MoE's expert outputs and of RG-LRU's ``xc``; reduce-scatters and
+  all-reduces of row-parallel partial sums, Mamba's ``x_proj`` among
+  them; the all-to-all of Mamba's ``in_proj`` blocks), and the
+  all-gather that makes a rank's channel slice of a recurrent decode
+  state whole in every copy (``launch.steps``).
 - **Kernel launches** on meta (``kernels.ops.META_LISTENERS``), priced by
   ``tuning/cost.py``'s terms for that launch, not by the plain version.
 

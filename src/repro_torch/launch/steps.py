@@ -25,9 +25,12 @@ devices.
   each slab, and AdamW updates every slab in place.
 - Serve: prefill and decode run a position's rows against its cache
   rows, each rank seeing plain local tensors (``local_cache``): its slab
-  of the KV caches where their kv heads are cut over "model", else the
-  caches whole over "model" (their slabs gathered); it writes back its
-  own slab alone (``write_back``). A batch-1 decode leaves the cache cut
+  of the KV caches (self- and cross-attention's) where their kv heads
+  are cut over "model", else the caches whole over "model" (their slabs
+  gathered); its channel slice of a recurrent state, which is stored
+  whole over "model" as the reference stores it. It writes back its own
+  slab alone, and its channel slice into every copy of the state
+  (``write_back``). A batch-1 decode leaves the cache cut
   along its sequence over "data": the step runs once, the model gets
   each slab's part of the sequence (``attention.KVPart``) and attends
   over each apart (``attention.sdpa_parts``).
@@ -53,6 +56,7 @@ from repro_torch.distributed.mesh import (Group, ShardedTensor,
 from repro_torch.launch import sharding as shd
 from repro_torch.models import Model
 from repro_torch.models import attention as attn
+from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import param_tree
 from repro_torch.models.moe import spans_positions
 from repro_torch.models.sharding import (Position, current_rank,
@@ -532,27 +536,27 @@ class ShardedServing:
         b, s = batch["tokens"].shape[:2]
         count = self.count(b)
 
+        # the whole cache's shapes (a rank holds a part: its kv heads, its
+        # channels)
+        whole = _cache_shapes(self.model, b, max_len)
+
         def one(i, r, dev, tree):
-            return self.model.prefill(_rows(batch, i, count, dev), max_len,
-                                      params=tree)
+            out = self.model.prefill(_rows(batch, i, count, dev), max_len,
+                                     params=tree)
+            if r is not None:
+                _note_state_gathers(out[0], whole, self.m)
+            return out
 
         outs = self._run(one, count, (b // count) * s)
         ranks = list(range(len(outs[0])))
         caches = [[c for c, _ in row] for row in outs]
         cfg = self.model.cfg
-
-        def global_shape(path, t):
-            if not isinstance(t, torch.Tensor):
-                return t
-            shape = [t.shape[0] * count, *t.shape[1:]]
-            if self.m > 1 and path.endswith(("['k']", "['v']")) and \
-                    t.ndim == 4:
-                shape[2] = cfg.n_kv_heads     # a rank's part: all of them
-            return torch.empty(shape, dtype=t.dtype, device="meta")
-
-        flat = shd._flatten(caches[0][0])
+        # the whole cache's shapes, its step and dtypes the prefill's
         shape = shd._unflatten(caches[0][0], iter(
-            [global_shape(pth, t) for pth, t in flat]))
+            [t if not isinstance(t, torch.Tensor) else torch.empty(
+                w.shape, dtype=t.dtype, device="meta")
+             for t, w in zip(shd.tree_leaves(caches[0][0]),
+                             shd.tree_leaves(whole))]))
         layout = shd.cache_shardings(shape, cfg, self.mesh, self.rules, b)
         per_leaf = list(zip(*[shd.tree_leaves(c) for row in caches
                               for c in row]))
@@ -593,6 +597,8 @@ class ShardedServing:
                 local, _rows({"t": tokens}, i, count, dev)["t"],
                 params=tree)
             write_back(cache, new, where, pos, r)
+            if r is not None:
+                _note_state_gathers(new, cache, self.m)
             return logits, new["step"]
 
         outs = self._run(one, count, b // count)
@@ -606,20 +612,61 @@ def _write_rank(st: ShardedTensor, value: torch.Tensor, where: dict,
     data position ``where`` (its model slab, or that block whole over
     "model", which is cut to the slab), placed at offsets ``start``
     within the block — into the slabs of model index ``r`` alone (every
-    slab holding the block where ``r`` is None)."""
+    slab holding the block where ``r`` is None). A block whole over
+    "model" of which ``value`` is rank r's slice along one dim (a
+    recurrent state's channels, ``_state_dim``) is written at that
+    slice into every copy, as the reference keeps the state whole over
+    "model": the ranks' slices make each copy whole (an all-gather,
+    ``_note_state_gathers``)."""
     at = None
+    start = start or [0] * len(st.shape)
     if r is not None:
         d = _model_cut(st)
+        part = _state_dim(st, value, where) if d is None else None
         if d is not None:
             base, block = st._block(where), st._block({**where, "model": r})
             n = block[d].stop - block[d].start
             if value.shape[d] != n:
                 value = value.narrow(d, block[d].start - base[d].start, n)
-        where = {**where, "model": r}
-        at = {"model": r}
+        if part is not None:
+            start = list(start)
+            start[part] += r * value.shape[part]
+        else:
+            where = {**where, "model": r}
+            at = {"model": r}
     block = st._block(where)
-    start = start or [0] * len(st.shape)
     st.write(value, [b.start + o for b, o in zip(block, start)], at)
+
+
+def _cache_shapes(model: Model, batch: int, max_len: int) -> dict:
+    """The whole decode cache laid out on meta (``Model.init_cache``),
+    outside any dispatch mode: a dry run's counter does not count it."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return model.init_cache(batch, max_len, device="meta")
+
+
+def _note_state_gathers(cache: dict, whole: dict, m: int):
+    """Record, on the running rank, the all-gather that makes each
+    recurrent state of ``cache`` that is the rank's channel slice of
+    ``whole``'s (a cache of the whole channels) whole over "model" in
+    every copy."""
+    for part, full in zip(cache["layers"], whole["layers"]):
+        if isinstance(part, tuple):
+            for t, w, d in zip(part, full, rec.STATE_CHANNEL_DIMS):
+                if t.shape[d] != w.shape[d]:
+                    note_collective("all-gather", t.numel()
+                                    * t.element_size() * m, m)
+
+
+def _state_dim(st: ShardedTensor, value: torch.Tensor,
+               where: dict) -> Optional[int]:
+    """The dim along which ``value`` is a rank's slice of ``st``'s block
+    at ``where`` (None: it is the block whole)."""
+    block = st._block(where)
+    dims = [d for d, (b, n) in enumerate(zip(block, value.shape))
+            if b.stop - b.start != n]
+    return dims[0] if dims else None
 
 
 def _seq_cut(entry) -> bool:
@@ -660,23 +707,41 @@ def _kv_parts(entry: dict, dev, r: Optional[int] = None) -> list:
     return parts
 
 
+def _state_part(st: ShardedTensor, where: dict, dev, r: Optional[int],
+                dim: int) -> torch.Tensor:
+    """Rank ``r``'s view of a recurrent state stored whole over "model":
+    its channel slice along ``dim`` of its own copy, where the channels
+    divide the ranks (as its layer's weights are then cut, and it
+    computes those channels alone); the block whole otherwise."""
+    if r is None:
+        return st.gather(dev, where)
+    m = st.mesh.shape["model"]
+    t = st.gather(dev, where, at={"model": r})
+    n = t.shape[dim]
+    return t.narrow(dim, r * n // m, n // m) if n % m == 0 else t
+
+
 def local_cache(cache: dict, where: dict, dev, r: Optional[int] = None
                 ) -> dict:
     """The model's view of a sharded decode cache at the data position
     ``where`` (``{}``: the whole batch): every ``ShardedTensor`` gathered
-    to that position's block on ``dev`` (rank ``r``'s part of it,
-    ``_rank_block``), an attention cache cut along its sequence as
-    ``{"parts": [KVPart, ...]}``. The cross caches are read whole over
-    "model" (cross-attention runs whole on every rank)."""
+    to that position's block on ``dev`` — rank ``r``'s part of it: its
+    slab of a KV cache (self- or cross-attention's) whose kv heads are cut
+    over "model" (``_rank_block``), its channel slice of a recurrent
+    state (``_state_part``) — an attention cache cut along its sequence
+    as ``{"parts": [KVPart, ...]}``."""
     def view(entry, rank):
         if _seq_cut(entry):
             return {"parts": _kv_parts(entry, dev, rank)}
+        if isinstance(entry, tuple):        # a recurrent state
+            return tuple(_state_part(t, where, dev, rank, d)
+                         for t, d in zip(entry, rec.STATE_CHANNEL_DIMS))
         return shd.tree_map(lambda t: t.gather(dev, _rank_block(
             t, where, rank)) if isinstance(t, ShardedTensor) else t, entry)
 
     out = dict(cache, layers=[view(e, r) for e in cache["layers"]])
     if "cross" in cache:
-        out["cross"] = [view(e, None) for e in cache["cross"]]
+        out["cross"] = [view(e, r) for e in cache["cross"]]
     return out
 
 
@@ -685,7 +750,8 @@ def write_back(cache: dict, new: dict, where: dict, pos: int,
     """Write a decode step at ``pos`` on ``local_cache``'s view into the
     slabs of ``cache``: a sequence-cut attention cache's new slot, every
     other entry's block at ``where`` (the cross caches are never
-    written); under rank ``r`` into its own slabs alone."""
+    written); under rank ``r`` into its own slabs alone, and its channel
+    slice of a recurrent state into every copy (``_write_rank``)."""
     for st, t in zip(cache["layers"], new["layers"]):
         if not _seq_cut(st):
             for a, b in zip(shd.tree_leaves(st), shd.tree_leaves(t)):

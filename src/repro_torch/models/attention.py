@@ -29,10 +29,15 @@ all-gathered whole (a collective of the activations, not the weights),
 and the rank reads the kv heads its query heads use (``_kv_select``);
 its cache slab is then its part of head_dim, and the serving layer
 hands it the cache whole over "model" to read, writing back its slab
-alone. Where ``n_heads % M != 0`` (minitron-4b, yi-34b, granite and
-llama4 at M = 16) every rank computes the attention whole, on weights
-all-gathered whole (``whole_params``, a collective counted as such),
-and keeps its slice of the output: the simpler of the two ways the
+alone. Cross-attention (whisper's decoder) splits the same way: its
+queries from the rank's stream, its keys and values from the encoder
+output whole over the sequence, and in decode the rank reads its own
+heads of the cross cache (or, where the kv heads do not divide M, the
+cache whole and ``_kv_select``). Where ``n_heads % M != 0``
+(minitron-4b, yi-34b, granite and llama4 at M = 16, whisper-tiny at M =
+4) every rank computes the attention whole, on weights all-gathered
+whole (``sharding.whole_layer``, a collective counted as such), and
+keeps its slice of the output: the simpler of the two ways the
 reference's GSPMD padding allows, at M times the attention's compute.
 """
 from __future__ import annotations
@@ -46,8 +51,8 @@ from repro_torch.models.layers import (ParamModule, apply_rope, cast,
                                        matmul_f32, rope_angles,
                                        truncated_normal)
 from repro_torch.models.sharding import (axis_size, model_dim, reduce_to,
-                                         shard, tp_index, tp_size, unshard,
-                                         whole, whole_params)
+                                         tp_index, tp_size, unshard,
+                                         whole_layer)
 
 
 def _kv_spec(n_kv: int, head_dim: int) -> tuple:
@@ -295,13 +300,12 @@ class AttnSpec:
 def attn_forward(p, spec: AttnSpec, x, positions, k_pos=None, xkv=None):
     """Training/prefill forward. x: (B,S,D). Returns (out, (k, v)) with k/v
     rotated (ready for caching). Under a rank ``x`` and ``out`` are in the
-    residual stream's layout (``xkv``, cross-attention's, runs whole)."""
+    residual stream's layout; ``xkv`` (cross-attention's keys' and
+    values' source, the encoder output) is whole over its sequence."""
     if tp_size() > 1 and not _heads_split(p, spec):
-        x = unshard(x, "batch", "seq", None)
-        pw = whole_params(p)
-        with whole():
-            out, kv = attn_forward(pw, spec, x, positions, k_pos, xkv)
-        return shard(out, "batch", "seq", None), kv
+        return whole_layer(
+            lambda pw, xw: attn_forward(pw, spec, xw, positions, k_pos, xkv),
+            p, x)
     x = unshard(x, "batch", "seq", None)
     q, k, v = _qkv(p, spec, x, x if xkv is None else xkv)
     dt = q.dtype
@@ -326,10 +330,8 @@ def attn_decode(p, spec: AttnSpec, x, cache: dict, pos: int):
     both in place. Returns (out, cache). Under a head-split rank the cache
     holds its kv heads, or (``_kv_select``) all of them."""
     if tp_size() > 1 and not _heads_split(p, spec):
-        pw = whole_params(p)
-        with whole():
-            out, cache = attn_decode(pw, spec, x, cache, pos)
-        return shard(out, "batch", "seq", None), cache
+        return whole_layer(
+            lambda pw, xw: attn_decode(pw, spec, xw, cache, pos), p, x)
     b = x.shape[0]
     dev = x.device
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
@@ -398,24 +400,25 @@ def _decode_parts(spec: AttnSpec, q, k, v, parts: list, pos: int,
 
 def cross_decode(p, spec: AttnSpec, x, cache: dict):
     """Decoder cross-attention against a fixed encoder cache {k, v}. Under
-    a rank it runs whole (its cache whole over "model"), on whole
-    weights."""
-    if tp_size() > 1:
-        pw = whole_params(p)
-        with whole():
-            out = cross_decode(pw, spec, x, cache)
-        return shard(out, "batch", "seq", None)
+    a head-split rank: its query heads, against its kv heads of the cache
+    (or, where they do not divide the ranks, the cache whole and
+    ``_kv_select``), its rows of ``wo`` reduced over the ranks."""
+    if tp_size() > 1 and not _heads_split(p, spec):
+        return whole_layer(lambda pw, xw: (cross_decode(pw, spec, xw,
+                                                        cache),), p, x)[0]
     dt = x.dtype
     b = x.shape[0]
-    q = _split_heads(x @ cast(p["wq"], dt, None, "heads"), spec.n_heads,
-                     spec.head_dim)
+    q = _split_heads(x @ cast(p["wq"], dt, None, "heads"),
+                     spec.n_heads // tp_size(), spec.head_dim)
+    sel = _kv_select(spec)
     if "parts" in cache:
-        o = sdpa_parts(q, [(pt.k.to(dt), pt.v.to(dt),
+        o = sdpa_parts(q, [(sel(pt.k.to(dt)), sel(pt.v.to(dt)),
                             torch.ones((b, 1, pt.k.shape[1]),
                                        dtype=torch.bool, device=x.device))
                            for pt in cache["parts"]])
-        return o.reshape(b, 1, -1) @ cast(p["wo"], dt)
-    k, v = cache["k"].to(dt), cache["v"].to(dt)
-    mask = torch.ones((b, 1, k.shape[1]), dtype=torch.bool, device=x.device)
-    o = sdpa(q, k, v, mask)
-    return o.reshape(b, 1, -1) @ cast(p["wo"], dt)
+    else:
+        k, v = cache["k"].to(dt), cache["v"].to(dt)
+        mask = torch.ones((b, 1, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        o = sdpa(q, sel(k), sel(v), mask)
+    return _out(p, o.reshape(b, 1, -1), dt)

@@ -45,7 +45,7 @@ from repro_torch.models.sharding import (carry_context, gather_for_compute,
                                          gather_ranks,
                                          model_dim, own, reduce_to, shard,
                                          sum_ranks, tp_index, tp_size,
-                                         unshard, whole, whole_params)
+                                         unshard, whole_layer, whole_params)
 
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 
@@ -182,11 +182,7 @@ def mlp(p, x, act: str = "silu"):
     if tp_size() > 1:
         dt = x.dtype
         if model_dim(p["wi_gate"]) != 1:
-            x = unshard(x, "batch", "seq", None)
-            pw = whole_params(p)
-            with whole():
-                y = mlp(pw, x, act)
-            return shard(y, "batch", "seq", None)
+            return whole_layer(lambda pw, xw: (mlp(pw, xw, act),), p, x)[0]
         x = unshard(x, "batch", "seq", None)
         gate = ACTS[act](x @ cast(p["wi_gate"], dt, None, "ff"))
         h = gate * (x @ cast(p["wi_up"], dt, None, "ff"))
@@ -280,28 +276,32 @@ def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
 
 
 class _MatmulF32(torch.autograd.Function):
-    """``torch.mm(a, b, out_dtype=float32)`` on 16-bit operands, with the
-    backward PyTorch does not define for it: ``g @ b^T`` and ``a^T @ g``
-    with the cotangent at the operands' dtype, products on the tensor
-    cores and float32 sums, each cast to its operand's dtype — the
-    transpose of the reference's ``dot_general(...,
-    preferred_element_type=float32)`` at the TPU's default precision,
-    whose passes take 16-bit operands."""
+    """``torch.mm(a, b, out_dtype=float32)`` (``torch.bmm`` of 3-D
+    operands) on 16-bit operands, with the backward PyTorch does not
+    define for it: ``g @ b^T`` and ``a^T @ g`` with the cotangent at the
+    operands' dtype, products on the tensor cores and float32 sums, each
+    cast to its operand's dtype — the transpose of the reference's
+    ``dot_general(..., preferred_element_type=float32)`` at the TPU's
+    default precision, whose passes take 16-bit operands."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        return torch.mm(a, b, out_dtype=torch.float32)
+        mm = torch.bmm if a.ndim == 3 else torch.mm
+        return mm(a, b, out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
+        mm = torch.bmm if a.ndim == 3 else torch.mm
         g16 = g.to(a.dtype)
         ga = gb = None
         if ctx.needs_input_grad[0]:
-            ga = torch.mm(g16, b.T, out_dtype=torch.float32).to(a.dtype)
+            ga = mm(g16, b.transpose(-1, -2),
+                    out_dtype=torch.float32).to(a.dtype)
         if ctx.needs_input_grad[1]:
-            gb = torch.mm(a.T, g16, out_dtype=torch.float32).to(b.dtype)
+            gb = mm(a.transpose(-1, -2), g16,
+                    out_dtype=torch.float32).to(b.dtype)
         return ga, gb
 
 
@@ -310,8 +310,12 @@ def matmul_f32(a, b):
     operands' dtype (``preferred_element_type=float32``): 16-bit operands
     go through ``torch.mm(..., out_dtype=float32)`` on the card (its
     gradient by ``_MatmulF32``) and are widened first elsewhere (a product
-    of two 16-bit values is exact in float32 either way)."""
+    of two 16-bit values is exact in float32 either way). A 2-D ``b``
+    takes ``a``'s leading dims as rows; a 3-D ``b`` (one matrix a batch
+    entry, as each expert's) takes a 3-D ``a`` batch by batch."""
     if a.dtype != torch.float32 and a.device.type == "cuda":
+        if b.ndim == 3:
+            return _MatmulF32.apply(a, b.to(a.dtype))
         lead = a.shape[:-1]
         out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b.to(a.dtype))
         return out.reshape(*lead, b.shape[-1])

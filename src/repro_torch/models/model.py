@@ -26,12 +26,13 @@ groups as the reference's ``jax.checkpoint`` does (``_layer_groups``).
 Under a rank that splits the compute over "model"
 (``models.sharding.Rank``) the residual stream between layers holds the
 rank's slice of the sequence (whole where the sequence does not divide
-the ranks): attention and the MLP take a layer's normed input in that
-layout, all-gather it (``unshard``) and return their reduced output in
-it; the recurrent mixers, MoE and whisper's cross-attention run
-``whole()`` on the gathered input and whole weights, and the rank keeps
-its slice of their output (``_whole``). A rematerialised group's recomputation takes its
-collectives' results from the forward (``remat_scope``).
+the ranks): every mixer and FFN — attention, self- and cross-, the MLP,
+MoE, Mamba and RG-LRU — takes a layer's normed input in that layout,
+all-gathers it (``unshard``), computes on the rank's slabs (its heads,
+``ff`` columns, experts or channels) and returns its output in it. A
+recurrent layer's decode state is the rank's channel slice. A
+rematerialised group's recomputation takes its collectives' results from
+the forward (``remat_scope``).
 """
 from __future__ import annotations
 
@@ -65,8 +66,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import MoE, moe_ffn
 from repro_torch.models.sharding import (carry_context, gather_ranks,
                                          remat_scope, seq_cut, sequence,
-                                         shard, tp_index, tp_size, unshard,
-                                         whole, whole_params)
+                                         shard, tp_index, tp_size, unshard)
 
 KINDS_ATTN = ("global", "local")
 KINDS_REC = ("mamba", "rglru")
@@ -170,20 +170,6 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
 # Per-layer forward (training / prefill): returns (x, cache_entry, aux)
 # ---------------------------------------------------------------------------
 
-def _whole(fn, p, x, *args):
-    """``fn(p, x, *args)`` -> (y, ...) as one device runs it: under a rank,
-    on ``x`` gathered whole and ``p``'s weights all-gathered whole, its
-    ``y`` cut to the residual stream's layout (the reference's
-    ``shard(y, "batch", "seq", None)``)."""
-    if tp_size() == 1:
-        return fn(p, x, *args)
-    x = unshard(x, "batch", "seq", None)
-    pw = whole_params(p)
-    with whole():
-        y, *rest = fn(pw, x, *args)
-    return (shard(y, "batch", "seq", None), *rest)
-
-
 def layer_forward(p, cfg: ModelConfig, kind: str, x, positions,
                   q_chunk=None, enc_out=None, train: bool = True):
     spec = _attn_spec(cfg, kind, q_chunk)
@@ -192,11 +178,10 @@ def layer_forward(p, cfg: ModelConfig, kind: str, x, positions,
     if kind in KINDS_ATTN:
         y, entry = attn.attn_forward(p["mixer"], spec, h, positions)
     elif kind == "mamba":
-        y, entry = _whole(rec.mamba_forward, p["mixer"], h,
-                          cfg.ssm or SSMConfig())
+        y, entry = rec.mamba_forward(p["mixer"], h, cfg.ssm or SSMConfig())
     else:  # rglru
-        y, entry = _whole(rec.rglru_forward, p["mixer"], h,
-                          cfg.rglru or RGLRUConfig())
+        y, entry = rec.rglru_forward(p["mixer"], h,
+                                     cfg.rglru or RGLRUConfig())
     x = x + y
 
     if "cross" in p and enc_out is not None:
@@ -206,10 +191,8 @@ def layer_forward(p, cfg: ModelConfig, kind: str, x, positions,
                                    *enc_out.shape[:2])
         cspec = dataclasses.replace(spec, causal=False, window=None,
                                     use_rope=False)
-        yx, centry = _whole(
-            lambda pc, hq: attn.attn_forward(pc, cspec, hq, positions,
-                                             k_pos=enc_pos, xkv=enc_out),
-            p["cross"], hq)
+        yx, centry = attn.attn_forward(p["cross"], cspec, hq, positions,
+                                       k_pos=enc_pos, xkv=enc_out)
         x = x + yx
     else:
         centry = None
@@ -217,7 +200,7 @@ def layer_forward(p, cfg: ModelConfig, kind: str, x, positions,
     if kind != "mamba":
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
         if cfg.ffn == "moe":
-            y2, aux = _whole(moe_ffn, p["ffn"], h2, cfg.moe, cfg.act, train)
+            y2, aux = moe_ffn(p["ffn"], h2, cfg.moe, cfg.act, train)
         else:
             y2 = mlp(p["ffn"], h2, cfg.act)
         x = x + y2
@@ -235,11 +218,12 @@ def layer_decode(p, cfg: ModelConfig, kind: str, x, cache_entry, pos: int,
     if kind in KINDS_ATTN:
         y, new_entry = attn.attn_decode(p["mixer"], spec, h, cache_entry, pos)
     elif kind == "mamba":
-        y, new_entry = _whole(rec.mamba_step, p["mixer"], h,
-                              cfg.ssm or SSMConfig(), cache_entry)
+        y, new_entry = rec.mamba_step(p["mixer"], h, cfg.ssm or SSMConfig(),
+                                      cache_entry)
     else:
-        y, new_entry = _whole(rec.rglru_step, p["mixer"], h,
-                              cfg.rglru or RGLRUConfig(), cache_entry)
+        y, new_entry = rec.rglru_step(p["mixer"], h,
+                                      cfg.rglru or RGLRUConfig(),
+                                      cache_entry)
     x = x + y
     if "cross" in p and cross_cache is not None:
         hq = rmsnorm(p["norm_x"], x, cfg.norm_eps)
@@ -249,7 +233,7 @@ def layer_decode(p, cfg: ModelConfig, kind: str, x, cache_entry, pos: int,
     if kind != "mamba":
         h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
         if cfg.ffn == "moe":
-            y2, _ = _whole(moe_ffn, p["ffn"], h2, cfg.moe, cfg.act, False)
+            y2, _ = moe_ffn(p["ffn"], h2, cfg.moe, cfg.act, False)
         else:
             y2 = mlp(p["ffn"], h2, cfg.act)
         x = x + y2
@@ -489,7 +473,7 @@ class Model(nn.Module):
                                   mask.to(x.device), cfg.loss_chunk,
                                   denom=denom)
         if tp_index() != 0:
-            return nll      # every rank computes the aux loss whole
+            return nll      # every rank routes alike: the aux loss once
         return nll + aux
 
     # ---- serving ------------------------------------------------------------
@@ -497,7 +481,9 @@ class Model(nn.Module):
         """A prefill (k, v) / state entry as a decode cache entry."""
         cfg = self.cfg
         if kind in KINDS_REC:
-            return entry  # (h_last, conv_buf) already the decode state
+            # (h_last, conv_buf) already the decode state (under a rank,
+            # of its channels)
+            return entry
         k, v = entry
         b, s = k.shape[0], k.shape[1]
         dev = k.device
@@ -551,7 +537,10 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_len: int, dtype=None,
                    device=None) -> dict:
         """Empty decode cache on ``device`` (the model's when None;
-        ``"meta"`` lays out its shapes without allocating)."""
+        ``"meta"`` lays out its shapes without allocating): the whole
+        cache, as a mesh stores it (a recurrent state whole over "model",
+        of which a rank reads its channel slice: ``launch.steps
+        .local_cache``)."""
         cfg = self.cfg
         cdt = as_dtype(dtype or cfg.dtype)
         hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads

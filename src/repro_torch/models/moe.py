@@ -18,6 +18,23 @@ group's top-k choices, routes the whole group (capacity and drops are
 the reference's) and runs the experts on its own tokens
 (``_moe_ffn_spanning``). The aux loss of a position is its share of the
 mean over the global groups, so the positions' sum is the global one.
+
+Under a rank that splits the compute over "model"
+(``models.sharding.Rank``, M ranks) the layer takes its input in the
+residual stream's layout and gathers it whole; every rank routes the
+position's tokens alike (the router is whole, ``("embed", None)``) and
+splits the expert MLP by the reference's rule (``ep = E %
+axis_size("experts") == 0``, ``_split``): expert parallel, a rank
+dispatches to its E / M experts alone, runs them, and the experts'
+outputs are all-gathered (exact) before the combine; otherwise (granite's
+40 experts on 16) it runs every expert on its ``ff`` columns of
+``wi_gate`` / ``wi_up`` and rows of ``wo``, and the partial outputs are
+summed over the ranks in float32 and rounded once, each rank keeping its
+columns of D (a reduce-scatter), which it combines; the combined columns
+are all-gathered. The combine runs alike on every rank, which keeps its
+slice of the output; the aux loss counts once (``Model.loss``). An
+``ff`` that does not divide M leaves the expert weights whole, and the
+layer runs as one device (``sharding.whole_layer``).
 """
 from __future__ import annotations
 
@@ -25,9 +42,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import MoEConfig
-from repro_torch.models.layers import (ACTS, MLP, ParamModule, cast, mlp,
-                                       truncated_normal)
-from repro_torch.models.sharding import axis_size, current_position, shard
+from repro_torch.models.layers import (ACTS, MLP, ParamModule, cast,
+                                       matmul_f32, mlp, truncated_normal)
+from repro_torch.models.sharding import (axis_size, current_position,
+                                         gather_ranks, model_dim, shard,
+                                         sum_ranks, tp_index, tp_size,
+                                         unshard, whole_layer)
 
 
 class MoE(ParamModule):
@@ -109,14 +129,93 @@ def spans_positions(cfg: MoEConfig, local_tokens: int, position) -> bool:
     return local_tokens % sg != 0
 
 
+def _split(p, cfg: MoEConfig):
+    """How this rank splits the expert MLP: "experts" (expert parallel:
+    its E / M experts), "ff" (its ``ff`` columns of every expert), or None
+    (no rank splits, or the expert weights are stored whole: an ``ff``
+    that does not divide M)."""
+    if tp_size() == 1:
+        return None
+    ep = cfg.n_experts % max(axis_size("experts"), 1) == 0
+    if model_dim(p["wi_gate"]) == (0 if ep else 2):
+        return "experts" if ep else "ff"
+    return None
+
+
+def _own_experts(split, e: int) -> slice:
+    """The experts whose buffers this rank dispatches and runs."""
+    if split != "experts":
+        return slice(0, e)
+    n = e // tp_size()
+    return slice(tp_index() * n, (tp_index() + 1) * n)
+
+
+def _experts(p, xe, split, act: str, dt):
+    """The expert MLP of the dispatched buffers ``xe`` (E', G, C, D) ->
+    every expert's output (E, G, C, D'), as ``split`` cuts it: expert
+    parallel, the rank's experts (E' = E / M), their outputs all-gathered;
+    ``ff``, every expert (E' = E) on the rank's hidden columns, the
+    partial outputs formed in float32, summed over the ranks and rounded
+    once: reduce-scattered along D where the ranks divide it (D' = D / M,
+    the rank's columns of the sum; the combine, column by column, runs on
+    them), else all-reduced (D' = D)."""
+    keep = {"experts": ("experts", None, None),
+            "ff": (None, None, "ff")}.get(split, ())
+    h = ACTS[act](torch.einsum("egcd,edf->egcf", xe,
+                               cast(p["wi_gate"], dt, *keep)))
+    h = h * torch.einsum("egcd,edf->egcf", xe, cast(p["wi_up"], dt, *keep))
+    if split == "ff":
+        e, g, c, f = h.shape
+        ye = matmul_f32(h.reshape(e, g * c, f),
+                        cast(p["wo"], dt, None, "ff", None))
+        ye = sum_ranks(ye, None if ye.shape[-1] % tp_size() else 2)
+        return ye.to(dt).reshape(e, g, c, -1)
+    ye = torch.einsum("egcf,efd->egcd", h, cast(p["wo"], dt, *keep))
+    return gather_ranks(ye, 0) if split == "experts" else ye
+
+
 def moe_ffn(p, x, cfg: MoEConfig, act: str = "silu", train: bool = True):
     """x: (B, S, D) -> (y, aux_loss). Group, route, dispatch, expert MLP,
-    combine."""
-    dt = x.dtype
+    combine. Under a rank ``x`` and ``y`` are in the residual stream's
+    layout."""
+    split = _split(p, cfg)
+    if tp_size() > 1 and split is None:
+        return whole_layer(moe_ffn, p, x, cfg, act, train)
+    if tp_size() == 1:
+        return _moe(p, x, cfg, act, None, shared=True)
+    # the routed experts on the tokens whole; the shared expert as the
+    # dense MLP runs under a rank, on the stream's layout
+    y, aux = _moe(p, unshard(x, "batch", "seq", None), cfg, act, split,
+                  shared=False)
+    y = shard(y, "batch", "seq", None)
+    if cfg.shared_expert:
+        y = y + mlp(p["shared"], x, act)
+    return y, aux
+
+
+def _moe(p, x, cfg: MoEConfig, act: str, split, shared: bool):
+    """``moe_ffn`` of whole tokens, the expert MLP split as ``split``
+    says; the shared expert added where ``shared``."""
     b, s, d = x.shape
     position = current_position()
     if spans_positions(cfg, b * s, position):
-        return _moe_ffn_spanning(p, x, cfg, act, position)
+        y, aux = _moe_ffn_spanning(p, x, cfg, act, position, split, shared)
+    else:
+        routed = _dispatch(p, x, cfg, split, position)
+        ye = _experts(p, routed["xe"], split, act, x.dtype)    # (E,G,C,D')
+        y, aux = _combine(p, routed, ye, cfg, act, shared)
+    # the ``ff`` route's columns of the output gathered: (B, S, D) in 16
+    # bits, where the expert outputs hold top_k x capacity factor slots a
+    # token (10 in granite's) and, under remat, would be kept whole
+    return (y if y.shape[-1] == d else gather_ranks(y, 2)), aux
+
+
+def _dispatch(p, x, cfg: MoEConfig, split, position) -> dict:
+    """Group and route the tokens of ``x`` (B, S, D), whole groups of the
+    global batch, and dispatch them to the experts this rank runs: their
+    capacity buffers ``xe`` (E', G, C, D) and what the combine needs."""
+    dt = x.dtype
+    b, s, d = x.shape
     tokens = x.reshape(-1, d)
     t = tokens.shape[0]
     # groups of the global batch: a position's tokens are whole groups
@@ -135,10 +234,7 @@ def moe_ffn(p, x, cfg: MoEConfig, act: str = "silu", train: bool = True):
     e, c = cfg.n_experts, _capacity(sg, cfg)
     topv, topi, pos_k, within_k, onehot = route(probs, cfg, c)
     gates = _gates(topv)
-
-    ep = cfg.n_experts % max(axis_size("experts"), 1) == 0
-    e_ax = "experts" if ep else None
-    f_ax = None if ep else "ff"
+    mine = _own_experts(split, e)
     dev = x.device
 
     if cfg.dispatch == "gather":
@@ -159,9 +255,14 @@ def moe_ffn(p, x, cfg: MoEConfig, act: str = "silu", train: bool = True):
                                 reduce="amin")
         xg_pad = torch.cat([xg, torch.zeros((g, 1, d), dtype=dt, device=dev)],
                            dim=1)                              # (G,Sg+1,D)
-        idx = buf.reshape(g, e * c, 1).expand(g, e * c, d)
-        xe = torch.gather(xg_pad, 1, idx)
-        xe = xe.reshape(g, e, c, d).permute(1, 0, 2, 3)        # (E,G,C,D)
+        ne = mine.stop - mine.start
+        idx = buf.reshape(g, e, c)[:, mine].reshape(g, ne * c)
+        # an index, not ``torch.gather``: a token kept by several experts
+        # sums their cotangents, which on the card an index's backward
+        # does in a sorted, fixed order and a gather's in atomic adds,
+        # whose order (and 16-bit rounding) differs from run to run
+        xe = xg_pad[garange, idx]
+        xe = xe.reshape(g, ne, c, d).permute(1, 0, 2, 3)       # (E',G,C,D)
     else:
         # GShard einsum dispatch (baseline; kept for ablation)
         disp = torch.zeros((g, sg, e, c), dtype=torch.float32, device=dev)
@@ -170,15 +271,24 @@ def moe_ffn(p, x, cfg: MoEConfig, act: str = "silu", train: bool = True):
                                 * (within_k[k] > 0), c).to(torch.float32)
             disp = disp + within_k[k][..., None, None] * \
                 slot_oh[:, :, None, :] * onehot[:, :, k, :, None]
-        xe = torch.einsum("gsd,gsec->egcd", xg, disp.to(dt))
+        xe = torch.einsum("gsd,gsec->egcd", xg, disp[:, :, mine].to(dt))
+    return dict(xe=xe, xg=xg, probs=probs, topi=topi, pos_k=pos_k,
+                within_k=within_k, onehot=onehot, gates=gates, shape=(b, s),
+                groups=(g, sg, e, c), t=t, pad=pad, count=count)
 
-    xe = shard(xe, e_ax, "batch", None, None)
-    h = ACTS[act](torch.einsum("egcd,edf->egcf", xe, cast(p["wi_gate"], dt)))
-    h = h * torch.einsum("egcd,edf->egcf", xe, cast(p["wi_up"], dt))
-    h = shard(h, e_ax, "batch", None, f_ax)
-    ye = torch.einsum("egcf,efd->egcd", h, cast(p["wo"], dt))
-    ye = shard(ye, e_ax, "batch", None, None)
 
+def _combine(p, routed: dict, ye, cfg: MoEConfig, act: str, shared: bool):
+    """Each token's experts' outputs ``ye`` (E, G, C, D) weighted by its
+    gates, the shared expert added where ``shared``: (y (B, S, D), the
+    aux loss)."""
+    dt, dev = routed["xg"].dtype, ye.device
+    b, s = routed["shape"]
+    g, sg, e, c = routed["groups"]
+    d = ye.shape[-1]
+    topi, pos_k, within_k = (routed[k] for k in ("topi", "pos_k",
+                                                 "within_k"))
+    gates, onehot, t, pad = (routed[k] for k in ("gates", "onehot", "t",
+                                                 "pad"))
     if cfg.dispatch == "gather":
         # combine: per (token, choice) gather from the expert outputs
         ye_flat = ye.permute(1, 0, 2, 3).reshape(g, e * c, d)
@@ -202,22 +312,23 @@ def moe_ffn(p, x, cfg: MoEConfig, act: str = "silu", train: bool = True):
             combine = combine + dk * gates[:, :, k, None, None]
         y = torch.einsum("egcd,gsec->gsd", ye, combine.to(dt))
 
-    if cfg.shared_expert:
-        y = y + mlp(p["shared"], xg, act)
+    if shared and cfg.shared_expert:
+        y = y + mlp(p["shared"], routed["xg"], act)
 
     # load-balancing aux loss (Switch/GShard)
-    me = probs.mean(dim=1)                                     # (G,E)
+    me = routed["probs"].mean(dim=1)                           # (G,E)
     kept = sum(within_k[k][..., None] * onehot[:, :, k, :]
                for k in range(cfg.top_k))                      # (G,Sg,E)
     ce_frac = kept.mean(dim=1)                                 # (G,E)
     aux = (me * ce_frac).sum(-1).mean() * e * cfg.aux_loss_weight
-    if count > 1:   # this position's share of the mean over global groups
-        aux = aux / count
+    if routed["count"] > 1:  # the position's share of the global groups'
+        aux = aux / routed["count"]
     y = y.reshape(-1, d)[:t] if pad else y.reshape(-1, d)
     return y.reshape(b, s, d), aux
 
 
-def _moe_ffn_spanning(p, x, cfg: MoEConfig, act: str, position):
+def _moe_ffn_spanning(p, x, cfg: MoEConfig, act: str, position, split,
+                      shared: bool):
     """``moe_ffn`` for a data position whose tokens share routing groups
     with other positions. Its tokens are global tokens [i T, (i + 1) T)
     (T a position's, i its index); the last position also holds the
@@ -262,9 +373,8 @@ def _moe_ffn_spanning(p, x, cfg: MoEConfig, act: str, position):
     g0 = start // sg                                # first group touched
     ng = (start + n - 1) // sg - g0 + 1
     gi = (torch.arange(start, start + n, device=dev) // sg) - g0  # (n,)
-    ep = cfg.n_experts % max(axis_size("experts"), 1) == 0
-    e_ax = "experts" if ep else None
-    f_ax = None if ep else "ff"
+    own = _own_experts(split, e)
+    ne = own.stop - own.start
 
     if cfg.dispatch == "gather":
         buf = torch.full((ng * e * c,), n, dtype=torch.int64, device=dev)
@@ -276,7 +386,8 @@ def _moe_ffn_spanning(p, x, cfg: MoEConfig, act: str, position):
                 within_k[k] > 0, arange, n), reduce="amin")
         x_pad = torch.cat([tokens, torch.zeros((1, d), dtype=dt,
                                                device=dev)])
-        xe = x_pad[buf].reshape(ng, e, c, d).permute(1, 0, 2, 3)
+        buf = buf.reshape(ng, e, c)[:, own].reshape(-1)
+        xe = x_pad[buf].reshape(ng, ne, c, d).permute(1, 0, 2, 3)
     else:
         disp = torch.zeros((n, ng, e, c), dtype=torch.float32, device=dev)
         g_oh = F.one_hot(gi, ng).to(torch.float32)
@@ -287,13 +398,11 @@ def _moe_ffn_spanning(p, x, cfg: MoEConfig, act: str, position):
             disp = disp + within_k[k][:, None, None, None] * \
                 g_oh[:, :, None, None] * e_oh[:, None, :, None] * \
                 slot_oh[:, None, None, :]
-        xe = torch.einsum("td,tnec->encd", tokens, disp.to(dt))
+        xe = torch.einsum("td,tnec->encd", tokens,
+                          disp[:, :, own].to(dt))
 
-    xe = shard(xe, e_ax, "batch", None, None)
-    h = ACTS[act](torch.einsum("egcd,edf->egcf", xe, cast(p["wi_gate"], dt)))
-    h = h * torch.einsum("egcd,edf->egcf", xe, cast(p["wi_up"], dt))
-    h = shard(h, e_ax, "batch", None, f_ax)
-    ye = torch.einsum("egcf,efd->egcd", h, cast(p["wo"], dt))  # (E,ng,C,D)
+    ye = _experts(p, xe, split, act, dt)                       # (E,ng,C,D')
+    d = ye.shape[-1]        # the ``ff`` route's columns of the output
 
     if cfg.dispatch == "gather":
         ye_flat = torch.cat([ye.permute(1, 0, 2, 3).reshape(ng, e * c, d),
@@ -319,7 +428,7 @@ def _moe_ffn_spanning(p, x, cfg: MoEConfig, act: str, position):
                 e_oh[:, None, :, None] * slot_oh[:, None, None, :]
         y = torch.einsum("encd,tnec->td", ye, combine.to(dt))
 
-    if cfg.shared_expert:
+    if shared and cfg.shared_expert:
         y = y + mlp(p["shared"], tokens, act)
 
     # this position's share of the mean over the global groups of

@@ -8,6 +8,24 @@ O(1) state update. The last state of a prefill is the decode state.
 
 Memory: Mamba's hidden state is (d_inner, n_state) per position; the
 prefill materializes it only per time chunk.
+
+Under a rank that splits the compute over "model"
+(``models.sharding.Rank``, M ranks; the reference's ``ff`` rules) each
+rank holds d_inner / M (RG-LRU: W / M) channels and runs the conv, the
+scan and the decode state on them alone; the layer takes its input in
+the residual stream's layout, gathered whole, and returns its output
+there. Mamba: its ``in_proj`` columns of its channels of both halves
+(``xin`` and ``z``), taken from the ranks that store them
+(``sharding.paired_blocks``); ``x_proj`` contracts over the channels, so
+its small (dt_rank + 2 state) output is summed over the ranks;
+``dt_proj``, ``a_log`` and ``d_skip`` are its channel slices;
+``out_proj`` is row-parallel. RG-LRU: its columns of ``gate_proj`` /
+``rec_proj``; ``wa`` / ``wx`` contract over the whole width, so the
+16-bit ``xc`` is all-gathered once before the products and the rank
+computes its output columns; ``out_proj`` is row-parallel. Every sum of
+partial products over the ranks is formed in float32 and rounded once.
+Where the channels do not divide M the weights are stored whole and the
+layer runs as one device (``sharding.whole_layer``).
 """
 from __future__ import annotations
 
@@ -15,9 +33,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import RGLRUConfig, SSMConfig
-from repro_torch.models.layers import (ParamModule, cast, truncated_normal,
-                                       uniform)
-from repro_torch.models.sharding import shard
+from repro_torch.models.layers import (ParamModule, cast, matmul_f32,
+                                       truncated_normal, uniform)
+from repro_torch.models.sharding import (gather_ranks, model_dim,
+                                         paired_blocks, reduce_to,
+                                         sum_ranks, tp_size, unshard,
+                                         whole_layer)
+
+# the channel dim of each decode-state tensor, (h, conv_buf)
+STATE_CHANNEL_DIMS = (1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -38,22 +62,24 @@ class Conv1d(ParamModule):
 
 
 def conv1d(p, x):
-    """Causal depthwise conv. x: (B, S, C) -> (B, S, C)."""
+    """Causal depthwise conv. x: (B, S, C) -> (B, S, C); under a rank, its
+    channels."""
     dt = x.dtype
-    w = cast(p["w"], dt)
+    w = cast(p["w"], dt, None, "ff")
     width = w.shape[0]
     xp = F.pad(x, (0, 0, width - 1, 0))
     y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(width))
-    return y + cast(p["b"], dt)
+    return y + cast(p["b"], dt, "ff")
 
 
 def conv1d_step(p, x, buf):
     """Single-step causal conv. x: (B, 1, C); buf: (B, width-1, C) holds the
     previous width-1 inputs. Returns (y, new_buf)."""
     dt = x.dtype
-    w = cast(p["w"], dt)
+    w = cast(p["w"], dt, None, "ff")
     xs = torch.cat([buf.to(dt), x], dim=1)                 # (B, width, C)
-    y = torch.einsum("bwc,wc->bc", xs, w)[:, None, :] + cast(p["b"], dt)
+    y = torch.einsum("bwc,wc->bc", xs, w)[:, None, :] + cast(p["b"], dt,
+                                                              "ff")
     return y, xs[:, 1:, :].to(buf.dtype)
 
 
@@ -145,10 +171,17 @@ class Mamba(ParamModule):
                                                 di ** -0.5))
 
 
+def _mamba_split(p) -> bool:
+    """Whether this rank computes its own channels (no rank: False)."""
+    return tp_size() > 1 and model_dim(p["x_proj"]) == 0
+
+
 def _mamba_terms(p, x, cfg: SSMConfig):
-    """Input projection shared by scan/step: x -> (ssm-path input, gate)."""
+    """Input projection shared by scan/step: x -> (ssm-path input, gate);
+    under a rank, of its channels."""
     del cfg
-    xz = x @ cast(p["in_proj"], x.dtype)
+    w = paired_blocks(cast(p["in_proj"], x.dtype, None, "ff"), 1)
+    xz = x @ w
     xin, z = torch.chunk(xz, 2, dim=-1)
     return xin, z
 
@@ -157,12 +190,25 @@ def _mamba_ssm_params(p, xc, cfg: SSMConfig):
     dt_ = xc.dtype
     dtr = p["dt_proj"]["w"].shape[0]
     n = cfg.state_dim
-    proj = xc @ cast(p["x_proj"], dt_)
+    if tp_size() > 1:       # row-parallel: the ranks' partial sums added
+        proj = sum_ranks(matmul_f32(
+            xc, cast(p["x_proj"], dt_, "ff", None))).to(dt_)
+    else:
+        proj = xc @ cast(p["x_proj"], dt_)
     dt_in, b_in, c_out = torch.split(
         proj, [dtr, n, proj.shape[-1] - dtr - n], dim=-1)
-    dt = F.softplus((dt_in @ cast(p["dt_proj"]["w"], dt_)).to(torch.float32)
-                    + p["dt_proj"]["b"])
+    dt = F.softplus((dt_in @ cast(p["dt_proj"]["w"], dt_, None, "ff"))
+                    .to(torch.float32) + p["dt_proj"]["b"])
     return dt, b_in.to(torch.float32), c_out.to(torch.float32)
+
+
+def _out(p, y, dt):
+    """``y @ out_proj``; under a rank row-parallel over its channels, the
+    partial sums reduced in float32 into the residual stream's layout."""
+    if tp_size() > 1:
+        out = matmul_f32(y, cast(p["out_proj"], dt, "ff", None))
+        return reduce_to(out, "batch", "seq", None).to(dt)
+    return y @ cast(p["out_proj"], dt)
 
 
 def mamba_forward(p, x, cfg: SSMConfig, chunk: int = 128, h0=None):
@@ -170,16 +216,29 @@ def mamba_forward(p, x, cfg: SSMConfig, chunk: int = 128, h0=None):
 
     Discretization, the scan and the C-readout happen per time chunk;
     only the (B, S, d_inner) readout survives the chunk."""
+    if tp_size() > 1 and not _mamba_split(p):
+        return whole_layer(mamba_forward, p, x, cfg, chunk, h0)
+    x = unshard(x, "batch", "seq", None)
     dt_ = x.dtype
-    b, s, d = x.shape
     xin, z = _mamba_terms(p, x, cfg)
-    xin = shard(xin, "batch", None, "ff")
     xc = F.silu(conv1d(p["conv"], xin))
     dt, b_in, c_out = _mamba_ssm_params(p, xc, cfg)
+    y, h = _mamba_scan(p, xc, z, dt, b_in, c_out, cfg, chunk, h0)
+    out = _out(p, y, dt_)
+    conv_buf = xin[:, -(cfg.conv_width - 1):, :].to(torch.float32)
+    return out, (h, conv_buf)
+
+
+def _mamba_scan(p, xc, z, dt, b_in, c_out, cfg: SSMConfig, chunk: int,
+                h0=None):
+    """The selective scan of ``xc``'s channels, its C-readout, skip and
+    gate: (y (B, S, channels), h_last)."""
+    dt_ = xc.dtype
+    b, s, _ = xc.shape
     a = -torch.exp(p["a_log"])                                # (di, n)
     if h0 is None:
         h0 = torch.zeros((b, a.shape[0], cfg.state_dim), dtype=torch.float32,
-                         device=x.device)
+                         device=xc.device)
 
     xcf = xc.to(torch.float32)
     nc = max(1, s // chunk)
@@ -197,14 +256,15 @@ def mamba_forward(p, x, cfg: SSMConfig, chunk: int = 128, h0=None):
         h = hc[:, -1]
     y = torch.cat(ys, dim=1)
     y = (y.to(torch.float32) + xcf * p["d_skip"]).to(dt_)
-    y = y * F.silu(z)
-    out = y @ cast(p["out_proj"], dt_)
-    conv_buf = xin[:, -(cfg.conv_width - 1):, :].to(torch.float32)
-    return out, (h, conv_buf)
+    return y * F.silu(z), h
 
 
 def mamba_step(p, x, cfg: SSMConfig, state):
-    """Decode step. x: (B, 1, D); state = (h (B,di,n) f32, conv_buf)."""
+    """Decode step. x: (B, 1, D); state = (h (B,di,n) f32, conv_buf), under
+    a rank of its channels."""
+    if tp_size() > 1 and not _mamba_split(p):
+        return whole_layer(mamba_step, p, x, cfg, state)
+    x = unshard(x, "batch", "seq", None)
     dt_ = x.dtype
     h, buf = state
     xin, z = _mamba_terms(p, x, cfg)
@@ -219,7 +279,7 @@ def mamba_step(p, x, cfg: SSMConfig, state):
     y = torch.einsum("bdn,bn->bd", h, c_out[:, 0])
     y = (y + xc[:, 0].to(torch.float32) * p["d_skip"]).to(dt_)
     y = (y * F.silu(z[:, 0]))[:, None, :]
-    return y @ cast(p["out_proj"], dt_), (h, new_buf)
+    return _out(p, y, dt_), (h, new_buf)
 
 
 def init_mamba_state(batch: int, d: int, cfg: SSMConfig, device=None):
@@ -264,10 +324,24 @@ class RGLRU(ParamModule):
                                                 w ** -0.5))
 
 
+def _rglru_split(p) -> bool:
+    """Whether this rank computes its own channels (no rank: False)."""
+    return tp_size() > 1 and model_dim(p["wa"]) == 1
+
+
 def _rglru_core(p, xc, cfg: RGLRUConfig):
-    """Gate computations shared by scan and step. xc: (B,S,W)."""
-    ra = shard(xc @ cast(p["wa"], xc.dtype), "batch", None, "ff")
-    ia = shard(xc @ cast(p["wx"], xc.dtype), "batch", None, "ff")
+    """Gate computations shared by scan and step. xc: (B,S,W); under a
+    rank its channels, all-gathered whole over W for the gate products,
+    which give its columns."""
+    xw = gather_ranks(xc, xc.ndim - 1)
+    ra = xw @ cast(p["wa"], xc.dtype, None, "ff")
+    ia = xw @ cast(p["wx"], xc.dtype, None, "ff")
+    return _rglru_gates(p, xc, ra, ia, cfg)
+
+
+def _rglru_gates(p, xc, ra, ia, cfg: RGLRUConfig):
+    """The decay ``a`` and input ``b`` of the recurrence from the gate
+    products ``ra`` / ``ia`` of ``xc`` (each of its channels alone)."""
     r = torch.sigmoid(ra.to(torch.float32))
     i = torch.sigmoid(ia.to(torch.float32))
     log_a = -cfg.c * r * F.softplus(p["lambda"])               # (B,S,W) f32
@@ -284,32 +358,38 @@ def _gelu(x):
 
 def rglru_forward(p, x, cfg: RGLRUConfig, h0=None, chunk: int = 512):
     """x: (B,S,D) -> (y, (h_last, conv_buf))."""
+    if tp_size() > 1 and not _rglru_split(p):
+        return whole_layer(rglru_forward, p, x, cfg, h0, chunk)
+    x = unshard(x, "batch", "seq", None)
     dt_ = x.dtype
     b_, s, d = x.shape
-    gate = _gelu(x @ cast(p["gate_proj"], dt_))
-    xr = x @ cast(p["rec_proj"], dt_)
-    gate = shard(gate, "batch", None, "ff")
-    xr = shard(xr, "batch", None, "ff")
+    gate = _gelu(x @ cast(p["gate_proj"], dt_, None, "ff"))
+    xr = x @ cast(p["rec_proj"], dt_, None, "ff")
     xc = conv1d(p["conv"], xr)
     a, bterm = _rglru_core(p, xc, cfg)
     if h0 is None:
         h0 = torch.zeros((b_, a.shape[-1]), dtype=torch.float32,
                          device=x.device)
     h, hlast = chunked_linear_scan(a, bterm, chunk, h0)
-    y = (h.to(dt_) * gate) @ cast(p["out_proj"], dt_)
+    y = _out(p, h.to(dt_) * gate, dt_)
     conv_buf = xr[:, -(cfg.conv_width - 1):, :].to(torch.float32)
     return y, (hlast, conv_buf)
 
 
 def rglru_step(p, x, cfg: RGLRUConfig, state):
+    """Decode step. x: (B, 1, D); state = (h (B,W) f32, conv_buf), under a
+    rank of its channels."""
+    if tp_size() > 1 and not _rglru_split(p):
+        return whole_layer(rglru_step, p, x, cfg, state)
+    x = unshard(x, "batch", "seq", None)
     dt_ = x.dtype
     h, buf = state
-    gate = _gelu(x @ cast(p["gate_proj"], dt_))
-    xr = x @ cast(p["rec_proj"], dt_)
+    gate = _gelu(x @ cast(p["gate_proj"], dt_, None, "ff"))
+    xr = x @ cast(p["rec_proj"], dt_, None, "ff")
     xc, new_buf = conv1d_step(p["conv"], xr, buf)
     a, bterm = _rglru_core(p, xc, cfg)
     h = a[:, 0] * h + bterm[:, 0]
-    y = (h[:, None, :].to(dt_) * gate) @ cast(p["out_proj"], dt_)
+    y = _out(p, h[:, None, :].to(dt_) * gate, dt_)
     return y, (h, new_buf)
 
 

@@ -17,9 +17,20 @@ A rank holds its model slab of every weight (its FSDP dims gathered over
 placing the slabs) and computes on its own part, as the reference's
 ``src/repro/models/sharding.py`` rules split it under GSPMD:
 
-- attention: its heads of ``wq`` / ``wk`` / ``wv`` and the matching rows
-  of ``wo`` (``models/attention.py``);
+- attention, self- and cross-: its heads of ``wq`` / ``wk`` / ``wv`` and
+  the matching rows of ``wo`` (``models/attention.py``);
 - the dense MLP: its columns of ``wi_gate`` / ``wi_up``, rows of ``wo``;
+- MoE (``models/moe.py``): where the experts divide M (expert parallel)
+  its E / M experts of ``wi_gate`` / ``wi_up`` / ``wo``, their outputs
+  all-gathered before the combine; otherwise its ``ff`` columns of every
+  expert's ``wi_gate`` / ``wi_up`` and rows of ``wo``, the partial
+  outputs all-reduced in float32; the router whole;
+- Mamba and RG-LRU (``models/recurrent.py``): its ``d_inner / M`` (``W /
+  M``) channels — the conv, the scan and its decode state on them alone;
+  Mamba's ``in_proj`` columns of those channels taken from the ranks that
+  store them (``paired_blocks``, an all-to-all), ``x_proj`` and
+  ``out_proj`` row-parallel; RG-LRU's ``xc`` all-gathered for its
+  ``wa`` / ``wx`` columns, ``out_proj`` row-parallel;
 - the embedding and the loss: its rows of the table (vocab-parallel);
 - the residual stream between layers: its slice of the sequence.
 
@@ -36,9 +47,11 @@ weight's model slab along its ``keep`` dims and all-gathers it
 otherwise (a weight used whole), recorded as a collective.
 
 Inside ``whole()`` a rank computes as one device does, on whole inputs
-and whole weights (``whole_params``): MoE, the recurrent layers,
-whisper's cross-attention, and attention whose heads do not divide M run
-so, and the rank keeps its slice of their output.
+and whole weights (``whole_params``; ``whole_layer``): a layer whose
+split dimension does not divide M runs so — attention whose heads do not
+divide it, an MLP or MoE whose ``ff`` does not, a recurrent mixer whose
+channels do not — as the reference gathers such a weight whole, and the
+rank keeps its slice of the output.
 
 Where "model" has one device, or the loss is not an LM's
 (``launch.steps.LMShare``: the FFTConvMixer's, split over the batch
@@ -86,7 +99,7 @@ import torch
 
 from repro_torch.distributed.mesh import (Group, axis_positions,
                                           current_view, group_all_gather,
-                                          group_all_reduce,
+                                          group_all_reduce, group_exchange,
                                           group_reduce_scatter,
                                           note_collective)
 
@@ -229,11 +242,16 @@ def gather_ranks(x, dim: int):
     return x if rank is None else rank.collective("all-gather", x, dim)
 
 
-def sum_ranks(x):
-    """Every rank's ``x`` summed on every rank (all-reduce); ``x`` itself
-    outside a rank."""
+def sum_ranks(x, dim: Optional[int] = None):
+    """Every rank's ``x`` summed on every rank (all-reduce); with ``dim``,
+    whose size the ranks divide, each rank keeps its part of the sum
+    along ``dim`` (reduce-scatter). ``x`` itself outside a rank."""
     rank = _tp()
-    return x if rank is None else rank.collective("all-reduce", x)
+    if rank is None:
+        return x
+    if dim is None:
+        return rank.collective("all-reduce", x)
+    return rank.collective("reduce-scatter", x, dim)
 
 
 def model_dim(w) -> Optional[int]:
@@ -243,9 +261,42 @@ def model_dim(w) -> Optional[int]:
     return None if rank is None else rank.split.get(id(w))
 
 
+def paired_blocks(w, dim: int):
+    """A rank's part of a weight whose ``dim`` holds two halves [a | b]
+    of n lines each, stored cut over the ranks in slabs of 2n / M lines
+    (Mamba's ``in_proj``, (D, 2 d_inner) ``("embed", "ff")``): its lines
+    of each half, [a_r | b_r], n / M each. Rank r's slab holds
+    lines [2 r n / M, 2 (r + 1) n / M), so its half-lines come from the
+    ranks that store them (for M = 2, rank 0's slab is all of ``a``): an
+    all-to-all of the weight's blocks, never the weight whole. ``w``
+    itself outside a rank."""
+    rank = _tp()
+    if rank is None:
+        return w
+    m = rank.count
+    c = w.shape[dim] // 2            # n / M: a block; a slab holds two
+    plan = [[(k // 2, (k % 2) * c, c) for k in (j, m + j)]
+            for j in range(m)]
+    return rank.collective("all-to-all", w, dim, plan)
+
+
+def whole_layer(fn, p, x, *args):
+    """``fn(p, x, *args)`` -> (y, ...) as one device computes it, under a
+    rank whose layer does not split (its dimension does not divide M): on
+    ``x`` gathered whole from the residual stream's layout, ``p``'s
+    weights cut over "model" all-gathered whole, inside ``whole()``; ``y``
+    cut back to the stream's layout (the reference's ``shard(y, "batch",
+    "seq", None)``)."""
+    x = unshard(x, "batch", "seq", None)
+    pw = whole_params(p)
+    with whole():
+        y, *rest = fn(pw, x, *args)
+    return (shard(y, "batch", "seq", None), *rest)
+
+
 def whole_params(tree):
     """A parameter subtree with every weight cut over "model" all-gathered
-    whole (the weights of a layer that runs ``whole()``)."""
+    whole (the weights of a layer or table used whole, ``whole_layer``)."""
     rank = _tp()
     if rank is None:
         return tree
@@ -373,9 +424,12 @@ class Rank:
     def count(self) -> int:
         return 1 if self.group is None else self.group.size
 
-    def collective(self, op: str, x, dim: Optional[int] = None):
+    def collective(self, op: str, x, dim: Optional[int] = None,
+                   plan: Optional[list] = None):
         """This rank's part in one collective of its group (``op``
-        "all-gather" / "reduce-scatter" along ``dim``, or "all-reduce").
+        "all-gather" / "reduce-scatter" along ``dim``, "all-reduce", or
+        "all-to-all" of the pieces ``plan`` names along ``dim``,
+        ``distributed.mesh.Group.exchange``).
         Within ``remat_scope``: the forward keeps its result, and the
         recomputation in the backward takes it back without exchanging
         (requiring grad as it did)."""
@@ -390,7 +444,9 @@ class Rank:
         fns = {"all-gather": lambda xs: group_all_gather(self.group, xs, dim),
                "reduce-scatter": lambda xs: group_reduce_scatter(
                    self.group, xs, dim),
-               "all-reduce": lambda xs: group_all_reduce(self.group, xs)}
+               "all-reduce": lambda xs: group_all_reduce(self.group, xs),
+               "all-to-all": lambda xs: group_exchange(self.group, xs, dim,
+                                                       plan)}
         out = self.group.meet(self.index, x, fns[op])
         if key is not None:
             self.memo[key] = (out.detach(), out.requires_grad)
